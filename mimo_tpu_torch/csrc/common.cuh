@@ -1,0 +1,84 @@
+// Shared device code of the mimo_tpu_torch kernels (B1 estep.cu, B2
+// gibbs.cu, B3 predict.cu): the Gaussian feature map, the counter-based
+// Philox generator, and the fixed-order cross-block reduction.
+//
+// Every kernel stages per-point columns in shared memory with a row
+// stride of kThreads + 1 floats: thread t owns column t, so its own
+// reads and writes hit 32 distinct banks across a warp, and the
+// cooperative (k, j) reductions, which read one row per output, see
+// rows offset by one bank each.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;          // threads per block (power of two)
+constexpr int kStride = kThreads + 1;  // shared-memory row stride
+
+// F = [1; x; x (x) x; 0...] for point p of xt (d rows, row stride ld),
+// written down one shared-memory column (stride kStride), rows 0..m8-1.
+// Mirrors mimo_tpu/ops/family_estep.py::gauss_features_t.
+__device__ __forceinline__ void gauss_features(const float* __restrict__ xt,
+                                               long long ld, int d,
+                                               long long p, float* col,
+                                               int m8) {
+  col[0] = 1.0f;
+  for (int a = 0; a < d; ++a) col[(1 + a) * kStride] = xt[a * ld + p];
+  for (int a = 0; a < d; ++a) {
+    const float xa = col[(1 + a) * kStride];
+    for (int b = 0; b < d; ++b)
+      col[(1 + d + a * d + b) * kStride] = xa * col[(1 + b) * kStride];
+  }
+  for (int j = 1 + d + d * d; j < m8; ++j) col[j * kStride] = 0.0f;
+}
+
+// theta_k . F for the column `col` (stride kStride), f32 FMA.
+__device__ __forceinline__ float row_dot(const float* th_row,
+                                         const float* col, int m8) {
+  float s = 0.0f;
+  for (int j = 0; j < m8; ++j) s = fmaf(th_row[j], col[j * kStride], s);
+  return s;
+}
+
+// Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32 with 10
+// rounds). Counter-based: the output depends only on (counter, key), so
+// a point's draws do not depend on which block or thread produced them.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x);
+    const unsigned lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z);
+    const unsigned lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// out[o] = sum_b part[b * w + o] in block order b = 0, 1, ...: the
+// second pass of the bounded-grid reductions. Fixed order, no atomics,
+// so a run is bitwise repeatable on a given grid.
+__global__ void reduce_partials(const float* __restrict__ part, int grid,
+                                int w, float* __restrict__ out) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= w) return;
+  float s = 0.0f;
+  for (int b = 0; b < grid; ++b) s += part[(size_t)b * w + o];
+  out[o] = s;
+}
+
+inline cudaError_t launch_reduce(const float* part, int grid, int w,
+                                 float* out, cudaStream_t stream) {
+  reduce_partials<<<(w + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      part, grid, w, out);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -1,0 +1,209 @@
+"""Normal-Wishart conjugate family for full-covariance Gaussian components
+(port of mimo_tpu/distributions/niw.py).
+
+Model (per component k): Lambda_k ~ W(psi_k, nu_k),
+mu_k | Lambda_k ~ N(m_k, (kappa_k Lambda_k)^{-1});
+likelihood x ~ N(mu_k, Lambda_k^{-1}).
+
+Parameters carry a leading K axis; per-point quantities are (N, K).
+Natural parameters: nat = [kappa*m, kappa, psi^{-1} + kappa*m m^T, nu - d],
+paired with the statistics t(x) = [x, 1, x x^T, 1].
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from mimo_tpu_torch.utils.linalg import (
+    cholesky, inv_psd, symmetrize, quad_form,
+)
+from mimo_tpu_torch.utils.stats import LOG2PI, mvn_logpdf, mvt_logpdf
+from mimo_tpu_torch.distributions.wishart import (
+    wishart_sample, wishart_expected_logdet, wishart_log_partition,
+)
+
+
+class NIW(NamedTuple):
+    """Normal-Wishart parameters, batched over leading axes."""
+    mu: torch.Tensor     # (K, d)
+    kappa: torch.Tensor  # (K,)
+    psi: torch.Tensor    # (K, d, d)  Wishart scale, E[Lambda] = nu * psi
+    nu: torch.Tensor     # (K,)
+
+    @property
+    def dim(self):
+        return self.mu.shape[-1]
+
+    @staticmethod
+    def standard(size, dim, mean=None, kappa=1e-2, psi_scale=1.0, nu=None,
+                 dtype=torch.float32, device=None):
+        """Weakly-informative prior replicated over K components."""
+        kw = dict(dtype=dtype, device=device)
+        mean = (torch.zeros(dim, **kw) if mean is None
+                else torch.as_tensor(mean, **kw))
+        nu = float(dim + 2) if nu is None else nu
+        return NIW(
+            mu=mean.expand(size, dim).clone(),
+            kappa=torch.full((size,), kappa, **kw),
+            psi=(psi_scale * torch.eye(dim, **kw)).expand(size, dim,
+                                                          dim).clone(),
+            nu=torch.full((size,), nu, **kw),
+        )
+
+
+class GaussStats(NamedTuple):
+    """Weighted Gaussian sufficient statistics, aligned with NIW nat params."""
+    x: torch.Tensor    # (K, d)     sum_n r_nk x_n
+    n1: torch.Tensor   # (K,)       sum_n r_nk
+    xxT: torch.Tensor  # (K, d, d)  sum_n r_nk x_n x_n^T
+    n2: torch.Tensor   # (K,)       sum_n r_nk
+
+
+class GaussParams(NamedTuple):
+    """Plug-in Gaussian likelihood parameters (for Gibbs / EM / MAP)."""
+    mu: torch.Tensor     # (K, d)
+    lmbda: torch.Tensor  # (K, d, d) precision
+
+
+def _outer(a, b):
+    return a[..., :, None] * b[..., None, :]
+
+
+# -- sufficient statistics ---------------------------------------------------
+
+def suff_stats(x, resp):
+    """Weighted statistics from data x (N, d) and resp (N, K)."""
+    n, d = x.shape
+    xx = (x[:, :, None] * x[:, None, :]).reshape(n, d * d)
+    sxx = (resp.T @ xx).reshape(-1, d, d)
+    counts = torch.sum(resp, dim=0)
+    return GaussStats(x=resp.T @ x, n1=counts, xxT=symmetrize(sxx), n2=counts)
+
+
+# -- natural <-> standard parameters -------------------------------------------
+
+def nat_from_std(p: NIW) -> GaussStats:
+    d = p.dim
+    kmm = p.kappa[..., None, None] * _outer(p.mu, p.mu)
+    return GaussStats(x=p.kappa[..., None] * p.mu, n1=p.kappa,
+                      xxT=inv_psd(p.psi) + kmm, n2=p.nu - d)
+
+
+def std_from_nat(nat: GaussStats) -> NIW:
+    d = nat.x.shape[-1]
+    mu = nat.x / nat.n1[..., None]
+    kmm = nat.n1[..., None, None] * _outer(mu, mu)
+    return NIW(mu=mu, kappa=nat.n1, psi=inv_psd(nat.xxT - kmm), nu=nat.n2 + d)
+
+
+# -- conjugate update --------------------------------------------------------
+
+def posterior_update(prior: NIW, stats: GaussStats) -> NIW:
+    """Closed-form conjugate update nat(post) = nat(prior) + stats, in the
+    centered form
+      psi'^{-1} = psi^{-1} + (S2 - n xbar xbar^T)
+                + (kappa n / kappa') (xbar - m)(xbar - m)^T,
+    which avoids the kappa m m^T - kappa' m' m'^T cancellation in f32."""
+    kappa_n = prior.kappa + stats.n1
+    mu_n = (prior.kappa[..., None] * prior.mu + stats.x) / kappa_n[..., None]
+    nu_n = prior.nu + stats.n2
+    xbar = stats.x / torch.clamp(stats.n1, min=1e-12)[..., None]
+    scatter = stats.xxT - stats.n1[..., None, None] * _outer(xbar, xbar)
+    dm = xbar - prior.mu
+    coef = prior.kappa * stats.n1 / kappa_n
+    psi_inv_n = (inv_psd(prior.psi) + scatter
+                 + coef[..., None, None] * _outer(dm, dm))
+    return NIW(mu=mu_n, kappa=kappa_n, psi=inv_psd(psi_inv_n), nu=nu_n)
+
+
+# -- expectations (the VI E-step) and ELBO terms ------------------------------
+
+def expected_stats(p: NIW):
+    """E_q of the NW statistics
+    [Lambda mu, -1/2 mu^T Lambda mu, -1/2 Lambda, 1/2 logdet Lambda]."""
+    d = p.dim
+    e_lm = torch.einsum('k,kde,ke->kd', p.nu, p.psi, p.mu)
+    e_mlm = -0.5 * (d / p.kappa + torch.einsum('kd,kd->k', p.mu, e_lm))
+    e_l = -0.5 * p.nu[..., None, None] * p.psi
+    e_logdet = 0.5 * wishart_expected_logdet(cholesky(p.psi), p.nu)
+    return e_lm, e_mlm, e_l, e_logdet
+
+
+def expected_log_likelihood(p: NIW, x):
+    """E_q[log N(x | mu_k, Lambda_k^{-1})] -> (N, K)."""
+    d = x.shape[-1]
+    quad = quad_form(x, p.psi, p.mu)
+    e_logdet = wishart_expected_logdet(cholesky(p.psi), p.nu)
+    return 0.5 * (e_logdet - d * LOG2PI) - 0.5 * (p.nu * quad + d / p.kappa)
+
+
+def log_partition(p: NIW):
+    """log Z of the NW: -d/2 log kappa + logZ_Wishart(psi, nu)."""
+    return (-0.5 * p.dim * torch.log(p.kappa)
+            + wishart_log_partition(cholesky(p.psi), p.nu))
+
+
+def kl_divergence(q: NIW, p: NIW):
+    """KL(q || p) per component (K,)."""
+    e_lm, e_mlm, e_l, e_logdet = expected_stats(q)
+    nq, np_ = nat_from_std(q), nat_from_std(p)
+    inner = (torch.einsum('kd,kd->k', nq.x - np_.x, e_lm)
+             + (nq.n1 - np_.n1) * e_mlm
+             + torch.einsum('kde,kde->k', nq.xxT - np_.xxT, e_l)
+             + (nq.n2 - np_.n2) * e_logdet)
+    return log_partition(p) - log_partition(q) + inner
+
+
+def log_marginal_likelihood(prior: NIW, posterior: NIW, n):
+    """log p(data) = logZ(post) - logZ(prior) - n*d/2 log 2pi."""
+    return (log_partition(posterior) - log_partition(prior)
+            - 0.5 * n * prior.dim * LOG2PI)
+
+
+# -- sampling / point estimates of likelihood parameters ----------------------
+
+def sample_params(gen, p: NIW) -> GaussParams:
+    """Draw (mu, Lambda) ~ NW(p), batched over K."""
+    lmbda = wishart_sample(gen, p.psi, p.nu)
+    # mu | Lambda ~ N(m, (kappa Lambda)^{-1}): mu = m + L^{-T} z / sqrt(kappa)
+    z = torch.randn(p.mu.shape, generator=gen, dtype=p.mu.dtype,
+                    device=p.mu.device)
+    delta = torch.linalg.solve_triangular(
+        cholesky(lmbda).transpose(-1, -2), z[..., None], upper=True)[..., 0]
+    return GaussParams(mu=p.mu + delta / torch.sqrt(p.kappa)[..., None],
+                       lmbda=lmbda)
+
+
+def mode_params(p: NIW) -> GaussParams:
+    """Joint MAP point (reference convention: Lambda = (nu - d) psi)."""
+    return GaussParams(mu=p.mu, lmbda=(p.nu - p.dim)[..., None, None] * p.psi)
+
+
+def mean_params(p: NIW) -> GaussParams:
+    return GaussParams(mu=p.mu, lmbda=p.nu[..., None, None] * p.psi)
+
+
+# -- plug-in likelihood and posterior predictive -------------------------------
+
+def log_likelihood(params: GaussParams, x):
+    """log N(x | mu_k, Lambda_k^{-1}) -> (N, K)."""
+    return mvn_logpdf(x, params.mu, params.lmbda)
+
+
+def predictive_studentt_params(p: NIW):
+    """Posterior-predictive Student-t: df = nu-d+1, precision
+    (df / (1 + 1/kappa)) * psi."""
+    df = p.nu - p.dim + 1.0
+    c = 1.0 + 1.0 / p.kappa
+    return p.mu, (df / c)[..., None, None] * p.psi, df
+
+
+def log_predictive_studentt(p: NIW, x):
+    mu, lmbda, df = predictive_studentt_params(p)
+    return mvt_logpdf(x, mu, lmbda, df)
+
+
+def log_predictive_gaussian(p: NIW, x):
+    """Moment-matched Gaussian approximation of the predictive."""
+    mu, lmbda, _ = predictive_studentt_params(p)
+    return mvn_logpdf(x, mu, lmbda)

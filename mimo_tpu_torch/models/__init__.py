@@ -1,0 +1,3 @@
+from mimo_tpu_torch.models.gmm import BayesianGMM  # noqa: F401
+from mimo_tpu_torch.models.mixture import (  # noqa: F401
+    BayesianMixture, GibbsState, MFState)

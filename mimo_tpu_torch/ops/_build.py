@@ -1,0 +1,164 @@
+"""Build and load the port's CUDA kernels.
+
+One nvcc command compiles every `csrc/*.cu` into one shared library with
+a plain C interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/mimo_tpu_torch/libmimo_kernels.so csrc/*.cu
+
+The library lands under `build/` beside the package and is rebuilt
+whenever the hash of the sources (and of the command) changes. Nothing
+is downloaded: the only headers are the CUDA toolkit's. The build runs
+at first use, never at import, so the CPU-only tests import every module.
+"""
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / 'csrc'
+BUILD_DIR = _PKG.parent / 'build' / 'mimo_tpu_torch'
+LIB_NAME = 'libmimo_kernels.so'
+ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
+FLAGS = ['-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+         '-Xptxas', '-v']
+
+_P, _I, _I64, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_size_t)
+# name -> (restype, argtypes) of every C entry point
+_SIGNATURES = {
+    'mimo_estep': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _P, _I, _P]),
+    'mimo_gibbs': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _P, _P, _P, _I,
+                        _P]),
+    'mimo_predict': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _I, _P, _I,
+                          _P]),
+    'mimo_estep_smem_bytes': (_SZ, [_I, _I]),
+    'mimo_gibbs_smem_bytes': (_SZ, [_I, _I]),
+    'mimo_predict_smem_bytes': (_SZ, [_I, _I]),
+    'mimo_error_string': (ctypes.c_char_p, [_I]),
+}
+
+
+class KernelLibrary:
+    """The loaded kernels. `build_seconds` is the nvcc time of this
+    process (0.0 when an up-to-date library was reused); `log` holds
+    nvcc's output (-Xptxas -v: registers and shared memory per kernel)."""
+
+    def __init__(self, path, build_seconds, log):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self._lib = ctypes.CDLL(str(path))
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+            setattr(self, name, fn)
+
+    def check(self, rc, what):
+        """Raise if a C entry point returned a CUDA error code."""
+        if rc != 0:
+            msg = self.mimo_error_string(rc).decode()
+            raise RuntimeError(f'{what}: CUDA error {rc}: {msg}')
+
+
+_loaded = None
+
+
+def check_launch(what, xt, n, theta, smem_bytes):
+    """Validate a kernel wrapper's inputs before any pointer reaches C.
+
+    xt: (d, >=n) float32 CUDA tensor with contiguous rows; theta: the
+    (K, m8) float32 coefficients on the same device, whose columns must
+    hold the feature map [1; x; x (x) x]; smem_bytes: the kernel's staged
+    shared memory at this (K, m8). Returns the launch grid."""
+    if not xt.is_cuda:
+        raise ValueError(f'{what}: the kernel needs CUDA tensors')
+    if xt.dim() != 2 or xt.stride(1) != 1:
+        raise ValueError(f'{what}: xt must be (d, N) with contiguous rows')
+    d = xt.shape[0]
+    if not 0 <= n <= xt.shape[1]:
+        raise ValueError(f'{what}: n={n} outside [0, {xt.shape[1]}]')
+    for t in (xt, theta):
+        if t.dtype != torch.float32:
+            raise TypeError(f'{what}: the kernel takes float32, got '
+                            f'{t.dtype}')
+    if theta.device != xt.device:
+        raise ValueError(f'{what}: inputs on {theta.device} and {xt.device}')
+    if theta.dim() != 2 or not theta.is_contiguous():
+        raise ValueError(f'{what}: coefficients must be contiguous (K, m8)')
+    k, m8 = theta.shape
+    if m8 < 1 + d + d * d:
+        raise ValueError(f'{what}: {m8} coefficient columns cannot hold '
+                         f'the d={d} Gaussian features')
+    props = torch.cuda.get_device_properties(xt.device)
+    limit = props.shared_memory_per_block_optin
+    if smem_bytes > limit:
+        raise NotImplementedError(
+            f'{what}: K={k}, m8={m8} stages {smem_bytes} bytes of shared '
+            f'memory, above the {limit} a block can use on '
+            f'{props.name}; wide shapes are not supported yet')
+    # a bounded grid: blocks grid-stride over tiles of 128 points
+    return max(1, min(4 * props.multi_processor_count, -(-n // 128)))
+
+
+def _nvcc():
+    for root in (os.environ.get('CUDA_HOME'), os.environ.get('CUDA_PATH')):
+        if root and os.path.exists(os.path.join(root, 'bin', 'nvcc')):
+            return os.path.join(root, 'bin', 'nvcc')
+    found = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(found):
+        raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on '
+                           'PATH to build the mimo_tpu_torch kernels')
+    return found
+
+
+def _sources():
+    return sorted(glob.glob(str(SRC_DIR / '*.cu'))
+                  + glob.glob(str(SRC_DIR / '*.cuh')))
+
+
+def _digest(cmd_flags):
+    h = hashlib.sha256(' '.join(cmd_flags).encode())
+    for path in _sources():
+        h.update(Path(path).name.encode())
+        h.update(Path(path).read_bytes())
+    return h.hexdigest()
+
+
+def load():
+    """Build (if the sources changed) and load the kernel library."""
+    global _loaded
+    if _loaded is not None:
+        return _loaded
+    flags = ARCH_FLAGS + FLAGS
+    digest = _digest(flags)
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + '.sha256')
+    seconds, log = 0.0, ''
+    if not (lib.exists() and stamp.exists()
+            and stamp.read_text().strip() == digest):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f'{LIB_NAME}.{os.getpid()}.tmp'
+        cmd = ([_nvcc()] + flags + ['-o', str(tmp)]
+               + [s for s in _sources() if s.endswith('.cu')])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{log}')
+        os.replace(tmp, lib)
+        stamp.write_text(digest + '\n')
+        (BUILD_DIR / 'build.log').write_text(log)
+    _loaded = KernelLibrary(lib, seconds, log)
+    return _loaded

@@ -1,0 +1,102 @@
+"""Kernel B3, the fused posterior-predictive mixture density
+(csrc/predict.cu), with its plain PyTorch version. Replaces
+mimo_tpu/ops/pallas_predict.py::_predict_kernel.
+
+Per point: the quadratic forms Q = thq . F over K (clipped at 0), then
+lp = aux - h log1p(Q / df) (Student-t) or aux - Q / 2 (moment-matched
+Gaussian), and out = logsumexp over K. The (N, K) Student-t matrix never
+exists in device memory.
+
+What bounds it on the H100, and what the kernel does about it: see the
+note at the top of csrc/predict.cu.
+"""
+
+import math
+
+import torch
+
+from mimo_tpu_torch.distributions.niw import predictive_studentt_params
+from mimo_tpu_torch.ops import _build
+from mimo_tpu_torch.ops.cuda_estep import _CHUNK, assemble_features
+from mimo_tpu_torch.utils.linalg import logdet_psd
+from mimo_tpu_torch.utils.stats import gammaln_diff
+
+launches = 0          # kernel launches by `predict`, for run accounting
+
+
+def predict_plain(xt, thq, aux, n, studentt=True):
+    """Plain PyTorch version of B3: xt (d, >=n), thq (K, m8), aux (K, 8)
+    holding [aux + log w, h, 1/df] -> (n,) mixture log-densities."""
+    out = torch.empty((n,), dtype=thq.dtype, device=thq.device)
+    for s in range(0, n, _CHUNK):
+        f = assemble_features(xt[:, s:min(s + _CHUNK, n)], thq.shape[1])
+        q = torch.clamp(thq @ f, min=0.0)
+        if studentt:
+            lp = aux[:, 0:1] - aux[:, 1:2] * torch.log1p(q * aux[:, 2:3])
+        else:
+            lp = aux[:, 0:1] - 0.5 * q
+        out[s:s + f.shape[1]] = torch.logsumexp(lp, 0)
+    return out
+
+
+def predict(xt, thq, aux, n, studentt=True):
+    """B3 over points 0..n-1 of xt (d, >=n). Launches the kernel for CUDA
+    tensors (float32 only; it raises on anything else) and runs
+    `predict_plain` for CPU tensors. Returns (n,) log-densities."""
+    global launches
+    if not xt.is_cuda:
+        return predict_plain(xt, thq, aux, n, studentt)
+    lib = _build.load()
+    k, m8 = thq.shape
+    grid = _build.check_launch('cuda_predict', xt, n, thq,
+                               lib.mimo_predict_smem_bytes(k, m8))
+    if (aux.dtype != torch.float32 or aux.shape != (k, 8)
+            or not aux.is_contiguous() or aux.device != xt.device):
+        raise ValueError('cuda_predict: aux must be a contiguous (K, 8) '
+                         "float32 tensor on the data's device")
+    out = torch.empty((n,), dtype=torch.float32, device=xt.device)
+    with torch.cuda.device(xt.device):
+        rc = lib.mimo_predict(xt.data_ptr(), xt.stride(0), xt.shape[0], n,
+                              thq.data_ptr(), k, m8, aux.data_ptr(),
+                              int(studentt), out.data_ptr(), grid,
+                              torch.cuda.current_stream().cuda_stream)
+    lib.check(rc, 'cuda_predict')
+    launches += 1
+    return out
+
+
+def predictive_coefficients(post, log_w, studentt=True):
+    """(thq (K, m8), aux (K, 8)) of the mixture predictive of an NIW
+    posterior, in the posterior's dtype. The quad form is linear over
+    [1, x, x (x) x]:
+      delta_k(x) = mu'Lmu_k - 2 (Lmu_k)'x + vec(Lmbda_k) . vec(x x')."""
+    mu, lmbda, df = predictive_studentt_params(post)
+    k, d = mu.shape
+    lmu = torch.einsum('kde,ke->kd', lmbda, mu)
+    m = 1 + d + d * d
+    m8 = -(-m // 8) * 8
+    thq = torch.cat([torch.einsum('kd,kd->k', mu, lmu)[:, None], -2.0 * lmu,
+                     lmbda.reshape(k, d * d), lmu.new_zeros((k, m8 - m))], -1)
+    if studentt:
+        a = (gammaln_diff(0.5 * df, 0.5 * d) + 0.5 * logdet_psd(lmbda)
+             - 0.5 * d * (torch.log(df) + math.log(math.pi)) + log_w)
+        cols = [a, 0.5 * (df + d), 1.0 / df]
+    else:   # moment-matched Gaussian predictive
+        a = 0.5 * logdet_psd(lmbda) - 0.5 * d * math.log(2.0 * math.pi) + log_w
+        cols = [a, torch.zeros_like(a), torch.zeros_like(a)]
+    aux = torch.cat([torch.stack(cols, -1), a.new_zeros((k, 5))], -1)
+    return thq.contiguous(), aux.contiguous()
+
+
+def gauss_predictive_cuda(post, log_w, x, dist='studentt'):
+    """logsumexp_k [log_w_k + pred_k(x)] -> (N,) for an NIW posterior
+    through B3, the counterpart of mimo_tpu's gauss_predictive_pallas.
+    `dist`: 'studentt' (the posterior predictive) or 'gaussian' (its
+    moment-matched approximation). x: (N, d)."""
+    if dist not in ('studentt', 'gaussian'):
+        raise ValueError(f'unknown dist: {dist!r}')
+    studentt = dist == 'studentt'
+    thq, aux = predictive_coefficients(post, log_w, studentt)
+    xt = x.T.contiguous()
+    return predict(xt, thq.to(x.dtype), aux.to(x.dtype), x.shape[0],
+                   studentt)

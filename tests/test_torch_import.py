@@ -1,0 +1,99 @@
+"""The PyTorch port's package boundary: it imports neither jax nor
+mimo_tpu, the backend rule refuses the kernel for CPU data, and the
+bridge converts JAX states leaf by leaf."""
+
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mimo_tpu.distributions.niw import GaussParams
+from mimo_tpu.models.gmm import BayesianGMM as JaxGMM
+
+from mimo_tpu_torch.bridge import state_from_numpy, state_to_numpy
+from mimo_tpu_torch.distributions.gating import StickBreaking
+from mimo_tpu_torch.distributions.niw import NIW
+from mimo_tpu_torch.models import BayesianGMM, GibbsState, MFState
+
+torch.set_num_threads(1)
+
+
+def test_import_leaves_jax_out():
+    code = ('import sys, mimo_tpu_torch, mimo_tpu_torch.bridge; '
+            'bad = sorted(m for m in sys.modules if m == "jax" '
+            'or m.startswith(("jax.", "jaxlib")) or m == "mimo_tpu" '
+            'or m.startswith("mimo_tpu.")); '
+            'print(bad); sys.exit(1 if bad else 0)')
+    proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture(scope='module')
+def small():
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((64, 2)), dtype=torch.float32)
+    model = BayesianGMM.make(size=4, dim=2, gating='dp')
+    return model, x
+
+
+@pytest.mark.parametrize('engine', ['vi', 'gibbs', 'predict'])
+def test_kernel_backend_refuses_cpu_data(small, engine):
+    model, x = small
+    with pytest.raises(ValueError, match='CUDA'):
+        if engine == 'vi':
+            model.fit_vi_fused(x, maxiter=1, backend='kernel')
+        elif engine == 'gibbs':
+            model.fit_gibbs_fused(x, maxiter=1, backend='kernel')
+        else:
+            st, _ = model.fit_vi_fused(x, maxiter=1)
+            model.log_predictive(st, x, backend='kernel')
+    with pytest.raises(ValueError, match='unknown backend'):
+        model.fit_vi_fused(x, maxiter=1, backend='xla')
+
+
+@pytest.fixture(scope='module')
+def jax_states():
+    mu = jnp.asarray([[-3., 0.], [3., 0.], [0., 4.]])
+    lm = jnp.broadcast_to(jnp.eye(2) * 2.0, (3, 2, 2))
+    x, _ = JaxGMM.generate(jax.random.PRNGKey(0), GaussParams(mu, lm),
+                           jnp.asarray([.3, .4, .3]), 512)
+    m = JaxGMM.make(size=5, dim=2, gating='dp', kappa=0.05, psi_scale=0.5,
+                    dtype=jnp.float64)
+    st, _ = m.fit_vi_fused(x, key=1, maxiter=2, backend='xla')
+    gs = m.fit_gibbs_fused(x, key=2, maxiter=2, backend='xla')
+    return jax.tree.map(np.asarray, st), jax.tree.map(np.asarray, gs)
+
+
+def _assert_same_tree(a, b):
+    assert type(a).__name__ == type(b).__name__
+    if hasattr(a, '_fields'):
+        assert a._fields == b._fields
+        for f in a._fields:
+            _assert_same_tree(getattr(a, f), getattr(b, f))
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('which', ['MFState', 'GibbsState'])
+def test_bridge_round_trips_jax_states(jax_states, which):
+    src = jax_states[0] if which == 'MFState' else jax_states[1]
+    port = state_from_numpy(src)
+    assert isinstance(port, MFState if which == 'MFState' else GibbsState)
+    assert isinstance(port.components, NIW)
+    assert isinstance(port.gating, StickBreaking)
+    assert port.components.mu.dtype == torch.float64
+    if which == 'GibbsState':
+        assert port.labels.dtype == torch.int32
+    _assert_same_tree(state_to_numpy(port), src)
+
+
+def test_bridge_casts_floats_only(jax_states):
+    port = state_from_numpy(jax_states[1], dtype=torch.float32)
+    assert port.components.psi.dtype == torch.float32
+    assert port.labels.dtype == torch.int32
