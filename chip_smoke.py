@@ -5,7 +5,9 @@
 
 Phases, one or more printed lines each:
   1. card     nvidia-smi's name and power limit, torch and CUDA versions;
-  2. build    nvcc builds mimo_tpu_torch/csrc/*.cu into build/ (first use);
+  2. build    nvcc builds mimo_tpu_torch/csrc/*.cu into build/ (one nvcc
+              per source, all started together), then the S3 probe
+              (o = 2 x) must equal 2 x exactly;
   3. B1       the fused E-step kernel against its plain PyTorch version at
               N=1,000,003, K=50, d=2 (and d=3, K=7, N=1000), run twice
               and required bitwise equal;
@@ -19,7 +21,21 @@ Phases, one or more printed lines each:
               public entry points (fit_vi_fused, fit_gibbs_fused,
               log_predictive), with the kernels' launch counts, a kernel-
               vs-plain check of the engines on a 100,003-point slice, the
-              rates, and each kernel's time beside its plain version's.
+              rates, and each kernel's time beside its plain version's;
+  7. ILR      B1 and B2 over the ILR feature map at N=1,000,003, K=50,
+              d=8, p=1 (and d=2, p=3, K=7, N=1000): B1 bitwise repeatable,
+              B2 labels equal to the plain Philox labels; B5 (p=1, d=1)
+              and B6 (p=3, d=2) at N=1,000,003, K=50 against their plain
+              versions, average and mode, with and without y;
+  8. ILR fit  the q8 fit path (N=1e6, K=50, d=8, p=1): fit_gibbs_fused
+              then fit_vi_fused warm-started from it, 20 sweeps each
+              through B1/B2 over the ILR map, launch counts, a finite
+              non-falling ELBO, kernel vs plain on a 100,003-point slice,
+              rates;
+  9. serving  the sine flagship (N=1e7, d=1, p=1: Gibbs 10 -> VI 20 ->
+              predict through B5, RMSE and NLPD) and p>1 serving (N=1e6,
+              d=2, p=3: VI 20 -> predict through B6), rates, and each new
+              kernel's time beside its plain version's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or if any check
 fails, the script exits non-zero and prints no result.
@@ -36,16 +52,24 @@ import time
 import torch
 
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
+from mimo_tpu_torch.conjugate.families import ilr_family
 from mimo_tpu_torch.distributions.gating import StickBreaking
+from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.niw import GaussParams, NIW, mode_params
-from mimo_tpu_torch.models import BayesianGMM
-from mimo_tpu_torch.models.mixture import kernel_xts
-from mimo_tpu_torch.ops import _build, cuda_estep, cuda_gibbs, cuda_predict
-from mimo_tpu_torch.ops.cuda_estep import assemble_features, pad_theta
-from mimo_tpu_torch.ops.family_estep import gaussian_spec
+from mimo_tpu_torch.models import BayesianGMM, BayesianILR
+from mimo_tpu_torch.models.mixture import MFState, kernel_xts
+from mimo_tpu_torch.ops import (
+    _build, cuda_estep, cuda_gibbs, cuda_hello, cuda_ilr_predict,
+    cuda_predict)
+from mimo_tpu_torch.ops.cuda_estep import (
+    ILR, assemble_features, pad_theta, stack_rows)
+from mimo_tpu_torch.ops.family_estep import gaussian_spec, ilr_spec
 
 N_MAIN, K_MAIN, D_MAIN = 10_000_000, 50, 2
 N_CHECK = 1_000_003            # a ragged tail for the 128-point tiles
+N_Q8, D_Q8 = 1_000_000, 8      # the ILR fit path (bench.py:313-336)
+N_SINE = 10_000_000            # ILR serving, sine (bench.py:338-356)
+N_P3, D_P3, P_P3 = 1_000_000, 2, 3   # p>1 serving (test_pallas.py:445)
 
 
 def fail(msg):
@@ -89,23 +113,52 @@ def random_posterior(gen, k, d, dev):
                nu=d + 2.0 + 1e5 * torch.rand((k,), generator=gen, device=dev))
 
 
-def ptxas_summary(log):
-    """'file.cu kernel: R regs, S B spilled' for each kernel in nvcc's
-    -Xptxas -v output."""
-    out, name, spill = [], None, '?'
-    for line in log.splitlines():
-        m = re.search(r"entry function '.*?_([a-z]+)_cu_.*?\d+([a-z_]+)E",
-                      line)
-        if m:
-            name = f'{m.group(1)}.cu {m.group(2)}'
-        m = re.search(r'(\d+) bytes spill stores', line)
-        if m and name:
-            spill = m.group(1)
-        m = re.search(r'Used (\d+) registers', line)
-        if m and name:
-            out.append(f'{name}: {m.group(1)} regs, {spill} B spilled')
-            name, spill = None, '?'
+def ptxas_summary(logs):
+    """'file.cu kernel<map>: R regs, S B spilled' for each kernel in
+    nvcc's -Xptxas -v output, one log per source."""
+    out = []
+    for src, log in sorted(logs.items()):
+        name, spill = None, '?'
+        for line in log.splitlines():
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                names = re.findall(r'\d([a-z][a-z_]+?)(?=I|E)', m.group(1))
+                tmpl = re.search(r'ILi(\d+)EE', m.group(1))
+                name = (f'{src} {max(names, key=len) if names else "?"}'
+                        + (f'<{tmpl.group(1)}>' if tmpl else ''))
+            m = re.search(r'(\d+) bytes spill stores', line)
+            if m and name:
+                spill = m.group(1)
+            m = re.search(r'Used (\d+) registers', line)
+            if m and name:
+                out.append(f'{name}: {m.group(1)} regs, {spill} B spilled')
+                name, spill = None, '?'
     return '; '.join(out)
+
+
+def rate(work, fn, reps=5):
+    """Work per second of fn() on the host clock around synchronised runs:
+    the median of `reps` with the range beside it."""
+    rates = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(work / (time.perf_counter() - t))
+    return (f'{statistics.median(rates):.6g} (range {min(rates):.6g}-'
+            f'{max(rates):.6g} over {reps} runs)')
+
+
+def leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in leaves(sub)]
+
+
+def all_finite(tree):
+    return all(bool(torch.isfinite(t).all()) for t in leaves(tree)
+               if t.is_floating_point())
 
 
 def main():
@@ -137,12 +190,24 @@ def run(dev, seed, n_main, n_check):
     t0 = time.perf_counter()
     lib = _build.load()
     print(f'build: {time.perf_counter() - t0:.3f} s to load, nvcc '
-          f'{lib.build_seconds:.3f} s, {lib.path}')
-    if lib.log:
-        print(f'build: ptxas {ptxas_summary(lib.log)}')
+          f'{lib.build_seconds:.3f} s (one process per source, in '
+          f'parallel), {lib.path}')
+    if lib.logs:
+        print(f'build: ptxas {ptxas_summary(lib.logs)}')
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    errs = {}
+    errs, launches, ms = {}, {}, {}
+
+    # S3, the toolchain probe, first: o = 2 x on (8, 128) f32, exactly
+    cuda_hello.launches = 0
+    x_hello = torch.randn((8, 128), generator=gen, device=dev)
+    o_hello = cuda_hello.twice(x_hello)
+    torch.cuda.synchronize()
+    launches['S3'] = cuda_hello.launches
+    errs['S3'] = float((o_hello - cuda_hello.twice_plain(x_hello)).abs().max())
+    print(f'S3 build probe: 2 x on (8, 128) f32, launches '
+          f'{launches["S3"]}, max|err| {errs["S3"]:.6g} (must be 0)')
+    check(launches['S3'] == 1 and errs['S3'] == 0.0, 'S3 probe disagrees')
 
     # -- 3. B1 vs plain -----------------------------------------------------
     for n, k, d in ((n_check, K_MAIN, D_MAIN), (1000, 7, 3)):
@@ -246,16 +311,16 @@ def run(dev, seed, n_main, n_check):
     model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, gating='dp', alpha=1.0,
                              kappa=0.05, psi_scale=0.5, device=dev)
     torch.cuda.synchronize()
-    cuda_estep.launches = cuda_gibbs.launches = cuda_predict.launches = 0
+    reset_counts()
     st, vlb = model.fit_vi_fused(x, key=1, maxiter=20)
     gs = model.fit_gibbs_fused(x, key=2, maxiter=20)
     lp = model.log_predictive(st, x)
     torch.cuda.synchronize()
-    launches = {'B1': cuda_estep.launches, 'B2': cuda_gibbs.launches,
-                'B3': cuda_predict.launches}
-    print(f'main N={n_main} K={K_MAIN} d={D_MAIN}: launches {launches}')
-    check(launches['B1'] == 20 and launches['B2'] == 20
-          and launches['B3'] >= 1, 'the main path bypassed a kernel')
+    path = read_counts()
+    launches.update(B1=path['B1'], B2=path['B2'], B3=path['B3'])
+    print(f'main N={n_main} K={K_MAIN} d={D_MAIN}: launches {path}')
+    check(path['B1'] == 20 and path['B2'] == 20 and path['B3'] >= 1,
+          'the main path bypassed a kernel')
 
     v = vlb.double()
     rel_drop = float(((v[:-1] - v[1:]) / v[1:].abs()).max())
@@ -298,17 +363,6 @@ def run(dev, seed, n_main, n_check):
 
     # rates (warm: every kernel has run above); host clock around
     # synchronised runs, median of 5 with the range beside it
-    def rate(work, fn, reps=5):
-        rates = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            rates.append(work / (time.perf_counter() - t))
-        return (f'{statistics.median(rates):.6g} (range {min(rates):.6g}-'
-                f'{max(rates):.6g} over {reps} runs)')
-
     vi = rate(20, lambda: model.fit_vi_fused(x, maxiter=20, init_state=st,
                                              randomize=False))
     gibbs = rate(20, lambda: model.fit_gibbs_fused(x, key=3, maxiter=20))
@@ -334,12 +388,20 @@ def run(dev, seed, n_main, n_check):
         'B3': (lambda: cuda_predict.predict(xt, thq, aux, n_main),
                lambda: cuda_predict.predict_plain(xt, thq, aux, n_main)),
     }
-    ms = {}
     for name, (kern, plain) in pairs.items():
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
               f'kernel {ms[name][0]:.6g} ms, plain PyTorch {ms[name][1]:.6g}'
               f' ms')
+
+    del x, xt, model, st, gs, lp
+    torch.cuda.empty_cache()
+
+    ilr_kernel_checks(dev, gen, card, errs)
+    ilr_fit_path(dev, seed, card, errs, launches, ms)
+    ilr_serving_paths(dev, seed, card, launches, ms)
+    ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
+                cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
 
     meta = {
         'B1': ('B1 fused VI E-step', 'mimo_tpu_torch/csrc/estep.cu',
@@ -349,15 +411,375 @@ def run(dev, seed, n_main, n_check):
         'B3': ('B3 Student-t mixture predictive',
                'mimo_tpu_torch/csrc/predict.cu',
                'mimo_tpu/ops/pallas_predict.py:39'),
+        'B1-ILR': ('B1 fused VI E-step, ILR feature map',
+                   'mimo_tpu_torch/csrc/estep.cu',
+                   'mimo_tpu/ops/pallas_estep.py:164'),
+        'B2-ILR': ('B2 fused Gibbs label sweep, ILR feature map',
+                   'mimo_tpu_torch/csrc/gibbs.cu',
+                   'mimo_tpu/ops/pallas_gibbs.py:36'),
+        'B5': ('B5 ILR predict, p=1', 'mimo_tpu_torch/csrc/ilr_predict.cu',
+               'mimo_tpu/ops/pallas_predict.py:656'),
+        'B6': ('B6 ILR predict, p>1', 'mimo_tpu_torch/csrc/ilr_predict.cu',
+               'mimo_tpu/ops/pallas_predict.py:349'),
+        'S3': ('S3 build probe o = 2x', 'mimo_tpu_torch/csrc/hello.cu',
+               'scripts/pallas_hello.py:11'),
     }
     print(json.dumps({'kernels': [
         {'name': meta[b][0], 'route': 'cuda', 'source': meta[b][1],
          'replaces': meta[b][2], 'launches': launches[b],
          'max_abs_err': errs[b], 'ms': ms[b][0], 'plain_ms': ms[b][1]}
-        for b in ('B1', 'B2', 'B3')]}))
+        for b in meta]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
+
+
+
+# -- ILR -------------------------------------------------------------------
+
+
+def reset_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    for mod in (cuda_estep, cuda_gibbs, cuda_ilr_predict):
+        for key in mod.launches:
+            mod.launches[key] = 0
+    cuda_predict.launches = 0
+
+
+def read_counts():
+    return {'B1': cuda_estep.launches['gauss'],
+            'B2': cuda_gibbs.launches['gauss'],
+            'B3': cuda_predict.launches,
+            'B1-ILR': cuda_estep.launches['ilr'],
+            'B2-ILR': cuda_gibbs.launches['ilr'],
+            'B5': cuda_ilr_predict.launches['ilr_predict'],
+            'B6': cuda_ilr_predict.launches['ilr_p_predict']}
+
+
+def random_ilr_posterior(gen, k, d, p, dev):
+    """An (NIW, MNW) posterior with the scales of a fit at N ~ 1e6:
+    basis precisions ~1 per unit of x, expert noise precision ~100."""
+    def psd(q):
+        a = torch.randn((k, q, q), generator=gen, device=dev)
+        return a @ a.transpose(-1, -2) / q + torch.eye(q, device=dev)
+
+    def counts():
+        return 1e4 + 1e4 * torch.rand((k,), generator=gen, device=dev)
+
+    nu_b, nu_e = counts(), counts()
+    basis = NIW(mu=torch.rand((k, d), generator=gen, device=dev) * 6 - 3,
+                kappa=counts(), psi=psd(d) / nu_b[:, None, None], nu=nu_b)
+    experts = MNW(M=torch.randn((k, p, d + 1), generator=gen,
+                                device=dev) * 0.5,
+                  K_=psd(d + 1) * 1e4,
+                  psi=psd(p) * 100.0 / nu_e[:, None, None], nu=nu_e)
+    return basis, experts
+
+
+def regression_data(gen, n, d, p, dev, lo=-3.0, hi=3.0, fn=torch.sin):
+    """x ~ U(lo, hi)^d, y = fn(x w) + 0.1 eps with w ~ N(0, 1)^(d x p)."""
+    x = torch.rand((n, d), generator=gen, device=dev) * (hi - lo) + lo
+    w = torch.randn((d, p), generator=gen, device=dev)
+    return x, fn(x @ w) + 0.1 * torch.randn((n, p), generator=gen,
+                                            device=dev)
+
+
+def estep_magnitudes(xt, theta, n, kind, p):
+    """sum_n r_nk |F_jn|: the summed magnitudes behind each entry of B1's
+    statistics, the scale of their f32 rounding."""
+    mag = torch.zeros(theta.shape, dtype=torch.float64, device=xt.device)
+    for s in range(0, n, 1 << 20):
+        f = assemble_features(xt[:, s:min(s + (1 << 20), n)],
+                              theta.shape[1], kind, p)
+        r = torch.softmax(theta @ f, 0)
+        mag += (r @ f.abs().T).double()
+    return mag
+
+
+def compare_serving(out, ref, p, hard):
+    """(ok, max |err| over points that pick the same expert, points that
+    disagree) for B5/B6 rows [mean (p), var (p), nlpd, lse_w] under the
+    tolerances of tests/test_pallas.py (mean rtol 1e-4 / atol 1e-4, var
+    rtol 2e-3 / atol 1e-5, NLPD rtol 1e-3 / atol 2e-3) and lse_w rtol
+    1e-5 / atol 1e-4. With prediction='mode' a point whose two best
+    experts are tied to f32 rounding may pick either; at most 1e-5 of the
+    points may."""
+    tol = ([(1e-4, 1e-4)] * p + [(2e-3, 1e-5)] * p + [(1e-3, 2e-3)]
+           + [(1e-5, 1e-4)])
+    bad = torch.zeros(out.shape[1], dtype=torch.bool, device=out.device)
+    worst = 0.0
+    for row, (rtol, atol) in enumerate(tol):
+        err = (out[row].double() - ref[row].double()).abs()
+        bad |= err > atol + rtol * ref[row].double().abs()
+        worst = max(worst, float(err.max()))
+    flips = int(bad.sum())
+    if hard and flips:
+        worst = max(float((out[r].double() - ref[r].double())[~bad].abs()
+                          .max()) for r in range(out.shape[0]))
+    ok = (flips <= 1e-5 * out.shape[1]) if hard else flips == 0
+    return ok and bool(torch.isfinite(out).all()), worst, flips
+
+
+def ilr_kernel_checks(dev, gen, card, errs):
+    """B1/B2 over the ILR map, B5 and B6 against their plain versions."""
+    errs['B1-ILR'] = errs['B2-ILR'] = errs['B5'] = errs['B6'] = 0.0
+    for n, k, d, p in ((N_CHECK, K_MAIN, D_Q8, 1), (1000, 7, 2, 3)):
+        post = random_ilr_posterior(gen, k, d, p, dev)
+        spec = ilr_spec(d, p)
+        log_pi = torch.log_softmax(torch.randn((k,), generator=gen,
+                                               device=dev), 0)
+        xt = stack_rows(kernel_xts(regression_data(gen, n, d, p, dev)))
+        theta, _ = pad_theta(spec.theta(post), log_pi, torch.float32)
+        acc, lse = cuda_estep.estep(xt, theta, n, ILR, p)
+        acc2, lse2 = cuda_estep.estep(xt, theta, n, ILR, p)
+        pacc, plse = cuda_estep.estep_plain(xt, theta, n, ILR, p)
+        mag = estep_magnitudes(xt, theta, n, ILR, p)
+        torch.cuda.synchronize()
+        err = (acc.double() - pacc.double()).abs()
+        ok_s = bool((err <= 1e-5 * mag + 1e-6).all())
+        ok_l, err_l = allclose_report(lse, plse, 1e-5, 0.0)
+        bitwise = torch.equal(acc, acc2) and torch.equal(lse, lse2)
+        print(f'B1-ILR N={n} K={k} d={d} p={p} m8={theta.shape[1]}: stats '
+              f'max|err| {float(err.max()):.6g}, max |err| / summed '
+              f'magnitude {float((err / mag.clamp(min=1e-30)).max()):.3g} '
+              f'(<= 1e-5) {"ok" if ok_s else "FAIL"}; lse '
+              f'{float(lse):.9g} vs {float(plse):.9g}, |err| {err_l:.6g} '
+              f'(rtol 1e-5) {"ok" if ok_l else "FAIL"}; bitwise repeat '
+              f'{bitwise}')
+        check(ok_s and ok_l and bitwise and bool(torch.isfinite(acc).all()),
+              f'B1-ILR disagrees at N={n}')
+        errs['B1-ILR'] = max(errs['B1-ILR'], float(err.max()))
+
+        th_g, _ = pad_theta(spec.theta_plugin(ilr_family().mode_params(post)),
+                            log_pi, torch.float32)
+        sweep_seed = torch.randint(0, 2 ** 62, (), generator=gen, device=dev)
+        labels, acc = cuda_gibbs.gibbs(xt, th_g, sweep_seed, n, ILR, p)
+        plabels, _ = cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, n, ILR, p)
+        f = assemble_features(xt, th_g.shape[1], ILR, p).double()
+        oh = torch.nn.functional.one_hot(labels.long(), k).double()
+        err = (acc.double() - oh.T @ f.T).abs()
+        ok_acc = bool((err <= 1e-5 * (oh.T @ f.abs().T) + 1e-6).all())
+        in_range = int(labels.min()) >= 0 and int(labels.max()) < k
+        mismatch = float((labels != plabels).double().mean())
+        print(f'B2-ILR N={n} K={k} d={d} p={p}: labels in [0, {k}) '
+              f'{in_range}, {int(torch.unique(labels).numel())} used; stats '
+              f'vs one-hot sums of its labels max|err| {float(err.max()):.6g}'
+              f' (<= 1e-5 x summed magnitudes) {"ok" if ok_acc else "FAIL"};'
+              f' label mismatch vs plain Philox {mismatch:.3g} (<= 1e-4)')
+        check(in_range and ok_acc and mismatch <= 1e-4, 'B2-ILR disagrees')
+        errs['B2-ILR'] = max(errs['B2-ILR'], float(err.max()))
+        del f, oh
+
+    for name, d, p in (('B5', 1, 1), ('B6', D_P3, P_P3)):
+        basis, experts = random_ilr_posterior(gen, K_MAIN, d, p, dev)
+        log_w = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
+                                              device=dev), 0)
+        x, y = regression_data(gen, N_CHECK, d, p, dev)
+        for has_y in (True, False):
+            xt = stack_rows(kernel_xts((x, y) if has_y else (x,)))
+            for hard in (False, True):
+                if p == 1:
+                    th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+                        basis, experts, log_w)
+                    out = cuda_ilr_predict.ilr_predict(xt, th, aux, N_CHECK,
+                                                       has_y, hard)
+                    ref = cuda_ilr_predict.ilr_predict_plain(
+                        xt, th, aux, N_CHECK, has_y, hard)
+                else:
+                    th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                        basis, experts, log_w, True, has_y)
+                    out = cuda_ilr_predict.ilr_p_predict(
+                        xt, th, aux, vc, N_CHECK, p, has_y, hard)
+                    ref = cuda_ilr_predict.ilr_p_predict_plain(
+                        xt, th, aux, vc, N_CHECK, p, has_y, hard)
+                torch.cuda.synchronize()
+                ok, worst, flips = compare_serving(out, ref, p, hard)
+                print(f'{name} N={N_CHECK} K={K_MAIN} d={d} p={p} '
+                      f'{"mode" if hard else "average"} '
+                      f'{"with" if has_y else "without"} y: max|err| '
+                      f'{worst:.6g} (mean rtol/atol 1e-4, var 2e-3/1e-5, '
+                      f'nlpd 1e-3/2e-3, lse_w 1e-5/1e-4); points off '
+                      f'{flips} {"ok" if ok else "FAIL"}')
+                check(ok, f'{name} disagrees')
+                errs[name] = max(errs[name], worst)
+
+
+def engines_vs_plain(model, st, x, y):
+    """The ILR engines' kernel path against their plain path on the
+    first 100,003 points: 5 warm VI sweeps (ELBO rtol 1e-4) and predict
+    (the serving tolerances, in original units)."""
+    xs, ys = x[:100_003], y[:100_003]
+    _, v_k = model.fit_vi_fused((xs, ys), maxiter=5, init_state=st,
+                                randomize=False, backend='kernel')
+    _, v_t = model.fit_vi_fused((xs, ys), maxiter=5, init_state=st,
+                                randomize=False, backend='torch')
+    ok_v, e_v = allclose_report(v_k, v_t, 1e-4, 0.0)
+    got = model.predict(st, xs, ys, backend='kernel')
+    want = model.predict(st, xs, ys, backend='torch')
+    scale = float(model.output_transform.scale.max()
+                  if model.output_transform is not None else 1.0)
+    oks, errs_ = [], []
+    for g, w, (rtol, atol) in zip(
+            (got[0], got[1], got[3]), (want[0], want[1], want[3]),
+            ((1e-4, 1e-4 * scale), (2e-3, 1e-4 * scale ** 2),
+             (1e-3, 2e-3))):
+        ok, e = allclose_report(g, w, rtol, atol)
+        oks.append(ok)
+        errs_.append(e)
+    rmse = float(torch.sqrt(torch.mean((got[0] - ys) ** 2)))
+    print(f'  vs plain on 100,003 points: VI ELBO max|err| {e_v:.6g} (rtol '
+          f'1e-4) {"ok" if ok_v else "FAIL"}; predict mean/var/nlpd '
+          f'max|err| {errs_[0]:.6g}/{errs_[1]:.6g}/{errs_[2]:.6g} '
+          f'{"ok" if all(oks) else "FAIL"}; RMSE there {rmse:.6g}')
+    check(ok_v and all(oks), 'ILR kernel path disagrees with the plain path')
+
+
+def elbo_report(tag, vlb):
+    v = vlb.double()
+    rel_drop = float(((v[:-1] - v[1:]) / v[1:].abs()).max())
+    print(f'{tag}: ELBO {float(v[0]):.9g} -> {float(v[-1]):.9g}, worst '
+          f'relative drop {rel_drop:.3g} (<= 1e-4)')
+    check(bool(torch.isfinite(v).all()) and rel_drop <= 1e-4,
+          f'{tag}: ELBO not finite or decreasing')
+
+
+def ilr_fit_path(dev, seed, card, errs, launches, ms):
+    """The q8 fit path of bench.py:313-336 on the port."""
+    kg = torch.Generator(device=dev).manual_seed(seed + 3)
+    x, y = regression_data(kg, N_Q8, D_Q8, 1, dev)
+    model = BayesianILR.make(size=K_MAIN, input_dim=D_Q8, output_dim=1,
+                             alpha=2.0, kappa=0.05, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    # the flagship's order: Gibbs from the prior, then VI warm-started
+    # from its state (from random responsibilities 20 VI sweeps leave the
+    # experts at the symmetric start and the cancelling MNW update idle)
+    gs = model.fit_gibbs_fused((x, y), key=2, maxiter=20)
+    st, vlb = model.fit_vi_fused((x, y), key=1, maxiter=20,
+                                 init_state=MFState(gs.components, gs.gating),
+                                 randomize=False)
+    torch.cuda.synchronize()
+    path = read_counts()
+    launches.update({b: path[b] for b in ('B1-ILR', 'B2-ILR')})
+    tag = f'ILR fit N={N_Q8} K={K_MAIN} d={D_Q8} p=1'
+    print(f'{tag}: launches {path}')
+    check(path['B1-ILR'] == 20 and path['B2-ILR'] == 20,
+          'the ILR fit path bypassed a kernel')
+    elbo_report(f'{tag} VI', vlb)
+    check(all_finite(st) and all_finite(gs[:4])
+          and gs.labels.shape == (N_Q8,) and int(gs.labels.min()) >= 0
+          and int(gs.labels.max()) < K_MAIN,
+          'ILR state not finite or labels out of range')
+    w_vi = st.gating.mean()
+    counts = torch.bincount(gs.labels.long(), minlength=K_MAIN)
+    noise = st.components[1].nu * st.components[1].psi[:, 0, 0]  # E[lambda]
+    print(f'{tag}: VI top-3 weights '
+          f'{[round(float(w), 4) for w in torch.sort(w_vi)[0][-3:]]}; Gibbs '
+          f'components with >= 1% of points '
+          f'{int((counts >= 0.01 * N_Q8).sum())}; expert noise precision '
+          f'E[lambda] {float(noise.min()):.4g}-{float(noise.max()):.4g} '
+          f'(100 at the noise floor)')
+    engines_vs_plain(model, st, x, y)
+
+    vi = rate(20, lambda: model.fit_vi_fused((x, y), maxiter=20,
+                                             init_state=st, randomize=False))
+    gibbs = rate(20, lambda: model.fit_gibbs_fused((x, y), key=3,
+                                                   maxiter=20))
+    print(f'rates on {card}, {tag}: VI {vi} it/s (20 warm-started sweeps); '
+          f'Gibbs {gibbs} sweeps/s (20 sweeps)')
+
+    spec = model._estep_spec()
+    xt = stack_rows(kernel_xts((x, y)))
+    th_vi, _ = pad_theta(spec.theta(st.components),
+                         st.gating.expected_log_pi(), torch.float32)
+    th_g, _ = pad_theta(spec.theta_plugin(gs.params), gs.log_pi,
+                        torch.float32)
+    sweep_seed = torch.zeros((), dtype=torch.int64, device=dev)
+    pairs = {
+        'B1-ILR': (lambda: cuda_estep.estep(xt, th_vi, N_Q8, ILR, 1),
+                   lambda: cuda_estep.estep_plain(xt, th_vi, N_Q8, ILR, 1)),
+        'B2-ILR': (lambda: cuda_gibbs.gibbs(xt, th_g, sweep_seed, N_Q8, ILR,
+                                            1),
+                   lambda: cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, N_Q8,
+                                                  ILR, 1)),
+    }
+    for name, (kern, plain) in pairs.items():
+        ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
+        print(f'{name} time on {card} at N={N_Q8} K={K_MAIN} d={D_Q8} p=1 '
+              f'm8={th_vi.shape[1]}: kernel {ms[name][0]:.6g} ms, plain '
+              f'PyTorch {ms[name][1]:.6g} ms')
+
+
+def ilr_serving_paths(dev, seed, card, launches, ms):
+    """The sine flagship (bench.py:338-356) through B5 and p>1 serving
+    (the shape of tests/test_pallas.py:445 at K=50) through B6."""
+    for name, n, d, p in (('B5', N_SINE, 1, 1), ('B6', N_P3, D_P3, P_P3)):
+        kg = torch.Generator(device=dev).manual_seed(seed + 5)
+        if p == 1:
+            x = torch.rand((n, 1), generator=kg, device=dev) * 12 - 6
+            y = torch.sin(x) + 0.1 * torch.randn((n, 1), generator=kg,
+                                                 device=dev)
+        else:
+            x, y = regression_data(kg, n, d, p, dev, fn=torch.tanh)
+        model = BayesianILR.make(size=K_MAIN, input_dim=d, output_dim=p,
+                                 alpha=2.0, kappa=0.05 if p == 1 else 0.1,
+                                 device=dev)
+        model.init_transform(x, y)
+        torch.cuda.synchronize()
+        reset_counts()
+        if p == 1:      # the flagship's Gibbs-then-VI order
+            g = model.fit_gibbs_fused((x, y), key=0, maxiter=10)
+            st, vlb = model.fit_vi_fused(
+                (x, y), key=1, maxiter=20,
+                init_state=MFState(g.components, g.gating), randomize=False)
+        else:
+            st, vlb = model.fit_vi_fused((x, y), key=1, maxiter=20)
+        mu, var, _, nlpd = model.predict(st, x, y)
+        torch.cuda.synchronize()
+        path = read_counts()
+        launches[name] = path[name]
+        tag = (f'ILR serving ({"sine" if p == 1 else "tanh"}) N={n} '
+               f'K={K_MAIN} d={d} p={p}')
+        print(f'{tag}: launches {path}')
+        check(path[name] >= 1 and path['B1-ILR'] == 20
+              and path['B2-ILR'] == (10 if p == 1 else 0),
+              'the ILR serving path bypassed a kernel')
+        elbo_report(f'{tag} VI', vlb)
+        rmse = float(torch.sqrt(torch.mean((mu - y) ** 2)))
+        print(f'{tag}: RMSE {rmse:.6g} (noise floor 0.1), mean NLPD '
+              f'{float(nlpd.mean()):.6g} nats, original units')
+        check(mu.shape == (n, p) and var.shape == (n, p)
+              and nlpd.shape == (n,) and math.isfinite(rmse)
+              and all_finite((mu, var, nlpd)),
+              'ILR predict not finite or of the wrong shape')
+        engines_vs_plain(model, st, x, y)
+
+        pred = rate(n, lambda: model.predict(st, x, y))
+        print(f'rates on {card}, {tag}: predict {pred} pts/s (weights, '
+              f'moments and NLPD, original units)')
+        basis, experts = st.components
+        log_w = model.predictive_log_weights(st)
+        xt = stack_rows(kernel_xts((model._tx(x), model._ty(y))))
+        if p == 1:
+            th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+                basis, experts, log_w)
+            kern = lambda: cuda_ilr_predict.ilr_predict(  # noqa: E731
+                xt, th, aux, n, True, False)
+            plain = lambda: cuda_ilr_predict.ilr_predict_plain(  # noqa: E731
+                xt, th, aux, n, True, False)
+        else:
+            th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                basis, experts, log_w)
+            kern = lambda: cuda_ilr_predict.ilr_p_predict(  # noqa: E731
+                xt, th, aux, vc, n, p, True, False)
+            plain = lambda: cuda_ilr_predict.ilr_p_predict_plain(  # noqa: E731
+                xt, th, aux, vc, n, p, True, False)
+        ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
+        print(f'{name} time on {card} at N={n} K={K_MAIN} d={d} p={p} '
+              f'm8={th.shape[1]}: kernel {ms[name][0]:.6g} ms, plain '
+              f'PyTorch {ms[name][1]:.6g} ms')
+        del x, y, model, st, mu, var, nlpd, xt
+        torch.cuda.empty_cache()
 
 
 if __name__ == '__main__':

@@ -1,0 +1,69 @@
+"""Dataclass configs mirroring the reference's hyperparameter vocabulary
+(port of mimo_tpu/config.py). `TrainConfig` and `flagship_fit` need the
+dense engines and SVI, and arrive with them (ROADMAP A13/A14).
+"""
+
+from dataclasses import dataclass, field
+
+import torch
+
+
+@dataclass
+class GatingConfig:
+    kind: str = 'stick-breaking'     # 'dirichlet' | 'stick-breaking'
+    alpha: float = 1.0               # concentration
+
+
+@dataclass
+class MixtureConfig:
+    """DP-GMM / GMM configuration. Only full-covariance components are
+    ported: `diag`, `tied` and `hierarchical` raise (ROADMAP A15/A16)."""
+    size: int = 50                   # truncation level
+    dim: int = 2
+    gating: GatingConfig = field(default_factory=GatingConfig)
+    diag: bool = False
+    tied: bool = False
+    hierarchical: bool = False
+    kappa: float = 1e-2
+    psi_scale: float = 1.0
+    maxsubiter: int = 25             # inner iterations (hierarchical only)
+
+    def build(self, dtype=None, device=None):
+        from mimo_tpu_torch.models.gmm import BayesianGMM
+        if self.diag or self.tied or self.hierarchical:
+            raise NotImplementedError(
+                'diag, tied and hierarchical GMMs are not ported yet '
+                '(ROADMAP A15/A16)')
+        return BayesianGMM.make(
+            size=self.size, dim=self.dim, gating=self.gating.kind,
+            alpha=self.gating.alpha, kappa=self.kappa,
+            psi_scale=self.psi_scale, dtype=dtype or torch.float32,
+            device=device)
+
+
+@dataclass
+class ILRConfig:
+    """Infinite-mixture-of-linear-regressions configuration."""
+    size: int = 50
+    input_dim: int = 1
+    output_dim: int = 1
+    gating: GatingConfig = field(default_factory=GatingConfig)
+    affine: bool = True
+    diag: bool = False
+    tied_affine: bool = False
+    hier_basis: bool = False
+    kappa: float = 1e-2
+    K_scale: float = 1e-2
+    psi_scale: float = 1.0
+    maxsubiter: int = 25
+
+    def build(self, dtype=None, device=None):
+        from mimo_tpu_torch.models.ilr import BayesianILR
+        return BayesianILR.make(
+            size=self.size, input_dim=self.input_dim,
+            output_dim=self.output_dim, gating=self.gating.kind,
+            alpha=self.gating.alpha, affine=self.affine, diag=self.diag,
+            tied_affine=self.tied_affine, hier_basis=self.hier_basis,
+            kappa=self.kappa, K_scale=self.K_scale,
+            psi_scale=self.psi_scale, maxsubiter=self.maxsubiter,
+            dtype=dtype or torch.float32, device=device)

@@ -1,2 +1,2 @@
 from mimo_tpu_torch.conjugate.families import (  # noqa: F401
-    Family, gaussian_family)
+    Family, gaussian_family, ilr_family, linear_family, product_family)

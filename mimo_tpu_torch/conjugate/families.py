@@ -1,17 +1,20 @@
 """Conjugate-family protocol (port of mimo_tpu/conjugate/families.py).
 
 A Family is a bundle of pure functions. `data` is a tuple of tensors with
-leading axis N; `resp` is (N, K); per-point outputs are (N, K). This slice
-ports the full-covariance Gaussian family; the SVI blend, the
-maximum-likelihood update and the custom Gibbs hook arrive with the
-engines that use them.
+leading axis N; `resp` is (N, K); per-point outputs are (N, K). This
+package ports the full-covariance Gaussian family, the linear-Gaussian
+(MNW) family and the product that joins them into the ILR family; the
+SVI blend and the maximum-likelihood update arrive with the engines that
+use them (ROADMAP A13/A14).
 """
 
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from mimo_tpu_torch.distributions import mnw as _mnw
 from mimo_tpu_torch.distributions import niw as _niw
+from mimo_tpu_torch.distributions.mnw import augment
 
 
 class Family(NamedTuple):
@@ -26,6 +29,10 @@ class Family(NamedTuple):
     mean_params: Callable[[Any], Any]
     log_predictive: Callable[[Any, Any], torch.Tensor]   # Student-t (N, K)
     log_predictive_gaussian: Callable[[Any, Any], torch.Tensor]
+    # Optional override for families whose Gibbs step is not plain
+    # update + sample (hierarchical and tied families, ROADMAP A16/A17):
+    # (gen, prior, stats) -> (posterior, params)
+    gibbs_update: Any = None
 
 
 def gaussian_family() -> Family:
@@ -44,3 +51,105 @@ def gaussian_family() -> Family:
         log_predictive_gaussian=lambda post, data:
             _niw.log_predictive_gaussian(post, data[0]),
     )
+
+
+def linear_family(affine: bool = True) -> Family:
+    """Linear Gaussian y|x | Matrix-Normal-Wishart. data = (x, y); x is
+    augmented with a ones column internally when affine."""
+    def aug(x):
+        return augment(x, affine)
+
+    return Family(
+        suff_stats=lambda data, resp: _mnw.suff_stats(aug(data[0]), data[1],
+                                                      resp),
+        update=_mnw.posterior_update,
+        ell=lambda post, data: _mnw.expected_log_likelihood(
+            post, aug(data[0]), data[1]),
+        loglik=lambda params, data: _mnw.log_likelihood(
+            params, aug(data[0]), data[1]),
+        kl=_mnw.kl_divergence,
+        sample_params=_mnw.sample_params,
+        mode_params=_mnw.mode_params,
+        mean_params=_mnw.mean_params,
+        log_predictive=lambda post, data: _mnw.log_predictive_studentt(
+            post, aug(data[0]), data[1]),
+        log_predictive_gaussian=lambda post, data:
+            _mnw.log_predictive_gaussian(post, aug(data[0]), data[1]),
+    )
+
+
+def product_family(families, data_slices) -> Family:
+    """Joint family over independent data blocks sharing the labels.
+
+    `families`: tuple of Family; `data_slices`: tuple of index tuples —
+    data_slices[i] selects which elements of the joint data tuple feed
+    family i. Priors, posteriors, stats and params become tuples. ILR
+    experts are built this way: p(x, y | z=k) = basis_k(x) model_k(y | x).
+    Member samplers draw from the one generator in member order."""
+    def pick(data, sl):
+        return tuple(data[i] for i in sl)
+
+    def member_gibbs(f: Family):
+        if f.gibbs_update is not None:
+            return f.gibbs_update
+
+        def plain(gen, prior, stats):
+            post = f.update(prior, stats)
+            return post, f.sample_params(gen, post)
+        return plain
+
+    if any(f.gibbs_update is not None for f in families):
+        def product_gibbs(gen, prior, stats):
+            outs = tuple(member_gibbs(f)(gen, p, s)
+                         for f, p, s in zip(families, prior, stats))
+            return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+    else:
+        product_gibbs = None
+
+    return Family(
+        gibbs_update=product_gibbs,
+        suff_stats=lambda data, resp: tuple(
+            f.suff_stats(pick(data, sl), resp)
+            for f, sl in zip(families, data_slices)),
+        update=lambda prior, stats: tuple(
+            f.update(p, s) for f, p, s in zip(families, prior, stats)),
+        ell=lambda post, data: sum(
+            f.ell(q, pick(data, sl))
+            for f, q, sl in zip(families, post, data_slices)),
+        loglik=lambda params, data: sum(
+            f.loglik(p, pick(data, sl))
+            for f, p, sl in zip(families, params, data_slices)),
+        kl=lambda q, p: sum(
+            f.kl(qq, pp) for f, qq, pp in zip(families, q, p)),
+        sample_params=lambda gen, post: tuple(
+            f.sample_params(gen, q) for f, q in zip(families, post)),
+        mode_params=lambda post: tuple(
+            f.mode_params(q) for f, q in zip(families, post)),
+        mean_params=lambda post: tuple(
+            f.mean_params(q) for f, q in zip(families, post)),
+        log_predictive=lambda post, data: sum(
+            f.log_predictive(q, pick(data, sl))
+            for f, q, sl in zip(families, post, data_slices)),
+        log_predictive_gaussian=lambda post, data: sum(
+            f.log_predictive_gaussian(q, pick(data, sl))
+            for f, q, sl in zip(families, post, data_slices)),
+    )
+
+
+def ilr_family(affine: bool = True, diag: bool = False,
+               tied_affine: bool = False, hier_basis: bool = False,
+               maxsubiter: int = 25) -> Family:
+    """Mixture-of-linear-experts joint family: Gaussian basis on x (NIW)
+    x linear model of y|x (MNW). data = (x, y). The diagonal-noise (MNG),
+    tied-affine and hierarchically-tied variants are not ported yet."""
+    if diag:
+        raise NotImplementedError('diagonal-noise (MNG) experts are not '
+                                  'ported yet (ROADMAP A15/A17)')
+    if tied_affine:
+        raise NotImplementedError('tied-affine experts are not ported yet '
+                                  '(ROADMAP A17)')
+    if hier_basis:
+        raise NotImplementedError('the hierarchically-tied basis is not '
+                                  'ported yet (ROADMAP A16)')
+    return product_family((gaussian_family(), linear_family(affine)),
+                          ((0,), (0, 1)))

@@ -1,6 +1,7 @@
 // Shared device code of the mimo_tpu_torch kernels (B1 estep.cu, B2
-// gibbs.cu, B3 predict.cu): the Gaussian feature map, the counter-based
-// Philox generator, and the fixed-order cross-block reduction.
+// gibbs.cu, B3 predict.cu, B5/B6 ilr_predict.cu): the Gaussian and ILR
+// feature maps, the counter-based Philox generator, and the fixed-order
+// cross-block reduction.
 //
 // Every kernel stages per-point columns in shared memory with a row
 // stride of kThreads + 1 floats: thread t owns column t, so its own
@@ -33,6 +34,68 @@ __device__ __forceinline__ void gauss_features(const float* __restrict__ xt,
       col[(1 + d + a * d + b) * kStride] = xa * col[(1 + b) * kStride];
   }
   for (int j = 1 + d + d * d; j < m8; ++j) col[j * kStride] = 0.0f;
+}
+
+// Feature maps of the E-step and Gibbs kernels, a compile-time choice
+// (the template parameter of estep_partial / gibbs_partial, like the
+// static `features_t` of the TPU kernels). The C entries take a runtime
+// `kind`: kKindGauss, or the ILR map with (kKindIlrAffine) or without
+// (kKindIlrLinear) the experts' ones column.
+enum FeatureMap { kGauss = 0, kIlr = 1 };
+constexpr int kKindGauss = 0, kKindIlrAffine = 1, kKindIlrLinear = 2;
+
+// F = [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y; 0...] for point p of
+// the stacked rows xt = [x (d rows); y (np rows)] (row stride ld), with
+// xa = [x; 1] when affine, written down one shared-memory column.
+// Mirrors mimo_tpu/ops/family_estep.py::_product_features_t over
+// (gauss_features_t, linear_features_t(affine)): the basis block, then
+// the expert block without its constant.
+__device__ __forceinline__ void ilr_features(const float* __restrict__ xt,
+                                             long long ld, int d, int np,
+                                             bool affine, long long p,
+                                             float* col, int m8) {
+  gauss_features(xt, ld, d, p, col, 1 + d + d * d);
+  const int q = d + (affine ? 1 : 0);
+  int off = 1 + d + d * d;
+  for (int i = 0; i < np; ++i) {
+    const float yi = xt[(d + i) * ld + p];
+    for (int j = 0; j < d; ++j)
+      col[(off + i * q + j) * kStride] = yi * col[(1 + j) * kStride];
+    if (affine) col[(off + i * q + d) * kStride] = yi;
+  }
+  off += np * q;
+  for (int a = 0; a < q; ++a) {
+    const float xa = a < d ? col[(1 + a) * kStride] : 1.0f;
+    for (int b = 0; b < q; ++b) {
+      const float xb = b < d ? col[(1 + b) * kStride] : 1.0f;
+      col[(off + a * q + b) * kStride] = xa * xb;
+    }
+  }
+  off += q * q;
+  for (int i = 0; i < np; ++i) {
+    const float yi = xt[(d + i) * ld + p];
+    for (int j = 0; j < np; ++j)
+      col[(off + i * np + j) * kStride] = yi * xt[(d + j) * ld + p];
+  }
+  for (int j = off + np * np; j < m8; ++j) col[j * kStride] = 0.0f;
+}
+
+template <int kMap>
+__device__ __forceinline__ void features(const float* __restrict__ xt,
+                                         long long ld, int d, int np,
+                                         bool affine, long long p,
+                                         float* col, int m8) {
+  if constexpr (kMap == kGauss)
+    gauss_features(xt, ld, d, p, col, m8);
+  else
+    ilr_features(xt, ld, d, np, affine, p, col, m8);
+}
+
+// Width of a feature map (without the zero padding to m8).
+inline int feature_width(int kind, int d, int np) {
+  if (kind == kKindGauss) return 1 + d + d * d;
+  const int q = d + (kind == kKindIlrAffine ? 1 : 0);
+  return 1 + d + d * d + np * q + q * q + np * np;
 }
 
 // theta_k . F for the column `col` (stride kStride), f32 FMA.

@@ -1,18 +1,22 @@
-// Kernel B1: fused mixture E-step for the full-covariance Gaussian
-// feature map. Replaces mimo_tpu/ops/pallas_estep.py::_estep_kernel2.
+// Kernel B1: fused mixture E-step over the full-covariance Gaussian or
+// the ILR product feature map. Replaces
+// mimo_tpu/ops/pallas_estep.py::_estep_kernel2.
 //
-// Per point p < n: F = [1; x; x (x) x], logp_k = theta_k . F (theta's
-// column 0 carries c + log pi, so counts fall out of acc[:, 0]), a
-// softmax over K with the 1e-37 denominator floor of the TPU kernel,
+// Per point p < n: F = features(p) (common.cuh; [1; x; x (x) x] for a
+// Gaussian, [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y] for ILR),
+// logp_k = theta_k . F (theta's column 0 carries c + log pi, so counts
+// fall out of acc[:, 0]), a softmax over K with the 1e-37 denominator
+// floor of the TPU kernel,
 //   acc(K, m8) += (ex / denom) F^T,   lse += max + log(denom).
 //
-// What bounds it on the H100: arithmetic, not memory. At d=2 a point is
-// 8 bytes of input against ~3 K m8 f32 FMAs (the logp dots plus its
-// share of the statistics reduction) and K exps; at N=1e7, K=50 that is
-// ~1.2e10 FMAs per sweep against 80 MB read. The dot depth is m=7, far
-// too shallow for tensor cores, so the dots are f32 FMAs (which also
-// drops the TPU kernel's bf16 hi/lo split of theta: f32 FMA is exact to
-// f32 rounding).
+// What bounds it on the H100: arithmetic and shared-memory issue, not
+// memory. A point is 4 (d + p) bytes of input against ~2 K m8 f32 FMAs
+// (the logp dots plus its share of the statistics reduction), each with
+// two shared-memory operands, and K exps. At d=2 (m8=8) the dots are far
+// too shallow for tensor cores; at the ILR q8 shape (m8=168) they are
+// deeper but still K=50 wide, and f32 FMA also drops the TPU kernel's
+// bf16 hi/lo splits of theta and F (f32 FMA is exact to f32 rounding,
+// which the linear experts' cancelling M-step needs).
 //
 // Design: the TPU grid was sequential and carried acc across grid steps;
 // CUDA blocks run concurrently. So a bounded grid (a small multiple of
@@ -21,16 +25,20 @@
 // columns; the block then reduces the tile into its (K, m8) accumulator,
 // one output per thread, summing the tile's columns in order. Per-block
 // partials go to a scratch buffer and a second kernel sums them in block
-// order: no float atomics, so a sweep is bitwise repeatable. theta
-// (K x m8 f32, 1.6 KB at K=50, d=2) is staged in shared memory.
+// order: no float atomics, so a sweep is bitwise repeatable. theta is
+// staged in shared memory. The feature map is a template parameter, so
+// the Gaussian instantiation is the same code as before the ILR map
+// existed. At m8=168, K=50 a block stages ~180 KB, so one 128-thread
+// block fits per SM: low occupancy, accepted for now (ROADMAP A10b).
 #include "common.cuh"
 
 namespace {
 
+template <int kMap>
 __global__ void __launch_bounds__(kThreads)
-estep_partial(const float* __restrict__ xt, long long ld, int d, long long n,
-              const float* __restrict__ theta, int k, int m8,
-              float* __restrict__ part) {
+estep_partial(const float* __restrict__ xt, long long ld, int d, int np,
+              bool affine, long long n, const float* __restrict__ theta,
+              int k, int m8, float* __restrict__ part) {
   extern __shared__ float smem[];
   const int km = k * m8;
   float* th = smem;              // (k, m8)
@@ -52,7 +60,7 @@ estep_partial(const float* __restrict__ xt, long long ld, int d, long long n,
     float* col = F + tid;
     float* rcol = R + tid;
     if (p < n) {
-      gauss_features(xt, ld, d, p, col, m8);
+      features<kMap>(xt, ld, d, np, affine, p, col, m8);
       float mx = -INFINITY;
       for (int kk = 0; kk < k; ++kk) {
         const float s = row_dot(th + kk * m8, col, m8);
@@ -97,6 +105,20 @@ estep_partial(const float* __restrict__ xt, long long ld, int d, long long n,
   if (tid == 0) out[km] = red[0];
 }
 
+template <int kMap>
+cudaError_t launch_estep(const float* xt, long long ld, int d, int np,
+                         bool affine, long long n, const float* theta, int k,
+                         int m8, float* part, int grid, size_t smem,
+                         cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      estep_partial<kMap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  estep_partial<kMap><<<grid, kThreads, smem, s>>>(xt, ld, d, np, affine, n,
+                                                   theta, k, m8, part);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t mimo_estep_smem_bytes(int k, int m8) {
@@ -104,19 +126,24 @@ extern "C" size_t mimo_estep_smem_bytes(int k, int m8) {
          (2 * (size_t)k * m8 + (size_t)(m8 + k) * kStride + kThreads);
 }
 
-// xt (d, ld) f32, points 0..n-1; theta (k, m8) f32; part (grid, k*m8+1)
-// scratch; out (k*m8+1) = [acc row-major, lse]. Returns cudaGetLastError().
-extern "C" int mimo_estep(const float* xt, long long ld, int d, long long n,
-                          const float* theta, int k, int m8, float* part,
-                          float* out, int grid, void* stream) {
+// xt (d + p, ld) f32: x rows then y rows (p = 0 for kind kKindGauss),
+// points 0..n-1; theta (k, m8) f32; part (grid, k*m8+1) scratch;
+// out (k*m8+1) = [acc row-major, lse]. Returns a cudaError_t code.
+extern "C" int mimo_estep(const float* xt, long long ld, int d, int p,
+                          int kind, long long n, const float* theta, int k,
+                          int m8, float* part, float* out, int grid,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind < kKindGauss || kind > kKindIlrLinear ||
+      m8 < feature_width(kind, d, p))
+    return cudaErrorInvalidValue;
   const size_t smem = mimo_estep_smem_bytes(k, m8);
-  cudaError_t err = cudaFuncSetAttribute(
-      estep_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  estep_partial<<<grid, kThreads, smem, s>>>(xt, ld, d, n, theta, k, m8,
-                                             part);
-  err = cudaGetLastError();
+  const cudaError_t err =
+      kind == kKindGauss
+          ? launch_estep<kGauss>(xt, ld, d, 0, false, n, theta, k, m8, part,
+                                 grid, smem, s)
+          : launch_estep<kIlr>(xt, ld, d, p, kind == kKindIlrAffine, n,
+                               theta, k, m8, part, grid, smem, s);
   if (err != cudaSuccess) return err;
   return launch_reduce(part, grid, k * m8 + 1, out, s);
 }

@@ -1,8 +1,9 @@
-// Kernel B2: fused blocked-Gibbs label sweep for the full-covariance
-// Gaussian feature map. Replaces mimo_tpu/ops/pallas_gibbs.py::_gibbs_kernel.
+// Kernel B2: fused blocked-Gibbs label sweep over the full-covariance
+// Gaussian or the ILR product feature map. Replaces
+// mimo_tpu/ops/pallas_gibbs.py::_gibbs_kernel.
 //
-// Per point p < n: F = [1; x; x (x) x], plug-in logp_k = theta_k . F
-// (log pi folded into theta's column 0), Gumbel noise
+// Per point p < n: F = features(p) (common.cuh), plug-in logp_k =
+// theta_k . F (log pi folded into theta's column 0), Gumbel noise
 // g = -log(-log(u + 1e-20) + 1e-20) from 23-bit uniforms
 // u = (bits >> 9) 2^-23, label = the first-occurrence argmax over K of
 // logp + g, and acc(K, m8) += one_hot(label) F^T.
@@ -19,16 +20,18 @@
 // the f32 summation order). The statistics use B1's bounded grid and
 // per-block partials with a fixed-order second pass (no float atomics);
 // a tile's labels are staged in shared memory and each (k, j) output
-// sums the F rows of the points labelled k, in point order.
+// sums the F rows of the points labelled k, in point order. The feature
+// map is a template parameter, as in B1.
 #include "common.cuh"
 
 namespace {
 
+template <int kMap>
 __global__ void __launch_bounds__(kThreads)
-gibbs_partial(const float* __restrict__ xt, long long ld, int d, long long n,
-              const float* __restrict__ theta, int k, int m8,
-              const long long* __restrict__ seed, int* __restrict__ labels,
-              float* __restrict__ part) {
+gibbs_partial(const float* __restrict__ xt, long long ld, int d, int np,
+              bool affine, long long n, const float* __restrict__ theta,
+              int k, int m8, const long long* __restrict__ seed,
+              int* __restrict__ labels, float* __restrict__ part) {
   extern __shared__ float smem[];
   const int km = k * m8;
   float* th = smem;                                 // (k, m8)
@@ -51,7 +54,7 @@ gibbs_partial(const float* __restrict__ xt, long long ld, int d, long long n,
     float* col = F + tid;
     int best = -1;
     if (p < n) {
-      gauss_features(xt, ld, d, p, col, m8);
+      features<kMap>(xt, ld, d, np, affine, p, col, m8);
       const unsigned long long up = static_cast<unsigned long long>(p);
       float bestv = -INFINITY;
       best = 0;
@@ -95,6 +98,20 @@ gibbs_partial(const float* __restrict__ xt, long long ld, int d, long long n,
   for (int o = tid; o < km; o += kThreads) out[o] = acc[o];
 }
 
+template <int kMap>
+cudaError_t launch_gibbs(const float* xt, long long ld, int d, int np,
+                         bool affine, long long n, const float* theta, int k,
+                         int m8, const long long* seed, int* labels,
+                         float* part, int grid, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gibbs_partial<kMap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  gibbs_partial<kMap><<<grid, kThreads, smem, s>>>(
+      xt, ld, d, np, affine, n, theta, k, m8, seed, labels, part);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t mimo_gibbs_smem_bytes(int k, int m8) {
@@ -102,21 +119,26 @@ extern "C" size_t mimo_gibbs_smem_bytes(int k, int m8) {
          sizeof(int) * kThreads;
 }
 
-// xt (d, ld) f32, points 0..n-1; theta (k, m8) f32; seed: one int64 on
-// the device; labels (n,) int32; part (grid, k*m8) scratch; out (k*m8)
-// acc row-major. Returns cudaGetLastError().
-extern "C" int mimo_gibbs(const float* xt, long long ld, int d, long long n,
-                          const float* theta, int k, int m8,
-                          const long long* seed, int* labels, float* part,
-                          float* out, int grid, void* stream) {
+// xt (d + p, ld) f32: x rows then y rows (p = 0 for kind kKindGauss),
+// points 0..n-1; theta (k, m8) f32; seed: one int64 on the device;
+// labels (n,) int32; part (grid, k*m8) scratch; out (k*m8) acc
+// row-major. Returns a cudaError_t code.
+extern "C" int mimo_gibbs(const float* xt, long long ld, int d, int p,
+                          int kind, long long n, const float* theta, int k,
+                          int m8, const long long* seed, int* labels,
+                          float* part, float* out, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind < kKindGauss || kind > kKindIlrLinear ||
+      m8 < feature_width(kind, d, p))
+    return cudaErrorInvalidValue;
   const size_t smem = mimo_gibbs_smem_bytes(k, m8);
-  cudaError_t err = cudaFuncSetAttribute(
-      gibbs_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  gibbs_partial<<<grid, kThreads, smem, s>>>(xt, ld, d, n, theta, k, m8,
-                                             seed, labels, part);
-  err = cudaGetLastError();
+  const cudaError_t err =
+      kind == kKindGauss
+          ? launch_gibbs<kGauss>(xt, ld, d, 0, false, n, theta, k, m8, seed,
+                                 labels, part, grid, smem, s)
+          : launch_gibbs<kIlr>(xt, ld, d, p, kind == kKindIlrAffine, n,
+                               theta, k, m8, seed, labels, part, grid, smem,
+                               s);
   if (err != cudaSuccess) return err;
   return launch_reduce(part, grid, k * m8, out, s);
 }

@@ -1,0 +1,244 @@
+"""Infinite mixture of linear regressions (ILR): a Bayesian mixture of
+linear-Gaussian experts with Gaussian basis functions (port of
+mimo_tpu/models/ilr.py for the NIW basis and MNW experts).
+
+The joint density p(x, y, z=k) = gating(k) basis_k(x) model_k(y | x) is
+a product conjugate family, so the fused engines of `BayesianMixture`
+run it (kernels B1/B2 over the ILR feature map on CUDA); this class adds
+the standardization round trip and the prediction machinery
+(posterior-predictive weights, per-expert Student-t moments, the
+moment-matched mixture prediction and the NLPD; kernels B5/B6 on CUDA).
+`sample` and the dense engines arrive with ROADMAP A13/A14.
+"""
+
+from typing import Optional
+
+import torch
+
+from mimo_tpu_torch.conjugate.families import ilr_family
+from mimo_tpu_torch.distributions import mnw as _mnw
+from mimo_tpu_torch.distributions import niw as _niw
+from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
+from mimo_tpu_torch.distributions.mnw import MNW, augment
+from mimo_tpu_torch.distributions.niw import NIW
+from mimo_tpu_torch.models.mixture import (
+    BayesianMixture, MFState, _as_generator, resolve_backend)
+from mimo_tpu_torch.utils.data import Standardizer
+from mimo_tpu_torch.utils.linalg import cholesky, inv_psd
+from mimo_tpu_torch.utils.stats import normalize_log
+
+
+class BayesianILR(BayesianMixture):
+    """Bayesian mixture of linear-Gaussian experts.
+
+    components_prior = (basis_prior: NIW, models_prior: MNW); the experts
+    are affine by default (ones column appended to x)."""
+
+    def __init__(self, gating_prior, basis_prior, models_prior, affine=True,
+                 maxsubiter=25):
+        if not isinstance(basis_prior, NIW):
+            raise NotImplementedError(
+                f'basis prior {type(basis_prior).__name__}: only NIW is '
+                'ported (the HierTied basis waits for ROADMAP A16)')
+        if not isinstance(models_prior, MNW):
+            raise NotImplementedError(
+                f'models prior {type(models_prior).__name__}: only MNW is '
+                'ported (MNG and tied-affine experts wait for ROADMAP '
+                'A15/A17)')
+        self.affine = affine
+        self.input_dim = basis_prior.mu.shape[-1]
+        self.output_dim = models_prior.M.shape[-2]
+        super().__init__(gating_prior, (basis_prior, models_prior),
+                         ilr_family(affine=affine, maxsubiter=maxsubiter))
+        self.input_transform: Optional[Standardizer] = None
+        self.output_transform: Optional[Standardizer] = None
+
+    @staticmethod
+    def make(size, input_dim, output_dim, gating='stick-breaking', alpha=1.0,
+             affine=True, diag=False, tied_affine=False, hier_basis=False,
+             kappa=1e-2, K_scale=1e-2, psi_scale=1.0, basis_psi_scale=1.0,
+             maxsubiter=25, dtype=torch.float32, device=None):
+        """Convenience constructor: NIW basis x MNW experts, on `device`.
+        `diag`, `tied_affine` and `hier_basis` raise until their families
+        are ported (ROADMAP A15-A17)."""
+        if diag or tied_affine or hier_basis:
+            raise NotImplementedError(
+                'diag (MNG), tied-affine and hierarchical-basis ILR models '
+                'are not ported yet (ROADMAP A15-A17)')
+        if gating == 'dirichlet':
+            g = Dirichlet.standard(size, alpha, dtype, device)
+        else:
+            g = StickBreaking.standard(size, alpha, dtype, device)
+        basis = NIW.standard(size, input_dim, kappa=kappa,
+                             psi_scale=basis_psi_scale, dtype=dtype,
+                             device=device)
+        models = MNW.standard(size, output_dim, input_dim + int(affine),
+                              K_scale=K_scale, psi_scale=psi_scale,
+                              dtype=dtype, device=device)
+        return BayesianILR(g, basis, models, affine=affine,
+                           maxsubiter=maxsubiter)
+
+    @staticmethod
+    def generate(key, basis_params, expert_params, weights, n, affine=True):
+        """Draw (x, y, z) from a known mixture of linear experts, on the
+        device of the params. `key`: an int seed or a torch.Generator."""
+        mu = basis_params.mu
+        gen = _as_generator(key, mu.device)
+        weights = torch.as_tensor(weights, dtype=mu.dtype, device=mu.device)
+        z = torch.multinomial(weights, n, replacement=True, generator=gen)
+        bx_chol = cholesky(inv_psd(basis_params.lmbda))
+        ex = torch.randn((n, mu.shape[-1]), generator=gen, dtype=mu.dtype,
+                         device=mu.device)
+        x = mu[z] + torch.einsum('nde,ne->nd', bx_chol[z], ex)
+        xa = augment(x, affine)
+        mean_y = torch.einsum('npq,nq->np', expert_params.A[z], xa)
+        ey_chol = cholesky(inv_psd(expert_params.lmbda))
+        ey = torch.randn((n, expert_params.A.shape[-2]), generator=gen,
+                         dtype=mu.dtype, device=mu.device)
+        y = mean_y + torch.einsum('npr,nr->np', ey_chol[z], ey)
+        return x, y, z
+
+    # -- standardization ----------------------------------------------------
+
+    def init_transform(self, x, y):
+        self.input_transform = Standardizer.fit(x)
+        self.output_transform = Standardizer.fit(y)
+
+    def _tx(self, x):
+        return x if self.input_transform is None \
+            else self.input_transform.transform(x)
+
+    def _ty(self, y):
+        return y if self.output_transform is None \
+            else self.output_transform.transform(y)
+
+    def _estep_spec(self):
+        from mimo_tpu_torch.ops.family_estep import ilr_spec
+        return ilr_spec(self.input_dim, self.output_dim, affine=self.affine)
+
+    def fit_vi_fused(self, data, **kw):
+        """Fused VI over standardized (x, y): the N x K responsibilities
+        and the expert statistics tensors never exist (B1 on CUDA)."""
+        x, y = data
+        return super().fit_vi_fused((self._tx(x), self._ty(y)), **kw)
+
+    def fit_gibbs_fused(self, data, **kw):
+        """Fused blocked Gibbs over standardized (x, y) (B2 on CUDA)."""
+        x, y = data
+        return super().fit_gibbs_fused((self._tx(x), self._ty(y)), **kw)
+
+    # -- prediction -----------------------------------------------------------
+
+    def predictive_weights(self, state: MFState, x, dist='studentt'):
+        """Input-conditional expert weights:
+        softmax_k [ log E[pi_k] + log basis-predictive_k(x) ] -> (N, K)."""
+        basis_post, _ = state.components
+        log_basis = (_niw.log_predictive_studentt(basis_post, x)
+                     if dist == 'studentt'
+                     else _niw.log_predictive_gaussian(basis_post, x))
+        weights, _ = normalize_log(
+            log_basis + self.predictive_log_weights(state)[None, :])
+        return weights
+
+    def predictive_moments(self, state: MFState, x, dist='studentt'):
+        """Per-expert predictive mean (N, K, p) and covariance
+        (N, K, p, p)."""
+        _, models_post = state.components
+        fn = (_mnw.predictive_moments_studentt if dist == 'studentt'
+              else _mnw.predictive_moments_gaussian)
+        return fn(models_post, augment(x, self.affine))
+
+    @staticmethod
+    def mixture_moments(mus, covars, weights):
+        """Moment matching of a mixture of full-covariance predictives;
+        weights (N, K)."""
+        mu = torch.einsum('nkp,nk->np', mus, weights)
+        second = covars + mus[..., :, None] * mus[..., None, :]
+        cov = (torch.einsum('nkpr,nk->npr', second, weights)
+               - mu[..., :, None] * mu[..., None, :])
+        return mu, cov
+
+    def log_predictive_likelihood(self, state: MFState, x, y,
+                                  dist='studentt'):
+        """Per-expert log p(y | x) under the posterior predictive
+        -> (N, K)."""
+        _, models_post = state.components
+        fn = (_mnw.log_predictive_studentt if dist == 'studentt'
+              else _mnw.log_predictive_gaussian)
+        return fn(models_post, augment(x, self.affine), y)
+
+    def predict(self, state: MFState, x, y=None, prediction='average',
+                dist='studentt', incremental=False, backend='auto'):
+        """Posterior-predictive regression. Returns (mean, var_diag, std,
+        nlpd) with nlpd None unless y is given, in original units (the
+        standardization is inverted and the NLPD carries the Jacobian
+        sum(log scale)). `incremental` adds the input back onto the
+        prediction (delta-dynamics models).
+
+        `backend`: 'auto' serves Student-t predictions of CUDA data
+        through the fused kernels (B5 for p = 1, B6 for p > 1: weights,
+        moment matching and NLPD in one pass, no (N, K) intermediates) and
+        everything else through the dense path; 'kernel' requires the
+        kernels (raising for CPU data and for dist='gaussian', which stays
+        dense); 'torch' forces the dense path."""
+        if dist not in ('studentt', 'gaussian'):
+            raise ValueError(f'unknown dist: {dist!r}')
+        if backend == 'kernel' and dist != 'studentt':
+            raise NotImplementedError(
+                "fused serving needs studentt predictives; use "
+                "backend='torch' (dense) for this config")
+        use_kernel = resolve_backend(backend, x)
+        xx = self._tx(x)
+        if use_kernel and dist == 'studentt':
+            from mimo_tpu_torch.ops.cuda_ilr_predict import (
+                ilr_p_predict_cuda, ilr_predict_cuda)
+            basis_post, models_post = state.components
+            yy = self._ty(y) if y is not None else None
+            log_w = self.predictive_log_weights(state)
+            if self.output_dim == 1:
+                mu1, var1, nlpd = ilr_predict_cuda(
+                    basis_post, models_post, log_w, xx, yy, self.affine,
+                    prediction)
+                mu, var = mu1[:, None], var1[:, None]
+            else:
+                mu, var, nlpd = ilr_p_predict_cuda(
+                    basis_post, models_post, log_w, xx, yy, self.affine,
+                    prediction)
+            mu, var = mu.to(x.dtype), var.to(x.dtype)
+            if nlpd is not None:
+                nlpd = nlpd.to(x.dtype)
+                if self.output_transform is not None:
+                    nlpd = nlpd + torch.sum(
+                        torch.log(self.output_transform.scale))
+            if self.output_transform is not None:
+                mu = self.output_transform.inverse_transform(mu)
+                var = var * torch.square(self.output_transform.scale)
+            if incremental:
+                mu = mu + x[:, :mu.shape[-1]]
+            return mu, var, torch.sqrt(var), nlpd
+
+        weights = self.predictive_weights(state, xx, dist)
+        mus, covars = self.predictive_moments(state, xx, dist)
+        if prediction == 'mode':
+            k = torch.argmax(weights, -1)        # first occurrence on ties
+            idx = torch.arange(x.shape[0], device=x.device)
+            mu, cov = mus[idx, k], covars[idx, k]
+        else:
+            mu, cov = self.mixture_moments(mus, covars, weights)
+
+        nlpd = None
+        if y is not None:
+            log_pl = self.log_predictive_likelihood(state, xx, self._ty(y),
+                                                    dist)
+            nlpd = -torch.logsumexp(log_pl + torch.log(weights + 1e-37), -1)
+            if self.output_transform is not None:
+                # change of variables: p(y) = p(y_std) / prod(scale)
+                nlpd = nlpd + torch.sum(torch.log(self.output_transform.scale))
+
+        if self.output_transform is not None:
+            mu = self.output_transform.inverse_transform(mu)
+            cov = self.output_transform.scale_cov(cov)
+        if incremental:
+            mu = mu + x[:, :mu.shape[-1]]
+        var = torch.diagonal(cov, dim1=-2, dim2=-1)
+        return mu, var, torch.sqrt(var), nlpd

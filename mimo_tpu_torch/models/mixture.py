@@ -75,17 +75,22 @@ def resolve_backend(backend, x):
 
 
 def kernel_xts(data):
-    """The kernels' layout: each data array transposed to a contiguous
-    float32 (d_i, N), once, outside the sweep loop. The kernels bound-check
-    the point index against N, so no padding is needed."""
-    return tuple(a.to(torch.float32).T.contiguous() for a in data)
+    """The kernels' layout, made once outside the sweep loop: the data
+    arrays transposed and stacked into one contiguous float32
+    (sum d_i, N) buffer ([x; y] for ILR), returned as its per-input
+    (d_i, N) row blocks. The kernels read the buffer whole and
+    bound-check the point index against N, so no padding is needed."""
+    buf = torch.cat([a.to(torch.float32).T for a in data]).contiguous()
+    return tuple(torch.split(buf, [a.shape[1] for a in data]))
 
 
 def _cast(tree, dtype):
-    """Cast the floating leaves of a NamedTuple tree to `dtype`."""
+    """Cast the floating leaves of a tree of NamedTuples and tuples (the
+    statistics of a product family) to `dtype`."""
     if isinstance(tree, torch.Tensor):
         return tree.to(dtype) if tree.is_floating_point() else tree
-    return type(tree)(*(_cast(t, dtype) for t in tree))
+    items = [_cast(t, dtype) for t in tree]
+    return type(tree)(*items) if hasattr(tree, '_fields') else tuple(items)
 
 
 class BayesianMixture:
@@ -115,8 +120,9 @@ class BayesianMixture:
     def fit_vi_fused(self, data, key=None, maxiter=250, tol=None,
                      block_size=131072, init_state=None, randomize=True,
                      backend='auto'):
-        """Mean-field VI with the fused E-step (kernel B1 on CUDA): the
-        N x K responsibilities never exist. The ELBO trace reports
+        """Mean-field VI with the fused E-step (kernel B1 on CUDA, over
+        the family's feature map): the N x K responsibilities never
+        exist. The ELBO trace reports
         ELBO(state_t) exactly (lse identity). `tol` stops early once
         |dELBO| < tol. `key`: an int seed or a torch.Generator on the
         data's device. The kernel runs in float32; its statistics are cast
@@ -165,7 +171,10 @@ class BayesianMixture:
         plug-in log-densities, Gumbel-max labels from Philox keyed by
         (sweep seed, point index), and one-hot statistics; the N x K
         log-probs never exist. Per-sweep seeds come from the engine's
-        generator and stay on the device. Returns the final GibbsState."""
+        generator and stay on the device. A family with a `gibbs_update`
+        hook draws its posterior and params after the label sweep, from
+        the statistics (the sweep then uses the previous params). Returns
+        the final GibbsState."""
         from mimo_tpu_torch.ops.cuda_gibbs import fused_gibbs_cuda
         from mimo_tpu_torch.ops.family_estep import fused_gibbs_blockwise
         spec = self._estep_spec()
@@ -184,8 +193,10 @@ class BayesianMixture:
         seeds = torch.randint(0, 2 ** 62, (maxiter,), generator=gen,
                               dtype=torch.int64, device=dev)
         xts = kernel_xts(data) if use_kernel else None
+        gibbs_update = self.family.gibbs_update
         for i in range(maxiter):
-            params = self.family.sample_params(gen, comp)
+            if gibbs_update is None:
+                params = self.family.sample_params(gen, comp)
             log_pi = torch.log(torch.clamp(gating.sample(gen), min=1e-37))
             if use_kernel:
                 labels, res = fused_gibbs_cuda(spec, seeds[i], params,
@@ -194,7 +205,11 @@ class BayesianMixture:
             else:
                 labels, res = fused_gibbs_blockwise(spec, seeds[i], params,
                                                     log_pi, data, block_size)
-            comp = self.family.update(self.components_prior, res.stats)
+            if gibbs_update is None:
+                comp = self.family.update(self.components_prior, res.stats)
+            else:
+                comp, params = gibbs_update(gen, self.components_prior,
+                                            res.stats)
             gating = self.gating_prior.update(res.counts)
         return finite_report(
             GibbsState(components=comp, gating=gating, params=params,

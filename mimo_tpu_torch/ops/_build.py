@@ -1,15 +1,17 @@
 """Build and load the port's CUDA kernels.
 
-One nvcc command compiles every `csrc/*.cu` into one shared library with
-a plain C interface, loaded with ctypes:
+Every `csrc/*.cu` is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a
+plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/mimo_tpu_torch/libmimo_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o build/.../<name>.o csrc/<name>.cu
+    nvcc -shared -o build/mimo_tpu_torch/libmimo_kernels.so build/.../*.o
 
 The library lands under `build/` beside the package and is rebuilt
-whenever the hash of the sources (and of the command) changes. Nothing
-is downloaded: the only headers are the CUDA toolkit's. The build runs
-at first use, never at import, so the CPU-only tests import every module.
+whenever the hash of the sources (and of the flags) changes. Nothing is
+downloaded: the only headers are the CUDA toolkit's. The build runs at
+first use, never at import, so the CPU-only tests import every module.
 """
 
 import ctypes
@@ -28,34 +30,42 @@ SRC_DIR = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'mimo_tpu_torch'
 LIB_NAME = 'libmimo_kernels.so'
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
-FLAGS = ['-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-         '-Xptxas', '-v']
+FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P, _I, _I64, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_size_t)
 # name -> (restype, argtypes) of every C entry point
 _SIGNATURES = {
-    'mimo_estep': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _P, _I, _P]),
-    'mimo_gibbs': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _P, _P, _P, _I,
+    'mimo_estep': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _I,
                         _P]),
+    'mimo_gibbs': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _P,
+                        _P, _I, _P]),
     'mimo_predict': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _I, _P, _I,
                           _P]),
+    'mimo_ilr_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I,
+                              _P, _I, _P]),
+    'mimo_ilr_p_predict': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P,
+                                _P, _I, _P, _I, _P]),
+    'mimo_hello': (_I, [_P, _I64, _P, _P]),
     'mimo_estep_smem_bytes': (_SZ, [_I, _I]),
     'mimo_gibbs_smem_bytes': (_SZ, [_I, _I]),
     'mimo_predict_smem_bytes': (_SZ, [_I, _I]),
+    'mimo_ilr_predict_smem_bytes': (_SZ, [_I, _I]),
+    'mimo_ilr_p_predict_smem_bytes': (_SZ, [_I, _I, _I, _I]),
     'mimo_error_string': (ctypes.c_char_p, [_I]),
 }
 
 
 class KernelLibrary:
-    """The loaded kernels. `build_seconds` is the nvcc time of this
-    process (0.0 when an up-to-date library was reused); `log` holds
-    nvcc's output (-Xptxas -v: registers and shared memory per kernel)."""
+    """The loaded kernels. `build_seconds` is the wall time of this
+    process's nvcc runs (0.0 when an up-to-date library was reused);
+    `logs` maps each source's name to nvcc's output for it (-Xptxas -v:
+    registers and shared memory per kernel)."""
 
-    def __init__(self, path, build_seconds, log):
+    def __init__(self, path, build_seconds, logs):
         self.path = path
         self.build_seconds = build_seconds
-        self.log = log
+        self.logs = logs
         self._lib = ctypes.CDLL(str(path))
         for name, (restype, argtypes) in _SIGNATURES.items():
             fn = getattr(self._lib, name)
@@ -73,18 +83,19 @@ class KernelLibrary:
 _loaded = None
 
 
-def check_launch(what, xt, n, theta, smem_bytes):
+def check_launch(what, xt, n, theta, smem_bytes, width, desc):
     """Validate a kernel wrapper's inputs before any pointer reaches C.
 
-    xt: (d, >=n) float32 CUDA tensor with contiguous rows; theta: the
-    (K, m8) float32 coefficients on the same device, whose columns must
-    hold the feature map [1; x; x (x) x]; smem_bytes: the kernel's staged
-    shared memory at this (K, m8). Returns the launch grid."""
+    xt: (rows, >=n) float32 CUDA tensor with contiguous rows; theta: the
+    (R, m8) float32 coefficient rows on the same device, whose m8 columns
+    must hold the `width` features of the map the kernel assembles
+    (`desc` names that map and its dimensions for the messages);
+    smem_bytes: the kernel's staged shared memory at this shape. Returns
+    the launch grid."""
     if not xt.is_cuda:
         raise ValueError(f'{what}: the kernel needs CUDA tensors')
     if xt.dim() != 2 or xt.stride(1) != 1:
-        raise ValueError(f'{what}: xt must be (d, N) with contiguous rows')
-    d = xt.shape[0]
+        raise ValueError(f'{what}: xt must be (rows, N) with contiguous rows')
     if not 0 <= n <= xt.shape[1]:
         raise ValueError(f'{what}: n={n} outside [0, {xt.shape[1]}]')
     for t in (xt, theta):
@@ -94,18 +105,19 @@ def check_launch(what, xt, n, theta, smem_bytes):
     if theta.device != xt.device:
         raise ValueError(f'{what}: inputs on {theta.device} and {xt.device}')
     if theta.dim() != 2 or not theta.is_contiguous():
-        raise ValueError(f'{what}: coefficients must be contiguous (K, m8)')
-    k, m8 = theta.shape
-    if m8 < 1 + d + d * d:
-        raise ValueError(f'{what}: {m8} coefficient columns cannot hold '
-                         f'the d={d} Gaussian features')
+        raise ValueError(f'{what}: coefficients must be contiguous (R, m8)')
+    rows, m8 = theta.shape
+    if m8 < width:
+        raise ValueError(f'{what}: {m8} coefficient columns cannot hold the '
+                         f'{width} features of the {desc}')
     props = torch.cuda.get_device_properties(xt.device)
     limit = props.shared_memory_per_block_optin
     if smem_bytes > limit:
         raise NotImplementedError(
-            f'{what}: K={k}, m8={m8} stages {smem_bytes} bytes of shared '
-            f'memory, above the {limit} a block can use on '
-            f'{props.name}; wide shapes are not supported yet')
+            f'{what}: coefficients of shape (K, m8) = ({rows}, {m8}) '
+            f'({desc}) stage {smem_bytes} bytes of shared memory, above '
+            f'the {limit} a block can use on {props.name}; wide shapes are '
+            'not supported yet')
     # a bounded grid: blocks grid-stride over tiles of 128 points
     return max(1, min(4 * props.multi_processor_count, -(-n // 128)))
 
@@ -134,6 +146,20 @@ def _digest(cmd_flags):
     return h.hexdigest()
 
 
+def _run_all(cmds):
+    """Start every command at once, wait for all; raise on the first
+    failure with its output. Returns each command's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{out}')
+    return outs
+
+
 def load():
     """Build (if the sources changed) and load the kernel library."""
     global _loaded
@@ -143,22 +169,26 @@ def load():
     digest = _digest(flags)
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + '.sha256')
-    seconds, log = 0.0, ''
+    seconds, logs = 0.0, {}
     if not (lib.exists() and stamp.exists()
             and stamp.read_text().strip() == digest):
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        obj_dir = BUILD_DIR / f'obj.{os.getpid()}'
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        cus = [s for s in _sources() if s.endswith('.cu')]
+        objs = [obj_dir / (Path(s).stem + '.o') for s in cus]
         tmp = BUILD_DIR / f'{LIB_NAME}.{os.getpid()}.tmp'
-        cmd = ([_nvcc()] + flags + ['-o', str(tmp)]
-               + [s for s in _sources() if s.endswith('.cu')])
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        outs = _run_all([[nvcc] + flags + ['-c', '-o', str(o), s]
+                         for s, o in zip(cus, objs)])
+        _run_all([[nvcc] + ARCH_FLAGS + ['-shared', '-o', str(tmp)]
+                  + [str(o) for o in objs]])
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{" ".join(cmd)}\n{log}')
+        logs = {Path(s).name: out for s, out in zip(cus, outs)}
         os.replace(tmp, lib)
+        shutil.rmtree(obj_dir)
         stamp.write_text(digest + '\n')
-        (BUILD_DIR / 'build.log').write_text(log)
-    _loaded = KernelLibrary(lib, seconds, log)
+        (BUILD_DIR / 'build.log').write_text(
+            ''.join(f'== {name}\n{out}' for name, out in logs.items()))
+    _loaded = KernelLibrary(lib, seconds, logs)
     return _loaded

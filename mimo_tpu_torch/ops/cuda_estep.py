@@ -1,29 +1,83 @@
 """Kernel B1, the fused mixture E-step (csrc/estep.cu), with its plain
 PyTorch version. Replaces mimo_tpu/ops/pallas_estep.py::_estep_kernel2.
 
-Per point: F = [1; x; x (x) x], logp = theta . F over K (theta's column 0
-holds c + log pi, so counts = acc[:, 0]), a softmax over K with a 1e-37
-denominator floor, acc (K, m8) += (ex / denom) F^T and lse += logsumexp.
+Per point: F = the spec's feature map (the Gaussian [1; x; x (x) x] or
+the ILR product [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y]),
+logp = theta . F over K (theta's column 0 holds c + log pi, so counts =
+acc[:, 0]), a softmax over K with a 1e-37 denominator floor,
+acc (K, m8) += (ex / denom) F^T and lse += logsumexp.
 
-What bounds it on the H100, and what the kernel does about it: see the
-note at the top of csrc/estep.cu (arithmetic-bound f32 FMA dots of depth
-m8, a bounded grid with per-block partials and a fixed-order second
-pass, theta staged in shared memory).
+The kernels read one stacked float32 array xt = [x rows; y rows] of
+shape (d + p, N); `kind` names the feature map (GAUSS, ILR, ILR_LINEAR:
+the ILR map with and without the experts' ones column) and `p` the
+number of y rows. What bounds B1 on the H100, and what the kernel does
+about it: see the note at the top of csrc/estep.cu.
 """
 
 import torch
 
 from mimo_tpu_torch.ops import _build
-from mimo_tpu_torch.ops.family_estep import FusedEStep, gauss_features_t
+from mimo_tpu_torch.ops.family_estep import (
+    FusedEStep, gauss_features_t, gauss_width, ilr_features_t, ilr_width)
 
-launches = 0          # kernel launches by `estep`, for run accounting
+# feature-map codes of the C entries (csrc/common.cuh kKind*)
+GAUSS, ILR, ILR_LINEAR = 0, 1, 2
+KIND_NAMES = {GAUSS: 'gauss', ILR: 'ilr', ILR_LINEAR: 'ilr'}
+
+# kernel launches by `estep`, by feature map, for run accounting
+launches = {'gauss': 0, 'ilr': 0}
 _CHUNK = 1 << 20      # points per step of the plain versions
 
 
-def assemble_features(xt, m8):
-    """gauss_features_t of a (d, B) block, zero-padded to m8 rows."""
-    f = gauss_features_t((xt,))
+def feature_kind(features_t):
+    """The kernels' code for a spec's transposed feature map; raises for
+    a map the kernels do not assemble."""
+    if features_t is gauss_features_t:
+        return GAUSS
+    if features_t == ilr_features_t(True):
+        return ILR
+    if features_t == ilr_features_t(False):
+        return ILR_LINEAR
+    raise NotImplementedError('kernels B1/B2 assemble the full-covariance '
+                              'Gaussian and the ILR (NIW x MNW) feature '
+                              'maps only')
+
+
+def feature_width(kind, d, p=0):
+    """Width of a kernel feature map over d x rows and p y rows."""
+    return gauss_width(d) if kind == GAUSS else ilr_width(d, p, kind == ILR)
+
+
+def pad_rows(f, m8):
+    """Zero-pad a (m, B) feature block to m8 rows."""
     return torch.cat([f, f.new_zeros((m8 - f.shape[0], f.shape[1]))])
+
+
+def assemble_features(xt, m8, kind=GAUSS, p=0):
+    """The kernels' feature map of a stacked (d + p, B) block, zero-padded
+    to m8 rows."""
+    if kind == GAUSS:
+        return pad_rows(gauss_features_t((xt,)), m8)
+    d = xt.shape[0] - p
+    return pad_rows(ilr_features_t(kind == ILR)((xt[:d], xt[d:])), m8)
+
+
+def stack_rows(xts):
+    """One (sum d_i, N) array from the per-input (d_i, N) arrays: the
+    kernels' layout. No copy when the inputs are consecutive row blocks
+    of one buffer, as models.mixture.kernel_xts makes them."""
+    if len(xts) == 1:
+        return xts[0]
+    base, off = xts[0], 0
+    ld = base.stride(0)
+    for a in xts:
+        if (a.stride() != (ld, 1) or a.shape[1] != base.shape[1]
+                or a.dtype != base.dtype
+                or a.data_ptr() != (base.data_ptr()
+                                    + off * ld * a.element_size())):
+            return torch.cat(xts, 0)
+        off += a.shape[0]
+    return base.as_strided((off, base.shape[1]), (ld, 1))
 
 
 def pad_theta(theta, log_pi, dtype):
@@ -36,14 +90,14 @@ def pad_theta(theta, log_pi, dtype):
     return theta.to(dtype).contiguous(), m
 
 
-def estep_plain(xt, theta, n):
-    """Plain PyTorch version of B1: xt (d, >=n), theta (K, m8) ->
+def estep_plain(xt, theta, n, kind=GAUSS, p=0):
+    """Plain PyTorch version of B1: xt (d + p, >=n), theta (K, m8) ->
     (acc (K, m8), lse ()), in xt's dtype."""
     k, m8 = theta.shape
     acc = torch.zeros((k, m8), dtype=theta.dtype, device=theta.device)
     lse = torch.zeros((), dtype=theta.dtype, device=theta.device)
     for s in range(0, n, _CHUNK):
-        f = assemble_features(xt[:, s:min(s + _CHUNK, n)], m8)
+        f = assemble_features(xt[:, s:min(s + _CHUNK, n)], m8, kind, p)
         logp = theta @ f
         mx = torch.max(logp, 0, keepdim=True).values
         ex = torch.exp(logp - mx)
@@ -53,39 +107,40 @@ def estep_plain(xt, theta, n):
     return acc, lse
 
 
-def estep(xt, theta, n):
-    """B1 over points 0..n-1 of xt (d, >=n); theta (K, m8) with c + log pi
-    in column 0. Launches the kernel for CUDA tensors (float32 only; it
-    raises on anything it does not take) and runs `estep_plain` for CPU
-    tensors. Returns (acc (K, m8), lse ())."""
-    global launches
+def estep(xt, theta, n, kind=GAUSS, p=0):
+    """B1 over points 0..n-1 of xt (d + p, >=n), x rows then p y rows;
+    theta (K, m8) with c + log pi in column 0. Launches the kernel for
+    CUDA tensors (float32 only; it raises on anything it does not take)
+    and runs `estep_plain` for CPU tensors. Returns (acc (K, m8), lse ())."""
     if not xt.is_cuda:
-        return estep_plain(xt, theta, n)
+        return estep_plain(xt, theta, n, kind, p)
     lib = _build.load()
     k, m8 = theta.shape
+    d = xt.shape[0] - p
     grid = _build.check_launch('cuda_estep', xt, n, theta,
-                               lib.mimo_estep_smem_bytes(k, m8))
+                               lib.mimo_estep_smem_bytes(k, m8),
+                               feature_width(kind, d, p),
+                               f'{KIND_NAMES[kind]} map, d={d}, p={p}')
     part = torch.empty((grid, k * m8 + 1), dtype=torch.float32,
                        device=xt.device)
     out = torch.empty((k * m8 + 1,), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
-        rc = lib.mimo_estep(xt.data_ptr(), xt.stride(0), xt.shape[0], n,
+        rc = lib.mimo_estep(xt.data_ptr(), xt.stride(0), d, p, kind, n,
                             theta.data_ptr(), k, m8, part.data_ptr(),
                             out.data_ptr(), grid,
                             torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_estep')
-    launches += 1
+    launches[KIND_NAMES[kind]] += 1
     return out[:-1].view(k, m8), out[-1]
 
 
 def fused_estep_cuda(spec, post, log_pi, xts, n):
     """Spec-driven fused E-step through B1, the counterpart of
-    mimo_tpu's fused_estep_pallas. xts: the (d, N) transposed data
-    (see models.mixture.kernel_xts); n: the number of points."""
-    if spec.features_t is not gauss_features_t:
-        raise NotImplementedError('kernel B1 assembles the full-covariance '
-                                  'Gaussian features only')
+    mimo_tpu's fused_estep_pallas. xts: the per-input (d_i, N) transposed
+    data (see models.mixture.kernel_xts); n: the number of points."""
+    kind = feature_kind(spec.features_t)
+    p = xts[1].shape[0] if kind != GAUSS else 0
     theta, m = pad_theta(spec.theta(post), log_pi, xts[0].dtype)
-    acc, lse = estep(xts[0], theta, n)
+    acc, lse = estep(stack_rows(xts), theta, n, kind, p)
     return FusedEStep(stats=spec.unpack(acc[:, :m]), lse=lse,
                       counts=acc[:, 0])

@@ -18,6 +18,7 @@ import torch
 from mimo_tpu_torch.distributions.niw import predictive_studentt_params
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import _CHUNK, assemble_features
+from mimo_tpu_torch.ops.family_estep import gauss_width
 from mimo_tpu_torch.utils.linalg import logdet_psd
 from mimo_tpu_torch.utils.stats import gammaln_diff
 
@@ -48,8 +49,10 @@ def predict(xt, thq, aux, n, studentt=True):
         return predict_plain(xt, thq, aux, n, studentt)
     lib = _build.load()
     k, m8 = thq.shape
+    d = xt.shape[0]
     grid = _build.check_launch('cuda_predict', xt, n, thq,
-                               lib.mimo_predict_smem_bytes(k, m8))
+                               lib.mimo_predict_smem_bytes(k, m8),
+                               gauss_width(d), f'gauss map, d={d}')
     if (aux.dtype != torch.float32 or aux.shape != (k, 8)
             or not aux.is_contiguous() or aux.device != xt.device):
         raise ValueError('cuda_predict: aux must be a contiguous (K, 8) '

@@ -1,9 +1,13 @@
 """Fused mixture E-step and Gibbs label sweep over a family's feature map
-(port of the Gaussian slice of mimo_tpu/ops/family_estep.py).
+(port of the Gaussian, linear-expert and product slices of
+mimo_tpu/ops/family_estep.py).
 
 The expected log-likelihood is linear in a fixed feature map of the data,
-E_q[log p(x | params_k)] = t(x) . theta_k with t = [1, x, x (x) x] for a
-Gaussian, so a VI E-step over a block is two matmuls:
+E_q[log p(data | params_k)] = t(data) . theta_k, with t = [1, x, x (x) x]
+for a Gaussian and t = [1, y (x) xt, xt (x) xt, y (x) y] for a linear
+expert (xt = [x; 1] when affine); a product family (the ILR experts,
+basis(x) x model(y | x)) concatenates its members' maps and keeps one
+constant. A VI E-step over a block is then two matmuls:
 
     logp  = F @ Theta^T                      (B, K)
     stats = ex^T @ (F / denom)               (K, m)
@@ -18,7 +22,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from mimo_tpu_torch.distributions import mnw as _mnw
 from mimo_tpu_torch.distributions import niw as _niw
+from mimo_tpu_torch.distributions.mnw import augment
 from mimo_tpu_torch.ops.philox import gumbel_max_labels
 from mimo_tpu_torch.utils.linalg import logdet_psd
 from mimo_tpu_torch.utils.stats import LOG2PI
@@ -33,7 +39,7 @@ class EStepSpec(NamedTuple):
     # likelihood params -> (K, m) with log p(data|params_k) = t(data).row_k
     theta_plugin: Any = None
     # transposed feature assembler, (d_i, B) blocks -> (m, B); the kernels
-    # build exactly this map on the card (see cuda_estep.py)
+    # build the Gaussian and ILR maps on the card (see cuda_estep.py)
     features_t: Any = None
 
 
@@ -47,13 +53,64 @@ def _outer(a, b):
     return (a[:, :, None] * b[:, None, :]).reshape(a.shape[0], -1)
 
 
+# -- transposed (kernel-side) feature assemblers ------------------------------
+# Row order MUST mirror the specs' `features` exactly: the kernels build
+# these maps on the card (csrc/common.cuh) and cuda_estep.py recognises
+# them by value.
+
+def _rows_outer(at, bt):
+    """Transposed _outer: rows i*db + j = a_i b_j from (da, B), (db, B)."""
+    return (at[:, None, :] * bt[None, :, :]).reshape(-1, at.shape[1])
+
+
 def gauss_features_t(ts):
     """[1; x; x (x) x] from a (d, B) block -> (1 + d + d^2, B)."""
     (xt,) = ts
-    d = xt.shape[0]
     one = torch.ones((1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
-    outer = (xt[:, None, :] * xt[None, :, :]).reshape(d * d, -1)
-    return torch.cat([one, xt, outer], 0)
+    return torch.cat([one, xt, _rows_outer(xt, xt)], 0)
+
+
+class LinearFeaturesT(NamedTuple):
+    """[1; y (x) xa; xa (x) xa; y (x) y] from (x (d, B), y (p, B)) blocks,
+    xa = [x; 1] when affine."""
+    affine: bool
+
+    def __call__(self, ts):
+        xt, yt = ts
+        one = torch.ones((1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+        xta = torch.cat([xt, one], 0) if self.affine else xt
+        return torch.cat([one, _rows_outer(yt, xta), _rows_outer(xta, xta),
+                          _rows_outer(yt, yt)], 0)
+
+
+def linear_features_t(affine):
+    return LinearFeaturesT(affine)
+
+
+class ProductFeaturesT(NamedTuple):
+    """The members' maps over their data slices, concatenated, with the
+    duplicate constant rows beyond the first dropped (as in `features`)."""
+    members: tuple
+    data_slices: tuple
+
+    def __call__(self, ts):
+        blocks = [m(tuple(ts[i] for i in sl))
+                  for m, sl in zip(self.members, self.data_slices)]
+        return torch.cat([blocks[0]] + [b[1:] for b in blocks[1:]], 0)
+
+
+def _product_features_t(specs, data_slices):
+    members = tuple(s.features_t for s in specs)
+    if any(m is None for m in members):
+        return None
+    return ProductFeaturesT(members, tuple(tuple(sl) for sl in data_slices))
+
+
+def ilr_features_t(affine):
+    """The ILR product map [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y]
+    over (x (d, B), y (p, B)): the feature map of ilr_spec."""
+    return ProductFeaturesT((gauss_features_t, LinearFeaturesT(affine)),
+                            ((0,), (0, 1)))
 
 
 def gaussian_spec() -> EStepSpec:
@@ -87,6 +144,125 @@ def _unpack_gauss(acc):
     counts = acc[:, 0]
     return _niw.GaussStats(x=acc[:, 1:1 + d], n1=counts,
                            xxT=acc[:, 1 + d:].reshape(-1, d, d), n2=counts)
+
+
+# -- linear expert | MNW -----------------------------------------------------
+
+def linear_spec(affine: bool = True, p_dim: int = None,
+                q_dim: int = None) -> EStepSpec:
+    """data = (x, y); x augmented internally when affine. p_dim / q_dim
+    (output and augmented input widths) are needed only by unpack."""
+
+    def features(data):
+        xa = augment(data[0], affine)
+        y = data[1]
+        one = torch.ones((xa.shape[0], 1), dtype=xa.dtype, device=xa.device)
+        return torch.cat([one, _outer(y, xa), _outer(xa, xa), _outer(y, y)],
+                         -1)
+
+    def theta(post):
+        e_la, e_ala, e_l, e_logdet = _mnw.expected_stats(post)
+        pd, qd = post.row_dim, post.col_dim
+        c = e_logdet - 0.5 * pd * LOG2PI
+        return torch.cat([c[:, None], e_la.reshape(-1, pd * qd),
+                          e_ala.reshape(-1, qd * qd),
+                          e_l.reshape(-1, pd * pd)], -1)
+
+    def unpack(acc, p=p_dim, q=q_dim):
+        o1 = 1 + p * q
+        o2 = o1 + q * q
+        return _mnw.LinGaussStats(yxT=acc[:, 1:o1].reshape(-1, p, q),
+                                  xxT=acc[:, o1:o2].reshape(-1, q, q),
+                                  yyT=acc[:, o2:].reshape(-1, p, p),
+                                  n=acc[:, 0])
+
+    def theta_plugin(params):
+        a, lm = params.A, params.lmbda
+        pd, qd = a.shape[-2], a.shape[-1]
+        la = lm @ a                                        # (K, p, q)
+        ala = a.transpose(-1, -2) @ la                     # (K, q, q)
+        c = 0.5 * logdet_psd(lm) - 0.5 * pd * LOG2PI
+        return torch.cat([c[:, None], la.reshape(-1, pd * qd),
+                          -0.5 * ala.reshape(-1, qd * qd),
+                          -0.5 * lm.reshape(-1, pd * pd)], -1)
+
+    return EStepSpec(features, theta, unpack, theta_plugin,
+                     linear_features_t(affine))
+
+
+# -- products (ILR: basis(x) x expert(y|x)) ----------------------------------
+
+def _join_thetas(thetas):
+    """Fold the members' constant columns into the first block's."""
+    c_total = sum(th[:, 0] for th in thetas)
+    return torch.cat([c_total[:, None], thetas[0][:, 1:]]
+                     + [th[:, 1:] for th in thetas[1:]], -1)
+
+
+def product_spec(specs, data_slices, widths) -> EStepSpec:
+    """Concatenate member feature maps (the joint constant is member 0's)
+    and theta blocks. `widths` are the member feature widths (incl. their
+    constant column)."""
+
+    def features(data):
+        blocks = [s.features(tuple(data[i] for i in sl))
+                  for s, sl in zip(specs, data_slices)]
+        return torch.cat([blocks[0]] + [b[:, 1:] for b in blocks[1:]], -1)
+
+    def theta(posts):
+        return _join_thetas([s.theta(q) for s, q in zip(specs, posts)])
+
+    def unpack(acc):
+        counts = acc[:, 0]
+        out, off = [], 0
+        for i, (s, w) in enumerate(zip(specs, widths)):
+            w_eff = w if i == 0 else w - 1
+            block = acc[:, off:off + w_eff]
+            if i > 0:
+                block = torch.cat([counts[:, None], block], -1)
+            out.append(s.unpack(block))
+            off += w_eff
+        return tuple(out)
+
+    def theta_plugin(params_tuple):
+        return _join_thetas([s.theta_plugin(pp)
+                             for s, pp in zip(specs, params_tuple)])
+
+    return EStepSpec(features, theta, unpack, theta_plugin,
+                     _product_features_t(specs, data_slices))
+
+
+def gauss_width(d):
+    return 1 + d + d * d
+
+
+def linear_width(p, q):
+    return 1 + p * q + q * q + p * p
+
+
+def ilr_width(d, p, affine=True):
+    """Width of the ILR product map (both members share one constant)."""
+    return gauss_width(d) + linear_width(p, d + int(affine)) - 1
+
+
+def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
+             diag_expert=False, hier_basis=False, tied_affine=False):
+    """The ILR joint family's fused spec: data = (x, y), NIW basis x MNW
+    experts. The diagonal, hierarchical and tied-affine members are not
+    ported yet."""
+    if diag_basis or diag_expert:
+        raise NotImplementedError('diagonal basis / expert specs are not '
+                                  'ported yet (ROADMAP A15/A17)')
+    if hier_basis:
+        raise NotImplementedError('the hierarchically-tied basis spec is not '
+                                  'ported yet (ROADMAP A16)')
+    if tied_affine:
+        raise NotImplementedError('the tied-affine expert spec is not '
+                                  'ported yet (ROADMAP A17)')
+    q = input_dim + int(affine)
+    return product_spec((gaussian_spec(), linear_spec(affine, output_dim, q)),
+                        ((0,), (0, 1)),
+                        (gauss_width(input_dim), linear_width(output_dim, q)))
 
 
 # -- the fused sweeps ----------------------------------------------------------

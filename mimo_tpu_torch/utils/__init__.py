@@ -1,1 +1,1 @@
-from mimo_tpu_torch.utils import linalg, sanitize, stats  # noqa: F401
+from mimo_tpu_torch.utils import data, linalg, sanitize, stats  # noqa: F401

@@ -4,6 +4,7 @@ bridge converts JAX states leaf by leaf."""
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,10 +21,22 @@ from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models import BayesianGMM, GibbsState, MFState
 
 torch.set_num_threads(1)
+PKG = Path(__file__).resolve().parent.parent / 'mimo_tpu_torch'
+
+
+def _module_name(path):
+    parts = path.relative_to(PKG.parent).with_suffix('').parts
+    return '.'.join(parts[:-1] if parts[-1] == '__init__' else parts)
+
+
+# every module of the port, imported by name (the package's __init__
+# files import most of them, but not all: config, bridge)
+PORT_MODULES = sorted(_module_name(p) for p in PKG.rglob('*.py'))
 
 
 def test_import_leaves_jax_out():
-    code = ('import sys, mimo_tpu_torch, mimo_tpu_torch.bridge; '
+    mods = ', '.join(PORT_MODULES)
+    code = (f'import sys, {mods}; '
             'bad = sorted(m for m in sys.modules if m == "jax" '
             'or m.startswith(("jax.", "jaxlib")) or m == "mimo_tpu" '
             'or m.startswith("mimo_tpu.")); '
@@ -31,6 +44,12 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_import_covers_the_ilr_slice():
+    for mod in ('config', 'models.ilr', 'distributions.mnw', 'utils.data',
+                'ops.cuda_ilr_predict', 'ops.cuda_hello'):
+        assert f'mimo_tpu_torch.{mod}' in PORT_MODULES
 
 
 @pytest.fixture(scope='module')

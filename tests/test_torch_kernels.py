@@ -1,14 +1,19 @@
-"""The CUDA kernels B1-B3 against their plain PyTorch versions, on the
-card. Every test here needs a CUDA device and skips without one; run them
-on the card with `python -m pytest tests/test_torch_kernels.py -m cuda`.
+"""The CUDA kernels (B1-B3, B1/B2 over the ILR map, B5, B6, S3) against
+their plain PyTorch versions, on the card. Every test here needs a CUDA
+device and skips without one; run them on the card with
+`python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
 `chip_smoke.py` holds the same kernels to their plain versions at the
-main path's shapes."""
+main paths' shapes."""
 
 import pytest
 import torch
 
-from mimo_tpu_torch.models import BayesianGMM
-from mimo_tpu_torch.ops import cuda_estep, cuda_gibbs, cuda_predict
+from mimo_tpu_torch.distributions.mnw import MNW
+from mimo_tpu_torch.distributions.niw import NIW
+from mimo_tpu_torch.models import BayesianGMM, BayesianILR
+from mimo_tpu_torch.ops import (
+    cuda_estep, cuda_gibbs, cuda_hello, cuda_ilr_predict, cuda_predict)
+from mimo_tpu_torch.ops.cuda_estep import ILR
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -87,10 +92,10 @@ def test_engines_kernel_path_tracks_plain_path(dev):
     m = BayesianGMM.make(size=10, dim=2, gating='dp', kappa=0.05,
                          psi_scale=0.5, device=dev)
     init, _ = m.fit_vi_fused(x, key=1, maxiter=2, backend='torch')
-    before = cuda_estep.launches
+    before = cuda_estep.launches['gauss']
     _, v_k = m.fit_vi_fused(x, maxiter=10, init_state=init, randomize=False,
                             backend='auto')
-    assert cuda_estep.launches == before + 10
+    assert cuda_estep.launches['gauss'] == before + 10
     _, v_t = m.fit_vi_fused(x, maxiter=10, init_state=init, randomize=False,
                             backend='torch')
     torch.testing.assert_close(v_k, v_t, rtol=1e-4, atol=0.0)
@@ -98,4 +103,125 @@ def test_engines_kernel_path_tracks_plain_path(dev):
     lp_t = m.log_predictive(init, x, backend='torch')
     torch.testing.assert_close(lp_k, lp_t, rtol=1e-5, atol=1e-4)
     gs = m.fit_gibbs_fused(x, key=2, maxiter=5, backend='kernel')
+    assert bool(torch.isfinite(gs.log_pi).all())
+
+
+def _ilr_inputs(dev, n, k, d, p, seed=0):
+    """Stacked [x; y] rows and random coefficients over the ILR map."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = cuda_estep.feature_width(ILR, d, p)
+    m8 = -(-m // 8) * 8
+    xt = torch.rand((d + p, n), generator=g, device=dev) * 4 - 2
+    theta = torch.randn((k, m8), generator=g, device=dev) * 0.05
+    theta[:, m:] = 0.0
+    return xt, theta
+
+
+@pytest.mark.parametrize('n,k,d,p', [(100003, 50, 8, 1), (1000, 7, 2, 3)])
+def test_ilr_estep_kernel_matches_plain_and_repeats(dev, n, k, d, p):
+    xt, theta = _ilr_inputs(dev, n, k, d, p)
+    acc, lse = cuda_estep.estep(xt, theta, n, ILR, p)
+    acc2, lse2 = cuda_estep.estep(xt, theta, n, ILR, p)
+    pacc, plse = cuda_estep.estep_plain(xt, theta, n, ILR, p)
+    torch.testing.assert_close(acc, pacc, rtol=1e-4, atol=1e-3 * n / 1e6)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=0.0)
+    assert torch.equal(acc, acc2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize('n,k,d,p', [(100003, 50, 8, 1), (1000, 7, 2, 3)])
+def test_ilr_gibbs_kernel_matches_plain(dev, n, k, d, p):
+    xt, theta = _ilr_inputs(dev, n, k, d, p, seed=1)
+    seed = torch.tensor(987654321, dtype=torch.int64, device=dev)
+    labels, acc = cuda_gibbs.gibbs(xt, theta, seed, n, ILR, p)
+    plabels, _ = cuda_gibbs.gibbs_plain(xt, theta, seed, n, ILR, p)
+    assert int(labels.min()) >= 0 and int(labels.max()) < k
+    assert float((labels != plabels).float().mean()) <= 1e-4
+    f = cuda_estep.assemble_features(xt, theta.shape[1], ILR, p).double()
+    oh = torch.nn.functional.one_hot(labels.long(), k).double()
+    bound = 1e-5 * (oh.T @ f.abs().T) + 1e-6
+    assert bool(((acc.double() - oh.T @ f.T).abs() <= bound).all())
+
+
+def test_check_launch_refuses_a_narrow_ilr_theta(dev):
+    xt, theta = _ilr_inputs(dev, 1000, 7, 2, 3)
+    with pytest.raises(ValueError, match='features of the ilr map'):
+        cuda_estep.estep(xt, theta[:, :16].contiguous(), 1000, ILR, 3)
+
+
+def _ilr_state(dev, k, d, p, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def psd(q, scale):
+        a = torch.randn((k, q, q), generator=g, device=dev)
+        return scale * (a @ a.transpose(-1, -2) / q
+                        + torch.eye(q, device=dev))
+
+    basis = NIW(mu=torch.randn((k, d), generator=g, device=dev),
+                kappa=50 + 200 * torch.rand((k,), generator=g, device=dev),
+                psi=psd(d, 0.05),
+                nu=50 + 200 * torch.rand((k,), generator=g, device=dev))
+    experts = MNW(M=torch.randn((k, p, d + 1), generator=g, device=dev),
+                  K_=psd(d + 1, 80.0), psi=psd(p, 0.05),
+                  nu=50 + 200 * torch.rand((k,), generator=g, device=dev))
+    log_w = torch.log_softmax(torch.randn((k,), generator=g, device=dev), 0)
+    return basis, experts, log_w
+
+
+@pytest.mark.parametrize('hard', [False, True])
+@pytest.mark.parametrize('has_y', [True, False])
+@pytest.mark.parametrize('d,p', [(1, 1), (2, 3)])
+def test_ilr_predict_kernels_match_plain(dev, d, p, has_y, hard):
+    n, k = 100003, 50
+    basis, experts, log_w = _ilr_state(dev, k, d, p)
+    g = torch.Generator(device=dev).manual_seed(5)
+    xt = torch.rand((d + (p if has_y else 0), n), generator=g,
+                    device=dev) * 4 - 2
+    if p == 1:
+        th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+            basis, experts, log_w)
+        out = cuda_ilr_predict.ilr_predict(xt, th, aux, n, has_y, hard)
+        ref = cuda_ilr_predict.ilr_predict_plain(xt, th, aux, n, has_y, hard)
+    else:
+        th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+            basis, experts, log_w, True, has_y)
+        out = cuda_ilr_predict.ilr_p_predict(xt, th, aux, vc, n, p, has_y,
+                                             hard)
+        ref = cuda_ilr_predict.ilr_p_predict_plain(xt, th, aux, vc, n, p,
+                                                   has_y, hard)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out[:p], ref[:p], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out[p:2 * p], ref[p:2 * p], rtol=2e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(out[2 * p:], ref[2 * p:], rtol=1e-3,
+                               atol=2e-3)
+
+
+def test_hello_kernel_doubles(dev):
+    x = torch.randn((8, 128), device=dev)
+    assert torch.equal(cuda_hello.twice(x), 2 * x)
+
+
+def test_ilr_engines_kernel_path_tracks_plain_path(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.rand((20011, 2), generator=g, device=dev) * 6 - 3
+    y = torch.sin(x.sum(-1, keepdim=True)) + 0.1 * torch.randn(
+        (20011, 1), generator=g, device=dev)
+    m = BayesianILR.make(size=10, input_dim=2, output_dim=1, alpha=2.0,
+                         kappa=0.05, device=dev)
+    m.init_transform(x, y)
+    init, _ = m.fit_vi_fused((x, y), key=1, maxiter=3, backend='torch')
+    before = cuda_estep.launches['ilr']
+    _, v_k = m.fit_vi_fused((x, y), maxiter=5, init_state=init,
+                            randomize=False, backend='kernel')
+    assert cuda_estep.launches['ilr'] == before + 5
+    _, v_t = m.fit_vi_fused((x, y), maxiter=5, init_state=init,
+                            randomize=False, backend='torch')
+    torch.testing.assert_close(v_k, v_t, rtol=1e-4, atol=0.0)
+    before = cuda_ilr_predict.launches['ilr_predict']
+    mu_k, var_k, _, nlpd_k = m.predict(init, x, y, backend='kernel')
+    assert cuda_ilr_predict.launches['ilr_predict'] == before + 1
+    mu_t, var_t, _, nlpd_t = m.predict(init, x, y, backend='torch')
+    torch.testing.assert_close(mu_k, mu_t, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(nlpd_k, nlpd_t, rtol=1e-3, atol=2e-3)
+    gs = m.fit_gibbs_fused((x, y), key=2, maxiter=5, backend='kernel')
     assert bool(torch.isfinite(gs.log_pi).all())
