@@ -35,7 +35,22 @@ Phases, one or more printed lines each:
   9. serving  the sine flagship (N=1e7, d=1, p=1: Gibbs 10 -> VI 20 ->
               predict through B5, RMSE and NLPD) and p>1 serving (N=1e6,
               d=2, p=3: VI 20 -> predict through B6), rates, and each new
-              kernel's time beside its plain version's.
+              kernel's time beside its plain version's;
+ 10. diag     B1 and B2 over the diagonal map [1; x; x^2] at N=1,000,003,
+              K=50, d=2 (and d=3, K=7, N=1000), B1 bitwise repeatable, B2
+              labels equal to the plain Philox labels; B3 over the
+              diagonal map (Gaussian) and B4 (Student-t) at N=1,000,003,
+              K=50, d=2; B5 with MNG experts (d=1, p=1) and B6 with its
+              MNG tail (d=2, p=3), average and mode, with and without y;
+ 11. diag GMM the diagonal GMM of bench.py:168-188 (N=1e7, K=50, d=2, NG,
+              Dirichlet gating, kappa=0.05): fit_vi_fused 20,
+              fit_gibbs_fused 20, log_predictive Student-t (B4) and
+              Gaussian (B3-diag), launch counts, ELBO, kernel vs plain on
+              a 100,003-point slice, rates and kernel times;
+ 12. MNG      the sine flagship with MNG experts (N=1e7, d=1, p=1: Gibbs 10
+              -> VI 20 -> predict through B5's MNG rows) and p>1 MNG
+              serving (N=1e6, d=2, p=3: VI 20 -> predict through B6's MNG
+              tail), rates and kernel times.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or if any check
 fails, the script exits non-zero and prints no result.
@@ -53,17 +68,21 @@ import torch
 
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
 from mimo_tpu_torch.conjugate.families import ilr_family
+from mimo_tpu_torch.distributions import ng
 from mimo_tpu_torch.distributions.gating import StickBreaking
+from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
+from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import GaussParams, NIW, mode_params
 from mimo_tpu_torch.models import BayesianGMM, BayesianILR
 from mimo_tpu_torch.models.mixture import MFState, kernel_xts
 from mimo_tpu_torch.ops import (
-    _build, cuda_estep, cuda_gibbs, cuda_hello, cuda_ilr_predict,
-    cuda_predict)
+    _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
+    cuda_ilr_predict, cuda_predict)
 from mimo_tpu_torch.ops.cuda_estep import (
-    ILR, assemble_features, pad_theta, stack_rows)
-from mimo_tpu_torch.ops.family_estep import gaussian_spec, ilr_spec
+    DIAG, ILR, assemble_features, pad_theta, stack_rows)
+from mimo_tpu_torch.ops.family_estep import (
+    diag_gaussian_spec, gaussian_spec, ilr_spec)
 
 N_MAIN, K_MAIN, D_MAIN = 10_000_000, 50, 2
 N_CHECK = 1_000_003            # a ragged tail for the 128-point tiles
@@ -400,6 +419,9 @@ def run(dev, seed, n_main, n_check):
     ilr_kernel_checks(dev, gen, card, errs)
     ilr_fit_path(dev, seed, card, errs, launches, ms)
     ilr_serving_paths(dev, seed, card, launches, ms)
+    diag_kernel_checks(dev, gen, errs)
+    diag_gmm_path(dev, seed, card, n_main, errs, launches, ms)
+    ilr_serving_paths(dev, seed, card, launches, ms, diag=True)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
 
@@ -421,6 +443,24 @@ def run(dev, seed, n_main, n_check):
                'mimo_tpu/ops/pallas_predict.py:656'),
         'B6': ('B6 ILR predict, p>1', 'mimo_tpu_torch/csrc/ilr_predict.cu',
                'mimo_tpu/ops/pallas_predict.py:349'),
+        'B1-diag': ('B1 fused VI E-step, diagonal feature map',
+                    'mimo_tpu_torch/csrc/estep.cu',
+                    'mimo_tpu/ops/pallas_estep.py:164'),
+        'B2-diag': ('B2 fused Gibbs label sweep, diagonal feature map',
+                    'mimo_tpu_torch/csrc/gibbs.cu',
+                    'mimo_tpu/ops/pallas_gibbs.py:36'),
+        'B3-diag': ('B3 Gaussian mixture predictive, diagonal feature map',
+                    'mimo_tpu_torch/csrc/predict.cu',
+                    'mimo_tpu/ops/pallas_predict.py:39'),
+        'B4': ('B4 diagonal (NG) Student-t mixture predictive',
+               'mimo_tpu_torch/csrc/diag_predict.cu',
+               'mimo_tpu/ops/pallas_predict.py:171'),
+        'B5-MNG': ('B5 ILR predict, p=1, MNG experts',
+                   'mimo_tpu_torch/csrc/ilr_predict.cu',
+                   'mimo_tpu/ops/pallas_predict.py:656'),
+        'B6-MNG': ('B6 ILR predict, p>1, MNG tail',
+                   'mimo_tpu_torch/csrc/ilr_predict.cu',
+                   'mimo_tpu/ops/pallas_predict.py:349'),
         'S3': ('S3 build probe o = 2x', 'mimo_tpu_torch/csrc/hello.cu',
                'scripts/pallas_hello.py:11'),
     }
@@ -440,20 +480,24 @@ def run(dev, seed, n_main, n_check):
 
 def reset_counts():
     """Set every kernel wrapper's launch count to 0."""
-    for mod in (cuda_estep, cuda_gibbs, cuda_ilr_predict):
+    for mod in (cuda_estep, cuda_gibbs, cuda_predict, cuda_ilr_predict):
         for key in mod.launches:
             mod.launches[key] = 0
-    cuda_predict.launches = 0
+    cuda_diag_predict.launches = 0
 
 
 def read_counts():
     return {'B1': cuda_estep.launches['gauss'],
             'B2': cuda_gibbs.launches['gauss'],
-            'B3': cuda_predict.launches,
+            'B3': cuda_predict.launches['gauss'],
             'B1-ILR': cuda_estep.launches['ilr'],
             'B2-ILR': cuda_gibbs.launches['ilr'],
             'B5': cuda_ilr_predict.launches['ilr_predict'],
-            'B6': cuda_ilr_predict.launches['ilr_p_predict']}
+            'B6': cuda_ilr_predict.launches['ilr_p_predict'],
+            'B1-diag': cuda_estep.launches['diag'],
+            'B2-diag': cuda_gibbs.launches['diag'],
+            'B3-diag': cuda_predict.launches['diag'],
+            'B4': cuda_diag_predict.launches}
 
 
 def random_ilr_posterior(gen, k, d, p, dev):
@@ -710,10 +754,14 @@ def ilr_fit_path(dev, seed, card, errs, launches, ms):
               f'PyTorch {ms[name][1]:.6g} ms')
 
 
-def ilr_serving_paths(dev, seed, card, launches, ms):
+def ilr_serving_paths(dev, seed, card, launches, ms, diag=False):
     """The sine flagship (bench.py:338-356) through B5 and p>1 serving
-    (the shape of tests/test_pallas.py:445 at K=50) through B6."""
-    for name, n, d, p in (('B5', N_SINE, 1, 1), ('B6', N_P3, D_P3, P_P3)):
+    (the shape of tests/test_pallas.py:445 at K=50) through B6; with
+    `diag`, the same paths with MNG experts through B5's MNG rows and
+    B6's MNG tail."""
+    suffix = '-MNG' if diag else ''
+    for count, n, d, p in (('B5', N_SINE, 1, 1), ('B6', N_P3, D_P3, P_P3)):
+        name = count + suffix
         kg = torch.Generator(device=dev).manual_seed(seed + 5)
         if p == 1:
             x = torch.rand((n, 1), generator=kg, device=dev) * 12 - 6
@@ -723,7 +771,7 @@ def ilr_serving_paths(dev, seed, card, launches, ms):
             x, y = regression_data(kg, n, d, p, dev, fn=torch.tanh)
         model = BayesianILR.make(size=K_MAIN, input_dim=d, output_dim=p,
                                  alpha=2.0, kappa=0.05 if p == 1 else 0.1,
-                                 device=dev)
+                                 diag=diag, device=dev)
         model.init_transform(x, y)
         torch.cuda.synchronize()
         reset_counts()
@@ -737,13 +785,16 @@ def ilr_serving_paths(dev, seed, card, launches, ms):
         mu, var, _, nlpd = model.predict(st, x, y)
         torch.cuda.synchronize()
         path = read_counts()
-        launches[name] = path[name]
-        tag = (f'ILR serving ({"sine" if p == 1 else "tanh"}) N={n} '
-               f'K={K_MAIN} d={d} p={p}')
+        launches[name] = path[count]
+        tag = (f'ILR serving ({"sine" if p == 1 else "tanh"}'
+               f'{", MNG experts" if diag else ""}) N={n} K={K_MAIN} d={d} '
+               f'p={p}')
         print(f'{tag}: launches {path}')
-        check(path[name] >= 1 and path['B1-ILR'] == 20
+        check(path[count] >= 1 and path['B1-ILR'] == 20
               and path['B2-ILR'] == (10 if p == 1 else 0),
               'the ILR serving path bypassed a kernel')
+        check(isinstance(st.components[1], MNG) == diag,
+              'the ILR serving path fitted the wrong experts')
         elbo_report(f'{tag} VI', vlb)
         rmse = float(torch.sqrt(torch.mean((mu - y) ** 2)))
         print(f'{tag}: RMSE {rmse:.6g} (noise floor 0.1), mean NLPD '
@@ -781,6 +832,258 @@ def ilr_serving_paths(dev, seed, card, launches, ms):
         del x, y, model, st, mu, var, nlpd, xt
         torch.cuda.empty_cache()
 
+
+# -- the diagonal families --------------------------------------------------
+
+
+def random_ng_posterior(gen, k, d, dev):
+    """An NG posterior with the scales of a fit at N ~ 1e6: ~1e4-1e5
+    points per component, variances 0.25-0.75 per dimension."""
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((k, d), generator=gen, device=dev)
+    counts = u(1e4, 1e5)
+    return NG(mu=torch.randn((k, d), generator=gen, device=dev) * 4.0,
+              kappa=counts, alpha=0.5 * counts,
+              beta=0.5 * counts * u(0.25, 0.75))
+
+
+def random_mng_posterior(gen, k, d, p, dev):
+    """An (NIW, MNG) posterior with the scales of random_ilr_posterior:
+    per-output noise precision ~100."""
+    basis, experts = random_ilr_posterior(gen, k, d, p, dev)
+    alpha = 0.5 * (1e4 + 1e4 * torch.rand((k, p), generator=gen, device=dev))
+    beta = alpha / (100.0 * (0.5 + torch.rand((k, p), generator=gen,
+                                              device=dev)))
+    return basis, MNG(M=experts.M, K_=experts.K_, alpha=alpha, beta=beta)
+
+
+def diag_kernel_checks(dev, gen, errs):
+    """B1/B2 over the diagonal map, B3 over it, B4, and B5/B6 with MNG
+    experts against their plain versions."""
+    spec = diag_gaussian_spec()
+    errs['B1-diag'] = errs['B2-diag'] = 0.0
+    for n, k, d in ((N_CHECK, K_MAIN, D_MAIN), (1000, 7, 3)):
+        post = random_ng_posterior(gen, k, d, dev)
+        log_pi = torch.log_softmax(torch.randn((k,), generator=gen,
+                                               device=dev), 0)
+        xt = (torch.randn((d, n), generator=gen, device=dev) * 4.0
+              + post.mu[0][:, None])
+        theta, _ = pad_theta(spec.theta(post), log_pi, torch.float32)
+        acc, lse = cuda_estep.estep(xt, theta, n, DIAG)
+        acc2, lse2 = cuda_estep.estep(xt, theta, n, DIAG)
+        pacc, plse = cuda_estep.estep_plain(xt, theta, n, DIAG)
+        torch.cuda.synchronize()
+        atol = 1e-3 * n / 1e6
+        ok_s, err_s = allclose_report(acc, pacc, 1e-4, atol)
+        ok_l, err_l = allclose_report(lse, plse, 1e-5, 0.0)
+        bitwise = torch.equal(acc, acc2) and torch.equal(lse, lse2)
+        print(f'B1-diag N={n} K={k} d={d} m8={theta.shape[1]}: stats '
+              f'max|err| {err_s:.6g} (rtol 1e-4, atol {atol:.6g}) '
+              f'{"ok" if ok_s else "FAIL"}; lse {float(lse):.9g} vs '
+              f'{float(plse):.9g}, |err| {err_l:.6g} (rtol 1e-5) '
+              f'{"ok" if ok_l else "FAIL"}; bitwise repeat {bitwise}')
+        check(ok_s and ok_l and bitwise and bool(torch.isfinite(acc).all()),
+              f'B1-diag disagrees at N={n}')
+        errs['B1-diag'] = max(errs['B1-diag'], err_s)
+
+        th_g, _ = pad_theta(spec.theta_plugin(ng.mode_params(post)), log_pi,
+                            torch.float32)
+        sweep_seed = torch.randint(0, 2 ** 62, (), generator=gen, device=dev)
+        labels, acc = cuda_gibbs.gibbs(xt, th_g, sweep_seed, n, DIAG)
+        plabels, _ = cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, n, DIAG)
+        f = assemble_features(xt, th_g.shape[1], DIAG).double()
+        oh = torch.nn.functional.one_hot(labels.long(), k).double()
+        err = (acc.double() - oh.T @ f.T).abs()
+        ok_acc = bool((err <= 1e-5 * (oh.T @ f.abs().T) + 1e-6).all())
+        in_range = int(labels.min()) >= 0 and int(labels.max()) < k
+        mismatch = int((labels != plabels).sum())
+        print(f'B2-diag N={n} K={k} d={d}: labels in [0, {k}) {in_range}, '
+              f'{int(torch.unique(labels).numel())} used; stats vs one-hot '
+              f'sums of its labels max|err| {float(err.max()):.6g} (<= 1e-5 '
+              f'x summed magnitudes) {"ok" if ok_acc else "FAIL"}; points '
+              f'whose label differs from the plain Philox label {mismatch} '
+              f'(<= 1e-4 of {n})')
+        check(in_range and ok_acc and mismatch <= 1e-4 * n,
+              'B2-diag disagrees')
+        errs['B2-diag'] = max(errs['B2-diag'], float(err.max()))
+        if d == D_MAIN:
+            b4_post, b4_xt = post, xt
+
+    # B3 over the diagonal map (Gaussian) and B4 (Student-t)
+    log_w = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
+                                          device=dev), 0)
+    thq, aux = cuda_predict.diag_gaussian_coefficients(b4_post, log_w)
+    thu, h, aux4 = cuda_diag_predict.diag_predict_coefficients(b4_post, log_w)
+    for name, kern, plain in (
+            ('B3-diag',
+             lambda: cuda_predict.predict(b4_xt, thq, aux, N_CHECK, False,
+                                          DIAG),
+             lambda: cuda_predict.predict_plain(b4_xt, thq, aux, N_CHECK,
+                                                False, DIAG)),
+            ('B4',
+             lambda: cuda_diag_predict.diag_predict(b4_xt, thu, h, aux4,
+                                                    N_CHECK),
+             lambda: cuda_diag_predict.diag_predict_plain(b4_xt, thu, h, aux4,
+                                                          N_CHECK))):
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        ok, e = allclose_report(out, ref, 1e-4, 1e-4)
+        errs[name] = e
+        print(f'{name} N={N_CHECK} K={K_MAIN} d={D_MAIN}: max|err| {e:.6g} '
+              f'nats (rtol 1e-4, atol 1e-4) {"ok" if ok else "FAIL"}; finite '
+              f'{bool(torch.isfinite(out).all())}; log-density '
+              f'{float(out.min()):.6g} to {float(out.max()):.6g}')
+        check(ok and bool(torch.isfinite(out).all()), f'{name} disagrees')
+
+    for name, d, p in (('B5-MNG', 1, 1), ('B6-MNG', D_P3, P_P3)):
+        basis, experts = random_mng_posterior(gen, K_MAIN, d, p, dev)
+        log_w = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
+                                              device=dev), 0)
+        x, y = regression_data(gen, N_CHECK, d, p, dev)
+        errs[name] = 0.0
+        for has_y in (True, False):
+            xt = stack_rows(kernel_xts((x, y) if has_y else (x,)))
+            for hard in (False, True):
+                if p == 1:
+                    th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+                        basis, experts, log_w)
+                    out = cuda_ilr_predict.ilr_predict(xt, th, aux, N_CHECK,
+                                                       has_y, hard)
+                    ref = cuda_ilr_predict.ilr_predict_plain(
+                        xt, th, aux, N_CHECK, has_y, hard)
+                else:
+                    th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                        basis, experts, log_w, True, has_y)
+                    check(vc.shape == (K_MAIN, 2 * p),
+                          'B6-MNG coefficients lack the tail exponents')
+                    out = cuda_ilr_predict.ilr_p_predict(
+                        xt, th, aux, vc, N_CHECK, p, has_y, hard)
+                    ref = cuda_ilr_predict.ilr_p_predict_plain(
+                        xt, th, aux, vc, N_CHECK, p, has_y, hard)
+                torch.cuda.synchronize()
+                ok, worst, flips = compare_serving(out, ref, p, hard)
+                print(f'{name} N={N_CHECK} K={K_MAIN} d={d} p={p} rows '
+                      f'{th.shape[0]} {"mode" if hard else "average"} '
+                      f'{"with" if has_y else "without"} y: max|err| '
+                      f'{worst:.6g} (mean rtol/atol 1e-4, var 2e-3/1e-5, '
+                      f'nlpd 1e-3/2e-3, lse_w 1e-5/1e-4); points off '
+                      f'{flips} {"ok" if ok else "FAIL"}')
+                check(ok, f'{name} disagrees')
+                errs[name] = max(errs[name], worst)
+
+
+def diag_gmm_path(dev, seed, card, n_main, errs, launches, ms):
+    """The diagonal GMM of bench.py:168-188 on the data of
+    bench.py:90-98: NG components, the default Dirichlet gating."""
+    kg = torch.Generator(device=dev).manual_seed(seed)
+    mu = torch.randn((3, D_MAIN), generator=kg, device=dev) * 4.0
+    lm = torch.eye(D_MAIN, device=dev).expand(3, D_MAIN, D_MAIN) * 2.0
+    x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3],
+                                n_main)
+    model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, diag=True, kappa=0.05,
+                             device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    st, vlb = model.fit_vi_fused(x, key=1, maxiter=20)
+    gs = model.fit_gibbs_fused(x, key=2, maxiter=20)
+    lp_t = model.log_predictive(st, x)
+    lp_g = model.log_predictive(st, x, dist='gaussian')
+    torch.cuda.synchronize()
+    path = read_counts()
+    names = ('B1-diag', 'B2-diag', 'B3-diag', 'B4')
+    launches.update({b: path[b] for b in names})
+    tag = f'diag GMM N={n_main} K={K_MAIN} d={D_MAIN}'
+    print(f'{tag}: launches {path}')
+    check(path['B1-diag'] == 20 and path['B2-diag'] == 20
+          and path['B3-diag'] >= 1 and path['B4'] >= 1,
+          'the diagonal GMM path bypassed a kernel')
+    check(isinstance(st.components, NG), 'the diagonal GMM is not NG')
+    elbo_report(f'{tag} VI', vlb)
+    check(all_finite(st) and all_finite(gs[:4])
+          and gs.labels.shape == (n_main,) and int(gs.labels.min()) >= 0
+          and int(gs.labels.max()) < K_MAIN,
+          'diagonal GMM state not finite or labels out of range')
+    # NG's uncentered beta update (s2 + kappa m^2 - kappa' m'^2) in f32
+    beta_vi, beta_g = (float(st.components.beta.min()),
+                       float(gs.components.beta.min()))
+    print(f'{tag}: smallest posterior beta VI {beta_vi:.6g}, Gibbs '
+          f'{beta_g:.6g} (must be > 0)')
+    check(beta_vi > 0 and beta_g > 0, 'NG beta update lost its sign')
+    check(lp_t.shape == (n_main,) and all_finite((lp_t, lp_g)),
+          'diagonal log_predictive not finite')
+    w_vi = st.gating.mean()
+    counts = torch.bincount(gs.labels.long(), minlength=K_MAIN)
+    big = torch.nonzero(counts >= 0.2 * n_main)[:, 0]
+    near = torch.cdist(mu, gs.components.mu[big]).min(1).values
+    print(f'{tag}: VI top-3 weights '
+          f'{[round(float(w), 4) for w in torch.sort(w_vi)[0][-3:]]}; '
+          f'Gibbs components with >= 20% of points {len(big)}, true means '
+          f'within {float(near.max()):.4g} of them; mean log predictive '
+          f'Student-t {float(lp_t.mean()):.6g}, Gaussian '
+          f'{float(lp_g.mean()):.6g}')
+
+    xs_ = x[:100_003]
+    _, v_k = model.fit_vi_fused(xs_, maxiter=5, init_state=st,
+                                randomize=False, backend='kernel')
+    _, v_t = model.fit_vi_fused(xs_, maxiter=5, init_state=st,
+                                randomize=False, backend='torch')
+    ok_v, e_v = allclose_report(v_k, v_t, 1e-4, 0.0)
+    oks, msg = [ok_v], f'VI ELBO max|err| {e_v:.6g} (rtol 1e-4)'
+    for dist in ('studentt', 'gaussian'):
+        ok, e = allclose_report(
+            model.log_predictive(st, xs_, dist=dist, backend='kernel'),
+            model.log_predictive(st, xs_, dist=dist, backend='torch'),
+            1e-4, 1e-4)
+        oks.append(ok)
+        msg += f'; log_predictive {dist} max|err| {e:.6g} (rtol/atol 1e-4)'
+    print(f'{tag} vs plain on 100,003 points: {msg} '
+          f'{"ok" if all(oks) else "FAIL"}')
+    check(all(oks), 'diagonal kernel path disagrees with the plain path')
+
+    vi = rate(20, lambda: model.fit_vi_fused(x, maxiter=20, init_state=st,
+                                             randomize=False))
+    gibbs = rate(20, lambda: model.fit_gibbs_fused(x, key=3, maxiter=20))
+    pred_t = rate(n_main, lambda: model.log_predictive(st, x))
+    pred_g = rate(n_main, lambda: model.log_predictive(st, x,
+                                                       dist='gaussian'))
+    print(f'rates on {card}, {tag}: VI {vi} it/s (20 warm-started sweeps); '
+          f'Gibbs {gibbs} sweeps/s (20 sweeps); predictive Student-t '
+          f'{pred_t} pts/s, Gaussian {pred_g} pts/s')
+
+    spec = diag_gaussian_spec()
+    xt = kernel_xts((x,))[0]
+    th_vi, _ = pad_theta(spec.theta(st.components),
+                         st.gating.expected_log_pi(), torch.float32)
+    th_g, _ = pad_theta(spec.theta_plugin(gs.params), gs.log_pi,
+                        torch.float32)
+    log_w = model.predictive_log_weights(st)
+    thq, aux = cuda_predict.diag_gaussian_coefficients(st.components, log_w)
+    thu, h, aux4 = cuda_diag_predict.diag_predict_coefficients(
+        st.components, log_w)
+    sweep_seed = torch.zeros((), dtype=torch.int64, device=dev)
+    pairs = {
+        'B1-diag': (lambda: cuda_estep.estep(xt, th_vi, n_main, DIAG),
+                    lambda: cuda_estep.estep_plain(xt, th_vi, n_main, DIAG)),
+        'B2-diag': (lambda: cuda_gibbs.gibbs(xt, th_g, sweep_seed, n_main,
+                                             DIAG),
+                    lambda: cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed,
+                                                   n_main, DIAG)),
+        'B3-diag': (lambda: cuda_predict.predict(xt, thq, aux, n_main, False,
+                                                 DIAG),
+                    lambda: cuda_predict.predict_plain(xt, thq, aux, n_main,
+                                                       False, DIAG)),
+        'B4': (lambda: cuda_diag_predict.diag_predict(xt, thu, h, aux4,
+                                                      n_main),
+               lambda: cuda_diag_predict.diag_predict_plain(xt, thu, h, aux4,
+                                                            n_main)),
+    }
+    for name, (kern, plain) in pairs.items():
+        ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
+        print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
+              f'kernel {ms[name][0]:.6g} ms, plain PyTorch {ms[name][1]:.6g}'
+              f' ms')
+    del x, xt, model, st, gs, lp_t, lp_g
+    torch.cuda.empty_cache()
 
 if __name__ == '__main__':
     main()

@@ -12,16 +12,19 @@ import numpy as np
 import torch
 
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
+from mimo_tpu_torch.distributions.mng import MNG, DiagLinGaussParams
 from mimo_tpu_torch.distributions.mnw import MNW, LinGaussParams, LinGaussStats
+from mimo_tpu_torch.distributions.ng import NG, DiagGaussParams, DiagGaussStats
 from mimo_tpu_torch.distributions.niw import NIW, GaussParams, GaussStats
 from mimo_tpu_torch.models.mixture import GibbsState, MFState
 from mimo_tpu_torch.ops.family_estep import FusedEStep
 from mimo_tpu_torch.utils.data import Standardizer
 
-# product posteriors (ILR: (NIW, MNW)) are plain tuples and recurse
+# product posteriors (ILR: (NIW, MNW or MNG)) are plain tuples and recurse
 _CLASSES = {c.__name__: c for c in (
-    MFState, GibbsState, NIW, GaussStats, GaussParams, MNW, LinGaussStats,
-    LinGaussParams, Dirichlet, StickBreaking, FusedEStep, Standardizer)}
+    MFState, GibbsState, NIW, GaussStats, GaussParams, NG, DiagGaussStats,
+    DiagGaussParams, MNW, LinGaussStats, LinGaussParams, MNG,
+    DiagLinGaussParams, Dirichlet, StickBreaking, FusedEStep, Standardizer)}
 
 
 def state_from_numpy(tree, device=None, dtype=None):

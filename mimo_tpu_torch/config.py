@@ -16,8 +16,8 @@ class GatingConfig:
 
 @dataclass
 class MixtureConfig:
-    """DP-GMM / GMM configuration. Only full-covariance components are
-    ported: `diag`, `tied` and `hierarchical` raise (ROADMAP A15/A16)."""
+    """DP-GMM / GMM configuration. Full-covariance and diagonal components
+    are ported: `tied` and `hierarchical` raise (ROADMAP A16)."""
     size: int = 50                   # truncation level
     dim: int = 2
     gating: GatingConfig = field(default_factory=GatingConfig)
@@ -30,13 +30,12 @@ class MixtureConfig:
 
     def build(self, dtype=None, device=None):
         from mimo_tpu_torch.models.gmm import BayesianGMM
-        if self.diag or self.tied or self.hierarchical:
+        if self.tied or self.hierarchical:
             raise NotImplementedError(
-                'diag, tied and hierarchical GMMs are not ported yet '
-                '(ROADMAP A15/A16)')
+                'tied and hierarchical GMMs are not ported yet (ROADMAP A16)')
         return BayesianGMM.make(
             size=self.size, dim=self.dim, gating=self.gating.kind,
-            alpha=self.gating.alpha, kappa=self.kappa,
+            alpha=self.gating.alpha, diag=self.diag, kappa=self.kappa,
             psi_scale=self.psi_scale, dtype=dtype or torch.float32,
             device=device)
 

@@ -2,17 +2,20 @@
 
 A Family is a bundle of pure functions. `data` is a tuple of tensors with
 leading axis N; `resp` is (N, K); per-point outputs are (N, K). This
-package ports the full-covariance Gaussian family, the linear-Gaussian
-(MNW) family and the product that joins them into the ILR family; the
-SVI blend and the maximum-likelihood update arrive with the engines that
-use them (ROADMAP A13/A14).
+package ports the full-covariance (NIW) and diagonal (NG) Gaussian
+families, the linear-Gaussian families with full (MNW) and diagonal (MNG)
+noise, and the product that joins a basis and an expert into the ILR
+family; the SVI blend and the maximum-likelihood update arrive with the
+engines that use them (ROADMAP A13/A14).
 """
 
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from mimo_tpu_torch.distributions import mng as _mng
 from mimo_tpu_torch.distributions import mnw as _mnw
+from mimo_tpu_torch.distributions import ng as _ng
 from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.distributions.mnw import augment
 
@@ -53,6 +56,24 @@ def gaussian_family() -> Family:
     )
 
 
+def diag_gaussian_family() -> Family:
+    """Diagonal Gaussian | Normal-Gamma."""
+    return Family(
+        suff_stats=lambda data, resp: _ng.suff_stats(data[0], resp),
+        update=_ng.posterior_update,
+        ell=lambda post, data: _ng.expected_log_likelihood(post, data[0]),
+        loglik=lambda params, data: _ng.log_likelihood(params, data[0]),
+        kl=_ng.kl_divergence,
+        sample_params=_ng.sample_params,
+        mode_params=_ng.mode_params,
+        mean_params=_ng.mean_params,
+        log_predictive=lambda post, data: _ng.log_predictive_studentt(
+            post, data[0]),
+        log_predictive_gaussian=lambda post, data:
+            _ng.log_predictive_gaussian(post, data[0]),
+    )
+
+
 def linear_family(affine: bool = True) -> Family:
     """Linear Gaussian y|x | Matrix-Normal-Wishart. data = (x, y); x is
     augmented with a ones column internally when affine."""
@@ -75,6 +96,31 @@ def linear_family(affine: bool = True) -> Family:
             post, aug(data[0]), data[1]),
         log_predictive_gaussian=lambda post, data:
             _mnw.log_predictive_gaussian(post, aug(data[0]), data[1]),
+    )
+
+
+def diag_linear_family(affine: bool = True) -> Family:
+    """Linear Gaussian y|x with diagonal noise | Matrix-Normal-Gamma. The
+    statistics are MNW's (the MNG update reads their diagonal)."""
+    def aug(x):
+        return augment(x, affine)
+
+    return Family(
+        suff_stats=lambda data, resp: _mnw.suff_stats(aug(data[0]), data[1],
+                                                      resp),
+        update=_mng.posterior_update,
+        ell=lambda post, data: _mng.expected_log_likelihood(
+            post, aug(data[0]), data[1]),
+        loglik=lambda params, data: _mng.log_likelihood(
+            params, aug(data[0]), data[1]),
+        kl=_mng.kl_divergence,
+        sample_params=_mng.sample_params,
+        mode_params=_mng.mode_params,
+        mean_params=_mng.mean_params,
+        log_predictive=lambda post, data: _mng.log_predictive_studentt(
+            post, aug(data[0]), data[1]),
+        log_predictive_gaussian=lambda post, data:
+            _mng.log_predictive_gaussian(post, aug(data[0]), data[1]),
     )
 
 
@@ -140,16 +186,13 @@ def ilr_family(affine: bool = True, diag: bool = False,
                tied_affine: bool = False, hier_basis: bool = False,
                maxsubiter: int = 25) -> Family:
     """Mixture-of-linear-experts joint family: Gaussian basis on x (NIW)
-    x linear model of y|x (MNW). data = (x, y). The diagonal-noise (MNG),
+    x linear model of y|x (MNW, or MNG when `diag`). data = (x, y). The
     tied-affine and hierarchically-tied variants are not ported yet."""
-    if diag:
-        raise NotImplementedError('diagonal-noise (MNG) experts are not '
-                                  'ported yet (ROADMAP A15/A17)')
     if tied_affine:
         raise NotImplementedError('tied-affine experts are not ported yet '
                                   '(ROADMAP A17)')
     if hier_basis:
         raise NotImplementedError('the hierarchically-tied basis is not '
                                   'ported yet (ROADMAP A16)')
-    return product_family((gaussian_family(), linear_family(affine)),
-                          ((0,), (0, 1)))
+    model = diag_linear_family(affine) if diag else linear_family(affine)
+    return product_family((gaussian_family(), model), ((0,), (0, 1)))

@@ -1,7 +1,8 @@
 // Shared device code of the mimo_tpu_torch kernels (B1 estep.cu, B2
-// gibbs.cu, B3 predict.cu, B5/B6 ilr_predict.cu): the Gaussian and ILR
-// feature maps, the counter-based Philox generator, and the fixed-order
-// cross-block reduction.
+// gibbs.cu, B3 predict.cu, B4 diag_predict.cu, B5/B6 ilr_predict.cu): the
+// Gaussian, diagonal and ILR feature maps, the online logsumexp, the
+// counter-based Philox generator, and the fixed-order cross-block
+// reduction.
 //
 // Every kernel stages per-point columns in shared memory with a row
 // stride of kThreads + 1 floats: thread t owns column t, so its own
@@ -36,13 +37,31 @@ __device__ __forceinline__ void gauss_features(const float* __restrict__ xt,
   for (int j = 1 + d + d * d; j < m8; ++j) col[j * kStride] = 0.0f;
 }
 
-// Feature maps of the E-step and Gibbs kernels, a compile-time choice
-// (the template parameter of estep_partial / gibbs_partial, like the
-// static `features_t` of the TPU kernels). The C entries take a runtime
-// `kind`: kKindGauss, or the ILR map with (kKindIlrAffine) or without
-// (kKindIlrLinear) the experts' ones column.
-enum FeatureMap { kGauss = 0, kIlr = 1 };
-constexpr int kKindGauss = 0, kKindIlrAffine = 1, kKindIlrLinear = 2;
+// F = [1; x; x^2; 0...] (elementwise square) for point p of xt, written
+// down one shared-memory column. Mirrors
+// mimo_tpu/ops/family_estep.py::diag_gauss_features_t.
+__device__ __forceinline__ void diag_features(const float* __restrict__ xt,
+                                              long long ld, int d,
+                                              long long p, float* col,
+                                              int m8) {
+  col[0] = 1.0f;
+  for (int a = 0; a < d; ++a) {
+    const float xa = xt[a * ld + p];
+    col[(1 + a) * kStride] = xa;
+    col[(1 + d + a) * kStride] = xa * xa;
+  }
+  for (int j = 1 + 2 * d; j < m8; ++j) col[j * kStride] = 0.0f;
+}
+
+// Feature maps of the E-step, Gibbs and predictive kernels, a
+// compile-time choice (the template parameter of estep_partial,
+// gibbs_partial and predict_kernel, like the static `features_t` of the
+// TPU kernels). The C entries take a runtime `kind`: kKindGauss, the ILR
+// map with (kKindIlrAffine) or without (kKindIlrLinear) the experts' ones
+// column, or kKindDiag.
+enum FeatureMap { kGauss = 0, kIlr = 1, kDiag = 2 };
+constexpr int kKindGauss = 0, kKindIlrAffine = 1, kKindIlrLinear = 2,
+              kKindDiag = 3;
 
 // F = [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y; 0...] for point p of
 // the stacked rows xt = [x (d rows); y (np rows)] (row stride ld), with
@@ -87,6 +106,8 @@ __device__ __forceinline__ void features(const float* __restrict__ xt,
                                          float* col, int m8) {
   if constexpr (kMap == kGauss)
     gauss_features(xt, ld, d, p, col, m8);
+  else if constexpr (kMap == kDiag)
+    diag_features(xt, ld, d, p, col, m8);
   else
     ilr_features(xt, ld, d, np, affine, p, col, m8);
 }
@@ -94,6 +115,7 @@ __device__ __forceinline__ void features(const float* __restrict__ xt,
 // Width of a feature map (without the zero padding to m8).
 inline int feature_width(int kind, int d, int np) {
   if (kind == kKindGauss) return 1 + d + d * d;
+  if (kind == kKindDiag) return 1 + 2 * d;
   const int q = d + (kind == kKindIlrAffine ? 1 : 0);
   return 1 + d + d * d + np * q + q * q + np * np;
 }
@@ -104,6 +126,22 @@ __device__ __forceinline__ float row_dot(const float* th_row,
   float s = 0.0f;
   for (int j = 0; j < m8; ++j) s = fmaf(th_row[j], col[j * kStride], s);
   return s;
+}
+
+// Online logsumexp: fold v into (mx, s), s = sum exp(v_i - mx). Sets
+// `scale` to the factor the earlier terms were rescaled by (1 when mx
+// stands, 0 for the first term) and returns exp(v - mx).
+__device__ __forceinline__ float online_add(float v, float& mx, float& s,
+                                            float& scale) {
+  scale = 1.0f;
+  if (v > mx) {
+    scale = expf(mx - v);
+    s *= scale;
+    mx = v;
+  }
+  const float e = expf(v - mx);
+  s += e;
+  return e;
 }
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32 with 10

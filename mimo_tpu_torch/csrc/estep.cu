@@ -1,9 +1,10 @@
-// Kernel B1: fused mixture E-step over the full-covariance Gaussian or
-// the ILR product feature map. Replaces
+// Kernel B1: fused mixture E-step over the full-covariance Gaussian, the
+// diagonal Gaussian or the ILR product feature map. Replaces
 // mimo_tpu/ops/pallas_estep.py::_estep_kernel2.
 //
 // Per point p < n: F = features(p) (common.cuh; [1; x; x (x) x] for a
-// Gaussian, [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y] for ILR),
+// Gaussian, [1; x; x^2] for a diagonal Gaussian, [1; x; x (x) x;
+// y (x) xa; xa (x) xa; y (x) y] for ILR with MNW or MNG experts),
 // logp_k = theta_k . F (theta's column 0 carries c + log pi, so counts
 // fall out of acc[:, 0]), a softmax over K with the 1e-37 denominator
 // floor of the TPU kernel,
@@ -27,9 +28,10 @@
 // partials go to a scratch buffer and a second kernel sums them in block
 // order: no float atomics, so a sweep is bitwise repeatable. theta is
 // staged in shared memory. The feature map is a template parameter, so
-// the Gaussian instantiation is the same code as before the ILR map
-// existed. At m8=168, K=50 a block stages ~180 KB, so one 128-thread
-// block fits per SM: low occupancy, accepted for now (ROADMAP A10b).
+// the Gaussian instantiation is the same code as before the ILR and
+// diagonal maps existed. At m8=168, K=50 a block stages ~180 KB, so one
+// 128-thread block fits per SM: low occupancy, accepted for now (ROADMAP
+// A10b).
 #include "common.cuh"
 
 namespace {
@@ -126,7 +128,8 @@ extern "C" size_t mimo_estep_smem_bytes(int k, int m8) {
          (2 * (size_t)k * m8 + (size_t)(m8 + k) * kStride + kThreads);
 }
 
-// xt (d + p, ld) f32: x rows then y rows (p = 0 for kind kKindGauss),
+// xt (d + p, ld) f32: x rows then y rows (p = 0 for kKindGauss and
+// kKindDiag),
 // points 0..n-1; theta (k, m8) f32; part (grid, k*m8+1) scratch;
 // out (k*m8+1) = [acc row-major, lse]. Returns a cudaError_t code.
 extern "C" int mimo_estep(const float* xt, long long ld, int d, int p,
@@ -134,16 +137,20 @@ extern "C" int mimo_estep(const float* xt, long long ld, int d, int p,
                           int m8, float* part, float* out, int grid,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind < kKindGauss || kind > kKindIlrLinear ||
+  if (kind < kKindGauss || kind > kKindDiag ||
       m8 < feature_width(kind, d, p))
     return cudaErrorInvalidValue;
   const size_t smem = mimo_estep_smem_bytes(k, m8);
-  const cudaError_t err =
-      kind == kKindGauss
-          ? launch_estep<kGauss>(xt, ld, d, 0, false, n, theta, k, m8, part,
-                                 grid, smem, s)
-          : launch_estep<kIlr>(xt, ld, d, p, kind == kKindIlrAffine, n,
-                               theta, k, m8, part, grid, smem, s);
+  cudaError_t err;
+  if (kind == kKindGauss)
+    err = launch_estep<kGauss>(xt, ld, d, 0, false, n, theta, k, m8, part,
+                               grid, smem, s);
+  else if (kind == kKindDiag)
+    err = launch_estep<kDiag>(xt, ld, d, 0, false, n, theta, k, m8, part,
+                              grid, smem, s);
+  else
+    err = launch_estep<kIlr>(xt, ld, d, p, kind == kKindIlrAffine, n, theta,
+                             k, m8, part, grid, smem, s);
   if (err != cudaSuccess) return err;
   return launch_reduce(part, grid, k * m8 + 1, out, s);
 }

@@ -1,5 +1,5 @@
 // Kernel B2: fused blocked-Gibbs label sweep over the full-covariance
-// Gaussian or the ILR product feature map. Replaces
+// Gaussian, the diagonal Gaussian or the ILR product feature map. Replaces
 // mimo_tpu/ops/pallas_gibbs.py::_gibbs_kernel.
 //
 // Per point p < n: F = features(p) (common.cuh), plug-in logp_k =
@@ -119,7 +119,8 @@ extern "C" size_t mimo_gibbs_smem_bytes(int k, int m8) {
          sizeof(int) * kThreads;
 }
 
-// xt (d + p, ld) f32: x rows then y rows (p = 0 for kind kKindGauss),
+// xt (d + p, ld) f32: x rows then y rows (p = 0 for kKindGauss and
+// kKindDiag),
 // points 0..n-1; theta (k, m8) f32; seed: one int64 on the device;
 // labels (n,) int32; part (grid, k*m8) scratch; out (k*m8) acc
 // row-major. Returns a cudaError_t code.
@@ -128,17 +129,20 @@ extern "C" int mimo_gibbs(const float* xt, long long ld, int d, int p,
                           int m8, const long long* seed, int* labels,
                           float* part, float* out, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind < kKindGauss || kind > kKindIlrLinear ||
+  if (kind < kKindGauss || kind > kKindDiag ||
       m8 < feature_width(kind, d, p))
     return cudaErrorInvalidValue;
   const size_t smem = mimo_gibbs_smem_bytes(k, m8);
-  const cudaError_t err =
-      kind == kKindGauss
-          ? launch_gibbs<kGauss>(xt, ld, d, 0, false, n, theta, k, m8, seed,
-                                 labels, part, grid, smem, s)
-          : launch_gibbs<kIlr>(xt, ld, d, p, kind == kKindIlrAffine, n,
-                               theta, k, m8, seed, labels, part, grid, smem,
-                               s);
+  cudaError_t err;
+  if (kind == kKindGauss)
+    err = launch_gibbs<kGauss>(xt, ld, d, 0, false, n, theta, k, m8, seed,
+                               labels, part, grid, smem, s);
+  else if (kind == kKindDiag)
+    err = launch_gibbs<kDiag>(xt, ld, d, 0, false, n, theta, k, m8, seed,
+                              labels, part, grid, smem, s);
+  else
+    err = launch_gibbs<kIlr>(xt, ld, d, p, kind == kKindIlrAffine, n, theta,
+                             k, m8, seed, labels, part, grid, smem, s);
   if (err != cudaSuccess) return err;
   return launch_reduce(part, grid, k * m8, out, s);
 }

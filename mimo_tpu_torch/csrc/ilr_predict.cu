@@ -4,7 +4,7 @@
 // prediction='mode') and, with y, the negative log predictive density,
 // in one pass over the points. Replace
 // mimo_tpu/ops/pallas_predict.py::_ilr_predict_kernel (B5, p = 1) and
-// ::_ilr_p_predict_kernel (B6, p > 1, MNW experts).
+// ::_ilr_p_predict_kernel (B6, p > 1, MNW or MNG experts).
 //
 // Per point, for each component k (coefficients from
 // ops/cuda_ilr_predict.py, rows over the feature column F):
@@ -12,10 +12,14 @@
 //   c_k  = 1 + max(th_c . F, 0)  the experts' input scale 1 + xt' K^-1 xt
 //   mu_kj = th_m . F             expert means (j-major rows for B6)
 //   lw_k = aux0 - aux1 log1p(qb_k aux2)   unnormalised log weights
-// B5 (p = 1, F = [1; x; x (x) x]): with y, bq_k = psi_k (y - mu_k)^2.
+// B5 (p = 1, F = [1; x; x (x) x]): with y, bq_k = psi_k (y - mu_k)^2
+// (MNG experts: psi = 1 / (2 beta), y_h = alpha + 1/2, same formula).
 // B6 (p > 1): with y, F is the joint map [1; x; x (x) x; y; x (x) y;
 // y (x) y] and bq_k = max(th_q . F, 0) = (y - mu_k)' psi_k (y - mu_k).
-// lp_y_k = y_aux - p/2 log c_k - y_h log1p(bq_k / c_k), and
+// lp_y_k = y_aux - p/2 log c_k - y_h log1p(bq_k / c_k), or, for MNG
+// experts (`diag`, a product of per-output t's sharing c_k),
+// lp_y_k = y_aux - p/2 log c_k - sum_j h_kj log1p(v_kj / c_k) with
+// v_kj = max(th_v . F, 0) = (y_j - mu_kj)^2 / (2 beta_kj), and
 //   mean_j = sum_k w_k mu_kj,  var_j = max(sum_k w_k (c_k vc_kj + mu_kj^2)
 //                                          - mean_j^2, 0),
 //   nlpd = -(logsumexp_k (lp_y_k + lw_k) - logsumexp_k lw_k),
@@ -65,22 +69,6 @@ __device__ __forceinline__ void joint_features(const float* __restrict__ xt,
           yi * col[(1 + d + d * d + j) * kStride];
   }
   for (int j = off + np * np; j < m8; ++j) col[j * kStride] = 0.0f;
-}
-
-// Online logsumexp: fold v into (mx, s), s = sum exp(v_i - mx). Sets
-// `scale` to the factor the earlier terms were rescaled by (1 when mx
-// stands, 0 for the first term) and returns exp(v - mx).
-__device__ __forceinline__ float online_add(float v, float& mx, float& s,
-                                            float& scale) {
-  scale = 1.0f;
-  if (v > mx) {
-    scale = expf(mx - v);
-    s *= scale;
-    mx = v;
-  }
-  const float e = expf(v - mx);
-  s += e;
-  return e;
 }
 
 // B5: th (3k, m8) rows [basis quad; c quad; expert mean]; aux (k, 8)
@@ -144,31 +132,41 @@ ilr_predict_kernel(const float* __restrict__ xt, long long ld, int d,
   }
 }
 
-// B6: th ((2 + np + has_y) k, m8) rows [basis quad (k); c quad (k);
-// expert means (np k, row j k + kk); with y the MVT quad (k)] over the
-// joint map with y, [1; x; x (x) x] without; aux (k, 8) cols
-// [log w + basis aux, basis h, basis 1/df, y_aux, y_h, 0, 0, 0];
-// vc (k, np) variance coefficients; xt (d + has_y np, ld);
-// out (2 np + 2, n).
+// Rows of B6's coefficient matrix: basis quad, c quad and np mean rows
+// per component, then with y the MVT quad (MNW) or np scaled per-output
+// quads (MNG, `diag`).
+__host__ __device__ inline int p_predict_rows(int k, int np, int has_y,
+                                              int diag) {
+  return (2 + np + (has_y ? (diag ? np : 1) : 0)) * k;
+}
+
+// B6: th (p_predict_rows, m8) rows [basis quad (k); c quad (k); expert
+// means (np k, row j k + kk); with y the MVT quad (k), or for `diag` the
+// scaled quads (np k, row (2 + np + j) k + kk)] over the joint map with
+// y, [1; x; x (x) x] without; aux (k, 8) cols [log w + basis aux,
+// basis h, basis 1/df, y_aux, y_h, 0, 0, 0]; vc (k, np) variance
+// coefficients, or (k, 2 np) [vcoef | h] for `diag`; xt (d + has_y np,
+// ld); out (2 np + 2, n).
 __global__ void __launch_bounds__(kThreads)
 ilr_p_predict_kernel(const float* __restrict__ xt, long long ld, int d,
-                     int np, int has_y, long long n,
+                     int np, int has_y, int diag, long long n,
                      const float* __restrict__ thg, int k, int m8,
                      const float* __restrict__ aux,
                      const float* __restrict__ vcg, int hard,
                      float* __restrict__ out) {
   extern __shared__ float smem[];
-  const int rows = (2 + np + has_y) * k;
+  const int rows = p_predict_rows(k, np, has_y, diag);
+  const int vs = diag ? 2 * np : np;   // vc row stride
   float* th = smem;               // (rows, m8)
   float* ax = th + rows * m8;     // (k, 5)
-  float* vc = ax + 5 * k;         // (k, np)
-  float* F = vc + k * np;         // (m8, kStride)
+  float* vc = ax + 5 * k;         // (k, vs)
+  float* F = vc + k * vs;         // (m8, kStride)
   float* S = F + m8 * kStride;    // (2 np, kStride): sums of w mu, w second
   const int tid = threadIdx.x;
   for (int i = tid; i < rows * m8; i += kThreads) th[i] = thg[i];
   for (int i = tid; i < 5 * k; i += kThreads)
     ax[i] = aux[8 * (i / 5) + i % 5];
-  for (int i = tid; i < k * np; i += kThreads) vc[i] = vcg[i];
+  for (int i = tid; i < k * vs; i += kThreads) vc[i] = vcg[i];
   __syncthreads();
 
   float* col = F + tid;
@@ -204,14 +202,25 @@ ilr_p_predict_kernel(const float* __restrict__ xt, long long ld, int d,
           float* sm = acc + j * kStride;
           float* sv = acc + (np + j) * kStride;
           *sm = *sm * scale + e * mu;
-          *sv = *sv * scale + e * (c * vc[kk * np + j] + mu * mu);
+          *sv = *sv * scale + e * (c * vc[kk * vs + j] + mu * mu);
         }
       }
       if (has_y) {
-        const float bq =
-            fmaxf(row_dot(th + ((2 + np) * k + kk) * m8, col, m8), 0.0f);
-        const float lp_y = a[3] - 0.5f * np * logf(c) -
-                           a[4] * log1pf(bq * (1.0f / c));
+        const float inv_c = 1.0f / c;
+        float tail;
+        if (diag) {  // product of per-output t tails sharing c
+          tail = 0.0f;
+          for (int j = 0; j < np; ++j) {
+            const float v = fmaxf(
+                row_dot(th + ((2 + np + j) * k + kk) * m8, col, m8), 0.0f);
+            tail += vc[kk * vs + np + j] * log1pf(v * inv_c);
+          }
+        } else {
+          const float bq =
+              fmaxf(row_dot(th + ((2 + np) * k + kk) * m8, col, m8), 0.0f);
+          tail = a[4] * log1pf(bq * inv_c);
+        }
+        const float lp_y = a[3] - 0.5f * np * logf(c) - tail;
         online_add(lp_y + lw, ms, ss, scale);
       }
     }
@@ -220,7 +229,7 @@ ilr_p_predict_kernel(const float* __restrict__ xt, long long ld, int d,
       float mean, second;
       if (hard) {
         mean = row_dot(th + ((2 + j) * k + best) * m8, col, m8);
-        second = best_c * vc[best * np + j] + mean * mean;
+        second = best_c * vc[best * vs + j] + mean * mean;
       } else {
         mean = acc[j * kStride] / s0;
         second = acc[(np + j) * kStride] / s0;
@@ -241,10 +250,10 @@ extern "C" size_t mimo_ilr_predict_smem_bytes(int k, int m8) {
 }
 
 extern "C" size_t mimo_ilr_p_predict_smem_bytes(int k, int m8, int p,
-                                                int has_y) {
+                                                int has_y, int diag) {
   return sizeof(float) *
-         ((size_t)(2 + p + (has_y ? 1 : 0)) * k * m8 + 5 * (size_t)k +
-          (size_t)k * p + (size_t)(m8 + 2 * p) * kStride);
+         ((size_t)p_predict_rows(k, p, has_y, diag) * m8 + 5 * (size_t)k +
+          (size_t)k * p * (diag ? 2 : 1) + (size_t)(m8 + 2 * p) * kStride);
 }
 
 // xt (d + has_y, ld) f32, points 0..n-1; th (3k, m8) f32; aux (k, 8)
@@ -265,11 +274,11 @@ extern "C" int mimo_ilr_predict(const float* xt, long long ld, int d,
   return cudaGetLastError();
 }
 
-// xt (d + has_y p, ld) f32, points 0..n-1; th ((2 + p + has_y) k, m8)
-// f32; aux (k, 8) f32; vc (k, p) f32; out (2p + 2, n) f32. Returns a
-// cudaError_t code.
+// xt (d + has_y p, ld) f32, points 0..n-1; th (p_predict_rows, m8)
+// f32; aux (k, 8) f32; vc (k, p) f32, or (k, 2p) for `diag`; out
+// (2p + 2, n) f32. Returns a cudaError_t code.
 extern "C" int mimo_ilr_p_predict(const float* xt, long long ld, int d,
-                                  int p, int has_y, long long n,
+                                  int p, int has_y, int diag, long long n,
                                   const float* th, int k, int m8,
                                   const float* aux, const float* vc,
                                   int hard, float* out, int grid,
@@ -277,12 +286,12 @@ extern "C" int mimo_ilr_p_predict(const float* xt, long long ld, int d,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int width = 1 + d + d * d + (has_y ? p + d * p + p * p : 0);
   if (m8 < width) return cudaErrorInvalidValue;
-  const size_t smem = mimo_ilr_p_predict_smem_bytes(k, m8, p, has_y);
+  const size_t smem = mimo_ilr_p_predict_smem_bytes(k, m8, p, has_y, diag);
   cudaError_t err = cudaFuncSetAttribute(
       ilr_p_predict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   ilr_p_predict_kernel<<<grid, kThreads, smem, s>>>(
-      xt, ld, d, p, has_y, n, th, k, m8, aux, vc, hard, out);
+      xt, ld, d, p, has_y, diag, n, th, k, m8, aux, vc, hard, out);
   return cudaGetLastError();
 }

@@ -1,24 +1,28 @@
-// Kernel B3: fused posterior-predictive mixture density for the
-// full-covariance Gaussian feature map. Replaces
+// Kernel B3: fused posterior-predictive mixture density over the
+// full-covariance Gaussian or the diagonal feature map. Replaces
 // mimo_tpu/ops/pallas_predict.py::_predict_kernel.
 //
-// Per point p < n: F = [1; x; x (x) x], the quadratic forms
+// Per point p < n: F = [1; x; x (x) x] (or [1; x; x^2] for the diagonal
+// Gaussian predictive, dist='gaussian'), the quadratic forms
 // Q_k = thq_k . F = (x - mu_k)' Lmbda_k (x - mu_k) clipped at 0, then
 //   lp_k = aux_k - h_k log1p(Q_k / df_k)   (Student-t), or
 //   lp_k = aux_k - Q_k / 2                 (moment-matched Gaussian),
 // and out[p] = logsumexp_k lp_k. aux (K, 8) holds [aux + log w, h, 1/df].
 //
 // What bounds it on the H100: arithmetic (K dots of depth m8, K log1p
-// and K exp per point) against 8 bytes in and 4 bytes out per point.
+// and K exp per point) against 4 d bytes in and 4 bytes out per point.
 //
 // Design: no cross-point reduction, so each thread owns whole points in
 // a grid-stride loop; thq and the three aux columns are staged in shared
-// memory. The TPU kernel ran this dot with both operands in a bf16 hi/lo
-// split to survive the cancelling quadratic; here it is one f32 FMA dot.
+// memory. The feature map is a template parameter, as in B1, so the
+// Gaussian instantiation is unchanged. The TPU kernel ran this dot with
+// both operands in a bf16 hi/lo split to survive the cancelling
+// quadratic; here it is one f32 FMA dot.
 #include "common.cuh"
 
 namespace {
 
+template <int kMap>
 __global__ void __launch_bounds__(kThreads)
 predict_kernel(const float* __restrict__ xt, long long ld, int d, long long n,
                const float* __restrict__ thq, int k, int m8,
@@ -43,7 +47,7 @@ predict_kernel(const float* __restrict__ xt, long long ld, int d, long long n,
   const long long step = (long long)gridDim.x * kThreads;
   for (long long p = (long long)blockIdx.x * kThreads + tid; p < n;
        p += step) {
-    gauss_features(xt, ld, d, p, col, m8);
+    features<kMap>(xt, ld, d, 0, false, p, col, m8);
     float mx = -INFINITY;
     for (int kk = 0; kk < k; ++kk) {
       const float q = fmaxf(row_dot(th + kk * m8, col, m8), 0.0f);
@@ -60,6 +64,20 @@ predict_kernel(const float* __restrict__ xt, long long ld, int d, long long n,
   }
 }
 
+template <int kMap>
+cudaError_t launch_predict(const float* xt, long long ld, int d, long long n,
+                           const float* thq, int k, int m8, const float* aux,
+                           int studentt, float* out, int grid, size_t smem,
+                           cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      predict_kernel<kMap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  predict_kernel<kMap><<<grid, kThreads, smem, s>>>(xt, ld, d, n, thq, k, m8,
+                                                    aux, studentt, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t mimo_predict_smem_bytes(int k, int m8) {
@@ -67,18 +85,20 @@ extern "C" size_t mimo_predict_smem_bytes(int k, int m8) {
                           (size_t)(m8 + k) * kStride);
 }
 
-// xt (d, ld) f32, points 0..n-1; thq (k, m8) f32; aux (k, 8) f32;
-// out (n,) f32. Returns cudaGetLastError().
-extern "C" int mimo_predict(const float* xt, long long ld, int d,
+// xt (d, ld) f32, points 0..n-1; kind kKindGauss or kKindDiag; thq
+// (k, m8) f32; aux (k, 8) f32; out (n,) f32. Returns a cudaError_t code.
+extern "C" int mimo_predict(const float* xt, long long ld, int d, int kind,
                             long long n, const float* thq, int k, int m8,
                             const float* aux, int studentt, float* out,
                             int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((kind != kKindGauss && kind != kKindDiag) ||
+      m8 < feature_width(kind, d, 0))
+    return cudaErrorInvalidValue;
   const size_t smem = mimo_predict_smem_bytes(k, m8);
-  cudaError_t err = cudaFuncSetAttribute(
-      predict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  predict_kernel<<<grid, kThreads, smem, s>>>(xt, ld, d, n, thq, k, m8, aux,
-                                              studentt, out);
-  return cudaGetLastError();
+  return kind == kKindGauss
+             ? launch_predict<kGauss>(xt, ld, d, n, thq, k, m8, aux, studentt,
+                                      out, grid, smem, s)
+             : launch_predict<kDiag>(xt, ld, d, n, thq, k, m8, aux, studentt,
+                                     out, grid, smem, s);
 }

@@ -1,6 +1,6 @@
 """Infinite mixture of linear regressions (ILR): a Bayesian mixture of
 linear-Gaussian experts with Gaussian basis functions (port of
-mimo_tpu/models/ilr.py for the NIW basis and MNW experts).
+mimo_tpu/models/ilr.py for the NIW basis and MNW or MNG experts).
 
 The joint density p(x, y, z=k) = gating(k) basis_k(x) model_k(y | x) is
 a product conjugate family, so the fused engines of `BayesianMixture`
@@ -16,9 +16,11 @@ from typing import Optional
 import torch
 
 from mimo_tpu_torch.conjugate.families import ilr_family
+from mimo_tpu_torch.distributions import mng as _mng
 from mimo_tpu_torch.distributions import mnw as _mnw
 from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
+from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW, augment
 from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models.mixture import (
@@ -31,8 +33,9 @@ from mimo_tpu_torch.utils.stats import normalize_log
 class BayesianILR(BayesianMixture):
     """Bayesian mixture of linear-Gaussian experts.
 
-    components_prior = (basis_prior: NIW, models_prior: MNW); the experts
-    are affine by default (ones column appended to x)."""
+    components_prior = (basis_prior: NIW, models_prior: MNW | MNG); the
+    experts are affine by default (ones column appended to x). MNG
+    experts (`diag`) have diagonal noise: per-output Gamma precisions."""
 
     def __init__(self, gating_prior, basis_prior, models_prior, affine=True,
                  maxsubiter=25):
@@ -40,16 +43,17 @@ class BayesianILR(BayesianMixture):
             raise NotImplementedError(
                 f'basis prior {type(basis_prior).__name__}: only NIW is '
                 'ported (the HierTied basis waits for ROADMAP A16)')
-        if not isinstance(models_prior, MNW):
+        if not isinstance(models_prior, (MNW, MNG)):
             raise NotImplementedError(
-                f'models prior {type(models_prior).__name__}: only MNW is '
-                'ported (MNG and tied-affine experts wait for ROADMAP '
-                'A15/A17)')
+                f'models prior {type(models_prior).__name__}: only MNW and '
+                'MNG are ported (tied-affine experts wait for ROADMAP A17)')
         self.affine = affine
+        self.diag = isinstance(models_prior, MNG)
         self.input_dim = basis_prior.mu.shape[-1]
         self.output_dim = models_prior.M.shape[-2]
         super().__init__(gating_prior, (basis_prior, models_prior),
-                         ilr_family(affine=affine, maxsubiter=maxsubiter))
+                         ilr_family(affine=affine, diag=self.diag,
+                                    maxsubiter=maxsubiter))
         self.input_transform: Optional[Standardizer] = None
         self.output_transform: Optional[Standardizer] = None
 
@@ -58,13 +62,14 @@ class BayesianILR(BayesianMixture):
              affine=True, diag=False, tied_affine=False, hier_basis=False,
              kappa=1e-2, K_scale=1e-2, psi_scale=1.0, basis_psi_scale=1.0,
              maxsubiter=25, dtype=torch.float32, device=None):
-        """Convenience constructor: NIW basis x MNW experts, on `device`.
-        `diag`, `tied_affine` and `hier_basis` raise until their families
-        are ported (ROADMAP A15-A17)."""
-        if diag or tied_affine or hier_basis:
+        """Convenience constructor: NIW basis x MNW experts, or MNG experts
+        with `diag` (whose standard prior has no psi_scale), on `device`.
+        `tied_affine` and `hier_basis` raise until their families are
+        ported (ROADMAP A16/A17)."""
+        if tied_affine or hier_basis:
             raise NotImplementedError(
-                'diag (MNG), tied-affine and hierarchical-basis ILR models '
-                'are not ported yet (ROADMAP A15-A17)')
+                'tied-affine and hierarchical-basis ILR models are not '
+                'ported yet (ROADMAP A16/A17)')
         if gating == 'dirichlet':
             g = Dirichlet.standard(size, alpha, dtype, device)
         else:
@@ -72,9 +77,14 @@ class BayesianILR(BayesianMixture):
         basis = NIW.standard(size, input_dim, kappa=kappa,
                              psi_scale=basis_psi_scale, dtype=dtype,
                              device=device)
-        models = MNW.standard(size, output_dim, input_dim + int(affine),
-                              K_scale=K_scale, psi_scale=psi_scale,
-                              dtype=dtype, device=device)
+        q = input_dim + int(affine)
+        if diag:
+            models = MNG.standard(size, output_dim, q, K_scale=K_scale,
+                                  dtype=dtype, device=device)
+        else:
+            models = MNW.standard(size, output_dim, q, K_scale=K_scale,
+                                  psi_scale=psi_scale, dtype=dtype,
+                                  device=device)
         return BayesianILR(g, basis, models, affine=affine,
                            maxsubiter=maxsubiter)
 
@@ -114,7 +124,8 @@ class BayesianILR(BayesianMixture):
 
     def _estep_spec(self):
         from mimo_tpu_torch.ops.family_estep import ilr_spec
-        return ilr_spec(self.input_dim, self.output_dim, affine=self.affine)
+        return ilr_spec(self.input_dim, self.output_dim, affine=self.affine,
+                        diag_expert=self.diag)
 
     def fit_vi_fused(self, data, **kw):
         """Fused VI over standardized (x, y): the N x K responsibilities
@@ -140,19 +151,28 @@ class BayesianILR(BayesianMixture):
             log_basis + self.predictive_log_weights(state)[None, :])
         return weights
 
+    def _expert_module(self):
+        return _mng if self.diag else _mnw
+
     def predictive_moments(self, state: MFState, x, dist='studentt'):
         """Per-expert predictive mean (N, K, p) and covariance
-        (N, K, p, p)."""
+        (N, K, p, p), or its diagonal (N, K, p) for MNG experts."""
         _, models_post = state.components
-        fn = (_mnw.predictive_moments_studentt if dist == 'studentt'
-              else _mnw.predictive_moments_gaussian)
+        mod = self._expert_module()
+        fn = (mod.predictive_moments_studentt if dist == 'studentt'
+              else mod.predictive_moments_gaussian)
         return fn(models_post, augment(x, self.affine))
 
     @staticmethod
-    def mixture_moments(mus, covars, weights):
-        """Moment matching of a mixture of full-covariance predictives;
-        weights (N, K)."""
+    def mixture_moments(mus, covars, weights, diag=False):
+        """Moment matching of a mixture of predictives with full (N, K, p,
+        p) or, with `diag`, diagonal (N, K, p) covariances; weights
+        (N, K)."""
         mu = torch.einsum('nkp,nk->np', mus, weights)
+        if diag:
+            second = covars + torch.square(mus)
+            return mu, (torch.einsum('nkp,nk->np', second, weights)
+                        - torch.square(mu))
         second = covars + mus[..., :, None] * mus[..., None, :]
         cov = (torch.einsum('nkpr,nk->npr', second, weights)
                - mu[..., :, None] * mu[..., None, :])
@@ -163,8 +183,9 @@ class BayesianILR(BayesianMixture):
         """Per-expert log p(y | x) under the posterior predictive
         -> (N, K)."""
         _, models_post = state.components
-        fn = (_mnw.log_predictive_studentt if dist == 'studentt'
-              else _mnw.log_predictive_gaussian)
+        mod = self._expert_module()
+        fn = (mod.log_predictive_studentt if dist == 'studentt'
+              else mod.log_predictive_gaussian)
         return fn(models_post, augment(x, self.affine), y)
 
     def predict(self, state: MFState, x, y=None, prediction='average',
@@ -224,7 +245,7 @@ class BayesianILR(BayesianMixture):
             idx = torch.arange(x.shape[0], device=x.device)
             mu, cov = mus[idx, k], covars[idx, k]
         else:
-            mu, cov = self.mixture_moments(mus, covars, weights)
+            mu, cov = self.mixture_moments(mus, covars, weights, self.diag)
 
         nlpd = None
         if y is not None:
@@ -237,8 +258,9 @@ class BayesianILR(BayesianMixture):
 
         if self.output_transform is not None:
             mu = self.output_transform.inverse_transform(mu)
-            cov = self.output_transform.scale_cov(cov)
+            cov = (cov * torch.square(self.output_transform.scale)
+                   if self.diag else self.output_transform.scale_cov(cov))
         if incremental:
             mu = mu + x[:, :mu.shape[-1]]
-        var = torch.diagonal(cov, dim1=-2, dim2=-1)
+        var = cov if self.diag else torch.diagonal(cov, dim1=-2, dim2=-1)
         return mu, var, torch.sqrt(var), nlpd

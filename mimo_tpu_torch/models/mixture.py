@@ -225,10 +225,14 @@ class BayesianMixture:
                        backend='auto'):
         """Posterior-predictive mixture log-density of full observations:
         logsumexp_k [log E[pi_k] + log pred_k(data)] -> (N,). `dist`:
-        'studentt' or the moment-matched 'gaussian'. The kernel path (B3)
-        serves NIW posteriors in float32 and casts the result back to the
-        data's dtype; the plain path is the dense (N, K) computation."""
+        'studentt' or the moment-matched 'gaussian'. The kernel path
+        serves NIW posteriors through B3 and NG posteriors through B4
+        (Student-t) or B3 over the diagonal map (Gaussian), in float32,
+        and casts the result back to the data's dtype; the plain path is
+        the dense (N, K) computation."""
+        from mimo_tpu_torch.distributions.ng import NG
         from mimo_tpu_torch.distributions.niw import NIW
+        from mimo_tpu_torch.ops.cuda_diag_predict import diag_predictive_cuda
         from mimo_tpu_torch.ops.cuda_predict import gauss_predictive_cuda
         if dist not in ('studentt', 'gaussian'):
             raise ValueError(f'unknown dist: {dist!r}')
@@ -236,12 +240,15 @@ class BayesianMixture:
         x = data[0]
         log_w = self.predictive_log_weights(state)
         if resolve_backend(backend, x):
-            if not isinstance(state.components, NIW):
+            kernels = {NIW: gauss_predictive_cuda, NG: diag_predictive_cuda}
+            serve = kernels.get(type(state.components))
+            if serve is None:
                 raise NotImplementedError(
-                    'kernel B3 serves NIW posteriors only')
-            return gauss_predictive_cuda(state.components, log_w,
-                                         x.to(torch.float32),
-                                         dist).to(x.dtype)
+                    'no serving kernel for '
+                    f'{type(state.components).__name__} posteriors; use '
+                    "backend='torch'")
+            return serve(state.components, log_w, x.to(torch.float32),
+                         dist).to(x.dtype)
         lp = (self.family.log_predictive(state.components, data)
               if dist == 'studentt'
               else self.family.log_predictive_gaussian(state.components,

@@ -40,18 +40,21 @@ _SIGNATURES = {
                         _P]),
     'mimo_gibbs': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _P,
                         _P, _I, _P]),
-    'mimo_predict': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _I, _P, _I,
-                          _P]),
+    'mimo_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I, _P,
+                          _I, _P]),
+    'mimo_diag_predict': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _P, _P,
+                               _I, _P]),
     'mimo_ilr_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I,
                               _P, _I, _P]),
-    'mimo_ilr_p_predict': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P,
-                                _P, _I, _P, _I, _P]),
+    'mimo_ilr_p_predict': (_I, [_P, _I64, _I, _I, _I, _I, _I64, _P, _I, _I,
+                                _P, _P, _I, _P, _I, _P]),
     'mimo_hello': (_I, [_P, _I64, _P, _P]),
     'mimo_estep_smem_bytes': (_SZ, [_I, _I]),
     'mimo_gibbs_smem_bytes': (_SZ, [_I, _I]),
     'mimo_predict_smem_bytes': (_SZ, [_I, _I]),
+    'mimo_diag_predict_smem_bytes': (_SZ, [_I, _I, _I]),
     'mimo_ilr_predict_smem_bytes': (_SZ, [_I, _I]),
-    'mimo_ilr_p_predict_smem_bytes': (_SZ, [_I, _I, _I, _I]),
+    'mimo_ilr_p_predict_smem_bytes': (_SZ, [_I, _I, _I, _I, _I]),
     'mimo_error_string': (ctypes.c_char_p, [_I]),
 }
 

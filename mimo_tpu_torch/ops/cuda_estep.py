@@ -1,31 +1,33 @@
 """Kernel B1, the fused mixture E-step (csrc/estep.cu), with its plain
 PyTorch version. Replaces mimo_tpu/ops/pallas_estep.py::_estep_kernel2.
 
-Per point: F = the spec's feature map (the Gaussian [1; x; x (x) x] or
-the ILR product [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y]),
+Per point: F = the spec's feature map (the Gaussian [1; x; x (x) x],
+the diagonal [1; x; x^2] or the ILR product [1; x; x (x) x; y (x) xa;
+xa (x) xa; y (x) y], for MNW and MNG experts alike),
 logp = theta . F over K (theta's column 0 holds c + log pi, so counts =
 acc[:, 0]), a softmax over K with a 1e-37 denominator floor,
 acc (K, m8) += (ex / denom) F^T and lse += logsumexp.
 
 The kernels read one stacked float32 array xt = [x rows; y rows] of
-shape (d + p, N); `kind` names the feature map (GAUSS, ILR, ILR_LINEAR:
-the ILR map with and without the experts' ones column) and `p` the
-number of y rows. What bounds B1 on the H100, and what the kernel does
-about it: see the note at the top of csrc/estep.cu.
+shape (d + p, N); `kind` names the feature map (GAUSS, DIAG, and
+ILR / ILR_LINEAR: the ILR map with and without the experts' ones column)
+and `p` the number of y rows. What bounds B1 on the H100, and what the
+kernel does about it: see the note at the top of csrc/estep.cu.
 """
 
 import torch
 
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.family_estep import (
-    FusedEStep, gauss_features_t, gauss_width, ilr_features_t, ilr_width)
+    FusedEStep, diag_gauss_features_t, diag_gauss_width, gauss_features_t,
+    gauss_width, ilr_features_t, ilr_width)
 
 # feature-map codes of the C entries (csrc/common.cuh kKind*)
-GAUSS, ILR, ILR_LINEAR = 0, 1, 2
-KIND_NAMES = {GAUSS: 'gauss', ILR: 'ilr', ILR_LINEAR: 'ilr'}
+GAUSS, ILR, ILR_LINEAR, DIAG = 0, 1, 2, 3
+KIND_NAMES = {GAUSS: 'gauss', ILR: 'ilr', ILR_LINEAR: 'ilr', DIAG: 'diag'}
 
 # kernel launches by `estep`, by feature map, for run accounting
-launches = {'gauss': 0, 'ilr': 0}
+launches = {'gauss': 0, 'ilr': 0, 'diag': 0}
 _CHUNK = 1 << 20      # points per step of the plain versions
 
 
@@ -34,18 +36,31 @@ def feature_kind(features_t):
     a map the kernels do not assemble."""
     if features_t is gauss_features_t:
         return GAUSS
+    if features_t is diag_gauss_features_t:
+        return DIAG
     if features_t == ilr_features_t(True):
         return ILR
     if features_t == ilr_features_t(False):
         return ILR_LINEAR
     raise NotImplementedError('kernels B1/B2 assemble the full-covariance '
-                              'Gaussian and the ILR (NIW x MNW) feature '
+                              'Gaussian, the diagonal Gaussian and the ILR '
+                              '(NIW basis x MNW or MNG experts) feature '
                               'maps only')
 
 
 def feature_width(kind, d, p=0):
     """Width of a kernel feature map over d x rows and p y rows."""
-    return gauss_width(d) if kind == GAUSS else ilr_width(d, p, kind == ILR)
+    if kind == GAUSS:
+        return gauss_width(d)
+    if kind == DIAG:
+        return diag_gauss_width(d)
+    return ilr_width(d, p, kind == ILR)
+
+
+def y_rows(kind, xts):
+    """The number of y rows the kernels read after x: p for the ILR maps,
+    0 for the Gaussian ones."""
+    return xts[1].shape[0] if kind in (ILR, ILR_LINEAR) else 0
 
 
 def pad_rows(f, m8):
@@ -58,6 +73,8 @@ def assemble_features(xt, m8, kind=GAUSS, p=0):
     to m8 rows."""
     if kind == GAUSS:
         return pad_rows(gauss_features_t((xt,)), m8)
+    if kind == DIAG:
+        return pad_rows(diag_gauss_features_t((xt,)), m8)
     d = xt.shape[0] - p
     return pad_rows(ilr_features_t(kind == ILR)((xt[:d], xt[d:])), m8)
 
@@ -139,7 +156,7 @@ def fused_estep_cuda(spec, post, log_pi, xts, n):
     mimo_tpu's fused_estep_pallas. xts: the per-input (d_i, N) transposed
     data (see models.mixture.kernel_xts); n: the number of points."""
     kind = feature_kind(spec.features_t)
-    p = xts[1].shape[0] if kind != GAUSS else 0
+    p = y_rows(kind, xts)
     theta, m = pad_theta(spec.theta(post), log_pi, xts[0].dtype)
     acc, lse = estep(stack_rows(xts), theta, n, kind, p)
     return FusedEStep(stats=spec.unpack(acc[:, :m]), lse=lse,

@@ -1,10 +1,10 @@
 """Kernel B2, the fused blocked-Gibbs label sweep (csrc/gibbs.cu), with
 its plain PyTorch version. Replaces mimo_tpu/ops/pallas_gibbs.py::_gibbs_kernel.
 
-Per point: plug-in logp = theta . F over K (F the Gaussian or ILR map, as
-in B1), Gumbel noise from Philox4x32-10 keyed by (sweep seed, global
-point index) (ops/philox.py), the first-occurrence argmax over K as the
-label, and acc (K, m8) += one_hot(label) F^T. The plain version draws
+Per point: plug-in logp = theta . F over K (F the Gaussian, diagonal or
+ILR map, as in B1), Gumbel noise from Philox4x32-10 keyed by (sweep seed,
+global point index) (ops/philox.py), the first-occurrence argmax over K
+as the label, and acc (K, m8) += one_hot(label) F^T. The plain version draws
 the same Philox numbers, so kernel and plain labels agree draw for draw
 except at near-ties that the f32 summation order decides.
 
@@ -17,12 +17,12 @@ import torch
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import (
     _CHUNK, GAUSS, KIND_NAMES, assemble_features, feature_kind,
-    feature_width, pad_theta, stack_rows)
+    feature_width, pad_theta, stack_rows, y_rows)
 from mimo_tpu_torch.ops.family_estep import FusedEStep
 from mimo_tpu_torch.ops.philox import gumbel_max_labels
 
 # kernel launches by `gibbs`, by feature map, for run accounting
-launches = {'gauss': 0, 'ilr': 0}
+launches = {'gauss': 0, 'ilr': 0, 'diag': 0}
 
 
 def gibbs_plain(xt, theta, seed, n, kind=GAUSS, p=0):
@@ -79,7 +79,7 @@ def fused_gibbs_cuda(spec, seed, params, log_pi, xts, n):
     mimo_tpu's fused_gibbs_pallas. Returns (labels (n,) int32,
     FusedEStep with one-hot stats and lse = 0)."""
     kind = feature_kind(spec.features_t)
-    p = xts[1].shape[0] if kind != GAUSS else 0
+    p = y_rows(kind, xts)
     theta, m = pad_theta(spec.theta_plugin(params), log_pi, xts[0].dtype)
     labels, acc = gibbs(stack_rows(xts), theta, seed, n, kind, p)
     return labels, FusedEStep(stats=spec.unpack(acc[:, :m]),

@@ -2,7 +2,7 @@
 (csrc/ilr_predict.cu), with their plain PyTorch versions and the
 coefficient builders. Replace mimo_tpu/ops/pallas_predict.py::
 _ilr_predict_kernel (B5, p = 1 experts) and ::_ilr_p_predict_kernel
-(B6, p > 1, MNW experts).
+(B6, p > 1, MNW or MNG experts).
 
 One pass over the points gives the input-conditional Student-t expert
 weights, the moment-matched mixture mean and variance (or the argmax
@@ -12,16 +12,17 @@ in standardized units: the model applies the output transform and the
 NLPD Jacobian. What bounds the kernels on the H100 and what they do about
 it: see the note at the top of csrc/ilr_predict.cu.
 
-The coefficient builders cover the NIW basis and the MNW experts (the
-NIW branch of `_basis_studentt_params` and the MNW branch of
-`_expert_rows`); the HierTied basis, MNG, tied-affine and B6's diagonal
-tail wait for their families (ROADMAP A15-A17).
+The coefficient builders cover the NIW basis and the MNW and MNG
+experts (the NIW branch of `_basis_studentt_params`, the MNW and MNG
+branches of `_expert_rows` and B6's diagonal tail); the HierTied basis
+and the tied-affine experts wait for their families (ROADMAP A16/A17).
 """
 
 import math
 
 import torch
 
+from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import _CHUNK, assemble_features, pad_rows
 from mimo_tpu_torch.ops.cuda_predict import predictive_coefficients
@@ -80,11 +81,26 @@ def _c_rows(models_post, affine, d):
     return torch.cat([g.new_zeros((k, 1 + d)), g.reshape(k, d * d)], -1)
 
 
+def _mng_tail(models_post):
+    """Per-output constants of MNG experts, whose predictive is a product
+    of univariate t's t(y_j; mu_j, (alpha_j / beta_j) / c, 2 alpha_j):
+    (y_aux_j, h_j = alpha_j + 1/2, vcoef_j = beta_j / (alpha_j - 1)), so
+    that log t = y_aux_j - 1/2 log c - h_j log1p(yc_j^2 / (2 beta_j c))
+    and var_j = c vcoef_j. Each (K, p)."""
+    alpha, beta = models_post.alpha, models_post.beta
+    y_aux = (gammaln_diff(alpha, 0.5)
+             + 0.5 * (torch.log(alpha) - torch.log(beta))
+             - 0.5 * (torch.log(2.0 * alpha) + math.log(math.pi)))
+    return y_aux, alpha + 0.5, beta / torch.clamp(alpha - 1.0, min=1e-6)
+
+
 def ilr_predict_coefficients(basis_post, models_post, log_w, affine=True):
-    """(th (3K, m8), aux (K, 8)) of B5 for an NIW basis and p = 1 MNW
-    experts, in the posteriors' dtype: th rows [basis quad; c quad;
+    """(th (3K, m8), aux (K, 8)) of B5 for an NIW basis and p = 1 MNW or
+    MNG experts, in the posteriors' dtype: th rows [basis quad; c quad;
     expert mean] over [1; x; x (x) x]; aux cols [log w + basis aux,
-    basis h, basis 1/df, var coef, psi, y_aux, y_h, 0]."""
+    basis h, basis 1/df, var coef, psi, y_aux, y_h, 0]. An MNG expert's
+    univariate t maps onto the same tail with psi = 1 / (2 beta) and
+    y_h = alpha + 1/2."""
     th_b, b_aux = _basis_rows(basis_post, log_w)
     k, d = basis_post.mu.shape
     if models_post.row_dim != 1:
@@ -93,13 +109,17 @@ def ilr_predict_coefficients(basis_post, models_post, log_w, affine=True):
     m1 = m[:, 0, :d]
     m0 = m[:, 0, -1] if affine else m.new_zeros((k,))
     th_m = torch.cat([m0[:, None], m1, m.new_zeros((k, d * d))], -1)
-    ydf = models_post.nu                                # nu - p + 1, p = 1
-    psi = models_post.psi[:, 0, 0]
-    # cov = (c / df) (df / (df - 2)) psi^-1 = c psi^-1 / (df - 2)
-    vcoef = (1.0 / psi) / torch.clamp(ydf - 2.0, min=1e-6)
-    y_aux = (gammaln_diff(0.5 * ydf, 0.5) + 0.5 * torch.log(psi)
-             - 0.5 * math.log(math.pi))
-    y_h = 0.5 * (ydf + 1.0)
+    if isinstance(models_post, MNG):
+        y_aux, y_h, vcoef = (t[:, 0] for t in _mng_tail(models_post))
+        psi = 0.5 / models_post.beta[:, 0]
+    else:
+        ydf = models_post.nu                            # nu - p + 1, p = 1
+        psi = models_post.psi[:, 0, 0]
+        # cov = (c / df) (df / (df - 2)) psi^-1 = c psi^-1 / (df - 2)
+        vcoef = (1.0 / psi) / torch.clamp(ydf - 2.0, min=1e-6)
+        y_aux = (gammaln_diff(0.5 * ydf, 0.5) + 0.5 * torch.log(psi)
+                 - 0.5 * math.log(math.pi))
+        y_h = 0.5 * (ydf + 1.0)
     m8 = -(-gauss_width(d) // 8) * 8
     th = _pad_cols(torch.cat([th_b, _c_rows(models_post, affine, d), th_m]),
                    m8)
@@ -110,13 +130,16 @@ def ilr_predict_coefficients(basis_post, models_post, log_w, affine=True):
 
 def ilr_p_predict_coefficients(basis_post, models_post, log_w, affine=True,
                                has_y=True):
-    """(th ((2 + p + has_y) K, m8), aux (K, 8), vc (K, p)) of B6 for an
-    NIW basis and MNW experts, in the posteriors' dtype: th rows [basis
-    quad (K); c quad (K); expert means (p K, row j K + k); with y the MVT
-    quad (y - mu)' psi (y - mu) (K)] over the joint map with y and over
-    [1; x; x (x) x] without; aux cols [log w + basis aux, basis h,
-    basis 1/df, y_aux, y_h, 0, 0, 0]; vc the per-output variance
-    coefficients (var_kj = c_k vc_kj)."""
+    """(th, aux (K, 8), vc) of B6 for an NIW basis and MNW or MNG
+    experts, in the posteriors' dtype. th rows: [basis quad (K); c quad
+    (K); expert means (p K, row j K + k)] and, with y, the MVT quad
+    (y - mu)' psi (y - mu) (K rows, MNW) or the scaled per-output quads
+    (y_j - mu_kj)^2 / (2 beta_kj) (p K rows, j-major, MNG), over the
+    joint map with y and over [1; x; x (x) x] without. aux cols [log w +
+    basis aux, basis h, basis 1/df, y_aux, y_h, 0, 0, 0] (y_h = 0 for
+    MNG). vc: the per-output variance coefficients (var_kj = c_k vc_kj),
+    (K, p) for MNW and (K, 2p) [vcoef | h] for MNG, h_kj = alpha_kj + 1/2
+    the per-output tail exponents."""
     th_b, b_aux = _basis_rows(basis_post, log_w)
     k, d = basis_post.mu.shape
     p = models_post.row_dim
@@ -126,16 +149,40 @@ def ilr_p_predict_coefficients(basis_post, models_post, log_w, affine=True,
     th_m = torch.cat([m0.T.reshape(k * p, 1),
                       m1.transpose(0, 1).reshape(k * p, d),
                       m.new_zeros((k * p, d * d))], -1)
-    ydf = models_post.nu - p + 1.0
-    psi = models_post.psi
-    vc = (torch.diagonal(inv_psd(psi), dim1=-2, dim2=-1)
-          / torch.clamp(ydf - 2.0, min=1e-6)[:, None])
-    y_aux = (gammaln_diff(0.5 * ydf, 0.5 * p) + 0.5 * logdet_psd(psi)
-             - 0.5 * p * math.log(math.pi))
-    y_h = 0.5 * (ydf + p)
+    diag = isinstance(models_post, MNG)
+    if diag:
+        y_aux_j, h, vcoef = _mng_tail(models_post)
+        y_aux, y_h = torch.sum(y_aux_j, -1), torch.zeros_like(y_aux_j[:, 0])
+        vc = torch.cat([vcoef, h], -1)
+    else:
+        ydf = models_post.nu - p + 1.0
+        psi = models_post.psi
+        vc = (torch.diagonal(inv_psd(psi), dim1=-2, dim2=-1)
+              / torch.clamp(ydf - 2.0, min=1e-6)[:, None])
+        y_aux = (gammaln_diff(0.5 * ydf, 0.5 * p) + 0.5 * logdet_psd(psi)
+                 - 0.5 * p * math.log(math.pi))
+        y_h = 0.5 * (ydf + p)
     m8 = -(-(joint_width(d, p) if has_y else gauss_width(d)) // 8) * 8
     rows = [th_b, _c_rows(models_post, affine, d), th_m]
-    if has_y:
+    if has_y and diag:
+        # p K scaled per-output quads, j-major: r (y_j - mu_kj)^2 with
+        # r = 1 / (2 beta_kj) and mu_kj = m0_kj + m1_kj . x, expanded over
+        # the joint map [1; x; x (x) x; y; x (x) y; y (x) y]
+        r = (0.5 / models_post.beta).T                  # (p, K)
+        m1j, m0j = m1.transpose(0, 1), m0.T             # (p, K, d), (p, K)
+        eye = torch.eye(p, dtype=m.dtype, device=m.device)
+        xy = (m1j[:, :, :, None] * eye[:, None, None, :]).reshape(p, k, d * p)
+        yy = (eye[:, :, None] * eye[:, None, :]).reshape(p, 1, p * p)
+        rows.append(torch.cat([
+            (r * m0j * m0j)[:, :, None],                            # 1
+            2.0 * (r * m0j)[:, :, None] * m1j,                      # x
+            r[:, :, None] * (m1j[:, :, :, None] * m1j[:, :, None, :]
+                             ).reshape(p, k, d * d),                # x (x) x
+            -2.0 * (r * m0j)[:, :, None] * eye[:, None, :],         # y
+            -2.0 * r[:, :, None] * xy,                              # x (x) y
+            r[:, :, None] * yy.expand(p, k, p * p),                 # y (x) y
+        ], -1).reshape(p * k, -1))
+    elif has_y:
         pm1 = torch.einsum('kpr,krd->kpd', psi, m1)     # psi M1
         pm0 = torch.einsum('kpr,kr->kp', psi, m0)       # psi m0
         rows.append(torch.cat([
@@ -145,7 +192,7 @@ def ilr_p_predict_coefficients(basis_post, models_post, log_w, affine=True,
             -2.0 * pm0,                                             # y
             -2.0 * pm1.transpose(1, 2).reshape(k, d * p),           # x (x) y
             psi.reshape(k, p * p)], -1))                            # y (x) y
-    th = torch.cat([_pad_cols(r, m8) for r in rows])
+    th = torch.cat([_pad_cols(t, m8) for t in rows])
     aux = torch.cat([b_aux, torch.stack([y_aux, y_h], -1),
                      b_aux.new_zeros((k, 3))], -1)
     return th.contiguous(), aux.contiguous(), vc.contiguous()
@@ -210,9 +257,10 @@ def ilr_predict(xt, th, aux, n, has_y, hard):
 # -- B6 -------------------------------------------------------------------------
 
 def ilr_p_predict_plain(xt, th, aux, vc, n, p, has_y, hard):
-    """Plain PyTorch version of B6: xt (d + has_y p, >=n), th
-    ((2 + p + has_y) K, m8), aux (K, 8), vc (K, p) -> out (2p + 2, n)
-    rows [mean (p), var (p), nlpd, lse_w] (nlpd = 0 without y)."""
+    """Plain PyTorch version of B6: xt (d + has_y p, >=n), th (see
+    `ilr_p_predict_coefficients`), aux (K, 8), vc (K, p), or (K, 2p) for
+    MNG experts -> out (2p + 2, n) rows [mean (p), var (p), nlpd, lse_w]
+    (nlpd = 0 without y)."""
     k, m8 = aux.shape[0], th.shape[1]
     d = xt.shape[0] - (p if has_y else 0)
     out = torch.zeros((2 * p + 2, n), dtype=th.dtype, device=th.device)
@@ -235,37 +283,55 @@ def ilr_p_predict_plain(xt, th, aux, vc, n, p, has_y, hard):
                                           min=0.0)
         out[2 * p + 1, s:e] = lse_w
         if has_y:
-            bq = torch.clamp(z[(2 + p) * k:], min=0.0)
-            lp_y = (aux[:, 3:4] - 0.5 * p * torch.log(c)
-                    - aux[:, 4:5] * torch.log1p(bq * (1.0 / c)))
+            inv_c = 1.0 / c
+            if vc.shape[1] == 2 * p:    # MNG: product of per-output tails
+                tail = sum(vc[:, p + j:p + j + 1] * torch.log1p(
+                    torch.clamp(z[(2 + p + j) * k:(3 + p + j) * k], min=0.0)
+                    * inv_c) for j in range(p))
+            else:
+                tail = aux[:, 4:5] * torch.log1p(
+                    torch.clamp(z[(2 + p) * k:], min=0.0) * inv_c)
+            lp_y = aux[:, 3:4] - 0.5 * p * torch.log(c) - tail
             out[2 * p, s:e] = -(torch.logsumexp(lp_y + lw, 0) - lse_w)
     return out
 
 
+def p_predict_rows(k, p, has_y, diag):
+    """Coefficient rows of B6: basis quad, c quad and p mean rows per
+    component, then with y one MVT quad (MNW) or p scaled quads (MNG)."""
+    return (2 + p + ((p if diag else 1) if has_y else 0)) * k
+
+
 def ilr_p_predict(xt, th, aux, vc, n, p, has_y, hard):
     """B6 over points 0..n-1 of xt (d + has_y p, >=n): x rows, then the
-    p y rows. Launches the kernel for CUDA tensors (float32 only; it
-    raises on anything it does not take) and runs `ilr_p_predict_plain`
-    for CPU tensors. Returns out (2p + 2, n)."""
+    p y rows. vc (K, 2p) selects the MNG tail. Launches the kernel for
+    CUDA tensors (float32 only; it raises on anything it does not take)
+    and runs `ilr_p_predict_plain` for CPU tensors. Returns out
+    (2p + 2, n)."""
     if not xt.is_cuda:
         return ilr_p_predict_plain(xt, th, aux, vc, n, p, has_y, hard)
     lib = _build.load()
     k, m8 = aux.shape[0], th.shape[1]
     d = xt.shape[0] - (p if has_y else 0)
+    diag = vc.shape[-1] == 2 * p
     width, desc = ((joint_width(d, p), f'joint map, d={d}, p={p}') if has_y
                    else (gauss_width(d), f'gauss map, d={d}'))
     grid = _build.check_launch(
         'cuda_ilr_p_predict', xt, n, th,
-        lib.mimo_ilr_p_predict_smem_bytes(k, m8, p, int(has_y)), width, desc)
-    _check_rows('cuda_ilr_p_predict', th, (2 + p + int(has_y)) * k, aux, xt)
-    if (vc.dtype != torch.float32 or vc.shape != (k, p)
+        lib.mimo_ilr_p_predict_smem_bytes(k, m8, p, int(has_y), int(diag)),
+        width, desc)
+    _check_rows('cuda_ilr_p_predict', th, p_predict_rows(k, p, has_y, diag),
+                aux, xt)
+    if (vc.dtype != torch.float32 or vc.shape not in ((k, p), (k, 2 * p))
             or not vc.is_contiguous() or vc.device != xt.device):
         raise ValueError('cuda_ilr_p_predict: vc must be a contiguous '
-                         "(K, p) float32 tensor on the data's device")
+                         "(K, p) or (K, 2p) float32 tensor on the data's "
+                         'device')
     out = torch.empty((2 * p + 2, n), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_ilr_p_predict(xt.data_ptr(), xt.stride(0), d, p,
-                                    int(has_y), n, th.data_ptr(), k, m8,
+                                    int(has_y), int(diag), n, th.data_ptr(),
+                                    k, m8,
                                     aux.data_ptr(), vc.data_ptr(), int(hard),
                                     out.data_ptr(), grid,
                                     torch.cuda.current_stream().cuda_stream)
@@ -308,9 +374,9 @@ def ilr_predict_cuda(basis_post, models_post, log_w, x, y=None, affine=True,
 
 def ilr_p_predict_cuda(basis_post, models_post, log_w, x, y=None,
                        affine=True, prediction='average'):
-    """p > 1 fused ILR serving through B6 (MNW experts), the counterpart of
-    mimo_tpu's _ilr_p_predict_pallas. Returns (mean (N, p), var (N, p),
-    nlpd (N,) or None), in float32."""
+    """p > 1 fused ILR serving through B6 (MNW or MNG experts), the
+    counterpart of mimo_tpu's _ilr_p_predict_pallas. Returns
+    (mean (N, p), var (N, p), nlpd (N,) or None), in float32."""
     p = models_post.row_dim
     th, aux, vc = ilr_p_predict_coefficients(basis_post, models_post, log_w,
                                              affine, y is not None)

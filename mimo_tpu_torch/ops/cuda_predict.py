@@ -2,7 +2,9 @@
 (csrc/predict.cu), with its plain PyTorch version. Replaces
 mimo_tpu/ops/pallas_predict.py::_predict_kernel.
 
-Per point: the quadratic forms Q = thq . F over K (clipped at 0), then
+Per point: F = [1; x; x (x) x] (kind GAUSS) or [1; x; x^2] (kind DIAG,
+the diagonal Gaussian predictive), the quadratic forms Q = thq . F over
+K (clipped at 0), then
 lp = aux - h log1p(Q / df) (Student-t) or aux - Q / 2 (moment-matched
 Gaussian), and out = logsumexp over K. The (N, K) Student-t matrix never
 exists in device memory.
@@ -17,20 +19,22 @@ import torch
 
 from mimo_tpu_torch.distributions.niw import predictive_studentt_params
 from mimo_tpu_torch.ops import _build
-from mimo_tpu_torch.ops.cuda_estep import _CHUNK, assemble_features
-from mimo_tpu_torch.ops.family_estep import gauss_width
+from mimo_tpu_torch.ops.cuda_estep import (
+    _CHUNK, DIAG, GAUSS, KIND_NAMES, assemble_features, feature_width)
 from mimo_tpu_torch.utils.linalg import logdet_psd
-from mimo_tpu_torch.utils.stats import gammaln_diff
+from mimo_tpu_torch.utils.stats import LOG2PI, gammaln_diff
 
-launches = 0          # kernel launches by `predict`, for run accounting
+# kernel launches by `predict`, by feature map, for run accounting
+launches = {'gauss': 0, 'diag': 0}
 
 
-def predict_plain(xt, thq, aux, n, studentt=True):
+def predict_plain(xt, thq, aux, n, studentt=True, kind=GAUSS):
     """Plain PyTorch version of B3: xt (d, >=n), thq (K, m8), aux (K, 8)
     holding [aux + log w, h, 1/df] -> (n,) mixture log-densities."""
     out = torch.empty((n,), dtype=thq.dtype, device=thq.device)
     for s in range(0, n, _CHUNK):
-        f = assemble_features(xt[:, s:min(s + _CHUNK, n)], thq.shape[1])
+        f = assemble_features(xt[:, s:min(s + _CHUNK, n)], thq.shape[1],
+                              kind)
         q = torch.clamp(thq @ f, min=0.0)
         if studentt:
             lp = aux[:, 0:1] - aux[:, 1:2] * torch.log1p(q * aux[:, 2:3])
@@ -40,31 +44,34 @@ def predict_plain(xt, thq, aux, n, studentt=True):
     return out
 
 
-def predict(xt, thq, aux, n, studentt=True):
-    """B3 over points 0..n-1 of xt (d, >=n). Launches the kernel for CUDA
-    tensors (float32 only; it raises on anything else) and runs
-    `predict_plain` for CPU tensors. Returns (n,) log-densities."""
-    global launches
+def predict(xt, thq, aux, n, studentt=True, kind=GAUSS):
+    """B3 over points 0..n-1 of xt (d, >=n), over the GAUSS or DIAG
+    feature map. Launches the kernel for CUDA tensors (float32 only; it
+    raises on anything else) and runs `predict_plain` for CPU tensors.
+    Returns (n,) log-densities."""
     if not xt.is_cuda:
-        return predict_plain(xt, thq, aux, n, studentt)
+        return predict_plain(xt, thq, aux, n, studentt, kind)
+    if kind not in (GAUSS, DIAG):
+        raise ValueError(f'cuda_predict: no predictive over map {kind}')
     lib = _build.load()
     k, m8 = thq.shape
     d = xt.shape[0]
     grid = _build.check_launch('cuda_predict', xt, n, thq,
                                lib.mimo_predict_smem_bytes(k, m8),
-                               gauss_width(d), f'gauss map, d={d}')
+                               feature_width(kind, d),
+                               f'{KIND_NAMES[kind]} map, d={d}')
     if (aux.dtype != torch.float32 or aux.shape != (k, 8)
             or not aux.is_contiguous() or aux.device != xt.device):
         raise ValueError('cuda_predict: aux must be a contiguous (K, 8) '
                          "float32 tensor on the data's device")
     out = torch.empty((n,), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
-        rc = lib.mimo_predict(xt.data_ptr(), xt.stride(0), xt.shape[0], n,
+        rc = lib.mimo_predict(xt.data_ptr(), xt.stride(0), d, kind, n,
                               thq.data_ptr(), k, m8, aux.data_ptr(),
                               int(studentt), out.data_ptr(), grid,
                               torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_predict')
-    launches += 1
+    launches[KIND_NAMES[kind]] += 1
     return out
 
 
@@ -88,6 +95,23 @@ def predictive_coefficients(post, log_w, studentt=True):
         a = 0.5 * logdet_psd(lmbda) - 0.5 * d * math.log(2.0 * math.pi) + log_w
         cols = [a, torch.zeros_like(a), torch.zeros_like(a)]
     aux = torch.cat([torch.stack(cols, -1), a.new_zeros((k, 5))], -1)
+    return thq.contiguous(), aux.contiguous()
+
+
+def diag_gaussian_coefficients(post, log_w):
+    """(thq (K, m8), aux (K, 8)) of the moment-matched Gaussian mixture
+    predictive of an NG posterior over [1; x; x^2], in the posterior's
+    dtype: q_k(x) = sum_j lam_kj (x_j - mu_kj)^2, one row per component
+    (mimo_tpu's diag_predictive_pallas, dist='gaussian')."""
+    from mimo_tpu_torch.distributions.ng import predictive_studentt_params
+    mu, lam, _ = predictive_studentt_params(post)
+    k, d = mu.shape
+    m = 1 + 2 * d
+    m8 = -(-m // 8) * 8
+    thq = torch.cat([torch.sum(lam * mu * mu, -1)[:, None], -2.0 * lam * mu,
+                     lam, lam.new_zeros((k, m8 - m))], -1)
+    a = 0.5 * torch.sum(torch.log(lam), -1) - 0.5 * d * LOG2PI + log_w
+    aux = torch.cat([a[:, None], a.new_zeros((k, 7))], -1)
     return thq.contiguous(), aux.contiguous()
 
 

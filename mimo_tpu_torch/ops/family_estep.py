@@ -1,11 +1,12 @@
 """Fused mixture E-step and Gibbs label sweep over a family's feature map
-(port of the Gaussian, linear-expert and product slices of
-mimo_tpu/ops/family_estep.py).
+(port of the Gaussian, diagonal-Gaussian, linear-expert and product
+slices of mimo_tpu/ops/family_estep.py).
 
 The expected log-likelihood is linear in a fixed feature map of the data,
 E_q[log p(data | params_k)] = t(data) . theta_k, with t = [1, x, x (x) x]
-for a Gaussian and t = [1, y (x) xt, xt (x) xt, y (x) y] for a linear
-expert (xt = [x; 1] when affine); a product family (the ILR experts,
+for a Gaussian, t = [1, x, x^2] for a diagonal Gaussian and
+t = [1, y (x) xt, xt (x) xt, y (x) y] for a linear expert with full or
+diagonal noise (xt = [x; 1] when affine); a product family (the ILR experts,
 basis(x) x model(y | x)) concatenates its members' maps and keeps one
 constant. A VI E-step over a block is then two matmuls:
 
@@ -23,10 +24,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from mimo_tpu_torch.distributions import mnw as _mnw
+from mimo_tpu_torch.distributions import ng as _ng
 from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.distributions.mnw import augment
 from mimo_tpu_torch.ops.philox import gumbel_max_labels
-from mimo_tpu_torch.utils.linalg import logdet_psd
+from mimo_tpu_torch.utils.linalg import inv_psd, logdet_psd
 from mimo_tpu_torch.utils.stats import LOG2PI
 
 
@@ -39,7 +41,7 @@ class EStepSpec(NamedTuple):
     # likelihood params -> (K, m) with log p(data|params_k) = t(data).row_k
     theta_plugin: Any = None
     # transposed feature assembler, (d_i, B) blocks -> (m, B); the kernels
-    # build the Gaussian and ILR maps on the card (see cuda_estep.py)
+    # build the Gaussian, diagonal and ILR maps on the card (cuda_estep.py)
     features_t: Any = None
 
 
@@ -68,6 +70,13 @@ def gauss_features_t(ts):
     (xt,) = ts
     one = torch.ones((1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
     return torch.cat([one, xt, _rows_outer(xt, xt)], 0)
+
+
+def diag_gauss_features_t(ts):
+    """[1; x; x^2] from a (d, B) block -> (1 + 2d, B)."""
+    (xt,) = ts
+    one = torch.ones((1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    return torch.cat([one, xt, xt * xt], 0)
 
 
 class LinearFeaturesT(NamedTuple):
@@ -146,6 +155,40 @@ def _unpack_gauss(acc):
                            xxT=acc[:, 1 + d:].reshape(-1, d, d), n2=counts)
 
 
+# -- diagonal Gaussian | NG --------------------------------------------------
+
+def diag_gaussian_spec() -> EStepSpec:
+    def features(data):
+        x = data[0]
+        one = torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)
+        return torch.cat([one, x, torch.square(x)], -1)
+
+    def theta(post):
+        e_l = post.alpha / post.beta                       # (K, d)
+        e_logl = torch.digamma(post.alpha) - torch.log(post.beta)
+        d = post.mu.shape[-1]
+        c = (0.5 * (torch.sum(e_logl, -1) - d * LOG2PI)
+             - 0.5 * torch.sum(e_l * torch.square(post.mu) + 1.0 / post.kappa,
+                               -1))
+        return torch.cat([c[:, None], e_l * post.mu, -0.5 * e_l], -1)
+
+    def unpack(acc):
+        d = (acc.shape[-1] - 1) // 2
+        counts = acc[:, 0]
+        return _ng.DiagGaussStats(x=acc[:, 1:1 + d], n1=counts, n2=counts,
+                                  xsq=acc[:, 1 + d:])
+
+    def theta_plugin(params):
+        mu, lm = params.mu, params.lmbda_diag
+        d = mu.shape[-1]
+        c = (0.5 * torch.sum(torch.log(lm) - lm * torch.square(mu), -1)
+             - 0.5 * d * LOG2PI)
+        return torch.cat([c[:, None], lm * mu, -0.5 * lm], -1)
+
+    return EStepSpec(features, theta, unpack, theta_plugin,
+                     diag_gauss_features_t)
+
+
 # -- linear expert | MNW -----------------------------------------------------
 
 def linear_spec(affine: bool = True, p_dim: int = None,
@@ -188,6 +231,40 @@ def linear_spec(affine: bool = True, p_dim: int = None,
 
     return EStepSpec(features, theta, unpack, theta_plugin,
                      linear_features_t(affine))
+
+
+def diag_linear_spec(affine: bool = True, p_dim: int = None,
+                     q_dim: int = None) -> EStepSpec:
+    """Diagonal-noise linear expert | MNG. Shares linear_spec's feature
+    map (the full y (x) y block, with E[lambda] embedded as a diagonal
+    matrix), so the accumulator unpacks to the LinGaussStats the MNG
+    update takes and the kernels run it as the linear map."""
+    base = linear_spec(affine, p_dim, q_dim)
+
+    def rows(c, la, ala, lmat):
+        k = la.shape[0]
+        return torch.cat([c[:, None], la.reshape(k, -1),
+                          -0.5 * ala.reshape(k, -1),
+                          -0.5 * lmat.reshape(k, -1)], -1)
+
+    def theta(post):
+        pd = post.row_dim
+        e_l = post.alpha / post.beta                       # (K, p)
+        e_logl = torch.digamma(post.alpha) - torch.log(post.beta)
+        e_ala = (pd * inv_psd(post.K_)
+                 + torch.einsum('kp,kpq,kpr->kqr', e_l, post.M, post.M))
+        c = 0.5 * torch.sum(e_logl, -1) - 0.5 * pd * LOG2PI
+        return rows(c, e_l[..., None] * post.M, e_ala, torch.diag_embed(e_l))
+
+    def theta_plugin(params):
+        a, lm = params.A, params.lmbda_diag                # (K,p,q), (K,p)
+        pd = a.shape[-2]
+        la = lm[..., None] * a                             # diag(l) A
+        c = 0.5 * torch.sum(torch.log(lm), -1) - 0.5 * pd * LOG2PI
+        return rows(c, la, a.transpose(-1, -2) @ la, torch.diag_embed(lm))
+
+    return EStepSpec(base.features, theta, base.unpack, theta_plugin,
+                     base.features_t)
 
 
 # -- products (ILR: basis(x) x expert(y|x)) ----------------------------------
@@ -236,6 +313,10 @@ def gauss_width(d):
     return 1 + d + d * d
 
 
+def diag_gauss_width(d):
+    return 1 + 2 * d
+
+
 def linear_width(p, q):
     return 1 + p * q + q * q + p * p
 
@@ -248,11 +329,12 @@ def ilr_width(d, p, affine=True):
 def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
              diag_expert=False, hier_basis=False, tied_affine=False):
     """The ILR joint family's fused spec: data = (x, y), NIW basis x MNW
-    experts. The diagonal, hierarchical and tied-affine members are not
-    ported yet."""
-    if diag_basis or diag_expert:
-        raise NotImplementedError('diagonal basis / expert specs are not '
-                                  'ported yet (ROADMAP A15/A17)')
+    experts, or MNG experts with `diag_expert` (the same feature map).
+    The diagonal basis (no model builds one), the hierarchical basis and
+    the tied-affine experts are not ported yet."""
+    if diag_basis:
+        raise NotImplementedError('the diagonal (NG) basis spec is not '
+                                  'ported yet (ROADMAP A17)')
     if hier_basis:
         raise NotImplementedError('the hierarchically-tied basis spec is not '
                                   'ported yet (ROADMAP A16)')
@@ -260,7 +342,8 @@ def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
         raise NotImplementedError('the tied-affine expert spec is not '
                                   'ported yet (ROADMAP A17)')
     q = input_dim + int(affine)
-    return product_spec((gaussian_spec(), linear_spec(affine, output_dim, q)),
+    expert = diag_linear_spec if diag_expert else linear_spec
+    return product_spec((gaussian_spec(), expert(affine, output_dim, q)),
                         ((0,), (0, 1)),
                         (gauss_width(input_dim), linear_width(output_dim, q)))
 

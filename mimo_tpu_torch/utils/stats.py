@@ -29,6 +29,17 @@ def mvn_logpdf(x, mu, lmbda, logdet_lmbda=None):
     return 0.5 * (logdet_lmbda - d * LOG2PI) - 0.5 * quad
 
 
+def diag_mvn_logpdf(x, mu, lmbda_diag):
+    """Stacked diagonal-precision normal log-pdf.
+    x: (N, d); mu, lmbda_diag: (K, d) -> (N, K)."""
+    d = x.shape[-1]
+    quad = (torch.square(x) @ lmbda_diag.T
+            - 2.0 * (x @ (lmbda_diag * mu).T)
+            + torch.sum(lmbda_diag * torch.square(mu), -1))
+    logdet = torch.sum(torch.log(lmbda_diag), -1)
+    return 0.5 * (logdet - d * LOG2PI) - 0.5 * quad
+
+
 def gammaln_diff(a, h):
     """lgamma(a + h) - lgamma(a), stable for large a.
 

@@ -274,14 +274,14 @@ def test_generate_draws_from_the_known_mixture():
 
 
 def test_make_and_configs_refuse_unported_variants():
-    for kw in (dict(diag=True), dict(tied_affine=True),
-               dict(hier_basis=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP A15-A17'):
+    for kw in (dict(tied_affine=True), dict(hier_basis=True)):
+        with pytest.raises(NotImplementedError, match='ROADMAP A16/A17'):
             BayesianILR.make(size=3, input_dim=1, output_dim=1, **kw)
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ILRConfig(**kw).build()
-    with pytest.raises(NotImplementedError, match='ROADMAP A15/A16'):
-        MixtureConfig(diag=True).build()
+    for kw in (dict(tied=True), dict(hierarchical=True)):
+        with pytest.raises(NotImplementedError, match='ROADMAP A16'):
+            MixtureConfig(**kw).build()
     with pytest.raises(NotImplementedError, match='ROADMAP A16'):
         tfe.ilr_spec(1, 1, hier_basis=True)
 

@@ -52,6 +52,15 @@ def test_import_covers_the_ilr_slice():
         assert f'mimo_tpu_torch.{mod}' in PORT_MODULES
 
 
+def test_import_covers_the_diagonal_slice():
+    """The diagonal families' modules are among those the no-jax check
+    imports, and their kernel sources sit beside the others."""
+    for mod in ('distributions.ng', 'distributions.mng',
+                'ops.cuda_diag_predict'):
+        assert f'mimo_tpu_torch.{mod}' in PORT_MODULES
+    assert (PKG / 'csrc' / 'diag_predict.cu').is_file()
+
+
 @pytest.fixture(scope='module')
 def small():
     rng = np.random.default_rng(0)

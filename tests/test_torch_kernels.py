@@ -1,5 +1,6 @@
-"""The CUDA kernels (B1-B3, B1/B2 over the ILR map, B5, B6, S3) against
-their plain PyTorch versions, on the card. Every test here needs a CUDA
+"""The CUDA kernels (B1-B3, B1/B2 over the ILR map, B1-B3 over the
+diagonal map, B4, B5 and B6 with MNW and MNG experts, S3) against their
+plain PyTorch versions, on the card. Every test here needs a CUDA
 device and skips without one; run them on the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
 `chip_smoke.py` holds the same kernels to their plain versions at the
@@ -8,12 +9,15 @@ main paths' shapes."""
 import pytest
 import torch
 
+from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
+from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models import BayesianGMM, BayesianILR
 from mimo_tpu_torch.ops import (
-    cuda_estep, cuda_gibbs, cuda_hello, cuda_ilr_predict, cuda_predict)
-from mimo_tpu_torch.ops.cuda_estep import ILR
+    cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello, cuda_ilr_predict,
+    cuda_predict)
+from mimo_tpu_torch.ops.cuda_estep import DIAG, ILR
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -225,3 +229,155 @@ def test_ilr_engines_kernel_path_tracks_plain_path(dev):
     torch.testing.assert_close(nlpd_k, nlpd_t, rtol=1e-3, atol=2e-3)
     gs = m.fit_gibbs_fused((x, y), key=2, maxiter=5, backend='kernel')
     assert bool(torch.isfinite(gs.log_pi).all())
+
+
+# -- the diagonal families ----------------------------------------------------
+
+def _diag_inputs(dev, n, k, d, seed=0):
+    """Data and random coefficients over the diagonal map [1; x; x^2]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = 1 + 2 * d
+    m8 = -(-m // 8) * 8
+    xt = torch.randn((d, n), generator=g, device=dev) * 2
+    theta = torch.randn((k, m8), generator=g, device=dev) * 0.3
+    theta[:, m:] = 0.0
+    theta[:, 1 + d:m] = -0.2
+    return xt, theta
+
+
+@pytest.mark.parametrize('n,k,d', [(100003, 50, 2), (1000, 7, 3)])
+def test_diag_estep_kernel_matches_plain_and_repeats(dev, n, k, d):
+    xt, theta = _diag_inputs(dev, n, k, d)
+    acc, lse = cuda_estep.estep(xt, theta, n, DIAG)
+    acc2, lse2 = cuda_estep.estep(xt, theta, n, DIAG)
+    pacc, plse = cuda_estep.estep_plain(xt, theta, n, DIAG)
+    torch.testing.assert_close(acc, pacc, rtol=1e-4, atol=1e-3 * n / 1e6)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=0.0)
+    assert torch.equal(acc, acc2) and torch.equal(lse, lse2)
+
+
+def test_diag_gibbs_kernel_matches_plain(dev):
+    n, k, d = 100003, 50, 2
+    xt, theta = _diag_inputs(dev, n, k, d, seed=1)
+    seed = torch.tensor(987654321, dtype=torch.int64, device=dev)
+    labels, acc = cuda_gibbs.gibbs(xt, theta, seed, n, DIAG)
+    plabels, _ = cuda_gibbs.gibbs_plain(xt, theta, seed, n, DIAG)
+    assert int(labels.min()) >= 0 and int(labels.max()) < k
+    assert float((labels != plabels).float().mean()) <= 1e-4
+    f = cuda_estep.assemble_features(xt, theta.shape[1], DIAG).double()
+    oh = torch.nn.functional.one_hot(labels.long(), k).double()
+    bound = 1e-5 * (oh.T @ f.abs().T) + 1e-6
+    assert bool(((acc.double() - oh.T @ f.T).abs() <= bound).all())
+
+
+def _ng_posterior(dev, k, d, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((k, d), generator=g, device=dev)
+    return NG(mu=torch.randn((k, d), generator=g, device=dev) * 2,
+              kappa=u(1.0, 20.0), alpha=u(2.0, 40.0), beta=u(0.5, 5.0))
+
+
+@pytest.mark.parametrize('dist', ['studentt', 'gaussian'])
+def test_diag_predictive_kernels_match_plain(dev, dist):
+    """B4 (Student-t) and B3 over the diagonal map (Gaussian) against
+    their plain versions at the tolerances of tests/test_pallas.py."""
+    n, k, d = 100003, 50, 2
+    post = _ng_posterior(dev, k, d)
+    log_w = torch.log_softmax(torch.randn((k,), device=dev), 0)
+    xt, _ = _diag_inputs(dev, n, k, d, seed=2)
+    if dist == 'studentt':
+        thu, h, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
+        out = cuda_diag_predict.diag_predict(xt, thu, h, aux, n)
+        ref = cuda_diag_predict.diag_predict_plain(xt, thu, h, aux, n)
+    else:
+        thq, aux = cuda_predict.diag_gaussian_coefficients(post, log_w)
+        out = cuda_predict.predict(xt, thq, aux, n, False, DIAG)
+        ref = cuda_predict.predict_plain(xt, thq, aux, n, False, DIAG)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def _mng_state(dev, k, d, p, seed=0):
+    basis, experts, log_w = _ilr_state(dev, k, d, p, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    alpha = 50 + 200 * torch.rand((k, p), generator=g, device=dev)
+    beta = alpha * (0.005 + 0.02 * torch.rand((k, p), generator=g,
+                                              device=dev))
+    return basis, MNG(M=experts.M, K_=experts.K_, alpha=alpha,
+                      beta=beta), log_w
+
+
+@pytest.mark.parametrize('hard', [False, True])
+@pytest.mark.parametrize('has_y', [True, False])
+@pytest.mark.parametrize('d,p', [(1, 1), (2, 3)])
+def test_mng_ilr_predict_kernels_match_plain(dev, d, p, has_y, hard):
+    """B5's MNG rows (p = 1) and B6's MNG tail (p = 3)."""
+    n, k = 100003, 50
+    basis, experts, log_w = _mng_state(dev, k, d, p)
+    g = torch.Generator(device=dev).manual_seed(5)
+    xt = torch.rand((d + (p if has_y else 0), n), generator=g,
+                    device=dev) * 4 - 2
+    if p == 1:
+        th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+            basis, experts, log_w)
+        out = cuda_ilr_predict.ilr_predict(xt, th, aux, n, has_y, hard)
+        ref = cuda_ilr_predict.ilr_predict_plain(xt, th, aux, n, has_y, hard)
+    else:
+        th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+            basis, experts, log_w, True, has_y)
+        assert vc.shape == (k, 2 * p)
+        out = cuda_ilr_predict.ilr_p_predict(xt, th, aux, vc, n, p, has_y,
+                                             hard)
+        ref = cuda_ilr_predict.ilr_p_predict_plain(xt, th, aux, vc, n, p,
+                                                   has_y, hard)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out[:p], ref[:p], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out[p:2 * p], ref[p:2 * p], rtol=2e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(out[2 * p:], ref[2 * p:], rtol=1e-3,
+                               atol=2e-3)
+
+
+def test_diag_engines_kernel_path_tracks_plain_path(dev):
+    """The diagonal GMM's engines and log_predictive, and the MNG ILR's
+    VI and predict, through their kernels against their plain paths."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((20011, 2), generator=g, device=dev) * 3
+    m = BayesianGMM.make(size=10, dim=2, diag=True, kappa=0.05, device=dev)
+    init, _ = m.fit_vi_fused(x, key=1, maxiter=2, backend='torch')
+    before = cuda_estep.launches['diag']
+    _, v_k = m.fit_vi_fused(x, maxiter=10, init_state=init, randomize=False,
+                            backend='kernel')
+    assert cuda_estep.launches['diag'] == before + 10
+    _, v_t = m.fit_vi_fused(x, maxiter=10, init_state=init, randomize=False,
+                            backend='torch')
+    torch.testing.assert_close(v_k, v_t, rtol=1e-4, atol=0.0)
+    b4, b3 = cuda_diag_predict.launches, cuda_predict.launches['diag']
+    for dist in ('studentt', 'gaussian'):
+        lp_k = m.log_predictive(init, x, dist=dist, backend='kernel')
+        lp_t = m.log_predictive(init, x, dist=dist, backend='torch')
+        torch.testing.assert_close(lp_k, lp_t, rtol=1e-4, atol=1e-4)
+    assert cuda_diag_predict.launches == b4 + 1
+    assert cuda_predict.launches['diag'] == b3 + 1
+    before = cuda_gibbs.launches['diag']
+    gs = m.fit_gibbs_fused(x, key=2, maxiter=5, backend='kernel')
+    assert cuda_gibbs.launches['diag'] == before + 5
+    assert bool(torch.isfinite(gs.log_pi).all())
+
+    y = torch.tanh(x @ torch.randn((2, 3), generator=g, device=dev)) \
+        + 0.1 * torch.randn((20011, 3), generator=g, device=dev)
+    mi = BayesianILR.make(size=8, input_dim=2, output_dim=3, alpha=2.0,
+                          kappa=0.1, diag=True, device=dev)
+    mi.init_transform(x, y)
+    st, _ = mi.fit_vi_fused((x, y), key=1, maxiter=10, backend='kernel')
+    before = cuda_ilr_predict.launches['ilr_p_predict']
+    mu_k, var_k, _, nlpd_k = mi.predict(st, x, y, backend='kernel')
+    assert cuda_ilr_predict.launches['ilr_p_predict'] == before + 1
+    mu_t, var_t, _, nlpd_t = mi.predict(st, x, y, backend='torch')
+    scale = float(mi.output_transform.scale.max())
+    torch.testing.assert_close(mu_k, mu_t, rtol=1e-4, atol=1e-4 * scale)
+    torch.testing.assert_close(var_k, var_t, rtol=2e-3,
+                               atol=1e-4 * scale ** 2)
+    torch.testing.assert_close(nlpd_k, nlpd_t, rtol=1e-3, atol=2e-3)

@@ -201,10 +201,11 @@ def test_ilr_family_matches_jax(fn):
 
 
 def test_ilr_family_refuses_unported_members():
-    for kw in (dict(diag=True), dict(tied_affine=True),
-               dict(hier_basis=True)):
+    for kw in (dict(tied_affine=True), dict(hier_basis=True)):
         with pytest.raises(NotImplementedError, match='ROADMAP A1'):
             tfam.ilr_family(**kw)
+    # MNG experts are ported: the diag family builds
+    assert tfam.ilr_family(diag=True).gibbs_update is None
 
 
 def test_product_family_threads_member_gibbs_hooks():
