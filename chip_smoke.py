@@ -50,7 +50,27 @@ Phases, one or more printed lines each:
  12. MNG      the sine flagship with MNG experts (N=1e7, d=1, p=1: Gibbs 10
               -> VI 20 -> predict through B5's MNG rows) and p>1 MNG
               serving (N=1e6, d=2, p=3: VI 20 -> predict through B6's MNG
-              tail), rates and kernel times.
+              tail), rates and kernel times;
+ 13. branches B3 on HierTied rows (Student-t and Gaussian, d=2), B5 (d=1,
+              p=1) and B6 (d=2, p=3) on every new basis x expert
+              combination ({NIW, HierTied} x {MNW, MNG, tied-affine}), at
+              N=1,000,003, K=50, average and mode, with and without y; the
+              B1 probes S1 (divide and no divide) and S2 (no count, an
+              unread and a read count in device memory) against their
+              plain versions at N=1e7, K=50, d=2 (S2 also at the TPU
+              probe's K=8, d=2, N=4096, nv=4000), then timed beside B1;
+ 14. tied     the tied GMM, the tied diagonal GMM and the hierarchical GMM
+              on the data of bench.py:90-98 (N=1e7, K=50, d=2):
+              fit_vi_fused 20, fit_gibbs_fused 20, log_predictive (B3 on
+              HierTied rows for the hierarchical GMM), launch counts,
+              ELBO, kernel vs plain on a 100,003-point slice, rates and
+              kernel times;
+ 15. hilr     the tied-activation ILR (HierTied basis x tied-affine
+              experts): the sine flagship (N=1e7, d=1, p=1: Gibbs 60 over
+              the first 10,000 points -> VI 20 over all -> predict through
+              B5, RMSE < 0.35) and p>1 serving
+              (N=1e6, d=2, p=3: VI 20 -> predict through B6), rates and
+              kernel times.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or if any check
 fails, the script exits non-zero and prints no result.
@@ -69,7 +89,9 @@ import torch
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
 from mimo_tpu_torch.conjugate.families import ilr_family
 from mimo_tpu_torch.distributions import ng
+from mimo_tpu_torch.distributions.affine import TiedAffine
 from mimo_tpu_torch.distributions.gating import StickBreaking
+from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.ng import NG
@@ -78,7 +100,7 @@ from mimo_tpu_torch.models import BayesianGMM, BayesianILR
 from mimo_tpu_torch.models.mixture import MFState, kernel_xts
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
-    cuda_ilr_predict, cuda_predict)
+    cuda_ilr_predict, cuda_predict, cuda_probes)
 from mimo_tpu_torch.ops.cuda_estep import (
     DIAG, ILR, assemble_features, pad_theta, stack_rows)
 from mimo_tpu_torch.ops.family_estep import (
@@ -89,6 +111,7 @@ N_CHECK = 1_000_003            # a ragged tail for the 128-point tiles
 N_Q8, D_Q8 = 1_000_000, 8      # the ILR fit path (bench.py:313-336)
 N_SINE = 10_000_000            # ILR serving, sine (bench.py:338-356)
 N_P3, D_P3, P_P3 = 1_000_000, 2, 3   # p>1 serving (test_pallas.py:445)
+N_HILR_GIBBS = 10_000          # the hilr sine's Gibbs warm start
 
 
 def fail(msg):
@@ -142,9 +165,11 @@ def ptxas_summary(logs):
             m = re.search(r"entry function '(\w+)'", line)
             if m:
                 names = re.findall(r'\d([a-z][a-z_]+?)(?=I|E)', m.group(1))
-                tmpl = re.search(r'ILi(\d+)EE', m.group(1))
+                tmpl = re.search(r'I((?:L[ib]\d+E)+)E', m.group(1))
+                args = re.findall(r'L[ib](\d+)E', tmpl.group(1)) if tmpl \
+                    else []
                 name = (f'{src} {max(names, key=len) if names else "?"}'
-                        + (f'<{tmpl.group(1)}>' if tmpl else ''))
+                        + (f'<{",".join(args)}>' if args else ''))
             m = re.search(r'(\d+) bytes spill stores', line)
             if m and name:
                 spill = m.group(1)
@@ -422,6 +447,10 @@ def run(dev, seed, n_main, n_check):
     diag_kernel_checks(dev, gen, errs)
     diag_gmm_path(dev, seed, card, n_main, errs, launches, ms)
     ilr_serving_paths(dev, seed, card, launches, ms, diag=True)
+    branch_checks(dev, gen, errs)
+    probe_checks(dev, gen, card, n_main, errs, launches, ms)
+    tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms)
+    hilr_serving_paths(dev, seed, card, errs, launches, ms)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
 
@@ -461,6 +490,58 @@ def run(dev, seed, n_main, n_check):
         'B6-MNG': ('B6 ILR predict, p>1, MNG tail',
                    'mimo_tpu_torch/csrc/ilr_predict.cu',
                    'mimo_tpu/ops/pallas_predict.py:349'),
+        'B3-hier': ('B3 Student-t mixture predictive, HierTied rows',
+                    'mimo_tpu_torch/csrc/predict.cu',
+                    'mimo_tpu/ops/pallas_predict.py:39'),
+        'B1-tied': ('B1 fused VI E-step, Gauss map, pooled (tied) NIW theta',
+                    'mimo_tpu_torch/csrc/estep.cu',
+                    'mimo_tpu/ops/pallas_estep.py:164'),
+        'B2-tied': ('B2 fused Gibbs label sweep, Gauss map, exact tied draws',
+                    'mimo_tpu_torch/csrc/gibbs.cu',
+                    'mimo_tpu/ops/pallas_gibbs.py:36'),
+        'B1-diag-tied': ('B1 fused VI E-step, diagonal map, pooled NG theta',
+                         'mimo_tpu_torch/csrc/estep.cu',
+                         'mimo_tpu/ops/pallas_estep.py:164'),
+        'B2-diag-tied': ('B2 fused Gibbs label sweep, diagonal map, exact '
+                         'tied NG draws', 'mimo_tpu_torch/csrc/gibbs.cu',
+                         'mimo_tpu/ops/pallas_gibbs.py:36'),
+        'B4-tied': ('B4 diagonal Student-t predictive, pooled NG',
+                    'mimo_tpu_torch/csrc/diag_predict.cu',
+                    'mimo_tpu/ops/pallas_predict.py:171'),
+        'B1-hier': ('B1 fused VI E-step, Gauss map, hierarchical theta',
+                    'mimo_tpu_torch/csrc/estep.cu',
+                    'mimo_tpu/ops/pallas_estep.py:164'),
+        'B2-hier': ('B2 fused Gibbs label sweep, Gauss map, exact '
+                    'hierarchical draws', 'mimo_tpu_torch/csrc/gibbs.cu',
+                    'mimo_tpu/ops/pallas_gibbs.py:36'),
+        'B1-ILR-hilr': ('B1 fused VI E-step, ILR map, HierTied basis x '
+                        'tied-affine experts', 'mimo_tpu_torch/csrc/estep.cu',
+                        'mimo_tpu/ops/pallas_estep.py:164'),
+        'B2-ILR-hilr': ('B2 fused Gibbs label sweep, ILR map, HierTied basis '
+                        'x tied-affine experts',
+                        'mimo_tpu_torch/csrc/gibbs.cu',
+                        'mimo_tpu/ops/pallas_gibbs.py:36'),
+        'B5-hilr': ('B5 ILR predict, p=1, tied-affine experts and HierTied '
+                    'basis branches', 'mimo_tpu_torch/csrc/ilr_predict.cu',
+                    'mimo_tpu/ops/pallas_predict.py:656'),
+        'B6-hilr': ('B6 ILR predict, p>1, tied-affine experts and HierTied '
+                    'basis branches', 'mimo_tpu_torch/csrc/ilr_predict.cu',
+                    'mimo_tpu/ops/pallas_predict.py:349'),
+        'S1-divide': ('S1 B1 probe, per-point divide (B1 itself)',
+                      'mimo_tpu_torch/csrc/estep.cu',
+                      'scripts/bisect_pallas.py:51'),
+        'S1-nodivide': ('S1 B1 probe, no per-point divide',
+                        'mimo_tpu_torch/csrc/estep.cu',
+                        'scripts/bisect_pallas.py:51'),
+        'S2-none': ('S2 B1 probe, no valid count',
+                    'mimo_tpu_torch/csrc/estep.cu',
+                    'scripts/bisect_smem.py:44'),
+        'S2-unused': ('S2 B1 probe, valid count in device memory, unused',
+                      'mimo_tpu_torch/csrc/estep.cu',
+                      'scripts/bisect_smem.py:48'),
+        'S2-used': ('S2 B1 probe, valid count in device memory, used',
+                    'mimo_tpu_torch/csrc/estep.cu',
+                    'scripts/bisect_smem.py:52'),
         'S3': ('S3 build probe o = 2x', 'mimo_tpu_torch/csrc/hello.cu',
                'scripts/pallas_hello.py:11'),
     }
@@ -480,7 +561,8 @@ def run(dev, seed, n_main, n_check):
 
 def reset_counts():
     """Set every kernel wrapper's launch count to 0."""
-    for mod in (cuda_estep, cuda_gibbs, cuda_predict, cuda_ilr_predict):
+    for mod in (cuda_estep, cuda_gibbs, cuda_predict, cuda_ilr_predict,
+                cuda_probes):
         for key in mod.launches:
             mod.launches[key] = 0
     cuda_diag_predict.launches = 0
@@ -528,14 +610,20 @@ def regression_data(gen, n, d, p, dev, lo=-3.0, hi=3.0, fn=torch.sin):
                                             device=dev)
 
 
-def estep_magnitudes(xt, theta, n, kind, p):
+def estep_magnitudes(xt, theta, n, kind=cuda_estep.GAUSS, p=0, divide=True,
+                     nv=None):
     """sum_n r_nk |F_jn|: the summed magnitudes behind each entry of B1's
-    statistics, the scale of their f32 rounding."""
+    statistics, the scale of their f32 rounding. r is the softmax, or
+    without `divide` exp(logp - max) (S1); points at or past nv weigh
+    nothing (S2)."""
     mag = torch.zeros(theta.shape, dtype=torch.float64, device=xt.device)
-    for s in range(0, n, 1 << 20):
-        f = assemble_features(xt[:, s:min(s + (1 << 20), n)],
+    end = n if nv is None else min(n, nv)
+    for s in range(0, end, 1 << 20):
+        f = assemble_features(xt[:, s:min(s + (1 << 20), end)],
                               theta.shape[1], kind, p)
-        r = torch.softmax(theta @ f, 0)
+        logp = theta @ f
+        r = (torch.softmax(logp, 0) if divide
+             else torch.exp(logp - logp.max(0).values))
         mag += (r @ f.abs().T).double()
     return mag
 
@@ -1084,6 +1172,464 @@ def diag_gmm_path(dev, seed, card, n_main, errs, launches, ms):
               f' ms')
     del x, xt, model, st, gs, lp_t, lp_g
     torch.cuda.empty_cache()
+
+
+# -- the tied and hierarchical families ---------------------------------------
+
+
+def hier_from(post):
+    """A HierTied posterior with an NIW posterior's scales: its first
+    component's NW as the hyper-posterior, its means and kappas as the
+    q(mu_k)."""
+    return HierTied(hyper=NIW(*(t[:1] for t in post)), mus=post.mu,
+                    kappas=post.kappa, kappas0=torch.ones_like(post.kappa))
+
+
+def tied_from(experts):
+    """Tied-affine experts with an MNW posterior's scales: expert 0's
+    slope, column precision and noise, every expert's offset and offset
+    precision, 0-d nu."""
+    d = experts.M.shape[-1] - 1
+    return TiedAffine(M=experts.M[0, :, :d], K_=experts.K_[0, :d, :d],
+                      mus=experts.M[:, :, d], kappas=experts.K_[:, d, d],
+                      psi=experts.psi[0], nu=experts.nu[0])
+
+
+def branch_checks(dev, gen, errs):
+    """B3 on HierTied rows and B5/B6 on every new basis x expert
+    combination against their plain versions."""
+    post = hier_from(random_posterior(gen, K_MAIN, D_MAIN, dev))
+    log_w = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
+                                          device=dev), 0)
+    xt = (torch.randn((D_MAIN, N_CHECK), generator=gen, device=dev) * 4.0
+          + post.mus[0][:, None])
+    errs['B3-hier'] = 0.0
+    for dist in ('studentt', 'gaussian'):
+        thq, aux = cuda_predict.predictive_coefficients(
+            post, log_w, dist == 'studentt')
+        out = cuda_predict.predict(xt, thq, aux, N_CHECK, dist == 'studentt')
+        ref = cuda_predict.predict_plain(xt, thq, aux, N_CHECK,
+                                         dist == 'studentt')
+        torch.cuda.synchronize()
+        ok, e = allclose_report(out, ref, 1e-5, 1e-4)
+        errs['B3-hier'] = max(errs['B3-hier'], e)
+        print(f'B3-hier {dist} N={N_CHECK} K={K_MAIN} d={D_MAIN}: max|err| '
+              f'{e:.6g} nats (rtol 1e-5, atol 1e-4) {"ok" if ok else "FAIL"};'
+              f' finite {bool(torch.isfinite(out).all())}')
+        check(ok and bool(torch.isfinite(out).all()),
+              f'B3-hier {dist} disagrees')
+
+    for name, d, p in (('B5-hilr', 1, 1), ('B6-hilr', D_P3, P_P3)):
+        errs[name] = 0.0
+        x, y = regression_data(gen, N_CHECK, d, p, dev)
+        for basis_kind, experts_kind in (('NIW', 'tied-affine'),
+                                         ('HierTied', 'MNW'),
+                                         ('HierTied', 'MNG'),
+                                         ('HierTied', 'tied-affine')):
+            basis, experts = (random_mng_posterior(gen, K_MAIN, d, p, dev)
+                              if experts_kind == 'MNG' else
+                              random_ilr_posterior(gen, K_MAIN, d, p, dev))
+            if basis_kind == 'HierTied':
+                basis = hier_from(basis)
+            if experts_kind == 'tied-affine':
+                experts = tied_from(experts)
+            log_w = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
+                                                  device=dev), 0)
+            for has_y in (True, False):
+                xt = stack_rows(kernel_xts((x, y) if has_y else (x,)))
+                for hard in (False, True):
+                    if p == 1:
+                        th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+                            basis, experts, log_w)
+                        out = cuda_ilr_predict.ilr_predict(
+                            xt, th, aux, N_CHECK, has_y, hard)
+                        ref = cuda_ilr_predict.ilr_predict_plain(
+                            xt, th, aux, N_CHECK, has_y, hard)
+                    else:
+                        th, aux, vc = \
+                            cuda_ilr_predict.ilr_p_predict_coefficients(
+                                basis, experts, log_w, True, has_y)
+                        out = cuda_ilr_predict.ilr_p_predict(
+                            xt, th, aux, vc, N_CHECK, p, has_y, hard)
+                        ref = cuda_ilr_predict.ilr_p_predict_plain(
+                            xt, th, aux, vc, N_CHECK, p, has_y, hard)
+                    torch.cuda.synchronize()
+                    ok, worst, flips = compare_serving(out, ref, p, hard)
+                    print(f'{name[:2]} {basis_kind} x {experts_kind} '
+                          f'N={N_CHECK} K={K_MAIN} d={d} p={p} '
+                          f'{"mode" if hard else "average"} '
+                          f'{"with" if has_y else "without"} y: max|err| '
+                          f'{worst:.6g} (mean rtol/atol 1e-4, var '
+                          f'2e-3/1e-5, nlpd 1e-3/2e-3, lse_w 1e-5/1e-4); '
+                          f'points off {flips} {"ok" if ok else "FAIL"}')
+                    check(ok, f'{name[:2]} {basis_kind} x {experts_kind} '
+                          'disagrees')
+                    errs[name] = max(errs[name], worst)
+
+
+def probe_checks(dev, gen, card, n_main, errs, launches, ms):
+    """S1 and S2 at N=n_main (a multiple of the 128-point tile), K=50,
+    d=2: one launch of each variant as the probes' own run (the launch
+    counts), each against its plain version, S2 also at the TPU probe's
+    shape, then each timed beside B1 as it stands."""
+    post = random_posterior(gen, K_MAIN, D_MAIN, dev)
+    log_pi = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
+                                           device=dev), 0)
+    xt = (torch.randn((D_MAIN, n_main), generator=gen, device=dev) * 4.0
+          + post.mu[0][:, None])
+    theta, _ = pad_theta(gaussian_spec().theta(post), log_pi, torch.float32)
+    nv_used = n_main - 99_997
+    nv = torch.tensor([nv_used], dtype=torch.int32, device=dev)
+    variants = {
+        'S1-divide': (lambda: cuda_probes.regf(xt, theta, n_main, True),
+                      True, None),
+        'S1-nodivide': (lambda: cuda_probes.regf(xt, theta, n_main, False),
+                        False, None),
+        'S2-none': (lambda: cuda_probes.estep_count(xt, theta, n_main,
+                                                    'none'), True, None),
+        'S2-unused': (lambda: cuda_probes.estep_count(xt, theta, n_main,
+                                                      'unused', nv),
+                      True, None),
+        'S2-used': (lambda: cuda_probes.estep_count(xt, theta, n_main,
+                                                    'used', nv),
+                    True, nv_used),
+    }
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = {name: fn() for name, (fn, _, _) in variants.items()}
+    torch.cuda.synchronize()
+    for name in variants:
+        launches[name] = cuda_probes.launches[name]
+    print(f'probes N={n_main} K={K_MAIN} d={D_MAIN}: launches '
+          f'{dict(cuda_probes.launches)}')
+    check(all(launches[name] == 1 for name in variants),
+          'a probe variant did not launch its kernel')
+    for name, (_, divide, used) in variants.items():
+        acc, lse = outs[name]
+        pacc, plse = cuda_probes.estep_probe_plain(xt, theta, n_main, divide,
+                                                   used)
+        mag = estep_magnitudes(xt, theta, n_main, divide=divide, nv=used)
+        err = (acc.double() - pacc.double()).abs()
+        ok_s = bool((err <= 1e-5 * mag + 1e-6).all())
+        ok_l, err_l = allclose_report(lse, plse, 1e-5, 0.0)
+        errs[name] = float(err.max())
+        print(f'{name} N={n_main}{f" nv={used}" if used else ""}: stats '
+              f'max|err| {errs[name]:.6g}, max |err| / summed magnitude '
+              f'{float((err / mag.clamp(min=1e-30)).max()):.3g} (<= 1e-5) '
+              f'{"ok" if ok_s else "FAIL"}; lse |err| {err_l:.6g} (rtol '
+              f'1e-5) {"ok" if ok_l else "FAIL"}')
+        check(ok_s and ok_l and bool(torch.isfinite(acc).all()),
+              f'{name} disagrees')
+    # S1 with the divide is B1's own instantiation: bitwise B1
+    acc_b1, lse_b1 = cuda_estep.estep(xt, theta, n_main)
+    check(torch.equal(outs['S1-divide'][0], acc_b1)
+          and torch.equal(outs['S1-divide'][1], lse_b1),
+          'S1 with the divide is not B1')
+
+    # S2 at the TPU probe's shape: K=8, d=2, N=4096, nv=4000
+    th8 = torch.randn((8, 8), generator=gen, device=dev)
+    th8[:, 1 + D_MAIN:7] = -0.2 * torch.eye(D_MAIN, device=dev).reshape(1, -1)
+    th8[:, 7:] = 0.0
+    x8 = torch.randn((D_MAIN, 4096), generator=gen, device=dev)
+    nv8 = torch.tensor([4000], dtype=torch.int32, device=dev)
+    for mode in ('none', 'unused', 'used'):
+        used = 4000 if mode == 'used' else None
+        acc, lse = cuda_probes.estep_count(x8, th8, 4096, mode, nv8)
+        pacc, plse = cuda_probes.estep_probe_plain(x8, th8, 4096, True, used)
+        mag = estep_magnitudes(x8, th8, 4096, nv=used)
+        err = (acc.double() - pacc.double()).abs()
+        ok = (bool((err <= 1e-5 * mag + 1e-6).all())
+              and allclose_report(lse, plse, 1e-5, 0.0)[0])
+        print(f'S2-{mode} K=8 d=2 N=4096{" nv=4000" if used else ""}: '
+              f'counts {float(acc[:, 0].sum()):.6g} (plain '
+              f'{float(pacc[:, 0].sum()):.6g}), stats max|err| '
+              f'{float(err.max()):.6g} {"ok" if ok else "FAIL"}')
+        check(ok, f'S2-{mode} disagrees at the probe shape')
+
+    ms['B1-probe'] = (cuda_ms(lambda: cuda_estep.estep(xt, theta, n_main),
+                              20), 0.0)
+    for name, (fn, divide, used) in variants.items():
+        ms[name] = (cuda_ms(fn, 20),
+                    cuda_ms(lambda: cuda_probes.estep_probe_plain(
+                        xt, theta, n_main, divide, used), 3))
+        print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
+              f'kernel {ms[name][0]:.6g} ms, plain PyTorch {ms[name][1]:.6g} '
+              f'ms; B1 in the same call {ms["B1-probe"][0]:.6g} ms')
+    del xt, outs
+    torch.cuda.empty_cache()
+
+
+def gibbs_acc_err(xt, n, kind, p, labels, acc):
+    """max |acc - one-hot sums of the labels' features|, in float64."""
+    k, m8 = acc.shape
+    ref = torch.zeros((k, m8), dtype=torch.float64, device=xt.device)
+    for s in range(0, n, 1 << 20):
+        e = min(s + (1 << 20), n)
+        f = assemble_features(xt[:, s:e], m8, kind, p).double()
+        oh = torch.nn.functional.one_hot(labels[s:e].long(), k).double()
+        ref += oh.T @ f.T
+    return float((acc.double() - ref).abs().max())
+
+
+def time_pairs(card, tag, pairs, errs, ms):
+    """Each (kernel, plain, err) triple timed by CUDA events (20 launches
+    after 2 warm-ups; the plain 3). errs[name] takes the larger of its
+    earlier value and this run's error: err() where given, else max
+    |kernel - plain| of one run."""
+    for name, (kern, plain, err) in pairs.items():
+        if err is None:
+            got, want = kern(), plain()
+            got = got[0] if isinstance(got, tuple) else got
+            want = want[0] if isinstance(want, tuple) else want
+            e = float((got.double() - want.double()).abs().max())
+        else:
+            e = err()
+        errs[name] = max(errs.get(name, 0.0), e)
+        ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
+        print(f'{name} time on {card} at {tag}: kernel {ms[name][0]:.6g} ms, '
+              f'plain PyTorch {ms[name][1]:.6g} ms; max|err| vs plain '
+              f'{errs[name]:.6g}')
+
+
+def tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms):
+    """The tied GMM and tied diagonal GMM (the reference's tgmm / tdgmm,
+    mimo_tpu/models/gmm.py:5-7, tests/test_gmm.py:145) and the
+    hierarchical GMM (tests/test_pallas.py:100-118) at the shape of
+    bench.py:90-98."""
+    kg = torch.Generator(device=dev).manual_seed(seed)
+    mu = torch.randn((3, D_MAIN), generator=kg, device=dev) * 4.0
+    lm = torch.eye(D_MAIN, device=dev).expand(3, D_MAIN, D_MAIN) * 2.0
+    x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3],
+                                n_main)
+    xt = kernel_xts((x,))[0]
+    configs = (
+        ('tied', dict(gating='dp', tied=True, kappa=0.05, psi_scale=0.5),
+         ('B1', 'B2', 'B3'), ('B1-tied', 'B2-tied', None)),
+        ('diag-tied', dict(gating='dirichlet', diag=True, tied=True,
+                           kappa=0.05),
+         ('B1-diag', 'B2-diag', 'B4'),
+         ('B1-diag-tied', 'B2-diag-tied', 'B4-tied')),
+        ('hier', dict(gating='dp', hierarchical=True, kappa=0.05,
+                      psi_scale=0.5, maxsubiter=25),
+         ('B1', 'B2', 'B3'), ('B1-hier', 'B2-hier', 'B3-hier')))
+    for label, kw, counts, names in configs:
+        model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, device=dev, **kw)
+        tag = f'{label} GMM N={n_main} K={K_MAIN} d={D_MAIN}'
+        torch.cuda.synchronize()
+        reset_counts()
+        st, vlb = model.fit_vi_fused(x, key=1, maxiter=20)
+        gs = model.fit_gibbs_fused(x, key=2, maxiter=20)
+        lp = model.log_predictive(st, x)
+        torch.cuda.synchronize()
+        path = read_counts()
+        print(f'{tag}: launches {path}')
+        check(path[counts[0]] == 20 and path[counts[1]] == 20
+              and path[counts[2]] == 1,
+              f'the {label} GMM path bypassed a kernel')
+        for count, name in zip(counts, names):
+            if name is not None:
+                launches[name] = path[count]
+        elbo_report(f'{tag} VI', vlb)
+        check(all_finite(st) and all_finite(gs[:4])
+              and gs.labels.shape == (n_main,) and int(gs.labels.min()) >= 0
+              and int(gs.labels.max()) < K_MAIN,
+              f'{label} GMM state not finite or labels out of range')
+        check(lp.shape == (n_main,) and all_finite(lp),
+              f'{label} GMM log_predictive not finite')
+        counts_g = torch.bincount(gs.labels.long(), minlength=K_MAIN)
+        big = torch.nonzero(counts_g >= 0.2 * n_main)[:, 0]
+        g_mu = gs.components.mus if label == 'hier' else gs.components.mu
+        near = torch.cdist(mu, g_mu[big]).min(1).values if len(big) else \
+            torch.full((3,), math.inf, device=dev)
+        shared = gs.params[1]
+        top3 = torch.sort(st.gating.mean())[0][-3:]
+        print(f'{tag}: VI top-3 weights '
+              f'{[round(float(w), 4) for w in top3]}; Gibbs components '
+              f'with >= 20% of points {len(big)}, true means within '
+              f'{float(near.max()):.4g} of them; the Gibbs scale shared '
+              f'over K '
+              f'{bool(torch.equal(shared, shared[:1].expand(shared.shape)))};'
+              f' mean log predictive {float(lp.mean()):.6g}')
+
+        xs_ = x[:100_003]
+        _, v_k = model.fit_vi_fused(xs_, maxiter=5, init_state=st,
+                                    randomize=False, backend='kernel')
+        _, v_t = model.fit_vi_fused(xs_, maxiter=5, init_state=st,
+                                    randomize=False, backend='torch')
+        ok_v, e_v = allclose_report(v_k, v_t, 1e-4, 0.0)
+        ok_p, e_p = allclose_report(
+            model.log_predictive(st, xs_, backend='kernel'),
+            model.log_predictive(st, xs_, backend='torch'), 1e-4, 1e-4)
+        print(f'{tag} vs plain on 100,003 points: VI ELBO max|err| '
+              f'{e_v:.6g} (rtol 1e-4) {"ok" if ok_v else "FAIL"}; '
+              f'log_predictive max|err| {e_p:.6g} (rtol/atol 1e-4) '
+              f'{"ok" if ok_p else "FAIL"}')
+        check(ok_v and ok_p,
+              f'the {label} GMM kernel path disagrees with the plain path')
+
+        vi = rate(20, lambda: model.fit_vi_fused(x, maxiter=20, init_state=st,
+                                                 randomize=False))
+        gibbs = rate(20, lambda: model.fit_gibbs_fused(x, key=3, maxiter=20))
+        pred = rate(n_main, lambda: model.log_predictive(st, x))
+        print(f'rates on {card}, {tag}: VI {vi} it/s (20 warm-started '
+              f'sweeps); Gibbs {gibbs} sweeps/s (20 sweeps); predictive '
+              f'{pred} pts/s')
+
+        spec = model._estep_spec()
+        kind = DIAG if label == 'diag-tied' else cuda_estep.GAUSS
+        th_vi, _ = pad_theta(spec.theta(st.components),
+                             st.gating.expected_log_pi(), torch.float32)
+        th_g, _ = pad_theta(spec.theta_plugin(gs.params), gs.log_pi,
+                            torch.float32)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        log_w = model.predictive_log_weights(st)
+        labels, acc = cuda_gibbs.gibbs(xt, th_g, zero, n_main, kind)
+        pairs = {
+            names[0]: (lambda: cuda_estep.estep(xt, th_vi, n_main, kind),
+                       lambda: cuda_estep.estep_plain(xt, th_vi, n_main,
+                                                      kind), None),
+            names[1]: (lambda: cuda_gibbs.gibbs(xt, th_g, zero, n_main, kind),
+                       lambda: cuda_gibbs.gibbs_plain(xt, th_g, zero, n_main,
+                                                      kind),
+                       lambda: gibbs_acc_err(xt, n_main, kind, 0, labels,
+                                             acc)),
+        }
+        if label == 'diag-tied':
+            thu, h, aux4 = cuda_diag_predict.diag_predict_coefficients(
+                st.components, log_w)
+            pairs[names[2]] = (
+                lambda: cuda_diag_predict.diag_predict(xt, thu, h, aux4,
+                                                       n_main),
+                lambda: cuda_diag_predict.diag_predict_plain(xt, thu, h, aux4,
+                                                             n_main), None)
+        elif label == 'hier':
+            thq, aux = cuda_predict.predictive_coefficients(st.components,
+                                                            log_w)
+            pairs[names[2]] = (
+                lambda: cuda_predict.predict(xt, thq, aux, n_main),
+                lambda: cuda_predict.predict_plain(xt, thq, aux, n_main),
+                None)
+        time_pairs(card, f'N={n_main} K={K_MAIN} d={D_MAIN} ({label} GMM)',
+                   pairs, errs, ms)
+        del model, st, gs, lp
+        torch.cuda.empty_cache()
+    del x, xt
+    torch.cuda.empty_cache()
+
+
+def hilr_serving_paths(dev, seed, card, errs, launches, ms):
+    """The tied-activation ILR (tests/test_ilr.py:166-187, the reference's
+    hilr with tied activation): the sine flagship at N=1e7 through B5 and
+    p>1 serving (tests/test_pallas.py:436-471's shape at K=50) through
+    B6."""
+    for count, n, d, p in (('B5', N_SINE, 1, 1), ('B6', N_P3, D_P3, P_P3)):
+        name = f'{count}-hilr'
+        kg = torch.Generator(device=dev).manual_seed(seed + 7)
+        if p == 1:
+            x = torch.rand((n, 1), generator=kg, device=dev) * 12 - 6
+            y = torch.sin(x) + 0.1 * torch.randn((n, 1), generator=kg,
+                                                 device=dev)
+            kw = dict(alpha=5.0, kappa=0.05, maxsubiter=10)
+        else:
+            x, y = regression_data(kg, n, d, p, dev, fn=torch.tanh)
+            kw = dict(alpha=2.0, kappa=0.1)
+        model = BayesianILR.make(size=K_MAIN, input_dim=d, output_dim=p,
+                                 tied_affine=True, hier_basis=True,
+                                 device=dev, **kw)
+        model.init_transform(x, y)
+        torch.cuda.synchronize()
+        reset_counts()
+        if p == 1:
+            # tests/test_ilr.py:181's Gibbs 60, over the first N_HILR_GIBBS
+            # points, then VI over all n warm-started from it. From the
+            # symmetric start a chain over all 1e7 points stays in a
+            # one-slope, y-banded mode (RMSE ~0.67) for over 1,000 sweeps;
+            # mimo_tpu's own chain does so from N ~ 1e5 (PERF.md §6).
+            sub = (x[:N_HILR_GIBBS], y[:N_HILR_GIBBS])
+            g = model.fit_gibbs_fused(sub, key=0, maxiter=60)
+            st, vlb = model.fit_vi_fused(
+                (x, y), key=1, maxiter=20,
+                init_state=MFState(g.components, g.gating), randomize=False)
+        else:
+            st, vlb = model.fit_vi_fused((x, y), key=1, maxiter=20)
+        mu, var, _, nlpd = model.predict(st, x, y)
+        torch.cuda.synchronize()
+        path = read_counts()
+        launches[name] = path[count]
+        if p == 1:
+            launches['B1-ILR-hilr'] = path['B1-ILR']
+            launches['B2-ILR-hilr'] = path['B2-ILR']
+        tag = (f'hilr serving ({"sine" if p == 1 else "tanh"}) N={n} '
+               f'K={K_MAIN} d={d} p={p}')
+        print(f'{tag}: launches {path}')
+        check(path[count] == 1 and path['B1-ILR'] == 20
+              and path['B2-ILR'] == (60 if p == 1 else 0),
+              'the hilr serving path bypassed a kernel')
+        check(isinstance(st.components[0], HierTied)
+              and isinstance(st.components[1], TiedAffine),
+              'the hilr path fitted the wrong families')
+        elbo_report(f'{tag} VI', vlb)
+        rmse = float(torch.sqrt(torch.mean((mu - y) ** 2)))
+        print(f'{tag}: RMSE {rmse:.6g} (noise floor 0.1'
+              f'{", bound 0.35" if p == 1 else ""}), mean NLPD '
+              f'{float(nlpd.mean()):.6g} nats, original units')
+        check(mu.shape == (n, p) and var.shape == (n, p)
+              and nlpd.shape == (n,) and all_finite((mu, var, nlpd)),
+              'hilr predict not finite or of the wrong shape')
+        if p == 1:
+            check(rmse < 0.35, f'hilr sine RMSE {rmse:.4g} >= 0.35')
+        engines_vs_plain(model, st, x, y)
+
+        pred = rate(n, lambda: model.predict(st, x, y))
+        print(f'rates on {card}, {tag}: predict {pred} pts/s (weights, '
+              f'moments and NLPD, original units)')
+        if p == 1:
+            vi = rate(20, lambda: model.fit_vi_fused(
+                (x, y), maxiter=20, init_state=st, randomize=False))
+            gibbs = rate(20, lambda: model.fit_gibbs_fused((x, y), key=3,
+                                                           maxiter=20))
+            print(f'rates on {card}, {tag}: VI {vi} it/s (20 warm-started '
+                  f'sweeps, 10 inner rounds each); Gibbs {gibbs} sweeps/s')
+        basis, experts = st.components
+        log_w = model.predictive_log_weights(st)
+        xt = stack_rows(kernel_xts((model._tx(x), model._ty(y))))
+        if p == 1:
+            th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+                basis, experts, log_w)
+            pairs = {name: (
+                lambda: cuda_ilr_predict.ilr_predict(xt, th, aux, n, True,
+                                                     False),
+                lambda: cuda_ilr_predict.ilr_predict_plain(xt, th, aux, n,
+                                                           True, False),
+                None)}
+            spec = model._estep_spec()
+            th_vi, _ = pad_theta(spec.theta(st.components),
+                                 st.gating.expected_log_pi(), torch.float32)
+            th_g, _ = pad_theta(spec.theta_plugin(g.params), g.log_pi,
+                                torch.float32)
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            labels, acc = cuda_gibbs.gibbs(xt, th_g, zero, n, ILR, 1)
+            pairs['B1-ILR-hilr'] = (
+                lambda: cuda_estep.estep(xt, th_vi, n, ILR, 1),
+                lambda: cuda_estep.estep_plain(xt, th_vi, n, ILR, 1), None)
+            pairs['B2-ILR-hilr'] = (
+                lambda: cuda_gibbs.gibbs(xt, th_g, zero, n, ILR, 1),
+                lambda: cuda_gibbs.gibbs_plain(xt, th_g, zero, n, ILR, 1),
+                lambda: gibbs_acc_err(xt, n, ILR, 1, labels, acc))
+        else:
+            th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                basis, experts, log_w)
+            pairs = {name: (
+                lambda: cuda_ilr_predict.ilr_p_predict(xt, th, aux, vc, n, p,
+                                                       True, False),
+                lambda: cuda_ilr_predict.ilr_p_predict_plain(
+                    xt, th, aux, vc, n, p, True, False),
+                None)}
+        time_pairs(card, f'N={n} K={K_MAIN} d={d} p={p} (hilr)', pairs, errs,
+                   ms)
+        del x, y, model, st, mu, var, nlpd, xt
+        torch.cuda.empty_cache()
+
 
 if __name__ == '__main__':
     main()

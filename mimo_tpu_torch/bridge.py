@@ -11,7 +11,9 @@ JAX arrays) and returns this package's NamedTuples of tensors;
 import numpy as np
 import torch
 
+from mimo_tpu_torch.distributions.affine import AffineStats, TiedAffine
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
+from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.mng import MNG, DiagLinGaussParams
 from mimo_tpu_torch.distributions.mnw import MNW, LinGaussParams, LinGaussStats
 from mimo_tpu_torch.distributions.ng import NG, DiagGaussParams, DiagGaussStats
@@ -20,11 +22,13 @@ from mimo_tpu_torch.models.mixture import GibbsState, MFState
 from mimo_tpu_torch.ops.family_estep import FusedEStep
 from mimo_tpu_torch.utils.data import Standardizer
 
-# product posteriors (ILR: (NIW, MNW or MNG)) are plain tuples and recurse
+# product posteriors (ILR: (NIW or HierTied, MNW, MNG or TiedAffine)) are
+# plain tuples and recurse; 0-d leaves (TiedAffine.nu) stay 0-d
 _CLASSES = {c.__name__: c for c in (
     MFState, GibbsState, NIW, GaussStats, GaussParams, NG, DiagGaussStats,
     DiagGaussParams, MNW, LinGaussStats, LinGaussParams, MNG,
-    DiagLinGaussParams, Dirichlet, StickBreaking, FusedEStep, Standardizer)}
+    DiagLinGaussParams, HierTied, TiedAffine, AffineStats, Dirichlet,
+    StickBreaking, FusedEStep, Standardizer)}
 
 
 def state_from_numpy(tree, device=None, dtype=None):

@@ -16,8 +16,8 @@ class GatingConfig:
 
 @dataclass
 class MixtureConfig:
-    """DP-GMM / GMM configuration. Full-covariance and diagonal components
-    are ported: `tied` and `hierarchical` raise (ROADMAP A16)."""
+    """DP-GMM / GMM configuration: full-covariance, diagonal or (with
+    `hierarchical`) hierarchically-tied components, `tied` scales."""
     size: int = 50                   # truncation level
     dim: int = 2
     gating: GatingConfig = field(default_factory=GatingConfig)
@@ -30,14 +30,12 @@ class MixtureConfig:
 
     def build(self, dtype=None, device=None):
         from mimo_tpu_torch.models.gmm import BayesianGMM
-        if self.tied or self.hierarchical:
-            raise NotImplementedError(
-                'tied and hierarchical GMMs are not ported yet (ROADMAP A16)')
         return BayesianGMM.make(
             size=self.size, dim=self.dim, gating=self.gating.kind,
-            alpha=self.gating.alpha, diag=self.diag, kappa=self.kappa,
-            psi_scale=self.psi_scale, dtype=dtype or torch.float32,
-            device=device)
+            alpha=self.gating.alpha, diag=self.diag, tied=self.tied,
+            hierarchical=self.hierarchical, kappa=self.kappa,
+            psi_scale=self.psi_scale, maxsubiter=self.maxsubiter,
+            dtype=dtype or torch.float32, device=device)
 
 
 @dataclass

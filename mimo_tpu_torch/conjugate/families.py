@@ -3,21 +3,27 @@
 A Family is a bundle of pure functions. `data` is a tuple of tensors with
 leading axis N; `resp` is (N, K); per-point outputs are (N, K). This
 package ports the full-covariance (NIW) and diagonal (NG) Gaussian
-families, the linear-Gaussian families with full (MNW) and diagonal (MNG)
-noise, and the product that joins a basis and an expert into the ILR
-family; the SVI blend and the maximum-likelihood update arrive with the
-engines that use them (ROADMAP A13/A14).
+families, the hierarchically-tied Gaussians, the linear-Gaussian families
+with full (MNW) and diagonal (MNG) noise, the tied-affine experts, the
+scale-tied variants of the four base families, and the product that joins
+a basis and an expert into the ILR family; the SVI blend and the
+maximum-likelihood update arrive with the engines that use them (ROADMAP
+A13/A14).
 """
 
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from mimo_tpu_torch.distributions import affine as _aff
+from mimo_tpu_torch.distributions import hierarchical as _hier
 from mimo_tpu_torch.distributions import mng as _mng
 from mimo_tpu_torch.distributions import mnw as _mnw
 from mimo_tpu_torch.distributions import ng as _ng
 from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.distributions.mnw import augment
+from mimo_tpu_torch.distributions.tied_gibbs import tied_gibbs_update
+from mimo_tpu_torch.utils.linalg import inv_psd
 
 
 class Family(NamedTuple):
@@ -33,9 +39,13 @@ class Family(NamedTuple):
     log_predictive: Callable[[Any, Any], torch.Tensor]   # Student-t (N, K)
     log_predictive_gaussian: Callable[[Any, Any], torch.Tensor]
     # Optional override for families whose Gibbs step is not plain
-    # update + sample (hierarchical and tied families, ROADMAP A16/A17):
-    # (gen, prior, stats) -> (posterior, params)
+    # update + sample (the exact tied, hierarchical and tied-affine
+    # draws): (gen, prior, stats) -> (posterior, params)
     gibbs_update: Any = None
+    # (post, prior, stats, scale, step) -> post; None until SVI is ported
+    # (ROADMAP A14). Tied-affine experts set one that raises, as the
+    # reference does.
+    svi_blend: Any = None
 
 
 def gaussian_family() -> Family:
@@ -182,17 +192,117 @@ def product_family(families, data_slices) -> Family:
     )
 
 
+def hier_gaussian_family(nb_iter: int = 25) -> Family:
+    """Hierarchically-tied Gaussians: a shared NW hyper-prior over the
+    component means and one tied precision. The VI update runs `nb_iter`
+    inner coordinate-ascent rounds (the reference's maxsubiter); the Gibbs
+    step is the exact one-shot draw, which has no inner chain."""
+    return Family(
+        suff_stats=lambda data, resp: _niw.suff_stats(data[0], resp),
+        update=lambda prior, stats: _hier.posterior_update(prior, stats,
+                                                           nb_iter),
+        ell=lambda post, data: _hier.expected_log_likelihood(post, data[0]),
+        loglik=lambda params, data: _niw.log_likelihood(params, data[0]),
+        kl=_hier.kl_divergence,
+        sample_params=_hier.sample_params,
+        mode_params=_hier.mode_params,
+        mean_params=_hier.mean_params,
+        log_predictive=lambda post, data: _hier.log_predictive_studentt(
+            post, data[0]),
+        log_predictive_gaussian=lambda post, data:
+            _hier.log_predictive_gaussian(post, data[0]),
+        gibbs_update=_hier.gibbs_update_exact,
+    )
+
+
+def _no_svi(*args, **kwargs):
+    raise NotImplementedError(
+        'meanfield_sgd is not implemented for tied-affine experts '
+        '(the reference raises as well)')
+
+
+def tied_affine_family(nb_iter: int = 25) -> Family:
+    """Tied-affine experts: one shared slope and noise, per-component
+    offsets. data = (x, y), x not augmented. The VI update runs `nb_iter`
+    inner coordinate-ascent rounds; the Gibbs step is the exact one-shot
+    draw; the SVI blend raises."""
+    def aug(x):
+        return augment(x, True)
+
+    return Family(
+        suff_stats=lambda data, resp: _aff.suff_stats(data[0], data[1],
+                                                      resp),
+        update=lambda prior, stats: _aff.posterior_update(prior, stats,
+                                                          nb_iter),
+        ell=lambda post, data: _aff.expected_log_likelihood(
+            post, aug(data[0]), data[1]),
+        loglik=lambda params, data: _aff.log_likelihood(
+            params, aug(data[0]), data[1]),
+        kl=_aff.kl_divergence,
+        sample_params=_aff.sample_params,
+        mode_params=_aff.mode_params,
+        mean_params=_aff.mean_params,
+        log_predictive=lambda post, data: _aff.log_predictive_studentt(
+            post, aug(data[0]), data[1]),
+        log_predictive_gaussian=lambda post, data:
+            _aff.log_predictive_gaussian(post, aug(data[0]), data[1]),
+        gibbs_update=_aff.gibbs_update_exact,
+        svi_blend=_no_svi,
+    )
+
+
 def ilr_family(affine: bool = True, diag: bool = False,
                tied_affine: bool = False, hier_basis: bool = False,
                maxsubiter: int = 25) -> Family:
-    """Mixture-of-linear-experts joint family: Gaussian basis on x (NIW)
-    x linear model of y|x (MNW, or MNG when `diag`). data = (x, y). The
-    tied-affine and hierarchically-tied variants are not ported yet."""
+    """Mixture-of-linear-experts joint family: a Gaussian basis on x (NIW,
+    or hierarchically tied with `hier_basis`) x a linear model of y | x
+    (MNW, MNG with `diag`, or tied-affine). data = (x, y). `tied_affine`
+    with `hier_basis` is the reference's mixture of linear Gaussians with
+    tied activation."""
+    basis = (hier_gaussian_family(maxsubiter) if hier_basis
+             else gaussian_family())
     if tied_affine:
-        raise NotImplementedError('tied-affine experts are not ported yet '
-                                  '(ROADMAP A17)')
-    if hier_basis:
-        raise NotImplementedError('the hierarchically-tied basis is not '
-                                  'ported yet (ROADMAP A16)')
-    model = diag_linear_family(affine) if diag else linear_family(affine)
-    return product_family((gaussian_family(), model), ((0,), (0, 1)))
+        model = tied_affine_family(maxsubiter)
+    elif diag:
+        model = diag_linear_family(affine)
+    else:
+        model = linear_family(affine)
+    return product_family((basis, model), ((0,), (0, 1)))
+
+
+# -- tied variants (a scale shared across components) ------------------------
+
+def _pool_wishart(p):
+    """Pool an NIW or MNW posterior across K: psi = inv(mean_k
+    psi_k^{-1}), nu = mean_k nu_k."""
+    pooled = inv_psd(torch.mean(inv_psd(p.psi), 0, keepdim=True))
+    return p._replace(psi=pooled.expand(p.psi.shape),
+                      nu=torch.mean(p.nu).expand(p.nu.shape))
+
+
+def _pool_gamma(p):
+    """Pool an NG or MNG posterior across K: alpha and beta averaged."""
+    return p._replace(alpha=torch.mean(p.alpha, 0, keepdim=True).expand(
+                          p.alpha.shape),
+                      beta=torch.mean(p.beta, 0, keepdim=True).expand(
+                          p.beta.shape))
+
+
+# the reference pools NIW and MNW posteriors alike (psi, nu), and NG and
+# MNG alike (alpha, beta)
+_POOLERS = {_niw.NIW: _pool_wishart, _mnw.MNW: _pool_wishart,
+            _ng.NG: _pool_gamma, _mng.MNG: _pool_gamma}
+
+
+def tied_family(base: Family) -> Family:
+    """Tie the scale parameters across components: run the base update,
+    then pool the posterior (the reference pools in its nat -> std map,
+    the same point). The Gibbs step does not pool: it is the exact tied
+    draw (`tied_gibbs.tied_gibbs_update`), one Wishart or Gamma draw of
+    the shared scale. The base family's posterior must be NIW, NG, MNW or
+    MNG."""
+    def update(prior, stats):
+        post = base.update(prior, stats)
+        return _POOLERS[type(post)](post)
+
+    return base._replace(update=update, gibbs_update=tied_gibbs_update)

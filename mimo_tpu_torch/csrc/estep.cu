@@ -32,15 +32,34 @@
 // diagonal maps existed. At m8=168, K=50 a block stages ~180 KB, so one
 // 128-thread block fits per SM: low occupancy, accepted for now (ROADMAP
 // A10b).
+//
+// Two probes of B1's cost, the ports of the TPU bisection kernels, are
+// template parameters of the same kernel over the Gauss map; no model
+// launches them:
+//   S1 (scripts/bisect_pallas.py::_regf_kernel): kDivide = false skips
+//      the per-point normalisation, so acc accumulates sum ex F^T with ex
+//      = exp(logp - max) (lse is unchanged). It isolates what the divide
+//      costs.
+//   S2 (scripts/bisect_smem.py::kern_*): where the valid count lives. The
+//      TPU probe read a scalar from SMEM; here kCount selects the count
+//      as a kernel argument (B1 itself), none at all (N a multiple of the
+//      tile: no per-point test), an int32 in device memory passed and not
+//      read, or one read once per block and used to mask the points at or
+//      past it, which then contribute nothing (as B1's tail; the TPU
+//      probe's masked columns divide by a zero denominator).
 #include "common.cuh"
 
 namespace {
 
-template <int kMap>
+enum CountMode { kCountArg = 0, kCountNone = 1, kCountMemUnused = 2,
+                 kCountMemUsed = 3 };
+
+template <int kMap, bool kDivide = true, int kCount = kCountArg>
 __global__ void __launch_bounds__(kThreads)
 estep_partial(const float* __restrict__ xt, long long ld, int d, int np,
-              bool affine, long long n, const float* __restrict__ theta,
-              int k, int m8, float* __restrict__ part) {
+              bool affine, long long n, const int* __restrict__ nv,
+              const float* __restrict__ theta, int k, int m8,
+              float* __restrict__ part) {
   extern __shared__ float smem[];
   const int km = k * m8;
   float* th = smem;              // (k, m8)
@@ -54,6 +73,8 @@ estep_partial(const float* __restrict__ xt, long long ld, int d, int np,
     acc[i] = 0.0f;
   }
   float lse = 0.0f;
+  long long valid = n;
+  if constexpr (kCount == kCountMemUsed) valid = min(n, (long long)*nv);
   __syncthreads();
 
   const long long ntiles = (n + kThreads - 1) / kThreads;
@@ -61,7 +82,9 @@ estep_partial(const float* __restrict__ xt, long long ld, int d, int np,
     const long long p = tile * kThreads + tid;
     float* col = F + tid;
     float* rcol = R + tid;
-    if (p < n) {
+    constexpr bool kAllValid = kCount == kCountNone ||
+                               kCount == kCountMemUnused;
+    if (kAllValid || p < valid) {
       features<kMap>(xt, ld, d, np, affine, p, col, m8);
       float mx = -INFINITY;
       for (int kk = 0; kk < k; ++kk) {
@@ -77,9 +100,11 @@ estep_partial(const float* __restrict__ xt, long long ld, int d, int np,
       }
       den = fmaxf(den, 1e-37f);
       lse += mx + logf(den);
-      // normalize through F (m8 rows) rather than the K responsibilities
-      const float inv = 1.0f / den;
-      for (int j = 0; j < m8; ++j) col[j * kStride] *= inv;
+      if constexpr (kDivide) {
+        // normalize through F (m8 rows) rather than the K responsibilities
+        const float inv = 1.0f / den;
+        for (int j = 0; j < m8; ++j) col[j * kStride] *= inv;
+      }
     } else {  // masked tail: contributes nothing
       for (int j = 0; j < m8; ++j) col[j * kStride] = 0.0f;
       for (int kk = 0; kk < k; ++kk) rcol[kk * kStride] = 0.0f;
@@ -107,17 +132,17 @@ estep_partial(const float* __restrict__ xt, long long ld, int d, int np,
   if (tid == 0) out[km] = red[0];
 }
 
-template <int kMap>
+template <int kMap, bool kDivide = true, int kCount = kCountArg>
 cudaError_t launch_estep(const float* xt, long long ld, int d, int np,
-                         bool affine, long long n, const float* theta, int k,
-                         int m8, float* part, int grid, size_t smem,
-                         cudaStream_t s) {
+                         bool affine, long long n, const int* nv,
+                         const float* theta, int k, int m8, float* part,
+                         int grid, size_t smem, cudaStream_t s) {
+  auto kernel = estep_partial<kMap, kDivide, kCount>;
   cudaError_t err = cudaFuncSetAttribute(
-      estep_partial<kMap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  estep_partial<kMap><<<grid, kThreads, smem, s>>>(xt, ld, d, np, affine, n,
-                                                   theta, k, m8, part);
+  kernel<<<grid, kThreads, smem, s>>>(xt, ld, d, np, affine, n, nv, theta, k,
+                                      m8, part);
   return cudaGetLastError();
 }
 
@@ -143,14 +168,59 @@ extern "C" int mimo_estep(const float* xt, long long ld, int d, int p,
   const size_t smem = mimo_estep_smem_bytes(k, m8);
   cudaError_t err;
   if (kind == kKindGauss)
-    err = launch_estep<kGauss>(xt, ld, d, 0, false, n, theta, k, m8, part,
-                               grid, smem, s);
+    err = launch_estep<kGauss>(xt, ld, d, 0, false, n, nullptr, theta, k, m8,
+                               part, grid, smem, s);
   else if (kind == kKindDiag)
-    err = launch_estep<kDiag>(xt, ld, d, 0, false, n, theta, k, m8, part,
-                              grid, smem, s);
+    err = launch_estep<kDiag>(xt, ld, d, 0, false, n, nullptr, theta, k, m8,
+                              part, grid, smem, s);
   else
-    err = launch_estep<kIlr>(xt, ld, d, p, kind == kKindIlrAffine, n, theta,
-                             k, m8, part, grid, smem, s);
+    err = launch_estep<kIlr>(xt, ld, d, p, kind == kKindIlrAffine, n,
+                             nullptr, theta, k, m8, part, grid, smem, s);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(part, grid, k * m8 + 1, out, s);
+}
+
+// S1: B1 over the Gauss map (xt (d, ld), points 0..n-1), with (divide =
+// 1, B1 itself) or without the per-point normalisation; out as mimo_estep.
+extern "C" int mimo_regf(const float* xt, long long ld, int d, long long n,
+                         const float* theta, int k, int m8, int divide,
+                         float* part, float* out, int grid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m8 < feature_width(kKindGauss, d, 0)) return cudaErrorInvalidValue;
+  const size_t smem = mimo_estep_smem_bytes(k, m8);
+  cudaError_t err =
+      divide ? launch_estep<kGauss, true>(xt, ld, d, 0, false, n, nullptr,
+                                          theta, k, m8, part, grid, smem, s)
+             : launch_estep<kGauss, false>(xt, ld, d, 0, false, n, nullptr,
+                                           theta, k, m8, part, grid, smem, s);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(part, grid, k * m8 + 1, out, s);
+}
+
+// S2: B1 over the Gauss map with the valid count given by `mode`
+// (CountMode): 1 none, 2 the int32 *nv in device memory passed and not
+// read, 3 *nv read and used (points >= min(*nv, n) masked). Modes 1
+// and 2 take every point of n, which must be a multiple of the tile.
+extern "C" int mimo_estep_count(const float* xt, long long ld, int d,
+                                long long n, const int* nv, int mode,
+                                const float* theta, int k, int m8,
+                                float* part, float* out, int grid,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m8 < feature_width(kKindGauss, d, 0) || mode < kCountNone ||
+      mode > kCountMemUsed || (mode != kCountMemUsed && n % kThreads != 0))
+    return cudaErrorInvalidValue;
+  const size_t smem = mimo_estep_smem_bytes(k, m8);
+  cudaError_t err;
+  if (mode == kCountNone)
+    err = launch_estep<kGauss, true, kCountNone>(
+        xt, ld, d, 0, false, n, nv, theta, k, m8, part, grid, smem, s);
+  else if (mode == kCountMemUnused)
+    err = launch_estep<kGauss, true, kCountMemUnused>(
+        xt, ld, d, 0, false, n, nv, theta, k, m8, part, grid, smem, s);
+  else
+    err = launch_estep<kGauss, true, kCountMemUsed>(
+        xt, ld, d, 0, false, n, nv, theta, k, m8, part, grid, smem, s);
   if (err != cudaSuccess) return err;
   return launch_reduce(part, grid, k * m8 + 1, out, s);
 }

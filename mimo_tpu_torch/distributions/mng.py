@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from mimo_tpu_torch.distributions.mnw import LinGaussStats  # noqa: F401
-from mimo_tpu_torch.distributions.mnw import _outer_rows, _t
+from mimo_tpu_torch.distributions.mnw import _outer_rows, _t, column_solve
 from mimo_tpu_torch.distributions.wishart import gamma_sample
 from mimo_tpu_torch.utils.linalg import (
     cholesky, chol_logdet, inv_psd, quad_form, solve_psd,
@@ -125,8 +125,7 @@ def sample_params(gen, p: MNG) -> DiagLinGaussParams:
     lmbda = gamma_sample(gen, p.alpha) / p.beta              # (K, p)
     z = torch.randn(p.M.shape, generator=gen, dtype=p.M.dtype,
                     device=p.M.device)
-    w = _t(torch.linalg.solve_triangular(_t(cholesky(p.K_)), _t(z),
-                                         upper=True))
+    w = column_solve(cholesky(p.K_), z)
     return DiagLinGaussParams(A=p.M + w / torch.sqrt(lmbda)[..., None],
                               lmbda_diag=lmbda)
 

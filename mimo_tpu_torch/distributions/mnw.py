@@ -156,20 +156,29 @@ def kl_divergence(q: MNW, p: MNW):
     return log_partition(p) - log_partition(q) + inner
 
 
+def column_solve(chol_k, u):
+    """u Lk^{-1}: columns of covariance K^{-1} = Lk^{-T} Lk^{-1} from
+    Lk = chol(K), as w^T = Lk^{-T} u^T, a solve against the TRANSPOSED
+    factor (solving against Lk itself gives (Lk^T Lk)^{-1}, wrong for any
+    non-diagonal K)."""
+    return _t(torch.linalg.solve_triangular(_t(chol_k), _t(u), upper=True))
+
+
+def matrix_normal_draw(gen, mean, chol_lmbda, chol_k):
+    """A ~ MN(mean, Lambda^{-1} (rows), K^{-1} (columns)) given the
+    Cholesky factors of Lambda and K, batched: L^{-T} Z Lk^{-1}."""
+    z = torch.randn(mean.shape, generator=gen, dtype=mean.dtype,
+                    device=mean.device)
+    u = torch.linalg.solve_triangular(_t(chol_lmbda), z, upper=True)
+    return mean + column_solve(chol_k, u)
+
+
 def sample_params(gen, p: MNW) -> LinGaussParams:
-    """Draw (A, Lambda) ~ MNW(p): A = M + chol(Lambda)^{-T} Z chol(K)^{-1}."""
+    """Draw (A, Lambda) ~ MNW(p)."""
     lmbda = wishart_sample(gen, p.psi, p.nu)
-    z = torch.randn(p.M.shape, generator=gen, dtype=p.M.dtype,
-                    device=p.M.device)
-    # left: solve L^T u = z (rows ~ Lambda^{-1})
-    u = torch.linalg.solve_triangular(_t(cholesky(lmbda)), z, upper=True)
-    # right: the column covariance must be K^{-1} = Lk^{-T} Lk^{-1}, so
-    # w^T = Lk^{-T} u^T: solve against the TRANSPOSED Cholesky factor
-    # (solving against Lk itself gives (Lk^T Lk)^{-1}, wrong for any
-    # non-diagonal K)
-    w = _t(torch.linalg.solve_triangular(_t(cholesky(p.K_)), _t(u),
-                                         upper=True))
-    return LinGaussParams(A=p.M + w, lmbda=lmbda)
+    return LinGaussParams(A=matrix_normal_draw(gen, p.M, cholesky(lmbda),
+                                               cholesky(p.K_)),
+                          lmbda=lmbda)
 
 
 def mode_params(p: MNW) -> LinGaussParams:

@@ -162,15 +162,22 @@ def log_marginal_likelihood(prior: NIW, posterior: NIW, n):
 
 # -- sampling / point estimates of likelihood parameters ----------------------
 
+def scaled_normal_draw(gen, mean, kappa, chol_lmbda):
+    """mean + L^{-T} z / sqrt(kappa) ~ N(mean, (kappa Lambda)^{-1}) given
+    L = chol(Lambda), batched: mean (..., d), kappa (...), chol_lmbda
+    (..., d, d) (broadcast against mean's batch)."""
+    z = torch.randn(mean.shape, generator=gen, dtype=mean.dtype,
+                    device=mean.device)
+    delta = torch.linalg.solve_triangular(
+        chol_lmbda.transpose(-1, -2), z[..., None], upper=True)[..., 0]
+    return mean + delta / torch.sqrt(kappa)[..., None]
+
+
 def sample_params(gen, p: NIW) -> GaussParams:
     """Draw (mu, Lambda) ~ NW(p), batched over K."""
     lmbda = wishart_sample(gen, p.psi, p.nu)
-    # mu | Lambda ~ N(m, (kappa Lambda)^{-1}): mu = m + L^{-T} z / sqrt(kappa)
-    z = torch.randn(p.mu.shape, generator=gen, dtype=p.mu.dtype,
-                    device=p.mu.device)
-    delta = torch.linalg.solve_triangular(
-        cholesky(lmbda).transpose(-1, -2), z[..., None], upper=True)[..., 0]
-    return GaussParams(mu=p.mu + delta / torch.sqrt(p.kappa)[..., None],
+    return GaussParams(mu=scaled_normal_draw(gen, p.mu, p.kappa,
+                                             cholesky(lmbda)),
                        lmbda=lmbda)
 
 

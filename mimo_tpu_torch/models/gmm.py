@@ -1,11 +1,14 @@
-"""Bayesian (DP-)GMM with full-covariance (NIW) or diagonal (NG)
-components (port of the main-path slice of mimo_tpu/models/gmm.py)."""
+"""Bayesian (DP-)GMM with full-covariance (NIW), diagonal (NG) or
+hierarchically-tied components, optionally with a scale tied across
+components (port of the fused-engine slice of mimo_tpu/models/gmm.py:
+`BayesianGMM` without `sample`; the ML `GMM` arrives with ROADMAP A13)."""
 
 import torch
 
 from mimo_tpu_torch.conjugate.families import (
-    diag_gaussian_family, gaussian_family)
+    diag_gaussian_family, gaussian_family, hier_gaussian_family, tied_family)
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
+from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import NIW, GaussParams
 from mimo_tpu_torch.models.mixture import BayesianMixture, _as_generator
@@ -14,47 +17,67 @@ from mimo_tpu_torch.utils.linalg import cholesky, inv_psd
 
 class BayesianGMM(BayesianMixture):
     """Bayesian mixture of Gaussians with conjugate priors: full
-    covariance (NIW) or diagonal (NG) components, and a Dirichlet or
-    stick-breaking (DP) gating prior."""
+    covariance (NIW), diagonal (NG) or hierarchically-tied (HierTied)
+    components, and a Dirichlet or stick-breaking (DP) gating prior.
+    `tied` shares the covariance scale of NIW or NG components across K
+    (the reference's tgmm / tdgmm); `maxsubiter` is the HierTied update's
+    number of inner rounds."""
 
-    def __init__(self, gating_prior, components_prior):
+    def __init__(self, gating_prior, components_prior, tied=False,
+                 maxsubiter=25):
         if isinstance(components_prior, NIW):
             family = gaussian_family()
         elif isinstance(components_prior, NG):
             family = diag_gaussian_family()
+        elif isinstance(components_prior, HierTied):
+            if tied:
+                raise ValueError('HierTied is already precision-tied')
+            family = hier_gaussian_family(maxsubiter)
         else:
             raise TypeError('unsupported component prior: '
                             f'{type(components_prior).__name__}')
+        if tied:
+            family = tied_family(family)
+        self.tied = tied
         super().__init__(gating_prior, components_prior, family)
 
     @staticmethod
-    def make(size, dim, gating='dirichlet', alpha=1.0, diag=False, mean=None,
-             kappa=1e-2, psi_scale=1.0, nu=None, dtype=torch.float32,
-             device=None):
+    def make(size, dim, gating='dirichlet', alpha=1.0, diag=False, tied=False,
+             hierarchical=False, mean=None, kappa=1e-2, psi_scale=1.0,
+             nu=None, maxsubiter=25, dtype=torch.float32, device=None):
         """Convenience constructor: `gating` is 'dirichlet' or
         'dp' / 'stick-breaking'; `diag` builds NG components (whose
-        standard prior has no psi_scale or nu); the priors live on
-        `device`."""
+        standard prior has no psi_scale or nu); `hierarchical` builds
+        HierTied components with unit kappa_k under a hyper-prior of
+        precision `kappa`; the priors live on `device`."""
         if gating == 'dirichlet':
             g = Dirichlet.standard(size, alpha, dtype, device)
         elif gating in ('stick-breaking', 'dp'):
             g = StickBreaking.standard(size, alpha, dtype, device)
         else:
             raise ValueError(gating)
-        if diag:
+        if hierarchical:
+            c = HierTied.standard(size, dim, kappa=1.0, hyper_kappa=kappa,
+                                  psi_scale=psi_scale, nu=nu, dtype=dtype,
+                                  device=device)
+        elif diag:
             c = NG.standard(size, dim, mean=mean, kappa=kappa, dtype=dtype,
                             device=device)
         else:
             c = NIW.standard(size, dim, mean=mean, kappa=kappa,
                              psi_scale=psi_scale, nu=nu, dtype=dtype,
                              device=device)
-        return BayesianGMM(g, c)
+        return BayesianGMM(g, c, tied=tied, maxsubiter=maxsubiter)
 
     def _estep_spec(self):
+        """The component family's spec; a tied GMM keeps its base spec,
+        over the pooled posterior."""
         from mimo_tpu_torch.ops.family_estep import (
-            diag_gaussian_spec, gaussian_spec)
+            diag_gaussian_spec, gaussian_spec, hier_gaussian_spec)
         if isinstance(self.components_prior, NG):
             return diag_gaussian_spec()
+        if isinstance(self.components_prior, HierTied):
+            return hier_gaussian_spec()
         return gaussian_spec()
 
     @staticmethod

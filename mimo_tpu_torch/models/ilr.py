@@ -1,6 +1,7 @@
 """Infinite mixture of linear regressions (ILR): a Bayesian mixture of
 linear-Gaussian experts with Gaussian basis functions (port of
-mimo_tpu/models/ilr.py for the NIW basis and MNW or MNG experts).
+mimo_tpu/models/ilr.py: NIW or hierarchically-tied bases, MNW, MNG or
+tied-affine experts).
 
 The joint density p(x, y, z=k) = gating(k) basis_k(x) model_k(y | x) is
 a product conjugate family, so the fused engines of `BayesianMixture`
@@ -16,10 +17,14 @@ from typing import Optional
 import torch
 
 from mimo_tpu_torch.conjugate.families import ilr_family
+from mimo_tpu_torch.distributions import affine as _aff
+from mimo_tpu_torch.distributions import hierarchical as _hier
 from mimo_tpu_torch.distributions import mng as _mng
 from mimo_tpu_torch.distributions import mnw as _mnw
 from mimo_tpu_torch.distributions import niw as _niw
+from mimo_tpu_torch.distributions.affine import TiedAffine
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
+from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW, augment
 from mimo_tpu_torch.distributions.niw import NIW
@@ -33,26 +38,33 @@ from mimo_tpu_torch.utils.stats import normalize_log
 class BayesianILR(BayesianMixture):
     """Bayesian mixture of linear-Gaussian experts.
 
-    components_prior = (basis_prior: NIW, models_prior: MNW | MNG); the
-    experts are affine by default (ones column appended to x). MNG
-    experts (`diag`) have diagonal noise: per-output Gamma precisions."""
+    components_prior = (basis_prior: NIW | HierTied, models_prior: MNW |
+    MNG | TiedAffine); the experts are affine by default (ones column
+    appended to x). MNG experts (`diag`) have diagonal noise: per-output
+    Gamma precisions. Tied-affine experts share one slope and noise and
+    are affine by construction; with a HierTied basis they are the
+    reference's mixture of linear Gaussians with tied activation.
+    `maxsubiter` is the inner rounds of the HierTied and tied-affine
+    updates."""
 
     def __init__(self, gating_prior, basis_prior, models_prior, affine=True,
                  maxsubiter=25):
-        if not isinstance(basis_prior, NIW):
-            raise NotImplementedError(
-                f'basis prior {type(basis_prior).__name__}: only NIW is '
-                'ported (the HierTied basis waits for ROADMAP A16)')
-        if not isinstance(models_prior, (MNW, MNG)):
-            raise NotImplementedError(
-                f'models prior {type(models_prior).__name__}: only MNW and '
-                'MNG are ported (tied-affine experts wait for ROADMAP A17)')
-        self.affine = affine
+        if not isinstance(basis_prior, (NIW, HierTied)):
+            raise TypeError('unsupported basis prior: '
+                            f'{type(basis_prior).__name__}')
+        if not isinstance(models_prior, (MNW, MNG, TiedAffine)):
+            raise TypeError('unsupported models prior: '
+                            f'{type(models_prior).__name__}')
+        self.tied_affine = isinstance(models_prior, TiedAffine)
+        self.hier_basis = isinstance(basis_prior, HierTied)
+        self.affine = affine or self.tied_affine   # the offset is affine
         self.diag = isinstance(models_prior, MNG)
-        self.input_dim = basis_prior.mu.shape[-1]
+        self.input_dim = basis_prior.dim
         self.output_dim = models_prior.M.shape[-2]
         super().__init__(gating_prior, (basis_prior, models_prior),
-                         ilr_family(affine=affine, diag=self.diag,
+                         ilr_family(affine=self.affine, diag=self.diag,
+                                    tied_affine=self.tied_affine,
+                                    hier_basis=self.hier_basis,
                                     maxsubiter=maxsubiter))
         self.input_transform: Optional[Standardizer] = None
         self.output_transform: Optional[Standardizer] = None
@@ -62,23 +74,31 @@ class BayesianILR(BayesianMixture):
              affine=True, diag=False, tied_affine=False, hier_basis=False,
              kappa=1e-2, K_scale=1e-2, psi_scale=1.0, basis_psi_scale=1.0,
              maxsubiter=25, dtype=torch.float32, device=None):
-        """Convenience constructor: NIW basis x MNW experts, or MNG experts
-        with `diag` (whose standard prior has no psi_scale), on `device`.
-        `tied_affine` and `hier_basis` raise until their families are
-        ported (ROADMAP A16/A17)."""
-        if tied_affine or hier_basis:
-            raise NotImplementedError(
-                'tied-affine and hierarchical-basis ILR models are not '
-                'ported yet (ROADMAP A16/A17)')
+        """Convenience constructor, on `device`: an NIW basis, or with
+        `hier_basis` a HierTied one (unit kappa_k under a hyper-prior of
+        precision `kappa`); MNW experts, MNG experts with `diag` (whose
+        standard prior has no psi_scale), or tied-affine experts with
+        `tied_affine` (offset precision `kappa`)."""
         if gating == 'dirichlet':
             g = Dirichlet.standard(size, alpha, dtype, device)
         else:
             g = StickBreaking.standard(size, alpha, dtype, device)
-        basis = NIW.standard(size, input_dim, kappa=kappa,
-                             psi_scale=basis_psi_scale, dtype=dtype,
-                             device=device)
+        if hier_basis:
+            basis = HierTied.standard(size, input_dim, kappa=1.0,
+                                      hyper_kappa=kappa,
+                                      psi_scale=basis_psi_scale, dtype=dtype,
+                                      device=device)
+        else:
+            basis = NIW.standard(size, input_dim, kappa=kappa,
+                                 psi_scale=basis_psi_scale, dtype=dtype,
+                                 device=device)
         q = input_dim + int(affine)
-        if diag:
+        if tied_affine:
+            models = TiedAffine.standard(size, output_dim, input_dim,
+                                         K_scale=K_scale, kappa=kappa,
+                                         psi_scale=psi_scale, dtype=dtype,
+                                         device=device)
+        elif diag:
             models = MNG.standard(size, output_dim, q, K_scale=K_scale,
                                   dtype=dtype, device=device)
         else:
@@ -125,7 +145,8 @@ class BayesianILR(BayesianMixture):
     def _estep_spec(self):
         from mimo_tpu_torch.ops.family_estep import ilr_spec
         return ilr_spec(self.input_dim, self.output_dim, affine=self.affine,
-                        diag_expert=self.diag)
+                        diag_expert=self.diag, hier_basis=self.hier_basis,
+                        tied_affine=self.tied_affine)
 
     def fit_vi_fused(self, data, **kw):
         """Fused VI over standardized (x, y): the N x K responsibilities
@@ -144,21 +165,26 @@ class BayesianILR(BayesianMixture):
         """Input-conditional expert weights:
         softmax_k [ log E[pi_k] + log basis-predictive_k(x) ] -> (N, K)."""
         basis_post, _ = state.components
-        log_basis = (_niw.log_predictive_studentt(basis_post, x)
+        mod = _hier if self.hier_basis else _niw
+        log_basis = (mod.log_predictive_studentt(basis_post, x)
                      if dist == 'studentt'
-                     else _niw.log_predictive_gaussian(basis_post, x))
+                     else mod.log_predictive_gaussian(basis_post, x))
         weights, _ = normalize_log(
             log_basis + self.predictive_log_weights(state)[None, :])
         return weights
 
-    def _expert_module(self):
-        return _mng if self.diag else _mnw
+    def _experts(self, state):
+        """(the experts' module, their posterior): tied-affine experts as
+        their block-diagonal MNW."""
+        _, models_post = state.components
+        if self.tied_affine:
+            return _mnw, _aff.to_packed_mnw(models_post)
+        return (_mng if self.diag else _mnw), models_post
 
     def predictive_moments(self, state: MFState, x, dist='studentt'):
         """Per-expert predictive mean (N, K, p) and covariance
         (N, K, p, p), or its diagonal (N, K, p) for MNG experts."""
-        _, models_post = state.components
-        mod = self._expert_module()
+        mod, models_post = self._experts(state)
         fn = (mod.predictive_moments_studentt if dist == 'studentt'
               else mod.predictive_moments_gaussian)
         return fn(models_post, augment(x, self.affine))
@@ -182,8 +208,7 @@ class BayesianILR(BayesianMixture):
                                   dist='studentt'):
         """Per-expert log p(y | x) under the posterior predictive
         -> (N, K)."""
-        _, models_post = state.components
-        mod = self._expert_module()
+        mod, models_post = self._experts(state)
         fn = (mod.log_predictive_studentt if dist == 'studentt'
               else mod.log_predictive_gaussian)
         return fn(models_post, augment(x, self.affine), y)

@@ -226,10 +226,13 @@ class BayesianMixture:
         """Posterior-predictive mixture log-density of full observations:
         logsumexp_k [log E[pi_k] + log pred_k(data)] -> (N,). `dist`:
         'studentt' or the moment-matched 'gaussian'. The kernel path
-        serves NIW posteriors through B3 and NG posteriors through B4
-        (Student-t) or B3 over the diagonal map (Gaussian), in float32,
-        and casts the result back to the data's dtype; the plain path is
-        the dense (N, K) computation."""
+        serves NIW and HierTied posteriors through B3 (a HierTied
+        posterior's predictive is the same Student-t surface with the
+        shared hyper scale) and NG posteriors through B4 (Student-t) or
+        B3 over the diagonal map (Gaussian), in float32, and casts the
+        result back to the data's dtype; the plain path is the dense
+        (N, K) computation."""
+        from mimo_tpu_torch.distributions.hierarchical import HierTied
         from mimo_tpu_torch.distributions.ng import NG
         from mimo_tpu_torch.distributions.niw import NIW
         from mimo_tpu_torch.ops.cuda_diag_predict import diag_predictive_cuda
@@ -240,7 +243,9 @@ class BayesianMixture:
         x = data[0]
         log_w = self.predictive_log_weights(state)
         if resolve_backend(backend, x):
-            kernels = {NIW: gauss_predictive_cuda, NG: diag_predictive_cuda}
+            kernels = {NIW: gauss_predictive_cuda,
+                       HierTied: gauss_predictive_cuda,
+                       NG: diag_predictive_cuda}
             serve = kernels.get(type(state.components))
             if serve is None:
                 raise NotImplementedError(

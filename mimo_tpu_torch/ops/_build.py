@@ -48,6 +48,9 @@ _SIGNATURES = {
                               _P, _I, _P]),
     'mimo_ilr_p_predict': (_I, [_P, _I64, _I, _I, _I, _I, _I64, _P, _I, _I,
                                 _P, _P, _I, _P, _I, _P]),
+    'mimo_regf': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _I, _P, _P, _I, _P]),
+    'mimo_estep_count': (_I, [_P, _I64, _I, _I64, _P, _I, _P, _I, _I, _P,
+                              _P, _I, _P]),
     'mimo_hello': (_I, [_P, _I64, _P, _P]),
     'mimo_estep_smem_bytes': (_SZ, [_I, _I]),
     'mimo_gibbs_smem_bytes': (_SZ, [_I, _I]),

@@ -12,16 +12,20 @@ in standardized units: the model applies the output transform and the
 NLPD Jacobian. What bounds the kernels on the H100 and what they do about
 it: see the note at the top of csrc/ilr_predict.cu.
 
-The coefficient builders cover the NIW basis and the MNW and MNG
-experts (the NIW branch of `_basis_studentt_params`, the MNW and MNG
-branches of `_expert_rows` and B6's diagonal tail); the HierTied basis
-and the tied-affine experts wait for their families (ROADMAP A16/A17).
+The coefficient functions cover every basis and expert a model makes:
+an NIW or HierTied basis (`cuda_predict.basis_studentt_params`, the two
+branches of mimo_tpu's `_basis_studentt_params`) and MNW, MNG or
+tied-affine experts (the branches of `_expert_rows` and the head of
+`_ilr_p_predict_pallas`). Tied-affine experts are repacked into their
+block-diagonal MNW (`affine.to_packed_mnw`), whose offset column is the
+affine part, so the kernels see MNW coefficients.
 """
 
 import math
 
 import torch
 
+from mimo_tpu_torch.distributions.affine import TiedAffine, to_packed_mnw
 from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import _CHUNK, assemble_features, pad_rows
@@ -65,10 +69,18 @@ def _weights(lw, hard):
 
 def _basis_rows(basis_post, log_w):
     """Basis quad rows (K, 1 + d + d^2) over [1; x; x (x) x] and the aux
-    columns [log w + basis aux, basis h, basis 1/df] of an NIW basis."""
+    columns [log w + basis aux, basis h, basis 1/df] of an NIW or HierTied
+    basis."""
     thq, aux = predictive_coefficients(basis_post, log_w)
-    d = basis_post.mu.shape[-1]
-    return thq[:, :gauss_width(d)], aux[:, :3]
+    return thq[:, :gauss_width(basis_post.dim)], aux[:, :3]
+
+
+def _packed(models_post, affine):
+    """Tied-affine experts as their block-diagonal MNW, whose offset
+    column is the affine part (mimo_tpu's `_expert_rows`)."""
+    if isinstance(models_post, TiedAffine):
+        return to_packed_mnw(models_post), True
+    return models_post, affine
 
 
 def _c_rows(models_post, affine, d):
@@ -95,14 +107,15 @@ def _mng_tail(models_post):
 
 
 def ilr_predict_coefficients(basis_post, models_post, log_w, affine=True):
-    """(th (3K, m8), aux (K, 8)) of B5 for an NIW basis and p = 1 MNW or
-    MNG experts, in the posteriors' dtype: th rows [basis quad; c quad;
-    expert mean] over [1; x; x (x) x]; aux cols [log w + basis aux,
-    basis h, basis 1/df, var coef, psi, y_aux, y_h, 0]. An MNG expert's
-    univariate t maps onto the same tail with psi = 1 / (2 beta) and
-    y_h = alpha + 1/2."""
+    """(th (3K, m8), aux (K, 8)) of B5 for an NIW or HierTied basis and
+    p = 1 MNW, MNG or tied-affine experts, in the posteriors' dtype: th
+    rows [basis quad; c quad; expert mean] over [1; x; x (x) x]; aux cols
+    [log w + basis aux, basis h, basis 1/df, var coef, psi, y_aux, y_h,
+    0]. An MNG expert's univariate t maps onto the same tail with
+    psi = 1 / (2 beta) and y_h = alpha + 1/2."""
     th_b, b_aux = _basis_rows(basis_post, log_w)
-    k, d = basis_post.mu.shape
+    k, d = th_b.shape[0], basis_post.dim
+    models_post, affine = _packed(models_post, affine)
     if models_post.row_dim != 1:
         raise ValueError('B5 serves p = 1 experts; use B6 for p > 1')
     m = models_post.M
@@ -130,8 +143,8 @@ def ilr_predict_coefficients(basis_post, models_post, log_w, affine=True):
 
 def ilr_p_predict_coefficients(basis_post, models_post, log_w, affine=True,
                                has_y=True):
-    """(th, aux (K, 8), vc) of B6 for an NIW basis and MNW or MNG
-    experts, in the posteriors' dtype. th rows: [basis quad (K); c quad
+    """(th, aux (K, 8), vc) of B6 for an NIW or HierTied basis and MNW,
+    MNG or tied-affine experts, in the posteriors' dtype. th rows: [basis quad (K); c quad
     (K); expert means (p K, row j K + k)] and, with y, the MVT quad
     (y - mu)' psi (y - mu) (K rows, MNW) or the scaled per-output quads
     (y_j - mu_kj)^2 / (2 beta_kj) (p K rows, j-major, MNG), over the
@@ -141,7 +154,8 @@ def ilr_p_predict_coefficients(basis_post, models_post, log_w, affine=True,
     (K, p) for MNW and (K, 2p) [vcoef | h] for MNG, h_kj = alpha_kj + 1/2
     the per-output tail exponents."""
     th_b, b_aux = _basis_rows(basis_post, log_w)
-    k, d = basis_post.mu.shape
+    k, d = th_b.shape[0], basis_post.dim
+    models_post, affine = _packed(models_post, affine)
     p = models_post.row_dim
     m = models_post.M                                   # (K, p, q)
     m1 = m[:, :, :d]                                    # (K, p, d)
@@ -374,7 +388,8 @@ def ilr_predict_cuda(basis_post, models_post, log_w, x, y=None, affine=True,
 
 def ilr_p_predict_cuda(basis_post, models_post, log_w, x, y=None,
                        affine=True, prediction='average'):
-    """p > 1 fused ILR serving through B6 (MNW or MNG experts), the
+    """p > 1 fused ILR serving through B6 (MNW, MNG or tied-affine
+    experts), the
     counterpart of mimo_tpu's _ilr_p_predict_pallas. Returns
     (mean (N, p), var (N, p), nlpd (N,) or None), in float32."""
     p = models_post.row_dim

@@ -2,8 +2,9 @@
 (csrc/predict.cu), with its plain PyTorch version. Replaces
 mimo_tpu/ops/pallas_predict.py::_predict_kernel.
 
-Per point: F = [1; x; x (x) x] (kind GAUSS) or [1; x; x^2] (kind DIAG,
-the diagonal Gaussian predictive), the quadratic forms Q = thq . F over
+Per point: F = [1; x; x (x) x] (kind GAUSS: NIW or HierTied posteriors)
+or [1; x; x^2] (kind DIAG, the diagonal Gaussian predictive), the
+quadratic forms Q = thq . F over
 K (clipped at 0), then
 lp = aux - h log1p(Q / df) (Student-t) or aux - Q / 2 (moment-matched
 Gaussian), and out = logsumexp over K. The (N, K) Student-t matrix never
@@ -17,7 +18,8 @@ import math
 
 import torch
 
-from mimo_tpu_torch.distributions.niw import predictive_studentt_params
+from mimo_tpu_torch.distributions import hierarchical as _hier
+from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import (
     _CHUNK, DIAG, GAUSS, KIND_NAMES, assemble_features, feature_width)
@@ -75,12 +77,22 @@ def predict(xt, thq, aux, n, studentt=True, kind=GAUSS):
     return out
 
 
+def basis_studentt_params(post):
+    """(mu (K, d), lmbda (K, d, d), df (K,)) of the per-component Student-t
+    predictive of an NIW posterior (precision df / (1 + 1/kappa) psi) or
+    of a HierTied one (precision df psi, the shared hyper scale, with no
+    kappa factor), as mimo_tpu's _basis_studentt_params."""
+    if isinstance(post, _hier.HierTied):
+        return _hier.predictive_studentt_params(post)
+    return _niw.predictive_studentt_params(post)
+
+
 def predictive_coefficients(post, log_w, studentt=True):
-    """(thq (K, m8), aux (K, 8)) of the mixture predictive of an NIW
-    posterior, in the posterior's dtype. The quad form is linear over
-    [1, x, x (x) x]:
+    """(thq (K, m8), aux (K, 8)) of the mixture predictive of an NIW or
+    HierTied posterior, in the posterior's dtype. The quad form is linear
+    over [1, x, x (x) x]:
       delta_k(x) = mu'Lmu_k - 2 (Lmu_k)'x + vec(Lmbda_k) . vec(x x')."""
-    mu, lmbda, df = predictive_studentt_params(post)
+    mu, lmbda, df = basis_studentt_params(post)
     k, d = mu.shape
     lmu = torch.einsum('kde,ke->kd', lmbda, mu)
     m = 1 + d + d * d
@@ -116,8 +128,8 @@ def diag_gaussian_coefficients(post, log_w):
 
 
 def gauss_predictive_cuda(post, log_w, x, dist='studentt'):
-    """logsumexp_k [log_w_k + pred_k(x)] -> (N,) for an NIW posterior
-    through B3, the counterpart of mimo_tpu's gauss_predictive_pallas.
+    """logsumexp_k [log_w_k + pred_k(x)] -> (N,) for an NIW or HierTied
+    posterior through B3, the counterpart of mimo_tpu's gauss_predictive_pallas.
     `dist`: 'studentt' (the posterior predictive) or 'gaussian' (its
     moment-matched approximation). x: (N, d)."""
     if dist not in ('studentt', 'gaussian'):

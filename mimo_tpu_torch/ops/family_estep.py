@@ -1,6 +1,6 @@
 """Fused mixture E-step and Gibbs label sweep over a family's feature map
-(port of the Gaussian, diagonal-Gaussian, linear-expert and product
-slices of mimo_tpu/ops/family_estep.py).
+(port of mimo_tpu/ops/family_estep.py without its sharded engines, which
+arrive with ROADMAP A21).
 
 The expected log-likelihood is linear in a fixed feature map of the data,
 E_q[log p(data | params_k)] = t(data) . theta_k, with t = [1, x, x (x) x]
@@ -23,12 +23,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from mimo_tpu_torch.distributions import affine as _aff
 from mimo_tpu_torch.distributions import mnw as _mnw
 from mimo_tpu_torch.distributions import ng as _ng
 from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.distributions.mnw import augment
+from mimo_tpu_torch.distributions.wishart import wishart_expected_logdet
 from mimo_tpu_torch.ops.philox import gumbel_max_labels
-from mimo_tpu_torch.utils.linalg import inv_psd, logdet_psd
+from mimo_tpu_torch.utils.linalg import cholesky, inv_psd, logdet_psd
 from mimo_tpu_torch.utils.stats import LOG2PI
 
 
@@ -155,6 +157,32 @@ def _unpack_gauss(acc):
                            xxT=acc[:, 1 + d:].reshape(-1, d, d), n2=counts)
 
 
+# -- hierarchically-tied Gaussian | NW hyper-prior ----------------------------
+
+def hier_gaussian_spec() -> EStepSpec:
+    """The HierTied expected log-likelihood is linear in [1, x, x (x) x]
+    too: the shared E[Lambda] = nu psi of the hyper-posterior, h1_k =
+    E[Lambda] mus_k, and the q(mu_k) covariance term -d / (2 kappa'_k)
+    folded into the constant. The features, unpack, plug-in and
+    transposed map are gaussian_spec's, so the kernels run it as the
+    Gaussian map."""
+    g = gaussian_spec()
+
+    def theta(post):
+        h = post.hyper
+        k, d = post.mus.shape
+        e_l = (h.nu[:, None, None] * h.psi)[0]               # (d, d)
+        e_logdet = wishart_expected_logdet(cholesky(h.psi), h.nu)[0]
+        h1 = post.mus @ e_l                                  # (K, d)
+        c = (-0.5 * torch.einsum('kd,kd->k', post.mus, h1)
+             - 0.5 * d / post.kappas
+             + 0.5 * e_logdet - 0.5 * d * LOG2PI)
+        h2 = (-0.5 * e_l).reshape(1, d * d).expand(k, d * d)
+        return torch.cat([c[:, None], h1, h2], -1)
+
+    return g._replace(theta=theta)
+
+
 # -- diagonal Gaussian | NG --------------------------------------------------
 
 def diag_gaussian_spec() -> EStepSpec:
@@ -267,6 +295,32 @@ def diag_linear_spec(affine: bool = True, p_dim: int = None,
                      base.features_t)
 
 
+# -- tied-affine experts -----------------------------------------------------
+
+def tied_affine_spec(input_dim, output_dim) -> EStepSpec:
+    """Tied-affine experts: their expected log-likelihood is the packed
+    MNW's over the augmented input [x; 1], so linear_spec applies with
+    theta over the packed posterior (the Gibbs params are packed already);
+    unpack turns the augmented statistics into the AffineStats the
+    family's update and Gibbs draw take (ym and xm are the augmentation
+    column's sub-blocks). The features and transposed map are the affine
+    linear map's, so the ILR product runs on the kernels' ILR map."""
+    q = input_dim
+    base = linear_spec(True, output_dim, q + 1)
+
+    def theta(post):
+        return base.theta(_aff.to_packed_mnw(post))
+
+    def unpack(acc):
+        lg = base.unpack(acc)
+        return _aff.AffineStats(
+            ym=lg.yxT[..., :, q], xm=lg.xxT[..., :q, q],
+            yxT=lg.yxT[..., :, :q], xxT=lg.xxT[..., :q, :q],
+            yyT=lg.yyT, n=lg.n)
+
+    return base._replace(theta=theta, unpack=unpack)
+
+
 # -- products (ILR: basis(x) x expert(y|x)) ----------------------------------
 
 def _join_thetas(thetas):
@@ -328,23 +382,23 @@ def ilr_width(d, p, affine=True):
 
 def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
              diag_expert=False, hier_basis=False, tied_affine=False):
-    """The ILR joint family's fused spec: data = (x, y), NIW basis x MNW
-    experts, or MNG experts with `diag_expert` (the same feature map).
-    The diagonal basis (no model builds one), the hierarchical basis and
-    the tied-affine experts are not ported yet."""
+    """The ILR joint family's fused spec: data = (x, y), an NIW or (with
+    `hier_basis`) hierarchically-tied basis x MNW experts, MNG experts
+    with `diag_expert` or tied-affine experts with `tied_affine` (which
+    are affine by construction). Every combination has the ILR feature
+    map. The diagonal basis, which no model builds, is not ported."""
     if diag_basis:
         raise NotImplementedError('the diagonal (NG) basis spec is not '
                                   'ported yet (ROADMAP A17)')
-    if hier_basis:
-        raise NotImplementedError('the hierarchically-tied basis spec is not '
-                                  'ported yet (ROADMAP A16)')
+    basis = hier_gaussian_spec() if hier_basis else gaussian_spec()
     if tied_affine:
-        raise NotImplementedError('the tied-affine expert spec is not '
-                                  'ported yet (ROADMAP A17)')
-    q = input_dim + int(affine)
-    expert = diag_linear_spec if diag_expert else linear_spec
-    return product_spec((gaussian_spec(), expert(affine, output_dim, q)),
-                        ((0,), (0, 1)),
+        q = input_dim + 1
+        expert = tied_affine_spec(input_dim, output_dim)
+    else:
+        q = input_dim + int(affine)
+        expert = (diag_linear_spec if diag_expert else linear_spec)(
+            affine, output_dim, q)
+    return product_spec((basis, expert), ((0,), (0, 1)),
                         (gauss_width(input_dim), linear_width(output_dim, q)))
 
 

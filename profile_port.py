@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's cells on one CUDA card.
+
+    python3 profile_port.py [--units U]
+
+For each cell it fits the model at the size `chip_smoke.py` drives,
+warms up, then measures one unit of work (a warm-started VI sweep, a
+Gibbs sweep, or one serving call): the wall time per unit (median of 3
+un-profiled runs of U units, synchronised), and under `torch.profiler`
+the device time per unit, split into the named kernel and the other
+device ops (their count and time). The idle share is 1 - device busy /
+wall: how far the host holds the card back. Prints one line per cell
+and engine, with the card's name and power limit first.
+"""
+
+import argparse
+import statistics
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
+from mimo_tpu_torch.distributions.niw import GaussParams
+from mimo_tpu_torch.models import BayesianGMM, BayesianILR
+from mimo_tpu_torch.models.mixture import MFState
+
+N_GMM, N_SINE, N_P3, K = 10_000_000, 10_000_000, 1_000_000, 50
+
+
+def wall_ms(fn, units, reps=3):
+    """Median wall time per unit of fn() (which does `units` units)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3 / units)
+    return statistics.median(times)
+
+
+def device_split(fn, units, kernel):
+    """(device busy, kernel, other ops' time, other ops' count) per unit,
+    in ms, from the profiler's device events of one run of fn()."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = kern = count = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = e.self_device_time_total / 1e3
+        busy += t
+        if kernel in e.key:
+            kern += t
+        else:
+            count += e.count
+    return busy / units, kern / units, (busy - kern) / units, count / units
+
+
+def report(card, cell, unit, fn, units, kernel):
+    fn()                                    # warm
+    wall = wall_ms(fn, units)
+    busy, kern, other, count = device_split(fn, units, kernel)
+    if busy == 0.0:
+        raise SystemExit('profile_port: the profiler saw no device time')
+    print(f'{cell}, per {unit} ({card}): wall {wall:.6g} ms; device busy '
+          f'{busy:.6g} ms; {kernel} {kern:.6g} ms '
+          f'({100 * kern / busy:.4g}% of busy); other device ops '
+          f'{count:.4g} ({other:.4g} ms); idle share '
+          f'{max(0.0, 1 - busy / wall):.3f}', flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--units', type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_port: needs a CUDA device')
+    dev = torch.device('cuda:0')
+    u = args.units
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader', '--id=0'], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(card)
+
+    # the GMM cells: the data of bench.py:90-98
+    kg = torch.Generator(device=dev).manual_seed(0)
+    mu = torch.randn((3, 2), generator=kg, device=dev) * 4.0
+    lm = torch.eye(2, device=dev).expand(3, 2, 2) * 2.0
+    x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3], N_GMM)
+    for label, kw, maps in (
+            ('tied GMM', dict(gating='dp', tied=True, psi_scale=0.5),
+             ('estep_partial', 'gibbs_partial', 'predict_kernel')),
+            ('tied diag GMM', dict(gating='dirichlet', diag=True, tied=True),
+             ('estep_partial', 'gibbs_partial', 'diag_predict_kernel')),
+            ('hier GMM', dict(gating='dp', hierarchical=True, psi_scale=0.5,
+                              maxsubiter=25),
+             ('estep_partial', 'gibbs_partial', 'predict_kernel'))):
+        m = BayesianGMM.make(size=K, dim=2, kappa=0.05, device=dev, **kw)
+        st, _ = m.fit_vi_fused(x, key=1, maxiter=20)
+        report(card, f'{label} N={N_GMM}', 'VI sweep',
+               lambda: m.fit_vi_fused(x, maxiter=u, init_state=st,
+                                      randomize=False), u, maps[0])
+        report(card, f'{label} N={N_GMM}', 'Gibbs sweep',
+               lambda: m.fit_gibbs_fused(x, key=2, maxiter=u), u, maps[1])
+        report(card, f'{label} N={N_GMM}', 'predict call',
+               lambda: m.log_predictive(st, x), 1, maps[2])
+    del x
+    torch.cuda.empty_cache()
+
+    # the tied-activation ILR cells
+    for n, d, p in ((N_SINE, 1, 1), (N_P3, 2, 3)):
+        g = torch.Generator(device=dev).manual_seed(7)
+        if p == 1:
+            x = torch.rand((n, 1), generator=g, device=dev) * 12 - 6
+            y = torch.sin(x) + 0.1 * torch.randn((n, 1), generator=g,
+                                                 device=dev)
+            kw = dict(alpha=5.0, kappa=0.05, maxsubiter=10)
+        else:
+            x = torch.rand((n, d), generator=g, device=dev) * 6 - 3
+            w = torch.randn((d, p), generator=g, device=dev)
+            y = torch.tanh(x @ w) + 0.1 * torch.randn((n, p), generator=g,
+                                                      device=dev)
+            kw = dict(alpha=2.0, kappa=0.1)
+        m = BayesianILR.make(size=K, input_dim=d, output_dim=p,
+                             tied_affine=True, hier_basis=True, device=dev,
+                             **kw)
+        m.init_transform(x, y)
+        gs = m.fit_gibbs_fused((x[:10_000], y[:10_000]), key=0, maxiter=60)
+        st, _ = m.fit_vi_fused((x, y), key=1, maxiter=20, randomize=False,
+                               init_state=MFState(gs.components, gs.gating))
+        cell = f'hilr {"sine" if p == 1 else "p>1"} N={n} d={d} p={p}'
+        report(card, cell, 'VI sweep',
+               lambda: m.fit_vi_fused((x, y), maxiter=u, init_state=st,
+                                      randomize=False), u, 'estep_partial')
+        report(card, cell, 'Gibbs sweep',
+               lambda: m.fit_gibbs_fused((x, y), key=2, maxiter=u), u,
+               'gibbs_partial')
+        report(card, cell, 'predict call', lambda: m.predict(st, x, y), 1,
+               'ilr_predict_kernel' if p == 1 else 'ilr_p_predict_kernel')
+        del x, y, m, st, gs
+        torch.cuda.empty_cache()
+
+
+if __name__ == '__main__':
+    main()

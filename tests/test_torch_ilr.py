@@ -274,16 +274,25 @@ def test_generate_draws_from_the_known_mixture():
 
 
 def test_make_and_configs_refuse_unported_variants():
+    """The variants that were refused before they were ported (tied-affine
+    experts, the hierarchical basis, tied and hierarchical GMMs) now
+    build through make, the configs and ilr_spec, and fit."""
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.uniform(-2, 2, (300, 1)))
+    y = torch.sin(x) + 0.1 * torch.tensor(rng.standard_normal((300, 1)))
     for kw in (dict(tied_affine=True), dict(hier_basis=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP A16/A17'):
-            BayesianILR.make(size=3, input_dim=1, output_dim=1, **kw)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ILRConfig(**kw).build()
+        m = BayesianILR.make(size=3, input_dim=1, output_dim=1,
+                             dtype=torch.float64, maxsubiter=3, **kw)
+        st, vlb = m.fit_vi_fused((x, y), key=1, maxiter=3)
+        assert bool(torch.isfinite(vlb).all())
+        assert m.predict(st, x)[0].shape == (300, 1)
+        assert isinstance(ILRConfig(**kw).build(), BayesianILR)
     for kw in (dict(tied=True), dict(hierarchical=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP A16'):
-            MixtureConfig(**kw).build()
-    with pytest.raises(NotImplementedError, match='ROADMAP A16'):
-        tfe.ilr_spec(1, 1, hier_basis=True)
+        g = MixtureConfig(size=3, maxsubiter=3, **kw).build(torch.float64)
+        st, vlb = g.fit_vi_fused(torch.cat([x, y], 1), key=1, maxiter=3)
+        assert bool(torch.isfinite(vlb).all())
+    assert tfe.ilr_spec(1, 1, hier_basis=True).features_t \
+        == tfe.ilr_features_t(True)
 
 
 def test_configs_build_the_port_models():

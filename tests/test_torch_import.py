@@ -61,6 +61,16 @@ def test_import_covers_the_diagonal_slice():
     assert (PKG / 'csrc' / 'diag_predict.cu').is_file()
 
 
+def test_import_covers_the_tied_and_hierarchical_slice():
+    """The tied, hierarchical and tied-affine modules and the B1 probes
+    are among those the no-jax check imports."""
+    for mod in ('distributions.hierarchical', 'distributions.tied_gibbs',
+                'distributions.affine', 'ops.cuda_probes'):
+        assert f'mimo_tpu_torch.{mod}' in PORT_MODULES
+    from mimo_tpu_torch.ops import _build
+    assert {'mimo_regf', 'mimo_estep_count'} <= set(_build._SIGNATURES)
+
+
 @pytest.fixture(scope='module')
 def small():
     rng = np.random.default_rng(0)

@@ -1,7 +1,9 @@
 """The CUDA kernels (B1-B3, B1/B2 over the ILR map, B1-B3 over the
-diagonal map, B4, B5 and B6 with MNW and MNG experts, S3) against their
-plain PyTorch versions, on the card. Every test here needs a CUDA
-device and skips without one; run them on the card with
+diagonal map, B4, B5 and B6 with MNW and MNG experts, B3 on HierTied
+rows, B5/B6 with tied-affine experts and a HierTied basis, the B1 probes
+S1 and S2, and S3) against their plain PyTorch versions, on the card.
+Every test here needs a CUDA device and skips without one; run them on
+the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
 `chip_smoke.py` holds the same kernels to their plain versions at the
 main paths' shapes."""
@@ -9,14 +11,17 @@ main paths' shapes."""
 import pytest
 import torch
 
+from mimo_tpu_torch.distributions.affine import TiedAffine
+from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models import BayesianGMM, BayesianILR
+from mimo_tpu_torch.models.mixture import MFState
 from mimo_tpu_torch.ops import (
     cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello, cuda_ilr_predict,
-    cuda_predict)
+    cuda_predict, cuda_probes)
 from mimo_tpu_torch.ops.cuda_estep import DIAG, ILR
 
 torch.set_num_threads(1)
@@ -381,3 +386,191 @@ def test_diag_engines_kernel_path_tracks_plain_path(dev):
     torch.testing.assert_close(var_k, var_t, rtol=2e-3,
                                atol=1e-4 * scale ** 2)
     torch.testing.assert_close(nlpd_k, nlpd_t, rtol=1e-3, atol=2e-3)
+
+
+# -- the tied and hierarchical families, and the B1 probes --------------------
+
+def _hier_basis(basis):
+    """A HierTied basis with the NIW basis's means and a shared scale."""
+    k, d = basis.mu.shape
+    return HierTied(
+        hyper=NIW(mu=basis.mu[:1], kappa=basis.kappa[:1], psi=basis.psi[:1],
+                  nu=basis.nu[:1]),
+        mus=basis.mu, kappas=basis.kappa, kappas0=torch.ones_like(
+            basis.kappa))
+
+
+def _tied_experts(experts):
+    """Tied-affine experts with the MNW experts' scales: one slope, the
+    per-expert offsets, one noise scale, 0-d nu."""
+    d = experts.M.shape[-1] - 1
+    return TiedAffine(M=experts.M[0, :, :d], K_=experts.K_[0, :d, :d],
+                      mus=experts.M[:, :, d], kappas=experts.K_[:, d, d],
+                      psi=experts.psi[0], nu=experts.nu[0])
+
+
+@pytest.mark.parametrize('studentt', [True, False])
+def test_hier_predict_kernel_matches_plain(dev, studentt):
+    """B3 on HierTied rows (df = nu - d + 1 over K, precision df psi)."""
+    n, k, d = 100003, 50, 2
+    basis, _, log_w = _ilr_state(dev, k, d, 1)
+    post = _hier_basis(basis)
+    xt = torch.rand((d, n), device=dev) * 4 - 2
+    thq, aux = cuda_predict.predictive_coefficients(post, log_w, studentt)
+    out = cuda_predict.predict(xt, thq, aux, n, studentt)
+    ref = cuda_predict.predict_plain(xt, thq, aux, n, studentt)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('d,p', [(1, 1), (2, 3)])
+@pytest.mark.parametrize('basis_kind,experts_kind', [
+    ('niw', 'tied'), ('hier', 'mnw'), ('hier', 'mng'), ('hier', 'tied')])
+def test_new_ilr_serving_branches_match_plain(dev, basis_kind, experts_kind,
+                                              d, p):
+    """B5 (p = 1) and B6 (p = 3) on the tied-affine and HierTied
+    coefficient branches, average and mode, with and without y."""
+    n, k = 100003, 50
+    basis, experts, log_w = (_mng_state(dev, k, d, p) if experts_kind == 'mng'
+                             else _ilr_state(dev, k, d, p))
+    if basis_kind == 'hier':
+        basis = _hier_basis(basis)
+    if experts_kind == 'tied':
+        experts = _tied_experts(experts)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for has_y in (True, False):
+        xt = torch.rand((d + (p if has_y else 0), n), generator=g,
+                        device=dev) * 4 - 2
+        for hard in (False, True):
+            if p == 1:
+                th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+                    basis, experts, log_w)
+                out = cuda_ilr_predict.ilr_predict(xt, th, aux, n, has_y,
+                                                   hard)
+                ref = cuda_ilr_predict.ilr_predict_plain(xt, th, aux, n,
+                                                         has_y, hard)
+            else:
+                th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                    basis, experts, log_w, True, has_y)
+                out = cuda_ilr_predict.ilr_p_predict(xt, th, aux, vc, n, p,
+                                                     has_y, hard)
+                ref = cuda_ilr_predict.ilr_p_predict_plain(
+                    xt, th, aux, vc, n, p, has_y, hard)
+            assert bool(torch.isfinite(out).all())
+            torch.testing.assert_close(out[:p], ref[:p], rtol=1e-4,
+                                       atol=1e-4)
+            torch.testing.assert_close(out[p:2 * p], ref[p:2 * p],
+                                       rtol=2e-3, atol=1e-5)
+            torch.testing.assert_close(out[2 * p:], ref[2 * p:], rtol=1e-3,
+                                       atol=2e-3)
+
+
+def _probe_bound(acc, ref, xt, theta, n, divide=True, nv=None):
+    """|acc - ref| <= 1e-5 x the summed magnitudes sum_n w_nk |F_jn|."""
+    f = cuda_estep.assemble_features(xt[:, :n], theta.shape[1]).double()
+    logp = theta.double() @ f
+    ex = torch.exp(logp - logp.max(0).values)
+    w = ex / ex.sum(0) if divide else ex
+    if nv is not None:
+        w[:, nv:] = 0.0
+    mag = w @ f.abs().T
+    return bool(((acc.double() - ref.double()).abs() <= 1e-5 * mag
+                 + 1e-6).all())
+
+
+@pytest.mark.parametrize('divide', [True, False])
+def test_regf_probe_matches_plain(dev, divide):
+    """S1: B1 with and without the per-point divide; with it, S1 is B1."""
+    n, k, d = 100003, 50, 2
+    xt, theta = _inputs(dev, n, k, d, seed=8)
+    acc, lse = cuda_probes.regf(xt, theta, n, divide)
+    pacc, plse = cuda_probes.estep_probe_plain(xt, theta, n, divide)
+    assert _probe_bound(acc, pacc, xt, theta, n, divide)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=0.0)
+    if divide:
+        bacc, blse = cuda_estep.estep(xt, theta, n)
+        assert torch.equal(acc, bacc) and torch.equal(lse, blse)
+
+
+@pytest.mark.parametrize('n,k,nv', [(4096, 8, 4000), (100096, 50, 100003)])
+@pytest.mark.parametrize('mode', ['none', 'unused', 'used'])
+def test_count_probe_matches_plain(dev, mode, n, k, nv):
+    """S2 at the TPU probe's shape (K=8, d=2, N=4096, nv=4000) and at a
+    wide one: the count as nothing, as an unread or a read int32 in device
+    memory; the points at or past a used count contribute nothing."""
+    xt, theta = _inputs(dev, n, k, 2, seed=9)
+    nv_t = torch.tensor([nv], dtype=torch.int32, device=dev)
+    acc, lse = cuda_probes.estep_count(xt, theta, n, mode, nv_t)
+    used = nv if mode == 'used' else None
+    pacc, plse = cuda_probes.estep_probe_plain(xt, theta, n, True, used)
+    assert _probe_bound(acc, pacc, xt, theta, n, True, used)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=0.0)
+    bacc, blse = cuda_estep.estep(xt, theta, min(n, used or n))
+    torch.testing.assert_close(acc, bacc, rtol=1e-5, atol=1e-3)
+
+
+def test_kernel_entries_refuse_expanded_coefficients(dev):
+    """Pooled and tied posteriors are built with expand (stride 0); the
+    wrappers raise rather than copy when such a tensor reaches them."""
+    xt, theta = _inputs(dev, 1000, 7, 2)
+    with pytest.raises(ValueError, match='contiguous'):
+        cuda_estep.estep(xt, theta[:1].expand(7, theta.shape[1]), 1000)
+    thq = torch.rand((7, 8), device=dev)
+    aux = torch.rand((1, 8), device=dev).expand(7, 8)
+    with pytest.raises(ValueError, match='contiguous'):
+        cuda_predict.predict(xt, thq, aux, 1000)
+    with pytest.raises(ValueError, match='multiple of 128'):
+        cuda_probes.estep_count(xt, theta, 1000, 'none')
+
+
+def test_tied_and_hier_engines_kernel_path_tracks_plain_path(dev):
+    """The tied, tied-diagonal and hierarchical GMMs and the
+    tied-activation ILR through their kernels against their plain
+    paths: launches, VI traces, predictives."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((20011, 2), generator=g, device=dev) * 3
+    for kw in (dict(gating='dp', tied=True, psi_scale=0.5),
+               dict(diag=True, tied=True),
+               dict(gating='dp', hierarchical=True, psi_scale=0.5,
+                    maxsubiter=5)):
+        m = BayesianGMM.make(size=10, dim=2, kappa=0.05, device=dev, **kw)
+        init, _ = m.fit_vi_fused(x, key=1, maxiter=2, backend='torch')
+        name = 'diag' if kw.get('diag') else 'gauss'
+        before = cuda_estep.launches[name]
+        _, v_k = m.fit_vi_fused(x, maxiter=5, init_state=init,
+                                randomize=False, backend='kernel')
+        assert cuda_estep.launches[name] == before + 5
+        _, v_t = m.fit_vi_fused(x, maxiter=5, init_state=init,
+                                randomize=False, backend='torch')
+        torch.testing.assert_close(v_k, v_t, rtol=1e-4, atol=0.0)
+        lp_k = m.log_predictive(init, x, backend='kernel')
+        lp_t = m.log_predictive(init, x, backend='torch')
+        torch.testing.assert_close(lp_k, lp_t, rtol=1e-4, atol=1e-4)
+        before = cuda_gibbs.launches[name]
+        gs = m.fit_gibbs_fused(x, key=2, maxiter=3, backend='kernel')
+        assert cuda_gibbs.launches[name] == before + 3
+        assert bool(torch.isfinite(gs.log_pi).all())
+
+    y = torch.sin(x[:, :1]) + 0.1 * torch.randn((20011, 1), generator=g,
+                                                device=dev)
+    for p in (1, 3):
+        yy = y if p == 1 else torch.tanh(x @ torch.randn(
+            (2, 3), generator=g, device=dev))
+        mi = BayesianILR.make(size=8, input_dim=2, output_dim=p, alpha=2.0,
+                              kappa=0.1, tied_affine=True, hier_basis=True,
+                              maxsubiter=5, device=dev)
+        mi.init_transform(x, yy)
+        gs = mi.fit_gibbs_fused((x, yy), key=0, maxiter=5, backend='kernel')
+        st, _ = mi.fit_vi_fused((x, yy), key=1, maxiter=5, backend='kernel',
+                                init_state=MFState(gs.components, gs.gating),
+                                randomize=False)
+        name = 'ilr_predict' if p == 1 else 'ilr_p_predict'
+        before = cuda_ilr_predict.launches[name]
+        mu_k, var_k, _, nlpd_k = mi.predict(st, x, yy, backend='kernel')
+        assert cuda_ilr_predict.launches[name] == before + 1
+        mu_t, var_t, _, nlpd_t = mi.predict(st, x, yy, backend='torch')
+        scale = float(mi.output_transform.scale.max())
+        torch.testing.assert_close(mu_k, mu_t, rtol=1e-4, atol=1e-4 * scale)
+        torch.testing.assert_close(var_k, var_t, rtol=2e-3,
+                                   atol=1e-4 * scale ** 2)
+        torch.testing.assert_close(nlpd_k, nlpd_t, rtol=1e-3, atol=2e-3)
