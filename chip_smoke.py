@@ -14,14 +14,19 @@ Phases, one or more printed lines each:
   4. B2       the Gibbs label-sweep kernel: labels in range, statistics
               equal to the one-hot sums of its own labels, labels equal to
               the plain Philox draw for draw, label frequencies at 4 points
-              within 5 sigma of the softmax;
+              within 5 sigma of the softmax, the fast Gumbel draw within
+              2^-12 of float64 over all 2^23 uniforms; then B1 and B2
+              in the chunked layout (K=300, d=2, N=1,000,003) against
+              their plain versions, timed;
   5. B3       the predictive-density kernel against its plain version,
               Student-t and Gaussian;
   6. main     the DP-GMM main path at N=1e7, K=50, d=2 through the
               public entry points (fit_vi_fused, fit_gibbs_fused,
               log_predictive), with the kernels' launch counts, a kernel-
               vs-plain check of the engines on a 100,003-point slice, the
-              rates, and each kernel's time beside its plain version's;
+              rates, each kernel's time beside its plain version's, and
+              B1's precision line: its lse and statistics against float64
+              beside the f32 plain version's (at most 10x);
   7. ILR      B1 and B2 over the ILR feature map at N=1,000,003, K=50,
               d=8, p=1 (and d=2, p=3, K=7, N=1000): B1 bitwise repeatable,
               B2 labels equal to the plain Philox labels; B5 (p=1, d=1)
@@ -31,7 +36,7 @@ Phases, one or more printed lines each:
               then fit_vi_fused warm-started from it, 20 sweeps each
               through B1/B2 over the ILR map, launch counts, a finite
               non-falling ELBO, kernel vs plain on a 100,003-point slice,
-              rates;
+              rates, B1's precision line at m8=168;
   9. serving  the sine flagship (N=1e7, d=1, p=1: Gibbs 10 -> VI 20 ->
               predict through B5, RMSE and NLPD) and p>1 serving (N=1e6,
               d=2, p=3: VI 20 -> predict through B6), rates, and each new
@@ -46,7 +51,8 @@ Phases, one or more printed lines each:
               Dirichlet gating, kappa=0.05): fit_vi_fused 20,
               fit_gibbs_fused 20, log_predictive Student-t (B4) and
               Gaussian (B3-diag), launch counts, ELBO, kernel vs plain on
-              a 100,003-point slice, rates and kernel times;
+              a 100,003-point slice, rates, kernel times and B1's precision
+              line over the diagonal map;
  12. MNG      the sine flagship with MNG experts (N=1e7, d=1, p=1: Gibbs 10
               -> VI 20 -> predict through B5's MNG rows) and p>1 MNG
               serving (N=1e6, d=2, p=3: VI 20 -> predict through B6's MNG
@@ -71,7 +77,12 @@ Phases, one or more printed lines each:
               B5, RMSE < 0.35) and p>1 serving
               (N=1e6, d=2, p=3: VI 20 -> predict through B6), rates and
               kernel times.
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record: each kernel's
+launches on its path, its time, its plain version's, and its bound (the
+least time the card could take for the work, the largest of bytes over
+the memory rate and each unit's operations over its peak; `bound_by` says
+whether bytes or operations set it, `bound_op` names the unit: hbm,
+fp32, tf32, mufu or int); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or if any check
 fails, the script exits non-zero and prints no result.
 """
@@ -112,6 +123,20 @@ N_Q8, D_Q8 = 1_000_000, 8      # the ILR fit path (bench.py:313-336)
 N_SINE = 10_000_000            # ILR serving, sine (bench.py:338-356)
 N_P3, D_P3, P_P3 = 1_000_000, 2, 3   # p>1 serving (test_pallas.py:445)
 N_HILR_GIBBS = 10_000          # the hilr sine's Gibbs warm start
+
+# Peak rates of one H100 SXM for the kernels' bounds: HBM 3.35 TB/s, f32
+# 67 TFLOP/s outside the tensor cores (33.5e12 FMA/s) and dense TF32
+# 495 TFLOP/s on them (247.5e12 multiply-adds/s) from NVIDIA's data sheet;
+# the MUFU (16 special-function results per clock per SM) and integer (64
+# lanes per clock per SM) rates at the 1.98 GHz clock behind the f32
+# figure, 132 SMs.
+PEAKS = {'hbm': 3.35e12, 'fp32': 33.5e12, 'tf32': 247.5e12,
+         'mufu': 16 * 132 * 1.98e9, 'int': 64 * 132 * 1.98e9}
+# TF32 passes per multiply-add of B1 and B2's products, the precision rule
+# of csrc/estep.cuh: six for the logits theta F, three for B1's
+# statistics P F^T
+LOGIT_PASSES, STATS_PASSES = 6, 3
+WORK = {}    # kernel name -> the work of its timed call, by unit
 
 
 def fail(msg):
@@ -165,9 +190,9 @@ def ptxas_summary(logs):
             m = re.search(r"entry function '(\w+)'", line)
             if m:
                 names = re.findall(r'\d([a-z][a-z_]+?)(?=I|E)', m.group(1))
-                tmpl = re.search(r'I((?:L[ib]\d+E)+)E', m.group(1))
-                args = re.findall(r'L[ib](\d+)E', tmpl.group(1)) if tmpl \
-                    else []
+                tmpl = re.search(r'I((?:L[ib]n?\d+E)+)E', m.group(1))
+                args = [a.replace('n', '-') for a in re.findall(
+                    r'L[ib](n?\d+)E', tmpl.group(1))] if tmpl else []
                 name = (f'{src} {max(names, key=len) if names else "?"}'
                         + (f'<{",".join(args)}>' if args else ''))
             m = re.search(r'(\d+) bytes spill stores', line)
@@ -203,6 +228,93 @@ def leaves(tree):
 def all_finite(tree):
     return all(bool(torch.isfinite(t).all()) for t in leaves(tree)
                if t.is_floating_point())
+
+
+def bound(work):
+    """(ms, 'bytes' or 'operations', unit) for a kernel's work: bytes
+    ('hbm': each input read once, each output written once) and
+    operations by unit ('fp32' FMAs on the f32 units, 'tf32' tensor-core
+    multiply-adds, 'mufu' transcendentals, 'int' integer operations), each
+    over its peak; the least time is the largest."""
+    times = {u: work.get(u, 0) / rate * 1e3 for u, rate in PEAKS.items()}
+    unit = max(times, key=times.get)
+    return times[unit], 'bytes' if unit == 'hbm' else 'operations', unit
+
+
+def estep_work(n, k, m, rows):
+    """B1 (and S1/S2): per point K m multiply-adds for the logits and K m
+    for the statistics, on the tensor cores at the precision rule's passes
+    (the same work on the f32 units, one pass each, takes longer: 2 K m /
+    33.5e12 against 9 K m / 247.5e12), K exps and a log; reads (rows, n)
+    and theta (K, m), writes (K, m) + 1."""
+    return {'tf32': (LOGIT_PASSES + STATS_PASSES) * n * k * m,
+            'mufu': n * (k + 1), 'hbm': 4 * (rows * n + 2 * k * m + 1)}
+
+
+def gibbs_work(xt, theta, n, m, kind=cuda_estep.GAUSS, p=0):
+    """B2 at these inputs: K m multiply-adds for the logits per point on
+    the tensor cores at the precision rule's passes, and m adds of the
+    point's F row on the f32 units; and the draws this data needs: two logs for
+    each component that can win (its logit plus the largest Gumbel draw,
+    16, reaches the best logit plus the smallest, -3.9) and a
+    Philox4x32-10 call of 10 rounds (2 mul-hi, 2 mul-lo, 4 xor, 2 key
+    adds) for each group of 4 holding one; reads (rows, n) and theta,
+    writes the labels and (K, m)."""
+    k, m8 = theta.shape
+    groups = cands = 0
+    for s in range(0, n, 1 << 20):
+        f = assemble_features(xt[:, s:min(s + (1 << 20), n)], m8, kind, p)
+        logits = theta @ f
+        live = logits + 16.0 >= logits.max(0).values - 3.9
+        cands += int(live.sum())
+        live = torch.cat([live, live.new_zeros(((-k) % 4, live.shape[1]))])
+        groups += int(live.view(-1, 4, live.shape[1]).any(1).sum())
+    return {'tf32': LOGIT_PASSES * n * k * m, 'fp32': n * m,
+            'mufu': 2 * cands, 'int': 100 * groups,
+            'hbm': 4 * (xt.shape[0] * n + n + 2 * k * m)}
+
+
+def density_work(n, k, m, d, mufu_per_comp, quads=1):
+    """B3 / B4: `quads` quadratic forms of width m per component, the
+    given transcendentals per component and a log per point; reads
+    (d, n), writes (n,)."""
+    return {'fp32': n * k * quads * m, 'mufu': n * (k * mufu_per_comp + 1),
+            'hbm': 4 * (d * n + n)}
+
+
+def serving_work(n, rows, m, k, mufu_per_comp, d, p):
+    """B5 / B6: one dot of width m per coefficient row, the
+    transcendentals per component and 2 logs per point; reads (d + p, n),
+    writes 2p + 2 rows."""
+    return {'fp32': n * rows * m, 'mufu': n * (k * mufu_per_comp + 2),
+            'hbm': 4 * ((d + p) * n + (2 * p + 2) * n)}
+
+
+def precision_check(tag, xt, theta, n, kind=cuda_estep.GAUSS, p=0):
+    """B1's error against float64 beside the f32 plain version's: lse
+    relative, statistics as max |err| / summed magnitude. Fails when the
+    kernel's is more than 10x the plain version's (the precision rule,
+    csrc/estep.cuh), the plain version's counted as at least half an f32
+    ulp (2^-24): no f32 result is nearer than that but by chance."""
+    acc, lse = cuda_estep.estep(xt, theta, n, kind, p)
+    pacc, plse = cuda_estep.estep_plain(xt, theta, n, kind, p)
+    acc64, lse64 = cuda_estep.estep_plain(xt.double(), theta.double(), n,
+                                          kind, p)
+    mag = estep_magnitudes(xt, theta, n, kind, p).clamp(min=1e-30)
+
+    def rel(a, l):
+        return (float(((a.double() - acc64).abs() / mag).max()),
+                abs(float(l) - float(lse64)) / abs(float(lse64)))
+
+    (ks, kl), (ps, pl) = rel(acc, lse), rel(pacc, plse)
+    ratio_s, ratio_l = ks / max(ps, 2.0 ** -24), kl / max(pl, 2.0 ** -24)
+    ok = ratio_s <= 10 and ratio_l <= 10
+    print(f'precision B1 {tag}: vs float64, lse relative error kernel '
+          f'{kl:.3g}, f32 plain {pl:.3g} ({ratio_l:.3g}x); statistics max '
+          f'|err| / summed magnitude kernel {ks:.3g}, f32 plain {ps:.3g} '
+          f'({ratio_s:.3g}x) (<= 10x, the plain error counted as at least '
+          f'2^-24) {"ok" if ok else "FAIL"}')
+    check(ok, f'B1 {tag} less precise than 10x the f32 plain version')
 
 
 def main():
@@ -301,6 +413,11 @@ def run(dev, seed, n_main, n_check):
           f'summed magnitudes) {"ok" if ok_acc else "FAIL"}; label mismatch '
           f'vs plain Philox {mismatch:.3g} (<= 1e-4)')
     check(in_range and ok_acc and mismatch <= 1e-4, 'B2 disagrees')
+    fast_err = cuda_gibbs.gumbel_fast_error(dev)
+    print(f'B2 fast draw: worst |error| over all 2^23 uniforms '
+          f'{fast_err:.3g} against float64 (exact labels need < 2^-11; '
+          f'checked < 2^-12)')
+    check(fast_err < 2.0 ** -12, 'B2 fast draw off its bound')
 
     # frequencies need overlapping components: unit-scale plug-in params
     wide = GaussParams(
@@ -327,6 +444,8 @@ def run(dev, seed, n_main, n_check):
               f'B2 label frequencies at point {i} off the softmax')
     print(f'B2 frequencies: 2^20 draws at 4 points, worst |z| {worst:.3f} '
           f'over components with >= 1 expected draw (bound 5 sigma) ok')
+
+    chunked_checks(dev, gen, card, spec, n_check)
 
     # -- 5. B3 vs plain -----------------------------------------------------
     log_w = torch.log_softmax(
@@ -432,11 +551,17 @@ def run(dev, seed, n_main, n_check):
         'B3': (lambda: cuda_predict.predict(xt, thq, aux, n_main),
                lambda: cuda_predict.predict_plain(xt, thq, aux, n_main)),
     }
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
+    WORK.update(B1=estep_work(n_main, K_MAIN, m, D_MAIN),
+                B2=gibbs_work(xt, th_g, n_main, m),
+                B3=density_work(n_main, K_MAIN, m, D_MAIN, 2))
     for name, (kern, plain) in pairs.items():
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
               f'kernel {ms[name][0]:.6g} ms, plain PyTorch {ms[name][1]:.6g}'
               f' ms')
+    precision_check(f'main N={n_main} K={K_MAIN} d={D_MAIN}', xt, th_vi,
+                    n_main)
 
     del x, xt, model, st, gs, lp
     torch.cuda.empty_cache()
@@ -453,30 +578,31 @@ def run(dev, seed, n_main, n_check):
     hilr_serving_paths(dev, seed, card, errs, launches, ms)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
+    WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
 
     meta = {
-        'B1': ('B1 fused VI E-step', 'mimo_tpu_torch/csrc/estep.cu',
+        'B1': ('B1 fused VI E-step', 'mimo_tpu_torch/csrc/estep.cuh',
                'mimo_tpu/ops/pallas_estep.py:164'),
-        'B2': ('B2 fused Gibbs label sweep', 'mimo_tpu_torch/csrc/gibbs.cu',
+        'B2': ('B2 fused Gibbs label sweep', 'mimo_tpu_torch/csrc/gibbs.cuh',
                'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B3': ('B3 Student-t mixture predictive',
                'mimo_tpu_torch/csrc/predict.cu',
                'mimo_tpu/ops/pallas_predict.py:39'),
         'B1-ILR': ('B1 fused VI E-step, ILR feature map',
-                   'mimo_tpu_torch/csrc/estep.cu',
+                   'mimo_tpu_torch/csrc/estep.cuh',
                    'mimo_tpu/ops/pallas_estep.py:164'),
         'B2-ILR': ('B2 fused Gibbs label sweep, ILR feature map',
-                   'mimo_tpu_torch/csrc/gibbs.cu',
+                   'mimo_tpu_torch/csrc/gibbs.cuh',
                    'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B5': ('B5 ILR predict, p=1', 'mimo_tpu_torch/csrc/ilr_predict.cu',
                'mimo_tpu/ops/pallas_predict.py:656'),
         'B6': ('B6 ILR predict, p>1', 'mimo_tpu_torch/csrc/ilr_predict.cu',
                'mimo_tpu/ops/pallas_predict.py:349'),
         'B1-diag': ('B1 fused VI E-step, diagonal feature map',
-                    'mimo_tpu_torch/csrc/estep.cu',
+                    'mimo_tpu_torch/csrc/estep.cuh',
                     'mimo_tpu/ops/pallas_estep.py:164'),
         'B2-diag': ('B2 fused Gibbs label sweep, diagonal feature map',
-                    'mimo_tpu_torch/csrc/gibbs.cu',
+                    'mimo_tpu_torch/csrc/gibbs.cuh',
                     'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B3-diag': ('B3 Gaussian mixture predictive, diagonal feature map',
                     'mimo_tpu_torch/csrc/predict.cu',
@@ -494,32 +620,32 @@ def run(dev, seed, n_main, n_check):
                     'mimo_tpu_torch/csrc/predict.cu',
                     'mimo_tpu/ops/pallas_predict.py:39'),
         'B1-tied': ('B1 fused VI E-step, Gauss map, pooled (tied) NIW theta',
-                    'mimo_tpu_torch/csrc/estep.cu',
+                    'mimo_tpu_torch/csrc/estep.cuh',
                     'mimo_tpu/ops/pallas_estep.py:164'),
         'B2-tied': ('B2 fused Gibbs label sweep, Gauss map, exact tied draws',
-                    'mimo_tpu_torch/csrc/gibbs.cu',
+                    'mimo_tpu_torch/csrc/gibbs.cuh',
                     'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B1-diag-tied': ('B1 fused VI E-step, diagonal map, pooled NG theta',
-                         'mimo_tpu_torch/csrc/estep.cu',
+                         'mimo_tpu_torch/csrc/estep.cuh',
                          'mimo_tpu/ops/pallas_estep.py:164'),
         'B2-diag-tied': ('B2 fused Gibbs label sweep, diagonal map, exact '
-                         'tied NG draws', 'mimo_tpu_torch/csrc/gibbs.cu',
+                         'tied NG draws', 'mimo_tpu_torch/csrc/gibbs.cuh',
                          'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B4-tied': ('B4 diagonal Student-t predictive, pooled NG',
                     'mimo_tpu_torch/csrc/diag_predict.cu',
                     'mimo_tpu/ops/pallas_predict.py:171'),
         'B1-hier': ('B1 fused VI E-step, Gauss map, hierarchical theta',
-                    'mimo_tpu_torch/csrc/estep.cu',
+                    'mimo_tpu_torch/csrc/estep.cuh',
                     'mimo_tpu/ops/pallas_estep.py:164'),
         'B2-hier': ('B2 fused Gibbs label sweep, Gauss map, exact '
-                    'hierarchical draws', 'mimo_tpu_torch/csrc/gibbs.cu',
+                    'hierarchical draws', 'mimo_tpu_torch/csrc/gibbs.cuh',
                     'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B1-ILR-hilr': ('B1 fused VI E-step, ILR map, HierTied basis x '
-                        'tied-affine experts', 'mimo_tpu_torch/csrc/estep.cu',
+                        'tied-affine experts', 'mimo_tpu_torch/csrc/estep.cuh',
                         'mimo_tpu/ops/pallas_estep.py:164'),
         'B2-ILR-hilr': ('B2 fused Gibbs label sweep, ILR map, HierTied basis '
                         'x tied-affine experts',
-                        'mimo_tpu_torch/csrc/gibbs.cu',
+                        'mimo_tpu_torch/csrc/gibbs.cuh',
                         'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B5-hilr': ('B5 ILR predict, p=1, tied-affine experts and HierTied '
                     'basis branches', 'mimo_tpu_torch/csrc/ilr_predict.cu',
@@ -527,29 +653,36 @@ def run(dev, seed, n_main, n_check):
         'B6-hilr': ('B6 ILR predict, p>1, tied-affine experts and HierTied '
                     'basis branches', 'mimo_tpu_torch/csrc/ilr_predict.cu',
                     'mimo_tpu/ops/pallas_predict.py:349'),
-        'S1-divide': ('S1 B1 probe, per-point divide (B1 itself)',
-                      'mimo_tpu_torch/csrc/estep.cu',
+        'S1-divide': ('S1 B1 probe, normalised (B1 itself)',
+                      'mimo_tpu_torch/csrc/probes.cu',
                       'scripts/bisect_pallas.py:51'),
-        'S1-nodivide': ('S1 B1 probe, no per-point divide',
-                        'mimo_tpu_torch/csrc/estep.cu',
+        'S1-nodivide': ('S1 B1 probe, no normalisation',
+                        'mimo_tpu_torch/csrc/probes.cu',
                         'scripts/bisect_pallas.py:51'),
         'S2-none': ('S2 B1 probe, no valid count',
-                    'mimo_tpu_torch/csrc/estep.cu',
+                    'mimo_tpu_torch/csrc/probes.cu',
                     'scripts/bisect_smem.py:44'),
         'S2-unused': ('S2 B1 probe, valid count in device memory, unused',
-                      'mimo_tpu_torch/csrc/estep.cu',
+                      'mimo_tpu_torch/csrc/probes.cu',
                       'scripts/bisect_smem.py:48'),
         'S2-used': ('S2 B1 probe, valid count in device memory, used',
-                    'mimo_tpu_torch/csrc/estep.cu',
+                    'mimo_tpu_torch/csrc/probes.cu',
                     'scripts/bisect_smem.py:52'),
         'S3': ('S3 build probe o = 2x', 'mimo_tpu_torch/csrc/hello.cu',
                'scripts/pallas_hello.py:11'),
     }
-    print(json.dumps({'kernels': [
-        {'name': meta[b][0], 'route': 'cuda', 'source': meta[b][1],
-         'replaces': meta[b][2], 'launches': launches[b],
-         'max_abs_err': errs[b], 'ms': ms[b][0], 'plain_ms': ms[b][1]}
-        for b in meta]}))
+    rows = []
+    for b in meta:
+        bound_ms, bound_by, bound_op = bound(WORK[b])
+        rows.append({
+            'name': meta[b][0], 'route': 'cuda', 'source': meta[b][1],
+            'replaces': meta[b][2], 'launches': launches[b],
+            'max_abs_err': errs[b], 'ms': ms[b][0], 'plain_ms': ms[b][1],
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'bound_op': bound_op,
+            'bound_share': bound_ms / ms[b][0],
+            # no single PyTorch call computes any of these functions
+            'library_ms': None})
+    print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
@@ -557,6 +690,52 @@ def run(dev, seed, n_main, n_check):
 
 
 # -- ILR -------------------------------------------------------------------
+
+
+def chunked_checks(dev, gen, card, spec, n):
+    """B1 and B2 in the chunked layout (csrc/tc.cuh): K=300, d=2, more
+    16-row slabs than a block has warps. B1 against its plain version as
+    in phase 3, bitwise on repeat; B2's labels against the plain Philox
+    labels and its statistics against the one-hot sums of its labels, as
+    in phase 4; each timed beside its plain version."""
+    k, m8 = 300, 8
+    post = random_posterior(gen, k, D_MAIN, dev)
+    log_pi = torch.log_softmax(torch.randn((k,), generator=gen, device=dev), 0)
+    xt = (torch.randn((D_MAIN, n), generator=gen, device=dev) * 4.0
+          + post.mu[0][:, None])
+    theta, _ = pad_theta(spec.theta(post), log_pi, torch.float32)
+    acc, lse = cuda_estep.estep(xt, theta, n)
+    acc2, lse2 = cuda_estep.estep(xt, theta, n)
+    pacc, plse = cuda_estep.estep_plain(xt, theta, n)
+    atol = 1e-3 * n / 1e6
+    ok_s, err_s = allclose_report(acc, pacc, 1e-4, atol)
+    ok_l, err_l = allclose_report(lse, plse, 1e-5, 0.0)
+    bitwise = torch.equal(acc, acc2) and torch.equal(lse, lse2)
+    th_g, _ = pad_theta(spec.theta_plugin(mode_params(post)), log_pi,
+                        torch.float32)
+    sweep_seed = torch.randint(0, 2 ** 62, (), generator=gen, device=dev)
+    labels, gacc = cuda_gibbs.gibbs(xt, th_g, sweep_seed, n)
+    plabels, _ = cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, n)
+    f = assemble_features(xt, m8).double()
+    oh = torch.nn.functional.one_hot(labels.long(), k).double()
+    ok_g = bool(((gacc.double() - oh.T @ f.T).abs()
+                 <= 1e-5 * (oh.T @ f.abs().T)).all())
+    mismatch = float((labels != plabels).double().mean())
+    t = {name: (cuda_ms(kern, 5), cuda_ms(plain, 2)) for name, kern, plain in (
+        ('B1', lambda: cuda_estep.estep(xt, theta, n),
+         lambda: cuda_estep.estep_plain(xt, theta, n)),
+        ('B2', lambda: cuda_gibbs.gibbs(xt, th_g, sweep_seed, n),
+         lambda: cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, n)))}
+    print(f'chunked layout N={n} K={k} d={D_MAIN}: B1 stats max|err| '
+          f'{err_s:.6g} (rtol 1e-4, atol {atol:.6g}) {"ok" if ok_s else "FAIL"}'
+          f', lse |err| {err_l:.6g} (rtol 1e-5) {"ok" if ok_l else "FAIL"}, '
+          f'bitwise repeat {bitwise}; B2 stats vs one-hot sums '
+          f'{"ok" if ok_g else "FAIL"}, label mismatch vs plain Philox '
+          f'{mismatch:.3g} (<= 1e-4); times on {card}: B1 {t["B1"][0]:.6g} '
+          f'ms (plain {t["B1"][1]:.6g}), B2 {t["B2"][0]:.6g} ms (plain '
+          f'{t["B2"][1]:.6g})')
+    check(ok_s and ok_l and bitwise and ok_g and mismatch <= 1e-4,
+          'B1 or B2 in the chunked layout disagrees')
 
 
 def reset_counts():
@@ -835,11 +1014,16 @@ def ilr_fit_path(dev, seed, card, errs, launches, ms):
                    lambda: cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, N_Q8,
                                                   ILR, 1)),
     }
+    m = cuda_estep.feature_width(ILR, D_Q8, 1)
+    WORK.update({'B1-ILR': estep_work(N_Q8, K_MAIN, m, D_Q8 + 1),
+                 'B2-ILR': gibbs_work(xt, th_g, N_Q8, m, ILR, 1)})
     for name, (kern, plain) in pairs.items():
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={N_Q8} K={K_MAIN} d={D_Q8} p=1 '
               f'm8={th_vi.shape[1]}: kernel {ms[name][0]:.6g} ms, plain '
               f'PyTorch {ms[name][1]:.6g} ms')
+    precision_check(f'q8 N={N_Q8} K={K_MAIN} d={D_Q8} p=1 m8=168', xt, th_vi,
+                    N_Q8, ILR, 1)
 
 
 def ilr_serving_paths(dev, seed, card, launches, ms, diag=False):
@@ -913,6 +1097,10 @@ def ilr_serving_paths(dev, seed, card, launches, ms, diag=False):
                 xt, th, aux, vc, n, p, True, False)
             plain = lambda: cuda_ilr_predict.ilr_p_predict_plain(  # noqa: E731
                 xt, th, aux, vc, n, p, True, False)
+        WORK[name] = serving_work(
+            n, th.shape[0],
+            cuda_ilr_predict.joint_width(d, p) if p > 1 else 1 + d + d * d,
+            K_MAIN, 4 + p if diag and p > 1 else 5, d, p)
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={n} K={K_MAIN} d={d} p={p} '
               f'm8={th.shape[1]}: kernel {ms[name][0]:.6g} ms, plain '
@@ -1165,11 +1353,19 @@ def diag_gmm_path(dev, seed, card, n_main, errs, launches, ms):
                lambda: cuda_diag_predict.diag_predict_plain(xt, thu, h, aux4,
                                                             n_main)),
     }
+    m = cuda_estep.feature_width(DIAG, D_MAIN)
+    WORK.update({'B1-diag': estep_work(n_main, K_MAIN, m, D_MAIN),
+                 'B2-diag': gibbs_work(xt, th_g, n_main, m, DIAG),
+                 'B3-diag': density_work(n_main, K_MAIN, m, D_MAIN, 1),
+                 'B4': density_work(n_main, K_MAIN, m, D_MAIN, D_MAIN + 1,
+                                    D_MAIN)})
     for name, (kern, plain) in pairs.items():
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
               f'kernel {ms[name][0]:.6g} ms, plain PyTorch {ms[name][1]:.6g}'
               f' ms')
+    precision_check(f'diag N={n_main} K={K_MAIN} d={D_MAIN}', xt, th_vi,
+                    n_main, DIAG)
     del x, xt, model, st, gs, lp_t, lp_g
     torch.cuda.empty_cache()
 
@@ -1348,7 +1544,9 @@ def probe_checks(dev, gen, card, n_main, errs, launches, ms):
 
     ms['B1-probe'] = (cuda_ms(lambda: cuda_estep.estep(xt, theta, n_main),
                               20), 0.0)
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
     for name, (fn, divide, used) in variants.items():
+        WORK[name] = estep_work(used or n_main, K_MAIN, m, D_MAIN)
         ms[name] = (cuda_ms(fn, 20),
                     cuda_ms(lambda: cuda_probes.estep_probe_plain(
                         xt, theta, n_main, divide, used), 3))
@@ -1509,6 +1707,14 @@ def tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms):
                 lambda: cuda_predict.predict(xt, thq, aux, n_main),
                 lambda: cuda_predict.predict_plain(xt, thq, aux, n_main),
                 None)
+        m = cuda_estep.feature_width(kind, D_MAIN)
+        WORK[names[0]] = estep_work(n_main, K_MAIN, m, D_MAIN)
+        WORK[names[1]] = gibbs_work(xt, th_g, n_main, m, kind)
+        if names[2] is not None:
+            WORK[names[2]] = (
+                density_work(n_main, K_MAIN, m, D_MAIN, D_MAIN + 1, D_MAIN)
+                if label == 'diag-tied' else
+                density_work(n_main, K_MAIN, m, D_MAIN, 2))
         time_pairs(card, f'N={n_main} K={K_MAIN} d={D_MAIN} ({label} GMM)',
                    pairs, errs, ms)
         del model, st, gs, lp
@@ -1625,6 +1831,16 @@ def hilr_serving_paths(dev, seed, card, errs, launches, ms):
                 lambda: cuda_ilr_predict.ilr_p_predict_plain(
                     xt, th, aux, vc, n, p, True, False),
                 None)}
+        if p == 1:
+            m = cuda_estep.feature_width(ILR, d, p)
+            WORK[name] = serving_work(n, th.shape[0], 1 + d + d * d, K_MAIN,
+                                      5, d, p)
+            WORK['B1-ILR-hilr'] = estep_work(n, K_MAIN, m, d + p)
+            WORK['B2-ILR-hilr'] = gibbs_work(xt, th_g, n, m, ILR, 1)
+        else:
+            WORK[name] = serving_work(n, th.shape[0],
+                                      cuda_ilr_predict.joint_width(d, p),
+                                      K_MAIN, 5, d, p)
         time_pairs(card, f'N={n} K={K_MAIN} d={d} p={p} (hilr)', pairs, errs,
                    ms)
         del x, y, model, st, mu, var, nlpd, xt

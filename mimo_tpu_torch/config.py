@@ -1,6 +1,8 @@
 """Dataclass configs mirroring the reference's hyperparameter vocabulary
-(port of mimo_tpu/config.py). `TrainConfig` and `flagship_fit` need the
-dense engines and SVI, and arrive with them (ROADMAP A13/A14).
+(port of mimo_tpu/config.py). `build` builds on the CUDA card unless
+given a device (device='cpu' for the CPU). `TrainConfig` and
+`flagship_fit` need the dense engines and SVI, and arrive with them
+(ROADMAP A13/A14).
 """
 
 from dataclasses import dataclass, field

@@ -1,11 +1,11 @@
-// Shared device code of the mimo_tpu_torch kernels (B1 estep.cu, B2
-// gibbs.cu, B3 predict.cu, B4 diag_predict.cu, B5/B6 ilr_predict.cu): the
-// Gaussian, diagonal and ILR feature maps, the online logsumexp, the
-// counter-based Philox generator, and the fixed-order cross-block
-// reduction.
+// Shared device code of the mimo_tpu_torch kernels (B1 estep.cuh, B2
+// gibbs.cuh, B3 predict.cu, B4 diag_predict.cu, B5/B6 ilr_predict.cu): the
+// Gaussian and diagonal feature maps, the factor tables from which B1 and
+// B2 assemble every map, the online logsumexp, the counter-based Philox
+// generator, and the fixed-order cross-block reduction.
 //
-// Every kernel stages per-point columns in shared memory with a row
-// stride of kThreads + 1 floats: thread t owns column t, so its own
+// The predictive kernels stage per-point columns in shared memory with a
+// row stride of kThreads + 1 floats: thread t owns column t, so its own
 // reads and writes hit 32 distinct banks across a warp, and the
 // cooperative (k, j) reductions, which read one row per output, see
 // rows offset by one bank each.
@@ -53,63 +53,23 @@ __device__ __forceinline__ void diag_features(const float* __restrict__ xt,
   for (int j = 1 + 2 * d; j < m8; ++j) col[j * kStride] = 0.0f;
 }
 
-// Feature maps of the E-step, Gibbs and predictive kernels, a
-// compile-time choice (the template parameter of estep_partial,
-// gibbs_partial and predict_kernel, like the static `features_t` of the
-// TPU kernels). The C entries take a runtime `kind`: kKindGauss, the ILR
-// map with (kKindIlrAffine) or without (kKindIlrLinear) the experts' ones
-// column, or kKindDiag.
-enum FeatureMap { kGauss = 0, kIlr = 1, kDiag = 2 };
+// Feature maps of the predictive kernel B3, a compile-time choice (its
+// template parameter, like the static `features_t` of the TPU kernels).
+// The C entries take a runtime `kind`: kKindGauss, the ILR map with
+// (kKindIlrAffine) or without (kKindIlrLinear) the experts' ones column,
+// or kKindDiag; B1 and B2 assemble each of them from a FactorTable.
+enum FeatureMap { kGauss = 0, kDiag = 2 };
 constexpr int kKindGauss = 0, kKindIlrAffine = 1, kKindIlrLinear = 2,
               kKindDiag = 3;
 
-// F = [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y; 0...] for point p of
-// the stacked rows xt = [x (d rows); y (np rows)] (row stride ld), with
-// xa = [x; 1] when affine, written down one shared-memory column.
-// Mirrors mimo_tpu/ops/family_estep.py::_product_features_t over
-// (gauss_features_t, linear_features_t(affine)): the basis block, then
-// the expert block without its constant.
-__device__ __forceinline__ void ilr_features(const float* __restrict__ xt,
-                                             long long ld, int d, int np,
-                                             bool affine, long long p,
-                                             float* col, int m8) {
-  gauss_features(xt, ld, d, p, col, 1 + d + d * d);
-  const int q = d + (affine ? 1 : 0);
-  int off = 1 + d + d * d;
-  for (int i = 0; i < np; ++i) {
-    const float yi = xt[(d + i) * ld + p];
-    for (int j = 0; j < d; ++j)
-      col[(off + i * q + j) * kStride] = yi * col[(1 + j) * kStride];
-    if (affine) col[(off + i * q + d) * kStride] = yi;
-  }
-  off += np * q;
-  for (int a = 0; a < q; ++a) {
-    const float xa = a < d ? col[(1 + a) * kStride] : 1.0f;
-    for (int b = 0; b < q; ++b) {
-      const float xb = b < d ? col[(1 + b) * kStride] : 1.0f;
-      col[(off + a * q + b) * kStride] = xa * xb;
-    }
-  }
-  off += q * q;
-  for (int i = 0; i < np; ++i) {
-    const float yi = xt[(d + i) * ld + p];
-    for (int j = 0; j < np; ++j)
-      col[(off + i * np + j) * kStride] = yi * xt[(d + j) * ld + p];
-  }
-  for (int j = off + np * np; j < m8; ++j) col[j * kStride] = 0.0f;
-}
-
 template <int kMap>
 __device__ __forceinline__ void features(const float* __restrict__ xt,
-                                         long long ld, int d, int np,
-                                         bool affine, long long p,
+                                         long long ld, int d, long long p,
                                          float* col, int m8) {
   if constexpr (kMap == kGauss)
     gauss_features(xt, ld, d, p, col, m8);
-  else if constexpr (kMap == kDiag)
-    diag_features(xt, ld, d, p, col, m8);
   else
-    ilr_features(xt, ld, d, np, affine, p, col, m8);
+    diag_features(xt, ld, d, p, col, m8);
 }
 
 // Width of a feature map (without the zero padding to m8).
@@ -118,6 +78,50 @@ inline int feature_width(int kind, int d, int np) {
   if (kind == kKindDiag) return 1 + 2 * d;
   const int q = d + (kind == kKindIlrAffine ? 1 : 0);
   return 1 + d + d * d + np * q + q * q + np * np;
+}
+
+// Every row of every map is the product of two entries of a point's
+// z = [1; x (d rows); y (np rows); 0]: row j = z[a] * z[b] with
+// ab[j] = a | b << 8, one f32 multiply, so a map assembled from its table
+// equals the per-point maps above bit for bit. Rows past the map's width
+// are 0 * 0 (up to 512 rows: the widest F tile of B1/B2's chunked
+// layout). The ILR table follows
+// mimo_tpu/ops/family_estep.py::_product_features_t over
+// (gauss_features_t, linear_features_t(affine)): [1; x; x (x) x;
+// y (x) xa; xa (x) xa; y (x) y] with xa = [x; 1] when affine.
+constexpr int kMaxTableRows = 512;
+struct FactorTable {
+  unsigned short ab[kMaxTableRows];
+};
+
+inline FactorTable factor_table(int kind, int d, int np, int rows) {
+  FactorTable t;
+  int j = 0;
+  auto put = [&](int a, int b) {
+    if (j < rows) t.ab[j++] = static_cast<unsigned short>(a | (b << 8));
+  };
+  auto xa = [d](int a) { return a < d ? 1 + a : 0; };   // [x; 1]
+  put(0, 0);
+  for (int a = 0; a < d; ++a) put(1 + a, 0);
+  for (int a = 0; a < d; ++a) {
+    if (kind == kKindDiag) {
+      put(1 + a, 1 + a);
+    } else {
+      for (int b = 0; b < d; ++b) put(1 + a, 1 + b);
+    }
+  }
+  if (kind == kKindIlrAffine || kind == kKindIlrLinear) {
+    const int q = d + (kind == kKindIlrAffine ? 1 : 0);
+    for (int i = 0; i < np; ++i)
+      for (int a = 0; a < q; ++a) put(1 + d + i, xa(a));
+    for (int a = 0; a < q; ++a)
+      for (int b = 0; b < q; ++b) put(xa(a), xa(b));
+    for (int i = 0; i < np; ++i)
+      for (int b = 0; b < np; ++b) put(1 + d + i, 1 + d + b);
+  }
+  const int zero = 1 + d + np;
+  while (j < rows) put(zero, zero);
+  return t;
 }
 
 // theta_k . F for the column `col` (stride kStride), f32 FMA.
@@ -163,15 +167,23 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-// out[o] = sum_b part[b * w + o] in block order b = 0, 1, ...: the
-// second pass of the bounded-grid reductions. Fixed order, no atomics,
-// so a run is bitwise repeatable on a given grid.
+// s += x, compensated (Kahan): c carries the low-order bits s lost.
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float y = x - c;
+  const float t = s + y;
+  c = (t - s) - y;
+  s = t;
+}
+
+// out[o] = sum_b part[b * w + o] in block order b = 0, 1, ..., a
+// compensated sum: the second pass of the bounded-grid reductions. Fixed
+// order, no atomics, so a run is bitwise repeatable on a given grid.
 __global__ void reduce_partials(const float* __restrict__ part, int grid,
                                 int w, float* __restrict__ out) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= w) return;
-  float s = 0.0f;
-  for (int b = 0; b < grid; ++b) s += part[(size_t)b * w + o];
+  float s = 0.0f, c = 0.0f;
+  for (int b = 0; b < grid; ++b) kahan_add(s, c, part[(size_t)b * w + o]);
   out[o] = s;
 }
 

@@ -1,0 +1,332 @@
+// Kernel B1: fused mixture E-step over the full-covariance Gaussian, the
+// diagonal Gaussian or the ILR product feature map. Replaces
+// mimo_tpu/ops/pallas_estep.py::_estep_kernel2.
+//
+// Per point p < n: F = features(p) ([1; x; x (x) x] for a Gaussian,
+// [1; x; x^2] for a diagonal Gaussian, [1; x; x (x) x; y (x) xa;
+// xa (x) xa; y (x) y] for ILR with MNW or MNG experts; common.cuh),
+// logp_k = theta_k . F (theta's column 0 carries c + log pi, so counts
+// fall out of acc[:, 0]), a softmax over K with the 1e-37 denominator
+// floor of the TPU kernel,
+//   acc(K, m8) += (ex / denom) F^T,   lse += max + log(denom).
+//
+// What bounds it on the H100. A point is 4 (d + p) bytes of input
+// against 2 K m multiply-adds (the logits S = theta F and the statistics
+// P F^T, m the map's width) and K exponentials. On the tensor cores at the
+// precision rule's passes below (six for S, three for P F^T) that is
+// 9 K m TF32 multiply-adds, at 247.5e12/s: 0.13 ms at N=1e7, K=50, d=2
+// (m = 7), where the K exps on the MUFU (4.2e12/s) take 0.12 ms, and
+// 0.30 ms at the ILR q8 shape (N=1e6, m = 164). The same products on the
+// f32 units, one pass each (33.5e12 FMA/s), would take 0.21 and 0.49 ms;
+// bytes bound nothing (chip_smoke.py computes each run's bound). The
+// kernel before this design reached 6% of the f32 bound: each FMA of its
+// (K, m8) tile reduction took two shared-memory operands, one warp-wide
+// LDS per clock per SM against four FFMAs.
+//
+// Design. Both products run on the tensor cores, warp-level
+// mma.sync.m16n8k8 TF32 with f32 accumulation (tc.cuh); wgmma is not
+// needed while the kernel is far from the tensor-core limit. In the plain
+// layout (tc.cuh) a block has one warp per 16-row slab of K (padded, rows
+// >= K are -inf logits) and walks tiles of T points (64 to m8 = 64, else
+// 32):
+//   1. the tile's inputs z = [1; x; y] (copied the tile before) become
+//      the F tiles, each row one product z_a z_b (FactorTable);
+//   2. each warp forms its S slab in registers and, per column, the
+//      slab's max and sum exp(S - max) by shuffles over the 8 lanes that
+//      hold it; the (max, sum) pairs go through shared memory;
+//   3. each warp folds the W pairs of a column into the column's max M
+//      and denominator, and its own factor exp(max_w - M) / den: the
+//      normalisation is one multiply of the S fragments in registers, no
+//      per-point divide (what probe S1 measured);
+//   4. P F^T accumulates into the warp's (16 x m8) statistics slab, kept
+//      in registers across all of the block's tiles (84 registers a
+//      thread at m8 = 168). The C fragment of S is not the A fragment
+//      of the second product (columns 2t, 2t+1 against t, t+4), so the
+//      contraction index is permuted instead (k = t <-> point 2t,
+//      k = t + 4 <-> point 2t + 1; tc.cuh stats_step): P passes from
+//      the first product to the second in the same registers, through
+//      neither shared memory nor shuffles.
+// In the chunked layout (a K or m8 the plain one cannot hold) each warp
+// forms step 2 for one slab of each chunk in turn, folding the (max, sum)
+// pairs online, and keeps the fragments of its slab in the block's
+// window chunk for step 4.
+// Shared memory holds theta, the z and F tiles and the per-column pairs
+// (mimo_estep_smem_bytes): 101 KB at K=50, m8=168, so two blocks fit per
+// SM. A persistent grid (SMs x resident blocks, mimo_estep_grid) strides
+// over the tiles; per-block partials go to a scratch buffer and a second
+// kernel sums them in block order: no float atomics, so a run is
+// bitwise repeatable on a given card.
+//
+// Precision rule (tests/test_torch_precision.py emulates it on the CPU;
+// chip_smoke.py measures it against float64 on the card). One TF32 pass
+// keeps 11 significant bits. The logits take six passes per 8-feature
+// step, theta and F each split exactly in three tf32 parts (an f32 has
+// 24 bits): every product term down to 2^-22 relative, lo F_hi + hi F_lo
+// + mid F_mid + mid F_hi + hi F_mid + hi F_hi; the terms dropped are
+// below 2^-33. theta's rounding is systematic per component (the TPU
+// kernel's argument, pallas_estep.py:53-68): split only in two (3xTF32),
+// the emulated B1 at unit-precision components 10 sigma from the origin
+// has 23x the lse error and 17x the statistics error of plain f32 against
+// float64, the rule 0.9x and 0.5x. F's rounding is per point: in two
+// parts (to 2^-22, 4x f32's rounding) it averages out at fitted theta,
+// but at probe S1's inputs (precisions ~5e8, logits cancelling terms two
+// orders larger) S1's statistics reached 1.33e-5 of their summed
+// magnitude against the bound of 1e-5, 7.9e-6 with F exact (chip_smoke.py
+// phase 13 on an H100). The statistics take three passes, P and
+// F in two: P_lo F_hi + P_hi F_lo + P_hi F_hi; with P in one pass (the
+// TPU kernel's single pass) the emulated statistics error is 54-114x
+// plain f32's. Passes chain in the tensor core, whose adds truncate, only
+// within one 8-feature or 8-point step and are added to f32 registers
+// outside it; the lse and the cross-block pass are compensated sums.
+//
+// Two probes of B1's cost, the ports of the TPU bisection kernels, are
+// template parameters of the same kernel, run over the Gauss map
+// (probes.cu); no model launches them:
+//   S1 (scripts/bisect_pallas.py::_regf_kernel): kDivide = false drops
+//      the normalisation, so acc accumulates sum ex F^T with ex =
+//      exp(logp - max) (lse is unchanged). It isolates what the divide
+//      costs.
+//   S2 (scripts/bisect_smem.py::kern_*): where the valid count lives. The
+//      TPU probe read a scalar from SMEM; here kCount selects the count
+//      as a kernel argument (B1 itself), none at all (N a multiple of the
+//      tile: no per-point test), an int32 in device memory passed and not
+//      read, or one read once per block and used to mask the points at or
+//      past it, which then contribute nothing (as B1's tail; the TPU
+//      probe's masked columns divide by a zero denominator).
+#pragma once
+
+#include "tc.cuh"
+
+namespace {
+
+enum CountMode { kCountArg = 0, kCountNone = 1, kCountMemUnused = 2,
+                 kCountMemUsed = 3 };
+
+__host__ __device__ constexpr int estep_tile(int v) {
+  return v == kChunked ? kChunkT : v <= 8 ? 64 : 32;
+}
+
+inline size_t estep_floats(int v, int k, int m8, int rows) {
+  const Layout l = layout(v, k, m8);
+  const int t = estep_tile(v);
+  return tile_floats(l, t, rows) + 3 * (size_t)l.nw * t;
+}
+
+// (mr, er) <- the (max, sum exp(. - max)) pair of the union of the terms
+// of (mr, er) and (m, e); -inf maxima (no terms) carry no weight.
+__device__ __forceinline__ void fold_max_sum(float& mr, float& er, float m,
+                                             float e) {
+  const float mx = fmaxf(mr, m);
+  if (mx == -INFINITY) return;
+  er = er * exp_neg(mr - mx) + e * exp_neg(m - mx);
+  mr = mx;
+}
+
+template <int V, bool kDivide = true, int kCount = kCountArg>
+__global__ void __launch_bounds__(max_threads(variant_nt(V)))
+estep_tc(const float* __restrict__ xt, long long ld, int rows, long long n,
+         const int* __restrict__ nv, const float* __restrict__ theta, int k,
+         int m8, const FactorTable tab, float* __restrict__ part) {
+  using L = Tile<variant_nt(V), estep_tile(V)>;
+  constexpr int NT = L::NT;
+  const Layout ly = layout(V, k, m8);
+  extern __shared__ __align__(16) float smem[];
+  const int nw = ly.nw, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* tha = smem;                                  // 16 nslab x 8 ntf
+  float* zt = tha + 16 * ly.nslab * 8 * ly.ntf;       // 2 x (rows+2) x T
+  float* fh = zt + 2 * (rows + 2) * L::T;             // mpf x FS
+  float* fr = fh + ly.mpf * L::FS;                    // mpf x FS
+  float2* red = reinterpret_cast<float2*>(fr + ly.mpf * L::FS);  // W x T
+  float* sc = reinterpret_cast<float*>(red + nw * L::T);          // W x T
+  constexpr bool kAllValid =
+      kCount == kCountNone || kCount == kCountMemUnused;
+  long long valid = n;
+  if constexpr (kCount == kCountMemUsed) valid = min(n, (long long)*nv);
+  // the statistics window: chunk y of K's slabs, columns 8 NT z ..
+  const int y = V == kChunked ? blockIdx.y / ly.nz : 0;
+  const int z = V == kChunked ? blockIdx.y % ly.nz : 0;
+
+  stage_theta(theta, k, m8, ly, tha);
+  const long long ntiles = (n + L::T - 1) / L::T;
+  if (blockIdx.x < ntiles)
+    stage_z<L, kAllValid>(xt, ld, rows, blockIdx.x, valid, zt);
+  wait_copies();
+  __syncthreads();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+    acc[jn][0] = acc[jn][1] = acc[jn][2] = acc[jn][3] = 0.f;
+  float lse = 0.0f, lse_c = 0.0f;     // compensated over the tiles
+  const int g = lane >> 2, t = lane & 3;
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile < ntiles;
+       tile += gridDim.x, buf ^= 1) {
+    assemble_f<L>(tab, ly.mpf, zt + buf * (rows + 2) * L::T, fh, fr);
+    __syncthreads();                       // F ready; this z tile is free
+    if (tile + gridDim.x < ntiles)
+      stage_z<L, kAllValid>(xt, ld, rows, tile + gridDim.x, valid,
+                            zt + (buf ^ 1) * (rows + 2) * L::T);
+
+    // per column 8j + 2t + h: the slab's (max, sum exp(S - max)), in the
+    // chunked layout folded over the chunks walked so far (mr, er), and
+    // the window chunk's exp(S - its max) (keep; its max goes to sc)
+    float keep[L::J][4], mr[L::J][2], er[L::J][2];
+    for (int c = 0; c < ly.nchunk; ++c) {
+      const int sl = c * nw + w, r0 = 16 * sl + g;
+      float s[L::J][4];
+      if (V != kChunked || sl < ly.nslab)
+        slab_logits<L>(tha, fh, fr, ly.ntf, sl, lane, s);
+#pragma unroll
+      for (int j = 0; j < L::J; ++j) {
+        if (r0 >= k) s[j][0] = s[j][1] = -INFINITY;
+        if (r0 + 8 >= k) s[j][2] = s[j][3] = -INFINITY;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {      // columns 8j + 2t + h
+          float m = fmaxf(s[j][h], s[j][2 + h]);
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+          const float mm = m == -INFINITY ? 0.0f : m;
+          s[j][h] = exp_neg(s[j][h] - mm);
+          s[j][2 + h] = exp_neg(s[j][2 + h] - mm);
+          float e = s[j][h] + s[j][2 + h];
+          e += __shfl_xor_sync(0xffffffffu, e, 4);
+          e += __shfl_xor_sync(0xffffffffu, e, 8);
+          e += __shfl_xor_sync(0xffffffffu, e, 16);
+          if constexpr (V != kChunked) {
+            if (g == 0) red[w * L::T + 8 * j + 2 * t + h] = make_float2(m, e);
+          } else {
+            if (c == 0) {
+              mr[j][h] = m;
+              er[j][h] = e;
+            } else {
+              fold_max_sum(mr[j][h], er[j][h], m, e);
+            }
+            if (c == y && g == 0) sc[w * L::T + 8 * j + 2 * t + h] = m;
+          }
+        }
+      }
+      if (c == y) {
+#pragma unroll
+        for (int j = 0; j < L::J; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) keep[j][e] = s[j][e];
+      }
+    }
+    if (V == kChunked && g == 0) {
+#pragma unroll
+      for (int j = 0; j < L::J; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          red[w * L::T + 8 * j + 2 * t + h] = make_float2(mr[j][h], er[j][h]);
+    }
+    __syncthreads();                       // every slab's (max, sum) ready
+
+    for (int c = lane; c < L::T; c += 32) {
+      float mx = -INFINITY;
+      for (int v = 0; v < nw; ++v) mx = fmaxf(mx, red[v * L::T + c].x);
+      float den = 0.0f;
+      for (int v = 0; v < nw; ++v) {
+        const float2 q = red[v * L::T + c];
+        den += q.y * exp_neg(q.x - mx);
+      }
+      den = fmaxf(den, 1e-37f);
+      // the max of this warp's slab in the window chunk
+      const float mw = V == kChunked ? sc[w * L::T + c] : red[w * L::T + c].x;
+      float f = exp_neg(mw - mx);
+      if constexpr (kDivide) f /= den;
+      sc[w * L::T + c] = f;
+      if (w == 0 && (kAllValid || tile * L::T + c < valid))
+        kahan_add(lse, lse_c, mx + logf(den));
+    }
+    __syncwarp();
+
+    const float* fhz = fh + 8 * NT * z * L::FS;
+    const float* frz = fr + 8 * NT * z * L::FS;
+#pragma unroll
+    for (int u = 0; u < L::J; ++u) {
+      const float2 q = *reinterpret_cast<const float2*>(
+          sc + w * L::T + 8 * u + 2 * t);
+      const float p[4] = {keep[u][0] * q.x, keep[u][2] * q.x,
+                          keep[u][1] * q.y, keep[u][3] * q.y};
+      float ph[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split2(p[e], ph[e], pl[e]);
+      stats_step<L, true>(acc, ph, pl, fhz, frz, u, lane);
+    }
+    wait_copies();                         // the next z tile has landed
+    __syncthreads();                       // F tiles free for the next tile
+  }
+
+  float* out = part + (size_t)blockIdx.x * (k * m8 + 1);
+  store_slab<L>(acc, k, m8, 16 * (y * nw + w), 8 * NT * z, lane, out);
+  if (w == 0 && blockIdx.y == 0) {
+    for (int o = 16; o > 0; o >>= 1)
+      lse += __shfl_xor_sync(0xffffffffu, lse, o);
+    if (lane == 0) out[k * m8] = lse;
+  }
+}
+
+// The variant B1 (and its probes) run at (k, m8) over `rows` input rows.
+inline int estep_variant(int k, int m8, int rows) {
+  return pick_variant(k, m8,
+                      [&](int v) { return estep_floats(v, k, m8, rows); });
+}
+
+template <int V, bool kDivide, int kCount>
+cudaError_t launch_estep(const float* xt, long long ld, int rows,
+                         long long n, const int* nv, const float* theta,
+                         int k, int m8, const FactorTable& tab, float* part,
+                         int grid, cudaStream_t s) {
+  auto kernel = estep_tc<V, kDivide, kCount>;
+  const Layout ly = layout(V, k, m8);
+  const size_t smem = sizeof(float) * estep_floats(V, k, m8, rows);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(grid, ly.nchunk * ly.nz), 32 * ly.nw, smem, s>>>(
+      xt, ld, rows, n, nv, theta, k, m8, tab, part);
+  return cudaGetLastError();
+}
+
+// B1's launch at variant v, compiled here for the widths in [kMin, kMax]
+// and, where kChunk, the chunked layout.
+template <int kMin, int kMax, bool kChunk>
+cudaError_t estep_variants(int v, const float* xt, long long ld, int d,
+                           int p, int kind, long long n, const float* theta,
+                           int k, int m8, float* part, int grid,
+                           cudaStream_t s) {
+  const FactorTable tab =
+      factor_table(kind, d, p, v ? layout(v, k, m8).mpf : 0);
+  return dispatch_variant<kMin, kMax, kChunk>(
+      v, cudaErrorInvalidValue, [&](auto c) {
+        return launch_estep<decltype(c)::value, true, kCountArg>(
+            xt, ld, d + p, n, nullptr, theta, k, m8, tab, part, grid, s);
+      });
+}
+
+// B1's persistent grid at variant v: minus a CUDA error code on failure.
+template <int kMin, int kMax, bool kChunk>
+int estep_grid_variants(int v, int k, int m8, int rows, long long n) {
+  return dispatch_variant<kMin, kMax, kChunk>(
+      v, -(int)cudaErrorInvalidValue, [&](auto c) {
+        constexpr int V = decltype(c)::value;
+        const Layout ly = layout(V, k, m8);
+        const long long ntiles = (n + estep_tile(V) - 1) / estep_tile(V);
+        return persistent_grid(estep_tc<V, true, kCountArg>, 32 * ly.nw,
+                               sizeof(float) * estep_floats(V, k, m8, rows),
+                               ntiles, ly.nchunk * ly.nz);
+      });
+}
+
+}  // namespace
+
+// The wide widths and the chunked layout (estep_wide.cu): B1's launch at
+// variant v, without the second pass, and its grid.
+extern "C" int mimo_estep_wide(int v, const float* xt, long long ld, int d,
+                               int p, int kind, long long n,
+                               const float* theta, int k, int m8, float* part,
+                               int grid, void* stream);
+extern "C" int mimo_estep_grid_wide(int v, int k, int m8, int rows,
+                                    long long n);

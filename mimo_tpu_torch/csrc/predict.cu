@@ -47,7 +47,7 @@ predict_kernel(const float* __restrict__ xt, long long ld, int d, long long n,
   const long long step = (long long)gridDim.x * kThreads;
   for (long long p = (long long)blockIdx.x * kThreads + tid; p < n;
        p += step) {
-    features<kMap>(xt, ld, d, 0, false, p, col, m8);
+    features<kMap>(xt, ld, d, p, col, m8);
     float mx = -INFINITY;
     for (int kk = 0; kk < k; ++kk) {
       const float q = fmaxf(row_dot(th + kk * m8, col, m8), 0.0f);

@@ -11,7 +11,8 @@ from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
 from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import NIW, GaussParams
-from mimo_tpu_torch.models.mixture import BayesianMixture, _as_generator
+from mimo_tpu_torch.models.mixture import (
+    BayesianMixture, _as_generator, model_device)
 from mimo_tpu_torch.utils.linalg import cholesky, inv_psd
 
 
@@ -49,7 +50,9 @@ class BayesianGMM(BayesianMixture):
         'dp' / 'stick-breaking'; `diag` builds NG components (whose
         standard prior has no psi_scale or nu); `hierarchical` builds
         HierTied components with unit kappa_k under a hyper-prior of
-        precision `kappa`; the priors live on `device`."""
+        precision `kappa`; the priors live on `device`, by default the
+        CUDA card (raises without one: pass device='cpu')."""
+        device = model_device(device)
         if gating == 'dirichlet':
             g = Dirichlet.standard(size, alpha, dtype, device)
         elif gating in ('stick-breaking', 'dp'):

@@ -29,7 +29,7 @@ from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW, augment
 from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, MFState, _as_generator, resolve_backend)
+    BayesianMixture, MFState, _as_generator, model_device, resolve_backend)
 from mimo_tpu_torch.utils.data import Standardizer
 from mimo_tpu_torch.utils.linalg import cholesky, inv_psd
 from mimo_tpu_torch.utils.stats import normalize_log
@@ -74,11 +74,13 @@ class BayesianILR(BayesianMixture):
              affine=True, diag=False, tied_affine=False, hier_basis=False,
              kappa=1e-2, K_scale=1e-2, psi_scale=1.0, basis_psi_scale=1.0,
              maxsubiter=25, dtype=torch.float32, device=None):
-        """Convenience constructor, on `device`: an NIW basis, or with
+        """Convenience constructor, on `device` (by default the CUDA card;
+        raises without one: pass device='cpu'): an NIW basis, or with
         `hier_basis` a HierTied one (unit kappa_k under a hyper-prior of
         precision `kappa`); MNW experts, MNG experts with `diag` (whose
         standard prior has no psi_scale), or tied-affine experts with
         `tied_affine` (offset precision `kappa`)."""
+        device = model_device(device)
         if gating == 'dirichlet':
             g = Dirichlet.standard(size, alpha, dtype, device)
         else:

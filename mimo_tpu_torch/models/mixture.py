@@ -74,6 +74,19 @@ def resolve_backend(backend, x):
     return backend != 'torch' and x.is_cuda
 
 
+def model_device(device):
+    """The device a model's priors are built on: `device` when given,
+    else the current CUDA device. Without a card that raises: pass
+    device='cpu' to build on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: models are built on the card "
+                           "by default; pass device='cpu' to build on the "
+                           "CPU")
+    return torch.device('cuda', torch.cuda.current_device())
+
+
 def kernel_xts(data):
     """The kernels' layout, made once outside the sweep loop: the data
     arrays transposed and stacked into one contiguous float32

@@ -52,8 +52,11 @@ _SIGNATURES = {
     'mimo_estep_count': (_I, [_P, _I64, _I, _I64, _P, _I, _P, _I, _I, _P,
                               _P, _I, _P]),
     'mimo_hello': (_I, [_P, _I64, _P, _P]),
-    'mimo_estep_smem_bytes': (_SZ, [_I, _I]),
-    'mimo_gibbs_smem_bytes': (_SZ, [_I, _I]),
+    'mimo_gumbel_fast': (_I, [_P, _P]),
+    'mimo_estep_smem_bytes': (_SZ, [_I, _I, _I]),
+    'mimo_gibbs_smem_bytes': (_SZ, [_I, _I, _I]),
+    'mimo_estep_grid': (_I, [_I, _I, _I, _I64]),
+    'mimo_gibbs_grid': (_I, [_I, _I, _I, _I64]),
     'mimo_predict_smem_bytes': (_SZ, [_I, _I]),
     'mimo_diag_predict_smem_bytes': (_SZ, [_I, _I, _I]),
     'mimo_ilr_predict_smem_bytes': (_SZ, [_I, _I]),
@@ -89,15 +92,13 @@ class KernelLibrary:
 _loaded = None
 
 
-def check_launch(what, xt, n, theta, smem_bytes, width, desc):
+def check_inputs(what, xt, n, theta, width, desc):
     """Validate a kernel wrapper's inputs before any pointer reaches C.
 
     xt: (rows, >=n) float32 CUDA tensor with contiguous rows; theta: the
     (R, m8) float32 coefficient rows on the same device, whose m8 columns
     must hold the `width` features of the map the kernel assembles
-    (`desc` names that map and its dimensions for the messages);
-    smem_bytes: the kernel's staged shared memory at this shape. Returns
-    the launch grid."""
+    (`desc` names that map and its dimensions for the messages)."""
     if not xt.is_cuda:
         raise ValueError(f'{what}: the kernel needs CUDA tensors')
     if xt.dim() != 2 or xt.stride(1) != 1:
@@ -112,20 +113,47 @@ def check_launch(what, xt, n, theta, smem_bytes, width, desc):
         raise ValueError(f'{what}: inputs on {theta.device} and {xt.device}')
     if theta.dim() != 2 or not theta.is_contiguous():
         raise ValueError(f'{what}: coefficients must be contiguous (R, m8)')
+    if theta.shape[1] < width:
+        raise ValueError(f'{what}: {theta.shape[1]} coefficient columns '
+                         f'cannot hold the {width} features of the {desc}')
+
+
+def _refuse(what, theta, desc, smem_bytes, limit, name):
     rows, m8 = theta.shape
-    if m8 < width:
-        raise ValueError(f'{what}: {m8} coefficient columns cannot hold the '
-                         f'{width} features of the {desc}')
+    raise NotImplementedError(
+        f'{what}: coefficients of shape (K, m8) = ({rows}, {m8}) ({desc}) '
+        f'stage {smem_bytes} bytes of shared memory, above the {limit} a '
+        f'block can use on {name}; wider shapes are not supported yet')
+
+
+def check_launch(what, xt, n, theta, smem_bytes, width, desc):
+    """check_inputs, then refuse a shape whose staged shared memory
+    (`smem_bytes`) a block cannot have. Returns the launch grid of the
+    predictive kernels: blocks grid-stride over tiles of 128 points."""
+    check_inputs(what, xt, n, theta, width, desc)
     props = torch.cuda.get_device_properties(xt.device)
     limit = props.shared_memory_per_block_optin
     if smem_bytes > limit:
-        raise NotImplementedError(
-            f'{what}: coefficients of shape (K, m8) = ({rows}, {m8}) '
-            f'({desc}) stage {smem_bytes} bytes of shared memory, above '
-            f'the {limit} a block can use on {props.name}; wide shapes are '
-            'not supported yet')
-    # a bounded grid: blocks grid-stride over tiles of 128 points
+        _refuse(what, theta, desc, smem_bytes, limit, props.name)
     return max(1, min(4 * props.multi_processor_count, -(-n // 128)))
+
+
+def tc_grid(what, lib, grid_fn, smem_fn, xt, n, theta, desc):
+    """The persistent grid of B1 or B2 (`grid_fn`, the kernel's
+    `mimo_*_grid`; `smem_fn` its `mimo_*_smem_bytes`) at this shape. The
+    kernel picks its layout; a shape none fits (grid 0) raises
+    NotImplementedError."""
+    k, m8 = theta.shape
+    rows = xt.shape[0]
+    with torch.cuda.device(xt.device):
+        grid = grid_fn(k, m8, rows, n)
+        if grid == 0:
+            props = torch.cuda.get_device_properties(xt.device)
+            _refuse(what, theta, desc, smem_fn(k, m8, rows),
+                    props.shared_memory_per_block_optin, props.name)
+    if grid < 0:
+        lib.check(-grid, what)
+    return grid
 
 
 def _nvcc():

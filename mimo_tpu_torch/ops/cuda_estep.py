@@ -1,4 +1,4 @@
-"""Kernel B1, the fused mixture E-step (csrc/estep.cu), with its plain
+"""Kernel B1, the fused mixture E-step (csrc/estep.cuh), with its plain
 PyTorch version. Replaces mimo_tpu/ops/pallas_estep.py::_estep_kernel2.
 
 Per point: F = the spec's feature map (the Gaussian [1; x; x (x) x],
@@ -12,7 +12,7 @@ The kernels read one stacked float32 array xt = [x rows; y rows] of
 shape (d + p, N); `kind` names the feature map (GAUSS, DIAG, and
 ILR / ILR_LINEAR: the ILR map with and without the experts' ones column)
 and `p` the number of y rows. What bounds B1 on the H100, and what the
-kernel does about it: see the note at the top of csrc/estep.cu.
+kernel does about it: see the note at the top of csrc/estep.cuh.
 """
 
 import torch
@@ -134,10 +134,11 @@ def estep(xt, theta, n, kind=GAUSS, p=0):
     lib = _build.load()
     k, m8 = theta.shape
     d = xt.shape[0] - p
-    grid = _build.check_launch('cuda_estep', xt, n, theta,
-                               lib.mimo_estep_smem_bytes(k, m8),
-                               feature_width(kind, d, p),
-                               f'{KIND_NAMES[kind]} map, d={d}, p={p}')
+    desc = f'{KIND_NAMES[kind]} map, d={d}, p={p}'
+    _build.check_inputs('cuda_estep', xt, n, theta, feature_width(kind, d, p),
+                        desc)
+    grid = _build.tc_grid('cuda_estep', lib, lib.mimo_estep_grid,
+                          lib.mimo_estep_smem_bytes, xt, n, theta, desc)
     part = torch.empty((grid, k * m8 + 1), dtype=torch.float32,
                        device=xt.device)
     out = torch.empty((k * m8 + 1,), dtype=torch.float32, device=xt.device)

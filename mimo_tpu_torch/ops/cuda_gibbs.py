@@ -1,4 +1,4 @@
-"""Kernel B2, the fused blocked-Gibbs label sweep (csrc/gibbs.cu), with
+"""Kernel B2, the fused blocked-Gibbs label sweep (csrc/gibbs.cuh), with
 its plain PyTorch version. Replaces mimo_tpu/ops/pallas_gibbs.py::_gibbs_kernel.
 
 Per point: plug-in logp = theta . F over K (F the Gaussian, diagonal or
@@ -9,7 +9,7 @@ the same Philox numbers, so kernel and plain labels agree draw for draw
 except at near-ties that the f32 summation order decides.
 
 What bounds it on the H100, and what the kernel does about it: see the
-note at the top of csrc/gibbs.cu.
+note at the top of csrc/gibbs.cuh.
 """
 
 import torch
@@ -51,10 +51,11 @@ def gibbs(xt, theta, seed, n, kind=GAUSS, p=0):
     lib = _build.load()
     k, m8 = theta.shape
     d = xt.shape[0] - p
-    grid = _build.check_launch('cuda_gibbs', xt, n, theta,
-                               lib.mimo_gibbs_smem_bytes(k, m8),
-                               feature_width(kind, d, p),
-                               f'{KIND_NAMES[kind]} map, d={d}, p={p}')
+    desc = f'{KIND_NAMES[kind]} map, d={d}, p={p}'
+    _build.check_inputs('cuda_gibbs', xt, n, theta, feature_width(kind, d, p),
+                        desc)
+    grid = _build.tc_grid('cuda_gibbs', lib, lib.mimo_gibbs_grid,
+                          lib.mimo_gibbs_smem_bytes, xt, n, theta, desc)
     if (seed.dtype != torch.int64 or seed.numel() != 1
             or seed.device != xt.device):
         raise ValueError('cuda_gibbs: seed must be one int64 on the '
@@ -72,6 +73,23 @@ def gibbs(xt, theta, seed, n, kind=GAUSS, p=0):
     lib.check(rc, 'cuda_gibbs')
     launches[KIND_NAMES[kind]] += 1
     return labels, acc
+
+
+def gumbel_fast_error(device):
+    """The largest |fast draw - accurate draw| over all 2^23 uniforms u =
+    m 2^-23 of B2: the MUFU draw by which the kernel picks the components
+    that take the accurate draw, against -log(-log(u + 1e-20) + 1e-20) in
+    float64. The labels stay exact while it is under half the kernel's
+    margin of 2^-10 (csrc/gibbs.cuh fast_margin)."""
+    lib = _build.load()
+    out = torch.empty((1 << 23,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.mimo_gumbel_fast(out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    lib.check(rc, 'cuda_gibbs.gumbel_fast_error')
+    u = torch.arange(1 << 23, device=device, dtype=torch.float64) * 2.0 ** -23
+    ref = -torch.log(-torch.log(u + 1e-20) + 1e-20)
+    return float((out.double() - ref).abs().max())
 
 
 def fused_gibbs_cuda(spec, seed, params, log_pi, xts, n):

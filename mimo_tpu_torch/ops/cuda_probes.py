@@ -1,6 +1,7 @@
-"""Kernels S1 and S2, two probes of kernel B1's cost (csrc/estep.cu, B1's
-Gauss instantiation with other template parameters), with their plain
-PyTorch versions. They replace scripts/bisect_pallas.py::_regf_kernel
+"""Kernels S1 and S2, two probes of kernel B1's cost (csrc/probes.cu: B1's
+kernel, csrc/estep.cuh, with other template parameters, over the Gauss
+map), with their plain PyTorch versions. They replace
+scripts/bisect_pallas.py::_regf_kernel
 (S1) and scripts/bisect_smem.py::kern_nosmem / kern_smem_unused /
 kern_smem_used (S2). No model launches them; `chip_smoke.py` checks and
 times them against B1.
@@ -10,7 +11,7 @@ by the softmax denominator; without it acc accumulates sum_n ex F^T with
 ex = exp(logp - max over K). lse is the same in both.
 
 S2: B1 with the valid count given in one of three ways: 'none' (no
-per-point test: every point of n, a multiple of the 128-point tile),
+per-point test: every point of n, a multiple of 128),
 'unused' (an int32 count in device memory, passed and never read) and
 'used' (that count read once per block; the points at or past it
 contribute nothing). The plain version masks by index.
@@ -22,7 +23,7 @@ from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import (
     _CHUNK, GAUSS, assemble_features, feature_width)
 
-COUNT_MODES = {'none': 1, 'unused': 2, 'used': 3}   # csrc/estep.cu CountMode
+COUNT_MODES = {'none': 1, 'unused': 2, 'used': 3}   # csrc/estep.cuh CountMode
 
 # kernel launches, by probe variant, for run accounting
 launches = {'S1-divide': 0, 'S1-nodivide': 0, 'S2-none': 0, 'S2-unused': 0,
@@ -57,9 +58,11 @@ def _launch(xt, theta, n, desc):
     lib = _build.load()
     k, m8 = theta.shape
     d = xt.shape[0]
-    grid = _build.check_launch('cuda_probes', xt, n, theta,
-                               lib.mimo_estep_smem_bytes(k, m8),
-                               feature_width(GAUSS, d), f'{desc}, d={d}')
+    desc = f'{desc}, d={d}'
+    _build.check_inputs('cuda_probes', xt, n, theta, feature_width(GAUSS, d),
+                        desc)
+    grid = _build.tc_grid('cuda_probes', lib, lib.mimo_estep_grid,
+                          lib.mimo_estep_smem_bytes, xt, n, theta, desc)
     part = torch.empty((grid, k * m8 + 1), dtype=torch.float32,
                        device=xt.device)
     out = torch.empty((k * m8 + 1,), dtype=torch.float32, device=xt.device)

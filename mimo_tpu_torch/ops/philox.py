@@ -1,7 +1,7 @@
 """Counter-based Philox4x32-10 and the Gumbel-max label draw, in plain
 PyTorch integer arithmetic.
 
-This is the generator that kernel B2 (csrc/gibbs.cu) runs on the card:
+This is the generator that kernel B2 (csrc/gibbs.cuh) runs on the card:
 the draws for point n and component k depend only on (seed, n, k), so
 the plain version and the kernel give the same labels whatever their
 blocking. 32-bit words live in int64 tensors; the 32x32 -> 64-bit

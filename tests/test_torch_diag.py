@@ -321,7 +321,8 @@ def test_diag_predictive_matches_jax_dense_f64(dist, route):
     jm = JaxGMM.make(size=6, dim=3, diag=True, dtype=jnp.float64)
     want = jm.log_predictive(st, jnp.asarray(x), dist=dist, backend='xla')
     tst = state_from_numpy(jax.tree.map(np.asarray, st))
-    tm = BayesianGMM.make(size=6, dim=3, diag=True, dtype=torch.float64)
+    tm = BayesianGMM.make(size=6, dim=3, diag=True, dtype=torch.float64,
+                          device='cpu')
     if route == 'torch_backend':
         got = tm.log_predictive(tst, torch.tensor(x), dist=dist,
                                 backend='torch')
@@ -374,7 +375,7 @@ def _ilr_setup(d, p, dtype):
     st = jm._mf_update((jm._tx(jnp.asarray(x, jd)),
                         jm._ty(jnp.asarray(y, jd))), jnp.asarray(resp, jd))
     tm = BayesianILR.make(size=8, input_dim=d, output_dim=p, alpha=2.0,
-                          kappa=0.05, diag=True, dtype=td)
+                          kappa=0.05, diag=True, dtype=td, device='cpu')
     tm.init_transform(torch.as_tensor(x, dtype=td),
                       torch.as_tensor(y, dtype=td))
     return x, y, jm, tm, st, state_from_numpy(jax.tree.map(np.asarray, st))
@@ -501,7 +502,7 @@ def _vi_setup():
                      kappa=0.05, dtype=jnp.float64)
     init, _ = jm.fit_vi_fused(x, key=1, maxiter=2, backend='xla')
     tm = BayesianGMM.make(size=8, dim=2, gating='dp', alpha=1.0, diag=True,
-                          kappa=0.05, dtype=torch.float64)
+                          kappa=0.05, dtype=torch.float64, device='cpu')
     return jm, tm, x, init
 
 
@@ -549,7 +550,7 @@ def test_diag_gmm_log_predictive_of_fitted_state_matches_jax(
 def test_diag_gmm_gibbs_fused_recovers_clusters():
     x = torch.tensor(np.asarray(_vi_setup()[2]), dtype=torch.float32)
     tm = BayesianGMM.make(size=8, dim=2, gating='dp', alpha=1.0, diag=True,
-                          kappa=0.05)
+                          kappa=0.05, device='cpu')
     gs = tm.fit_gibbs_fused(x, key=2, maxiter=20, block_size=1024)
     assert isinstance(gs, GibbsState) and gs.labels.shape == (4096,)
     for leaf in (gs.components.mu, gs.components.beta, gs.log_pi,
@@ -577,7 +578,8 @@ def test_mng_vi_fused_trace_matches_jax_f64():
     init = jm._mf_update((jm._tx(jnp.asarray(x)), jm._ty(jnp.asarray(y))),
                          jnp.asarray(rng.dirichlet(np.ones(6), 1200)))
     tm = BayesianILR.make(size=6, input_dim=2, output_dim=1, alpha=2.0,
-                          kappa=0.05, diag=True, dtype=torch.float64)
+                          kappa=0.05, diag=True, dtype=torch.float64,
+                          device='cpu')
     tm.init_transform(torch.tensor(x), torch.tensor(y))
     st_j, v_j = jm.fit_vi_fused((jnp.asarray(x), jnp.asarray(y)), maxiter=8,
                                 init_state=init, randomize=False,
@@ -601,7 +603,8 @@ def test_mng_gibbs_then_vi_recovers_the_sine():
     y = torch.sin(x) + 0.1 * torch.tensor(rng.standard_normal((1200, 1)))
     m = BayesianILR.make(size=30, input_dim=1, output_dim=1,
                          gating='stick-breaking', alpha=5.0, kappa=0.05,
-                         K_scale=1e-2, diag=True, dtype=torch.float64)
+                         K_scale=1e-2, diag=True, dtype=torch.float64,
+                         device='cpu')
     m.init_transform(x, y)
     g = m.fit_gibbs_fused((x, y), key=0, maxiter=50)
     assert type(g.params[1]).__name__ == 'DiagLinGaussParams'
@@ -618,10 +621,12 @@ def test_mng_gibbs_then_vi_recovers_the_sine():
 
 
 def test_diag_configs_and_bridge():
-    g = MixtureConfig(size=4, dim=3, diag=True).build(torch.float64)
+    g = MixtureConfig(size=4, dim=3, diag=True).build(torch.float64,
+                                                      device='cpu')
     assert isinstance(g.components_prior, NG)
     assert g.components_prior.mu.dtype == torch.float64
-    m = ILRConfig(size=5, input_dim=2, output_dim=3, diag=True).build()
+    m = ILRConfig(size=5, input_dim=2, output_dim=3,
+                  diag=True).build(device='cpu')
     assert isinstance(m.components_prior[1], MNG) and m.diag
     assert m.components_prior[1].alpha.shape == (5, 3)
     _, _, x, init = _vi_setup()

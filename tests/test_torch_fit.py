@@ -36,7 +36,7 @@ def setup():
                      psi_scale=0.5, dtype=jnp.float64)
     init, _ = jm.fit_vi_fused(x, key=1, maxiter=2, backend='xla')
     tm = BayesianGMM.make(size=8, dim=2, gating='dp', alpha=1.0, kappa=0.05,
-                          psi_scale=0.5, dtype=torch.float64)
+                          psi_scale=0.5, dtype=torch.float64, device='cpu')
     return jm, tm, x, init
 
 
@@ -114,7 +114,7 @@ def test_gibbs_fused_recovers_clusters():
         gen, GaussParams(torch.as_tensor(TRUE_MU, dtype=torch.float32), lm),
         [.3, .4, .3], 4096)
     tm = BayesianGMM.make(size=8, dim=2, gating='dp', alpha=1.0, kappa=0.05,
-                          psi_scale=0.5)
+                          psi_scale=0.5, device='cpu')
     gs = tm.fit_gibbs_fused(x, key=2, maxiter=20, block_size=1024)
     for leaf in (gs.components.mu, gs.components.psi, gs.log_pi,
                  gs.params.lmbda):
@@ -134,7 +134,7 @@ def test_gibbs_fused_recovers_clusters():
 def test_vi_random_init_is_seeded_and_finite():
     x = torch.as_tensor(np.random.default_rng(0).standard_normal((500, 2)))
     tm = BayesianGMM.make(size=4, dim=2, gating='dirichlet',
-                          dtype=torch.float64)
+                          dtype=torch.float64, device='cpu')
     _, v1 = tm.fit_vi_fused(x, key=3, maxiter=5)
     _, v2 = tm.fit_vi_fused(x, key=torch.Generator().manual_seed(3),
                             maxiter=5)

@@ -323,7 +323,8 @@ def test_hier_b3_plain_matches_gauss_predictive_pallas(dist):
     st_j, _ = jm.fit_vi(x, key=3, maxiter=20)
     st_t = state_from_numpy(_np(st_j))
     assert isinstance(st_t.components, HierTied)
-    tm = BayesianGMM.make(size=6, dim=2, hierarchical=True, kappa=0.5)
+    tm = BayesianGMM.make(size=6, dim=2, hierarchical=True, kappa=0.5,
+                          device='cpu')
     for m in (1024, 1000):
         want = gauss_predictive_pallas(st_j.components,
                                        jm.predictive_log_weights(st_j),
@@ -367,7 +368,8 @@ def _vi_setup():
               kappa=0.05, psi_scale=0.5, maxsubiter=10)
     jm = JaxGMM.make(dtype=jnp.float64, **kw)
     init, _ = jm.fit_vi_fused(x, key=1, maxiter=2, backend='xla')
-    return jm, BayesianGMM.make(dtype=torch.float64, **kw), x, init
+    return jm, BayesianGMM.make(dtype=torch.float64, **kw,
+                                device='cpu'), x, init
 
 
 @pytest.mark.parametrize('route', ['torch', 'kernel_plain'])
@@ -417,7 +419,8 @@ def test_hier_gmm_gibbs_fused_recovers_clusters():
     fused engine and the port's own chain."""
     x = torch.tensor(np.asarray(_vi_setup()[2]), dtype=torch.float32)
     tm = BayesianGMM.make(size=8, dim=2, gating='dp', alpha=1.0,
-                          hierarchical=True, kappa=0.05, psi_scale=0.5)
+                          hierarchical=True, kappa=0.05, psi_scale=0.5,
+                          device='cpu')
     gs = tm.fit_gibbs_fused(x, key=2, maxiter=100, block_size=1024)
     assert isinstance(gs, GibbsState) and isinstance(gs.components, HierTied)
     for leaf in jax.tree.leaves(state_to_numpy(gs[:4])):
@@ -430,7 +433,7 @@ def test_hier_gmm_gibbs_fused_recovers_clusters():
 
 def test_hier_config_and_bridge():
     g = MixtureConfig(size=4, dim=3, hierarchical=True,
-                      maxsubiter=3).build(torch.float64)
+                      maxsubiter=3).build(torch.float64, device='cpu')
     assert isinstance(g.components_prior, HierTied)
     assert g.components_prior.hyper.psi.shape == (1, 3, 3)
     assert g.components_prior.kappas0.dtype == torch.float64

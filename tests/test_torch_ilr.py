@@ -201,7 +201,7 @@ def vi_setup():
     init = jm._mf_update((jm._tx(jnp.asarray(x)), jm._ty(jnp.asarray(y))),
                          jnp.asarray(resp))
     tm = BayesianILR.make(size=6, input_dim=2, output_dim=1, alpha=2.0,
-                          kappa=0.05, dtype=torch.float64)
+                          kappa=0.05, dtype=torch.float64, device='cpu')
     tm.init_transform(torch.tensor(x), torch.tensor(y))
     return jm, tm, x, y, init
 
@@ -234,7 +234,7 @@ def test_gibbs_then_vi_recovers_the_sine():
     y = torch.sin(x) + 0.1 * torch.tensor(rng.standard_normal((1200, 1)))
     m = BayesianILR.make(size=30, input_dim=1, output_dim=1,
                          gating='stick-breaking', alpha=5.0, kappa=0.05,
-                         K_scale=1e-2, dtype=torch.float64)
+                         K_scale=1e-2, dtype=torch.float64, device='cpu')
     m.init_transform(x, y)
     g = m.fit_gibbs_fused((x, y), key=0, maxiter=50)
     assert isinstance(g, GibbsState) and g.labels.shape == (1200,)
@@ -282,13 +282,15 @@ def test_make_and_configs_refuse_unported_variants():
     y = torch.sin(x) + 0.1 * torch.tensor(rng.standard_normal((300, 1)))
     for kw in (dict(tied_affine=True), dict(hier_basis=True)):
         m = BayesianILR.make(size=3, input_dim=1, output_dim=1,
-                             dtype=torch.float64, maxsubiter=3, **kw)
+                             dtype=torch.float64, maxsubiter=3, **kw,
+                             device='cpu')
         st, vlb = m.fit_vi_fused((x, y), key=1, maxiter=3)
         assert bool(torch.isfinite(vlb).all())
         assert m.predict(st, x)[0].shape == (300, 1)
-        assert isinstance(ILRConfig(**kw).build(), BayesianILR)
+        assert isinstance(ILRConfig(**kw).build(device='cpu'), BayesianILR)
     for kw in (dict(tied=True), dict(hierarchical=True)):
-        g = MixtureConfig(size=3, maxsubiter=3, **kw).build(torch.float64)
+        g = MixtureConfig(size=3, maxsubiter=3, **kw).build(torch.float64,
+                                                            device='cpu')
         st, vlb = g.fit_vi_fused(torch.cat([x, y], 1), key=1, maxiter=3)
         assert bool(torch.isfinite(vlb).all())
     assert tfe.ilr_spec(1, 1, hier_basis=True).features_t \
@@ -297,12 +299,13 @@ def test_make_and_configs_refuse_unported_variants():
 
 def test_configs_build_the_port_models():
     m = ILRConfig(size=7, input_dim=2, output_dim=3,
-                  gating=GatingConfig('dirichlet', 2.0)).build(torch.float64)
+                  gating=GatingConfig('dirichlet', 2.0)).build(torch.float64,
+                                                               device='cpu')
     assert isinstance(m, BayesianILR) and m.size == 7
     assert m.components_prior[1].M.shape == (7, 3, 3)
     assert m.components_prior[1].M.dtype == torch.float64
     assert float(m.gating_prior.alpha[0]) == 2.0
-    g = MixtureConfig(size=4, dim=3).build()
+    g = MixtureConfig(size=4, dim=3).build(device='cpu')
     assert isinstance(g, BayesianGMM) and g.components_prior.mu.shape == (4, 3)
 
 

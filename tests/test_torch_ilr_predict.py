@@ -59,7 +59,7 @@ def _models(d, p, k, x, y, dtype):
     st = jm._mf_update((jm._tx(jnp.asarray(x, jd)),
                         jm._ty(jnp.asarray(y, jd))), jnp.asarray(resp, jd))
     tm = BayesianILR.make(size=k, input_dim=d, output_dim=p, alpha=2.0,
-                          kappa=0.05, dtype=td)
+                          kappa=0.05, dtype=td, device='cpu')
     tm.init_transform(torch.as_tensor(x, dtype=td),
                       torch.as_tensor(y, dtype=td))
     return jm, tm, st, state_from_numpy(jax.tree.map(np.asarray, st))

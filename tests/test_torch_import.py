@@ -16,9 +16,11 @@ from mimo_tpu.distributions.niw import GaussParams
 from mimo_tpu.models.gmm import BayesianGMM as JaxGMM
 
 from mimo_tpu_torch.bridge import state_from_numpy, state_to_numpy
+from mimo_tpu_torch.config import ILRConfig, MixtureConfig
 from mimo_tpu_torch.distributions.gating import StickBreaking
 from mimo_tpu_torch.distributions.niw import NIW
-from mimo_tpu_torch.models import BayesianGMM, GibbsState, MFState
+from mimo_tpu_torch.models import (
+    BayesianGMM, BayesianILR, GibbsState, MFState)
 
 torch.set_num_threads(1)
 PKG = Path(__file__).resolve().parent.parent / 'mimo_tpu_torch'
@@ -71,11 +73,32 @@ def test_import_covers_the_tied_and_hierarchical_slice():
     assert {'mimo_regf', 'mimo_estep_count'} <= set(_build._SIGNATURES)
 
 
+@pytest.mark.parametrize('entry', ['gmm', 'ilr', 'mixture_config',
+                                   'ilr_config'])
+def test_entry_points_build_on_the_card_by_default(entry):
+    """Without a device the entry points build on the CUDA card, and
+    without a card they raise (naming device='cpu') rather than fall back
+    to the CPU."""
+    build = {
+        'gmm': lambda **kw: BayesianGMM.make(size=3, dim=2, **kw),
+        'ilr': lambda **kw: BayesianILR.make(size=3, input_dim=1,
+                                             output_dim=1, **kw),
+        'mixture_config': lambda **kw: MixtureConfig(size=3).build(**kw),
+        'ilr_config': lambda **kw: ILRConfig(size=3).build(**kw),
+    }[entry]
+    if torch.cuda.is_available():
+        assert build().gating_prior[0].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert build(device='cpu').gating_prior[0].device.type == 'cpu'
+
+
 @pytest.fixture(scope='module')
 def small():
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal((64, 2)), dtype=torch.float32)
-    model = BayesianGMM.make(size=4, dim=2, gating='dp')
+    model = BayesianGMM.make(size=4, dim=2, gating='dp', device='cpu')
     return model, x
 
 

@@ -574,3 +574,151 @@ def test_tied_and_hier_engines_kernel_path_tracks_plain_path(dev):
         torch.testing.assert_close(var_k, var_t, rtol=2e-3,
                                    atol=1e-4 * scale ** 2)
         torch.testing.assert_close(nlpd_k, nlpd_t, rtol=1e-3, atol=2e-3)
+
+
+# -- B1 and B2 at the tensor-core kernels' tile edges ------------------------
+# m8 -> (map, d, p) with that padded width. B1's tile holds 64 points up to
+# m8 = 64 and 32 above; B2's 128 up to m8 = 16, then as B1's (csrc/estep.cuh
+# estep_tile, csrc/gibbs.cu gibbs_tile).
+EDGE_MAPS = {8: (cuda_estep.GAUSS, 2, 0), 16: (cuda_estep.GAUSS, 3, 0),
+             32: (cuda_estep.GAUSS, 5, 0), 168: (ILR, 8, 1)}
+
+
+def _edge_inputs(dev, n, k, m8, seed):
+    kind, d, p = EDGE_MAPS[m8]
+    if kind == ILR:
+        xt, theta = _ilr_inputs(dev, n, k, d, p, seed)
+    else:
+        xt, theta = _inputs(dev, n, k, d, seed)
+    assert theta.shape == (k, m8)
+    return xt, theta, kind, p
+
+
+def _edge_ns(m8):
+    tiles = {64 if m8 <= 64 else 32, 128 if m8 <= 16 else
+             64 if m8 <= 64 else 32}
+    return sorted({1, 7, 1_000_003} | {t + e for t in tiles for e in (-1, 1)})
+
+
+EDGE_CASES = [(k, m8, n) for k in (7, 16, 50, 64) for m8 in EDGE_MAPS
+              for n in _edge_ns(m8)]
+
+
+def _check_estep(xt, theta, n, kind, p):
+    """B1 against its plain version with the tolerances of chip_smoke.py
+    phase 7 (within 1e-5 of the summed magnitudes) and, at n >= 1e6 over
+    the Gauss map, phase 3 (rtol 1e-4, atol 1e-3 per 1e6 points); lse
+    within rtol 1e-5 (and 1e-6 of sum |lse_n|, for the few-point sums
+    that cancel); bitwise on repeat."""
+    acc, lse = cuda_estep.estep(xt, theta, n, kind, p)
+    acc2, lse2 = cuda_estep.estep(xt, theta, n, kind, p)
+    pacc, plse = cuda_estep.estep_plain(xt, theta, n, kind, p)
+    f = cuda_estep.assemble_features(xt[:, :n], theta.shape[1], kind,
+                                     p).double()
+    logp = theta.double() @ f
+    mag = torch.softmax(logp, 0) @ f.abs().T
+    assert bool(((acc.double() - pacc.double()).abs()
+                 <= 1e-5 * mag + 1e-6).all())
+    if kind != ILR and n >= 1_000_000:
+        torch.testing.assert_close(acc, pacc, rtol=1e-4, atol=1e-3 * n / 1e6)
+    # a sum of a few points' lse can cancel: its scale is sum |lse_n|
+    scale = float(torch.logsumexp(logp, 0).abs().sum())
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-6 * scale)
+    assert torch.equal(acc, acc2) and torch.equal(lse, lse2)
+
+
+def _check_gibbs(xt, theta, n, kind, p):
+    """B2: labels in range and equal to the plain Philox labels (near-ties
+    aside, at most 1e-4 of the points), the statistics the one-hot sums
+    of its own labels (chip_smoke.py phase 4)."""
+    k = theta.shape[0]
+    seed = torch.tensor(123456789, dtype=torch.int64, device=xt.device)
+    labels, acc = cuda_gibbs.gibbs(xt, theta, seed, n, kind, p)
+    plabels, _ = cuda_gibbs.gibbs_plain(xt, theta, seed, n, kind, p)
+    assert labels.shape == (n,)
+    assert int(labels.min()) >= 0 and int(labels.max()) < k
+    assert int((labels != plabels).sum()) <= 1e-4 * n
+    f = cuda_estep.assemble_features(xt[:, :n], theta.shape[1], kind,
+                                     p).double()
+    oh = torch.nn.functional.one_hot(labels.long(), k).double()
+    bound = 1e-5 * (oh.T @ f.abs().T) + 1e-6
+    assert bool(((acc.double() - oh.T @ f.T).abs() <= bound).all())
+
+
+@pytest.mark.parametrize('k,m8,n', EDGE_CASES)
+def test_estep_kernel_tile_edges(dev, k, m8, n):
+    """B1 at K on both sides of the 16-row slabs, every tile width and n
+    at the tiles' edges."""
+    xt, theta, kind, p = _edge_inputs(dev, n, k, m8, seed=11)
+    _check_estep(xt, theta, n, kind, p)
+
+
+@pytest.mark.parametrize('k,m8,n', EDGE_CASES)
+def test_gibbs_kernel_tile_edges(dev, k, m8, n):
+    """B2 at the same edges."""
+    xt, theta, kind, p = _edge_inputs(dev, n, k, m8, seed=12)
+    _check_gibbs(xt, theta, n, kind, p)
+
+
+# -- B1 and B2 in the chunked layout (csrc/tc.cuh) ---------------------------
+# (map, d, p, K, n) past the plain layout: more 16-row slabs of K than a
+# block has warps (K > 256 up to m8 = 64, K > 128 above), an m8 past the
+# widest compiled width (256), or tiles past shared memory.
+CHUNKED_CASES = [
+    (cuda_estep.GAUSS, 2, 0, 300, 100_003),   # m8 = 8, 19 slabs
+    (cuda_estep.GAUSS, 2, 0, 390, 1_001),
+    (cuda_estep.GAUSS, 2, 0, 3_500, 1_001),   # 219 slabs, 14 chunks
+    (cuda_estep.GAUSS, 3, 0, 1_700, 777),     # m8 = 16
+    (ILR, 5, 1, 150, 10_007),                 # m8 = 80, K > 128
+    (ILR, 12, 2, 4, 1_001),                   # m8 = 360: 12 windows
+    (cuda_estep.GAUSS, 16, 0, 30, 1_001),     # m8 = 280: 9 windows
+]
+
+
+def _chunked_inputs(dev, kind, d, p, k, n, seed):
+    if kind == ILR:
+        return _ilr_inputs(dev, n, k, d, p, seed)
+    return _inputs(dev, n, k, d, seed)
+
+
+@pytest.mark.parametrize('kind,d,p,k,n', CHUNKED_CASES)
+def test_estep_kernel_chunked_layout(dev, kind, d, p, k, n):
+    xt, theta = _chunked_inputs(dev, kind, d, p, k, n, seed=13)
+    _check_estep(xt, theta, n, kind, p)
+
+
+@pytest.mark.parametrize('kind,d,p,k,n', CHUNKED_CASES)
+def test_gibbs_kernel_chunked_layout(dev, kind, d, p, k, n):
+    xt, theta = _chunked_inputs(dev, kind, d, p, k, n, seed=14)
+    _check_gibbs(xt, theta, n, kind, p)
+
+
+@pytest.mark.parametrize('divide', [True, False])
+def test_regf_probe_chunked_layout(dev, divide):
+    """S1 at m8 = 48, a width the probes compile only in the chunked
+    layout; with the divide it equals B1 within B1's tolerances."""
+    n, k, d = 10_007, 8, 6
+    xt, theta = _inputs(dev, n, k, d, seed=15)
+    acc, lse = cuda_probes.regf(xt, theta, n, divide)
+    pacc, plse = cuda_probes.estep_probe_plain(xt, theta, n, divide)
+    assert _probe_bound(acc, pacc, xt, theta, n, divide)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=0.0)
+
+
+def test_gibbs_fast_draw_within_its_margin(dev):
+    """B2 takes the accurate draw only for the components whose fast MUFU
+    draw comes within a margin (2^-10) of the best fast one; the labels
+    are exact while the fast draw stays within half of it of the accurate
+    one for every u."""
+    assert cuda_gibbs.gumbel_fast_error(dev) < 2.0 ** -12
+
+
+def test_tc_kernels_refuse_past_shared_memory(dev):
+    """Past the chunked layout's shared memory (theta of K=8000, m8=8
+    alone is 256 KB) B1 and B2 raise."""
+    xt, theta = _inputs(dev, 1000, 8000, 2)
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        cuda_estep.estep(xt, theta, 1000)
+    seed = torch.tensor(1, dtype=torch.int64, device=dev)
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        cuda_gibbs.gibbs(xt, theta, seed, 1000)

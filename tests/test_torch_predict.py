@@ -69,7 +69,8 @@ def test_matches_jax_dense_f64(fitted, dist, route):
     jm = JaxGMM.make(size=5, dim=2, gating='dp', dtype=jnp.float64)
     want = jm.log_predictive(st, jnp.asarray(x), dist=dist, backend='xla')
     tst = state_from_numpy(st)
-    tm = BayesianGMM.make(size=5, dim=2, gating='dp', dtype=torch.float64)
+    tm = BayesianGMM.make(size=5, dim=2, gating='dp', dtype=torch.float64,
+                          device='cpu')
     xt_ = torch.as_tensor(x)
     if route == 'torch_backend':
         got = tm.log_predictive(tst, xt_, dist=dist, backend='torch')
@@ -84,7 +85,8 @@ def test_matches_jax_dense_f64(fitted, dist, route):
 def test_auto_backend_on_cpu_is_the_dense_path(fitted):
     st, x = fitted
     tst = state_from_numpy(st)
-    tm = BayesianGMM.make(size=5, dim=2, gating='dp', dtype=torch.float64)
+    tm = BayesianGMM.make(size=5, dim=2, gating='dp', dtype=torch.float64,
+                          device='cpu')
     xt_ = torch.as_tensor(x)
     np.testing.assert_array_equal(tm.log_predictive(tst, xt_).numpy(),
                                   tm.log_predictive(tst, xt_,

@@ -366,7 +366,7 @@ def _ilr_setup(d, p, dtype, basis, experts):
     resp /= resp.sum(-1, keepdims=True)
     st = jm._mf_update((jm._tx(jnp.asarray(x, jd)),
                         jm._ty(jnp.asarray(y, jd))), jnp.asarray(resp, jd))
-    tm = BayesianILR.make(dtype=td, **kw)
+    tm = BayesianILR.make(dtype=td, **kw, device='cpu')
     tm.init_transform(torch.as_tensor(x, dtype=td),
                       torch.as_tensor(y, dtype=td))
     return x, y, jm, tm, st, state_from_numpy(_np(st))
@@ -551,7 +551,8 @@ def _gmm_setup(diag):
     x = x.astype(jnp.float64)
     jm = JaxGMM.make(dtype=jnp.float64, **_tied_gmm_kw(diag))
     init, _ = jm.fit_vi_fused(x, key=1, maxiter=2, backend='xla')
-    tm = BayesianGMM.make(dtype=torch.float64, **_tied_gmm_kw(diag))
+    tm = BayesianGMM.make(dtype=torch.float64, **_tied_gmm_kw(diag),
+                          device='cpu')
     return jm, tm, x, init
 
 
@@ -579,7 +580,7 @@ def test_tied_gmm_gibbs_fused_recovers_clusters(diag):
     engine and the port's own chain: a component with > 100 points
     within 0.5 of each true mean, and one shared precision."""
     x = torch.tensor(np.asarray(_gmm_setup(diag)[2]), dtype=torch.float32)
-    tm = BayesianGMM.make(**_tied_gmm_kw(diag))
+    tm = BayesianGMM.make(**_tied_gmm_kw(diag), device='cpu')
     gs = tm.fit_gibbs_fused(x, key=10, maxiter=100, block_size=1024)
     counts = np.bincount(gs.labels.numpy(), minlength=8)
     mus = gs.components.mu.numpy()[counts > 100]
@@ -618,7 +619,7 @@ def test_tied_activation_gibbs_then_vi_fits_the_sine():
     y = torch.sin(x) + 0.1 * torch.tensor(rng.standard_normal((1200, 1)))
     m = BayesianILR.make(size=25, input_dim=1, output_dim=1, alpha=5.0,
                          kappa=0.05, tied_affine=True, hier_basis=True,
-                         maxsubiter=10, dtype=torch.float64)
+                         maxsubiter=10, dtype=torch.float64, device='cpu')
     m.init_transform(x, y)
     g = m.fit_gibbs_fused((x, y), key=0, maxiter=60)
     assert type(g.params[1]).__name__ == 'LinGaussParams'
@@ -636,12 +637,14 @@ def test_tied_configs_and_bridge():
     """The configs build the tied and tied-activation models; the bridge
     carries a TiedAffine (K-less leaves, 0-d nu) and AffineStats both
     ways."""
-    g = MixtureConfig(size=4, dim=3, tied=True).build(torch.float64)
+    g = MixtureConfig(size=4, dim=3, tied=True).build(torch.float64,
+                                                      device='cpu')
     assert g.tied and isinstance(g.components_prior, NIW)
-    g = MixtureConfig(size=4, dim=3, diag=True, tied=True).build()
+    g = MixtureConfig(size=4, dim=3, diag=True, tied=True).build(device='cpu')
     assert isinstance(g.components_prior, NG)
     m = ILRConfig(size=5, input_dim=2, output_dim=3, tied_affine=True,
-                  hier_basis=True, maxsubiter=4).build(torch.float64)
+                  hier_basis=True, maxsubiter=4).build(torch.float64,
+                                                       device='cpu')
     assert isinstance(m.components_prior[0], HierTied)
     assert isinstance(m.components_prior[1], TiedAffine)
     assert m.affine and m.components_prior[1].M.shape == (3, 2)
