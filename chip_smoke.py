@@ -76,7 +76,21 @@ Phases, one or more printed lines each:
               the first 10,000 points -> VI 20 over all -> predict through
               B5, RMSE < 0.35) and p>1 serving
               (N=1e6, d=2, p=3: VI 20 -> predict through B6), rates and
-              kernel times.
+              kernel times;
+ 16. wide     the serving kernels at shapes they refused before their
+              coefficients were streamed in K-chunks (B3 at K=500, d=2, a
+              DP-GMM after 3 VI sweeps, K=256, d=8 and K=16, d=24; B4 at
+              K=64, d=32; B5 at K=194 and 500, d=8; B6 at K=300, d=2, p=3,
+              MNW and MNG), N=1,000,003: each served once through
+              log_predictive or predict with launch counts, held against
+              its plain version and timed.
+Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
+lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
+against the plain version run in float64 on the kernel's own f32 inputs,
+beside the f32 plain version's error, at the main cell and at an
+off-origin cell (data and posterior translated so that every component
+centre sits at least 10 sigma from the origin, where the expanded
+quadratic cancels); each fails above 10x.
 The line before the last is the kernels' JSON record: each kernel's
 launches on its path, its time, its plain version's, and its bound (the
 least time the card could take for the work, the largest of bytes over
@@ -88,6 +102,7 @@ fails, the script exits non-zero and prints no result.
 """
 
 import argparse
+import functools
 import json
 import math
 import re
@@ -101,7 +116,7 @@ import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
 from mimo_tpu_torch.conjugate.families import ilr_family
 from mimo_tpu_torch.distributions import ng
 from mimo_tpu_torch.distributions.affine import TiedAffine
-from mimo_tpu_torch.distributions.gating import StickBreaking
+from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
 from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
@@ -274,19 +289,43 @@ def gibbs_work(xt, theta, n, m, kind=cuda_estep.GAUSS, p=0):
             'hbm': 4 * (xt.shape[0] * n + n + 2 * k * m)}
 
 
-def density_work(n, k, m, d, mufu_per_comp, quads=1):
-    """B3 / B4: `quads` quadratic forms of width m per component, the
-    given transcendentals per component and a log per point; reads
-    (d, n), writes (n,)."""
-    return {'fp32': n * k * quads * m, 'mufu': n * (k * mufu_per_comp + 1),
-            'hbm': 4 * (d * n + n)}
+def quad_fmas(d, diag=False):
+    """Multiply-adds of one quadratic form over [1; x; x (x) x] at its
+    least: x_a x_b and x_b x_a share one coefficient, so 1 + d + d (d + 1)
+    / 2 (over the diagonal map [1; x; x^2], 1 + 2d)."""
+    return 1 + 2 * d if diag else 1 + d + d * (d + 1) // 2
 
 
-def serving_work(n, rows, m, k, mufu_per_comp, d, p):
-    """B5 / B6: one dot of width m per coefficient row, the
-    transcendentals per component and 2 logs per point; reads (d + p, n),
-    writes 2p + 2 rows."""
-    return {'fp32': n * rows * m, 'mufu': n * (k * mufu_per_comp + 2),
+def point_products(d, diag=False):
+    """Multiplies of a point's map entries x_a x_b (a <= b; or x_a^2),
+    formed once per point and shared by every component."""
+    return d if diag else d * (d + 1) // 2
+
+
+def density_work(n, k, m, d, mufu_per_comp, quads=1, products=0):
+    """B3 / B4: `quads` quadratic forms per component, each one multiply-
+    add per coefficient it needs (m: B3's quad_fmas; B4's d rows of
+    (k, j), 3 each: 1, x_j, x_j^2) and `products` multiplies per point
+    for the map's entries, the given transcendentals per component and a
+    log per point; reads (d, n), writes (n,)."""
+    return {'fp32': n * (k * quads * m + products),
+            'mufu': n * (k * mufu_per_comp + 1), 'hbm': 4 * (d * n + n)}
+
+
+def serving_work(n, k, d, p, diag=False):
+    """B5 / B6, the least work of the function whatever computes it: per
+    component the basis and c quads over [1; x; x (x) x] (quad_fmas each,
+    on the point's products formed once), p expert means (1 + d each) and
+    the y tail from the residuals y - mu: (y - mu)' psi (y - mu) (p + p (p
+    + 1) / 2) for MNW experts, p scaled squares (2p) for MNG; per
+    component a log1p for the basis, an exp for the weight, a log of c,
+    one log1p of the tail (p for MNG, p > 1) and an exp for the NLPD, and
+    2 logs per point; reads (d + p, n), writes 2p + 2 rows."""
+    tail = 2 * p if diag or p == 1 else p + p * (p + 1) // 2
+    mufu = 4 + (p if diag else 1)
+    return {'fp32': n * (k * (2 * quad_fmas(d) + p * (1 + d) + tail)
+                         + point_products(d)),
+            'mufu': n * (k * mufu + 2),
             'hbm': 4 * ((d + p) * n + (2 * p + 2) * n)}
 
 
@@ -315,6 +354,130 @@ def precision_check(tag, xt, theta, n, kind=cuda_estep.GAUSS, p=0):
           f'({ratio_s:.3g}x) (<= 10x, the plain error counted as at least '
           f'2^-24) {"ok" if ok else "FAIL"}')
     check(ok, f'B1 {tag} less precise than 10x the f32 plain version')
+
+
+def quad_centres(th, d, diag=False):
+    """(mu (K, d), sigma (K,)) of quadratic-form rows th (K, m8) over the
+    Gauss map [1; x; x (x) x] (or the diagonal map [1; x; x^2]) that are
+    (x - mu)' Lmbda (x - mu): the centre -Lmbda^-1 g / 2 and the largest
+    scale lambda_min(Lmbda)^-1/2, in float64."""
+    t = th.double()
+    k = t.shape[0]
+    g = t[:, 1:1 + d]
+    if diag:
+        lm = torch.diag_embed(t[:, 1 + d:1 + 2 * d])
+    else:
+        lm = t[:, 1 + d:1 + d + d * d].reshape(k, d, d)
+        lm = 0.5 * (lm + lm.transpose(1, 2))
+    mu = -0.5 * torch.linalg.solve(lm, g)
+    sigma = torch.linalg.eigvalsh(lm)[:, 0].clamp(min=1e-300) ** -0.5
+    return mu, sigma
+
+
+def off_origin_shift(mu, sigma):
+    """u = T (1, ..., 1) that puts every component centre mu_k at least
+    10 sigma_k from the origin (|u| - |mu_k| >= 10 sigma_k); returns
+    (u, min_k |mu_k + u| / sigma_k)."""
+    d = mu.shape[1]
+    t = float((mu.norm(dim=-1) + 10.0 * sigma).max()) / math.sqrt(d) * 1.01
+    u = torch.full((d,), t, dtype=torch.float64, device=mu.device)
+    return u, float(((mu + u).norm(dim=-1) / sigma).min())
+
+
+def translate_rows(th, d, u, diag=False, p=0):
+    """Coefficient rows for data whose x is translated by u: th' with
+    th' . F(x + u) = th . F(x) for every row, F the Gauss map (p = 0),
+    the diagonal map, or B6's joint map [1; x; x (x) x; y; x (x) y;
+    y (x) y] with y untouched (p > 0). Each row is a quadratic
+    c + g'z + z'Hz; with x = x' - u its constant becomes c - g_x'u +
+    u'H_xx u, its x part g_x - (H_xx + H_xx')u, its y part g_y - H_xy'u.
+    Formed in float64 and returned in float32."""
+    t = th.double().clone()
+    u = u.double()
+    k = t.shape[0]
+    g = t[:, 1:1 + d].clone()
+    if diag:
+        h = t[:, 1 + d:1 + 2 * d]
+        t[:, 0] += -(g @ u) + (h * u * u).sum(-1)
+        t[:, 1:1 + d] = g - 2.0 * h * u
+    else:
+        hh = t[:, 1 + d:1 + d + d * d].reshape(k, d, d)
+        t[:, 0] += -(g @ u) + torch.einsum('a,kab,b->k', u, hh, u)
+        t[:, 1:1 + d] = g - torch.einsum('kab,b->ka', hh + hh.transpose(1, 2),
+                                         u)
+        if p:
+            o = 1 + d + d * d
+            hxy = t[:, o + p:o + p + d * p].reshape(k, d, p)
+            t[:, o:o + p] -= torch.einsum('kij,i->kj', hxy, u)
+    return t.float().contiguous()
+
+
+def translate_b4_rows(rows, d, u):
+    """B4's rows (K d, 4) = [c, g, h, tail exponent] of c + g x_j + h x_j^2
+    for data whose x is translated by u: c - g u_j + h u_j^2, g - 2 h u_j.
+    Formed in float64 and returned in float32."""
+    t = rows.double().clone()
+    uj = u.double().repeat(t.shape[0] // d)
+    c, g, h = t[:, 0].clone(), t[:, 1].clone(), t[:, 2]
+    t[:, 0] = c - g * uj + h * uj * uj
+    t[:, 1] = g - 2.0 * h * uj
+    return t.float().contiguous()
+
+
+PRECISION = {}    # (kernel, cell) -> its worst ratio to the f32 plain error
+
+
+def serving_precision(name, cell, kern, plain, args, rows, note=''):
+    """Step 0's float64 line of a serving kernel (B3-B6): its outputs on
+    its own f32 inputs `args` against the plain version on the same inputs
+    upcast to float64, beside the f32 plain version's error. `rows` names
+    the output rows: ('nats', label) for log densities, NLPD and lse_w
+    (max |err|), ('rel', label) for means and variances (max |err| / max
+    |value|). Fails when the kernel's error is more than 10x the plain
+    version's, the plain error counted as at least 2^-24 of the row's
+    magnitude."""
+    got, want = kern(*args), plain(*args)
+    ref = plain(*[a.double() if torch.is_tensor(a) else a for a in args])
+    if ref.dim() == 1:
+        got, want, ref = got[None], want[None], ref[None]
+    parts, worst = [], 0.0
+    for (unit, label), g, w, r in zip(rows, got, want, ref):
+        r = r.double()
+        mag = max(float(r.abs().max()), 1e-300)
+        ek = float((g.double() - r).abs().max())
+        ep = float((w.double() - r).abs().max())
+        ratio = ek / max(ep, 2.0 ** -24 * mag)
+        worst = max(worst, ratio)
+        scale = 1.0 if unit == 'nats' else 1.0 / mag
+        parts.append(f'{label} {ek * scale:.3g} vs {ep * scale:.3g} '
+                     f'({ratio:.3g}x)')
+    ok = worst <= 10.0
+    PRECISION[(name, cell)] = worst
+    print(f'precision {name} {cell}{note}: vs float64, kernel vs f32 plain '
+          f'(nats; mean and var relative): {"; ".join(parts)}; worst '
+          f'{worst:.3g}x (<= 10x, the plain error counted as at least 2^-24 '
+          f'of the magnitude) {"ok" if ok else "FAIL"}')
+    check(ok, f'{name} {cell} less precise than 10x the f32 plain version')
+
+
+def serving_precision_cells(name, kern, plain, xt, th, rest, rows, d,
+                            basis_rows, diag=False, p=0, centres=None,
+                            translate=None):
+    """serving_precision at the kernel's main cell (xt, th) and at its
+    off-origin cell: the x rows of xt translated by u and th's rows with
+    them (`translate`(th, d, u), by default translate_rows), u putting
+    every component's centre (from the quad rows th[basis_rows], or
+    `centres` = (mu, sigma)) at least 10 sigma from the origin."""
+    serving_precision(name, 'main', kern, plain, (xt, th) + rest, rows)
+    mu, sigma = centres or quad_centres(th[basis_rows], d, diag)
+    u, dist = off_origin_shift(mu, sigma)
+    xo = xt.clone()
+    xo[:d] += u.float()[:, None]
+    tho = (translate(th, d, u) if translate else
+           translate_rows(th, d, u, diag, p))
+    serving_precision(name, 'off-origin', kern, plain, (xo, tho) + rest, rows,
+                      f' (x + {float(u[0]):.4g}, centres >= {dist:.3g} sigma '
+                      f'out)')
 
 
 def main():
@@ -554,7 +717,8 @@ def run(dev, seed, n_main, n_check):
     m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
     WORK.update(B1=estep_work(n_main, K_MAIN, m, D_MAIN),
                 B2=gibbs_work(xt, th_g, n_main, m),
-                B3=density_work(n_main, K_MAIN, m, D_MAIN, 2))
+                B3=density_work(n_main, K_MAIN, quad_fmas(D_MAIN), D_MAIN, 2,
+                                products=point_products(D_MAIN)))
     for name, (kern, plain) in pairs.items():
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
@@ -562,6 +726,9 @@ def run(dev, seed, n_main, n_check):
               f' ms')
     precision_check(f'main N={n_main} K={K_MAIN} d={D_MAIN}', xt, th_vi,
                     n_main)
+    serving_precision_cells('B3', cuda_predict.predict,
+                            cuda_predict.predict_plain, xt, thq, (aux, n_main),
+                            (('nats', 'log density'),), D_MAIN, slice(None))
 
     del x, xt, model, st, gs, lp
     torch.cuda.empty_cache()
@@ -576,6 +743,7 @@ def run(dev, seed, n_main, n_check):
     probe_checks(dev, gen, card, n_main, errs, launches, ms)
     tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms)
     hilr_serving_paths(dev, seed, card, errs, launches, ms)
+    wide = wide_serving_paths(dev, gen, card, errs, launches, ms)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -594,9 +762,9 @@ def run(dev, seed, n_main, n_check):
         'B2-ILR': ('B2 fused Gibbs label sweep, ILR feature map',
                    'mimo_tpu_torch/csrc/gibbs.cuh',
                    'mimo_tpu/ops/pallas_gibbs.py:36'),
-        'B5': ('B5 ILR predict, p=1', 'mimo_tpu_torch/csrc/ilr_predict.cu',
+        'B5': ('B5 ILR predict, p=1', 'mimo_tpu_torch/csrc/ilr_predict.cuh',
                'mimo_tpu/ops/pallas_predict.py:656'),
-        'B6': ('B6 ILR predict, p>1', 'mimo_tpu_torch/csrc/ilr_predict.cu',
+        'B6': ('B6 ILR predict, p>1', 'mimo_tpu_torch/csrc/ilr_predict.cuh',
                'mimo_tpu/ops/pallas_predict.py:349'),
         'B1-diag': ('B1 fused VI E-step, diagonal feature map',
                     'mimo_tpu_torch/csrc/estep.cuh',
@@ -611,10 +779,10 @@ def run(dev, seed, n_main, n_check):
                'mimo_tpu_torch/csrc/diag_predict.cu',
                'mimo_tpu/ops/pallas_predict.py:171'),
         'B5-MNG': ('B5 ILR predict, p=1, MNG experts',
-                   'mimo_tpu_torch/csrc/ilr_predict.cu',
+                   'mimo_tpu_torch/csrc/ilr_predict.cuh',
                    'mimo_tpu/ops/pallas_predict.py:656'),
         'B6-MNG': ('B6 ILR predict, p>1, MNG tail',
-                   'mimo_tpu_torch/csrc/ilr_predict.cu',
+                   'mimo_tpu_torch/csrc/ilr_predict.cuh',
                    'mimo_tpu/ops/pallas_predict.py:349'),
         'B3-hier': ('B3 Student-t mixture predictive, HierTied rows',
                     'mimo_tpu_torch/csrc/predict.cu',
@@ -648,10 +816,10 @@ def run(dev, seed, n_main, n_check):
                         'mimo_tpu_torch/csrc/gibbs.cuh',
                         'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B5-hilr': ('B5 ILR predict, p=1, tied-affine experts and HierTied '
-                    'basis branches', 'mimo_tpu_torch/csrc/ilr_predict.cu',
+                    'basis branches', 'mimo_tpu_torch/csrc/ilr_predict.cuh',
                     'mimo_tpu/ops/pallas_predict.py:656'),
         'B6-hilr': ('B6 ILR predict, p>1, tied-affine experts and HierTied '
-                    'basis branches', 'mimo_tpu_torch/csrc/ilr_predict.cu',
+                    'basis branches', 'mimo_tpu_torch/csrc/ilr_predict.cuh',
                     'mimo_tpu/ops/pallas_predict.py:349'),
         'S1-divide': ('S1 B1 probe, normalised (B1 itself)',
                       'mimo_tpu_torch/csrc/probes.cu',
@@ -671,6 +839,7 @@ def run(dev, seed, n_main, n_check):
         'S3': ('S3 build probe o = 2x', 'mimo_tpu_torch/csrc/hello.cu',
                'scripts/pallas_hello.py:11'),
     }
+    meta.update({name: row[:3] for name, row in wide.items()})
     rows = []
     for b in meta:
         bound_ms, bound_by, bound_op = bound(WORK[b])
@@ -1097,14 +1266,24 @@ def ilr_serving_paths(dev, seed, card, launches, ms, diag=False):
                 xt, th, aux, vc, n, p, True, False)
             plain = lambda: cuda_ilr_predict.ilr_p_predict_plain(  # noqa: E731
                 xt, th, aux, vc, n, p, True, False)
-        WORK[name] = serving_work(
-            n, th.shape[0],
-            cuda_ilr_predict.joint_width(d, p) if p > 1 else 1 + d + d * d,
-            K_MAIN, 4 + p if diag and p > 1 else 5, d, p)
+        WORK[name] = serving_work(n, K_MAIN, d, p, diag)
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={n} K={K_MAIN} d={d} p={p} '
               f'm8={th.shape[1]}: kernel {ms[name][0]:.6g} ms, plain '
               f'PyTorch {ms[name][1]:.6g} ms')
+        moments = [('rel', f'mean{j}' if p > 1 else 'mean') for j in range(p)]
+        moments += [('rel', f'var{j}' if p > 1 else 'var') for j in range(p)]
+        rows = moments + [('nats', 'nlpd'), ('nats', 'lse_w')]
+        if p == 1:
+            serving_precision_cells(
+                name, cuda_ilr_predict.ilr_predict,
+                cuda_ilr_predict.ilr_predict_plain, xt, th,
+                (aux, n, True, False), rows, d, slice(0, K_MAIN))
+        else:
+            serving_precision_cells(
+                name, cuda_ilr_predict.ilr_p_predict,
+                cuda_ilr_predict.ilr_p_predict_plain, xt, th,
+                (aux, vc, n, p, True, False), rows, d, slice(0, K_MAIN), p=p)
         del x, y, model, st, mu, var, nlpd, xt
         torch.cuda.empty_cache()
 
@@ -1189,7 +1368,7 @@ def diag_kernel_checks(dev, gen, errs):
     log_w = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
                                           device=dev), 0)
     thq, aux = cuda_predict.diag_gaussian_coefficients(b4_post, log_w)
-    thu, h, aux4 = cuda_diag_predict.diag_predict_coefficients(b4_post, log_w)
+    rows4, aux4 = cuda_diag_predict.diag_predict_coefficients(b4_post, log_w)
     for name, kern, plain in (
             ('B3-diag',
              lambda: cuda_predict.predict(b4_xt, thq, aux, N_CHECK, False,
@@ -1197,9 +1376,9 @@ def diag_kernel_checks(dev, gen, errs):
              lambda: cuda_predict.predict_plain(b4_xt, thq, aux, N_CHECK,
                                                 False, DIAG)),
             ('B4',
-             lambda: cuda_diag_predict.diag_predict(b4_xt, thu, h, aux4,
+             lambda: cuda_diag_predict.diag_predict(b4_xt, rows4, aux4,
                                                     N_CHECK),
-             lambda: cuda_diag_predict.diag_predict_plain(b4_xt, thu, h, aux4,
+             lambda: cuda_diag_predict.diag_predict_plain(b4_xt, rows4, aux4,
                                                           N_CHECK))):
         out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -1334,7 +1513,7 @@ def diag_gmm_path(dev, seed, card, n_main, errs, launches, ms):
                         torch.float32)
     log_w = model.predictive_log_weights(st)
     thq, aux = cuda_predict.diag_gaussian_coefficients(st.components, log_w)
-    thu, h, aux4 = cuda_diag_predict.diag_predict_coefficients(
+    rows4, aux4 = cuda_diag_predict.diag_predict_coefficients(
         st.components, log_w)
     sweep_seed = torch.zeros((), dtype=torch.int64, device=dev)
     pairs = {
@@ -1348,17 +1527,19 @@ def diag_gmm_path(dev, seed, card, n_main, errs, launches, ms):
                                                  DIAG),
                     lambda: cuda_predict.predict_plain(xt, thq, aux, n_main,
                                                        False, DIAG)),
-        'B4': (lambda: cuda_diag_predict.diag_predict(xt, thu, h, aux4,
+        'B4': (lambda: cuda_diag_predict.diag_predict(xt, rows4, aux4,
                                                       n_main),
-               lambda: cuda_diag_predict.diag_predict_plain(xt, thu, h, aux4,
+               lambda: cuda_diag_predict.diag_predict_plain(xt, rows4, aux4,
                                                             n_main)),
     }
     m = cuda_estep.feature_width(DIAG, D_MAIN)
     WORK.update({'B1-diag': estep_work(n_main, K_MAIN, m, D_MAIN),
                  'B2-diag': gibbs_work(xt, th_g, n_main, m, DIAG),
-                 'B3-diag': density_work(n_main, K_MAIN, m, D_MAIN, 1),
-                 'B4': density_work(n_main, K_MAIN, m, D_MAIN, D_MAIN + 1,
-                                    D_MAIN)})
+                 'B3-diag': density_work(
+                     n_main, K_MAIN, quad_fmas(D_MAIN, True), D_MAIN, 1,
+                     products=point_products(D_MAIN, True)),
+                 'B4': density_work(n_main, K_MAIN, 3, D_MAIN, D_MAIN + 1,
+                                    D_MAIN, point_products(D_MAIN, True))})
     for name, (kern, plain) in pairs.items():
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
@@ -1366,6 +1547,13 @@ def diag_gmm_path(dev, seed, card, n_main, errs, launches, ms):
               f' ms')
     precision_check(f'diag N={n_main} K={K_MAIN} d={D_MAIN}', xt, th_vi,
                     n_main, DIAG)
+    mu_t, lam_t, _ = ng.predictive_studentt_params(st.components)
+    serving_precision_cells(
+        'B4', cuda_diag_predict.diag_predict,
+        cuda_diag_predict.diag_predict_plain, xt, rows4, (aux4, n_main),
+        (('nats', 'log density'),), D_MAIN, None,
+        centres=(mu_t.double(), lam_t.double().min(-1).values ** -0.5),
+        translate=translate_b4_rows)
     del x, xt, model, st, gs, lp_t, lp_g
     torch.cuda.empty_cache()
 
@@ -1693,12 +1881,12 @@ def tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms):
                                              acc)),
         }
         if label == 'diag-tied':
-            thu, h, aux4 = cuda_diag_predict.diag_predict_coefficients(
+            rows4, aux4 = cuda_diag_predict.diag_predict_coefficients(
                 st.components, log_w)
             pairs[names[2]] = (
-                lambda: cuda_diag_predict.diag_predict(xt, thu, h, aux4,
+                lambda: cuda_diag_predict.diag_predict(xt, rows4, aux4,
                                                        n_main),
-                lambda: cuda_diag_predict.diag_predict_plain(xt, thu, h, aux4,
+                lambda: cuda_diag_predict.diag_predict_plain(xt, rows4, aux4,
                                                              n_main), None)
         elif label == 'hier':
             thq, aux = cuda_predict.predictive_coefficients(st.components,
@@ -1712,9 +1900,11 @@ def tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms):
         WORK[names[1]] = gibbs_work(xt, th_g, n_main, m, kind)
         if names[2] is not None:
             WORK[names[2]] = (
-                density_work(n_main, K_MAIN, m, D_MAIN, D_MAIN + 1, D_MAIN)
+                density_work(n_main, K_MAIN, 3, D_MAIN, D_MAIN + 1, D_MAIN,
+                             point_products(D_MAIN, True))
                 if label == 'diag-tied' else
-                density_work(n_main, K_MAIN, m, D_MAIN, 2))
+                density_work(n_main, K_MAIN, quad_fmas(D_MAIN), D_MAIN, 2,
+                             products=point_products(D_MAIN)))
         time_pairs(card, f'N={n_main} K={K_MAIN} d={D_MAIN} ({label} GMM)',
                    pairs, errs, ms)
         del model, st, gs, lp
@@ -1833,18 +2023,181 @@ def hilr_serving_paths(dev, seed, card, errs, launches, ms):
                 None)}
         if p == 1:
             m = cuda_estep.feature_width(ILR, d, p)
-            WORK[name] = serving_work(n, th.shape[0], 1 + d + d * d, K_MAIN,
-                                      5, d, p)
+            WORK[name] = serving_work(n, K_MAIN, d, p)
             WORK['B1-ILR-hilr'] = estep_work(n, K_MAIN, m, d + p)
             WORK['B2-ILR-hilr'] = gibbs_work(xt, th_g, n, m, ILR, 1)
         else:
-            WORK[name] = serving_work(n, th.shape[0],
-                                      cuda_ilr_predict.joint_width(d, p),
-                                      K_MAIN, 5, d, p)
+            WORK[name] = serving_work(n, K_MAIN, d, p)
         time_pairs(card, f'N={n} K={K_MAIN} d={d} p={p} (hilr)', pairs, errs,
                    ms)
         del x, y, model, st, mu, var, nlpd, xt
         torch.cuda.empty_cache()
+
+
+WIDE_B3 = ((500, 2), (256, 8), (16, 24))   # (K, d) B3 refused before
+WIDE_B5 = (194, 500)                        # K at d = 8
+K_WIDE_B4, D_WIDE_B4, K_WIDE_B6 = 64, 32, 300
+
+
+def wide_serving_paths(dev, gen, card, errs, launches, ms):
+    """Phase 16: the serving kernels at shapes they refused before their
+    coefficients were streamed in K-chunks, N=1,000,003 each. Each shape
+    is served once through the public entry point (log_predictive,
+    predict; backend='auto') with the launch counts set to 0 just before
+    and read just after, then the kernel is held against its plain
+    version on the same inputs and both are timed. B3 at K=500, d=2 (a
+    DP-GMM after 3 VI sweeps), K=256, d=8 and K=16, d=24 (random NIW
+    posteriors), Student-t and Gaussian; B4 at K=64, d=32 (random NG);
+    B5 at K=194 and 500, d=8; B6 at K=300, d=2, p=3 with MNW and MNG
+    experts (random posteriors), average and mode."""
+    n = N_CHECK
+    rows = {}
+    for k, d in WIDE_B3:
+        basis, _ = random_ilr_posterior(gen, k, d, 1, dev)
+        idx = torch.randint(0, k, (n,), generator=gen, device=dev)
+        x = basis.mu[idx] + torch.randn((n, d), generator=gen, device=dev)
+        model = BayesianGMM.make(size=k, dim=d, gating='dp', kappa=0.05,
+                                 psi_scale=0.5, device=dev)
+        if k == 500:
+            st, _ = model.fit_vi_fused(x, key=1, maxiter=3)
+        else:
+            st = MFState(basis, StickBreaking(
+                gamma=1.0 + 1e4 * torch.rand((k,), generator=gen, device=dev),
+                delta=1.0 + 1e4 * torch.rand((k,), generator=gen,
+                                             device=dev)))
+        torch.cuda.synchronize()
+        reset_counts()
+        lps = [model.log_predictive(st, x, dist=dist)
+               for dist in ('studentt', 'gaussian')]
+        torch.cuda.synchronize()
+        name = f'B3-K{k}-d{d}'
+        launches[name] = read_counts()['B3']
+        check(launches[name] == 2 and all(
+            bool(torch.isfinite(lp).all()) for lp in lps),
+              f'{name}: log_predictive bypassed B3 or is not finite')
+        xt = kernel_xts((x,))[0]
+        log_w = model.predictive_log_weights(st)
+        errs[name] = 0.0
+        for dist in ('studentt', 'gaussian'):
+            thq, aux = cuda_predict.predictive_coefficients(
+                st.components, log_w, dist == 'studentt')
+            ok, e = allclose_report(
+                cuda_predict.predict(xt, thq, aux, n, dist == 'studentt'),
+                cuda_predict.predict_plain(xt, thq, aux, n,
+                                           dist == 'studentt'), 1e-5, 1e-4)
+            print(f'{name} {dist} N={n}: max|err| {e:.6g} nats (rtol 1e-5, '
+                  f'atol 1e-4) {"ok" if ok else "FAIL"}')
+            check(ok, f'{name} {dist} disagrees')
+            errs[name] = max(errs[name], e)
+        thq, aux = cuda_predict.predictive_coefficients(st.components, log_w)
+        rows[name] = (
+            f'B3 Student-t mixture predictive, K={k} d={d} (wide)',
+            'mimo_tpu_torch/csrc/predict.cu',
+            'mimo_tpu/ops/pallas_predict.py:39',
+            lambda: cuda_predict.predict(xt, thq, aux, n),
+            lambda: cuda_predict.predict_plain(xt, thq, aux, n),
+            density_work(n, k, quad_fmas(d), d, 2,
+                         products=point_products(d)))
+        time_wide(card, f'N={n} K={k} d={d}', name, rows[name], ms)
+        del x, xt, model, st, lps
+
+    k, d = K_WIDE_B4, D_WIDE_B4
+    post = random_ng_posterior(gen, k, d, dev)
+    idx = torch.randint(0, k, (n,), generator=gen, device=dev)
+    x = post.mu[idx] + 0.5 * torch.randn((n, d), generator=gen, device=dev)
+    model = BayesianGMM.make(size=k, dim=d, diag=True, device=dev)
+    st = MFState(post, Dirichlet(alpha=1.0 + 1e4 * torch.rand(
+        (k,), generator=gen, device=dev)))
+    torch.cuda.synchronize()
+    reset_counts()
+    lp = model.log_predictive(st, x)
+    torch.cuda.synchronize()
+    name = f'B4-K{k}-d{d}'
+    launches[name] = read_counts()['B4']
+    check(launches[name] == 1 and bool(torch.isfinite(lp).all()),
+          f'{name}: log_predictive bypassed B4 or is not finite')
+    xt = kernel_xts((x,))[0]
+    rows4, aux = cuda_diag_predict.diag_predict_coefficients(
+        post, model.predictive_log_weights(st))
+    ok, errs[name] = allclose_report(
+        cuda_diag_predict.diag_predict(xt, rows4, aux, n),
+        cuda_diag_predict.diag_predict_plain(xt, rows4, aux, n), 1e-4, 1e-4)
+    print(f'{name} N={n}: max|err| {errs[name]:.6g} nats (rtol 1e-4, atol '
+          f'1e-4) {"ok" if ok else "FAIL"}')
+    check(ok, f'{name} disagrees')
+    rows[name] = (
+        f'B4 diagonal (NG) Student-t mixture predictive, K={k} d={d} (wide)',
+        'mimo_tpu_torch/csrc/diag_predict.cu',
+        'mimo_tpu/ops/pallas_predict.py:171',
+        lambda: cuda_diag_predict.diag_predict(xt, rows4, aux, n),
+        lambda: cuda_diag_predict.diag_predict_plain(xt, rows4, aux, n),
+        density_work(n, k, 3, d, d + 1, d, point_products(d, True)))
+    time_wide(card, f'N={n} K={k} d={d}', name, rows[name], ms)
+    del x, xt, model, st, lp
+
+    for k, d, p, diag in ([(k, D_Q8, 1, False) for k in WIDE_B5]
+                          + [(K_WIDE_B6, D_P3, P_P3, False),
+                             (K_WIDE_B6, D_P3, P_P3, True)]):
+        count = 'B5' if p == 1 else 'B6'
+        name = f'{count}{"-MNG" if diag else ""}-K{k}-d{d}'
+        basis, experts = (random_mng_posterior if diag else
+                          random_ilr_posterior)(gen, k, d, p, dev)
+        x, y = regression_data(gen, n, d, p, dev)
+        model = BayesianILR.make(size=k, input_dim=d, output_dim=p,
+                                 diag=diag, device=dev)
+        st = MFState((basis, experts), StickBreaking(
+            gamma=1.0 + 1e4 * torch.rand((k,), generator=gen, device=dev),
+            delta=1.0 + 1e4 * torch.rand((k,), generator=gen, device=dev)))
+        torch.cuda.synchronize()
+        reset_counts()
+        got = model.predict(st, x, y)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()[count]
+        check(launches[name] == 1 and all_finite(got[:2]) and all_finite(
+            got[3]), f'{name}: predict bypassed {count} or is not finite')
+        xt = stack_rows(kernel_xts((x, y)))
+        log_w = model.predictive_log_weights(st)
+        if p == 1:
+            th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+                basis, experts, log_w)
+            kern, plain = (cuda_ilr_predict.ilr_predict,
+                           cuda_ilr_predict.ilr_predict_plain)
+            args = (xt, th, aux, n, True)
+        else:
+            th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                basis, experts, log_w)
+            kern, plain = (cuda_ilr_predict.ilr_p_predict,
+                           cuda_ilr_predict.ilr_p_predict_plain)
+            args = (xt, th, aux, vc, n, p, True)
+        errs[name] = 0.0
+        for hard in (False, True):
+            ok, worst, flips = compare_serving(kern(*args, hard),
+                                               plain(*args, hard), p, hard)
+            print(f'{name} N={n} p={p} {"mode" if hard else "average"} with '
+                  f'y: max|err| {worst:.6g} (the serving tolerances); points '
+                  f'off {flips} {"ok" if ok else "FAIL"}')
+            check(ok, f'{name} disagrees')
+            errs[name] = max(errs[name], worst)
+        rows[name] = (
+            f'{count} ILR predict, p={p}{", MNG experts" if diag else ""}, '
+            f'K={k} d={d} (wide)', 'mimo_tpu_torch/csrc/ilr_predict.cuh',
+            'mimo_tpu/ops/pallas_predict.py:' + ('656' if p == 1 else '349'),
+            functools.partial(kern, *args, False),
+            functools.partial(plain, *args, False),
+            serving_work(n, k, d, p, diag))
+        time_wide(card, f'N={n} K={k} d={d} p={p}', name, rows[name], ms)
+        del x, y, xt, model, st, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_wide(card, tag, name, row, ms):
+    """Time one wide shape's kernel (5 launches) and plain version (2)."""
+    _, _, _, kern, plain, work = row
+    WORK[name] = work
+    ms[name] = (cuda_ms(kern, 5), cuda_ms(plain, 2))
+    print(f'{name} time on {card} at {tag}: kernel {ms[name][0]:.6g} ms, '
+          f'plain PyTorch {ms[name][1]:.6g} ms')
 
 
 if __name__ == '__main__':

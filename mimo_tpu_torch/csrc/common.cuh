@@ -1,14 +1,8 @@
 // Shared device code of the mimo_tpu_torch kernels (B1 estep.cuh, B2
-// gibbs.cuh, B3 predict.cu, B4 diag_predict.cu, B5/B6 ilr_predict.cu): the
-// Gaussian and diagonal feature maps, the factor tables from which B1 and
-// B2 assemble every map, the online logsumexp, the counter-based Philox
+// gibbs.cuh, B3 predict.cu, B4 diag_predict.cu, B5/B6 ilr_predict.cuh): the
+// feature maps' kinds and widths, the factor tables from which B1 and B2
+// assemble every map, the online logsumexp, the counter-based Philox
 // generator, and the fixed-order cross-block reduction.
-//
-// The predictive kernels stage per-point columns in shared memory with a
-// row stride of kThreads + 1 floats: thread t owns column t, so its own
-// reads and writes hit 32 distinct banks across a warp, and the
-// cooperative (k, j) reductions, which read one row per output, see
-// rows offset by one bank each.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,41 +11,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;          // threads per block (power of two)
-constexpr int kStride = kThreads + 1;  // shared-memory row stride
-
-// F = [1; x; x (x) x; 0...] for point p of xt (d rows, row stride ld),
-// written down one shared-memory column (stride kStride), rows 0..m8-1.
-// Mirrors mimo_tpu/ops/family_estep.py::gauss_features_t.
-__device__ __forceinline__ void gauss_features(const float* __restrict__ xt,
-                                               long long ld, int d,
-                                               long long p, float* col,
-                                               int m8) {
-  col[0] = 1.0f;
-  for (int a = 0; a < d; ++a) col[(1 + a) * kStride] = xt[a * ld + p];
-  for (int a = 0; a < d; ++a) {
-    const float xa = col[(1 + a) * kStride];
-    for (int b = 0; b < d; ++b)
-      col[(1 + d + a * d + b) * kStride] = xa * col[(1 + b) * kStride];
-  }
-  for (int j = 1 + d + d * d; j < m8; ++j) col[j * kStride] = 0.0f;
-}
-
-// F = [1; x; x^2; 0...] (elementwise square) for point p of xt, written
-// down one shared-memory column. Mirrors
-// mimo_tpu/ops/family_estep.py::diag_gauss_features_t.
-__device__ __forceinline__ void diag_features(const float* __restrict__ xt,
-                                              long long ld, int d,
-                                              long long p, float* col,
-                                              int m8) {
-  col[0] = 1.0f;
-  for (int a = 0; a < d; ++a) {
-    const float xa = xt[a * ld + p];
-    col[(1 + a) * kStride] = xa;
-    col[(1 + d + a) * kStride] = xa * xa;
-  }
-  for (int j = 1 + 2 * d; j < m8; ++j) col[j * kStride] = 0.0f;
-}
+constexpr int kThreads = 128;   // threads per block (power of two)
 
 // Feature maps of the predictive kernel B3, a compile-time choice (its
 // template parameter, like the static `features_t` of the TPU kernels).
@@ -61,16 +21,6 @@ __device__ __forceinline__ void diag_features(const float* __restrict__ xt,
 enum FeatureMap { kGauss = 0, kDiag = 2 };
 constexpr int kKindGauss = 0, kKindIlrAffine = 1, kKindIlrLinear = 2,
               kKindDiag = 3;
-
-template <int kMap>
-__device__ __forceinline__ void features(const float* __restrict__ xt,
-                                         long long ld, int d, long long p,
-                                         float* col, int m8) {
-  if constexpr (kMap == kGauss)
-    gauss_features(xt, ld, d, p, col, m8);
-  else
-    diag_features(xt, ld, d, p, col, m8);
-}
 
 // Width of a feature map (without the zero padding to m8).
 inline int feature_width(int kind, int d, int np) {
@@ -83,9 +33,9 @@ inline int feature_width(int kind, int d, int np) {
 // Every row of every map is the product of two entries of a point's
 // z = [1; x (d rows); y (np rows); 0]: row j = z[a] * z[b] with
 // ab[j] = a | b << 8, one f32 multiply, so a map assembled from its table
-// equals the per-point maps above bit for bit. Rows past the map's width
-// are 0 * 0 (up to 512 rows: the widest F tile of B1/B2's chunked
-// layout). The ILR table follows
+// equals the plain versions' maps (family_estep.py) bit for bit. Rows
+// past the map's width are 0 * 0 (up to 512 rows: the widest F tile of
+// B1/B2's chunked layout). The ILR table follows
 // mimo_tpu/ops/family_estep.py::_product_features_t over
 // (gauss_features_t, linear_features_t(affine)): [1; x; x (x) x;
 // y (x) xa; xa (x) xa; y (x) y] with xa = [x; 1] when affine.
@@ -124,28 +74,23 @@ inline FactorTable factor_table(int kind, int d, int np, int rows) {
   return t;
 }
 
-// theta_k . F for the column `col` (stride kStride), f32 FMA.
-__device__ __forceinline__ float row_dot(const float* th_row,
-                                         const float* col, int m8) {
-  float s = 0.0f;
-  for (int j = 0; j < m8; ++j) s = fmaf(th_row[j], col[j * kStride], s);
-  return s;
-}
-
-// Online logsumexp: fold v into (mx, s), s = sum exp(v_i - mx). Sets
+// Online logsumexp of the serving kernels: fold v into (mx, s), s = sum
+// exp(v_i - mx), with one exp: when v beats the running max the sum is
+// rescaled by exp(mx - v) and gains 1, else it gains exp(v - mx). Sets
 // `scale` to the factor the earlier terms were rescaled by (1 when mx
-// stands, 0 for the first term) and returns exp(v - mx).
+// stands, 0 for the first term) and returns v's weight exp(v - mx)
+// against the new max. The exp is the MUFU's (__expf: within ~2^-21
+// relative where a term weighs, against f32 roundings of 2^-24 in every
+// lw; chip_smoke.py's float64 precision lines hold it).
 __device__ __forceinline__ float online_add(float v, float& mx, float& s,
                                             float& scale) {
-  scale = 1.0f;
-  if (v > mx) {
-    scale = expf(mx - v);
-    s *= scale;
-    mx = v;
-  }
-  const float e = expf(v - mx);
-  s += e;
-  return e;
+  const bool up = v > mx;
+  const float e = __expf(up ? mx - v : v - mx);
+  scale = up ? e : 1.0f;
+  const float w = up ? 1.0f : e;
+  s = s * scale + w;
+  mx = up ? v : mx;
+  return w;
 }
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32 with 10

@@ -8,85 +8,143 @@
 //   lp_k   = aux_k - sum_j h_kj log1p(u_kj),
 //   out[p] = logsumexp_k lp_k,
 // with F = [1; x; x^2] and aux_k the gammaln_diff normaliser plus log w.
-// thu (K d, m8) rows are (k, j) row-major; h (K d) holds 0.5 (df_kj + 1).
+// Row (k, j) of the TPU kernel's thu is a square in x_j alone: its nonzero
+// columns are 0, 1 + j and 1 + d + j. So B4's coefficients are one float4
+// per (k, j), row-major, [th_0, th_{1+j}, th_{1+d+j}, h_kj] with h_kj =
+// 0.5 (df_kj + 1) (ops/cuda_diag_predict.py builds them; its plain version
+// reads the same rows).
 //
-// Quadratic form: the expanded dot over F, as on the TPU, so B4 takes
-// the same coefficient rows and the plain version mirrors the TPU
-// kernel's formulas. Its cancellation (r mu^2 - 2 r mu x + r x^2) costs
-// ~eps r x^2 absolutely; at a fit's scales (r ~ 1/(var N_k)) that is
-// ~1e-5 nats after the factor h ~ N_k / 2, inside the serving tolerance,
-// and each term is one f32 FMA instead of the TPU's bf16 hi/lo passes.
+// Quadratic form: the expanded form, as on the TPU, summed in column order
+// th_0 + th_{1+j} x_j + th_{1+d+j} x_j^2 (the TPU's full dot adds exact
+// zeros besides). Its cancellation (r mu^2 - 2 r mu x + r x^2) costs
+// ~eps r x^2 absolutely; chip_smoke.py's float64 precision line holds the
+// kernel to the f32 plain version's error, 10 sigma off the origin too.
 //
-// What bounds it on the H100: the SFU and FMA pipes, not memory. A point
-// is 4 d bytes in and 4 bytes out against K d dots of depth m8, K d
-// log1p and ~K exp.
+// What bounds it on the H100: the SFU, not memory. A point is 4 d bytes in
+// and 4 bytes out against K d log1p and K exp.
 //
-// Design: each point is independent, so one thread owns whole points in
-// a grid-stride loop (the tail is masked by n); thu, h and aux are
-// staged in shared memory and read as warp-wide broadcasts; F is one
-// shared-memory column per thread; K is streamed once with a running
-// max and rescaled sum (online logsumexp), so no (K, B) array exists.
-#include "common.cuh"
+// Design (serving.cuh): the (k, j) float4s and aux are staged through
+// shared memory in K-chunks, so any K launches; K is folded once per point
+// with the online logsumexp. At d <= 8 x lives in registers and a thread
+// owns 2-4 points; wider d reads x_j where it lies.
+#include "serving.cuh"
 
 namespace {
 
+__host__ __device__ constexpr int points_per_thread(int d) {
+  return d <= 2 ? 4 : 2;
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 diag_predict_kernel(const float* __restrict__ xt, long long ld, int d,
-                    long long n, const float* __restrict__ thu, int k,
-                    int m8, const float* __restrict__ h,
-                    const float* __restrict__ aux, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int kd = k * d;
-  float* th = smem;               // (k d, m8)
-  float* hh = th + kd * m8;       // (k d)
-  float* ax = hh + kd;            // (k)
-  float* F = ax + k;              // (m8, kStride)
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kd * m8; i += kThreads) th[i] = thu[i];
-  for (int i = tid; i < kd; i += kThreads) hh[i] = h[i];
-  for (int i = tid; i < k; i += kThreads) ax[i] = aux[i];
-  __syncthreads();
+                    long long n, const float* __restrict__ th, int k,
+                    const float* __restrict__ aux, Plan pl,
+                    float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  constexpr int PTS = D > 0 ? points_per_thread(D) : 1;
+  constexpr int DX = D > 0 ? D : 1;
+  const Strip s[2] = {{th, 4 * d, 1}, {aux, 1, 1}};
+  const long long tile = (long long)kThreads * PTS;
+  float x[PTS][DX], mx[PTS], sum[PTS];
+  long long base = 0;
+  for_tiles_and_chunks(
+      s, pl, k, (n + tile - 1) / tile, reinterpret_cast<float*>(smem4),
+      [&](long long t) {
+        base = t * tile + threadIdx.x;
+#pragma unroll
+        for (int i = 0; i < PTS; ++i) {
+          const long long p = base + i * kThreads;
+          mx[i] = -INFINITY;
+          sum[i] = 0.0f;
+          if constexpr (D > 0) {
+#pragma unroll
+            for (int a = 0; a < D; ++a) x[i][a] = p < n ? xt[a * ld + p] : 0.0f;
+          }
+        }
+      },
+      [&](const View& v, int k0, int k1) {
+        for (int kk = k0; kk < k1; ++kk) {
+          const int c = kk - k0;
+          const float4* rows =
+              reinterpret_cast<const float4*>(v.p[0]) + (long long)c * d;
+          float scale;
+          if constexpr (D > 0) {
+            float lp[PTS];
+#pragma unroll
+            for (int i = 0; i < PTS; ++i) lp[i] = v.p[1][c];
+#pragma unroll
+            for (int j = 0; j < D; ++j) {
+              const float4 r = rows[j];   // [th_0, th_{1+j}, th_{1+d+j}, h]
+#pragma unroll
+              for (int i = 0; i < PTS; ++i) {
+                const float xj = x[i][j];
+                const float u = fmaf(r.z, xj * xj, fmaf(r.y, xj, r.x));
+                lp[i] -= r.w * log1pf(fmaxf(u, 0.0f));
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < PTS; ++i)
+              online_add(lp[i], mx[i], sum[i], scale);
+          } else if (base < n) {
+            float lp = v.p[1][c];
+            for (int j = 0; j < d; ++j) {
+              const float4 r = rows[j];
+              const float xj = xt[j * ld + base];
+              const float u = fmaf(r.z, xj * xj, fmaf(r.y, xj, r.x));
+              lp -= r.w * log1pf(fmaxf(u, 0.0f));
+            }
+            online_add(lp, mx[0], sum[0], scale);
+          }
+        }
+      },
+      [&]() {
+#pragma unroll
+        for (int i = 0; i < PTS; ++i) {
+          const long long p = base + i * kThreads;
+          if (p < n) out[p] = mx[i] + logf(sum[i]);
+        }
+      });
+}
 
-  float* col = F + tid;
-  const long long step = (long long)gridDim.x * kThreads;
-  for (long long p = (long long)blockIdx.x * kThreads + tid; p < n;
-       p += step) {
-    diag_features(xt, ld, d, p, col, m8);
-    float mx = -INFINITY, s = 0.0f, scale;
-    for (int kk = 0; kk < k; ++kk) {
-      float lp = ax[kk];
-      for (int j = 0; j < d; ++j) {
-        const int r = kk * d + j;
-        const float u = fmaxf(row_dot(th + r * m8, col, m8), 0.0f);
-        lp -= hh[r] * log1pf(u);
-      }
-      online_add(lp, mx, s, scale);
-    }
-    out[p] = mx + logf(s);
-  }
+template <int D>
+cudaError_t launch_diag_predict(const float* xt, long long ld, int d,
+                                long long n, const float* th, int k,
+                                const float* aux, float* out,
+                                cudaStream_t st) {
+  constexpr int PTS = D > 0 ? points_per_thread(D) : 1;
+  const Strip s[2] = {{th, 4 * d, 1}, {aux, 1, 1}};
+  const Plan pl = make_plan(s, 2, k);
+  const size_t smem = plan_bytes(pl, 2);
+  const long long tile = (long long)kThreads * PTS;
+  int grid = 0;
+  cudaError_t err = serving_launch_grid(diag_predict_kernel<D>, smem,
+                                        (n + tile - 1) / tile, &grid);
+  if (err != cudaSuccess) return err;
+  diag_predict_kernel<D><<<grid, kThreads, smem, st>>>(xt, ld, d, n, th, k,
+                                                       aux, pl, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" size_t mimo_diag_predict_smem_bytes(int k, int d, int m8) {
-  return sizeof(float) * ((size_t)k * d * (m8 + 1) + (size_t)k +
-                          (size_t)m8 * kStride);
-}
-
-// xt (d, ld) f32, points 0..n-1; thu (k d, m8) f32; h (k d) f32; aux (k)
-// f32; out (n,) f32. Returns a cudaError_t code.
+// xt (d, ld) f32, points 0..n-1; th (k d, 4) f32, row (k, j) = [th_0,
+// th_{1+j}, th_{1+d+j}, h] of the (k, j) quad row over [1; x; x^2] and its
+// tail exponent; aux (k) f32; out (n,) f32. Returns a cudaError_t code.
 extern "C" int mimo_diag_predict(const float* xt, long long ld, int d,
-                                 long long n, const float* thu, int k, int m8,
-                                 const float* h, const float* aux, float* out,
-                                 int grid, void* stream) {
+                                 long long n, const float* th, int k,
+                                 const float* aux, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m8 < feature_width(kKindDiag, d, 0)) return cudaErrorInvalidValue;
-  const size_t smem = mimo_diag_predict_smem_bytes(k, d, m8);
-  cudaError_t err = cudaFuncSetAttribute(
-      diag_predict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  diag_predict_kernel<<<grid, kThreads, smem, s>>>(xt, ld, d, n, thu, k, m8,
-                                                   h, aux, out);
-  return cudaGetLastError();
+  if (k < 1 || d < 1) return cudaErrorInvalidValue;
+  switch (d) {
+    case 1: return launch_diag_predict<1>(xt, ld, d, n, th, k, aux, out, s);
+    case 2: return launch_diag_predict<2>(xt, ld, d, n, th, k, aux, out, s);
+    case 3: return launch_diag_predict<3>(xt, ld, d, n, th, k, aux, out, s);
+    case 4: return launch_diag_predict<4>(xt, ld, d, n, th, k, aux, out, s);
+    case 5: return launch_diag_predict<5>(xt, ld, d, n, th, k, aux, out, s);
+    case 6: return launch_diag_predict<6>(xt, ld, d, n, th, k, aux, out, s);
+    case 7: return launch_diag_predict<7>(xt, ld, d, n, th, k, aux, out, s);
+    case 8: return launch_diag_predict<8>(xt, ld, d, n, th, k, aux, out, s);
+    default: return launch_diag_predict<0>(xt, ld, d, n, th, k, aux, out, s);
+  }
 }

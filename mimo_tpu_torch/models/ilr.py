@@ -195,16 +195,17 @@ class BayesianILR(BayesianMixture):
     def mixture_moments(mus, covars, weights, diag=False):
         """Moment matching of a mixture of predictives with full (N, K, p,
         p) or, with `diag`, diagonal (N, K, p) covariances; weights
-        (N, K)."""
+        (N, K). The covariance in the centred form sum_k w_k (cov_k +
+        (mu_k - mu)(mu_k - mu)'), which does not cancel where the means
+        sit far from 0 against their spread as E[cov + mu mu'] - mu mu'
+        does (the kernels' plain versions take the same form)."""
         mu = torch.einsum('nkp,nk->np', mus, weights)
+        dev = mus - mu[:, None]
         if diag:
-            second = covars + torch.square(mus)
-            return mu, (torch.einsum('nkp,nk->np', second, weights)
-                        - torch.square(mu))
-        second = covars + mus[..., :, None] * mus[..., None, :]
-        cov = (torch.einsum('nkpr,nk->npr', second, weights)
-               - mu[..., :, None] * mu[..., None, :])
-        return mu, cov
+            return mu, torch.einsum('nkp,nk->np', covars + torch.square(dev),
+                                    weights)
+        second = covars + dev[..., :, None] * dev[..., None, :]
+        return mu, torch.einsum('nkpr,nk->npr', second, weights)
 
     def log_predictive_likelihood(self, state: MFState, x, y,
                                   dist='studentt'):

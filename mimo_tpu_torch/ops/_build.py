@@ -41,13 +41,12 @@ _SIGNATURES = {
     'mimo_gibbs': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _P,
                         _P, _I, _P]),
     'mimo_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I, _P,
-                          _I, _P]),
-    'mimo_diag_predict': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _P, _P, _P,
-                               _I, _P]),
+                          _P]),
+    'mimo_diag_predict': (_I, [_P, _I64, _I, _I64, _P, _I, _P, _P, _P]),
     'mimo_ilr_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I,
-                              _P, _I, _P]),
+                              _P, _P]),
     'mimo_ilr_p_predict': (_I, [_P, _I64, _I, _I, _I, _I, _I64, _P, _I, _I,
-                                _P, _P, _I, _P, _I, _P]),
+                                _P, _P, _I, _P, _P, _P]),
     'mimo_regf': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _I, _P, _P, _I, _P]),
     'mimo_estep_count': (_I, [_P, _I64, _I, _I64, _P, _I, _P, _I, _I, _P,
                               _P, _I, _P]),
@@ -57,10 +56,6 @@ _SIGNATURES = {
     'mimo_gibbs_smem_bytes': (_SZ, [_I, _I, _I]),
     'mimo_estep_grid': (_I, [_I, _I, _I, _I64]),
     'mimo_gibbs_grid': (_I, [_I, _I, _I, _I64]),
-    'mimo_predict_smem_bytes': (_SZ, [_I, _I]),
-    'mimo_diag_predict_smem_bytes': (_SZ, [_I, _I, _I]),
-    'mimo_ilr_predict_smem_bytes': (_SZ, [_I, _I]),
-    'mimo_ilr_p_predict_smem_bytes': (_SZ, [_I, _I, _I, _I, _I]),
     'mimo_error_string': (ctypes.c_char_p, [_I]),
 }
 
@@ -126,16 +121,18 @@ def _refuse(what, theta, desc, smem_bytes, limit, name):
         f'block can use on {name}; wider shapes are not supported yet')
 
 
-def check_launch(what, xt, n, theta, smem_bytes, width, desc):
-    """check_inputs, then refuse a shape whose staged shared memory
-    (`smem_bytes`) a block cannot have. Returns the launch grid of the
-    predictive kernels: blocks grid-stride over tiles of 128 points."""
+def check_serving(what, xt, n, theta, width, desc, aux=None):
+    """check_inputs for a serving kernel (B3-B6), which takes every K and
+    d (csrc/serving.cuh streams the coefficients in K-chunks): theta's m8
+    columns must be a multiple of 8 and theta and the (K, 8) aux rows
+    16-byte aligned (the kernels read rows as float4)."""
     check_inputs(what, xt, n, theta, width, desc)
-    props = torch.cuda.get_device_properties(xt.device)
-    limit = props.shared_memory_per_block_optin
-    if smem_bytes > limit:
-        _refuse(what, theta, desc, smem_bytes, limit, props.name)
-    return max(1, min(4 * props.multi_processor_count, -(-n // 128)))
+    if theta.shape[1] % 8:
+        raise ValueError(f'{what}: {theta.shape[1]} coefficient columns, '
+                         'not a multiple of 8')
+    for t in (theta, aux):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f'{what}: coefficients must be 16-byte aligned')
 
 
 def tc_grid(what, lib, grid_fn, smem_fn, xt, n, theta, desc):

@@ -5,10 +5,11 @@ mimo_tpu/ops/pallas_predict.py::_diag_predict_kernel.
 
 A component's predictive is a product of per-dimension univariate t's,
 so per point: u_kj = max(thu_kj . F, 0) over F = [1; x; x^2] (the scaled
-quads (lam_kj / df_kj) (x_j - mu_kj)^2), lp_k = aux_k - sum_j h_kj
-log1p(u_kj), and out = logsumexp over K. The (N, K) matrix never exists
-on the card. What bounds B4 on the H100 and what it does about it: see
-the note at the top of csrc/diag_predict.cu.
+quads (lam_kj / df_kj) (x_j - mu_kj)^2, each read from its three nonzero
+columns), lp_k = aux_k - sum_j h_kj log1p(u_kj), and out = logsumexp
+over K. The (N, K) matrix never exists on the card. What bounds B4 on
+the H100 and what it does about it: see the note at the top of
+csrc/diag_predict.cu.
 
 `diag_predictive_cuda` is the counterpart of mimo_tpu's
 diag_predictive_pallas: 'studentt' through B4, 'gaussian' through B3
@@ -21,79 +22,74 @@ import torch
 
 from mimo_tpu_torch.distributions.ng import predictive_studentt_params
 from mimo_tpu_torch.ops import _build, cuda_predict
-from mimo_tpu_torch.ops.cuda_estep import (
-    _CHUNK, DIAG, assemble_features, feature_width)
+from mimo_tpu_torch.ops.cuda_estep import _CHUNK, DIAG
 from mimo_tpu_torch.utils.stats import gammaln_diff
 
 launches = 0          # kernel launches by `diag_predict`, for run accounting
 
 
 def diag_predict_coefficients(post, log_w):
-    """(thu (K d, m8), h (K d), aux (K)) of B4 for an NG posterior, in the
-    posterior's dtype (mimo_tpu's diag_predictive_pallas, Student-t):
-    row (k, j) of thu is r_kj (x_j - mu_kj)^2 with r = lam / df, expanded
-    over [1; x; x^2]; h = (df + 1) / 2; aux = the per-component sum of the
-    per-dim normalisers plus log w."""
+    """(rows (K d, 4), aux (K)) of B4 for an NG posterior, in the
+    posterior's dtype (mimo_tpu's diag_predictive_pallas, Student-t).
+    Row (k, j) of the TPU kernel's thu is r_kj (x_j - mu_kj)^2 with r =
+    lam / df, expanded over [1; x; x^2]; its nonzero columns 0, 1 + j and
+    1 + d + j and the tail exponent h_kj = (df_kj + 1) / 2 make B4's row
+    [r mu^2, -2 r mu, r, h]; aux = the per-component sum of the per-dim
+    normalisers plus log w."""
     mu, lam, df = predictive_studentt_params(post)       # (K, d) each
     k, d = mu.shape
-    m = 1 + 2 * d
-    m8 = -(-m // 8) * 8
     r = lam / df
-    eye = torch.eye(d, dtype=mu.dtype, device=mu.device)
-    thu = torch.cat([(r * mu * mu).reshape(k * d, 1),
-                     ((-2.0 * r * mu)[:, :, None] * eye).reshape(k * d, d),
-                     (r[:, :, None] * eye).reshape(k * d, d),
-                     mu.new_zeros((k * d, m8 - m))], -1)
-    h = (0.5 * (df + 1.0)).reshape(k * d)
+    rows = torch.stack([r * mu * mu, -2.0 * r * mu, r, 0.5 * (df + 1.0)], -1)
     aux = (torch.sum(gammaln_diff(0.5 * df, 0.5)
                      + 0.5 * (torch.log(lam) - torch.log(df)
                               - math.log(math.pi)), -1) + log_w)
-    return thu.contiguous(), h.contiguous(), aux.contiguous()
+    return rows.reshape(k * d, 4).contiguous(), aux.contiguous()
 
 
-def diag_predict_plain(xt, thu, h, aux, n):
-    """Plain PyTorch version of B4: xt (d, >=n), thu (K d, m8), h (K d),
-    aux (K) -> (n,) mixture log-densities, in chunks of points."""
+def diag_predict_plain(xt, rows, aux, n):
+    """Plain PyTorch version of B4: xt (d, >=n), rows (K d, 4), aux (K)
+    -> (n,) mixture log-densities, in chunks of points. Each scaled quad
+    is the product of row (k, j)'s first three columns with [1; x_j;
+    x_j^2], one batched matmul over j: the TPU kernel's dot over [1; x;
+    x^2] without its zero terms."""
     k, d = aux.shape[0], xt.shape[0]
-    out = torch.empty((n,), dtype=thu.dtype, device=thu.device)
+    th = rows.reshape(k, d, 4).transpose(0, 1)              # (d, K, 4)
+    r, h = th[..., :3].contiguous(), th[..., 3:]
+    out = torch.empty((n,), dtype=rows.dtype, device=rows.device)
     for s in range(0, n, _CHUNK):
-        f = assemble_features(xt[:, s:min(s + _CHUNK, n)], thu.shape[1],
-                              DIAG)
-        u = torch.clamp(thu @ f, min=0.0)                 # (K d, B)
-        t = h[:, None] * torch.log1p(u)
-        lp = aux[:, None] - torch.sum(t.reshape(k, d, -1), 1)
-        out[s:s + f.shape[1]] = torch.logsumexp(lp, 0)
+        x = xt[:, s:min(s + _CHUNK, n)].to(rows.dtype)      # (d, B)
+        f = torch.stack([torch.ones_like(x), x, x * x], 1)   # (d, 3, B)
+        u = torch.clamp(torch.bmm(r, f), min=0.0)            # (d, K, B)
+        lp = aux[:, None] - torch.sum(h * torch.log1p(u), 0)
+        out[s:s + x.shape[1]] = torch.logsumexp(lp, 0)
     return out
 
 
-def diag_predict(xt, thu, h, aux, n):
+def diag_predict(xt, rows, aux, n):
     """B4 over points 0..n-1 of xt (d, >=n). Launches the kernel for CUDA
     tensors (float32 only; it raises on anything it does not take) and
     runs `diag_predict_plain` for CPU tensors. Returns (n,)
     log-densities."""
     global launches
     if not xt.is_cuda:
-        return diag_predict_plain(xt, thu, h, aux, n)
+        return diag_predict_plain(xt, rows, aux, n)
     lib = _build.load()
     k, d = aux.shape[0], xt.shape[0]
-    m8 = thu.shape[1]
-    grid = _build.check_launch('cuda_diag_predict', xt, n, thu,
-                               lib.mimo_diag_predict_smem_bytes(k, d, m8),
-                               feature_width(DIAG, d), f'diag map, d={d}')
-    if thu.shape[0] != k * d:
-        raise ValueError(f'cuda_diag_predict: {thu.shape[0]} coefficient '
-                         f'rows, the kernel reads K d = {k * d}')
-    for name, t, size in (('h', h, k * d), ('aux', aux, k)):
-        if (t.dtype != torch.float32 or t.shape != (size,)
-                or not t.is_contiguous() or t.device != xt.device):
-            raise ValueError(f'cuda_diag_predict: {name} must be a '
-                             f'contiguous ({size},) float32 tensor on the '
-                             "data's device")
+    _build.check_inputs('cuda_diag_predict', xt, n, rows, 4,
+                        f'diag rows, d={d}')
+    if rows.shape != (k * d, 4) or rows.data_ptr() % 16:
+        raise ValueError(f'cuda_diag_predict: rows must be (K d, 4) = '
+                         f'({k * d}, 4) and 16-byte aligned, got '
+                         f'{tuple(rows.shape)}')
+    if (aux.dtype != torch.float32 or aux.shape != (k,)
+            or not aux.is_contiguous() or aux.device != xt.device):
+        raise ValueError(f'cuda_diag_predict: aux must be a contiguous '
+                         f"({k},) float32 tensor on the data's device")
     out = torch.empty((n,), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_diag_predict(xt.data_ptr(), xt.stride(0), d, n,
-                                   thu.data_ptr(), k, m8, h.data_ptr(),
-                                   aux.data_ptr(), out.data_ptr(), grid,
+                                   rows.data_ptr(), k, aux.data_ptr(),
+                                   out.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_diag_predict')
     launches += 1
@@ -113,6 +109,5 @@ def diag_predictive_cuda(post, log_w, x, dist='studentt'):
         thq, aux = cuda_predict.diag_gaussian_coefficients(post, log_w)
         return cuda_predict.predict(xt, thq.to(x.dtype), aux.to(x.dtype),
                                     x.shape[0], False, DIAG)
-    thu, h, aux = diag_predict_coefficients(post, log_w)
-    return diag_predict(xt, thu.to(x.dtype), h.to(x.dtype), aux.to(x.dtype),
-                        x.shape[0])
+    rows, aux = diag_predict_coefficients(post, log_w)
+    return diag_predict(xt, rows.to(x.dtype), aux.to(x.dtype), x.shape[0])

@@ -1,5 +1,5 @@
 """Kernels B5 and B6, fused ILR posterior-predictive regression
-(csrc/ilr_predict.cu), with their plain PyTorch versions and the
+(csrc/ilr_predict.cuh), with their plain PyTorch versions and the
 coefficient builders. Replace mimo_tpu/ops/pallas_predict.py::
 _ilr_predict_kernel (B5, p = 1 experts) and ::_ilr_p_predict_kernel
 (B6, p > 1, MNW or MNG experts).
@@ -10,7 +10,7 @@ expert's, prediction='mode') and, with y, the negative log predictive
 density; the (N, K) intermediates never exist on the card. Everything is
 in standardized units: the model applies the output transform and the
 NLPD Jacobian. What bounds the kernels on the H100 and what they do about
-it: see the note at the top of csrc/ilr_predict.cu.
+it: see the note at the top of csrc/ilr_predict.cuh.
 
 The coefficient functions cover every basis and expert a model makes:
 an NIW or HierTied basis (`cuda_predict.basis_studentt_params`, the two
@@ -30,7 +30,8 @@ from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import _CHUNK, assemble_features, pad_rows
 from mimo_tpu_torch.ops.cuda_predict import predictive_coefficients
-from mimo_tpu_torch.ops.family_estep import _rows_outer, gauss_width
+from mimo_tpu_torch.ops.family_estep import (
+    _rows_outer, gauss_features_t, gauss_width)
 from mimo_tpu_torch.utils.linalg import inv_psd, logdet_psd
 from mimo_tpu_torch.utils.stats import gammaln_diff
 
@@ -65,6 +66,16 @@ def _weights(lw, hard):
         w = torch.nn.functional.one_hot(torch.argmax(lw, 0), lw.shape[0])
         return w.T.to(lw.dtype), lse_w
     return ew * (1.0 / denom), lse_w
+
+
+def _moments(w, mu, cvc):
+    """(mean, var) (B,) of the mixture of experts with weights w, means mu
+    and variances cvc (each (K, B)), var in the centred form sum_k w_k
+    (cvc_k + (mu_k - mean)^2): E[cvc + mu^2] - mean^2 cancels down to the
+    rounding of mean^2 where |mean| is large against the spread. With
+    one-hot w it is the chosen expert's cvc exactly."""
+    mean = torch.sum(w * mu, 0)
+    return mean, torch.sum(w * (cvc + (mu - mean) ** 2), 0)
 
 
 def _basis_rows(basis_post, log_w):
@@ -148,7 +159,9 @@ def ilr_p_predict_coefficients(basis_post, models_post, log_w, affine=True,
     (K); expert means (p K, row j K + k)] and, with y, the MVT quad
     (y - mu)' psi (y - mu) (K rows, MNW) or the scaled per-output quads
     (y_j - mu_kj)^2 / (2 beta_kj) (p K rows, j-major, MNG), over the
-    joint map with y and over [1; x; x (x) x] without. aux cols [log w +
+    joint map with y and over [1; x; x (x) x] without; the basis, c and
+    mean rows are read over their Gauss-map columns only (their y
+    columns are zero). aux cols [log w +
     basis aux, basis h, basis 1/df, y_aux, y_h, 0, 0, 0] (y_h = 0 for
     MNG). vc: the per-output variance coefficients (var_kj = c_k vc_kj),
     (K, p) for MNW and (K, 2p) [vcoef | h] for MNG, h_kj = alpha_kj + 1/2
@@ -229,10 +242,7 @@ def ilr_predict_plain(xt, th, aux, n, has_y, hard):
         mu = z[2 * k:]
         lw = aux[:, 0:1] - aux[:, 1:2] * torch.log1p(qb * aux[:, 2:3])
         w, lse_w = _weights(lw, hard)
-        mean = torch.sum(w * mu, 0)
-        second = torch.sum(w * (c * aux[:, 3:4] + mu * mu), 0)
-        out[0, s:e] = mean
-        out[1, s:e] = torch.clamp(second - mean * mean, min=0.0)
+        out[0, s:e], out[1, s:e] = _moments(w, mu, c * aux[:, 3:4])
         out[3, s:e] = lse_w
         if has_y:
             yc = xt[d:d + 1, s:e] - mu
@@ -252,16 +262,14 @@ def ilr_predict(xt, th, aux, n, has_y, hard):
     lib = _build.load()
     k, m8 = aux.shape[0], th.shape[1]
     d = xt.shape[0] - int(has_y)
-    grid = _build.check_launch('cuda_ilr_predict', xt, n, th,
-                               lib.mimo_ilr_predict_smem_bytes(k, m8),
-                               gauss_width(d), f'gauss map, d={d}')
     _check_rows('cuda_ilr_predict', th, 3 * k, aux, xt)
+    _build.check_serving('cuda_ilr_predict', xt, n, th, gauss_width(d),
+                         f'gauss map, d={d}', aux)
     out = torch.empty((4, n), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_ilr_predict(xt.data_ptr(), xt.stride(0), d,
                                   int(has_y), n, th.data_ptr(), k, m8,
                                   aux.data_ptr(), int(hard), out.data_ptr(),
-                                  grid,
                                   torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_ilr_predict')
     launches['ilr_predict'] += 1
@@ -272,39 +280,38 @@ def ilr_predict(xt, th, aux, n, has_y, hard):
 
 def ilr_p_predict_plain(xt, th, aux, vc, n, p, has_y, hard):
     """Plain PyTorch version of B6: xt (d + has_y p, >=n), th (see
-    `ilr_p_predict_coefficients`), aux (K, 8), vc (K, p), or (K, 2p) for
-    MNG experts -> out (2p + 2, n) rows [mean (p), var (p), nlpd, lse_w]
-    (nlpd = 0 without y)."""
+    `ilr_p_predict_coefficients`; its basis, c and mean rows read their
+    first 1 + d + d^2 columns, the Gauss map, and its quad rows the joint
+    map), aux (K, 8), vc (K, p), or (K, 2p) for MNG experts -> out
+    (2p + 2, n) rows [mean (p), var (p), nlpd, lse_w] (nlpd = 0 without
+    y)."""
     k, m8 = aux.shape[0], th.shape[1]
     d = xt.shape[0] - (p if has_y else 0)
+    mg, rx = gauss_width(d), (2 + p) * k
     out = torch.zeros((2 * p + 2, n), dtype=th.dtype, device=th.device)
     for s in range(0, n, _CHUNK):
         e = min(s + _CHUNK, n)
         xb = xt[:d, s:e]
-        f = (pad_rows(joint_features_t(xb, xt[d:, s:e]), m8) if has_y
-             else assemble_features(xb, m8))
-        z = th @ f
+        z = th[:rx, :mg] @ gauss_features_t((xb,))
+        if has_y:
+            zq = th[rx:] @ pad_rows(joint_features_t(xb, xt[d:, s:e]), m8)
         qb = torch.clamp(z[:k], min=0.0)
         c = 1.0 + torch.clamp(z[k:2 * k], min=0.0)
         lw = aux[:, 0:1] - aux[:, 1:2] * torch.log1p(qb * aux[:, 2:3])
         w, lse_w = _weights(lw, hard)
         for j in range(p):
-            mu_j = z[(2 + j) * k:(3 + j) * k]
-            mean_j = torch.sum(w * mu_j, 0)
-            second_j = torch.sum(w * (c * vc[:, j:j + 1] + mu_j * mu_j), 0)
-            out[j, s:e] = mean_j
-            out[p + j, s:e] = torch.clamp(second_j - mean_j * mean_j,
-                                          min=0.0)
+            out[j, s:e], out[p + j, s:e] = _moments(
+                w, z[(2 + j) * k:(3 + j) * k], c * vc[:, j:j + 1])
         out[2 * p + 1, s:e] = lse_w
         if has_y:
             inv_c = 1.0 / c
             if vc.shape[1] == 2 * p:    # MNG: product of per-output tails
                 tail = sum(vc[:, p + j:p + j + 1] * torch.log1p(
-                    torch.clamp(z[(2 + p + j) * k:(3 + p + j) * k], min=0.0)
-                    * inv_c) for j in range(p))
+                    torch.clamp(zq[j * k:(j + 1) * k], min=0.0) * inv_c)
+                    for j in range(p))
             else:
-                tail = aux[:, 4:5] * torch.log1p(
-                    torch.clamp(z[(2 + p) * k:], min=0.0) * inv_c)
+                tail = aux[:, 4:5] * torch.log1p(torch.clamp(zq, min=0.0)
+                                                 * inv_c)
             lp_y = aux[:, 3:4] - 0.5 * p * torch.log(c) - tail
             out[2 * p, s:e] = -(torch.logsumexp(lp_y + lw, 0) - lse_w)
     return out
@@ -330,24 +337,23 @@ def ilr_p_predict(xt, th, aux, vc, n, p, has_y, hard):
     diag = vc.shape[-1] == 2 * p
     width, desc = ((joint_width(d, p), f'joint map, d={d}, p={p}') if has_y
                    else (gauss_width(d), f'gauss map, d={d}'))
-    grid = _build.check_launch(
-        'cuda_ilr_p_predict', xt, n, th,
-        lib.mimo_ilr_p_predict_smem_bytes(k, m8, p, int(has_y), int(diag)),
-        width, desc)
     _check_rows('cuda_ilr_p_predict', th, p_predict_rows(k, p, has_y, diag),
                 aux, xt)
+    _build.check_serving('cuda_ilr_p_predict', xt, n, th, width, desc, aux)
     if (vc.dtype != torch.float32 or vc.shape not in ((k, p), (k, 2 * p))
             or not vc.is_contiguous() or vc.device != xt.device):
         raise ValueError('cuda_ilr_p_predict: vc must be a contiguous '
                          "(K, p) or (K, 2p) float32 tensor on the data's "
                          'device')
     out = torch.empty((2 * p + 2, n), dtype=torch.float32, device=xt.device)
+    # the runtime-width kernel keeps each point's reference means here
+    refs = torch.empty((p, n), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_ilr_p_predict(xt.data_ptr(), xt.stride(0), d, p,
                                     int(has_y), int(diag), n, th.data_ptr(),
                                     k, m8,
                                     aux.data_ptr(), vc.data_ptr(), int(hard),
-                                    out.data_ptr(), grid,
+                                    out.data_ptr(), refs.data_ptr(),
                                     torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_ilr_p_predict')
     launches['ilr_p_predict'] += 1

@@ -58,19 +58,17 @@ def predict(xt, thq, aux, n, studentt=True, kind=GAUSS):
     lib = _build.load()
     k, m8 = thq.shape
     d = xt.shape[0]
-    grid = _build.check_launch('cuda_predict', xt, n, thq,
-                               lib.mimo_predict_smem_bytes(k, m8),
-                               feature_width(kind, d),
-                               f'{KIND_NAMES[kind]} map, d={d}')
     if (aux.dtype != torch.float32 or aux.shape != (k, 8)
             or not aux.is_contiguous() or aux.device != xt.device):
         raise ValueError('cuda_predict: aux must be a contiguous (K, 8) '
                          "float32 tensor on the data's device")
+    _build.check_serving('cuda_predict', xt, n, thq, feature_width(kind, d),
+                         f'{KIND_NAMES[kind]} map, d={d}', aux)
     out = torch.empty((n,), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_predict(xt.data_ptr(), xt.stride(0), d, kind, n,
                               thq.data_ptr(), k, m8, aux.data_ptr(),
-                              int(studentt), out.data_ptr(), grid,
+                              int(studentt), out.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_predict')
     launches[KIND_NAMES[kind]] += 1

@@ -63,6 +63,19 @@ def device_split(fn, units, kernel):
     return busy / units, kern / units, (busy - kern) / units, count / units
 
 
+def serving_data(g, n, d, p, dev):
+    """The serving cells' data: the sine flagship (p = 1: x ~ U(-6, 6),
+    y = sin x + 0.1 eps) or y = tanh(x w) + 0.1 eps, x ~ U(-3, 3)^d."""
+    if p == 1:
+        x = torch.rand((n, 1), generator=g, device=dev) * 12 - 6
+        return x, torch.sin(x) + 0.1 * torch.randn((n, 1), generator=g,
+                                                   device=dev)
+    x = torch.rand((n, d), generator=g, device=dev) * 6 - 3
+    w = torch.randn((d, p), generator=g, device=dev)
+    return x, torch.tanh(x @ w) + 0.1 * torch.randn((n, p), generator=g,
+                                                    device=dev)
+
+
 def report(card, cell, unit, fn, units, kernel):
     fn()                                    # warm
     wall = wall_ms(fn, units)
@@ -141,20 +154,36 @@ def main():
     del x, y, m, st, gs
     torch.cuda.empty_cache()
 
+    # the ILR serving cells of chip_smoke.py phases 9 and 12, MNW and MNG
+    # experts: the sine flagship (Gibbs 10 -> VI 20) and p>1 serving
+    # (VI 20), one predict call each (weights, moments and NLPD)
+    for diag in (False, True):
+        for n, d, p in ((N_SINE, 1, 1), (N_P3, 2, 3)):
+            x, y = serving_data(torch.Generator(device=dev).manual_seed(5),
+                                n, d, p, dev)
+            m = BayesianILR.make(size=K, input_dim=d, output_dim=p,
+                                 alpha=2.0, kappa=0.05 if p == 1 else 0.1,
+                                 diag=diag, device=dev)
+            m.init_transform(x, y)
+            init = None
+            if p == 1:
+                gs = m.fit_gibbs_fused((x, y), key=0, maxiter=10)
+                init = MFState(gs.components, gs.gating)
+            st, _ = m.fit_vi_fused((x, y), key=1, maxiter=20,
+                                   randomize=init is None, init_state=init)
+            cell = (f'ILR {"sine" if p == 1 else "p>1"}'
+                    f'{", MNG experts" if diag else ""} N={n} d={d} p={p}')
+            report(card, cell, 'predict call', lambda: m.predict(st, x, y), 1,
+                   'ilr_predict_kernel' if p == 1 else 'ilr_p_predict_kernel')
+            del x, y, m, st
+            torch.cuda.empty_cache()
+
     # the tied-activation ILR cells
     for n, d, p in ((N_SINE, 1, 1), (N_P3, 2, 3)):
-        g = torch.Generator(device=dev).manual_seed(7)
-        if p == 1:
-            x = torch.rand((n, 1), generator=g, device=dev) * 12 - 6
-            y = torch.sin(x) + 0.1 * torch.randn((n, 1), generator=g,
-                                                 device=dev)
-            kw = dict(alpha=5.0, kappa=0.05, maxsubiter=10)
-        else:
-            x = torch.rand((n, d), generator=g, device=dev) * 6 - 3
-            w = torch.randn((d, p), generator=g, device=dev)
-            y = torch.tanh(x @ w) + 0.1 * torch.randn((n, p), generator=g,
-                                                      device=dev)
-            kw = dict(alpha=2.0, kappa=0.1)
+        x, y = serving_data(torch.Generator(device=dev).manual_seed(7), n, d,
+                            p, dev)
+        kw = (dict(alpha=5.0, kappa=0.05, maxsubiter=10) if p == 1
+              else dict(alpha=2.0, kappa=0.1))
         m = BayesianILR.make(size=K, input_dim=d, output_dim=p,
                              tied_affine=True, hier_basis=True, device=dev,
                              **kw)

@@ -335,20 +335,49 @@ def test_diag_predictive_matches_jax_dense_f64(dist, route):
                                atol=1e-10)
 
 
+@pytest.mark.parametrize('dist', ['studentt', 'gaussian'])
+def test_diag_predictive_plain_matches_pallas_interpret_wide(dist):
+    """B4 (and B3-diag) at K=64, d=32, a shape whose coefficients, staged
+    whole, once passed a block's shared memory: plain versions against
+    diag_predictive_pallas in interpret mode, 256 points."""
+    rng = np.random.default_rng(9)
+    k, d = 64, 32
+    x = rng.standard_normal((256, d)) * 2
+    arrays = dict(mu=rng.standard_normal((k, d)) * 2,
+                  kappa=rng.uniform(1, 20, (k, d)),
+                  alpha=rng.uniform(2, 40, (k, d)),
+                  beta=rng.uniform(0.5, 5, (k, d)))
+    log_w = np.log(rng.dirichlet(np.ones(k)))
+    want = diag_predictive_pallas(_post(arrays, jng.NG, jnp.float32),
+                                  jnp.asarray(log_w, jnp.float32),
+                                  jnp.asarray(x, jnp.float32),
+                                  block_size=256, dist=dist)
+    got = cuda_diag_predict.diag_predictive_cuda(
+        _post(arrays, NG, torch.float32),
+        torch.tensor(log_w, dtype=torch.float32),
+        torch.tensor(x, dtype=torch.float32), dist)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_b4_coefficients_reproduce_the_scaled_quads():
-    """thu . [1, x, x^2] = (lam / df)(x - mu)^2 per (component, dim)."""
+    """Row (k, j) = [th_0, th_1, th_2, h] with th_0 + th_1 x_j + th_2 x_j^2
+    = (lam / df)(x_j - mu)^2 per (component, dim) and h = (df + 1) / 2."""
     rng = np.random.default_rng(6)
     post = _post(_ng_arrays(rng, 4, 3), NG, torch.float64)
-    thu, h, aux = cuda_diag_predict.diag_predict_coefficients(
+    rows, aux = cuda_diag_predict.diag_predict_coefficients(
         post, torch.zeros(4, dtype=torch.float64))
-    assert thu.shape == (12, 8) and h.shape == (12,) and aux.shape == (4,)
+    assert rows.shape == (12, 4) and aux.shape == (4,)
     mu, lam, df = tfe._ng.predictive_studentt_params(post)
     x = torch.tensor(rng.standard_normal((9, 3)))
-    f = tfe.diag_gauss_features_t((x.T,))
-    want = (lam / df)[None] * (x[:, None, :] - mu[None]) ** 2   # (N, K, d)
-    np.testing.assert_allclose((thu[:, :7] @ f).T.reshape(9, 4, 3).numpy(),
-                               want.numpy(), rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(h.numpy(), (0.5 * (df + 1)).reshape(-1))
+    th = rows.reshape(4, 3, 4)
+    got = th[None, ..., 0] + th[None, ..., 1] * x[:, None] \
+        + th[None, ..., 2] * x[:, None] ** 2                   # (N, K, d)
+    want = (lam / df)[None] * (x[:, None, :] - mu[None]) ** 2
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(rows[:, 3].numpy(),
+                               (0.5 * (df + 1)).reshape(-1))
 
 
 # -- kernels B5 and B6 with MNG experts ---------------------------------------
@@ -420,6 +449,46 @@ def test_mng_plain_kernels_match_pallas_interpret(d, p, prediction, has_y):
                                    rtol=1e-3, atol=2e-3)
     else:
         assert got[2] is None and want[2] is None
+
+
+def test_mng_p_plain_kernel_matches_pallas_interpret_wide():
+    """B6's MNG tail at K=300, d=2, p=3 (coefficients past what a block
+    once staged whole): the plain version against _ilr_p_predict_pallas
+    in interpret mode, 512 points, with y."""
+    n, k, d, p = 512, 300, 2, 3
+    rng = np.random.default_rng(31)
+    x = rng.uniform(-3, 3, (n, d))
+    y = (np.tanh(x @ rng.standard_normal((d, p))) * 2.0 + 0.5
+         + 0.1 * rng.standard_normal((n, p)))
+    jm = JaxILR.make(size=k, input_dim=d, output_dim=p, alpha=2.0,
+                     kappa=0.05, diag=True, dtype=jnp.float32)
+    jm.init_transform(jnp.asarray(x, jnp.float32), jnp.asarray(y, jnp.float32))
+    anchors = x[rng.choice(n, k, replace=False)]
+    logits = -np.sum((x[:, None, :] - anchors[None]) ** 2, -1) / 0.5
+    resp = np.exp(logits - logits.max(-1, keepdims=True))
+    resp /= resp.sum(-1, keepdims=True)
+    xx_j = jm._tx(jnp.asarray(x, jnp.float32))
+    yy_j = jm._ty(jnp.asarray(y, jnp.float32))
+    st_j = jm._mf_update((xx_j, yy_j), jnp.asarray(resp, jnp.float32))
+    st_t = state_from_numpy(jax.tree.map(np.asarray, st_j))
+    tm = BayesianILR.make(size=k, input_dim=d, output_dim=p, alpha=2.0,
+                          kappa=0.05, diag=True, dtype=torch.float32,
+                          device='cpu')
+    tm.init_transform(torch.as_tensor(x, dtype=torch.float32),
+                      torch.as_tensor(y, dtype=torch.float32))
+    want = _ilr_p_predict_pallas(*st_j.components,
+                                 jm.predictive_log_weights(st_j), xx_j, yy_j,
+                                 True, 256, 'average')
+    got = cuda_ilr_predict.ilr_p_predict_cuda(
+        *st_t.components, tm.predictive_log_weights(st_t),
+        tm._tx(torch.as_tensor(x, dtype=torch.float32)),
+        tm._ty(torch.as_tensor(y, dtype=torch.float32)), True, 'average')
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=2e-3, atol=1e-4)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               rtol=1e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize('case', ['p1-average', 'p1-mode-incremental',

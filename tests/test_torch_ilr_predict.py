@@ -110,6 +110,81 @@ def test_plain_kernels_match_pallas_interpret(d, p, prediction, has_y):
     _assert_serving(got, want, p)
 
 
+@pytest.mark.parametrize('d,p,k', [(8, 1, 200), (2, 3, 300)])
+def test_plain_kernels_match_pallas_interpret_past_the_old_ceiling(d, p, k):
+    """B5 at K=200, d=8 and B6 (MNW) at K=300, d=2, p=3: shapes whose
+    coefficients, staged whole, once passed a block's shared memory (the
+    kernels now stream them in K-chunks). Plain versions against the
+    Pallas kernels in interpret mode, 512 points, with y."""
+    n = 512
+    rng = np.random.default_rng(k)
+    x = rng.uniform(-3, 3, (n, d))
+    y = (np.tanh(x @ rng.standard_normal((d, p))) * 2.0 + 0.5
+         + 0.1 * rng.standard_normal((n, p)))
+    jm, tm, st_j, st_t = _models(d, p, k, x, y, 'f32')
+    xx_j = jm._tx(jnp.asarray(x, jnp.float32))
+    yy_j = jm._ty(jnp.asarray(y, jnp.float32))
+    xx_t = tm._tx(torch.as_tensor(x, dtype=torch.float32))
+    yy_t = tm._ty(torch.as_tensor(y, dtype=torch.float32))
+    lw_j, lw_t = jm.predictive_log_weights(st_j), tm.predictive_log_weights(
+        st_t)
+    if p == 1:
+        want = ilr_predict_pallas(*st_j.components, lw_j, xx_j, yy_j, True,
+                                  block_size=256)
+        got = cip.ilr_predict_cuda(*st_t.components, lw_t, xx_t, yy_t, True)
+    else:
+        want = _ilr_p_predict_pallas(*st_j.components, lw_j, xx_j, yy_j,
+                                     True, 256, 'average')
+        got = cip.ilr_p_predict_cuda(*st_t.components, lw_t, xx_t, yy_t,
+                                     True)
+    _assert_serving(got, want, p)
+
+
+def _far_mean_coefficients(p, dtype):
+    """B5 (p = 1) or B6 coefficients over d = 1 for three experts whose
+    means sit near +-30 with a spread of ~0.1 and own variance c vc =
+    0.007 (zero basis and c rows, so lw = aux's log w column and c = 1;
+    each mean row a constant)."""
+    k = 3
+    means = torch.tensor([[30.0, -28.5], [30.1, -28.6], [29.95, -28.45]],
+                         dtype=dtype)[:, :p]
+    th = torch.zeros(((2 + p) * k, 8), dtype=dtype)
+    th[2 * k:, 0] = means.T.reshape(-1)
+    aux = torch.zeros((k, 8), dtype=dtype)
+    aux[:, 0] = torch.tensor([-0.3, -1.2, -0.9], dtype=dtype)
+    vc = torch.full((k, p), 0.007, dtype=dtype)
+    if p == 1:
+        aux[:, 3] = vc[:, 0]
+    return th, aux, vc
+
+
+@pytest.mark.parametrize('hard', [False, True])
+@pytest.mark.parametrize('p', [1, 2])
+def test_plain_variance_does_not_cancel_far_from_zero(p, hard):
+    """The plain versions' variance in float32 against float64 where the
+    means sit near +-30 against a variance of ~0.01: the centred form
+    sum_k w_k (c vc_k + (mu_k - mean)^2) holds it to 1e-5 relative (the
+    expanded E[c vc + mu^2] - mean^2 loses ~1e-3 here); under 'mode' it
+    is the chosen expert's c vc."""
+    xt = torch.linspace(-2.0, 2.0, 5, dtype=torch.float64)[None]
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        th, aux, vc = _far_mean_coefficients(p, dtype)
+        if p == 1:
+            out[dtype] = cip.ilr_predict_plain(xt.to(dtype), th, aux, 5,
+                                               False, hard)
+        else:
+            out[dtype] = cip.ilr_p_predict_plain(xt.to(dtype), th, aux, vc,
+                                                 5, p, False, hard)
+    got, want = out[torch.float32].double(), out[torch.float64]
+    torch.testing.assert_close(got[:p], want[:p], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(got[p:2 * p], want[p:2 * p], rtol=1e-5,
+                               atol=0.0)
+    if hard:
+        assert bool((out[torch.float32][p:2 * p]
+                     == torch.tensor(0.007, dtype=torch.float32)).all())
+
+
 @pytest.mark.parametrize('case', ['p1-average', 'p1-mode-incremental',
                                   'p3-average', 'p3-mode', 'p1-noy'])
 def test_dense_predict_matches_jax_f64(case):

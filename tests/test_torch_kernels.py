@@ -293,9 +293,9 @@ def test_diag_predictive_kernels_match_plain(dev, dist):
     log_w = torch.log_softmax(torch.randn((k,), device=dev), 0)
     xt, _ = _diag_inputs(dev, n, k, d, seed=2)
     if dist == 'studentt':
-        thu, h, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
-        out = cuda_diag_predict.diag_predict(xt, thu, h, aux, n)
-        ref = cuda_diag_predict.diag_predict_plain(xt, thu, h, aux, n)
+        rows, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
+        out = cuda_diag_predict.diag_predict(xt, rows, aux, n)
+        ref = cuda_diag_predict.diag_predict_plain(xt, rows, aux, n)
     else:
         thq, aux = cuda_predict.diag_gaussian_coefficients(post, log_w)
         out = cuda_predict.predict(xt, thq, aux, n, False, DIAG)
@@ -722,3 +722,254 @@ def test_tc_kernels_refuse_past_shared_memory(dev):
     seed = torch.tensor(1, dtype=torch.int64, device=dev)
     with pytest.raises(NotImplementedError, match='shared memory'):
         cuda_gibbs.gibbs(xt, theta, seed, 1000)
+
+
+# -- the serving kernels B3-B6 at any K and d (csrc/serving.cuh) -------------
+# Each thread owns 4 points (B5 at d <= 2, B3/B4 over narrow maps), 2
+# (B3-B5 at the other compiled widths, d <= 8, and B6 at d <= 4) or 1 (B6
+# at d = 5-8 and the runtime-width paths), so the point tiles are 512,
+# 256 and 128 points; K past what a block stages at once streams in
+# chunks through two buffers.
+
+def _serving_ns(tile):
+    return (1, tile - 1, tile + 1, 3 * tile + 5)
+
+
+def _assert_serving_close(out, ref, p):
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out[:p], ref[:p], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out[p:2 * p], ref[p:2 * p], rtol=2e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(out[2 * p:], ref[2 * p:], rtol=1e-3,
+                               atol=2e-3)
+
+
+def _serving_state(dev, kind, k, d, p, seed):
+    basis, experts, log_w = (_mng_state(dev, k, d, p, seed) if kind == 'mng'
+                             else _ilr_state(dev, k, d, p, seed))
+    if kind == 'hier':
+        basis = _hier_basis(basis)
+    if kind == 'tied':
+        experts = _tied_experts(experts)
+    return basis, experts, log_w
+
+
+def _b5_tile(d):
+    return 512 if d <= 2 else 256 if d <= 8 else 128
+
+
+@pytest.mark.parametrize('kind', ['mnw', 'mng', 'tied', 'hier'])
+@pytest.mark.parametrize('d', [1, 2, 5, 8, 9])
+@pytest.mark.parametrize('k', [1, 7, 50, 194, 500])
+def test_ilr_predict_kernel_any_k_and_d(dev, k, d, kind):
+    """B5 at K from 1 to 500 and d = 1, 2 (compiled, 512-point tiles), 5
+    and 8 (compiled, 256-point tiles; K=194 and 500 at d=8 raised before
+    the K-chunks) and 9 (runtime width, 128-point tiles), MNW, MNG,
+    tied-affine experts and a HierTied basis, average and mode, with and
+    without y, n at the tile's edges and at 1."""
+    basis, experts, log_w = _serving_state(dev, kind, k, d, 1, seed=20)
+    th, aux = cuda_ilr_predict.ilr_predict_coefficients(basis, experts,
+                                                        log_w)
+    g = torch.Generator(device=dev).manual_seed(21)
+    for n in _serving_ns(_b5_tile(d)):
+        xy = torch.rand((d + 1, n), generator=g, device=dev) * 4 - 2
+        for has_y in (True, False):
+            xt = xy if has_y else xy[:d].contiguous()
+            for hard in (False, True):
+                out = cuda_ilr_predict.ilr_predict(xt, th, aux, n, has_y,
+                                                   hard)
+                ref = cuda_ilr_predict.ilr_predict_plain(xt, th, aux, n,
+                                                         has_y, hard)
+                _assert_serving_close(out, ref, 1)
+
+
+@pytest.mark.parametrize('kind', ['mnw', 'mng', 'tied', 'hier'])
+@pytest.mark.parametrize('d,p', [(1, 2), (1, 3), (2, 2), (2, 3)])
+@pytest.mark.parametrize('k', [1, 7, 50, 300])
+def test_ilr_p_predict_kernel_any_k(dev, k, d, p, kind):
+    """B6 at K from 1 to 300 (K=300 with y raised before the K-chunks)
+    at the compiled widths (256-point tiles), MNW, MNG, tied-affine
+    experts and a HierTied basis, average and mode, with and without y,
+    n at the tile's edges and at 1."""
+    basis, experts, log_w = _serving_state(dev, kind, k, d, p, seed=22)
+    g = torch.Generator(device=dev).manual_seed(23)
+    for n in _serving_ns(256):
+        xy = torch.rand((d + p, n), generator=g, device=dev) * 4 - 2
+        for has_y in (True, False):
+            xt = xy if has_y else xy[:d].contiguous()
+            th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                basis, experts, log_w, True, has_y)
+            for hard in (False, True):
+                out = cuda_ilr_predict.ilr_p_predict(xt, th, aux, vc, n, p,
+                                                     has_y, hard)
+                ref = cuda_ilr_predict.ilr_p_predict_plain(
+                    xt, th, aux, vc, n, p, has_y, hard)
+                _assert_serving_close(out, ref, p)
+
+
+@pytest.mark.parametrize('kind', ['mnw', 'mng'])
+@pytest.mark.parametrize('d,p', [(9, 2), (2, 5), (4, 2), (5, 3), (8, 2),
+                                 (8, 3)])
+def test_ilr_p_predict_kernel_runtime_widths(dev, d, p, kind):
+    """B6 past its compiled widths (d = 9 or p = 5: the runtime-width
+    path, its running sums in the output rows) and at the wide compiled
+    ones (d = 4-8, 256- or 128-point tiles), K=60."""
+    basis, experts, log_w = _serving_state(dev, kind, 60, d, p, seed=24)
+    g = torch.Generator(device=dev).manual_seed(25)
+    for n in _serving_ns(256 if d <= 4 and p <= 3 else 128):
+        xy = torch.rand((d + p, n), generator=g, device=dev) * 4 - 2
+        for has_y in (True, False):
+            xt = xy if has_y else xy[:d].contiguous()
+            th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                basis, experts, log_w, True, has_y)
+            for hard in (False, True):
+                out = cuda_ilr_predict.ilr_p_predict(xt, th, aux, vc, n, p,
+                                                     has_y, hard)
+                ref = cuda_ilr_predict.ilr_p_predict_plain(
+                    xt, th, aux, vc, n, p, has_y, hard)
+                _assert_serving_close(out, ref, p)
+
+
+def _random_rows(g, dev, rows, width):
+    th = torch.zeros((rows, -(-width // 8) * 8), device=dev)
+    th[:, :width] = 0.01 * torch.randn((rows, width), generator=g,
+                                       device=dev)
+    return th
+
+
+@pytest.mark.parametrize('which', ['B3', 'B5', 'B6'])
+def test_serving_kernels_read_a_component_past_the_buffers_in_place(dev,
+                                                                   which):
+    """A component whose coefficient rows pass the largest staging buffer
+    (96 KB: B3 at d=160, B5 at d=100, B6 at d=70, p=2 with y) is read in
+    place from device memory. Random coefficient rows (the path does not
+    depend on what they encode), K=3, n at the runtime tile's edges."""
+    k = 3
+    g = torch.Generator(device=dev).manual_seed(31)
+    aux = torch.rand((k, 8), generator=g, device=dev) + 0.5
+    aux[:, 0] = torch.randn((k,), generator=g, device=dev)
+    for n in _serving_ns(128):
+        if which == 'B3':
+            d = 160
+            th = _random_rows(g, dev, k, 1 + d + d * d)
+            xt = torch.randn((d, n), generator=g, device=dev)
+            torch.testing.assert_close(
+                cuda_predict.predict(xt, th, aux, n),
+                cuda_predict.predict_plain(xt, th, aux, n), rtol=1e-5,
+                atol=1e-4)
+            continue
+        for hard in (False, True):
+            if which == 'B5':
+                d = 100
+                th = _random_rows(g, dev, 3 * k, 1 + d + d * d)
+                xt = torch.randn((d + 1, n), generator=g, device=dev)
+                _assert_serving_close(
+                    cuda_ilr_predict.ilr_predict(xt, th, aux, n, True, hard),
+                    cuda_ilr_predict.ilr_predict_plain(xt, th, aux, n, True,
+                                                       hard), 1)
+            else:
+                d, p = 70, 2
+                th = _random_rows(g, dev, (3 + p) * k,
+                                  cuda_ilr_predict.joint_width(d, p))
+                vc = torch.rand((k, p), generator=g, device=dev) + 0.5
+                xt = torch.randn((d + p, n), generator=g, device=dev)
+                _assert_serving_close(
+                    cuda_ilr_predict.ilr_p_predict(xt, th, aux, vc, n, p,
+                                                   True, hard),
+                    cuda_ilr_predict.ilr_p_predict_plain(
+                        xt, th, aux, vc, n, p, True, hard), p)
+
+
+@pytest.mark.parametrize('hard', [False, True])
+@pytest.mark.parametrize('d,p', [(1, 1), (8, 1), (9, 1), (2, 3), (4, 2),
+                                 (9, 2)])
+def test_ilr_serving_variance_does_not_cancel_far_from_zero(dev, d, p, hard):
+    """B5 (d = 1 and 8 compiled, d = 9 runtime width) and B6 (d = 2, p = 3
+    and d = 4, p = 2 compiled; d = 9, p = 2 runtime, its reference means
+    in the scratch rows) over 300 experts whose means sit near +-30 with
+    a spread of ~0.1 and own variance c vc = 0.007, K streamed in chunks:
+    mean and variance against the plain version in float64 (the expanded
+    E[c vc + mu^2] - mean^2 would lose ~1e-3 of var here); under 'mode'
+    the chosen expert's c vc exactly."""
+    k, n = 300, 1000
+    g = torch.Generator(device=dev).manual_seed(30)
+    sign = torch.tensor([1.0, -1.0, 1.0], device=dev)[:p]
+    means = 30.0 * sign + 0.1 * torch.randn((k, p), generator=g, device=dev)
+    m8 = -(-(1 + d + d * d) // 8) * 8
+    th = torch.zeros(((2 + p) * k, m8), device=dev)
+    th[2 * k:, 0] = means.T.reshape(-1)
+    aux = torch.zeros((k, 8), device=dev)
+    aux[:, 0] = torch.randn((k,), generator=g, device=dev)
+    vc = torch.full((k, p), 0.007, device=dev)
+    if p == 1:
+        aux[:, 3] = vc[:, 0]
+    xt = torch.rand((d, n), generator=g, device=dev) * 4 - 2
+    if p == 1:
+        out = cuda_ilr_predict.ilr_predict(xt, th, aux, n, False, hard)
+        ref = cuda_ilr_predict.ilr_predict_plain(
+            xt.double(), th.double(), aux.double(), n, False, hard)
+    else:
+        out = cuda_ilr_predict.ilr_p_predict(xt, th, aux, vc, n, p, False,
+                                             hard)
+        ref = cuda_ilr_predict.ilr_p_predict_plain(
+            xt.double(), th.double(), aux.double(), vc.double(), n, p, False,
+            hard)
+    torch.testing.assert_close(out[:p].double(), ref[:p], rtol=1e-6,
+                               atol=0.0)
+    torch.testing.assert_close(out[p:2 * p].double(), ref[p:2 * p],
+                               rtol=1e-4, atol=0.0)
+    if hard:
+        assert bool((out[p:2 * p] == vc[0, 0]).all())
+
+
+@pytest.mark.parametrize('studentt', [True, False])
+@pytest.mark.parametrize('k,d', [(500, 2), (60, 5), (256, 8), (40, 9),
+                                 (16, 24)])
+def test_predict_kernel_any_k_and_d(dev, k, d, studentt):
+    """B3 at shapes it refused before the K-chunks (K=500 at d=2, K=256
+    at d=8, and d=24, where the F tile alone passed shared memory) and at
+    each side of its last compiled width (d=8; 5 and 9)."""
+    basis, _, log_w = _ilr_state(dev, k, d, 1, seed=26)
+    thq, aux = cuda_predict.predictive_coefficients(basis, log_w, studentt)
+    g = torch.Generator(device=dev).manual_seed(27)
+    for n in _serving_ns(_b5_tile(d)):
+        xt = torch.randn((d, n), generator=g, device=dev)
+        out = cuda_predict.predict(xt, thq, aux, n, studentt)
+        ref = cuda_predict.predict_plain(xt, thq, aux, n, studentt)
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('k,d', [(64, 32), (40, 7)])
+def test_diag_predict_kernel_wide(dev, k, d):
+    """B4 at K=64, d=32 (refused before the K-chunks; runtime width) and
+    at d=7 (compiled), and B3 over the diagonal map at the same shapes."""
+    post = _ng_posterior(dev, k, d)
+    log_w = torch.log_softmax(torch.randn((k,), device=dev), 0)
+    rows, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
+    thq, aux3 = cuda_predict.diag_gaussian_coefficients(post, log_w)
+    g = torch.Generator(device=dev).manual_seed(28)
+    for n in _serving_ns(256 if d <= 8 else 128):
+        xt = torch.randn((d, n), generator=g, device=dev) * 2
+        out = cuda_diag_predict.diag_predict(xt, rows, aux, n)
+        ref = cuda_diag_predict.diag_predict_plain(xt, rows, aux, n)
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        out = cuda_predict.predict(xt, thq, aux3, n, False, DIAG)
+        ref = cuda_predict.predict_plain(xt, thq, aux3, n, False, DIAG)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_dp_gmm_log_predictive_at_k500_runs_through_b3(dev):
+    """A DP-GMM at K=500, d=2 fits on the card and serves its Student-t
+    log_predictive through B3 under backend='auto'."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn((20011, 2), generator=g, device=dev) * 3
+    m = BayesianGMM.make(size=500, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    st, _ = m.fit_vi_fused(x, key=1, maxiter=3)
+    before = cuda_predict.launches['gauss']
+    lp = m.log_predictive(st, x)
+    assert cuda_predict.launches['gauss'] == before + 1
+    torch.testing.assert_close(lp, m.log_predictive(st, x, backend='torch'),
+                               rtol=1e-5, atol=1e-4)

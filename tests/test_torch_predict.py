@@ -49,6 +49,32 @@ def test_plain_matches_pallas_interpret(dist):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
 
 
+@pytest.mark.parametrize('dist', ['studentt', 'gaussian'])
+@pytest.mark.parametrize('k,d', [(500, 2), (8, 24)])
+def test_plain_matches_pallas_interpret_past_the_old_ceiling(k, d, dist):
+    """Shapes the serving kernel once refused (its coefficients and F
+    tile staged whole passed a block's shared memory; now streamed in
+    K-chunks, x read where it lies): K=500 at d=2, and d=24, where the F
+    tile alone was too large. 256 points, against the Pallas kernel in
+    interpret mode."""
+    rng = np.random.default_rng(k + d)
+    n = 256
+    x = rng.standard_normal((n, d)) * 3
+    post = _post(rng, k, d)
+    log_w = np.log(rng.dirichlet(np.ones(k)))
+    want = gauss_predictive_pallas(
+        JNIW(**{f: jnp.asarray(v, jnp.float32) for f, v in post.items()}),
+        jnp.asarray(log_w, jnp.float32), jnp.asarray(x, jnp.float32),
+        block_size=256, dist=dist)
+    got = cuda_predict.gauss_predictive_cuda(
+        NIW(**{f: torch.as_tensor(v, dtype=torch.float32)
+               for f, v in post.items()}),
+        torch.as_tensor(log_w, dtype=torch.float32),
+        torch.as_tensor(x, dtype=torch.float32), dist=dist)
+    assert got.shape == (n,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
 @pytest.fixture(scope='module')
 def fitted():
     """A fitted DP-GMM posterior from the JAX package, float64."""
