@@ -312,6 +312,56 @@ def density_work(n, k, m, d, mufu_per_comp, quads=1, products=0):
             'mufu': n * (k * mufu_per_comp + 1), 'hbm': 4 * (d * n + n)}
 
 
+def b4_work(n, d, aux):
+    """B4 at these coefficients: per component d scaled squares (3
+    multiply-adds each) and, where its tail exponent h is the same in
+    every dim (aux[:, 1] > 0), one log and one exp (h sum_j log1p(u_j) =
+    h log1p(U)); else d logs and an exp."""
+    k = aux.shape[0]
+    shared = int((aux[:, 1] > 0).sum())
+    return {'fp32': n * (k * 3 * d + point_products(d, True)),
+            'mufu': n * (2 * shared + (d + 1) * (k - shared) + 1),
+            'hbm': 4 * (d * n + n)}
+
+
+LIBRARY = {}    # kernel name -> ms of one PyTorch call of the same function
+
+
+def library_mixture(post, log_w, x, dist='studentt'):
+    """The one PyTorch call that computes B4's function (dist='studentt':
+    the mixture of products of univariate t's) or B3-diag's ('gaussian':
+    of diagonal Gaussians) for an NG posterior: MixtureSameFamily over
+    Independent(StudentT or Normal), run on 1e6-point chunks of x (N, d)."""
+    mu, lam, df = ng.predictive_studentt_params(post)
+    base = (torch.distributions.StudentT(df, mu, lam.rsqrt())
+            if dist == 'studentt' else
+            torch.distributions.Normal(mu, lam.rsqrt()))
+    mix = torch.distributions.MixtureSameFamily(
+        torch.distributions.Categorical(logits=log_w),
+        torch.distributions.Independent(base, 1))
+
+    def run():
+        return torch.cat([mix.log_prob(x[s:s + 1_000_000])
+                          for s in range(0, x.shape[0], 1_000_000)])
+    return run
+
+
+def profiled_device_ms(fn, reps=20):
+    """Device time per call of fn() under torch.profiler (the summed
+    device events of `reps` calls over reps)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / reps
+
+
 def serving_work(n, k, d, p, diag=False):
     """B5 / B6, the least work of the function whatever computes it: per
     component the basis and c quads over [1; x; x (x) x] (quad_fmas each,
@@ -747,6 +797,14 @@ def run(dev, seed, n_main, n_check):
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
+    LIBRARY['S3'] = cuda_ms(lambda: 2.0 * x_hello, 20)
+    # the CUDA-event times above are per call of 20 back to back, host
+    # launch paths included; the profiler's device time shows the kernels
+    s3_dev = (profiled_device_ms(lambda: cuda_hello.twice(x_hello)),
+              profiled_device_ms(lambda: 2.0 * x_hello))
+    print(f'S3 on {card}: kernel {ms["S3"][0]:.6g} ms a call by CUDA events '
+          f'(device {s3_dev[0]:.6g} ms by the profiler), 2.0 * x '
+          f'{LIBRARY["S3"]:.6g} ms (device {s3_dev[1]:.6g} ms)')
 
     meta = {
         'B1': ('B1 fused VI E-step', 'mimo_tpu_torch/csrc/estep.cuh',
@@ -849,8 +907,10 @@ def run(dev, seed, n_main, n_check):
             'max_abs_err': errs[b], 'ms': ms[b][0], 'plain_ms': ms[b][1],
             'bound_ms': bound_ms, 'bound_by': bound_by, 'bound_op': bound_op,
             'bound_share': bound_ms / ms[b][0],
-            # no single PyTorch call computes any of these functions
-            'library_ms': None})
+            # one PyTorch call computes B4's, B3-diag's and S3's function;
+            # none B1's, B2's, B5's or B6's, and torch has no multivariate
+            # Student-t for B3's
+            'library_ms': LIBRARY.get(b)})
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -1291,12 +1351,17 @@ def ilr_serving_paths(dev, seed, card, launches, ms, diag=False):
 # -- the diagonal families --------------------------------------------------
 
 
-def random_ng_posterior(gen, k, d, dev):
+def random_ng_posterior(gen, k, d, dev, shared=True):
     """An NG posterior with the scales of a fit at N ~ 1e6: ~1e4-1e5
-    points per component, variances 0.25-0.75 per dimension."""
+    points per component, variances 0.25-0.75 per dimension. As in a fit
+    the counts (so kappa, alpha and the tail exponents h) are the same in
+    every dim of a component (the first dim's draw); shared=False keeps
+    the draw of each dim."""
     def u(lo, hi):
         return lo + (hi - lo) * torch.rand((k, d), generator=gen, device=dev)
     counts = u(1e4, 1e5)
+    if shared:
+        counts = counts[:, :1].expand(k, d).contiguous()
     return NG(mu=torch.randn((k, d), generator=gen, device=dev) * 4.0,
               kappa=counts, alpha=0.5 * counts,
               beta=0.5 * counts * u(0.25, 0.75))
@@ -1364,11 +1429,20 @@ def diag_kernel_checks(dev, gen, errs):
         if d == D_MAIN:
             b4_post, b4_xt = post, xt
 
-    # B3 over the diagonal map (Gaussian) and B4 (Student-t)
+    # B3 over the diagonal map (Gaussian) and B4 (Student-t), h shared
+    # across dims (as in a fit) and not
     log_w = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
                                           device=dev), 0)
     thq, aux = cuda_predict.diag_gaussian_coefficients(b4_post, log_w)
     rows4, aux4 = cuda_diag_predict.diag_predict_coefficients(b4_post, log_w)
+    # its own generator, so that the later phases draw what they drew
+    # before this check existed
+    post_u = random_ng_posterior(
+        torch.Generator(device=dev).manual_seed(gen.initial_seed() + 1),
+        K_MAIN, D_MAIN, dev, shared=False)
+    rows_u, aux_u = cuda_diag_predict.diag_predict_coefficients(post_u, log_w)
+    check(bool((aux4[:, 1] > 0).all()) and not bool((aux_u[:, 1] > 0).any()),
+          'B4 h-shared flags off')
     for name, kern, plain in (
             ('B3-diag',
              lambda: cuda_predict.predict(b4_xt, thq, aux, N_CHECK, False,
@@ -1379,7 +1453,12 @@ def diag_kernel_checks(dev, gen, errs):
              lambda: cuda_diag_predict.diag_predict(b4_xt, rows4, aux4,
                                                     N_CHECK),
              lambda: cuda_diag_predict.diag_predict_plain(b4_xt, rows4, aux4,
-                                                          N_CHECK))):
+                                                          N_CHECK)),
+            ('B4 (unequal h)',
+             lambda: cuda_diag_predict.diag_predict(b4_xt, rows_u, aux_u,
+                                                    N_CHECK),
+             lambda: cuda_diag_predict.diag_predict_plain(b4_xt, rows_u,
+                                                          aux_u, N_CHECK))):
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         ok, e = allclose_report(out, ref, 1e-4, 1e-4)
@@ -1389,6 +1468,14 @@ def diag_kernel_checks(dev, gen, errs):
               f'{bool(torch.isfinite(out).all())}; log-density '
               f'{float(out.min()):.6g} to {float(out.max()):.6g}')
         check(ok and bool(torch.isfinite(out).all()), f'{name} disagrees')
+    errs['B4'] = max(errs['B4'], errs.pop('B4 (unequal h)'))
+    mu_u, lam_u, _ = ng.predictive_studentt_params(post_u)
+    serving_precision_cells(
+        'B4-unequal-h', cuda_diag_predict.diag_predict,
+        cuda_diag_predict.diag_predict_plain, b4_xt, rows_u, (aux_u, N_CHECK),
+        (('nats', 'log density'),), D_MAIN, None,
+        centres=(mu_u.double(), lam_u.double().min(-1).values ** -0.5),
+        translate=translate_b4_rows)
 
     for name, d, p in (('B5-MNG', 1, 1), ('B6-MNG', D_P3, P_P3)):
         basis, experts = random_mng_posterior(gen, K_MAIN, d, p, dev)
@@ -1538,13 +1625,14 @@ def diag_gmm_path(dev, seed, card, n_main, errs, launches, ms):
                  'B3-diag': density_work(
                      n_main, K_MAIN, quad_fmas(D_MAIN, True), D_MAIN, 1,
                      products=point_products(D_MAIN, True)),
-                 'B4': density_work(n_main, K_MAIN, 3, D_MAIN, D_MAIN + 1,
-                                    D_MAIN, point_products(D_MAIN, True))})
+                 'B4': b4_work(n_main, D_MAIN, aux4)})
     for name, (kern, plain) in pairs.items():
         ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
         print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
               f'kernel {ms[name][0]:.6g} ms, plain PyTorch {ms[name][1]:.6g}'
               f' ms')
+    time_library(card, tag, st.components, log_w, x,
+                 {name: pairs[name] for name in ('B3-diag', 'B4')})
     precision_check(f'diag N={n_main} K={K_MAIN} d={D_MAIN}', xt, th_vi,
                     n_main, DIAG)
     mu_t, lam_t, _ = ng.predictive_studentt_params(st.components)
@@ -1777,6 +1865,23 @@ def time_pairs(card, tag, pairs, errs, ms):
               f'{errs[name]:.6g}')
 
 
+def time_library(card, tag, post, log_w, x, pairs):
+    """LIBRARY[name]: the time of the one PyTorch call that computes the
+    function of each of `pairs` (B4 / B4-tied: the Student-t mixture,
+    B3-diag: the Gaussian one) on the same posterior and points, CUDA
+    events over 3 runs after 2 warm-ups, beside its max |difference| from
+    the plain version (which its time is not compared with)."""
+    for name, pair in pairs.items():
+        fn = library_mixture(post, log_w, x,
+                             'gaussian' if name == 'B3-diag' else 'studentt')
+        e = float((fn().double() - pair[1]().double()).abs().max())
+        LIBRARY[name] = cuda_ms(fn, 3)
+        print(f'{name} library call on {card} at {tag}: MixtureSameFamily('
+              f'Categorical, Independent({"Normal" if name == "B3-diag" else "StudentT"}'
+              f')).log_prob in 1e6-point chunks {LIBRARY[name]:.6g} ms; '
+              f'max|diff| vs plain {e:.3g} nats')
+
+
 def tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms):
     """The tied GMM and tied diagonal GMM (the reference's tgmm / tdgmm,
     mimo_tpu/models/gmm.py:5-7, tests/test_gmm.py:145) and the
@@ -1900,13 +2005,14 @@ def tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms):
         WORK[names[1]] = gibbs_work(xt, th_g, n_main, m, kind)
         if names[2] is not None:
             WORK[names[2]] = (
-                density_work(n_main, K_MAIN, 3, D_MAIN, D_MAIN + 1, D_MAIN,
-                             point_products(D_MAIN, True))
-                if label == 'diag-tied' else
+                b4_work(n_main, D_MAIN, aux4) if label == 'diag-tied' else
                 density_work(n_main, K_MAIN, quad_fmas(D_MAIN), D_MAIN, 2,
                              products=point_products(D_MAIN)))
         time_pairs(card, f'N={n_main} K={K_MAIN} d={D_MAIN} ({label} GMM)',
                    pairs, errs, ms)
+        if label == 'diag-tied':
+            time_library(card, tag, st.components, log_w, x,
+                         {'B4-tied': pairs['B4-tied']})
         del model, st, gs, lp
         torch.cuda.empty_cache()
     del x, xt
@@ -2099,6 +2205,11 @@ def wide_serving_paths(dev, gen, card, errs, launches, ms):
             density_work(n, k, quad_fmas(d), d, 2,
                          products=point_products(d)))
         time_wide(card, f'N={n} K={k} d={d}', name, rows[name], ms)
+        if d > 8:       # the padded widths' float64 lines
+            serving_precision_cells(name, cuda_predict.predict,
+                                    cuda_predict.predict_plain, xt, thq,
+                                    (aux, n), (('nats', 'log density'),), d,
+                                    slice(None))
         del x, xt, model, st, lps
 
     k, d = K_WIDE_B4, D_WIDE_B4
@@ -2131,8 +2242,18 @@ def wide_serving_paths(dev, gen, card, errs, launches, ms):
         'mimo_tpu/ops/pallas_predict.py:171',
         lambda: cuda_diag_predict.diag_predict(xt, rows4, aux, n),
         lambda: cuda_diag_predict.diag_predict_plain(xt, rows4, aux, n),
-        density_work(n, k, 3, d, d + 1, d, point_products(d, True)))
+        b4_work(n, d, aux))
     time_wide(card, f'N={n} K={k} d={d}', name, rows[name], ms)
+    log_w = model.predictive_log_weights(st)
+    time_library(card, f'N={n} K={k} d={d}', post, log_w, x,
+                 {name: rows[name][3:5]})
+    mu_t, lam_t, _ = ng.predictive_studentt_params(post)
+    serving_precision_cells(
+        name, cuda_diag_predict.diag_predict,
+        cuda_diag_predict.diag_predict_plain, xt, rows4, (aux, n),
+        (('nats', 'log density'),), d, None,
+        centres=(mu_t.double(), lam_t.double().min(-1).values ** -0.5),
+        translate=translate_b4_rows)
     del x, xt, model, st, lp
 
     for k, d, p, diag in ([(k, D_Q8, 1, False) for k in WIDE_B5]

@@ -191,6 +191,20 @@ __device__ __forceinline__ void for_tiles_and_chunks(
   cp_async_wait_all();
 }
 
+// Strip i of a view as a pointer the compiler knows to lie in shared
+// memory (an offset from the dynamic shared array, taken through the
+// shared-window addresses), so that it reads it with LDS and not with
+// generic loads; only for a plan that stages (pl.bufs != 0: the launch
+// checks).
+template <class T>
+__device__ __forceinline__ const T* staged_strip(const View& v, int i) {
+  extern __shared__ float4 smem4[];
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(smem4));
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(v.p[i]));
+  return reinterpret_cast<const T*>(reinterpret_cast<const char*>(smem4) +
+                                    (at - base));
+}
+
 // The grid of a serving kernel: as many blocks as are resident on the
 // card at this shared memory (occupancy), at most one per tile.
 template <class Kernel>
@@ -209,6 +223,88 @@ cudaError_t serving_launch_grid(Kernel kernel, size_t smem, long long ntiles,
   const long long g = (long long)(per > 0 ? per : 1) * sms;
   *grid = (int)(ntiles < g ? (ntiles > 0 ? ntiles : 1) : g);
   return cudaSuccess;
+}
+
+// -- B3/B4's tail transform and softmax fold, in log2 units -------------------
+//
+// B3 and B4 work in log2 units: lp log2(e) = aux log2(e) - h log2(1 + u)
+// (aux log2(e) one multiply per component, shared by a thread's points),
+// the fold's exp is a bare ex2 and the output ln 2 (m + log2 sum). The
+// plain versions keep natural units.
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// log2(1 + u) for u >= 0, within a few f32 ulps relative everywhere, in
+// place of CUDA's log1pf (software, ~4x the instructions). The tail
+// exponent h reaches ~N_k / 2 while the relevant u sit near 1e-5, so the
+// error must stay relative for small u: lg2.approx(1 + u) is off by
+// ~2^-22 absolutely near 1, which h would carry into whole nats. So, for
+// u <= 1, 2 atanh(s) log2(e) with s = u / (2 + u) <= 1/3 (one MUFU
+// reciprocal), the odd series to s^13 (truncation < 2e-8 relative);
+// for u > 1, lg2.approx(1 + u), within 2 ulps there (1 + u > 2). Both
+// are formed and one is selected: no divergence.
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float log2_1p(float u) {
+  constexpr float c0 = 2.8853900817779268f;    // 2 log2(e) / (2i + 1)
+  constexpr float c1 = 0.96179669392597560f;
+  constexpr float c2 = 0.57707801635558536f;
+  constexpr float c3 = 0.41219858311113240f;
+  constexpr float c4 = 0.32059889797532520f;
+  constexpr float c5 = 0.26230818925253880f;
+  constexpr float c6 = 0.22195308321368670f;
+  const float s = u * rcp_approx(2.0f + u);
+  const float s2 = s * s;
+  float p = fmaf(c6, s2, c5);
+  p = fmaf(p, s2, c4);
+  p = fmaf(p, s2, c3);
+  p = fmaf(p, s2, c2);
+  p = fmaf(p, s2, c1);
+  p = fmaf(p, s2, c0);
+  const float big = lg2_approx(1.0f + u);
+  return u <= 1.0f ? s * p : big;
+}
+
+// The blocked softmax fold of B3/B4: G components' lp (log2 units) folded
+// into (mx, sum), sum = sum_i 2^(lp_i - mx), at once: m = max(mx, lp_g),
+// sum <- sum 2^(mx - m) + sum_g 2^(lp_g - m). G + 1 exps for G
+// components and no serial select chain (online_add takes one exp a
+// component but a compare-select-exp chain through the running max).
+// Missing components carry lp = -inf (a weight of 0); an all -inf start
+// keeps sum = 0 and mx = -inf.
+template <int G>
+__device__ __forceinline__ void fold_group(const float (&lp)[G], float& mx,
+                                           float& sum) {
+  float m = mx;
+#pragma unroll
+  for (int g = 0; g < G; ++g) m = fmaxf(m, lp[g]);
+  const float ms = m == -INFINITY ? 0.0f : m;
+  float s = sum * ex2_approx(mx - ms);
+#pragma unroll
+  for (int g = 0; g < G; ++g) s += ex2_approx(lp[g] - ms);
+  sum = s;
+  mx = m;
+}
+
+// out of a point folded by fold_group: ln(sum_i e^lp_i), in nats.
+__device__ __forceinline__ float fold_result(float mx, float sum) {
+  return 0.69314718055994531f * (mx + log2f(sum));
 }
 
 // B5/B6's moments under the online softmax. Per output the sums are

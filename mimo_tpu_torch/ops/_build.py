@@ -43,6 +43,8 @@ _SIGNATURES = {
     'mimo_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I, _P,
                           _P]),
     'mimo_diag_predict': (_I, [_P, _I64, _I, _I64, _P, _I, _P, _P, _P]),
+    'mimo_predict_width': (_I, [_I]),
+    'mimo_diag_predict_width': (_I, [_I]),
     'mimo_ilr_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I,
                               _P, _P]),
     'mimo_ilr_p_predict': (_I, [_P, _I64, _I, _I, _I, _I, _I64, _P, _I, _I,

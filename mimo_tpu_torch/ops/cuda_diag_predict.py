@@ -9,7 +9,11 @@ quads (lam_kj / df_kj) (x_j - mu_kj)^2, each read from its three nonzero
 columns), lp_k = aux_k - sum_j h_kj log1p(u_kj), and out = logsumexp
 over K. The (N, K) matrix never exists on the card. What bounds B4 on
 the H100 and what it does about it: see the note at the top of
-csrc/diag_predict.cu.
+csrc/diag_predict.cu. The kernel works in log2 units, at d = 9..32 on
+rows padded to the width it compiles (`kernel_coefficients`), and where
+h_kj is the same in every dim it takes one log per component: sum_j h log1p(u_j) = h
+log1p(U), 1 + U = prod_j (1 + u_j). The plain version keeps natural units
+and the per-dim sum.
 
 `diag_predictive_cuda` is the counterpart of mimo_tpu's
 diag_predictive_pallas: 'studentt' through B4, 'gaussian' through B3
@@ -29,29 +33,50 @@ launches = 0          # kernel launches by `diag_predict`, for run accounting
 
 
 def diag_predict_coefficients(post, log_w):
-    """(rows (K d, 4), aux (K)) of B4 for an NG posterior, in the
+    """(rows (K d, 4), aux (K, 2)) of B4 for an NG posterior, in the
     posterior's dtype (mimo_tpu's diag_predictive_pallas, Student-t).
     Row (k, j) of the TPU kernel's thu is r_kj (x_j - mu_kj)^2 with r =
     lam / df, expanded over [1; x; x^2]; its nonzero columns 0, 1 + j and
     1 + d + j and the tail exponent h_kj = (df_kj + 1) / 2 make B4's row
-    [r mu^2, -2 r mu, r, h]; aux = the per-component sum of the per-dim
-    normalisers plus log w."""
+    [r mu^2, -2 r mu, r, h]; aux[:, 0] = the per-component sum of the
+    per-dim normalisers plus log w, aux[:, 1] = h_k where h_kj is exactly
+    equal across dims j (every posterior the models fit: alpha is the
+    prior's, the same in every dim, plus N_k / 2), else 0."""
     mu, lam, df = predictive_studentt_params(post)       # (K, d) each
     k, d = mu.shape
     r = lam / df
-    rows = torch.stack([r * mu * mu, -2.0 * r * mu, r, 0.5 * (df + 1.0)], -1)
+    h = 0.5 * (df + 1.0)
+    rows = torch.stack([r * mu * mu, -2.0 * r * mu, r, h], -1)
     aux = (torch.sum(gammaln_diff(0.5 * df, 0.5)
                      + 0.5 * (torch.log(lam) - torch.log(df)
                               - math.log(math.pi)), -1) + log_w)
-    return rows.reshape(k * d, 4).contiguous(), aux.contiguous()
+    shared = torch.where((h == h[:, :1]).all(-1), h[:, 0],
+                         torch.zeros_like(h[:, 0]))
+    return (rows.reshape(k * d, 4).contiguous(),
+            torch.stack([aux, shared], -1).contiguous())
+
+
+def kernel_coefficients(rows, d, width):
+    """B4's own copy of rows (K d, 4) for the width the library compiles
+    d at (`width`, its mimo_diag_predict_width(d)): (K width, 4), the rows
+    j >= d of each component zero (a padded dim adds u = 0: U and the
+    per-dim sum stay exactly as they were); the rows themselves at d
+    itself and at the runtime width (0)."""
+    if width <= d:
+        return rows
+    k = rows.shape[0] // d
+    padded = rows.new_zeros((k, width, 4))
+    padded[:, :d] = rows.view(k, d, 4)
+    return padded.view(k * width, 4)
 
 
 def diag_predict_plain(xt, rows, aux, n):
-    """Plain PyTorch version of B4: xt (d, >=n), rows (K d, 4), aux (K)
+    """Plain PyTorch version of B4: xt (d, >=n), rows (K d, 4), aux (K, 2)
     -> (n,) mixture log-densities, in chunks of points. Each scaled quad
     is the product of row (k, j)'s first three columns with [1; x_j;
     x_j^2], one batched matmul over j: the TPU kernel's dot over [1; x;
-    x^2] without its zero terms."""
+    x^2] without its zero terms; the tail is the per-dim sum whatever
+    aux[:, 1] says."""
     k, d = aux.shape[0], xt.shape[0]
     th = rows.reshape(k, d, 4).transpose(0, 1)              # (d, K, 4)
     r, h = th[..., :3].contiguous(), th[..., 3:]
@@ -60,7 +85,7 @@ def diag_predict_plain(xt, rows, aux, n):
         x = xt[:, s:min(s + _CHUNK, n)].to(rows.dtype)      # (d, B)
         f = torch.stack([torch.ones_like(x), x, x * x], 1)   # (d, 3, B)
         u = torch.clamp(torch.bmm(r, f), min=0.0)            # (d, K, B)
-        lp = aux[:, None] - torch.sum(h * torch.log1p(u), 0)
+        lp = aux[:, :1] - torch.sum(h * torch.log1p(u), 0)
         out[s:s + x.shape[1]] = torch.logsumexp(lp, 0)
     return out
 
@@ -81,14 +106,15 @@ def diag_predict(xt, rows, aux, n):
         raise ValueError(f'cuda_diag_predict: rows must be (K d, 4) = '
                          f'({k * d}, 4) and 16-byte aligned, got '
                          f'{tuple(rows.shape)}')
-    if (aux.dtype != torch.float32 or aux.shape != (k,)
+    if (aux.dtype != torch.float32 or aux.shape != (k, 2)
             or not aux.is_contiguous() or aux.device != xt.device):
         raise ValueError(f'cuda_diag_predict: aux must be a contiguous '
-                         f"({k},) float32 tensor on the data's device")
+                         f"({k}, 2) float32 tensor on the data's device")
+    rows_k = kernel_coefficients(rows, d, lib.mimo_diag_predict_width(d))
     out = torch.empty((n,), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_diag_predict(xt.data_ptr(), xt.stride(0), d, n,
-                                   rows.data_ptr(), k, aux.data_ptr(),
+                                   rows_k.data_ptr(), k, aux.data_ptr(),
                                    out.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_diag_predict')

@@ -11,7 +11,9 @@ Gaussian), and out = logsumexp over K. The (N, K) Student-t matrix never
 exists in device memory.
 
 What bounds it on the H100, and what the kernel does about it: see the
-note at the top of csrc/predict.cu.
+note at the top of csrc/predict.cuh. The kernel works in log2 units and,
+at d = 9..32, on its own layout of the coefficients
+(`kernel_coefficients`); the plain version keeps natural units.
 """
 
 import math
@@ -28,6 +30,44 @@ from mimo_tpu_torch.utils.stats import LOG2PI, gammaln_diff
 
 # kernel launches by `predict`, by feature map, for run accounting
 launches = {'gauss': 0, 'diag': 0}
+
+GROUP = 8    # components per group of B3's padded-width layout
+
+
+def padded_columns(d, width, kind=GAUSS):
+    """Column of the map at `width` that column j of the map at d becomes
+    when x is padded with zeros to `width`: [1; x; x (x) x] (or [1; x;
+    x^2]) keeps its order, the new columns hold zeros."""
+    cols = [0] + [1 + a for a in range(d)]
+    if kind == DIAG:
+        cols += [1 + width + a for a in range(d)]
+    else:
+        cols += [1 + width + a * width + b for a in range(d)
+                 for b in range(d)]
+    return torch.tensor(cols)
+
+
+def kernel_coefficients(thq, aux, d, width, kind=GAUSS):
+    """B3's own layout of (thq (K, m8), aux (K, 8)) at input width d, for
+    the width the library compiles d at (`width`, its
+    mimo_predict_width(d)): (th, aux', m). Up to 8 and at the runtime
+    width (0) it is (thq, aux, m8) as they are. At a padded width (12, 16,
+    24, 32) the map is padded to it and laid out group-major and
+    term-major: th (K' / GROUP, M, GROUP) with M = the map's width there
+    and K' = K rounded up to GROUP, the extra components' coefficients
+    zero and their aux rows [-inf, 0, ...]; m = M."""
+    if width <= 8:
+        return thq, aux, thq.shape[1]
+    k = thq.shape[0]
+    m = 1 + 2 * width if kind == DIAG else 1 + width + width * width
+    kp = -(-k // GROUP) * GROUP
+    th = thq.new_zeros((kp, m))
+    th[:k, padded_columns(d, width, kind).to(thq.device)] = \
+        thq[:, :feature_width(kind, d)]
+    pad = aux.new_zeros((kp - k, aux.shape[1]))
+    pad[:, 0] = -math.inf
+    th = th.view(kp // GROUP, GROUP, m).transpose(1, 2).contiguous()
+    return th, torch.cat([aux, pad]), m
 
 
 def predict_plain(xt, thq, aux, n, studentt=True, kind=GAUSS):
@@ -56,7 +96,7 @@ def predict(xt, thq, aux, n, studentt=True, kind=GAUSS):
     if kind not in (GAUSS, DIAG):
         raise ValueError(f'cuda_predict: no predictive over map {kind}')
     lib = _build.load()
-    k, m8 = thq.shape
+    k = thq.shape[0]
     d = xt.shape[0]
     if (aux.dtype != torch.float32 or aux.shape != (k, 8)
             or not aux.is_contiguous() or aux.device != xt.device):
@@ -64,11 +104,13 @@ def predict(xt, thq, aux, n, studentt=True, kind=GAUSS):
                          "float32 tensor on the data's device")
     _build.check_serving('cuda_predict', xt, n, thq, feature_width(kind, d),
                          f'{KIND_NAMES[kind]} map, d={d}', aux)
+    th, rows, m = kernel_coefficients(thq, aux, d, lib.mimo_predict_width(d),
+                                      kind)
     out = torch.empty((n,), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_predict(xt.data_ptr(), xt.stride(0), d, kind, n,
-                              thq.data_ptr(), k, m8, aux.data_ptr(),
-                              int(studentt), out.data_ptr(),
+                              th.data_ptr(), rows.shape[0], m,
+                              rows.data_ptr(), int(studentt), out.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_predict')
     launches[KIND_NAMES[kind]] += 1

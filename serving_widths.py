@@ -12,8 +12,10 @@ a random posterior with the scales of a fit at N ~ 1e6 (K components, N
 points, float32, seed 0) through the checkout's own coefficient functions
 and wrappers:
 
-  B3  Student-t mixture density, d = 2, 4, 5, 8;
-  B4  diagonal Student-t mixture density, d = 2, 4, 5, 8;
+  B3  Student-t mixture density, d = 2, 4, 5, 8, 12, 16, 24, 32;
+  B4  diagonal Student-t mixture density, d = 2, 4, 5, 8, 12, 16, 24, 32,
+      tail exponents equal across dims (as in a fit); B4u the same at d =
+      2, 4, 5, 8 with tail exponents drawn per dim;
   B5  ILR predict, p = 1, with y, d = 1, 4, 5, 8;
   B6  ILR predict, p = 2, MNW experts, with y, d = 2, 3, 4, 8.
 
@@ -97,14 +99,15 @@ def main():
                       psi=psd(p) * 100.0 / nu_e[:, None, None], nu=nu_e)
         return basis, experts
 
-    def ng_posterior(d):
-        c = 1e4 + 9e4 * rand(k, d)
+    def ng_posterior(d, shared=True):
+        c = (1e4 + 9e4 * rand(k, 1)).expand(k, d) if shared else \
+            1e4 + 9e4 * rand(k, d)
         return NG(mu=randn(k, d) * 4.0, kappa=c, alpha=0.5 * c,
                   beta=0.5 * c * (0.25 + 0.5 * rand(k, d)))
 
     log_w = torch.log_softmax(randn(k), 0)
     cases = []
-    for d in (2, 4, 5, 8):
+    for d in (2, 4, 5, 8, 12, 16, 24, 32):
         basis, _ = ilr_posterior(d, 1)
         xt = (rand(d, n) * 6 - 3).contiguous()
         thq, aux = cuda_predict.predictive_coefficients(basis, log_w)
@@ -112,13 +115,14 @@ def main():
                       cuda_predict.predict(xt, thq, aux, n),
                       lambda xt=xt, thq=thq, aux=aux:
                       cuda_predict.predict_plain(xt, thq, aux, n)))
-    for d in (2, 4, 5, 8):
-        post = ng_posterior(d)
+    for name, d in ([('B4', d) for d in (2, 4, 5, 8, 12, 16, 24, 32)]
+                    + [('B4u', d) for d in (2, 4, 5, 8)]):
+        post = ng_posterior(d, name == 'B4')
         xt = (post.mu[torch.randint(0, k, (n,), generator=gen, device=dev)]
               + 0.5 * randn(n, d)).T.contiguous()
         # (thu, h, aux) or (rows, aux), whichever the checkout builds
         coef = cuda_diag_predict.diag_predict_coefficients(post, log_w)
-        cases.append(('B4', d, 0, lambda xt=xt, coef=coef:
+        cases.append((name, d, 0, lambda xt=xt, coef=coef:
                       cuda_diag_predict.diag_predict(xt, *coef, n),
                       lambda xt=xt, coef=coef:
                       cuda_diag_predict.diag_predict_plain(xt, *coef, n)))

@@ -362,12 +362,19 @@ def test_diag_predictive_plain_matches_pallas_interpret_wide(dist):
 
 def test_b4_coefficients_reproduce_the_scaled_quads():
     """Row (k, j) = [th_0, th_1, th_2, h] with th_0 + th_1 x_j + th_2 x_j^2
-    = (lam / df)(x_j - mu)^2 per (component, dim) and h = (df + 1) / 2."""
+    = (lam / df)(x_j - mu)^2 per (component, dim) and h = (df + 1) / 2;
+    aux[:, 1], the shared h, is 0 where h differs across dims (here: alpha
+    drawn per dim) and h where it does not."""
     rng = np.random.default_rng(6)
-    post = _post(_ng_arrays(rng, 4, 3), NG, torch.float64)
+    arrays = _ng_arrays(rng, 4, 3)
+    arrays['alpha'][2] = arrays['alpha'][2, 0]
+    post = _post(arrays, NG, torch.float64)
     rows, aux = cuda_diag_predict.diag_predict_coefficients(
         post, torch.zeros(4, dtype=torch.float64))
-    assert rows.shape == (12, 4) and aux.shape == (4,)
+    assert rows.shape == (12, 4) and aux.shape == (4, 2)
+    h = rows[:, 3].reshape(4, 3)
+    assert aux[2, 1] == h[2, 0] and bool((h[2] == h[2, 0]).all())
+    assert bool((aux[[0, 1, 3], 1] == 0).all())
     mu, lam, df = tfe._ng.predictive_studentt_params(post)
     x = torch.tensor(rng.standard_normal((9, 3)))
     th = rows.reshape(4, 3, 4)

@@ -973,3 +973,98 @@ def test_dp_gmm_log_predictive_at_k500_runs_through_b3(dev):
     assert cuda_predict.launches['gauss'] == before + 1
     torch.testing.assert_close(lp, m.log_predictive(st, x, backend='torch'),
                                rtol=1e-5, atol=1e-4)
+
+
+# B3 and B4 at every compiled width (d = 1-8; 9, 16, 17, 24, 32 padded to
+# 12, 16, 24, 24, 32) and past them (d = 40, the runtime width), K from 1
+# to 500 (one partial group of the blocked fold; chunks of every size).
+SERVING_DS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 24, 32, 40]
+
+
+def _b34_tile(d):
+    return 512 if d <= 2 else 256 if d <= 32 else 128
+
+
+def _ng_posterior_h(dev, k, d, shared, seed):
+    """An NG posterior whose tail exponents h are equal across dims
+    (shared: alpha per component, the models' case) or not."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+    alpha = u(2.0, 400.0, (k, 1) if shared else (k, d)).expand(k, d)
+    return NG(mu=torch.randn((k, d), generator=g, device=dev) * 2,
+              kappa=u(1.0, 20.0, (k, d)), alpha=alpha.contiguous(),
+              beta=u(0.5, 5.0, (k, d)) * alpha / 20.0)
+
+
+@pytest.mark.parametrize('shared', [True, False])
+@pytest.mark.parametrize('k', [1, 50, 500])
+@pytest.mark.parametrize('d', SERVING_DS)
+def test_diag_predict_kernel_widths(dev, d, k, shared):
+    """B4 against its plain version with h equal (one log per component)
+    and unequal (a log per dim) across dims, n at the tile's edges."""
+    post = _ng_posterior_h(dev, k, d, shared, seed=40 + d)
+    log_w = torch.log_softmax(torch.randn((k,), device=dev), 0)
+    rows, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
+    assert bool((aux[:, 1] > 0).all()) == shared or d == 1
+    g = torch.Generator(device=dev).manual_seed(41)
+    for n in _serving_ns(_b34_tile(d)):
+        xt = torch.randn((d, n), generator=g, device=dev) * 2
+        out = cuda_diag_predict.diag_predict(xt, rows, aux, n)
+        ref = cuda_diag_predict.diag_predict_plain(xt, rows, aux, n)
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('d', [8, 32, 40])
+def test_diag_predict_kernel_where_the_product_overflows(dev, d):
+    """Points so far out that prod_j (1 + u_j) overflows f32 (df ~ 10, a
+    point ~15 sigma out in every dim, d >= 8 dims): B4 takes the per-dim
+    sum there and stays finite and equal to its plain version, shared h
+    or not, among ordinary points."""
+    k, n = 5, 300
+    for shared in (True, False):
+        g = torch.Generator(device=dev).manual_seed(42)
+        post = NG(mu=torch.randn((k, d), generator=g, device=dev),
+                  kappa=torch.full((k, d), 8.0, device=dev),
+                  alpha=(torch.full((k, 1), 5.0, device=dev) if shared else
+                         4.0 + 2.0 * torch.rand((k, d), generator=g,
+                                                device=dev)).expand(k, d)
+                  .contiguous(),
+                  beta=torch.full((k, d), 2.0, device=dev))
+        log_w = torch.log_softmax(torch.randn((k,), generator=g, device=dev),
+                                  0)
+        rows, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
+        xt = torch.randn((d, n), generator=g, device=dev)
+        xt[:, :7] = torch.tensor([14.0, -14.0, 20.0, 30.0, -50.0, 1e3, 1e5],
+                                 device=dev)
+        out = cuda_diag_predict.diag_predict(xt, rows, aux, n)
+        ref = cuda_diag_predict.diag_predict_plain(xt, rows, aux, n)
+        assert bool(torch.isfinite(ref).all())
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('studentt', [True, False])
+@pytest.mark.parametrize('k', [1, 50, 500])
+@pytest.mark.parametrize('d', SERVING_DS)
+def test_predict_kernel_widths(dev, d, k, studentt):
+    """B3 over the Gauss map (NIW rows) and over the diagonal map (the NG
+    Gaussian predictive) against its plain version, n at the tile's
+    edges."""
+    basis, _, log_w = _ilr_state(dev, k, d, 1, seed=43 + d)
+    thq, aux = cuda_predict.predictive_coefficients(basis, log_w, studentt)
+    post = _ng_posterior_h(dev, k, d, True, seed=44 + d)
+    thd, auxd = cuda_predict.diag_gaussian_coefficients(post, log_w)
+    g = torch.Generator(device=dev).manual_seed(45)
+    for n in _serving_ns(_b34_tile(d)):
+        xt = torch.randn((d, n), generator=g, device=dev)
+        out = cuda_predict.predict(xt, thq, aux, n, studentt)
+        ref = cuda_predict.predict_plain(xt, thq, aux, n, studentt)
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+        if not studentt:
+            out = cuda_predict.predict(xt, thd, auxd, n, False, DIAG)
+            ref = cuda_predict.predict_plain(xt, thd, auxd, n, False, DIAG)
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
