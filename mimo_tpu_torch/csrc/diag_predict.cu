@@ -38,9 +38,10 @@
 //   it per dim;
 // - the blocked fold: G components' lp in registers, one max and G + 1
 //   exps (fold_group);
-// - compiled widths d = 1..8, 12, 16, 24, 32: d is padded to the next one
-//   with zero rows (the host lays them out) and zero x in registers, and
-//   fma(0, 0, s) = s, so each component's sum is the same bit for bit;
+// - compiled widths d = 1..8, 12, 16, 24, 32 (the host picks one,
+//   ops/cuda_predict.py's serving_width): d is padded to it with zero rows
+//   (the host lays them out) and zero x in registers, and fma(0, 0, s) =
+//   s, so each component's per-dim sum is the same bit for bit;
 //   x lives in registers and a thread owns 2-4 points; past d = 32 x_j is
 //   read where it lies, one point a thread;
 // - the (k, j) float4s and the per-component aux are staged through
@@ -54,13 +55,6 @@ constexpr int kGroupWide = 4;  // at the padded widths (code size)
 
 __host__ __device__ constexpr int points_per_thread(int d) {
   return d <= 2 ? 4 : 2;
-}
-
-// The compiled width of d: d itself up to 8, then 12, 16, 24, 32; 0 (the
-// runtime width) past 32.
-__host__ __device__ constexpr int compiled_width(int d) {
-  return d <= 8 ? d : d <= 12 ? 12 : d <= 16 ? 16 : d <= 24 ? 24
-                                                  : d <= 32 ? 32 : 0;
 }
 
 // sum_j h_kj log2(1 + u_kj) of one point over its component's d rows,
@@ -97,7 +91,9 @@ diag_predict_kernel(const float* __restrict__ xt, long long ld, int d,
 
   // lp (log2 units) of one component whose h is shared, for each point:
   // the U fold, one log. Where 1 + U overflows lp comes out -inf (h
-  // log2_1p(inf) = inf); fix_overflow then takes the per-dim sum.
+  // log2_1p(inf) = inf), or NaN once a later dim adds u = 0 (inf * 0: a
+  // padded dim, or a clipped quad); fix_overflow then takes the per-dim
+  // sum.
   auto shared_lp = [&](const float4* rows, float2 a, float (&lp)[PTS]) {
     float u1[PTS];
 #pragma unroll
@@ -115,10 +111,11 @@ diag_predict_kernel(const float* __restrict__ xt, long long ld, int d,
       lp[i] = fmaf(-a.y, log2_1p(u1[i]), a.x * kLog2e);
   };
 
-  // a point whose 1 + U overflowed (lp = -inf where the per-dim sum is
-  // finite) takes the per-dim sum; rare, so one test per point and group
+  // a point whose 1 + U overflowed (lp -inf or NaN where the per-dim sum
+  // is finite) takes the per-dim sum; rare, so one test per point and
+  // group
   auto fix_overflow = [&](const float4* rows, float2 a, float& lp, int i) {
-    if (lp == -INFINITY)
+    if (!(lp > -INFINITY))
       lp = a.x * kLog2e - per_dim_tail(rows, xt + min(base + i * kThreads,
                                                       n - 1), ld, d);
   };
@@ -182,7 +179,7 @@ diag_predict_kernel(const float* __restrict__ xt, long long ld, int d,
           for (int g = 0; g < G; ++g)
             group = group && aux2[min(c + g, kn - 1)].y > 0.0f;
           if (group) {
-            float lp[PTS][G], lo[PTS];
+            float lp[PTS][G], lo[PTS];   // lo: -inf or NaN if any lp is
 #pragma unroll
             for (int g = 0; g < G; ++g) {
               float l[PTS];
@@ -190,12 +187,12 @@ diag_predict_kernel(const float* __restrict__ xt, long long ld, int d,
 #pragma unroll
               for (int i = 0; i < PTS; ++i) {
                 lp[i][g] = l[i];
-                lo[i] = g ? fminf(lo[i], l[i]) : l[i];
+                lo[i] = g ? lo[i] + l[i] : l[i];   // no lp is +inf
               }
             }
 #pragma unroll
             for (int i = 0; i < PTS; ++i) {
-              if (lo[i] == -INFINITY) {
+              if (!(lo[i] > -INFINITY)) {
 #pragma unroll
                 for (int g = 0; g < G; ++g)
                   fix_overflow(rows0 + (long long)(c + g) * dr, aux2[c + g],
@@ -247,24 +244,22 @@ cudaError_t launch_diag_predict(const float* xt, long long ld, int d,
 
 }  // namespace
 
-// The width B4 compiles d at, which its rows per component are padded
-// to: d up to 8, 12, 16, 24 or 32 above it, 0 past 32 (the runtime width,
-// d rows).
-extern "C" int mimo_diag_predict_width(int d) {
-  return d < 1 ? 0 : compiled_width(d);
-}
-
-// xt (d, ld) f32, points 0..n-1; th (k D, 4) f32, D =
-// mimo_diag_predict_width(d) (or d where that is 0), row (k, j) = [th_0, th_{1+j}, th_{1+d+j}, h]
-// of the (k, j) quad row over [1; x; x^2] and its tail exponent (rows
-// j >= d zero); aux (k, 2) f32 [aux, hs]; out (n,) f32.
-// Returns a cudaError_t code.
+// xt (d, ld) f32, points 0..n-1; width: the compiled width the host laid
+// th out for (d itself up to 8, 12, 16, 24 or 32 >= d, or 0: the runtime
+// width, d rows); th (k D, 4) f32, D = width (d where that is 0), row (k,
+// j) = [th_0, th_{1+j}, th_{1+d+j}, h] of the (k, j) quad row over [1; x;
+// x^2] and its tail exponent (rows j >= d zero); aux (k, 2) f32 [aux, hs];
+// out (n,) f32. Returns a cudaError_t code (cudaErrorInvalidValue for a
+// width it does not compile).
 extern "C" int mimo_diag_predict(const float* xt, long long ld, int d,
-                                 long long n, const float* th, int k,
-                                 const float* aux, float* out, void* stream) {
+                                 int width, long long n, const float* th,
+                                 int k, const float* aux, float* out,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || d < 1) return cudaErrorInvalidValue;
-  switch (compiled_width(d)) {
+  if (k < 1 || d < 1 || (width && width < d) || (width > 0 && width <= 8
+                                                    && width != d))
+    return cudaErrorInvalidValue;
+  switch (width) {
     case 1: return launch_diag_predict<1>(xt, ld, d, n, th, k, aux, out, s);
     case 2: return launch_diag_predict<2>(xt, ld, d, n, th, k, aux, out, s);
     case 3: return launch_diag_predict<3>(xt, ld, d, n, th, k, aux, out, s);
@@ -277,6 +272,7 @@ extern "C" int mimo_diag_predict(const float* xt, long long ld, int d,
     case 16: return launch_diag_predict<16>(xt, ld, d, n, th, k, aux, out, s);
     case 24: return launch_diag_predict<24>(xt, ld, d, n, th, k, aux, out, s);
     case 32: return launch_diag_predict<32>(xt, ld, d, n, th, k, aux, out, s);
-    default: return launch_diag_predict<0>(xt, ld, d, n, th, k, aux, out, s);
+    case 0: return launch_diag_predict<0>(xt, ld, d, n, th, k, aux, out, s);
+    default: return cudaErrorInvalidValue;
   }
 }

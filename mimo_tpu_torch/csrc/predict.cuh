@@ -26,13 +26,15 @@
 // - d <= 8: each point's map lives in registers (PointMap: the Gauss map's
 //   distinct entries, 45 at d = 8), a thread owns 2-4 points, and one
 //   float4 broadcast of a component's row feeds each point's FMA chain.
-// - d = 9..32: d is padded to 12, 16, 24 or 32 with zero x in registers
-//   and zero coefficients (fma(0, 0, s) = s: each chain is the same bit for
-//   bit), and the component index is the inner loop: the host lays the
+// - d = 9..32: d is padded to 12, 16, 24 or 32 (the host picks the width,
+//   ops/cuda_predict.py's serving_width) with zero x in registers and zero
+//   coefficients (fma(0, 0, s) = s: each chain is the same bit for bit),
+//   and the component index is the inner loop: the host lays the
 //   coefficients out group-major, term-major (G = 8 components a term, one
 //   LDS.128 gives four), a thread owns 2 points with G accumulators each,
 //   x lives in registers and each entry x_a x_b is formed once per point
-//   and group. A GEMM-shaped loop on the f32 units.
+//   and group. A GEMM-shaped loop on the f32 units. The terms of padded
+//   coordinates are skipped four at a time (the width is a multiple of 4).
 // - d > 32: one point a thread, F's entries formed term by term from x
 //   where it lies.
 // Every chain is one f32 FMA chain in F's column order, as in the plain
@@ -49,13 +51,6 @@ constexpr int kPredictGroup = 8;   // components per blocked fold / group
 
 __host__ __device__ constexpr int predict_points(int m) {
   return m <= 8 ? 4 : 2;
-}
-
-// The compiled width of d: d itself up to 8, then 12, 16, 24, 32; 0 (the
-// runtime width) past 32.
-__host__ __device__ constexpr int predict_width(int d) {
-  return d <= 8 ? d : d <= 12 ? 12 : d <= 16 ? 16 : d <= 24 ? 24
-                                                  : d <= 32 ? 32 : 0;
 }
 
 // lp (log2 units) of a clipped quad q under a component's aux row
@@ -168,6 +163,7 @@ predict_wide_kernel(const float* __restrict__ xt, long long ld, int d,
   constexpr int PTS = 2;
   constexpr int G = kPredictGroup;
   constexpr int M = kMap == kGauss ? gauss_m(D) : diag_m(D);
+  static_assert(D % 4 == 0, "the padded loops step by 4");
   const Strip s[2] = {{th, M * G, 1}, {aux, 8 * G, 1}};
   const long long tile = (long long)kThreads * PTS;
   float x[PTS][D], mx[PTS], sum[PTS];
@@ -218,15 +214,21 @@ predict_wide_kernel(const float* __restrict__ xt, long long ld, int d,
               q[i][4 * h + 3] = c.w;
             }
           }
+          // the loops over x's coordinates skip the padded ones (a >= d:
+          // zero terms of zero coefficients) four at a time
 #pragma unroll
-          for (int a = 0; a < D; ++a) {         // columns 1..D, x
-            const float f[PTS] = {x[0][a], x[1][a]};
-            term(tg + (1 + a) * G, f, q);
+          for (int a0 = 0; a0 < D; a0 += 4) {   // columns 1..D, x
+            if (a0 < d) {
+#pragma unroll
+              for (int a = a0; a < a0 + 4; ++a) {
+                const float f[PTS] = {x[0][a], x[1][a]};
+                term(tg + (1 + a) * G, f, q);
+              }
+            }
           }
           if constexpr (kMap == kGauss) {
-            // columns 1 + D + a D + b, x_a x_b; rows a >= d are zero terms
-            // of zero coefficients, skipped
-            // x_a from where it lies (L1), the next one in flight
+            // columns 1 + D + a D + b, x_a x_b; x_a from where it lies
+            // (L1), the next one in flight
             long long pi[PTS];
             float xn[PTS];
 #pragma unroll
@@ -244,16 +246,27 @@ predict_wide_kernel(const float* __restrict__ xt, long long ld, int d,
               }
               const float* ta = tg + (1 + D + a * D) * G;
 #pragma unroll
-              for (int b = 0; b < D; ++b) {
-                const float f[PTS] = {xa[0] * x[0][b], xa[1] * x[1][b]};
-                term(ta + b * G, f, q);
+              for (int b0 = 0; b0 < D; b0 += 4) {
+                if (b0 < d) {
+#pragma unroll
+                  for (int b = b0; b < b0 + 4; ++b) {
+                    const float f[PTS] = {xa[0] * x[0][b], xa[1] * x[1][b]};
+                    term(ta + b * G, f, q);
+                  }
+                }
               }
             }
           } else {
 #pragma unroll
-            for (int a = 0; a < D; ++a) {       // columns 1 + D + a, x_a^2
-              const float f[PTS] = {x[0][a] * x[0][a], x[1][a] * x[1][a]};
-              term(tg + (1 + D + a) * G, f, q);
+            for (int a0 = 0; a0 < D; a0 += 4) {  // columns 1 + D + a, x_a^2
+              if (a0 < d) {
+#pragma unroll
+                for (int a = a0; a < a0 + 4; ++a) {
+                  const float f[PTS] = {x[0][a] * x[0][a],
+                                        x[1][a] * x[1][a]};
+                  term(tg + (1 + D + a) * G, f, q);
+                }
+              }
             }
           }
           float lp[PTS][G];
@@ -320,8 +333,8 @@ cudaError_t launch_predict_wide(const float* xt, long long ld, int d,
 
 }  // namespace
 
-// predict_wide.cu: B3 at the padded widths (predict_width(d) > 8).
+// predict_wide.cu: B3 at the padded widths (width 12, 16, 24 or 32).
 extern "C" int mimo_predict_wide(const float* xt, long long ld, int d,
-                                 int kind, long long n, const float* th,
-                                 int k, const float* aux, int studentt,
-                                 float* out, void* stream);
+                                 int width, int kind, long long n,
+                                 const float* th, int k, const float* aux,
+                                 int studentt, float* out, void* stream);

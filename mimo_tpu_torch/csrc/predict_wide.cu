@@ -6,10 +6,11 @@
 namespace {
 
 template <int kMap>
-cudaError_t dispatch_wide(const float* xt, long long ld, int d, long long n,
-                          const float* th, int k, const float* aux,
-                          int studentt, float* out, cudaStream_t st) {
-  switch (predict_width(d)) {
+cudaError_t dispatch_wide(const float* xt, long long ld, int d, int width,
+                          long long n, const float* th, int k,
+                          const float* aux, int studentt, float* out,
+                          cudaStream_t st) {
+  switch (width) {
     case 12: return launch_predict_wide<kMap, 12>(xt, ld, d, n, th, k, aux,
                                                   studentt, out, st);
     case 16: return launch_predict_wide<kMap, 16>(xt, ld, d, n, th, k, aux,
@@ -25,13 +26,13 @@ cudaError_t dispatch_wide(const float* xt, long long ld, int d, long long n,
 }  // namespace
 
 extern "C" int mimo_predict_wide(const float* xt, long long ld, int d,
-                                 int kind, long long n, const float* th,
-                                 int k, const float* aux, int studentt,
-                                 float* out, void* stream) {
+                                 int width, int kind, long long n,
+                                 const float* th, int k, const float* aux,
+                                 int studentt, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return kind == kKindGauss
-             ? dispatch_wide<kGauss>(xt, ld, d, n, th, k, aux, studentt, out,
-                                     s)
-             : dispatch_wide<kDiag>(xt, ld, d, n, th, k, aux, studentt, out,
-                                    s);
+             ? dispatch_wide<kGauss>(xt, ld, d, width, n, th, k, aux,
+                                     studentt, out, s)
+             : dispatch_wide<kDiag>(xt, ld, d, width, n, th, k, aux,
+                                    studentt, out, s);
 }

@@ -40,11 +40,9 @@ _SIGNATURES = {
                         _P]),
     'mimo_gibbs': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _P,
                         _P, _I, _P]),
-    'mimo_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I, _P,
-                          _P]),
-    'mimo_diag_predict': (_I, [_P, _I64, _I, _I64, _P, _I, _P, _P, _P]),
-    'mimo_predict_width': (_I, [_I]),
-    'mimo_diag_predict_width': (_I, [_I]),
+    'mimo_predict': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _I,
+                          _P, _P]),
+    'mimo_diag_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _P, _P, _P]),
     'mimo_ilr_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _I, _P, _I,
                               _P, _P]),
     'mimo_ilr_p_predict': (_I, [_P, _I64, _I, _I, _I, _I, _I64, _P, _I, _I,

@@ -10,10 +10,11 @@ columns), lp_k = aux_k - sum_j h_kj log1p(u_kj), and out = logsumexp
 over K. The (N, K) matrix never exists on the card. What bounds B4 on
 the H100 and what it does about it: see the note at the top of
 csrc/diag_predict.cu. The kernel works in log2 units, at d = 9..32 on
-rows padded to the width it compiles (`kernel_coefficients`), and where
-h_kj is the same in every dim it takes one log per component: sum_j h log1p(u_j) = h
-log1p(U), 1 + U = prod_j (1 + u_j). The plain version keeps natural units
-and the per-dim sum.
+rows padded to the width it compiles (`kernel_coefficients`, laid out
+once per coefficient tensor: `cuda_predict.cached_layout`), and where
+h_kj is the same in every dim it takes one log per component: sum_j h
+log1p(u_j) = h log1p(U), 1 + U = prod_j (1 + u_j). The plain version
+keeps natural units and the per-dim sum.
 
 `diag_predictive_cuda` is the counterpart of mimo_tpu's
 diag_predictive_pallas: 'studentt' through B4, 'gaussian' through B3
@@ -56,12 +57,13 @@ def diag_predict_coefficients(post, log_w):
             torch.stack([aux, shared], -1).contiguous())
 
 
-def kernel_coefficients(rows, d, width):
-    """B4's own copy of rows (K d, 4) for the width the library compiles
-    d at (`width`, its mimo_diag_predict_width(d)): (K width, 4), the rows
-    j >= d of each component zero (a padded dim adds u = 0: U and the
-    per-dim sum stay exactly as they were); the rows themselves at d
-    itself and at the runtime width (0)."""
+def kernel_coefficients(rows, d):
+    """B4's own copy of rows (K d, 4) for the width the kernel compiles d
+    at (`cuda_predict.serving_width`): (K width, 4), the rows j >= d of
+    each component zero (a padded dim adds u = 0: U and the per-dim sum
+    stay exactly as they were); the rows themselves at d itself and at the
+    runtime width (0)."""
+    width = cuda_predict.serving_width(d)
     if width <= d:
         return rows
     k = rows.shape[0] // d
@@ -110,10 +112,12 @@ def diag_predict(xt, rows, aux, n):
             or not aux.is_contiguous() or aux.device != xt.device):
         raise ValueError(f'cuda_diag_predict: aux must be a contiguous '
                          f"({k}, 2) float32 tensor on the data's device")
-    rows_k = kernel_coefficients(rows, d, lib.mimo_diag_predict_width(d))
+    width = cuda_predict.serving_width(d)
+    rows_k = rows if width <= d else cuda_predict.cached_layout(
+        rows, (), d, lambda: kernel_coefficients(rows, d))
     out = torch.empty((n,), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
-        rc = lib.mimo_diag_predict(xt.data_ptr(), xt.stride(0), d, n,
+        rc = lib.mimo_diag_predict(xt.data_ptr(), xt.stride(0), d, width, n,
                                    rows_k.data_ptr(), k, aux.data_ptr(),
                                    out.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)

@@ -13,7 +13,8 @@ exists in device memory.
 What bounds it on the H100, and what the kernel does about it: see the
 note at the top of csrc/predict.cuh. The kernel works in log2 units and,
 at d = 9..32, on its own layout of the coefficients
-(`kernel_coefficients`); the plain version keeps natural units.
+(`kernel_coefficients`, laid out once per coefficient tensor:
+`cached_layout`); the plain version keeps natural units.
 """
 
 import math
@@ -34,40 +35,63 @@ launches = {'gauss': 0, 'diag': 0}
 GROUP = 8    # components per group of B3's padded-width layout
 
 
-def padded_columns(d, width, kind=GAUSS):
-    """Column of the map at `width` that column j of the map at d becomes
-    when x is padded with zeros to `width`: [1; x; x (x) x] (or [1; x;
-    x^2]) keeps its order, the new columns hold zeros."""
-    cols = [0] + [1 + a for a in range(d)]
-    if kind == DIAG:
-        cols += [1 + width + a for a in range(d)]
-    else:
-        cols += [1 + width + a * width + b for a in range(d)
-                 for b in range(d)]
-    return torch.tensor(cols)
+def serving_width(d):
+    """The width B3 and B4 compile an input width d at, which their hosts
+    lay the coefficients out for (the one copy of this ladder: the C
+    entries take the width and refuse one they do not compile): d itself
+    up to 8, then 12, 16, 24 or 32 (d padded up with zeros), 0 past 32
+    (the runtime width: d as it is)."""
+    if d <= 8:
+        return d
+    return next((w for w in (12, 16, 24, 32) if d <= w), 0)
 
 
-def kernel_coefficients(thq, aux, d, width, kind=GAUSS):
+def cached_layout(coef, deps, key, build):
+    """build(): a kernel's own layout of the coefficient tensor `coef`
+    (built from coef, the tensors `deps` and `key`), kept on coef and
+    reused while coef and deps are the same objects, unmodified (torch's
+    version counters), with the same key: a posterior served batch after
+    batch is laid out once. Inference tensors keep no version counter and
+    are laid out on every call."""
+    tensors = (coef,) + tuple(deps)
+    if any(t.is_inference() for t in tensors):
+        return build()
+    stamp = (tuple(t._version for t in tensors), key)
+    hit = getattr(coef, '_mimo_layout', None)
+    if (hit is None or hit[1] != stamp
+            or any(a is not b for a, b in zip(hit[0], deps))):
+        hit = (tuple(deps), stamp, build())
+        coef._mimo_layout = hit
+    return hit[2]
+
+
+def kernel_coefficients(thq, aux, d, kind=GAUSS):
     """B3's own layout of (thq (K, m8), aux (K, 8)) at input width d, for
-    the width the library compiles d at (`width`, its
-    mimo_predict_width(d)): (th, aux', m). Up to 8 and at the runtime
-    width (0) it is (thq, aux, m8) as they are. At a padded width (12, 16,
-    24, 32) the map is padded to it and laid out group-major and
-    term-major: th (K' / GROUP, M, GROUP) with M = the map's width there
-    and K' = K rounded up to GROUP, the extra components' coefficients
-    zero and their aux rows [-inf, 0, ...]; m = M."""
+    the width the kernel compiles d at (`serving_width`): (th, aux', m).
+    Up to 8 and at the runtime width (0) it is (thq, aux, m8) as they
+    are. At a padded width w (12, 16, 24, 32) the map is padded to w and
+    laid out group-major and term-major: th (K' / GROUP, M, GROUP) with M
+    = the map's width at w and K' = K rounded up to GROUP, the extra
+    components' coefficients zero and their aux rows [-inf, 0, ...]; m =
+    M. Device-side copies only: nothing waits for the card."""
+    width = serving_width(d)
     if width <= 8:
         return thq, aux, thq.shape[1]
     k = thq.shape[0]
     m = 1 + 2 * width if kind == DIAG else 1 + width + width * width
     kp = -(-k // GROUP) * GROUP
     th = thq.new_zeros((kp, m))
-    th[:k, padded_columns(d, width, kind).to(thq.device)] = \
-        thq[:, :feature_width(kind, d)]
-    pad = aux.new_zeros((kp - k, aux.shape[1]))
-    pad[:, 0] = -math.inf
+    th[:k, :1 + d] = thq[:, :1 + d]                    # [1; x]
+    if kind == DIAG:                                   # x^2
+        th[:k, 1 + width:1 + width + d] = thq[:, 1 + d:1 + 2 * d]
+    else:                                              # x (x) x
+        th[:k, 1 + width:].view(k, width, width)[:, :d, :d] = \
+            thq[:, 1 + d:1 + d + d * d].view(k, d, d)
+    rows = aux.new_zeros((kp, aux.shape[1]))
+    rows[:, 0] = -math.inf
+    rows[:k] = aux
     th = th.view(kp // GROUP, GROUP, m).transpose(1, 2).contiguous()
-    return th, torch.cat([aux, pad]), m
+    return th, rows, m
 
 
 def predict_plain(xt, thq, aux, n, studentt=True, kind=GAUSS):
@@ -104,11 +128,13 @@ def predict(xt, thq, aux, n, studentt=True, kind=GAUSS):
                          "float32 tensor on the data's device")
     _build.check_serving('cuda_predict', xt, n, thq, feature_width(kind, d),
                          f'{KIND_NAMES[kind]} map, d={d}', aux)
-    th, rows, m = kernel_coefficients(thq, aux, d, lib.mimo_predict_width(d),
-                                      kind)
+    width = serving_width(d)
+    th, rows, m = (thq, aux, thq.shape[1]) if width <= 8 else cached_layout(
+        thq, (aux,), (d, kind), lambda: kernel_coefficients(thq, aux, d,
+                                                            kind))
     out = torch.empty((n,), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
-        rc = lib.mimo_predict(xt.data_ptr(), xt.stride(0), d, kind, n,
+        rc = lib.mimo_predict(xt.data_ptr(), xt.stride(0), d, width, kind, n,
                               th.data_ptr(), rows.shape[0], m,
                               rows.data_ptr(), int(studentt), out.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)

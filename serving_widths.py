@@ -12,10 +12,11 @@ a random posterior with the scales of a fit at N ~ 1e6 (K components, N
 points, float32, seed 0) through the checkout's own coefficient functions
 and wrappers:
 
-  B3  Student-t mixture density, d = 2, 4, 5, 8, 12, 16, 24, 32;
-  B4  diagonal Student-t mixture density, d = 2, 4, 5, 8, 12, 16, 24, 32,
-      tail exponents equal across dims (as in a fit); B4u the same at d =
-      2, 4, 5, 8 with tail exponents drawn per dim;
+  B3  Student-t mixture density, d = 2, 4, 5, 8, 9, 12, 16, 17, 24, 25,
+      32 (9, 17 and 25 just past a compiled width, padded up);
+  B4  diagonal Student-t mixture density at the same d, tail exponents
+      equal across dims (as in a fit); B4u the same at d = 2, 4, 5, 8
+      with tail exponents drawn per dim;
   B5  ILR predict, p = 1, with y, d = 1, 4, 5, 8;
   B6  ILR predict, p = 2, MNW experts, with y, d = 2, 3, 4, 8.
 
@@ -107,7 +108,8 @@ def main():
 
     log_w = torch.log_softmax(randn(k), 0)
     cases = []
-    for d in (2, 4, 5, 8, 12, 16, 24, 32):
+    widths = (2, 4, 5, 8, 9, 12, 16, 17, 24, 25, 32)
+    for d in widths:
         basis, _ = ilr_posterior(d, 1)
         xt = (rand(d, n) * 6 - 3).contiguous()
         thq, aux = cuda_predict.predictive_coefficients(basis, log_w)
@@ -115,7 +117,7 @@ def main():
                       cuda_predict.predict(xt, thq, aux, n),
                       lambda xt=xt, thq=thq, aux=aux:
                       cuda_predict.predict_plain(xt, thq, aux, n)))
-    for name, d in ([('B4', d) for d in (2, 4, 5, 8, 12, 16, 24, 32)]
+    for name, d in ([('B4', d) for d in widths]
                     + [('B4u', d) for d in (2, 4, 5, 8)]):
         post = ng_posterior(d, name == 'B4')
         xt = (post.mu[torch.randint(0, k, (n,), generator=gen, device=dev)]

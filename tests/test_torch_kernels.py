@@ -20,8 +20,8 @@ from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models import BayesianGMM, BayesianILR
 from mimo_tpu_torch.models.mixture import MFState
 from mimo_tpu_torch.ops import (
-    cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello, cuda_ilr_predict,
-    cuda_predict, cuda_probes)
+    _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
+    cuda_ilr_predict, cuda_predict, cuda_probes)
 from mimo_tpu_torch.ops.cuda_estep import DIAG, ILR
 
 torch.set_num_threads(1)
@@ -978,7 +978,7 @@ def test_dp_gmm_log_predictive_at_k500_runs_through_b3(dev):
 # B3 and B4 at every compiled width (d = 1-8; 9, 16, 17, 24, 32 padded to
 # 12, 16, 24, 24, 32) and past them (d = 40, the runtime width), K from 1
 # to 500 (one partial group of the blocked fold; chunks of every size).
-SERVING_DS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 24, 32, 40]
+SERVING_DS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 24, 25, 32, 40]
 
 
 def _b34_tile(d):
@@ -1017,12 +1017,14 @@ def test_diag_predict_kernel_widths(dev, d, k, shared):
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize('d', [8, 32, 40])
+@pytest.mark.parametrize('d', [8, 9, 30, 32, 40])
 def test_diag_predict_kernel_where_the_product_overflows(dev, d):
     """Points so far out that prod_j (1 + u_j) overflows f32 (df ~ 10, a
     point ~15 sigma out in every dim, d >= 8 dims): B4 takes the per-dim
     sum there and stays finite and equal to its plain version, shared h
-    or not, among ordinary points."""
+    or not, among ordinary points; at d = 9 and 30 (padded to 12 and 32)
+    the padded dims then make U inf * 0 = NaN, which the guard catches
+    too."""
     k, n = 5, 300
     for shared in (True, False):
         g = torch.Generator(device=dev).manual_seed(42)
@@ -1044,6 +1046,31 @@ def test_diag_predict_kernel_where_the_product_overflows(dev, d):
         assert bool(torch.isfinite(ref).all())
         assert bool(torch.isfinite(out).all())
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_serving_entries_refuse_a_width_they_do_not_compile(dev):
+    """B3's and B4's C entries take the width the host laid the
+    coefficients out for (cuda_predict.serving_width) and refuse one they
+    do not compile, or one below d, rather than read a layout they did not
+    get."""
+    lib = _build.load()
+    d, k, n = 9, 8, 100
+    xt = torch.zeros((d, n), device=dev)
+    out = torch.empty((n,), device=dev)
+    aux = torch.zeros((k, 8), device=dev)
+    rows = torch.zeros((k * 32, 4), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for width, m in ((20, 1 + 20 + 400), (8, 96), (9, 1 + 9 + 81)):
+        th = torch.zeros((k, m), device=dev)
+        assert lib.mimo_predict(xt.data_ptr(), n, d, width, 0, n,
+                                th.data_ptr(), k, m, aux.data_ptr(), 1,
+                                out.data_ptr(), stream) != 0
+    for width in (20, 8, 9, 33):
+        assert lib.mimo_diag_predict(xt.data_ptr(), n, d, width, n,
+                                     rows.data_ptr(), k, aux.data_ptr(),
+                                     out.data_ptr(), stream) != 0
+    torch.cuda.synchronize()
+    assert cuda_predict.serving_width(d) == 12
 
 
 @pytest.mark.parametrize('studentt', [True, False])

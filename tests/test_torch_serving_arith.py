@@ -3,7 +3,8 @@ on the CPU (the kernels themselves run only on the card).
 
 - Layout: B3's and B4's own layouts of their coefficients
   (`kernel_coefficients`: d padded to the compiled widths 12, 16, 24, 32
-  with zero coefficients, B3's padded widths group-major and term-major)
+  of `serving_width` with zero coefficients, B3's padded widths
+  group-major and term-major)
   and B4's h-shared flag, evaluated in float64 from the layout alone (B4
   with one log per component where the flag is set), agree with
   mimo_tpu's Pallas kernels in interpret mode and with the plain
@@ -15,7 +16,8 @@ on the CPU (the kernels themselves run only on the card).
   once) lies within 10x of the f32 plain version's error against float64
   (the bound of chip_smoke.py's precision lines) at a fitted-scale cell,
   10 sigma off the origin, with tail exponents up to 1e5, and at a point
-  so far out that B4's product 1 + U overflows. The MUFU approximations
+  so far out that B4's product 1 + U overflows, at d = 32 and at padded
+  widths (where a padded dim then adds inf * 0). The MUFU approximations
   are modelled at their worst: rcp.approx 1 ulp, lg2.approx and
   ex2.approx 2^-22 relative, each biased one way.
 """
@@ -39,9 +41,6 @@ from mimo_tpu_torch.ops.cuda_estep import DIAG, GAUSS, assemble_features
 
 torch.set_num_threads(1)
 LN2 = math.log(2.0)
-# the widths the library compiles d at (mimo_predict_width and
-# mimo_diag_predict_width: csrc/predict.cuh, csrc/diag_predict.cu)
-WIDTH = {2: 2, 9: 12, 24: 24, 32: 32}
 
 
 # -- the layouts ---------------------------------------------------------------
@@ -68,7 +67,7 @@ def _b3_layout_eval(th, aux, m, d, kind, x, studentt):
     """B3's output from its kernel layout alone, in float64: x (n, d)."""
     th, aux = th.double(), aux.double()
     if th.dim() == 3:                                    # (K' / G, M, G)
-        width = WIDTH[d]
+        width = cuda_predict.serving_width(d)
         th = th.transpose(1, 2).reshape(-1, m)
         xp = torch.zeros((width, x.shape[0]), dtype=torch.float64)
         xp[:d] = x.T
@@ -101,10 +100,9 @@ def test_b3_kernel_layout_matches_pallas_interpret(d, studentt):
     post = NIW(**{f: torch.as_tensor(v) for f, v in arrays.items()})
     thq, aux = cuda_predict.predictive_coefficients(
         post, torch.as_tensor(log_w), studentt)
-    th, auxk, m = cuda_predict.kernel_coefficients(thq, aux, d, WIDTH[d],
-                                                   GAUSS)
+    th, auxk, m = cuda_predict.kernel_coefficients(thq, aux, d, GAUSS)
     if d > 8:
-        width = WIDTH[d]
+        width = cuda_predict.serving_width(d)
         assert th.shape == (2, 1 + width + width * width, 8)
         assert auxk.shape == (16, 8) and bool((auxk[k:, 0] == -math.inf)
                                               .all())
@@ -134,8 +132,7 @@ def test_b3_diag_kernel_layout_matches_pallas_interpret(d):
     post = NG(**{f: torch.as_tensor(v) for f, v in arrays.items()})
     thq, aux = cuda_predict.diag_gaussian_coefficients(
         post, torch.as_tensor(log_w))
-    th, auxk, m = cuda_predict.kernel_coefficients(thq, aux, d, WIDTH[d],
-                                                   DIAG)
+    th, auxk, m = cuda_predict.kernel_coefficients(thq, aux, d, DIAG)
     got = _b3_layout_eval(th, auxk, m, d, DIAG, torch.as_tensor(x), False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float64),
                                rtol=1e-4, atol=1e-4)
@@ -188,8 +185,8 @@ def test_b4_kernel_layout_and_flag_match_pallas_interpret(d):
     post = NG(**{f: torch.as_tensor(v) for f, v in arrays.items()})
     rows, aux = cuda_diag_predict.diag_predict_coefficients(
         post, torch.as_tensor(log_w))
-    width = WIDTH[d]
-    rows_k = cuda_diag_predict.kernel_coefficients(rows, d, width)
+    width = cuda_predict.serving_width(d)
+    rows_k = cuda_diag_predict.kernel_coefficients(rows, d)
     assert rows_k.shape == (k * width, 4) and aux.shape == (k, 2)
     assert bool((rows_k.view(k, width, 4)[:, d:] == 0).all())
     np.testing.assert_array_equal(aux[:, 1].numpy() > 0, equal)
@@ -202,6 +199,43 @@ def test_b4_kernel_layout_and_flag_match_pallas_interpret(d):
         torch.as_tensor(x).T.contiguous(), rows, aux, n)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-12,
                                atol=1e-12)
+
+
+def test_serving_width_ladder():
+    """The one ladder of compiled widths B3's and B4's hosts lay out for
+    (the C entries take the width and refuse others)."""
+    want = {**{d: d for d in range(1, 9)}, 9: 12, 12: 12, 13: 16, 16: 16,
+            17: 24, 24: 24, 25: 32, 32: 32, 33: 0, 64: 0}
+    assert {d: cuda_predict.serving_width(d) for d in want} == want
+
+
+def test_cached_layout_is_built_once_per_unmodified_coefficients():
+    """The wrappers' layout cache: one build while the coefficients are
+    the same objects, unmodified; a new build after an in-place change to
+    either, for another dependency or key; inference tensors every time."""
+    builds = []
+
+    def layout(thq, aux, key=(9, GAUSS)):
+        return cuda_predict.cached_layout(
+            thq, (aux,), key, lambda: builds.append(1) or
+            cuda_predict.kernel_coefficients(thq, aux, 9, GAUSS))
+
+    thq, aux = torch.randn((5, 96)), torch.randn((5, 8))
+    first = layout(thq, aux)
+    assert layout(thq, aux) is first and len(builds) == 1
+    thq[0, 0] += 1.0
+    second = layout(thq, aux)
+    assert len(builds) == 2 and float(second[0][0, 0, 0]) == float(thq[0, 0])
+    aux[1, 0] = 3.0
+    assert float(layout(thq, aux)[1][1, 0]) == 3.0 and len(builds) == 3
+    layout(thq, aux.clone())
+    layout(thq, aux, (9, DIAG))
+    assert len(builds) == 5
+    with torch.inference_mode():
+        ti, ai = torch.randn((5, 96)), torch.randn((5, 8))
+    layout(ti, ai)
+    layout(ti, ai)
+    assert len(builds) == 7
 
 
 # -- the arithmetic ------------------------------------------------------------
@@ -261,21 +295,26 @@ def blocked_fold(lp2, g=8):
 
 
 def emulated_b4(xt, rows, aux, n):
-    """B4's arithmetic in f32 on its plain inputs: u per (k, j) as two
-    FMAs, aux log2(e), the U fold where the flag is set (the per-dim sum
-    for a point whose U overflows), log2_1p, the blocked fold."""
+    """B4's arithmetic in f32 on its plain inputs, over the kernel's own
+    copy of the rows (padded with zero rows to the compiled width, x with
+    zeros): u per (k, j) as two FMAs, aux log2(e), the U fold where the
+    flag is set (the per-dim sum over the d real dims for a point whose lp
+    then is not > -inf: U overflowed, and a later u = 0 made inf * 0 =
+    NaN), log2_1p, the blocked fold. Returns the output and the (K, n) lp
+    before that guard."""
     d = xt.shape[0]
     k = aux.shape[0]
-    th = rows.view(k, d, 4)
+    th = cuda_diag_predict.kernel_coefficients(rows, d).view(k, -1, 4)
     aux2 = aux[:, 0] * torch.tensor(LOG2E_F32)
-    x = xt[:, :n]
+    x = torch.zeros((th.shape[1], n))
+    x[:d] = xt[:, :n]
     lp2 = torch.empty((k, n))
-    overflowed = 0
+    unguarded = torch.empty((k, n))
     for c in range(k):
         r = th[c]
         us = [torch.clamp(fma(r[j, 2], x[j] * x[j], fma(r[j, 1], x[j],
                                                         r[j, 0])), min=0.0)
-              for j in range(d)]
+              for j in range(th.shape[1])]
         if aux[c, 1] > 0:
             tail = torch.zeros((n,))
             for j in range(d):
@@ -283,15 +322,15 @@ def emulated_b4(xt, rows, aux, n):
             u1 = us[0]
             for u in us[1:]:
                 u1 = fma(u1, u, u1 + u)
-            big = u1 == math.inf
-            overflowed += int(big.sum())
-            lp2[c] = torch.where(big, aux2[c] - tail,
-                                 fma(-aux[c, 1], log2_1p(u1), aux2[c]))
+            unguarded[c] = fma(-aux[c, 1], log2_1p(u1), aux2[c])
+            lp2[c] = torch.where(unguarded[c] > -math.inf, unguarded[c],
+                                 aux2[c] - tail)
         else:
             lp2[c] = aux2[c].expand(n)
             for j in range(d):
                 lp2[c] = fma(-r[j, 3], log2_1p(us[j]), lp2[c])
-    return blocked_fold(lp2), overflowed
+            unguarded[c] = lp2[c]
+    return blocked_fold(lp2), unguarded
 
 
 def emulated_b3(xt, thq, aux, n, studentt=True):
@@ -383,11 +422,45 @@ def test_emulated_b4_takes_the_per_dim_sum_where_u_overflows():
                                           dtype=torch.float64), 0)
     rows, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
     rows, aux, xt = rows.float(), aux.float(), x.float().T.contiguous()
-    got, overflowed = emulated_b4(xt, rows, aux, n)
+    got, lp = emulated_b4(xt, rows, aux, n)
     want = cuda_diag_predict.diag_predict_plain(xt, rows, aux, n)
     ref = cuda_diag_predict.diag_predict_plain(xt.double(), rows.double(),
                                                aux.double(), n)
-    assert overflowed >= k                 # every component, point 0
+    assert int((~(lp > -math.inf)).sum()) >= k   # every component, point 0
+    assert bool(torch.isfinite(want).all()) and bool(
+        torch.isfinite(got).all())
+    assert ratio(got, want, ref) <= 10.0
+
+
+@pytest.mark.parametrize('d,far', [(9, 1e3), (17, 1e3), (30, 14.0)])
+def test_emulated_b4_overflow_guard_at_padded_widths(d, far):
+    """d padded to 12, 24, 32: once 1 + U overflows, the next padded dim
+    (u = 0) makes U inf * 0 = NaN, not -inf; the guard (lp not > -inf)
+    takes the per-dim sum there too. A point at `far` in every dim
+    overflows every component (1e3 at d = 9 and 17, ~15 sigma at d = 30);
+    the emulation stays finite and within 10x of the plain error, shared
+    h or not."""
+    g = torch.Generator().manual_seed(11)
+    k, n = 4, 512
+    counts = torch.full((k, 1), 8.0, dtype=torch.float64)
+    alpha = (1.0 + 0.5 * counts).expand(k, d).clone()
+    alpha[1] += torch.rand((d,), generator=g, dtype=torch.float64)
+    post = NG(mu=torch.randn((k, d), generator=g, dtype=torch.float64),
+              kappa=counts.expand(k, d), alpha=alpha,
+              beta=0.5 * counts.expand(k, d) * 0.5)
+    x = _draw(g, post, n)
+    x[0] = far
+    log_w = torch.log_softmax(torch.randn((k,), generator=g,
+                                          dtype=torch.float64), 0)
+    rows, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
+    rows, aux, xt = rows.float(), aux.float(), x.float().T.contiguous()
+    assert cuda_predict.serving_width(d) > d
+    assert float(aux[1, 1]) == 0.0 and bool((aux[[0, 2, 3], 1] > 0).all())
+    got, lp = emulated_b4(xt, rows, aux, n)
+    want = cuda_diag_predict.diag_predict_plain(xt, rows, aux, n)
+    ref = cuda_diag_predict.diag_predict_plain(xt.double(), rows.double(),
+                                               aux.double(), n)
+    assert bool(lp[[0, 2, 3], 0].isnan().all())   # inf * 0, not -inf
     assert bool(torch.isfinite(want).all()) and bool(
         torch.isfinite(got).all())
     assert ratio(got, want, ref) <= 10.0
