@@ -84,6 +84,19 @@ Phases, one or more printed lines each:
               MNW and MNG), N=1,000,003: each served once through
               log_predictive or predict with launch counts, held against
               its plain version and timed.
+ 17. engines  MAP-EM and ML-EM through B1 with plug-in theta: the DP-GMM
+              of phase 6 (N=1e7, K=50, d=2) by fit_map_fused 50 and
+              fit_em_fused 50, B1 launched exactly once a sweep, finite
+              traces (EM's not falling beyond 1e-4 relative f32 jitter),
+              kernel vs plain on a 100,003-point slice, rates, B1's time
+              and precision line at each fit's final theta; the q8 ILR
+              fit (N=1e6, d=8) by fit_map_fused 20 and fit_em_fused 20
+              through B1 over the ILR map, the same checks; the dense
+              engines on the first 1e6 points of phase 6's data (fit_vi,
+              fit_map, fit_em, fit_gibbs and GMM.fit_em, 20 sweeps each:
+              finite traces, rates, no kernel launched); SVI over all 1e7
+              points (step 0.5, 500 steps at B=256 and 200 at B=65536:
+              finite states, steps/s from the random init and warm).
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -122,7 +135,7 @@ from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import GaussParams, NIW, mode_params
-from mimo_tpu_torch.models import BayesianGMM, BayesianILR
+from mimo_tpu_torch.models import GMM, BayesianGMM, BayesianILR
 from mimo_tpu_torch.models.mixture import MFState, kernel_xts
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
@@ -794,6 +807,7 @@ def run(dev, seed, n_main, n_check):
     tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms)
     hilr_serving_paths(dev, seed, card, errs, launches, ms)
     wide = wide_serving_paths(dev, gen, card, errs, launches, ms)
+    engine_paths(dev, seed, card, n_main, errs, launches, ms)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -896,6 +910,21 @@ def run(dev, seed, n_main, n_check):
                     'scripts/bisect_smem.py:52'),
         'S3': ('S3 build probe o = 2x', 'mimo_tpu_torch/csrc/hello.cu',
                'scripts/pallas_hello.py:11'),
+        'B1-MAP': ('B1 fused E-step, Gauss map, plug-in theta at the '
+                   'posterior mode (fit_map_fused)',
+                   'mimo_tpu_torch/csrc/estep.cuh',
+                   'mimo_tpu/ops/pallas_estep.py:164'),
+        'B1-EM': ('B1 fused E-step, Gauss map, plug-in theta of the ML '
+                  'params (fit_em_fused)', 'mimo_tpu_torch/csrc/estep.cuh',
+                  'mimo_tpu/ops/pallas_estep.py:164'),
+        'B1-ILR-MAP': ('B1 fused E-step, ILR map, plug-in theta at the '
+                       'posterior mode (fit_map_fused)',
+                       'mimo_tpu_torch/csrc/estep.cuh',
+                       'mimo_tpu/ops/pallas_estep.py:164'),
+        'B1-ILR-EM': ('B1 fused E-step, ILR map, plug-in theta of the ML '
+                      'params (fit_em_fused)',
+                      'mimo_tpu_torch/csrc/estep.cuh',
+                      'mimo_tpu/ops/pallas_estep.py:164'),
     }
     meta.update({name: row[:3] for name, row in wide.items()})
     rows = []
@@ -2319,6 +2348,163 @@ def time_wide(card, tag, name, row, ms):
     ms[name] = (cuda_ms(kern, 5), cuda_ms(plain, 2))
     print(f'{name} time on {card} at {tag}: kernel {ms[name][0]:.6g} ms, '
           f'plain PyTorch {ms[name][1]:.6g} ms')
+
+
+# -- 17. engines ---------------------------------------------------------------
+
+def plugin_fit(model, data, engine, maxiter, count, tag, key):
+    """One fused MAP or ML-EM fit through its public entry point, with
+    every count set to 0 just before: B1 (`count`) launched exactly once
+    a sweep and no other kernel; a finite state and trace."""
+    torch.cuda.synchronize()
+    reset_counts()
+    state, trace = getattr(model, engine)(data, key=key, maxiter=maxiter)
+    torch.cuda.synchronize()
+    path = read_counts()
+    print(f'{tag} {engine} {maxiter}: launches {path}')
+    check(path[count] == maxiter and sum(path.values()) == maxiter,
+          f'{tag} {engine}: B1 not launched once a sweep')
+    check(bool(torch.isfinite(trace).all()) and all_finite(state),
+          f'{tag} {engine}: state or trace not finite')
+    t = trace.double()
+    drop = float(((t[:-1] - t[1:]) / t[1:].abs()).max())
+    print(f'{tag} {engine}: loglik trace {float(t[0]):.9g} -> '
+          f'{float(t[-1]):.9g}, worst relative drop {drop:.3g}'
+          + (' (<= 1e-4)' if engine == 'fit_em_fused' else
+             ' (MAP: the data log-likelihood at the mode; not checked)'))
+    if engine == 'fit_em_fused':
+        check(drop <= 1e-4, f'{tag} EM loglik falls')
+    return state
+
+
+def plugin_theta(model, engine, state):
+    """B1's padded plug-in theta at a fit's final state: the mode's params
+    and log weights (MAP) or the ML params and log_pi (EM)."""
+    spec = model._estep_spec()
+    if engine == 'fit_map_fused':
+        params = model.family.mode_params(state.components)
+        log_pi = torch.log(torch.clamp(state.gating.mode(), min=1e-37))
+    else:
+        params, log_pi = state.params, state.log_pi
+    return pad_theta(spec.theta_plugin(params), log_pi, torch.float32)[0]
+
+
+def plugin_paths(card, tag, model, data, sweeps, names, count, kind, p, n,
+                 errs, launches, ms):
+    """MAP-EM and ML-EM of one cell: the fits (launch counts, traces),
+    kernel vs plain on the first 100,003 points (5 sweeps from the same
+    init, traces within rtol 1e-4), rates, and B1 at each final theta
+    timed beside its plain version with its float64 precision line."""
+    xt = stack_rows(kernel_xts(data))
+    d = data[0].shape[1]
+    m = cuda_estep.feature_width(kind, d, p)
+    pairs = {}
+    for engine, key, name in (('fit_map_fused', 1, names[0]),
+                              ('fit_em_fused', 0, names[1])):
+        st = plugin_fit(model, data, engine, sweeps, count, tag, key)
+        launches[name] = sweeps
+        sl = tuple(a[:100_003] for a in data)
+        _, t_k = getattr(model, engine)(sl, key=key, maxiter=5,
+                                        backend='kernel')
+        _, t_t = getattr(model, engine)(sl, key=key, maxiter=5,
+                                        backend='torch')
+        ok, e = allclose_report(t_k, t_t, 1e-4, 0.0)
+        print(f'{tag} {engine} vs plain on 100,003 points: loglik max|err| '
+              f'{e:.6g} (rtol 1e-4) {"ok" if ok else "FAIL"}')
+        check(ok, f'{tag} {engine}: kernel path disagrees with plain')
+        r = rate(sweeps, lambda: getattr(model, engine)(
+            data, key=key, maxiter=sweeps), reps=3)
+        print(f'rates on {card}, {tag}: {engine} {r} it/s ({sweeps} sweeps '
+              f'a fit, its init included)')
+        theta = plugin_theta(model, engine, st)
+        print(f'{tag} {engine}: final plug-in theta max|entry| '
+              f'{float(theta.abs().max()):.6g}')
+        pairs[name] = (lambda th=theta: cuda_estep.estep(xt, th, n, kind, p),
+                       lambda th=theta: cuda_estep.estep_plain(xt, th, n,
+                                                               kind, p),
+                       None)
+        WORK[name] = estep_work(n, K_MAIN, m, xt.shape[0])
+        precision_check(f'{tag} {engine} final theta', xt, theta, n, kind,
+                        p)
+    time_pairs(card, tag, pairs, errs, ms)
+
+
+def engine_paths(dev, seed, card, n_main, errs, launches, ms):
+    """Phase 17: MAP-EM and ML-EM through B1 (bench.py:153-166 and the q8
+    cell of bench.py:313-336), the dense engines on a cut of phase 6's
+    data, and SVI (bench.py:190-199)."""
+    kg = torch.Generator(device=dev).manual_seed(seed)
+    mu = torch.randn((3, D_MAIN), generator=kg, device=dev) * 4.0
+    lm = torch.eye(D_MAIN, device=dev).expand(3, D_MAIN, D_MAIN) * 2.0
+    x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3],
+                                n_main)
+    model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5, device=dev)
+    plugin_paths(card, f'engines N={n_main} K={K_MAIN} d={D_MAIN}', model,
+                 (x,), 50, ('B1-MAP', 'B1-EM'), 'B1', cuda_estep.GAUSS, 0,
+                 n_main, errs, launches, ms)
+
+    kq = torch.Generator(device=dev).manual_seed(seed + 3)
+    xq, yq = regression_data(kq, N_Q8, D_Q8, 1, dev)
+    ilr = BayesianILR.make(size=K_MAIN, input_dim=D_Q8, output_dim=1,
+                           alpha=2.0, kappa=0.05, device=dev)
+    plugin_paths(card, f'engines ILR N={N_Q8} K={K_MAIN} d={D_Q8} p=1', ilr,
+                 (xq, yq), 20, ('B1-ILR-MAP', 'B1-ILR-EM'), 'B1-ILR', ILR, 1,
+                 N_Q8, errs, launches, ms)
+    del xq, yq, ilr
+    torch.cuda.empty_cache()
+
+    # the dense engines on the first 1e6 points: plain PyTorch, as in JAX
+    n_dense = min(1_000_000, n_main)
+    x1 = x[:n_dense]
+    tag = f'dense N={n_dense} K={K_MAIN} d={D_MAIN} (phase 6 data, cut)'
+    dense = (
+        ('fit_vi', lambda: model.fit_vi(x1, key=1, maxiter=20)),
+        ('fit_map', lambda: model.fit_map(x1, key=1, maxiter=20)),
+        ('fit_em', lambda: model.fit_em(x1, key=0, maxiter=20)),
+        ('fit_gibbs', lambda: model.fit_gibbs(x1, key=2, maxiter=20,
+                                              track_loglik=True)),
+        ('GMM.fit_em', lambda: GMM(K_MAIN, D_MAIN).fit_em(x1, key=0,
+                                                          maxiter=20)))
+    torch.cuda.synchronize()
+    reset_counts()
+    for name, fit in dense:
+        st, trace = fit()
+        check(all_finite(st) and bool(torch.isfinite(trace).all())
+              and trace.shape == (20,), f'{tag} {name} not finite')
+        r = rate(20, fit, reps=2)
+        print(f'{tag} {name} 20: trace {float(trace[0]):.9g} -> '
+              f'{float(trace[-1]):.9g}; rate on {card} {r} it/s')
+    torch.cuda.synchronize()
+    path = read_counts()
+    print(f'{tag}: launches {path} (none: the dense engines are plain)')
+    check(sum(path.values()) == 0, 'a dense engine launched a kernel')
+
+    # SVI over all the points, from the random init and warm
+    for b, steps in ((256, 500), (65536, 200)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = model.fit_svi(x, key=5, maxiter=steps, step_size=0.5,
+                              batch_size=b)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        check(all_finite(st), f'SVI B={b} state not finite')
+        t0 = time.perf_counter()
+        st2, _ = model.fit_svi(x, key=6, maxiter=steps, step_size=0.5,
+                               batch_size=b, init_state=st)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        check(all_finite(st2), f'SVI B={b} warm state not finite')
+        check(sum(read_counts().values()) == 0, 'SVI launched a kernel')
+        top = torch.sort(st2.gating.mean())[0][-3:]
+        print(f'SVI N={n_main} K={K_MAIN} d={D_MAIN} B={b} {steps} steps on '
+              f'{card}: {steps / cold:.6g} steps/s from the random init '
+              f'(init included), {steps / warm:.6g} steps/s warm '
+              f'({steps / warm * b:.6g} pts/s through the E-step); top-3 '
+              f'weights {[round(float(w), 4) for w in top]}')
+    del x, x1, model
+    torch.cuda.empty_cache()
 
 
 if __name__ == '__main__':

@@ -18,14 +18,14 @@ from mimo_tpu_torch.distributions.mng import MNG, DiagLinGaussParams
 from mimo_tpu_torch.distributions.mnw import MNW, LinGaussParams, LinGaussStats
 from mimo_tpu_torch.distributions.ng import NG, DiagGaussParams, DiagGaussStats
 from mimo_tpu_torch.distributions.niw import NIW, GaussParams, GaussStats
-from mimo_tpu_torch.models.mixture import GibbsState, MFState
+from mimo_tpu_torch.models.mixture import EMState, GibbsState, MFState
 from mimo_tpu_torch.ops.family_estep import FusedEStep
 from mimo_tpu_torch.utils.data import Standardizer
 
 # product posteriors (ILR: (NIW or HierTied, MNW, MNG or TiedAffine)) are
 # plain tuples and recurse; 0-d leaves (TiedAffine.nu) stay 0-d
 _CLASSES = {c.__name__: c for c in (
-    MFState, GibbsState, NIW, GaussStats, GaussParams, NG, DiagGaussStats,
+    MFState, GibbsState, EMState, NIW, GaussStats, GaussParams, NG, DiagGaussStats,
     DiagGaussParams, MNW, LinGaussStats, LinGaussParams, MNG,
     DiagLinGaussParams, HierTied, TiedAffine, AffineStats, Dirichlet,
     StickBreaking, FusedEStep, Standardizer)}

@@ -6,11 +6,11 @@ package ports the full-covariance (NIW) and diagonal (NG) Gaussian
 families, the hierarchically-tied Gaussians, the linear-Gaussian families
 with full (MNW) and diagonal (MNG) noise, the tied-affine experts, the
 scale-tied variants of the four base families, and the product that joins
-a basis and an expert into the ILR family; the SVI blend and the
-maximum-likelihood update arrive with the engines that use them (ROADMAP
-A13/A14).
+a basis and an expert into the ILR family, each with its SVI blend and
+(but the hierarchical families) its maximum-likelihood update.
 """
 
+from functools import partial
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -42,10 +42,13 @@ class Family(NamedTuple):
     # update + sample (the exact tied, hierarchical and tied-affine
     # draws): (gen, prior, stats) -> (posterior, params)
     gibbs_update: Any = None
-    # (post, prior, stats, scale, step) -> post; None until SVI is ported
-    # (ROADMAP A14). Tied-affine experts set one that raises, as the
-    # reference does.
+    # natural-gradient SVI step (post, prior, stats, scale, step) -> post;
+    # tied-affine experts set one that raises, as the reference does
     svi_blend: Any = None
+    # weighted maximum-likelihood update stats -> params for the
+    # likelihood-only EM engines; None = EM unsupported (the hierarchical
+    # families)
+    ml_update: Any = None
 
 
 def gaussian_family() -> Family:
@@ -63,6 +66,8 @@ def gaussian_family() -> Family:
             post, data[0]),
         log_predictive_gaussian=lambda post, data:
             _niw.log_predictive_gaussian(post, data[0]),
+        svi_blend=_niw.svi_blend,
+        ml_update=_niw.ml_params,
     )
 
 
@@ -81,6 +86,8 @@ def diag_gaussian_family() -> Family:
             post, data[0]),
         log_predictive_gaussian=lambda post, data:
             _ng.log_predictive_gaussian(post, data[0]),
+        svi_blend=_ng.svi_blend,
+        ml_update=_ng.ml_params,
     )
 
 
@@ -106,6 +113,8 @@ def linear_family(affine: bool = True) -> Family:
             post, aug(data[0]), data[1]),
         log_predictive_gaussian=lambda post, data:
             _mnw.log_predictive_gaussian(post, aug(data[0]), data[1]),
+        svi_blend=_mnw.svi_blend,
+        ml_update=_mnw.ml_params,
     )
 
 
@@ -131,6 +140,8 @@ def diag_linear_family(affine: bool = True) -> Family:
             post, aug(data[0]), data[1]),
         log_predictive_gaussian=lambda post, data:
             _mng.log_predictive_gaussian(post, aug(data[0]), data[1]),
+        svi_blend=_mng.svi_blend,
+        ml_update=_mng.ml_params,
     )
 
 
@@ -189,6 +200,13 @@ def product_family(families, data_slices) -> Family:
         log_predictive_gaussian=lambda post, data: sum(
             f.log_predictive_gaussian(q, pick(data, sl))
             for f, q, sl in zip(families, post, data_slices)),
+        svi_blend=lambda post, prior, stats, scale, step: tuple(
+            f.svi_blend(q, p, s, scale, step)
+            for f, q, p, s in zip(families, post, prior, stats)),
+        ml_update=(
+            (lambda stats: tuple(f.ml_update(s)
+                                 for f, s in zip(families, stats)))
+            if all(f.ml_update is not None for f in families) else None),
     )
 
 
@@ -212,6 +230,8 @@ def hier_gaussian_family(nb_iter: int = 25) -> Family:
         log_predictive_gaussian=lambda post, data:
             _hier.log_predictive_gaussian(post, data[0]),
         gibbs_update=_hier.gibbs_update_exact,
+        svi_blend=lambda post, prior, stats, scale, step: _hier.svi_blend(
+            post, prior, stats, scale, step, nb_iter=1),
     )
 
 
@@ -294,15 +314,62 @@ _POOLERS = {_niw.NIW: _pool_wishart, _mnw.MNW: _pool_wishart,
             _ng.NG: _pool_gamma, _mng.MNG: _pool_gamma}
 
 
+def _tied_ml(stats, base_ml):
+    """Pooled-scale weighted maximum likelihood: per-component means or
+    slopes, one shared covariance from the summed residual scatter.
+    Dispatches on the BASE family's params type (MNW and MNG share
+    LinGaussStats, so the statistics alone cannot tell full from diagonal
+    noise)."""
+    params = base_ml(stats)
+    if isinstance(params, _niw.GaussParams):
+        n = torch.clamp(stats.n1, min=1e-8)
+        scatter = stats.xxT - n[..., None, None] * (
+            params.mu[..., :, None] * params.mu[..., None, :])
+        sigma = torch.sum(scatter, 0, keepdim=True) / torch.sum(n)
+        eye = torch.eye(sigma.shape[-1], dtype=sigma.dtype,
+                        device=sigma.device)
+        lm = torch.linalg.inv(sigma + 1e-6 * eye)
+        return params._replace(lmbda=lm.expand(params.lmbda.shape))
+    if isinstance(params, _mnw.LinGaussParams):
+        n = torch.clamp(stats.n, min=1e-8)
+        resid = stats.yyT - params.A @ stats.yxT.transpose(-1, -2)
+        sigma = torch.sum(resid, 0, keepdim=True) / torch.sum(n)
+        eye = torch.eye(sigma.shape[-1], dtype=sigma.dtype,
+                        device=sigma.device)
+        lm = torch.linalg.inv(0.5 * (sigma + sigma.transpose(-1, -2))
+                              + 1e-6 * eye)
+        return params._replace(lmbda=lm.expand(params.lmbda.shape))
+    if isinstance(params, _ng.DiagGaussParams):
+        n = torch.clamp(stats.n1, min=1e-8)
+        scatter = stats.xsq - n[..., None] * torch.square(params.mu)
+        sigma = torch.sum(scatter, 0, keepdim=True) / torch.sum(n)
+        return params._replace(lmbda_diag=(1.0 / (sigma + 1e-8)).expand(
+            params.lmbda_diag.shape))
+    if isinstance(params, _mng.DiagLinGaussParams):
+        n = torch.clamp(stats.n, min=1e-8)
+        resid = stats.yyT - params.A @ stats.yxT.transpose(-1, -2)
+        sigma = (torch.sum(torch.diagonal(resid, dim1=-2, dim2=-1), 0,
+                           keepdim=True) / torch.sum(n))
+        return params._replace(lmbda_diag=(1.0 / (sigma + 1e-8)).expand(
+            params.lmbda_diag.shape))
+    raise TypeError(f'no tied ML for {type(params).__name__}')
+
+
 def tied_family(base: Family) -> Family:
-    """Tie the scale parameters across components: run the base update,
-    then pool the posterior (the reference pools in its nat -> std map,
-    the same point). The Gibbs step does not pool: it is the exact tied
-    draw (`tied_gibbs.tied_gibbs_update`), one Wishart or Gamma draw of
-    the shared scale. The base family's posterior must be NIW, NG, MNW or
-    MNG."""
-    def update(prior, stats):
-        post = base.update(prior, stats)
+    """Tie the scale parameters across components: run the base update
+    (or SVI blend), then pool the posterior (the reference pools in its
+    nat -> std map, the same point). The Gibbs step does not pool: it is
+    the exact tied draw (`tied_gibbs.tied_gibbs_update`), one Wishart or
+    Gamma draw of the shared scale. The ML update pools the residual
+    scatter (`_tied_ml`). The base family's posterior must be NIW, NG,
+    MNW or MNG."""
+    def pool(post):
         return _POOLERS[type(post)](post)
 
-    return base._replace(update=update, gibbs_update=tied_gibbs_update)
+    return base._replace(
+        update=lambda prior, stats: pool(base.update(prior, stats)),
+        svi_blend=lambda post, prior, stats, scale, step: pool(
+            base.svi_blend(post, prior, stats, scale, step)),
+        gibbs_update=tied_gibbs_update,
+        ml_update=(None if base.ml_update is None
+                   else partial(_tied_ml, base_ml=base.ml_update)))

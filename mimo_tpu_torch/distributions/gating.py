@@ -51,6 +51,13 @@ class Dirichlet(NamedTuple):
         """Conjugate categorical update: alpha' = alpha + counts."""
         return Dirichlet(alpha=self.alpha + counts)
 
+    def svi_blend(self, posterior, counts, scale, step):
+        """nat' = (1 - step) nat(post) + step (nat(prior) + counts / scale),
+        nat = alpha - 1."""
+        nat = ((1.0 - step) * (posterior.alpha - 1.0)
+               + step * (self.alpha - 1.0 + counts / scale))
+        return Dirichlet(alpha=nat + 1.0)
+
     def mean(self):
         return self.alpha / torch.sum(self.alpha, -1, keepdim=True)
 
@@ -102,6 +109,16 @@ class StickBreaking(NamedTuple):
         return StickBreaking(gamma=self.gamma + counts,
                              delta=self.delta
                              + _reverse_cumsum_exclusive(counts))
+
+    def svi_blend(self, posterior, counts, scale, step):
+        """The blend in standard space (gamma and delta are the shifted
+        natural parameters)."""
+        acc = _reverse_cumsum_exclusive(counts)
+        return StickBreaking(
+            gamma=(1.0 - step) * posterior.gamma
+            + step * (self.gamma + counts / scale),
+            delta=(1.0 - step) * posterior.delta
+            + step * (self.delta + acc / scale))
 
     @staticmethod
     def _probs_from_sticks(betas):

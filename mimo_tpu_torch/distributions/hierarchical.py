@@ -1,7 +1,6 @@
 """Hierarchically-tied Gaussian components (port of
-mimo_tpu/distributions/hierarchical.py; `svi_blend` arrives with SVI,
-ROADMAP A14, and the inner-chain `gibbs_update`, which no family uses,
-is not ported).
+mimo_tpu/distributions/hierarchical.py; the inner-chain `gibbs_update`,
+which no family uses, is not ported).
 
 Model:  (tau, Lambda) ~ NW(m0, kappa0, Psi0, nu0)        [hyper prior]
         mu_k | tau, Lambda ~ N(tau, (kappa_k Lambda)^{-1})
@@ -183,6 +182,29 @@ def kl_divergence(q: HierTied, p: HierTied):
              - 0.5 * q.kappas0 * quad
              - 0.5 * q.kappas0 * d / q.kappas)
     return -vlb_k
+
+
+def svi_blend(post: HierTied, prior: HierTied, stats: GaussStats,
+              scale, step, nb_iter: int = 1) -> HierTied:
+    """Stochastic inner updates: `nb_iter` rounds blending the q(mu_k)
+    natural parameters (kappa mu, kappa) and then the hyper-posterior's
+    toward the scaled statistics' targets."""
+    kap = prior.kappas0
+    sx, sn = stats.x / scale, stats.n1 / scale
+    scaled = GaussStats(x=sx, n1=sn, xxT=stats.xxT / scale, n2=sn)
+    hyper, mus, kappas = post.hyper, post.mus, post.kappas
+    for _ in range(nb_iter):
+        tau = hyper.mu[0]
+        nat1 = ((1.0 - step) * (kappas[:, None] * mus)
+                + step * (kap[:, None] * tau[None, :] + sx))
+        kappas = (1.0 - step) * kappas + step * (kap + sn)
+        mus = nat1 / kappas[:, None]
+        target = _hyper_mstep(prior, mus, scaled)
+        hyper = _niw.std_from_nat(GaussStats(*(
+            (1.0 - step) * a + step * b
+            for a, b in zip(_niw.nat_from_std(hyper),
+                            _niw.nat_from_std(target)))))
+    return HierTied(hyper=hyper, mus=mus, kappas=kappas, kappas0=kap)
 
 
 def sample_params(gen, p: HierTied) -> GaussParams:

@@ -1,6 +1,5 @@
 """Matrix-Normal-Gamma conjugate family: linear experts with diagonal
-noise (port of mimo_tpu/distributions/mng.py; `svi_blend` and `ml_params`
-arrive with the SVI and EM engines, ROADMAP A13/A14).
+noise (port of mimo_tpu/distributions/mng.py).
 
 Model (per expert k, output row i): lambda_ki ~ Gamma(alpha_ki, beta_ki),
 row a_ki | lambda_ki ~ N(M_ki, lambda_ki^{-1} K_k^{-1});
@@ -14,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from mimo_tpu_torch.distributions.mnw import LinGaussStats  # noqa: F401
+from mimo_tpu_torch.distributions.mnw import LinGaussStats
 from mimo_tpu_torch.distributions.mnw import _outer_rows, _t, column_solve
 from mimo_tpu_torch.distributions.wishart import gamma_sample
 from mimo_tpu_torch.utils.linalg import (
@@ -77,6 +76,20 @@ def _nats(t: MNG):
             2.0 * t.beta + _diag(mk @ _t(t.M)))
 
 
+def svi_blend(post: MNG, prior: MNG, stats: LinGaussStats, scale, step) -> MNG:
+    """Natural-space blend; nat = [M K (p, q), K (q, q), 2 alpha - 1 (p,),
+    2 beta + diag(M K M^T) (p,)], the statistics [Syx, Sxx, n, diag Syy]."""
+    s_nat = (stats.yxT / scale, stats.xxT / scale,
+             stats.n[..., None] / scale * torch.ones_like(post.alpha),
+             _diag(stats.yyT) / scale)
+    mixed = tuple((1.0 - step) * a + step * (b + s)
+                  for a, b, s in zip(_nats(post), _nats(prior), s_nat))
+    k_n = mixed[1]
+    m_n = _t(solve_psd(k_n, _t(mixed[0])))
+    return MNG(M=m_n, K_=k_n, alpha=0.5 * (mixed[2] + 1.0),
+               beta=0.5 * (mixed[3] - _diag(m_n @ k_n @ _t(m_n))))
+
+
 def _e_ala(p: MNG, e_l):
     """E[sum_i lambda_i a_i a_i^T] = p K^{-1} + sum_i E[lambda_i] M_i M_i^T."""
     return (p.row_dim * inv_psd(p.K_)
@@ -136,6 +149,21 @@ def mode_params(p: MNG) -> DiagLinGaussParams:
 
 def mean_params(p: MNG) -> DiagLinGaussParams:
     return DiagLinGaussParams(A=p.M, lmbda_diag=p.alpha / p.beta)
+
+
+def ml_params(stats: LinGaussStats, jitter=1e-8) -> DiagLinGaussParams:
+    """Weighted diagonal-noise maximum likelihood: the A solve of MNW's,
+    then per-output residual variances (at least `jitter`). A component
+    with a count below q + 1 gets A = 0 and unit noise."""
+    q = stats.xxT.shape[-1]
+    n = torch.clamp(stats.n, min=1e-8)[..., None]
+    dead = (stats.n < q + 1.0)[..., None]
+    eye_q = torch.eye(q, dtype=stats.xxT.dtype, device=stats.xxT.device)
+    xxr = torch.where(dead[..., None], eye_q, stats.xxT + jitter * eye_q)
+    a = torch.where(dead[..., None], 0.0, _t(solve_psd(xxr, _t(stats.yxT))))
+    resid = torch.clamp(_diag(stats.yyT - a @ _t(stats.yxT)) / n, min=jitter)
+    resid = torch.where(dead, 1.0, resid)
+    return DiagLinGaussParams(A=a, lmbda_diag=1.0 / resid)
 
 
 def log_likelihood(params: DiagLinGaussParams, x, y):

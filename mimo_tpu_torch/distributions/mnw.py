@@ -1,6 +1,5 @@
 """Matrix-Normal-Wishart conjugate family for linear-Gaussian experts
-(port of mimo_tpu/distributions/mnw.py; `svi_blend` and `ml_params`
-arrive with the SVI and EM engines, ROADMAP A13/A14).
+(port of mimo_tpu/distributions/mnw.py).
 
 Model (per expert k): Lambda_k ~ W(psi_k, nu_k)  (p x p noise precision),
 A_k | Lambda_k ~ MN(M_k, Lambda_k^{-1} (rows), K_k^{-1} (cols))  (p x q);
@@ -119,6 +118,14 @@ def posterior_update(prior: MNW, stats: LinGaussStats) -> MNW:
                nu=prior.nu + stats.n)
 
 
+def svi_blend(post: MNW, prior: MNW, stats: LinGaussStats, scale, step) -> MNW:
+    """nat' = (1 - step) nat(post) + step (nat(prior) + stats / scale)."""
+    mixed = LinGaussStats(*((1.0 - step) * a + step * (b + s / scale)
+                            for a, b, s in zip(nat_from_std(post),
+                                               nat_from_std(prior), stats)))
+    return std_from_nat(mixed)
+
+
 def expected_stats(p: MNW):
     """E_q of [Lambda A, -1/2 A^T Lambda A, -1/2 Lambda, 1/2 logdet Lambda]."""
     e_la = p.nu[..., None, None] * (p.psi @ p.M)              # (K, p, q)
@@ -189,6 +196,23 @@ def mode_params(p: MNW) -> LinGaussParams:
 
 def mean_params(p: MNW) -> LinGaussParams:
     return LinGaussParams(A=p.M, lmbda=p.nu[..., None, None] * p.psi)
+
+
+def ml_params(stats: LinGaussStats, jitter=1e-6) -> LinGaussParams:
+    """Weighted maximum likelihood: A solves A Sxx = Syx; Sigma = (Syy -
+    A Syx^T) / n (+ jitter I). A component with a count below q + 1 gets
+    A = 0, Sigma = I instead of NaNs."""
+    n = torch.clamp(stats.n, min=1e-8)
+    q, p_dim = stats.xxT.shape[-1], stats.yyT.shape[-1]
+    kw = dict(dtype=stats.xxT.dtype, device=stats.xxT.device)
+    eye_q, eye_p = torch.eye(q, **kw), torch.eye(p_dim, **kw)
+    dead = (stats.n < q + 1.0)[..., None, None]
+    xxr = torch.where(dead, eye_q, stats.xxT + jitter * eye_q)
+    a = torch.where(dead, 0.0, _t(solve_psd(xxr, _t(stats.yxT))))
+    sigma = (symmetrize(stats.yyT - a @ _t(stats.yxT)) / n[..., None, None]
+             + jitter * eye_p)
+    sigma = torch.where(dead, eye_p, sigma)
+    return LinGaussParams(A=a, lmbda=inv_psd(sigma))
 
 
 def log_likelihood(params: LinGaussParams, x, y):

@@ -1,6 +1,5 @@
 """Normal-Gamma conjugate family for diagonal-covariance Gaussian
-components (port of mimo_tpu/distributions/ng.py; `svi_blend` and
-`ml_params` arrive with the SVI and EM engines, ROADMAP A13/A14).
+components (port of mimo_tpu/distributions/ng.py).
 
 Model (per component k, per dimension i): lambda_ki ~ Gamma(alpha_ki,
 beta_ki), mu_ki | lambda_ki ~ N(m_ki, (kappa_ki lambda_ki)^{-1});
@@ -84,6 +83,20 @@ def _nats(t: NG):
             2.0 * t.beta + t.kappa * torch.square(t.mu))
 
 
+def svi_blend(post: NG, prior: NG, stats: DiagGaussStats, scale, step) -> NG:
+    """Natural-gradient SVI step, blended in the natural coordinates
+    (kappa m, kappa, 2 alpha - 1, 2 beta + kappa m^2):
+    nat' = (1 - step) nat(post) + step nat(update(prior, stats / scale))."""
+    scaled = DiagGaussStats(*(s / scale for s in stats))
+    full = posterior_update(prior, scaled)
+    mixed = tuple((1.0 - step) * a + step * b
+                  for a, b in zip(_nats(post), _nats(full)))
+    kappa = mixed[1]
+    mu = mixed[0] / kappa
+    return NG(mu=mu, kappa=kappa, alpha=0.5 * (mixed[2] + 1.0),
+              beta=0.5 * (mixed[3] - kappa * torch.square(mu)))
+
+
 def expected_log_likelihood(p: NG, x):
     """E_q[log N(x | mu, diag(lambda)^{-1})] -> (N, K)
     = 1/2 sum_i [E log l_i - log 2pi - E[l_i] (x_i - m_i)^2 - 1/kappa_i]."""
@@ -132,6 +145,17 @@ def mode_params(p: NG) -> DiagGaussParams:
 
 def mean_params(p: NG) -> DiagGaussParams:
     return DiagGaussParams(mu=p.mu, lmbda_diag=p.alpha / p.beta)
+
+
+def ml_params(stats: DiagGaussStats, jitter=1e-8) -> DiagGaussParams:
+    """Weighted diagonal maximum likelihood: mu = s1/n, var = s2/n - mu^2
+    (at least `jitter`). A component with a count below 2 gets N(0, I)."""
+    dead = (stats.n1 < 2.0)[..., None]
+    n = torch.clamp(stats.n1, min=1e-8)[..., None]
+    mu = torch.where(dead, 0.0, stats.x / n)
+    var = torch.clamp(stats.xsq / n - torch.square(mu), min=jitter)
+    var = torch.where(dead, 1.0, var)
+    return DiagGaussParams(mu=mu, lmbda_diag=1.0 / var)
 
 
 def log_likelihood(params: DiagGaussParams, x):

@@ -116,6 +116,15 @@ def posterior_update(prior: NIW, stats: GaussStats) -> NIW:
     return NIW(mu=mu_n, kappa=kappa_n, psi=inv_psd(psi_inv_n), nu=nu_n)
 
 
+def svi_blend(post: NIW, prior: NIW, stats: GaussStats, scale, step) -> NIW:
+    """Natural-gradient SVI step:
+    nat' = (1 - step) nat(post) + step (nat(prior) + stats / scale)."""
+    mixed = GaussStats(*((1.0 - step) * a + step * (b + s / scale)
+                         for a, b, s in zip(nat_from_std(post),
+                                            nat_from_std(prior), stats)))
+    return std_from_nat(mixed)
+
+
 # -- expectations (the VI E-step) and ELBO terms ------------------------------
 
 def expected_stats(p: NIW):
@@ -188,6 +197,22 @@ def mode_params(p: NIW) -> GaussParams:
 
 def mean_params(p: NIW) -> GaussParams:
     return GaussParams(mu=p.mu, lmbda=p.nu[..., None, None] * p.psi)
+
+
+def ml_params(stats: GaussStats, jitter=1e-6) -> GaussParams:
+    """Weighted maximum likelihood from the statistics, over K: mu = s1/n,
+    Sigma = Sxx/n - mu mu^T (+ jitter I). A component whose count drops
+    below d + 1 (too few points for a d x d scatter: EM's singleton
+    collapse) gets standard-normal params; it carries ~zero weight."""
+    d = stats.x.shape[-1]
+    n = torch.clamp(stats.n1, min=1e-8)
+    dead = (stats.n1 < d + 1.0)[..., None]
+    mu = torch.where(dead, 0.0, stats.x / n[..., None])
+    eye = torch.eye(d, dtype=mu.dtype, device=mu.device)
+    sigma = (symmetrize(stats.xxT / n[..., None, None] - _outer(mu, mu))
+             + jitter * eye)
+    sigma = torch.where(dead[..., None], eye, sigma)
+    return GaussParams(mu=mu, lmbda=inv_psd(sigma))
 
 
 # -- plug-in likelihood and posterior predictive -------------------------------

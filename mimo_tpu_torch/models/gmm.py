@@ -1,7 +1,7 @@
-"""Bayesian (DP-)GMM with full-covariance (NIW), diagonal (NG) or
-hierarchically-tied components, optionally with a scale tied across
-components (port of the fused-engine slice of mimo_tpu/models/gmm.py:
-`BayesianGMM` without `sample`; the ML `GMM` arrives with ROADMAP A13)."""
+"""Gaussian mixture models (port of mimo_tpu/models/gmm.py): the Bayesian
+(DP-)GMM with full-covariance (NIW), diagonal (NG) or hierarchically-tied
+components, optionally with a scale tied across components, and the
+maximum-likelihood `GMM` fitted by EM."""
 
 import torch
 
@@ -12,8 +12,10 @@ from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import NIW, GaussParams
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, _as_generator, model_device)
-from mimo_tpu_torch.utils.linalg import cholesky, inv_psd
+    BayesianMixture, EMState, _as_generator, _random_resp, _stack,
+    model_device)
+from mimo_tpu_torch.utils.linalg import cholesky, inv_psd, symmetrize
+from mimo_tpu_torch.utils.stats import mvn_logpdf, normalize_log
 
 
 class BayesianGMM(BayesianMixture):
@@ -83,6 +85,23 @@ class BayesianGMM(BayesianMixture):
             return hier_gaussian_spec()
         return gaussian_spec()
 
+    def sample(self, state, key=None, n=1, params='mode'):
+        """Draw (obs, labels) from the FITTED model. `params`: 'mode' (the
+        MAP plug-in), 'mean', or 'draw' (params sampled from the posterior
+        first: the full posterior predictive). `key`: an int seed or a
+        torch.Generator on the state's device."""
+        comp = state.components
+        gen = _as_generator(key, state.gating.mean().device)
+        if params == 'draw':
+            p = self.family.sample_params(gen, comp)
+        elif params == 'mean':
+            p = self.family.mean_params(comp)
+        else:
+            p = self.family.mode_params(comp)
+        if hasattr(p, 'lmbda_diag'):   # diagonal family -> full precision
+            p = GaussParams(mu=p.mu, lmbda=torch.diag_embed(p.lmbda_diag))
+        return BayesianGMM.generate(gen, p, state.gating.mean(), n)
+
     @staticmethod
     def generate(key, params: GaussParams, weights, n):
         """Draw (obs (n, d), labels (n,)) from a known mixture, on the
@@ -97,3 +116,54 @@ class BayesianGMM(BayesianMixture):
                         device=mu.device)
         x = mu[labels] + torch.einsum('nde,ne->nd', chol[labels], z)
         return x, labels
+
+
+class GMM:
+    """Maximum-likelihood GMM via EM. Stateless: `fit_em` returns
+    (EMState, loglik trace)."""
+
+    def __init__(self, size, dim):
+        self.size = size
+        self.dim = dim
+
+    def log_complete_likelihood(self, state: EMState, x):
+        return (mvn_logpdf(x, state.params.mu, state.params.lmbda)
+                + state.log_pi[None, :])
+
+    def log_likelihood(self, state: EMState, x):
+        return torch.logsumexp(self.log_complete_likelihood(state, x), -1)
+
+    def responsibilities(self, state: EMState, x):
+        resp, _ = normalize_log(self.log_complete_likelihood(state, x))
+        return resp
+
+    def sample(self, state: EMState, key=None, n=1):
+        """Draw (obs, labels) from the fitted ML model."""
+        return BayesianGMM.generate(key, state.params,
+                                    torch.softmax(state.log_pi, -1), n)
+
+    def _m_step(self, x, resp, jitter=1e-6):
+        """Closed-form weighted ML over K."""
+        n, d = x.shape
+        counts = torch.sum(resp, 0)
+        safe = torch.clamp(counts, min=1e-8)           # empty component
+        mu = (resp.T @ x) / safe[:, None]
+        xx = (x[:, :, None] * x[:, None, :]).reshape(n, d * d)
+        exx = (resp.T @ xx).reshape(-1, d, d) / safe[:, None, None]
+        sigma = (symmetrize(exx - mu[:, :, None] * mu[:, None, :])
+                 + jitter * torch.eye(d, dtype=x.dtype, device=x.device))
+        return EMState(params=GaussParams(mu=mu, lmbda=inv_psd(sigma)),
+                       log_pi=torch.log(torch.clamp(counts, min=1e-37) / n))
+
+    def fit_em(self, x, key=None, maxiter=250):
+        """EM from random responsibilities. `key`: an int seed or a
+        torch.Generator on x's device. Returns (EMState, loglik trace)."""
+        resp = _random_resp(_as_generator(key, x.device), x.shape[0],
+                            self.size, x.dtype, x.device)
+        state, trace = None, []
+        for _ in range(maxiter):
+            state = self._m_step(x, resp)
+            resp, lognorm = normalize_log(
+                self.log_complete_likelihood(state, x))
+            trace.append(torch.sum(lognorm))
+        return state, _stack(trace, x)

@@ -8,8 +8,9 @@ a product conjugate family, so the fused engines of `BayesianMixture`
 run it (kernels B1/B2 over the ILR feature map on CUDA); this class adds
 the standardization round trip and the prediction machinery
 (posterior-predictive weights, per-expert Student-t moments, the
-moment-matched mixture prediction and the NLPD; kernels B5/B6 on CUDA).
-`sample` and the dense engines arrive with ROADMAP A13/A14.
+moment-matched mixture prediction and the NLPD; kernels B5/B6 on CUDA)
+and `sample`. Every engine fits standardized (x, y) once `init_transform`
+has run.
 """
 
 from typing import Optional
@@ -26,7 +27,7 @@ from mimo_tpu_torch.distributions.affine import TiedAffine
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
 from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.mng import MNG
-from mimo_tpu_torch.distributions.mnw import MNW, augment
+from mimo_tpu_torch.distributions.mnw import MNW, LinGaussParams, augment
 from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models.mixture import (
     BayesianMixture, MFState, _as_generator, model_device, resolve_backend)
@@ -110,6 +111,28 @@ class BayesianILR(BayesianMixture):
         return BayesianILR(g, basis, models, affine=affine,
                            maxsubiter=maxsubiter)
 
+    def sample(self, state, key=None, n=1, params='mode'):
+        """Draw (x, y, z) from the FITTED model, in ORIGINAL units (the
+        standardization is inverted). `params`: 'mode' | 'mean' | 'draw'
+        (a posterior draw of the likelihood params). `key`: an int seed or
+        a torch.Generator on the state's device."""
+        gen = _as_generator(key, state.gating.mean().device)
+        if params == 'draw':
+            bp, ep = self.family.sample_params(gen, state.components)
+        elif params == 'mean':
+            bp, ep = self.family.mean_params(state.components)
+        else:
+            bp, ep = self.family.mode_params(state.components)
+        if hasattr(ep, 'lmbda_diag'):  # diagonal experts -> full precision
+            ep = LinGaussParams(A=ep.A, lmbda=torch.diag_embed(ep.lmbda_diag))
+        x, y, z = BayesianILR.generate(gen, bp, ep, state.gating.mean(), n,
+                                       affine=self.affine)
+        if self.input_transform is not None:
+            x = self.input_transform.inverse_transform(x)
+        if self.output_transform is not None:
+            y = self.output_transform.inverse_transform(y)
+        return x, y, z
+
     @staticmethod
     def generate(key, basis_params, expert_params, weights, n, affine=True):
         """Draw (x, y, z) from a known mixture of linear experts, on the
@@ -150,16 +173,46 @@ class BayesianILR(BayesianMixture):
                         diag_expert=self.diag, hier_basis=self.hier_basis,
                         tied_affine=self.tied_affine)
 
+    def _std(self, data):
+        x, y = data
+        return self._tx(x), self._ty(y)
+
+    def fit_vi(self, data, **kw):
+        return super().fit_vi(self._std(data), **kw)
+
+    def fit_svi(self, data, **kw):
+        return super().fit_svi(self._std(data), **kw)
+
+    def fit_gibbs(self, data, **kw):
+        return super().fit_gibbs(self._std(data), **kw)
+
+    def fit_em(self, data, **kw):
+        """Likelihood-only EM of the mixture of linear experts."""
+        return super().fit_em(self._std(data), **kw)
+
+    def fit_map(self, data, **kw):
+        """Dense MAP-EM over standardized (x, y). (The JAX package's
+        BayesianILR has no such override, so its dense fit_map fits the
+        raw data that every other engine standardizes; ROADMAP §C.)"""
+        return super().fit_map(self._std(data), **kw)
+
     def fit_vi_fused(self, data, **kw):
         """Fused VI over standardized (x, y): the N x K responsibilities
         and the expert statistics tensors never exist (B1 on CUDA)."""
-        x, y = data
-        return super().fit_vi_fused((self._tx(x), self._ty(y)), **kw)
+        return super().fit_vi_fused(self._std(data), **kw)
 
     def fit_gibbs_fused(self, data, **kw):
         """Fused blocked Gibbs over standardized (x, y) (B2 on CUDA)."""
-        x, y = data
-        return super().fit_gibbs_fused((self._tx(x), self._ty(y)), **kw)
+        return super().fit_gibbs_fused(self._std(data), **kw)
+
+    def fit_em_fused(self, data, **kw):
+        """Fused likelihood-only EM (plug-in softmax E-step, B1 on CUDA)."""
+        return super().fit_em_fused(self._std(data), **kw)
+
+    def fit_map_fused(self, data, **kw):
+        """Fused MAP-EM (plug-in softmax at the posterior mode, B1 on
+        CUDA)."""
+        return super().fit_map_fused(self._std(data), **kw)
 
     # -- prediction -----------------------------------------------------------
 
@@ -174,6 +227,11 @@ class BayesianILR(BayesianMixture):
         weights, _ = normalize_log(
             log_basis + self.predictive_log_weights(state)[None, :])
         return weights
+
+    def predictive_activation(self, state: MFState, x):
+        """Normalized basis activations (for plotting): the Gaussian
+        posterior-predictive basis responsibilities of x -> (N, K)."""
+        return self.predictive_weights(state, self._tx(x), dist='gaussian')
 
     def _experts(self, state):
         """(the experts' module, their posterior): tied-affine experts as

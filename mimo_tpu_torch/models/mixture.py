@@ -1,10 +1,22 @@
-"""Bayesian mixture engine: fused mean-field VI, fused blocked Gibbs and
-the posterior predictive over a conjugate Family (port of the main-path
-slice of mimo_tpu/models/mixture.py).
+"""Bayesian mixture engine over a conjugate Family (port of
+mimo_tpu/models/mixture.py without its mesh arguments and its streamed
+engines): EM/MAP, blocked Gibbs, mean-field VI and stochastic VI, dense
+and fused, and the posterior predictive.
 
 Update-rule contract:
+  MAP    : post = prior (+) stats;            params <- mode(post)
   Gibbs  : post = prior (+) stats(one-hot);   params ~  post
   VI     : post = prior (+) stats(resp)
+  SVI    : nat(post) <- (1-rho) nat(post) + rho (nat(prior) + stats/scale)
+  ML-EM  : params <- ml_update(stats(resp)), no priors
+
+The fused engines (`fit_vi_fused`, `fit_gibbs_fused`, `fit_map_fused`,
+`fit_em_fused`) run their per-point pass through kernel B1 (the E-step,
+fed the posterior-expected theta for VI and the plug-in theta of the
+current params for MAP and EM) or B2 (the Gibbs label sweep) and never
+form the N x K responsibilities; the dense engines (`fit_vi`, `fit_gibbs`,
+`fit_map`, `fit_em`, `fit_svi`) are plain PyTorch wherever the data lies,
+as they are plain JAX in the reference.
 
 Backends. Each fused engine and `log_predictive` takes `backend`:
   'auto'   — the CUDA kernel when the data lies on a CUDA device, the plain
@@ -20,9 +32,13 @@ from typing import Any, NamedTuple
 import torch
 
 from mimo_tpu_torch.conjugate.families import Family
+from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
 from mimo_tpu_torch.utils.sanitize import finite_report
+from mimo_tpu_torch.utils.stats import (
+    entropy_categorical, normalize_log, sample_categorical_from_log)
 
 BACKENDS = ('auto', 'kernel', 'torch')
+_CHUNK = 1 << 20      # points per step of the anchor init's distances
 
 
 class MFState(NamedTuple):
@@ -38,6 +54,12 @@ class GibbsState(NamedTuple):
     params: Any              # sampled likelihood params
     log_pi: torch.Tensor     # log of sampled mixture weights (K,)
     labels: torch.Tensor     # (N,) int32
+
+
+class EMState(NamedTuple):
+    """Maximum-likelihood EM state (non-Bayesian)."""
+    params: Any              # likelihood params
+    log_pi: torch.Tensor     # (K,)
 
 
 def _elbo_loop(step, carry, maxiter, tol):
@@ -106,6 +128,13 @@ def _cast(tree, dtype):
     return type(tree)(*items) if hasattr(tree, '_fields') else tuple(items)
 
 
+def _stack(trace, like):
+    """The (maxiter,) trace of a fit loop's per-sweep scalars."""
+    if not trace:
+        return torch.zeros((0,), dtype=like.dtype, device=like.device)
+    return torch.stack(trace)
+
+
 class BayesianMixture:
     """A Bayesian mixture of `K` conjugate-family components with a
     Dirichlet or stick-breaking (DP) gating prior. `self` holds the
@@ -118,12 +147,48 @@ class BayesianMixture:
         self.family = family
         self.size = gating_prior.dim
 
-    def _mf_update(self, data, resp) -> MFState:
-        """Posterior from responsibilities resp (N, K)."""
+    # -- functional pieces ----------------------------------------------------
+
+    def expected_log_complete(self, state: MFState, data):
+        """E_q[log p(x, z=k)] -> (N, K)."""
+        return (self.family.ell(state.components, data)
+                + state.gating.expected_log_pi()[None, :])
+
+    def expected_responsibilities(self, state: MFState, data):
+        resp, _ = normalize_log(self.expected_log_complete(state, data))
+        return resp
+
+    def log_complete_likelihood(self, params, log_pi, data):
+        """log p(x, z=k) under plug-in params -> (N, K)."""
+        return self.family.loglik(params, data) + log_pi[None, :]
+
+    def _mf_update(self, data, resp, point_weights=None) -> MFState:
+        """Posterior from responsibilities resp (N, K); optional per-point
+        weights (N,) scale each point's statistics (nested-mixture cluster
+        weights, or zero-weight padding)."""
+        if point_weights is not None:
+            resp = resp * point_weights[:, None]
         stats = self.family.suff_stats(data, resp)
         return MFState(
             components=self.family.update(self.components_prior, stats),
             gating=self.gating_prior.update(torch.sum(resp, 0)))
+
+    def elbo(self, state: MFState, data, resp):
+        """Variational lower bound: data term + label terms - sum_k
+        KL(comp_k) - KL(gating)."""
+        data_term = torch.sum(resp * self.family.ell(state.components, data))
+        label_term = (state.gating.label_elbo_terms(resp)
+                      + torch.sum(entropy_categorical(resp, dim=-1)))
+        kl_comp = torch.sum(self.family.kl(state.components,
+                                           self.components_prior))
+        kl_gating = torch.sum(state.gating.kl_divergence(self.gating_prior))
+        return data_term + label_term - kl_comp - kl_gating
+
+    def _vi_sweep(self, state_resp, data, point_weights=None):
+        _, resp = state_resp
+        state = self._mf_update(data, resp, point_weights)
+        resp = self.expected_responsibilities(state, data)
+        return (state, resp), self.elbo(state, data, resp)
 
     def _estep_spec(self):
         """EStepSpec for the fused engines; None when the family has none.
@@ -140,8 +205,6 @@ class BayesianMixture:
         |dELBO| < tol. `key`: an int seed or a torch.Generator on the
         data's device. The kernel runs in float32; its statistics are cast
         back to the data's dtype. Returns (MFState, vlb trace)."""
-        from mimo_tpu_torch.ops.cuda_estep import fused_estep_cuda
-        from mimo_tpu_torch.ops.family_estep import fused_estep_blockwise
         spec = self._estep_spec()
         if spec is None:
             raise NotImplementedError('no fused E-step spec for this family')
@@ -149,6 +212,7 @@ class BayesianMixture:
         x0 = data[0]
         n, dtype = x0.shape[0], x0.dtype
         use_kernel = resolve_backend(backend, x0)
+        estep = self._fused_estep(spec, use_kernel, block_size)
         gen = _as_generator(key, x0.device)
         if randomize or init_state is None:
             state = self._mf_update(
@@ -158,13 +222,8 @@ class BayesianMixture:
         xts = kernel_xts(data) if use_kernel else None
 
         def step(state, _):
-            log_pi = state.gating.expected_log_pi()
-            if use_kernel:
-                res = _cast(fused_estep_cuda(spec, state.components, log_pi,
-                                             xts, n), dtype)
-            else:
-                res = fused_estep_blockwise(spec, state.components, log_pi,
-                                            data, block_size)
+            res = estep(state.components, state.gating.expected_log_pi(),
+                        data, xts, n, dtype)
             vlb = (res.lse
                    - torch.sum(self.family.kl(state.components,
                                               self.components_prior))
@@ -228,6 +287,294 @@ class BayesianMixture:
             GibbsState(components=comp, gating=gating, params=params,
                        log_pi=log_pi, labels=labels), 'fit_gibbs_fused')
 
+    def _anchor_resp(self, x0, gen):
+        """The ML engines' random-anchor init (k-means-style 'random'
+        seeding): soft assignment of each point by its distance to K
+        random data points, on the mean per-dim variance's scale. A flat
+        random-resp init collapses tied / shared-scale EM onto the
+        symmetric fixed point. The distances are formed a chunk of points
+        at a time, so the (N, K, d) differences never exist at once."""
+        n = x0.shape[0]
+        anchors = x0[_anchor_indices(gen, n, self.size, x0.device)]
+        scale2 = torch.clamp(torch.mean(torch.var(x0, 0, correction=0)),
+                             min=1e-6)
+        resp = torch.empty((n, self.size), dtype=x0.dtype, device=x0.device)
+        for s in range(0, n, _CHUNK):
+            d2 = torch.sum(torch.square(x0[s:s + _CHUNK, None, :]
+                                        - anchors[None]), -1)
+            resp[s:s + _CHUNK] = normalize_log(-0.5 * d2 / scale2)[0]
+        return resp
+
+    def _ml_log_pi(self, counts, n):
+        # clip: an empty component (count 0 after f32 underflow) must not
+        # poison the fit with log(0) = -inf
+        return torch.log(torch.clamp(counts, min=1e-37) / n)
+
+    def fit_em(self, data, key=None, maxiter=250):
+        """Likelihood-only EM: plug-in E-step and the closed-form weighted
+        ML M-step, no priors, from the random-anchor init. Returns
+        (EMState(params, log_pi), loglik trace). Needs the family's
+        ml_update (the hierarchical families have none)."""
+        if self.family.ml_update is None:
+            raise NotImplementedError(
+                'this family has no maximum-likelihood update; use fit_map')
+        data = _as_tuple(data)
+        x0 = data[0]
+        n = x0.shape[0]
+        resp = self._anchor_resp(x0, _as_generator(key, x0.device))
+        state, trace = None, []
+        for _ in range(maxiter):
+            params = self.family.ml_update(self.family.suff_stats(data, resp))
+            log_pi = self._ml_log_pi(torch.sum(resp, 0), n)
+            resp, lognorm = normalize_log(
+                self.log_complete_likelihood(params, log_pi, data))
+            state = EMState(params, log_pi)
+            trace.append(torch.sum(lognorm))
+        return finite_report((state, _stack(trace, x0)), 'fit_em')
+
+    @staticmethod
+    def _fused_estep(spec, use_kernel, block_size):
+        """The fused engines' E-step: kernel B1 over the transposed data
+        `xts` (its statistics cast back to the data's dtype) or the plain
+        blockwise version over `data`. Returns
+        estep(theta_src, log_pi, data, xts, n, dtype) -> FusedEStep, with
+        theta = spec.theta(theta_src)."""
+        from mimo_tpu_torch.ops.cuda_estep import fused_estep_cuda
+        from mimo_tpu_torch.ops.family_estep import fused_estep_blockwise
+
+        def estep(theta_src, log_pi, data, xts, n, dtype):
+            if use_kernel:
+                return _cast(fused_estep_cuda(spec, theta_src, log_pi, xts,
+                                              n), dtype)
+            return fused_estep_blockwise(spec, theta_src, log_pi, data,
+                                         block_size)
+        return estep
+
+    def _fused_plugin_estep(self, spec, use_kernel, block_size):
+        """The plug-in (EM / MAP) fused E-step: fit_vi_fused's, with the
+        log-density from spec.theta_plugin(params) in place of the
+        posterior-expected spec.theta(post) (EM and MAP E-steps are
+        plug-in softmaxes, so they run on the same kernel B1)."""
+        return self._fused_estep(spec._replace(theta=spec.theta_plugin),
+                                 use_kernel, block_size)
+
+    def _plugin_spec(self, alt_engine):
+        spec = self._estep_spec()
+        if spec is None or spec.theta_plugin is None:
+            raise NotImplementedError(
+                f'no fused plug-in spec for this family; use {alt_engine}')
+        return spec
+
+    def fit_em_fused(self, data, key=None, maxiter=250, block_size=131072,
+                     backend='auto'):
+        """fit_em through the fused E-step: each sweep is kernel B1 (on
+        CUDA data) fed spec.theta_plugin(ml params), so the N x K
+        responsibilities never exist in the sweeps; the anchor init still
+        forms one (N, K) matrix and dense statistics once, and frees them
+        before the first sweep. Returns (EMState(params, log_pi), loglik
+        trace)."""
+        if self.family.ml_update is None:
+            raise NotImplementedError(
+                'this family has no maximum-likelihood update; use '
+                'fit_map_fused')
+        spec = self._plugin_spec('fit_em')
+        data = _as_tuple(data)
+        x0 = data[0]
+        n, dtype = x0.shape[0], x0.dtype
+        use_kernel = resolve_backend(backend, x0)
+        estep = self._fused_plugin_estep(spec, use_kernel, block_size)
+        xts = kernel_xts(data) if use_kernel else None
+        resp = self._anchor_resp(x0, _as_generator(key, x0.device))
+        log_pi = self._ml_log_pi(torch.sum(resp, 0), n)
+        params = self.family.ml_update(self.family.suff_stats(data, resp))
+        del resp
+        trace = []
+        for _ in range(maxiter):
+            res = estep(params, log_pi, data, xts, n, dtype)
+            params = self.family.ml_update(res.stats)
+            log_pi = self._ml_log_pi(res.counts, n)
+            trace.append(res.lse)
+        return finite_report((EMState(params, log_pi), _stack(trace, x0)),
+                             'fit_em_fused')
+
+    def fit_map_fused(self, data, key=None, maxiter=250, block_size=131072,
+                      randomize=True, backend='auto'):
+        """fit_map through the fused E-step: each sweep is kernel B1 (on
+        CUDA data) fed spec.theta_plugin(mode params) with the gating
+        mode's log weights. Starts from random responsibilities
+        (`randomize` is accepted and unused, as in the JAX package).
+        Returns (MFState, loglik trace): the data log-likelihood at each
+        sweep's posterior mode."""
+        spec = self._plugin_spec('fit_map')
+        data = _as_tuple(data)
+        x0 = data[0]
+        n, dtype = x0.shape[0], x0.dtype
+        use_kernel = resolve_backend(backend, x0)
+        estep = self._fused_plugin_estep(spec, use_kernel, block_size)
+        xts = kernel_xts(data) if use_kernel else None
+        gen = _as_generator(key, x0.device)
+        state = self._mf_update(
+            data, _random_resp(gen, n, self.size, dtype, x0.device))
+        trace = []
+        for _ in range(maxiter):
+            params = self.family.mode_params(state.components)
+            log_pi = torch.log(torch.clamp(state.gating.mode(),
+                                           min=1e-37)).to(dtype)
+            res = estep(params, log_pi, data, xts, n, dtype)
+            state = MFState(
+                components=self.family.update(self.components_prior,
+                                              res.stats),
+                gating=self.gating_prior.update(res.counts))
+            trace.append(res.lse)
+        return finite_report((state, _stack(trace, x0)), 'fit_map_fused')
+
+    def fit_vi(self, data, key=None, maxiter=250, tol=None, init_state=None,
+               randomize=True, point_weights=None):
+        """Dense mean-field coordinate ascent. Returns (MFState, vlb
+        trace). `randomize=True` starts from random responsibilities;
+        pass `init_state` (e.g. from Gibbs) with randomize=False to warm
+        start. `tol` stops once |dELBO| < tol (the trace is constant-
+        extended to maxiter). `point_weights` (N,) scales each point's
+        statistics."""
+        data = _as_tuple(data)
+        x0 = data[0]
+        if randomize or init_state is None:
+            resp = _random_resp(_as_generator(key, x0.device), x0.shape[0],
+                                self.size, x0.dtype, x0.device)
+        else:
+            resp = self.expected_responsibilities(init_state, data)
+        state = self._mf_update(data, resp, point_weights)
+
+        def step(carry, _):
+            return self._vi_sweep(carry, data, point_weights)
+
+        (state, _), vlb = _elbo_loop(
+            step, (state, self.expected_responsibilities(state, data)),
+            maxiter, tol)
+        return finite_report((state, vlb), 'fit_vi')
+
+    def fit_svi(self, data, key=None, maxiter=500, step_size=1e-2,
+                batch_size=128, init_state=None, randomize=True,
+                track_elbo=False, forgetting=None, delay=1.0):
+        """Stochastic natural-gradient VI: one random minibatch per step
+        (`utils.data.sample_batch_indices`), blended in natural space.
+        The step size is fixed (the reference's rule) unless `forgetting`
+        in (0.5, 1] asks for the Robbins-Monro schedule rho_t = step_size
+        (t + 1 + delay)^-forgetting. Starts from random responsibilities
+        unless `init_state` is given (`randomize` is accepted and unused,
+        as in the JAX package). Returns (MFState, vlb trace): the
+        full-data ELBO after each step with track_elbo, else zeros."""
+        data = _as_tuple(data)
+        x0 = data[0]
+        n, dtype, dev = x0.shape[0], x0.dtype, x0.device
+        gen = _as_generator(key, dev)
+        scale = batch_size / n
+        if init_state is None:
+            state = self._mf_update(
+                data, _random_resp(gen, n, self.size, dtype, dev))
+        else:
+            state = init_state
+        trace = torch.zeros((maxiter,), dtype=dtype, device=dev)
+        for t in range(maxiter):
+            rho = (step_size if forgetting is None
+                   else step_size * (t + 1.0 + delay) ** -forgetting)
+            idx = sample_batch_indices(gen, n, batch_size)
+            batch = tuple(a[idx] for a in data)
+            resp = self.expected_responsibilities(state, batch)
+            state = MFState(
+                components=self.family.svi_blend(
+                    state.components, self.components_prior,
+                    self.family.suff_stats(batch, resp), scale, rho),
+                gating=self.gating_prior.svi_blend(
+                    state.gating, torch.sum(resp, 0), scale, rho))
+            if track_elbo:
+                trace[t] = self.elbo(state, data,
+                                     self.expected_responsibilities(state,
+                                                                    data))
+        return finite_report((state, trace), 'fit_svi')
+
+    # -- blocked Gibbs -------------------------------------------------------
+
+    def _gibbs_sweep(self, state: GibbsState, data, gen, point_weights=None):
+        """components | labels -> gating | labels -> labels | params.
+        Returns (GibbsState, the data log-likelihood under the sweep's
+        sampled params)."""
+        resp = one_hot(state.labels, self.size, dtype=data[0].dtype)
+        if point_weights is not None:
+            resp = resp * point_weights[:, None]
+        stats = self.family.suff_stats(data, resp)
+        if self.family.gibbs_update is not None:
+            comp_post, params = self.family.gibbs_update(
+                gen, self.components_prior, stats)
+        else:
+            comp_post = self.family.update(self.components_prior, stats)
+            params = self.family.sample_params(gen, comp_post)
+        gating_post = self.gating_prior.update(torch.sum(resp, 0))
+        log_pi = torch.log(torch.clamp(gating_post.sample(gen), min=1e-37))
+        log_p = self.log_complete_likelihood(params, log_pi, data)
+        labels = sample_categorical_from_log(gen, log_p).to(torch.int32)
+        new = GibbsState(components=comp_post, gating=gating_post,
+                         params=params, log_pi=log_pi, labels=labels)
+        return new, torch.sum(torch.logsumexp(log_p, -1))
+
+    def fit_gibbs(self, data, key=None, maxiter=100, init_labels='prior',
+                  point_weights=None, init_state=None, track_loglik=False):
+        """Dense blocked Gibbs sampling. Returns the final GibbsState, or
+        (GibbsState, loglik trace) with track_loglik=True: the per-sweep
+        data log-likelihood under the sampled params. `init_labels`:
+        'prior' (labels drawn from a gating-prior sample) or 'random';
+        pass a previous GibbsState as `init_state` to continue a chain."""
+        data = _as_tuple(data)
+        x0 = data[0]
+        n, dtype, dev = x0.shape[0], x0.dtype, x0.device
+        gen = _as_generator(key, dev)
+        if init_state is not None:
+            state = init_state
+        else:
+            if init_labels == 'random':
+                labels = torch.randint(0, self.size, (n,), generator=gen,
+                                       device=dev)
+            else:   # 'prior'
+                probs = torch.clamp(self.gating_prior.sample(gen), min=1e-37)
+                labels = torch.multinomial(probs, n, replacement=True,
+                                           generator=gen)
+            state = GibbsState(
+                components=self.components_prior, gating=self.gating_prior,
+                params=self.family.mode_params(self.components_prior),
+                log_pi=torch.log(torch.full((self.size,), 1.0 / self.size,
+                                            dtype=dtype, device=dev)),
+                labels=labels.to(torch.int32))
+        trace = []
+        for _ in range(maxiter):
+            state, loglik = self._gibbs_sweep(state, data, gen,
+                                              point_weights)
+            trace.append(loglik)
+        if track_loglik:
+            return finite_report((state, _stack(trace, x0)), 'fit_gibbs')
+        return finite_report(state, 'fit_gibbs')
+
+    # -- MAP EM ----------------------------------------------------------------
+
+    def fit_map(self, data, key=None, maxiter=250, randomize=True):
+        """Dense MAP expectation-maximization: posterior update, then the
+        mode's plug-in softmax, from random responsibilities (`randomize`
+        is accepted and unused, as in the JAX package). Returns (MFState,
+        loglik trace)."""
+        data = _as_tuple(data)
+        x0 = data[0]
+        resp = _random_resp(_as_generator(key, x0.device), x0.shape[0],
+                            self.size, x0.dtype, x0.device)
+        trace = []
+        for _ in range(maxiter):
+            state = self._mf_update(data, resp)
+            params = self.family.mode_params(state.components)
+            log_pi = torch.log(torch.clamp(state.gating.mode(), min=1e-37))
+            resp, lognorm = normalize_log(
+                self.log_complete_likelihood(params, log_pi, data))
+            trace.append(torch.sum(lognorm))
+        return finite_report((self._mf_update(data, resp), _stack(trace, x0)),
+                             'fit_map')
+
     # -- prediction ----------------------------------------------------------
 
     def predictive_log_weights(self, state: MFState):
@@ -273,6 +620,60 @@ class BayesianMixture:
                                                        data))
         return torch.logsumexp(lp + log_w[None, :], -1)
 
+    def used_labels(self, state: MFState, data, threshold=0):
+        """Which components take more than `threshold` points by argmax
+        responsibility -> (K,) bool."""
+        resp = self.expected_responsibilities(state, _as_tuple(data))
+        usage = torch.bincount(torch.argmax(resp, -1), minlength=self.size)
+        return usage > threshold
+
+    @property
+    def nb_params(self):
+        """Number of free likelihood parameters, for BIC/AIC-style model
+        selection: gating K - 1 plus per component d + d(d+1)/2 (full
+        Gaussian), 2d (diagonal), pq + p(p+1)/2 (linear), pq + p (diagonal
+        linear). Undefined (raises) for tied and hierarchical families."""
+        from mimo_tpu_torch.distributions import mng as _mng
+        from mimo_tpu_torch.distributions import mnw as _mnw
+        from mimo_tpu_torch.distributions import ng as _ng
+        from mimo_tpu_torch.distributions import niw as _niw
+
+        def comp_params(prior):
+            if isinstance(prior, _niw.NIW):
+                k, d = prior.mu.shape
+                return k * (d + d * (d + 1) // 2)
+            if isinstance(prior, _ng.NG):
+                k, d = prior.mu.shape
+                return k * 2 * d
+            if isinstance(prior, _mnw.MNW):
+                k, p, q = prior.M.shape
+                return k * (p * q + p * (p + 1) // 2)
+            if isinstance(prior, _mng.MNG):
+                k, p, q = prior.M.shape
+                return k * (p * q + p)
+            if isinstance(prior, tuple):          # product family (ILR)
+                return sum(comp_params(p) for p in prior)
+            raise NotImplementedError(
+                f'nb_params undefined for {type(prior).__name__} (the '
+                'reference also leaves tied/hierarchical undefined)')
+
+        return (self.size - 1) + comp_params(self.components_prior)
+
+    def with_priors(self, state: MFState) -> 'BayesianMixture':
+        """A new model whose priors are this state's posteriors (the
+        prior <- posterior re-anchoring API)."""
+        return type(self)._from_parts(state.gating, state.components,
+                                      self.family, like=self)
+
+    @classmethod
+    def _from_parts(cls, gating_prior, components_prior, family, like=None):
+        obj = cls.__new__(cls)
+        BayesianMixture.__init__(obj, gating_prior, components_prior, family)
+        if like is not None:
+            obj.__dict__.update({k: v for k, v in like.__dict__.items()
+                                 if k not in obj.__dict__})
+        return obj
+
 
 def _as_tuple(data):
     return data if isinstance(data, tuple) else (data,)
@@ -296,3 +697,8 @@ def _random_resp(gen, n, k, dtype, device):
     r = torch.rand((n, k), generator=gen, dtype=dtype, device=device)
     r.mul_(1.0 - 1e-3).add_(1e-3)
     return r.div_(torch.sum(r, -1, keepdim=True))
+
+
+def _anchor_indices(gen, n, k, device):
+    """K distinct random point indices, the ML engines' anchors."""
+    return torch.randperm(n, generator=gen, device=device)[:k]

@@ -1,12 +1,44 @@
-"""Data helpers (port of the `Standardizer` of mimo_tpu/utils/data.py).
-
-`one_hot`, `nan_mask` and `sample_batch_indices` arrive with the SVI
-engine that uses them (ROADMAP A14).
-"""
+"""Data helpers: one-hot labels, NaN masking, minibatch sampling and
+standardization (port of mimo_tpu/utils/data.py)."""
 
 from typing import NamedTuple
 
 import torch
+
+
+def one_hot(labels, num_classes, dtype=torch.float32):
+    """(N,) int labels -> (N, K) one-hot in `dtype`."""
+    return torch.nn.functional.one_hot(labels.long(), num_classes).to(dtype)
+
+
+def nan_mask(*arrays):
+    """Static-shape NaN handling: returns (clean_arrays, weights) where
+    rows holding a NaN in ANY array get weight 0 and are zero-filled. Pass
+    the weights as the engines' `point_weights`, which make masked rows
+    exact no-ops. A single array comes back bare, as in the JAX package."""
+    bad = None
+    for a in arrays:
+        b = torch.isnan(a).reshape(a.shape[0], -1).any(-1)
+        bad = b if bad is None else (bad | b)
+    weights = torch.where(bad, 0.0, 1.0).to(arrays[0].dtype)
+    clean = tuple(torch.nan_to_num(a, nan=0.0) for a in arrays)
+    return clean if len(clean) > 1 else clean[0], weights
+
+
+def sample_batch_indices(gen, data_size, batch_size, replace=None,
+                         device=None):
+    """One random minibatch of indices per call, on `device` (by default
+    the generator's). Where the batch is a small fraction of the data
+    (N > max(2^16, 32 B)) it samples WITH replacement, O(B) and still an
+    unbiased minibatch; else a without-replacement draw (a permutation of
+    N). Pass `replace` to force either."""
+    if replace is None:
+        replace = data_size > max(1 << 16, 32 * batch_size)
+    device = gen.device if device is None else device
+    if replace:
+        return torch.randint(0, data_size, (batch_size,), generator=gen,
+                             device=device)
+    return torch.randperm(data_size, generator=gen, device=device)[:batch_size]
 
 
 class Standardizer(NamedTuple):

@@ -13,6 +13,17 @@ from mimo_tpu_torch.utils.linalg import logdet_psd, quad_form
 LOG2PI = 1.8378770664093453
 
 
+def sample_categorical_from_log(gen, log_p, dim=-1):
+    """Sample categorical labels from unnormalized log-probabilities: one
+    Gumbel-max draw per row from the explicit generator, fully vectorized.
+    Returns int64 labels with `dim` reduced."""
+    u = torch.rand(log_p.shape, generator=gen, dtype=log_p.dtype,
+                   device=log_p.device)
+    tiny = torch.finfo(log_p.dtype).tiny
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    return torch.argmax(log_p + gumbel, dim=dim)
+
+
 def normalize_log(log_p, dim=-1):
     """(softmax(log_p), logsumexp(log_p)) — the E-step normalizer."""
     lognorm = torch.logsumexp(log_p, dim=dim)

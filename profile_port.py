@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's cells on one CUDA card.
 
-    python3 profile_port.py [--units U]
+    python3 profile_port.py [--units U] [--engines-only]
 
 For each cell it fits the model at the size `chip_smoke.py` drives,
 warms up, then measures one unit of work (a warm-started VI sweep, a
-Gibbs sweep, or one serving call): the wall time per unit (median of 3
+Gibbs sweep, one serving call, a sweep of a 50-sweep MAP-EM or ML-EM fit
+with its init, a dense VI sweep or an SVI step; `--engines-only` runs
+just the last three, the cells of `chip_smoke.py` phase 17): the wall time per unit (median of 3
 un-profiled runs of U units, synchronised), and under `torch.profiler`
 the device time per unit, split into the named kernel and the other
 device ops (their count and time). The idle share is 1 - device busy /
@@ -92,9 +94,36 @@ def report(card, cell, unit, fn, units, kernel):
           f'{max(0.0, 1 - busy / wall):.3f}', flush=True)
 
 
+def engine_cells(card, dev, x, u):
+    """The cells of chip_smoke.py phase 17 on the DP-GMM data: MAP-EM and
+    ML-EM through B1 (a 50-sweep fit, its init included, per sweep), the
+    dense VI sweep on the first 1e6 points and the SVI step at B=256 and
+    65536 (no kernel: their device time is all other ops)."""
+    m = BayesianGMM.make(size=K, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    cell = f'DP-GMM N={N_GMM}'
+    report(card, cell, 'MAP-EM sweep (50-sweep fit)',
+           lambda: m.fit_map_fused(x, key=1, maxiter=50), 50, 'estep_tc')
+    report(card, cell, 'ML-EM sweep (50-sweep fit)',
+           lambda: m.fit_em_fused(x, key=0, maxiter=50), 50, 'estep_tc')
+    x1 = x[:1_000_000]
+    st, _ = m.fit_vi(x1, key=1, maxiter=5)
+    report(card, 'DP-GMM N=1000000 (dense)', 'fit_vi sweep',
+           lambda: m.fit_vi(x1, maxiter=u, init_state=st, randomize=False),
+           u, 'estep_tc')
+    st, _ = m.fit_svi(x, key=5, maxiter=50, step_size=0.5, batch_size=256)
+    for b in (256, 65536):
+        report(card, f'{cell} SVI B={b}', 'step',
+               lambda bb=b: m.fit_svi(x, key=6, maxiter=100, step_size=0.5,
+                                      batch_size=bb, init_state=st),
+               100, 'estep_tc')
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--units', type=int, default=5)
+    ap.add_argument('--engines-only', action='store_true',
+                    help="only the cells of chip_smoke.py phase 17")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_port: needs a CUDA device')
@@ -111,6 +140,9 @@ def main():
     mu = torch.randn((3, 2), generator=kg, device=dev) * 4.0
     lm = torch.eye(2, device=dev).expand(3, 2, 2) * 2.0
     x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3], N_GMM)
+    engine_cells(card, dev, x, u)
+    if args.engines_only:
+        return
     for label, kw, maps in (
             ('DP-GMM', dict(gating='dp', psi_scale=0.5),
              ('estep_tc', 'gibbs_tc', 'predict_kernel')),
