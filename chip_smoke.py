@@ -89,7 +89,10 @@ Phases, one or more printed lines each:
               fit_em_fused 50, B1 launched exactly once a sweep, finite
               traces (EM's not falling beyond 1e-4 relative f32 jitter),
               kernel vs plain on a 100,003-point slice, rates, B1's time
-              and precision line at each fit's final theta; the q8 ILR
+              at each fit's final theta, and B1 against its plain version
+              on that slice and its precision line at each final theta
+              and at the MAP theta given the ML-EM fit (MAP from its
+              random start stays near the symmetric point); the q8 ILR
               fit (N=1e6, d=8) by fit_map_fused 20 and fit_em_fused 20
               through B1 over the ILR map, the same checks; the dense
               engines on the first 1e6 points of phase 6's data (fit_vi,
@@ -2364,6 +2367,7 @@ def plugin_fit(model, data, engine, maxiter, count, tag, key):
     print(f'{tag} {engine} {maxiter}: launches {path}')
     check(path[count] == maxiter and sum(path.values()) == maxiter,
           f'{tag} {engine}: B1 not launched once a sweep')
+    launched = path[count]
     check(bool(torch.isfinite(trace).all()) and all_finite(state),
           f'{tag} {engine}: state or trace not finite')
     t = trace.double()
@@ -2374,7 +2378,7 @@ def plugin_fit(model, data, engine, maxiter, count, tag, key):
              ' (MAP: the data log-likelihood at the mode; not checked)'))
     if engine == 'fit_em_fused':
         check(drop <= 1e-4, f'{tag} EM loglik falls')
-    return state
+    return state, launched
 
 
 def plugin_theta(model, engine, state):
@@ -2389,20 +2393,57 @@ def plugin_theta(model, engine, state):
     return pad_theta(spec.theta_plugin(params), log_pi, torch.float32)[0]
 
 
+def map_given_em(model, data, em_state):
+    """A MAP state whose components differ: the posterior given the
+    responsibilities at the ML-EM fit's final params (one MAP M-step from
+    that fit), by the plain E-step. MAP from its random start stays near
+    the symmetric point, where every row of theta is alike."""
+    x0 = data[0]
+    estep = model._fused_plugin_estep(model._estep_spec(), False, 131072)
+    res = estep(em_state.params, em_state.log_pi, data, None, x0.shape[0],
+                x0.dtype)
+    return MFState(
+        components=model.family.update(model.components_prior, res.stats),
+        gating=model.gating_prior.update(res.counts))
+
+
+def plugin_slice_check(tag, xt, theta, kind, p):
+    """B1 against its plain version at one plug-in theta on the first
+    100,003 points, under the ILR phase's rule: statistics within 1e-5 of
+    their summed magnitudes (+ 1e-6), lse within rtol 1e-5."""
+    n = 100_003
+    xs = xt[:, :n].contiguous()
+    acc, lse = cuda_estep.estep(xs, theta, n, kind, p)
+    pacc, plse = cuda_estep.estep_plain(xs, theta, n, kind, p)
+    mag = estep_magnitudes(xs, theta, n, kind, p)
+    err = (acc.double() - pacc.double()).abs()
+    ok_s = bool((err <= 1e-5 * mag + 1e-6).all())
+    ok_l, err_l = allclose_report(lse, plse, 1e-5, 0.0)
+    spread = float((theta - theta.mean(0)).abs().max())
+    print(f'B1 {tag} vs plain on {n} points: theta rows differ by up to '
+          f'{spread:.6g}; stats max |err| / summed magnitude '
+          f'{float((err / mag.clamp(min=1e-30)).max()):.3g} (<= 1e-5) '
+          f'{"ok" if ok_s else "FAIL"}; lse |err| {err_l:.6g} (rtol 1e-5) '
+          f'{"ok" if ok_l else "FAIL"}')
+    check(ok_s and ok_l, f'B1 {tag} disagrees with plain')
+
+
 def plugin_paths(card, tag, model, data, sweeps, names, count, kind, p, n,
                  errs, launches, ms):
     """MAP-EM and ML-EM of one cell: the fits (launch counts, traces),
     kernel vs plain on the first 100,003 points (5 sweeps from the same
     init, traces within rtol 1e-4), rates, and B1 at each final theta
-    timed beside its plain version with its float64 precision line."""
+    checked against its plain version on those points, timed beside it
+    and held to float64. MAP's final theta is near-symmetric, so B1 is
+    also checked at the MAP theta given the ML-EM fit (`map_given_em`)."""
     xt = stack_rows(kernel_xts(data))
     d = data[0].shape[1]
     m = cuda_estep.feature_width(kind, d, p)
     pairs = {}
     for engine, key, name in (('fit_map_fused', 1, names[0]),
                               ('fit_em_fused', 0, names[1])):
-        st = plugin_fit(model, data, engine, sweeps, count, tag, key)
-        launches[name] = sweeps
+        st, launches[name] = plugin_fit(model, data, engine, sweeps, count,
+                                        tag, key)
         sl = tuple(a[:100_003] for a in data)
         _, t_k = getattr(model, engine)(sl, key=key, maxiter=5,
                                         backend='kernel')
@@ -2424,8 +2465,15 @@ def plugin_paths(card, tag, model, data, sweeps, names, count, kind, p, n,
                                                                kind, p),
                        None)
         WORK[name] = estep_work(n, K_MAIN, m, xt.shape[0])
+        plugin_slice_check(f'{tag} {engine} final theta', xt, theta, kind, p)
         precision_check(f'{tag} {engine} final theta', xt, theta, n, kind,
                         p)
+    # st is the ML-EM fit's final state (the loop's last engine)
+    theta = plugin_theta(model, 'fit_map_fused', map_given_em(model, data, st))
+    plugin_slice_check(f'{tag} MAP theta given the ML-EM fit', xt, theta,
+                       kind, p)
+    precision_check(f'{tag} MAP theta given the ML-EM fit', xt, theta, n,
+                    kind, p)
     time_pairs(card, tag, pairs, errs, ms)
 
 

@@ -25,20 +25,19 @@ def nan_mask(*arrays):
     return clean if len(clean) > 1 else clean[0], weights
 
 
-def sample_batch_indices(gen, data_size, batch_size, replace=None,
-                         device=None):
-    """One random minibatch of indices per call, on `device` (by default
-    the generator's). Where the batch is a small fraction of the data
+def sample_batch_indices(gen, data_size, batch_size, replace=None):
+    """One random minibatch of indices per call, on the generator's
+    device. Where the batch is a small fraction of the data
     (N > max(2^16, 32 B)) it samples WITH replacement, O(B) and still an
     unbiased minibatch; else a without-replacement draw (a permutation of
     N). Pass `replace` to force either."""
     if replace is None:
         replace = data_size > max(1 << 16, 32 * batch_size)
-    device = gen.device if device is None else device
     if replace:
         return torch.randint(0, data_size, (batch_size,), generator=gen,
-                             device=device)
-    return torch.randperm(data_size, generator=gen, device=device)[:batch_size]
+                             device=gen.device)
+    return torch.randperm(data_size, generator=gen,
+                          device=gen.device)[:batch_size]
 
 
 class Standardizer(NamedTuple):
