@@ -100,6 +100,26 @@ Phases, one or more printed lines each:
               finite traces, rates, no kernel launched); SVI over all 1e7
               points (step 0.5, 500 steps at B=256 and 200 at B=65536:
               finite states, steps/s from the random init and warm).
+ 18. nested   the nested mixtures of mixtures (BayesianMixtureOfMixtures),
+              whose fused engines and serving flatten the (M, K) posterior
+              to M*K kernel rows: the nested GMM of bench.py:358-383 (N=1e6,
+              two blobs, M=4, K=8, d=2) by fit_vi_fused 50 (B1 exactly 50
+              launches), fit_gibbs_fused 50 (B2 50) and log_predictive (B3
+              once), and the same hierarchical (20 sweeps each, the exact
+              draws, B3 on HierTied rows built per cluster, checked
+              against the dense density in float64); nested MAP-EM and
+              ML-EM at N=1e7 (bench.py:385-398) by fit_map_fused 20 and
+              fit_em_fused 20 with their peak device memory; nested ILR
+              serving (bench.py:400-420: the sine at N=1e7, M=2, K=6, dense
+              fit_gibbs on the first 2e5, predict through B5, RMSE < 0.25) and
+              fused VI 20 over the first 1e6 through B1's ILR map at
+              M*K=12; p=2 serving (tests/test_pallas.py:474-499: N=1e6,
+              M=2, K=4, dense fit_vi on the first 1e5, predict through B6);
+              each with kernel vs plain on 100,003 points, B1's precision
+              line at every final theta, the serving kernels' float64
+              lines, rates and kernel times; and the dense nested engines
+              (fit_vi, fit_map, fit_em, fit_gibbs 10 each, fit_svi 100 at
+              B=256) on the first 1e5 points with no kernel launched.
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -127,6 +147,7 @@ import subprocess
 import time
 
 import torch
+from torch.func import vmap
 
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
 from mimo_tpu_torch.conjugate.families import ilr_family
@@ -138,8 +159,10 @@ from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import GaussParams, NIW, mode_params
-from mimo_tpu_torch.models import GMM, BayesianGMM, BayesianILR
-from mimo_tpu_torch.models.mixture import MFState, kernel_xts
+from mimo_tpu_torch.models import (
+    GMM, BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
+from mimo_tpu_torch.models.hmix import HMixState, _flatten_mk
+from mimo_tpu_torch.models.mixture import MFState, _cast, kernel_xts
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
     cuda_ilr_predict, cuda_predict, cuda_probes)
@@ -811,6 +834,7 @@ def run(dev, seed, n_main, n_check):
     hilr_serving_paths(dev, seed, card, errs, launches, ms)
     wide = wide_serving_paths(dev, gen, card, errs, launches, ms)
     engine_paths(dev, seed, card, n_main, errs, launches, ms)
+    nested_paths(dev, seed, card, errs, launches, ms)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -929,6 +953,26 @@ def run(dev, seed, n_main, n_check):
                       'mimo_tpu_torch/csrc/estep.cuh',
                       'mimo_tpu/ops/pallas_estep.py:164'),
     }
+    nested = {
+        'B1-nested': ('B1', 'nested VI theta, Gauss map, M*K=32 rows'),
+        'B1-nested-hier': ('B1', 'nested hierarchical VI theta, Gauss map, '
+                           'M*K=32 rows'),
+        'B1-nested-MAP': ('B1', 'nested plug-in theta at the posterior '
+                          'mode, M*K=32 rows (fit_map_fused)'),
+        'B1-nested-EM': ('B1', 'nested plug-in theta of the ML params, '
+                         'M*K=32 rows (fit_em_fused)'),
+        'B1-ILR-nested': ('B1', 'nested ILR VI theta, ILR map, M*K=12 rows'),
+        'B2-nested': ('B2', 'nested joint M*K=32 label draw, Gauss map'),
+        'B2-nested-hier': ('B2', 'nested joint M*K=32 label draw, exact '
+                           'hierarchical draws'),
+        'B3-nested': ('B3', 'nested NIW posterior flattened to M*K=32 rows'),
+        'B3-nested-hier': ('B3', 'nested HierTied rows built per cluster, '
+                           'M*K=32'),
+        'B5-nested': ('B5', 'nested ILR p=1, M*K=12 flattened experts'),
+        'B6-nested': ('B6', 'nested ILR p=2, M*K=8 flattened experts'),
+    }
+    meta.update({name: (f'{meta[base][0]}, {what}',) + meta[base][1:]
+                 for name, (base, what) in nested.items()})
     meta.update({name: row[:3] for name, row in wide.items()})
     rows = []
     for b in meta:
@@ -2553,6 +2597,418 @@ def engine_paths(dev, seed, card, n_main, errs, launches, ms):
               f'weights {[round(float(w), 4) for w in top]}')
     del x, x1, model
     torch.cuda.empty_cache()
+
+
+# -- 18. nested ---------------------------------------------------------------
+
+N_NEST, M_NEST, K_NEST = 1_000_000, 4, 8      # bench.py:358-383
+N_NEST_MAP = 10_000_000                        # bench.py:385-398
+N_NEST_ILR, N_NEST_ILR_FIT = 10_000_000, 200_000   # bench.py:400-420
+N_NEST_P2, N_NEST_P2_FIT = 1_000_000, 100_000  # tests/test_pallas.py:474-499
+N_NEST_DENSE = 100_000
+
+
+def nested_blobs(gen, n, dev):
+    """bench.py:358-383's nested data: n/2 points at (-5, -4) and n/2 at
+    (5, 4), sigma 0.7, shuffled (so that every slice holds both)."""
+    c = torch.tensor([[-5., -4.], [5., 4.]], device=dev)
+    lab = torch.arange(n, device=dev) % 2
+    x = c[lab] + 0.7 * torch.randn((n, 2), generator=gen, device=dev)
+    return x[torch.randperm(n, generator=gen, device=dev)]
+
+
+def nested_fit(tag, fit, want):
+    """One fit through its public entry point with every count set to 0
+    just before and read just after: exactly the `want` launches (a dict
+    of read_counts() names) and no other kernel. Returns (result, counts,
+    seconds)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fit()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    path = read_counts()
+    print(f'{tag}: launches {path}')
+    check(all(path[k] == v for k, v in want.items())
+          and sum(path.values()) == sum(want.values()),
+          f'{tag}: launches {path}, want {want}')
+    return out, path, secs
+
+
+def nested_gmm_paths(dev, seed, card, errs, launches, ms):
+    """Cells 1 and 2 of phase 18: the nested GMM and the hierarchical
+    nested GMM of bench.py:358-383 (N=1e6, M=4, K=8, d=2) through B1/B2/B3
+    at M*K = 32 rows."""
+    kg = torch.Generator(device=dev).manual_seed(seed + 11)
+    x = nested_blobs(kg, N_NEST, dev)
+    xt = kernel_xts((x,))[0]
+    xs = x[:100_003]
+    n, mk = N_NEST, M_NEST * K_NEST
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, 2)
+    for label, hier, sweeps in (('', False, 50), ('-hier', True, 20)):
+        tag = (f'nested{" hierarchical" if hier else ""} GMM N={n} '
+               f'M={M_NEST} K={K_NEST} d=2')
+        model = BayesianMixtureOfMixtures.make_gmm(
+            M_NEST, K_NEST, 2, hierarchical=hier, kappa=0.5, psi_scale=0.5,
+            maxsubiter=5, device=dev)
+        (st, vlb), _, t_vi = nested_fit(
+            f'{tag} fit_vi_fused {sweeps}',
+            lambda: model.fit_vi_fused(x, key=0, maxiter=sweeps),
+            {'B1': sweeps})
+        gs, _, t_g = nested_fit(
+            f'{tag} fit_gibbs_fused {sweeps}',
+            lambda: model.fit_gibbs_fused(x, key=2, maxiter=sweeps),
+            {'B2': sweeps})
+        lp, _, t_p = nested_fit(f'{tag} log_predictive',
+                                lambda: model.log_predictive(st, x),
+                                {'B3': 1})
+        launches[f'B1-nested{label}'] = sweeps
+        launches[f'B2-nested{label}'] = sweeps
+        launches[f'B3-nested{label}'] = 1
+        elbo_report(f'{tag} VI', vlb)
+        check(all_finite(st) and all_finite(gs[:3])
+              and gs.labels.shape == (n,) and int(gs.labels.min()) >= 0
+              and int(gs.labels.max()) < M_NEST,
+              f'{tag}: state not finite or labels out of range')
+        check(lp.shape == (n,) and all_finite(lp),
+              f'{tag}: log_predictive not finite')
+        if hier:
+            check(model.family.gibbs_update is not None,
+                  f'{tag}: Gibbs without the exact draws')
+        counts = torch.bincount(gs.labels.long(), minlength=M_NEST)
+        print(f'{tag}: outer weights (VI) '
+              f'{[round(float(w), 4) for w in st.outer_gating.mean()]}; '
+              f'Gibbs outer label counts {counts.tolist()}; mean log '
+              f'predictive {float(lp.mean()):.6g}; one run each on {card}: '
+              f'VI {sweeps / t_vi:.6g} it/s, Gibbs {sweeps / t_g:.6g} '
+              f'sweeps/s, predictive {n / t_p:.6g} pts/s (first calls)')
+
+        # the engines' kernel path against their plain path on a slice
+        _, v_k = model.fit_vi_fused(xs, key=0, maxiter=5, backend='kernel')
+        _, v_t = model.fit_vi_fused(xs, key=0, maxiter=5, backend='torch')
+        ok_v, e_v = allclose_report(v_k, v_t, 1e-4, 0.0)
+        lp_k = model.log_predictive(st, xs, backend='kernel')
+        ok_p, e_p = allclose_report(
+            lp_k, model.log_predictive(st, xs, backend='torch'), 1e-5, 1e-4)
+        # B3's HierTied rows, one cluster at a time, against the dense
+        # density in float64
+        lp64 = model.log_predictive(_cast(st, torch.float64), xs.double(),
+                                    backend='torch')
+        ok_64, e_64 = allclose_report(lp_k, lp64, 1e-5, 1e-4)
+        print(f'{tag} vs plain on 100,003 points: VI ELBO max|err| '
+              f'{e_v:.6g} (rtol 1e-4) {"ok" if ok_v else "FAIL"}; '
+              f'log_predictive max|err| {e_p:.6g} (rtol 1e-5, atol 1e-4) '
+              f'{"ok" if ok_p else "FAIL"}, vs the dense density in '
+              f'float64 {e_64:.6g} {"ok" if ok_64 else "FAIL"}')
+        check(ok_v and ok_p and ok_64,
+              f'{tag}: kernel path disagrees with the plain path')
+        vi = rate(sweeps, lambda: model.fit_vi_fused(x, key=0,
+                                                     maxiter=sweeps), reps=2)
+        gibbs = rate(sweeps, lambda: model.fit_gibbs_fused(
+            x, key=3, maxiter=sweeps), reps=2)
+        print(f'rates on {card}, {tag}: VI {vi} it/s ({sweeps} sweeps from '
+              f'the random start); Gibbs {gibbs} sweeps/s')
+
+        spec = model._flat_spec()
+        th_vi, _ = pad_theta(spec.theta(st.components),
+                             model._flat_log_pi(st), torch.float32)
+        th_g, _ = pad_theta(
+            spec.theta_plugin(vmap(model.family.mode_params)(gs.components)),
+            model._log_mix_weights(gs).reshape(-1), torch.float32)
+        thq, aux = model.predictive_rows(st)
+        plugin_slice_check(f'{tag} final VI theta', xt, th_vi,
+                           cuda_estep.GAUSS, 0)
+        precision_check(f'{tag} final VI theta (M*K={mk})', xt, th_vi, n)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        labels, acc = cuda_gibbs.gibbs(xt, th_g, zero, n)
+        pairs = {
+            f'B1-nested{label}': (
+                lambda: cuda_estep.estep(xt, th_vi, n),
+                lambda: cuda_estep.estep_plain(xt, th_vi, n), None),
+            f'B2-nested{label}': (
+                lambda: cuda_gibbs.gibbs(xt, th_g, zero, n),
+                lambda: cuda_gibbs.gibbs_plain(xt, th_g, zero, n),
+                lambda: gibbs_acc_err(xt, n, cuda_estep.GAUSS, 0, labels,
+                                      acc)),
+            f'B3-nested{label}': (
+                lambda: cuda_predict.predict(xt, thq, aux, n),
+                lambda: cuda_predict.predict_plain(xt, thq, aux, n), None),
+        }
+        WORK[f'B1-nested{label}'] = estep_work(n, mk, m, 2)
+        WORK[f'B2-nested{label}'] = gibbs_work(xt, th_g, n, m)
+        WORK[f'B3-nested{label}'] = density_work(
+            n, mk, quad_fmas(2), 2, 2, products=point_products(2))
+        time_pairs(card, f'N={n} M*K={mk} d=2 ({tag})', pairs, errs, ms)
+        del model, st, gs, lp
+    del x, xt, xs
+    torch.cuda.empty_cache()
+
+
+def nested_plugin_paths(dev, seed, card, errs, launches, ms):
+    """Cell 3 of phase 18: nested MAP-EM and ML-EM at N=1e7 (bench.py:
+    385-398) through B1 with plug-in theta at M*K = 32 rows, the peak
+    device memory of each fit."""
+    kg = torch.Generator(device=dev).manual_seed(seed + 12)
+    n, mk = N_NEST_MAP, M_NEST * K_NEST
+    x = nested_blobs(kg, n, dev)
+    xt = kernel_xts((x,))[0]
+    model = BayesianMixtureOfMixtures.make_gmm(
+        M_NEST, K_NEST, 2, hierarchical=False, kappa=0.5, psi_scale=0.5,
+        device=dev)
+    tag = f'nested MAP/EM N={n} M={M_NEST} K={K_NEST} d=2'
+    spec = model._flat_spec()
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, 2)
+    pairs = {}
+    for engine, name in (('fit_map_fused', 'B1-nested-MAP'),
+                         ('fit_em_fused', 'B1-nested-EM')):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (st, trace), _, secs = nested_fit(
+            f'{tag} {engine} 20',
+            lambda: getattr(model, engine)(x, key=3, maxiter=20),
+            {'B1': 20})
+        peak = torch.cuda.max_memory_allocated()
+        launches[name] = 20
+        check(all_finite(st) and bool(torch.isfinite(trace).all()),
+              f'{tag} {engine}: state or trace not finite')
+        t = trace.double()
+        drop = float(((t[:-1] - t[1:]) / t[1:].abs()).max())
+        print(f'{tag} {engine}: loglik trace {float(t[0]):.9g} -> '
+              f'{float(t[-1]):.9g}, worst relative drop {drop:.3g}'
+              + (' (<= 1e-4)' if engine == 'fit_em_fused' else
+                 ' (MAP: the data log-likelihood at the mode; not checked)')
+              + f'; peak device memory {peak / 2**30:.4g} GiB '
+              f'({(peak - base) / 2**30:.4g} GiB above the '
+              f'{base / 2**30:.4g} GiB held before the fit), one run on '
+              f'{card} {20 / secs:.6g} it/s (init included)')
+        if engine == 'fit_em_fused':
+            check(drop <= 1e-4, f'{tag} EM loglik falls')
+        sl = x[:100_003]
+        _, t_k = getattr(model, engine)(sl, key=3, maxiter=5,
+                                        backend='kernel')
+        _, t_t = getattr(model, engine)(sl, key=3, maxiter=5,
+                                        backend='torch')
+        ok, e = allclose_report(t_k, t_t, 1e-4, 0.0)
+        print(f'{tag} {engine} vs plain on 100,003 points: loglik max|err| '
+              f'{e:.6g} (rtol 1e-4) {"ok" if ok else "FAIL"}')
+        check(ok, f'{tag} {engine}: kernel path disagrees with plain')
+        r = rate(20, lambda: getattr(model, engine)(x, key=3, maxiter=20),
+                 reps=2)
+        print(f'rates on {card}, {tag}: {engine} {r} it/s (20 sweeps a '
+              f'fit, its init included)')
+        if engine == 'fit_map_fused':
+            params = vmap(model.family.mode_params)(st.components)
+            log_pi = model._flat_log_pi(st, mode=True)
+        else:
+            params = st.params
+            log_pi = (st.outer_log_pi[:, None] + st.inner_log_pi).reshape(-1)
+        theta, _ = pad_theta(spec.theta_plugin(params), log_pi,
+                             torch.float32)
+        plugin_slice_check(f'{tag} {engine} final theta', xt, theta,
+                           cuda_estep.GAUSS, 0)
+        precision_check(f'{tag} {engine} final theta (M*K={mk})', xt, theta,
+                        n)
+        pairs[name] = (lambda th=theta: cuda_estep.estep(xt, th, n),
+                       lambda th=theta: cuda_estep.estep_plain(xt, th, n),
+                       None)
+        WORK[name] = estep_work(n, mk, m, 2)
+        del st, trace
+    time_pairs(card, f'N={n} M*K={mk} d=2 ({tag})', pairs, errs, ms)
+    del x, xt, model
+    torch.cuda.empty_cache()
+
+
+def nested_ilr_paths(dev, seed, card, errs, launches, ms):
+    """Cells 4 and 5 of phase 18: nested ILR serving (bench.py:400-420,
+    the sine of bench.py:338-356; M=2, K=6, d=1, p=1) through B5 and the
+    nested p=2 config of tests/test_pallas.py:474-499 (M=2, K=4) through
+    B6, each fitted by a dense engine on a head of the data (p=2: VI 30;
+    the sine: Gibbs 30, whose draws break the symmetric start that
+    bench.py's dense VI 30 leaves the experts near, RMSE ~0.67 in
+    mimo_tpu too); then the sine's
+    fused VI over the first 1e6 points through B1's ILR map at M*K = 12
+    rows with its precision line."""
+    for count, n, n_fit, p, k, kappa, engine in (
+            ('B5', N_NEST_ILR, N_NEST_ILR_FIT, 1, 6, 0.05, 'fit_gibbs'),
+            ('B6', N_NEST_P2, N_NEST_P2_FIT, 2, 4, 0.1, 'fit_vi')):
+        name, mk = f'{count}-nested', 2 * k
+        kg = torch.Generator(device=dev).manual_seed(seed + 5)
+        if p == 1:
+            x = torch.rand((n, 1), generator=kg, device=dev) * 12 - 6
+            y = torch.sin(x) + 0.1 * torch.randn((n, 1), generator=kg,
+                                                 device=dev)
+        else:
+            x = torch.rand((n, 1), generator=kg, device=dev) * 6 - 3
+            y = torch.cat([torch.sin(x), torch.cos(x)], -1) + 0.1 * \
+                torch.randn((n, 2), generator=kg, device=dev)
+        tag = (f'nested ILR ({"sine" if p == 1 else "sin/cos"}) N={n} M=2 '
+               f'K={k} d=1 p={p}')
+        model = BayesianMixtureOfMixtures.make_ilr(2, k, 1, p, kappa=kappa,
+                                                   device=dev)
+
+        def path():
+            head = (x[:n_fit], y[:n_fit])
+            model.init_transform(*head)
+            if engine == 'fit_gibbs':
+                gs = model.fit_gibbs(head, key=2, maxiter=30, maxsubiter=2)
+                st = HMixState(gs.outer_gating, gs.inner_gating,
+                               gs.components)
+            else:
+                st, _ = model.fit_vi(head, key=2, maxiter=30, maxsubiter=2)
+            return st, model.predict(st, x, y, dist='studentt')
+        (st, (mu, var, _, nlpd)), _, secs = nested_fit(
+            f'{tag}: dense {engine} 30 on the first {n_fit}, predict', path,
+            {count: 1})
+        launches[name] = 1
+        rmse = float(torch.sqrt(torch.mean((mu - y) ** 2)))
+        print(f'{tag}: RMSE {rmse:.6g} (noise floor 0.1'
+              + (', < 0.25' if p == 1 else '') + f'), mean NLPD '
+              f'{float(nlpd.mean()):.6g} nats, original units; {secs:.4g} s '
+              f'on {card} (fit and predict)')
+        check(mu.shape == (n, p) and var.shape == (n, p)
+              and nlpd.shape == (n,) and all_finite((st, mu, var, nlpd)),
+              f'{tag}: predict not finite or of the wrong shape')
+        if p == 1:
+            check(rmse < 0.25, f'{tag}: RMSE {rmse} >= 0.25')
+        xs, ys = x[:100_003], y[:100_003]
+        got = model.predict(st, xs, ys, dist='studentt', backend='kernel')
+        want = model.predict(st, xs, ys, dist='studentt', backend='torch')
+        scale = float(model.output_transform.scale.max())
+        oks, es = [], []
+        for g, w, (rtol, atol) in zip(
+                (got[0], got[1], got[3]), (want[0], want[1], want[3]),
+                ((1e-4, 1e-4 * scale), (2e-3, 1e-4 * scale ** 2),
+                 (1e-3, 2e-3))):
+            ok, e = allclose_report(g, w, rtol, atol)
+            oks.append(ok)
+            es.append(e)
+        print(f'{tag} predict vs the dense path on 100,003 points: '
+              f'mean/var/nlpd max|err| {es[0]:.6g}/{es[1]:.6g}/{es[2]:.6g} '
+              f'{"ok" if all(oks) else "FAIL"}')
+        check(all(oks), f'{tag}: kernel path disagrees with the dense path')
+        pred = rate(n, lambda: model.predict(st, x, y, dist='studentt'),
+                    reps=3)
+        print(f'rates on {card}, {tag}: predict {pred} pts/s')
+
+        basis, experts = _flatten_mk(st.components)
+        log_w = model._log_mix_weights(st).reshape(-1)
+        xt = stack_rows(kernel_xts(
+            (model._tx(x), model.output_transform.transform(y))))
+        moments = [('rel', f'mean{j}' if p > 1 else 'mean') for j in range(p)]
+        moments += [('rel', f'var{j}' if p > 1 else 'var') for j in range(p)]
+        rows = moments + [('nats', 'nlpd'), ('nats', 'lse_w')]
+        if p == 1:
+            th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+                basis, experts, log_w)
+            kern = lambda: cuda_ilr_predict.ilr_predict(  # noqa: E731
+                xt, th, aux, n, True, False)
+            plain = lambda: cuda_ilr_predict.ilr_predict_plain(  # noqa: E731
+                xt, th, aux, n, True, False)
+            serving_precision_cells(
+                name, cuda_ilr_predict.ilr_predict,
+                cuda_ilr_predict.ilr_predict_plain, xt, th,
+                (aux, n, True, False), rows, 1, slice(0, mk))
+        else:
+            th, aux, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                basis, experts, log_w)
+            kern = lambda: cuda_ilr_predict.ilr_p_predict(  # noqa: E731
+                xt, th, aux, vc, n, p, True, False)
+            plain = lambda: cuda_ilr_predict.ilr_p_predict_plain(  # noqa: E731
+                xt, th, aux, vc, n, p, True, False)
+            serving_precision_cells(
+                name, cuda_ilr_predict.ilr_p_predict,
+                cuda_ilr_predict.ilr_p_predict_plain, xt, th,
+                (aux, vc, n, p, True, False), rows, 1, slice(0, mk), p=p)
+        ok, e, flips = compare_serving(kern(), plain(), p, False)
+        print(f'{name} vs plain at N={n}: max|err| {e:.6g} ({flips} points '
+              f'off the serving tolerances) {"ok" if ok else "FAIL"}')
+        check(ok, f'{name} disagrees with its plain version')
+        WORK[name] = serving_work(n, mk, 1, p)
+        time_pairs(card, f'N={n} M*K={mk} d=1 p={p} ({tag})',
+                   {name: (kern, plain, lambda e=e: e)}, errs, ms)
+
+        if p == 1:      # the fused VI over the ILR map at M*K = 12 rows
+            n1 = 1_000_000
+            data = (x[:n1], y[:n1])
+            (st1, vlb), _, _ = nested_fit(
+                f'{tag}: fit_vi_fused 20 on the first {n1}',
+                lambda: model.fit_vi_fused(data, key=1, maxiter=20),
+                {'B1-ILR': 20})
+            launches['B1-ILR-nested'] = 20
+            elbo_report(f'{tag} fused VI N={n1}', vlb)
+            check(all_finite(st1), f'{tag}: fused VI state not finite')
+            sl = (x[:100_003], y[:100_003])
+            _, v_k = model.fit_vi_fused(sl, key=1, maxiter=5,
+                                        backend='kernel')
+            _, v_t = model.fit_vi_fused(sl, key=1, maxiter=5,
+                                        backend='torch')
+            ok_v, e_v = allclose_report(v_k, v_t, 1e-4, 0.0)
+            print(f'{tag} fused VI vs plain on 100,003 points: ELBO max|err| '
+                  f'{e_v:.6g} (rtol 1e-4) {"ok" if ok_v else "FAIL"}')
+            check(ok_v, f'{tag}: fused VI kernel path disagrees with plain')
+            x1 = stack_rows(kernel_xts(model._tx_data(data)))
+            th1, _ = pad_theta(model._flat_spec().theta(st1.components),
+                               model._flat_log_pi(st1), torch.float32)
+            plugin_slice_check(f'{tag} final VI theta, ILR map', x1, th1,
+                               ILR, 1)
+            precision_check(f'nested ILR N={n1} M*K={mk} d=1 p=1 final VI '
+                            f'theta', x1, th1, n1, ILR, 1)
+            WORK['B1-ILR-nested'] = estep_work(
+                n1, mk, cuda_estep.feature_width(ILR, 1, 1), 2)
+            time_pairs(card, f'N={n1} M*K={mk} d=1 p=1 ({tag}, fused VI)',
+                       {'B1-ILR-nested': (
+                           lambda: cuda_estep.estep(x1, th1, n1, ILR, 1),
+                           lambda: cuda_estep.estep_plain(x1, th1, n1, ILR,
+                                                          1), None)},
+                       errs, ms)
+            del st1, x1
+        del x, y, model, st, mu, var, nlpd, xt
+        torch.cuda.empty_cache()
+
+
+def nested_dense_paths(dev, seed, card):
+    """Cell 6 of phase 18: the dense nested engines (plain PyTorch, as in
+    JAX) on the first 1e5 points of cell 1's data: no kernel launched."""
+    kg = torch.Generator(device=dev).manual_seed(seed + 11)
+    x = nested_blobs(kg, N_NEST, dev)[:N_NEST_DENSE]
+    model = BayesianMixtureOfMixtures.make_gmm(
+        M_NEST, K_NEST, 2, hierarchical=False, kappa=0.5, psi_scale=0.5,
+        device=dev)
+    tag = (f'nested dense N={N_NEST_DENSE} M={M_NEST} K={K_NEST} d=2 '
+           f'(cell 1 data, cut)')
+    dense = (
+        ('fit_vi 10', 10, lambda: model.fit_vi(x, key=1, maxiter=10)),
+        ('fit_map 10', 10, lambda: model.fit_map(x, key=1, maxiter=10)),
+        ('fit_em 10', 10, lambda: model.fit_em(x, key=0, maxiter=10)),
+        ('fit_gibbs 10', 10, lambda: model.fit_gibbs(x, key=2, maxiter=10)),
+        ('fit_svi 100 B=256', 100, lambda: model.fit_svi(
+            x, key=5, maxiter=100, step_size=0.5, batch_size=256)))
+    torch.cuda.synchronize()
+    reset_counts()
+    for name, steps, fit in dense:
+        t0 = time.perf_counter()
+        out = fit()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(all_finite(out), f'{tag} {name} not finite')
+        print(f'{tag} {name}: finite; one run on {card} '
+              f'{steps / secs:.6g} steps/s')
+    path = read_counts()
+    print(f'{tag}: launches {path} (none: the dense engines are plain)')
+    check(sum(path.values()) == 0, 'a dense nested engine launched a kernel')
+    del x, model
+    torch.cuda.empty_cache()
+
+
+def nested_paths(dev, seed, card, errs, launches, ms):
+    """Phase 18: the nested mixtures of mixtures at the repo's nested
+    widths."""
+    nested_gmm_paths(dev, seed, card, errs, launches, ms)
+    nested_plugin_paths(dev, seed, card, errs, launches, ms)
+    nested_ilr_paths(dev, seed, card, errs, launches, ms)
+    nested_dense_paths(dev, seed, card)
 
 
 if __name__ == '__main__':

@@ -18,6 +18,8 @@ from mimo_tpu_torch.distributions.mng import MNG, DiagLinGaussParams
 from mimo_tpu_torch.distributions.mnw import MNW, LinGaussParams, LinGaussStats
 from mimo_tpu_torch.distributions.ng import NG, DiagGaussParams, DiagGaussStats
 from mimo_tpu_torch.distributions.niw import NIW, GaussParams, GaussStats
+from mimo_tpu_torch.models.hmix import (
+    HMixEMState, HMixGibbsState, HMixState)
 from mimo_tpu_torch.models.mixture import EMState, GibbsState, MFState
 from mimo_tpu_torch.ops.family_estep import FusedEStep
 from mimo_tpu_torch.utils.data import Standardizer
@@ -28,7 +30,8 @@ _CLASSES = {c.__name__: c for c in (
     MFState, GibbsState, EMState, NIW, GaussStats, GaussParams, NG, DiagGaussStats,
     DiagGaussParams, MNW, LinGaussStats, LinGaussParams, MNG,
     DiagLinGaussParams, HierTied, TiedAffine, AffineStats, Dirichlet,
-    StickBreaking, FusedEStep, Standardizer)}
+    StickBreaking, FusedEStep, Standardizer, HMixState, HMixGibbsState,
+    HMixEMState)}
 
 
 def state_from_numpy(tree, device=None, dtype=None):

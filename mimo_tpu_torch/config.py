@@ -1,11 +1,12 @@
 """Dataclass configs mirroring the reference's hyperparameter vocabulary
 (port of mimo_tpu/config.py). `build` builds on the CUDA card unless
 given a device (device='cpu' for the CPU). `TrainConfig` and
-`flagship_fit` need the dense engines and SVI, and arrive with them
-(ROADMAP A13/A14).
+`flagship_fit` are the flagship recipe's loop: Gibbs init, then
+super-iterations of SVI and/or VI with prior <- posterior re-anchoring.
 """
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 
@@ -66,3 +67,54 @@ class ILRConfig:
             kappa=self.kappa, K_scale=self.K_scale,
             psi_scale=self.psi_scale, maxsubiter=self.maxsubiter,
             dtype=dtype or torch.float32, device=device)
+
+
+@dataclass
+class TrainConfig:
+    """The flagship recipe's loop structure: Gibbs init -> super-iterations
+    of SVI/VI with prior <- posterior re-anchoring."""
+    super_iters: int = 2             # --super_iters
+    gibbs_iters: int = 10            # --gibbs_iters
+    vi_iters: int = 500              # --meanfield_iters
+    svi_iters: int = 500             # --svi_iters
+    svi_step_size: float = 5e-1      # --svi_stepsize
+    svi_batch_size: int = 256        # --svi_batchsize
+    svi_forgetting: Optional[float] = None  # Robbins-Monro exponent; the
+    svi_delay: float = 1.0                  # reference uses fixed rho
+    prediction: str = 'average'      # --prediction: 'average' | 'mode'
+    tol: float = 1e-2                # --early_stop (VI |dELBO| rule)
+    seed: int = 1337
+    engine: str = 'svi'              # 'svi' (default) | 'vi' (full-batch;
+                                     # small N) | 'svi+vi' (both per
+                                     # super-iteration)
+
+
+def flagship_fit(model, data, cfg: TrainConfig):
+    """Gibbs init, then super-iterations of SVI and/or full-batch VI with
+    prior <- posterior re-anchoring, all warm-started (`cfg.engine`
+    selects the engines, `cfg.tol` is the VI stopping rule). Returns
+    (model, MFState)."""
+    from mimo_tpu_torch.models.mixture import MFState
+    engines = cfg.engine.split('+')
+    bad = [e for e in engines if e not in ('svi', 'vi')]
+    if bad:
+        raise ValueError(
+            f"TrainConfig.engine={cfg.engine!r}: unknown engine(s) {bad}; "
+            f"use 'svi', 'vi', or 'svi+vi'")
+    g = model.fit_gibbs(data, key=cfg.seed, maxiter=cfg.gibbs_iters,
+                        init_labels='random')
+    state = MFState(g.components, g.gating)
+    for it in range(cfg.super_iters):
+        if 'svi' in engines:
+            state, _ = model.fit_svi(
+                data, key=cfg.seed + it + 1, maxiter=cfg.svi_iters,
+                step_size=cfg.svi_step_size,
+                batch_size=cfg.svi_batch_size,
+                forgetting=cfg.svi_forgetting, delay=cfg.svi_delay,
+                init_state=state, randomize=False)
+        if 'vi' in engines:
+            state, _ = model.fit_vi(
+                data, key=cfg.seed + it + 1, maxiter=cfg.vi_iters,
+                tol=cfg.tol, init_state=state, randomize=False)
+        model = model.with_priors(state)
+    return model, state

@@ -9,8 +9,9 @@ run it (kernels B1/B2 over the ILR feature map on CUDA); this class adds
 the standardization round trip and the prediction machinery
 (posterior-predictive weights, per-expert Student-t moments, the
 moment-matched mixture prediction and the NLPD; kernels B5/B6 on CUDA)
-and `sample`. Every engine fits standardized (x, y) once `init_transform`
-has run.
+and `sample`. Every engine but the dense `fit_map` fits standardized
+(x, y) once `init_transform` has run; `fit_map` fits the data it is
+given, as the JAX package's does.
 """
 
 from typing import Optional
@@ -189,12 +190,6 @@ class BayesianILR(BayesianMixture):
     def fit_em(self, data, **kw):
         """Likelihood-only EM of the mixture of linear experts."""
         return super().fit_em(self._std(data), **kw)
-
-    def fit_map(self, data, **kw):
-        """Dense MAP-EM over standardized (x, y). (The JAX package's
-        BayesianILR has no such override, so its dense fit_map fits the
-        raw data that every other engine standardizes; ROADMAP §C.)"""
-        return super().fit_map(self._std(data), **kw)
 
     def fit_vi_fused(self, data, **kw):
         """Fused VI over standardized (x, y): the N x K responsibilities

@@ -119,13 +119,19 @@ def kernel_xts(data):
     return tuple(torch.split(buf, [a.shape[1] for a in data]))
 
 
-def _cast(tree, dtype):
-    """Cast the floating leaves of a tree of NamedTuples and tuples (the
-    statistics of a product family) to `dtype`."""
+def _tree_map(fn, tree):
+    """fn over the tensor leaves of a tree of NamedTuples and tuples (the
+    statistics of a product family are a plain tuple)."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(dtype) if tree.is_floating_point() else tree
-    items = [_cast(t, dtype) for t in tree]
+        return fn(tree)
+    items = [_tree_map(fn, t) for t in tree]
     return type(tree)(*items) if hasattr(tree, '_fields') else tuple(items)
+
+
+def _cast(tree, dtype):
+    """Cast the floating leaves of a tree to `dtype`."""
+    return _tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                     tree)
 
 
 def _stack(trace, like):
@@ -290,20 +296,11 @@ class BayesianMixture:
     def _anchor_resp(self, x0, gen):
         """The ML engines' random-anchor init (k-means-style 'random'
         seeding): soft assignment of each point by its distance to K
-        random data points, on the mean per-dim variance's scale. A flat
-        random-resp init collapses tied / shared-scale EM onto the
-        symmetric fixed point. The distances are formed a chunk of points
-        at a time, so the (N, K, d) differences never exist at once."""
-        n = x0.shape[0]
-        anchors = x0[_anchor_indices(gen, n, self.size, x0.device)]
-        scale2 = torch.clamp(torch.mean(torch.var(x0, 0, correction=0)),
-                             min=1e-6)
-        resp = torch.empty((n, self.size), dtype=x0.dtype, device=x0.device)
-        for s in range(0, n, _CHUNK):
-            d2 = torch.sum(torch.square(x0[s:s + _CHUNK, None, :]
-                                        - anchors[None]), -1)
-            resp[s:s + _CHUNK] = normalize_log(-0.5 * d2 / scale2)[0]
-        return resp
+        random data points (`anchor_resp`). A flat random-resp init
+        collapses tied / shared-scale EM onto the symmetric fixed
+        point."""
+        return anchor_resp(
+            x0, x0[_anchor_indices(gen, x0.shape[0], self.size, x0.device)])
 
     def _ml_log_pi(self, counts, n):
         # clip: an empty component (count 0 after f32 underflow) must not
@@ -697,6 +694,22 @@ def _random_resp(gen, n, k, dtype, device):
     r = torch.rand((n, k), generator=gen, dtype=dtype, device=device)
     r.mul_(1.0 - 1e-3).add_(1e-3)
     return r.div_(torch.sum(r, -1, keepdim=True))
+
+
+def anchor_resp(x0, anchors):
+    """(N, K) soft assignment of the points x0 (N, d) by their distance
+    to the anchors (K, d), on the mean per-dim variance's scale. The
+    distances are formed a chunk of points at a time, so the (N, K, d)
+    differences never exist at once."""
+    n, k = x0.shape[0], anchors.shape[0]
+    scale2 = torch.clamp(torch.mean(torch.var(x0, 0, correction=0)),
+                         min=1e-6)
+    resp = torch.empty((n, k), dtype=x0.dtype, device=x0.device)
+    for s in range(0, n, _CHUNK):
+        d2 = torch.sum(torch.square(x0[s:s + _CHUNK, None, :]
+                                    - anchors[None]), -1)
+        resp[s:s + _CHUNK] = normalize_log(-0.5 * d2 / scale2)[0]
+    return resp
 
 
 def _anchor_indices(gen, n, k, device):

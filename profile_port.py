@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's cells on one CUDA card.
 
-    python3 profile_port.py [--units U] [--engines-only]
+    python3 profile_port.py [--units U] [--engines-only | --nested-only]
 
 For each cell it fits the model at the size `chip_smoke.py` drives,
 warms up, then measures one unit of work (a warm-started VI sweep, a
 Gibbs sweep, one serving call, a sweep of a 50-sweep MAP-EM or ML-EM fit
 with its init, a dense VI sweep or an SVI step; `--engines-only` runs
-just the last three, the cells of `chip_smoke.py` phase 17): the wall time per unit (median of 3
+just the last three, the cells of `chip_smoke.py` phase 17;
+`--nested-only` just the nested mixtures of phase 18): the wall time
+per unit (median of 3
 un-profiled runs of U units, synchronised), and under `torch.profiler`
 the device time per unit, split into the named kernel and the other
 device ops (their count and time). The idle share is 1 - device busy /
@@ -25,11 +27,14 @@ from torch.profiler import ProfilerActivity, profile
 
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
 from mimo_tpu_torch.distributions.niw import GaussParams
-from mimo_tpu_torch.models import BayesianGMM, BayesianILR
+from mimo_tpu_torch.models import (
+    BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
+from mimo_tpu_torch.models.hmix import HMixState
 from mimo_tpu_torch.models.mixture import MFState
 
 N_GMM, N_SINE, N_P3, N_Q8, K = (10_000_000, 10_000_000, 1_000_000,
                                  1_000_000, 50)
+N_NEST, N_NEST_MAP = 1_000_000, 10_000_000
 
 
 def wall_ms(fn, units, reps=3):
@@ -119,11 +124,70 @@ def engine_cells(card, dev, x, u):
                100, 'estep_tc')
 
 
+def nested_blobs(g, n, dev):
+    """bench.py:358-383's nested data: n/2 points at (-5, -4) and n/2 at
+    (5, 4), sigma 0.7, shuffled."""
+    c = torch.tensor([[-5., -4.], [5., 4.]], device=dev)
+    x = c[torch.arange(n, device=dev) % 2] + 0.7 * torch.randn(
+        (n, 2), generator=g, device=dev)
+    return x[torch.randperm(n, generator=g, device=dev)]
+
+
+def nested_cells(card, dev, u):
+    """The cells of chip_smoke.py phase 18: the nested GMM (M=4, K=8,
+    d=2) at N=1e6, plain and hierarchical (a VI sweep of a 50- or 20-sweep
+    fit from the random start, a Gibbs sweep, a log_predictive call), its
+    MAP-EM and ML-EM at N=1e7 (a sweep of a 20-sweep fit, init
+    included), and the nested ILR sine's predict call (M=2, K=6, N=1e7,
+    dense Gibbs 30 on the first 2e5 points)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = nested_blobs(g, N_NEST, dev)
+    for hier, sweeps in ((False, 50), (True, 20)):
+        m = BayesianMixtureOfMixtures.make_gmm(
+            4, 8, 2, hierarchical=hier, kappa=0.5, psi_scale=0.5,
+            maxsubiter=5, device=dev)
+        cell = f'nested {"hier " if hier else ""}GMM N={N_NEST} M=4 K=8'
+        st, _ = m.fit_vi_fused(x, key=0, maxiter=sweeps)
+        report(card, cell, f'VI sweep ({sweeps}-sweep fit)',
+               lambda: m.fit_vi_fused(x, key=0, maxiter=sweeps), sweeps,
+               'estep_tc')
+        report(card, cell, 'Gibbs sweep',
+               lambda: m.fit_gibbs_fused(x, key=2, maxiter=u), u, 'gibbs_tc')
+        report(card, cell, 'predict call', lambda: m.log_predictive(st, x),
+               1, 'predict_kernel')
+    del x
+    x = nested_blobs(g, N_NEST_MAP, dev)
+    m = BayesianMixtureOfMixtures.make_gmm(
+        4, 8, 2, hierarchical=False, kappa=0.5, psi_scale=0.5, device=dev)
+    cell = f'nested GMM N={N_NEST_MAP} M=4 K=8'
+    report(card, cell, 'MAP-EM sweep (20-sweep fit)',
+           lambda: m.fit_map_fused(x, key=3, maxiter=20), 20, 'estep_tc')
+    report(card, cell, 'ML-EM sweep (20-sweep fit)',
+           lambda: m.fit_em_fused(x, key=3, maxiter=20), 20, 'estep_tc')
+    del x, m
+    torch.cuda.empty_cache()
+    x, y = serving_data(torch.Generator(device=dev).manual_seed(5), N_SINE,
+                        1, 1, dev)
+    m = BayesianMixtureOfMixtures.make_ilr(2, 6, 1, 1, kappa=0.05,
+                                           device=dev)
+    m.init_transform(x[:200_000], y[:200_000])
+    gs = m.fit_gibbs((x[:200_000], y[:200_000]), key=2, maxiter=30)
+    st = HMixState(gs.outer_gating, gs.inner_gating, gs.components)
+    report(card, f'nested ILR sine N={N_SINE} M=2 K=6', 'predict call',
+           lambda: m.predict(st, x, y, dist='studentt'), 1,
+           'ilr_predict_kernel')
+    del x, y, m, st
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--units', type=int, default=5)
-    ap.add_argument('--engines-only', action='store_true',
-                    help="only the cells of chip_smoke.py phase 17")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument('--engines-only', action='store_true',
+                      help="only the cells of chip_smoke.py phase 17")
+    only.add_argument('--nested-only', action='store_true',
+                      help="only the cells of chip_smoke.py phase 18")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_port: needs a CUDA device')
@@ -134,6 +198,9 @@ def main():
          '--format=csv,noheader', '--id=0'], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(card)
+    if args.nested_only:
+        nested_cells(card, dev, u)
+        return
 
     # the GMM cells: the data of bench.py:90-98
     kg = torch.Generator(device=dev).manual_seed(0)

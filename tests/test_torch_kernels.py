@@ -1,7 +1,9 @@
 """The CUDA kernels (B1-B3, B1/B2 over the ILR map, B1-B3 over the
 diagonal map, B4, B5 and B6 with MNW and MNG experts, B3 on HierTied
 rows, B5/B6 with tied-affine experts and a HierTied basis, the B1 probes
-S1 and S2, and S3) against their plain PyTorch versions, on the card.
+S1 and S2, S3, and the nested mixtures' paths through B1/B2/B3 at M*K
+rows and B5/B6 over flattened experts) against their plain PyTorch
+versions, on the card.
 Every test here needs a CUDA device and skips without one; run them on
 the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
@@ -17,7 +19,8 @@ from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import NIW
-from mimo_tpu_torch.models import BayesianGMM, BayesianILR
+from mimo_tpu_torch.models import (
+    BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.mixture import MFState
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
@@ -1095,3 +1098,74 @@ def test_predict_kernel_widths(dev, d, k, studentt):
             out = cuda_predict.predict(xt, thd, auxd, n, False, DIAG)
             ref = cuda_predict.predict_plain(xt, thd, auxd, n, False, DIAG)
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+# -- the nested mixtures of mixtures (B1/B2/B3 at M*K rows, B5/B6 flattened) --
+
+def _nested_x(dev, n, seed):
+    """Two super-clusters of two blobs each, as tests/test_hierarchical.py."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.tensor([[-5., -5.], [-5., -3.], [5., 5.], [5., 3.]],
+                     device=dev)
+    lab = torch.randint(0, 4, (n,), generator=g, device=dev)
+    return c[lab] + 0.5 * torch.randn((n, 2), generator=g, device=dev)
+
+
+@pytest.mark.parametrize('hierarchical', [False, True])
+def test_nested_engines_kernel_path_tracks_plain_path(dev, hierarchical):
+    """Nested fit_vi_fused through B1 (one launch a sweep, M*K = 12 rows)
+    against backend='torch' on 20,000 points; fit_gibbs_fused through B2;
+    log_predictive on NIW and HierTied posteriors through B3's per-cluster
+    rows, once a call."""
+    x = _nested_x(dev, 20_000, 31)
+    m = BayesianMixtureOfMixtures.make_gmm(
+        3, 4, 2, hierarchical=hierarchical, kappa=0.5, psi_scale=0.5,
+        means=[[-5., -4.], [5., 4.], [0., 0.]], device=dev)
+    before = cuda_estep.launches['gauss']
+    st, v_k = m.fit_vi_fused(x, key=1, maxiter=6, backend='kernel')
+    assert cuda_estep.launches['gauss'] == before + 6
+    _, v_t = m.fit_vi_fused(x, key=1, maxiter=6, backend='torch')
+    torch.testing.assert_close(v_k, v_t, rtol=1e-4, atol=0.0)
+    before = cuda_gibbs.launches['gauss']
+    gs = m.fit_gibbs_fused(x, key=2, maxiter=4)
+    assert cuda_gibbs.launches['gauss'] == before + 4
+    assert int(gs.labels.min()) >= 0 and int(gs.labels.max()) < 3
+    for dist in ('studentt', 'gaussian'):
+        before = cuda_predict.launches['gauss']
+        lp_k = m.log_predictive(st, x, dist=dist)
+        assert cuda_predict.launches['gauss'] == before + 1
+        torch.testing.assert_close(
+            lp_k, m.log_predictive(st, x, dist=dist, backend='torch'),
+            rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('prediction', ['average', 'mode'])
+@pytest.mark.parametrize('p', [1, 2])
+def test_nested_predict_runs_through_b5_b6(dev, p, prediction):
+    """Nested ILR predict (Student-t) through B5 (p = 1) or B6 (p = 2)
+    over the M*K flattened experts, once a call, against the dense
+    two-level path in original units."""
+    g = torch.Generator(device=dev).manual_seed(37)
+    n = 20_011
+    x = torch.rand((n, 1), generator=g, device=dev) * 12 - 6
+    y = torch.cat([torch.sin(x), torch.cos(x)], -1)[:, :p] + 0.1 * torch.randn(
+        (n, p), generator=g, device=dev)
+    m = BayesianMixtureOfMixtures.make_ilr(2, 4, 1, p, kappa=0.1, device=dev)
+    m.init_transform(x, y)
+    st, _ = m.fit_vi((x, y), key=1, maxiter=10, maxsubiter=2)
+    name = 'ilr_predict' if p == 1 else 'ilr_p_predict'
+    before = cuda_ilr_predict.launches[name]
+    got = m.predict(st, x, y, prediction=prediction, dist='studentt')
+    assert cuda_ilr_predict.launches[name] == before + 1
+    want = m.predict(st, x, y, prediction=prediction, dist='studentt',
+                     backend='torch')
+    scale = float(m.output_transform.scale.max())
+    bad = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for g_, w_, rtol, atol in ((got[0], want[0], 1e-4, 1e-4 * scale),
+                               (got[1], want[1], 2e-3, 1e-4 * scale ** 2),
+                               (got[3], want[3], 1e-3, 2e-3)):
+        err = (g_ - w_).abs() > atol + rtol * w_.abs()
+        bad |= err.reshape(n, -1).any(-1)
+    # 'mode': a point whose two best experts tie to f32 rounding may pick
+    # either (chip_smoke.py's compare_serving rule)
+    assert int(bad.sum()) <= (1e-4 * n if prediction == 'mode' else 0)
