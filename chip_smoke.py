@@ -109,7 +109,11 @@ Phases, one or more printed lines each:
               draws, B3 on HierTied rows built per cluster, checked
               against the dense density in float64); nested MAP-EM and
               ML-EM at N=1e7 (bench.py:385-398) by fit_map_fused 20 and
-              fit_em_fused 20 with their peak device memory; nested ILR
+              fit_em_fused 20, with phase 17's checks and their peak
+              device memory; B2 at each final Gibbs theta against its
+              plain version (labels equal to the plain Philox labels,
+              statistics equal to its own labels' one-hot sums) and
+              fit_gibbs_fused 3 sweeps kernel vs plain; nested ILR
               serving (bench.py:400-420: the sine at N=1e7, M=2, K=6, dense
               fit_gibbs on the first 2e5, predict through B5, RMSE < 0.25) and
               fused VI 20 over the first 1e6 through B1's ILR map at
@@ -162,7 +166,8 @@ from mimo_tpu_torch.distributions.niw import GaussParams, NIW, mode_params
 from mimo_tpu_torch.models import (
     GMM, BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState, _flatten_mk
-from mimo_tpu_torch.models.mixture import MFState, _cast, kernel_xts
+from mimo_tpu_torch.models.mixture import (
+    BayesianMixture, MFState, _cast, kernel_xts)
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
     cuda_ilr_predict, cuda_predict, cuda_probes)
@@ -1921,6 +1926,36 @@ def gibbs_acc_err(xt, n, kind, p, labels, acc):
     return float((acc.double() - ref).abs().max())
 
 
+def gibbs_labels_check(tag, xt, theta, seed, n, kind=cuda_estep.GAUSS,
+                       p=0):
+    """B2 against its plain version at one theta and seed, under phase
+    4's rule: labels in range and equal to the plain Philox labels (at
+    most 1e-4 differ), statistics within 1e-5 of the summed magnitudes of
+    the one-hot sums of its own labels. Returns (labels, acc)."""
+    labels, acc = cuda_gibbs.gibbs(xt, theta, seed, n, kind, p)
+    plabels, _ = cuda_gibbs.gibbs_plain(xt, theta, seed, n, kind, p)
+    k, m8 = acc.shape
+    ref = torch.zeros((k, m8), dtype=torch.float64, device=xt.device)
+    mag = torch.zeros_like(ref)
+    for s in range(0, n, 1 << 20):
+        e = min(s + (1 << 20), n)
+        f = assemble_features(xt[:, s:e], m8, kind, p).double()
+        oh = torch.nn.functional.one_hot(labels[s:e].long(), k).double()
+        ref += oh.T @ f.T
+        mag += oh.T @ f.abs().T
+    err = (acc.double() - ref).abs()
+    ok_acc = bool((err <= 1e-5 * mag).all())
+    in_range = int(labels.min()) >= 0 and int(labels.max()) < k
+    mismatch = float((labels != plabels).double().mean())
+    print(f'{tag} N={n} K={k}: labels in [0, {k}) {in_range}; stats vs '
+          f'one-hot sums of its labels max|err| / summed magnitude '
+          f'{float((err / mag.clamp(min=1e-30)).max()):.3g} (<= 1e-5) '
+          f'{"ok" if ok_acc else "FAIL"}; label mismatch vs plain Philox '
+          f'{mismatch:.3g} (<= 1e-4)')
+    check(in_range and ok_acc and mismatch <= 1e-4, f'{tag}: B2 disagrees')
+    return labels, acc
+
+
 def time_pairs(card, tag, pairs, errs, ms):
     """Each (kernel, plain, err) triple timed by CUDA events (20 launches
     after 2 warm-ups; the plain 3). errs[name] takes the larger of its
@@ -2402,12 +2437,18 @@ def time_wide(card, tag, name, row, ms):
 def plugin_fit(model, data, engine, maxiter, count, tag, key):
     """One fused MAP or ML-EM fit through its public entry point, with
     every count set to 0 just before: B1 (`count`) launched exactly once
-    a sweep and no other kernel; a finite state and trace."""
+    a sweep and no other kernel; a finite state and trace; the fit's peak
+    device memory."""
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    t0 = time.perf_counter()
     state, trace = getattr(model, engine)(data, key=key, maxiter=maxiter)
     torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
     path = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     print(f'{tag} {engine} {maxiter}: launches {path}')
     check(path[count] == maxiter and sum(path.values()) == maxiter,
           f'{tag} {engine}: B1 not launched once a sweep')
@@ -2419,17 +2460,38 @@ def plugin_fit(model, data, engine, maxiter, count, tag, key):
     print(f'{tag} {engine}: loglik trace {float(t[0]):.9g} -> '
           f'{float(t[-1]):.9g}, worst relative drop {drop:.3g}'
           + (' (<= 1e-4)' if engine == 'fit_em_fused' else
-             ' (MAP: the data log-likelihood at the mode; not checked)'))
+             ' (MAP: the data log-likelihood at the mode; not checked)')
+          + f'; peak device memory {peak / 2**30:.4g} GiB '
+          f'({(peak - base) / 2**30:.4g} GiB above the {base / 2**30:.4g} '
+          f'GiB held before the fit); one run {maxiter / secs:.6g} it/s '
+          f'(init included)')
     if engine == 'fit_em_fused':
         check(drop <= 1e-4, f'{tag} EM loglik falls')
     return state, launched
 
 
+def plugin_spec(model):
+    """The plug-in E-step's spec: the flat model's, or the nested model's
+    over its M*K flat rows."""
+    if isinstance(model, BayesianMixtureOfMixtures):
+        return model._flat_spec()
+    return model._estep_spec()
+
+
 def plugin_theta(model, engine, state):
     """B1's padded plug-in theta at a fit's final state: the mode's params
-    and log weights (MAP) or the ML params and log_pi (EM)."""
-    spec = model._estep_spec()
-    if engine == 'fit_map_fused':
+    and log weights (MAP) or the ML params and log_pi (EM); a nested
+    model's (M, K)-stacked ones flattened m-major."""
+    spec = plugin_spec(model)
+    if isinstance(model, BayesianMixtureOfMixtures):
+        if engine == 'fit_map_fused':
+            params = vmap(model.family.mode_params)(state.components)
+            log_pi = model._flat_log_pi(state, mode=True)
+        else:
+            params = state.params
+            log_pi = (state.outer_log_pi[:, None]
+                      + state.inner_log_pi).reshape(-1)
+    elif engine == 'fit_map_fused':
         params = model.family.mode_params(state.components)
         log_pi = torch.log(torch.clamp(state.gating.mode(), min=1e-37))
     else:
@@ -2443,7 +2505,16 @@ def map_given_em(model, data, em_state):
     that fit), by the plain E-step. MAP from its random start stays near
     the symmetric point, where every row of theta is alike."""
     x0 = data[0]
-    estep = model._fused_plugin_estep(model._estep_spec(), False, 131072)
+    spec = plugin_spec(model)
+    estep = BayesianMixture._fused_estep(
+        spec._replace(theta=spec.theta_plugin), False, 131072)
+    if isinstance(model, BayesianMixtureOfMixtures):
+        log_pi = (em_state.outer_log_pi[:, None]
+                  + em_state.inner_log_pi).reshape(-1)
+        res = estep(em_state.params, log_pi, data, None, x0.shape[0],
+                    x0.dtype)
+        counts, stats = model._split_flat(res)
+        return model._update_from(stats, counts)
     res = estep(em_state.params, em_state.log_pi, data, None, x0.shape[0],
                 x0.dtype)
     return MFState(
@@ -2508,7 +2579,7 @@ def plugin_paths(card, tag, model, data, sweeps, names, count, kind, p, n,
                        lambda th=theta: cuda_estep.estep_plain(xt, th, n,
                                                                kind, p),
                        None)
-        WORK[name] = estep_work(n, K_MAIN, m, xt.shape[0])
+        WORK[name] = estep_work(n, theta.shape[0], m, xt.shape[0])
         plugin_slice_check(f'{tag} {engine} final theta', xt, theta, kind, p)
         precision_check(f'{tag} {engine} final theta', xt, theta, n, kind,
                         p)
@@ -2652,20 +2723,20 @@ def nested_gmm_paths(dev, seed, card, errs, launches, ms):
         model = BayesianMixtureOfMixtures.make_gmm(
             M_NEST, K_NEST, 2, hierarchical=hier, kappa=0.5, psi_scale=0.5,
             maxsubiter=5, device=dev)
-        (st, vlb), _, t_vi = nested_fit(
+        (st, vlb), path, t_vi = nested_fit(
             f'{tag} fit_vi_fused {sweeps}',
             lambda: model.fit_vi_fused(x, key=0, maxiter=sweeps),
             {'B1': sweeps})
-        gs, _, t_g = nested_fit(
+        launches[f'B1-nested{label}'] = path['B1']
+        gs, path, t_g = nested_fit(
             f'{tag} fit_gibbs_fused {sweeps}',
             lambda: model.fit_gibbs_fused(x, key=2, maxiter=sweeps),
             {'B2': sweeps})
-        lp, _, t_p = nested_fit(f'{tag} log_predictive',
-                                lambda: model.log_predictive(st, x),
-                                {'B3': 1})
-        launches[f'B1-nested{label}'] = sweeps
-        launches[f'B2-nested{label}'] = sweeps
-        launches[f'B3-nested{label}'] = 1
+        launches[f'B2-nested{label}'] = path['B2']
+        lp, path, t_p = nested_fit(f'{tag} log_predictive',
+                                   lambda: model.log_predictive(st, x),
+                                   {'B3': 1})
+        launches[f'B3-nested{label}'] = path['B3']
         elbo_report(f'{tag} VI', vlb)
         check(all_finite(st) and all_finite(gs[:3])
               and gs.labels.shape == (n,) and int(gs.labels.min()) >= 0
@@ -2696,12 +2767,18 @@ def nested_gmm_paths(dev, seed, card, errs, launches, ms):
         lp64 = model.log_predictive(_cast(st, torch.float64), xs.double(),
                                     backend='torch')
         ok_64, e_64 = allclose_report(lp_k, lp64, 1e-5, 1e-4)
+        # the joint M*K draw: 3 sweeps from the same generator, whose
+        # Philox labels the plain twin draws alike
+        g_k = model.fit_gibbs_fused(xs, key=2, maxiter=3, backend='kernel')
+        g_t = model.fit_gibbs_fused(xs, key=2, maxiter=3, backend='torch')
+        mis_g = float((g_k.labels != g_t.labels).double().mean())
         print(f'{tag} vs plain on 100,003 points: VI ELBO max|err| '
               f'{e_v:.6g} (rtol 1e-4) {"ok" if ok_v else "FAIL"}; '
               f'log_predictive max|err| {e_p:.6g} (rtol 1e-5, atol 1e-4) '
               f'{"ok" if ok_p else "FAIL"}, vs the dense density in '
-              f'float64 {e_64:.6g} {"ok" if ok_64 else "FAIL"}')
-        check(ok_v and ok_p and ok_64,
+              f'float64 {e_64:.6g} {"ok" if ok_64 else "FAIL"}; Gibbs 3 '
+              f'sweeps: outer label mismatch {mis_g:.3g} (<= 1e-4)')
+        check(ok_v and ok_p and ok_64 and mis_g <= 1e-4,
               f'{tag}: kernel path disagrees with the plain path')
         vi = rate(sweeps, lambda: model.fit_vi_fused(x, key=0,
                                                      maxiter=sweeps), reps=2)
@@ -2716,12 +2793,13 @@ def nested_gmm_paths(dev, seed, card, errs, launches, ms):
         th_g, _ = pad_theta(
             spec.theta_plugin(vmap(model.family.mode_params)(gs.components)),
             model._log_mix_weights(gs).reshape(-1), torch.float32)
-        thq, aux = model.predictive_rows(st)
+        thq, aux = model._predictive_rows(st)
         plugin_slice_check(f'{tag} final VI theta', xt, th_vi,
                            cuda_estep.GAUSS, 0)
         precision_check(f'{tag} final VI theta (M*K={mk})', xt, th_vi, n)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
-        labels, acc = cuda_gibbs.gibbs(xt, th_g, zero, n)
+        labels, acc = gibbs_labels_check(f'B2 {tag} final Gibbs theta', xt,
+                                         th_g, zero, n)
         pairs = {
             f'B1-nested{label}': (
                 lambda: cuda_estep.estep(xt, th_vi, n),
@@ -2747,76 +2825,18 @@ def nested_gmm_paths(dev, seed, card, errs, launches, ms):
 
 def nested_plugin_paths(dev, seed, card, errs, launches, ms):
     """Cell 3 of phase 18: nested MAP-EM and ML-EM at N=1e7 (bench.py:
-    385-398) through B1 with plug-in theta at M*K = 32 rows, the peak
-    device memory of each fit."""
+    385-398) through B1 with plug-in theta at M*K = 32 rows, by phase 17's
+    checks (the peak device memory of each fit among them)."""
     kg = torch.Generator(device=dev).manual_seed(seed + 12)
-    n, mk = N_NEST_MAP, M_NEST * K_NEST
-    x = nested_blobs(kg, n, dev)
-    xt = kernel_xts((x,))[0]
+    x = nested_blobs(kg, N_NEST_MAP, dev)
     model = BayesianMixtureOfMixtures.make_gmm(
         M_NEST, K_NEST, 2, hierarchical=False, kappa=0.5, psi_scale=0.5,
         device=dev)
-    tag = f'nested MAP/EM N={n} M={M_NEST} K={K_NEST} d=2'
-    spec = model._flat_spec()
-    m = cuda_estep.feature_width(cuda_estep.GAUSS, 2)
-    pairs = {}
-    for engine, name in (('fit_map_fused', 'B1-nested-MAP'),
-                         ('fit_em_fused', 'B1-nested-EM')):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        (st, trace), _, secs = nested_fit(
-            f'{tag} {engine} 20',
-            lambda: getattr(model, engine)(x, key=3, maxiter=20),
-            {'B1': 20})
-        peak = torch.cuda.max_memory_allocated()
-        launches[name] = 20
-        check(all_finite(st) and bool(torch.isfinite(trace).all()),
-              f'{tag} {engine}: state or trace not finite')
-        t = trace.double()
-        drop = float(((t[:-1] - t[1:]) / t[1:].abs()).max())
-        print(f'{tag} {engine}: loglik trace {float(t[0]):.9g} -> '
-              f'{float(t[-1]):.9g}, worst relative drop {drop:.3g}'
-              + (' (<= 1e-4)' if engine == 'fit_em_fused' else
-                 ' (MAP: the data log-likelihood at the mode; not checked)')
-              + f'; peak device memory {peak / 2**30:.4g} GiB '
-              f'({(peak - base) / 2**30:.4g} GiB above the '
-              f'{base / 2**30:.4g} GiB held before the fit), one run on '
-              f'{card} {20 / secs:.6g} it/s (init included)')
-        if engine == 'fit_em_fused':
-            check(drop <= 1e-4, f'{tag} EM loglik falls')
-        sl = x[:100_003]
-        _, t_k = getattr(model, engine)(sl, key=3, maxiter=5,
-                                        backend='kernel')
-        _, t_t = getattr(model, engine)(sl, key=3, maxiter=5,
-                                        backend='torch')
-        ok, e = allclose_report(t_k, t_t, 1e-4, 0.0)
-        print(f'{tag} {engine} vs plain on 100,003 points: loglik max|err| '
-              f'{e:.6g} (rtol 1e-4) {"ok" if ok else "FAIL"}')
-        check(ok, f'{tag} {engine}: kernel path disagrees with plain')
-        r = rate(20, lambda: getattr(model, engine)(x, key=3, maxiter=20),
-                 reps=2)
-        print(f'rates on {card}, {tag}: {engine} {r} it/s (20 sweeps a '
-              f'fit, its init included)')
-        if engine == 'fit_map_fused':
-            params = vmap(model.family.mode_params)(st.components)
-            log_pi = model._flat_log_pi(st, mode=True)
-        else:
-            params = st.params
-            log_pi = (st.outer_log_pi[:, None] + st.inner_log_pi).reshape(-1)
-        theta, _ = pad_theta(spec.theta_plugin(params), log_pi,
-                             torch.float32)
-        plugin_slice_check(f'{tag} {engine} final theta', xt, theta,
-                           cuda_estep.GAUSS, 0)
-        precision_check(f'{tag} {engine} final theta (M*K={mk})', xt, theta,
-                        n)
-        pairs[name] = (lambda th=theta: cuda_estep.estep(xt, th, n),
-                       lambda th=theta: cuda_estep.estep_plain(xt, th, n),
-                       None)
-        WORK[name] = estep_work(n, mk, m, 2)
-        del st, trace
-    time_pairs(card, f'N={n} M*K={mk} d=2 ({tag})', pairs, errs, ms)
-    del x, xt, model
+    plugin_paths(card, f'nested MAP/EM N={N_NEST_MAP} M={M_NEST} '
+                 f'K={K_NEST} d=2', model, (x,), 20,
+                 ('B1-nested-MAP', 'B1-nested-EM'), 'B1', cuda_estep.GAUSS,
+                 0, N_NEST_MAP, errs, launches, ms)
+    del x, model
     torch.cuda.empty_cache()
 
 
@@ -2858,10 +2878,10 @@ def nested_ilr_paths(dev, seed, card, errs, launches, ms):
             else:
                 st, _ = model.fit_vi(head, key=2, maxiter=30, maxsubiter=2)
             return st, model.predict(st, x, y, dist='studentt')
-        (st, (mu, var, _, nlpd)), _, secs = nested_fit(
+        (st, (mu, var, _, nlpd)), counts, secs = nested_fit(
             f'{tag}: dense {engine} 30 on the first {n_fit}, predict', path,
             {count: 1})
-        launches[name] = 1
+        launches[name] = counts[count]
         rmse = float(torch.sqrt(torch.mean((mu - y) ** 2)))
         print(f'{tag}: RMSE {rmse:.6g} (noise floor 0.1'
               + (', < 0.25' if p == 1 else '') + f'), mean NLPD '
@@ -2932,11 +2952,11 @@ def nested_ilr_paths(dev, seed, card, errs, launches, ms):
         if p == 1:      # the fused VI over the ILR map at M*K = 12 rows
             n1 = 1_000_000
             data = (x[:n1], y[:n1])
-            (st1, vlb), _, _ = nested_fit(
+            (st1, vlb), path, _ = nested_fit(
                 f'{tag}: fit_vi_fused 20 on the first {n1}',
                 lambda: model.fit_vi_fused(data, key=1, maxiter=20),
                 {'B1-ILR': 20})
-            launches['B1-ILR-nested'] = 20
+            launches['B1-ILR-nested'] = path['B1-ILR']
             elbo_report(f'{tag} fused VI N={n1}', vlb)
             check(all_finite(st1), f'{tag}: fused VI state not finite')
             sl = (x[:100_003], y[:100_003])

@@ -748,7 +748,7 @@ class BayesianMixtureOfMixtures:
         log_in = _log_clip(vmap(lambda g: g.mean())(state.inner_gating))
         return _log_clip(state.outer_gating.mean())[:, None] + log_in
 
-    def predictive_rows(self, state: HMixState, dist='studentt'):
+    def _predictive_rows(self, state: HMixState, dist='studentt'):
         """B3's coefficients (thq (M*K, m8), aux (M*K, 8)) of the nested
         predictive density of an NIW or HierTied posterior, m-major. Each
         cluster's rows are built from its own posterior (a HierTied
@@ -766,7 +766,7 @@ class BayesianMixtureOfMixtures:
         all (M, K) of mixture weights x component predictive. `dist`:
         'studentt' or the moment-matched 'gaussian'. On the kernel path
         (see the module docstring) NIW and HierTied posteriors are served
-        by B3 over the M*K rows of `predictive_rows`, in float32, cast
+        by B3 over the M*K rows of `_predictive_rows`, in float32, cast
         back to the data's dtype; other families (the nested ILR's joint
         density) take the dense path, and raise under 'kernel'."""
         from mimo_tpu_torch.distributions.hierarchical import HierTied
@@ -782,7 +782,7 @@ class BayesianMixtureOfMixtures:
                 'no serving kernel for this family; use '
                 "backend='torch'")
         if served and resolve_backend(backend, x):
-            thq, aux = self.predictive_rows(state, dist)
+            thq, aux = self._predictive_rows(state, dist)
             return cuda_predict.predict(
                 x.to(torch.float32).T.contiguous(), thq.to(torch.float32),
                 aux.to(torch.float32), x.shape[0],

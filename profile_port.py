@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's cells on one CUDA card.
 
-    python3 profile_port.py [--units U] [--engines-only | --nested-only]
+    python3 profile_port.py [--units U]
+                            [--engines-only | --nested-only | --nested-probes]
 
 For each cell it fits the model at the size `chip_smoke.py` drives,
 warms up, then measures one unit of work (a warm-started VI sweep, a
@@ -15,6 +16,9 @@ the device time per unit, split into the named kernel and the other
 device ops (their count and time). The idle share is 1 - device busy /
 wall: how far the host holds the card back. Prints one line per cell
 and engine, with the card's name and power limit first.
+
+`--nested-probes` runs the measurements behind the nested model's design
+instead (see `nested_probes`).
 """
 
 import argparse
@@ -23,6 +27,7 @@ import subprocess
 import time
 
 import torch
+from torch.func import vmap
 from torch.profiler import ProfilerActivity, profile
 
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
@@ -32,9 +37,10 @@ from mimo_tpu_torch.models import (
 from mimo_tpu_torch.models.hmix import HMixState
 from mimo_tpu_torch.models.mixture import MFState
 
+from chip_smoke import N_NEST, N_NEST_ILR_FIT, N_NEST_MAP, nested_blobs
+
 N_GMM, N_SINE, N_P3, N_Q8, K = (10_000_000, 10_000_000, 1_000_000,
                                  1_000_000, 50)
-N_NEST, N_NEST_MAP = 1_000_000, 10_000_000
 
 
 def wall_ms(fn, units, reps=3):
@@ -124,15 +130,6 @@ def engine_cells(card, dev, x, u):
                100, 'estep_tc')
 
 
-def nested_blobs(g, n, dev):
-    """bench.py:358-383's nested data: n/2 points at (-5, -4) and n/2 at
-    (5, 4), sigma 0.7, shuffled."""
-    c = torch.tensor([[-5., -4.], [5., 4.]], device=dev)
-    x = c[torch.arange(n, device=dev) % 2] + 0.7 * torch.randn(
-        (n, 2), generator=g, device=dev)
-    return x[torch.randperm(n, generator=g, device=dev)]
-
-
 def nested_cells(card, dev, u):
     """The cells of chip_smoke.py phase 18: the nested GMM (M=4, K=8,
     d=2) at N=1e6, plain and hierarchical (a VI sweep of a 50- or 20-sweep
@@ -171,12 +168,106 @@ def nested_cells(card, dev, u):
     m = BayesianMixtureOfMixtures.make_ilr(2, 6, 1, 1, kappa=0.05,
                                            device=dev)
     m.init_transform(x[:200_000], y[:200_000])
-    gs = m.fit_gibbs((x[:200_000], y[:200_000]), key=2, maxiter=30)
-    st = HMixState(gs.outer_gating, gs.inner_gating, gs.components)
+    st = gibbs_state(m.fit_gibbs((x[:200_000], y[:200_000]), key=2,
+                                 maxiter=30))
     report(card, f'nested ILR sine N={N_SINE} M=2 K=6', 'predict call',
            lambda: m.predict(st, x, y, dist='studentt'), 1,
            'ilr_predict_kernel')
     del x, y, m, st
+    torch.cuda.empty_cache()
+
+
+def top_device_ops(fn, count=3):
+    """The `count` device ops that took the most time in one run of fn():
+    [(name, ms, calls)], and the device busy time in ms."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops.sort(key=lambda o: -o[1])
+    return ops[:count], sum(o[1] for o in ops)
+
+
+def gibbs_state(gs):
+    """The HMixState of a nested Gibbs state (its labels dropped)."""
+    return HMixState(gs.outer_gating, gs.inner_gating, gs.components)
+
+
+def nested_probes(card, dev):
+    """The measurements behind the nested model's design. (1) The
+    per-cluster statistics of the nested MAP-EM cell's random start
+    (N=1e7, M=4, K=8, d=2, random two-level weights) three ways: vmapped
+    over M (one batched (K, N) x (N, m) matmul), a loop of M calls, and
+    `_cluster_stats`' one call over flat (N, M*K) weights: wall time of
+    one call and its top device ops. (2) A MAP-EM sweep of a 20-sweep fit
+    (its random start included) with the statistics vmapped and as
+    shipped. (3) The nested ILR sine (M=2, K=6, N=1e7, fitted on the
+    first 2e5 points) by bench.py:400-420's dense VI 30 sweeps of 2 inner
+    rounds, dense VI 100 of 5 and dense Gibbs 30: the RMSE of predict over
+    all points."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = nested_blobs(g, N_NEST_MAP, dev)
+    mm, kk, n = 4, 8, N_NEST_MAP
+    m = BayesianMixtureOfMixtures.make_gmm(
+        mm, kk, 2, hierarchical=False, kappa=0.5, psi_scale=0.5, device=dev)
+    fam, data = m.family, (x,)
+    inner = torch.softmax(torch.randn((mm, n, kk), generator=g, device=dev),
+                          -1)
+    outer = torch.softmax(torch.randn((n, mm), generator=g, device=dev), -1)
+
+    def vmapped(data, inner_w, outer_w):
+        w = inner_w * outer_w.T[:, :, None]
+        return (vmap(lambda ww: fam.suff_stats(data, ww))(w),
+                torch.sum(w, 1))
+
+    ways = (('vmapped over M', lambda: vmapped(data, inner, outer)),
+            ('a loop of M calls', lambda: [
+                fam.suff_stats(data, inner[i] * outer[:, i:i + 1])
+                for i in range(mm)]),
+            ('one call over flat (N, M*K) weights',
+             lambda: m._cluster_stats(data, inner, outer)))
+    cell = f'nested GMM N={n} M={mm} K={kk} d=2'
+    for name, fn in ways:
+        fn()                                    # warm
+        wall = wall_ms(fn, 1)
+        top, busy = top_device_ops(fn)
+        ops = '; '.join(f'{k[:60]} {t:.6g} ms x{c}' for k, t, c in top)
+        print(f'{cell} statistics, {name} ({card}): wall {wall:.6g} ms; '
+              f'device busy {busy:.6g} ms; top device ops: {ops}',
+              flush=True)
+    del inner, outer
+    m._cluster_stats = vmapped
+    report(card, cell, 'MAP-EM sweep (20-sweep fit), statistics vmapped',
+           lambda: m.fit_map_fused(x, key=3, maxiter=20), 20, 'estep_tc')
+    del m._cluster_stats
+    report(card, cell, 'MAP-EM sweep (20-sweep fit), statistics flat',
+           lambda: m.fit_map_fused(x, key=3, maxiter=20), 20, 'estep_tc')
+    del x, m
+    torch.cuda.empty_cache()
+
+    x, y = serving_data(torch.Generator(device=dev).manual_seed(5), N_SINE,
+                        1, 1, dev)
+    head = (x[:N_NEST_ILR_FIT], y[:N_NEST_ILR_FIT])
+    m = BayesianMixtureOfMixtures.make_ilr(2, 6, 1, 1, kappa=0.05,
+                                           device=dev)
+    m.init_transform(*head)
+    for name, fit in (
+            ('dense fit_vi 30, 2 inner rounds (bench.py:400-420)',
+             lambda: m.fit_vi(head, key=2, maxiter=30, maxsubiter=2)[0]),
+            ('dense fit_vi 100, 5 inner rounds',
+             lambda: m.fit_vi(head, key=2, maxiter=100, maxsubiter=5)[0]),
+            ('dense fit_gibbs 30, 2 inner rounds', lambda: gibbs_state(
+                m.fit_gibbs(head, key=2, maxiter=30, maxsubiter=2)))):
+        mu = m.predict(fit(), x, y, dist='studentt')[0]
+        rmse = float(torch.sqrt(torch.mean((mu - y) ** 2)))
+        print(f'nested ILR sine N={N_SINE} M=2 K=6, {name} on the first '
+              f'{N_NEST_ILR_FIT} ({card}): RMSE {rmse:.6g} over all points',
+              flush=True)
+    del x, y, m
     torch.cuda.empty_cache()
 
 
@@ -188,6 +279,9 @@ def main():
                       help="only the cells of chip_smoke.py phase 17")
     only.add_argument('--nested-only', action='store_true',
                       help="only the cells of chip_smoke.py phase 18")
+    only.add_argument('--nested-probes', action='store_true',
+                      help="the measurements behind the nested model's "
+                           "design (see nested_probes)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_port: needs a CUDA device')
@@ -200,6 +294,9 @@ def main():
     print(card)
     if args.nested_only:
         nested_cells(card, dev, u)
+        return
+    if args.nested_probes:
+        nested_probes(card, dev)
         return
 
     # the GMM cells: the data of bench.py:90-98

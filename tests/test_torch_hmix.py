@@ -312,7 +312,7 @@ def test_b3_rows_plain_path_equals_the_dense_density(jax_vi, name):
     st_t = conv(st)
     xt = dt.T.contiguous()
     for dist in ('studentt', 'gaussian'):
-        thq, aux = tm.predictive_rows(st_t, dist)
+        thq, aux = tm._predictive_rows(st_t, dist)
         assert thq.shape == (6, 8) and aux.shape == (6, 8)
         got = cuda_predict.predict_plain(xt, thq, aux, dt.shape[0],
                                          dist == 'studentt')
