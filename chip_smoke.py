@@ -124,6 +124,35 @@ Phases, one or more printed lines each:
               lines, rates and kernel times; and the dense nested engines
               (fit_vi, fit_map, fit_em, fit_gibbs 10 each, fit_svi 100 at
               B=256) on the first 1e5 points with no kernel launched.
+ 19. chains   multi-chain inference (parallel/chains.py) through B1 and B2
+              with a chain axis: phase 6's DP-GMM (N=1e7, K=50, d=2) by
+              fit_chains over 8 keys, fit_vi_fused 20 (B1 exactly 20
+              launches for all 8 chains), fit_gibbs_fused 20 (B2 20) and
+              fit_map_fused 20 (B1 20), best_of, diagnostics on the VI
+              traces and log_predictive of the best state (B3 once);
+              B1-chain at each chain's final theta bitwise the one-chain
+              launch (the same grid along x), at phase 3's tolerances of
+              the plain version on
+              100,003 points, and each chain's float64 line; B2-chain
+              at each chain's theta and seed with 0 labels differing from
+              the one-chain launches, within phase 4's bounds of the
+              plain version; fit_chains twice with the same keys equal;
+              each VI chain within 1e-5 of fit_vi_fused with its key;
+              rates of 8 chains against one fit, the aggregate speedup
+              and peak memory. Then bench.py:421-439's cell (the first
+              1e5 points, K=16, 16 chains of fit_vi_fused 50: B1 50
+              launches), the fixed-state two-sample check of B2 (N=1e5,
+              K=50, S=256 sweeps of one theta from a fused Gibbs 20 as
+              256 chains in one launch, against the exact and the
+              precision rule's expectation: max |z| <= 5, chi^2/df <= 2,
+              variance ratio in [0.8, 1.25]), B1-chain over the q8 ILR
+              map (N=1e6, m8=168, C=4, fit_chains VI 5), B1/B2-chain in
+              the chunked layout (K=300, d=2, N=1e6, C=2, VI 3 and Gibbs
+              3), and smc_gibbs on examples/chains_smc.py's data (N=1e4,
+              K=10, 8 chains, 8 rounds of 10 sweeps: finite, the last
+              round's log-likelihood not below the first's). Each chain
+              row is timed beside its C one-chain launches and its plain
+              version; its bound is C times the one-chain work.
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -170,11 +199,13 @@ from mimo_tpu_torch.models.mixture import (
     BayesianMixture, MFState, _cast, kernel_xts)
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
-    cuda_ilr_predict, cuda_predict, cuda_probes)
+    cuda_ilr_predict, cuda_predict, cuda_probes, precision)
 from mimo_tpu_torch.ops.cuda_estep import (
     DIAG, ILR, assemble_features, pad_theta, stack_rows)
 from mimo_tpu_torch.ops.family_estep import (
     diag_gaussian_spec, gaussian_spec, ilr_spec)
+from mimo_tpu_torch.parallel import (
+    best_of, diagnostics, fit_chains, smc_gibbs)
 
 N_MAIN, K_MAIN, D_MAIN = 10_000_000, 50, 2
 N_CHECK = 1_000_003            # a ragged tail for the 128-point tiles
@@ -214,10 +245,10 @@ def allclose_report(got, want, rtol, atol):
     return ok, float(err.max()) if err.numel() else 0.0
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=2):
     """Mean device time of fn() over `reps` runs, by CUDA events, after
-    two warm-up runs."""
-    for _ in range(2):
+    `warm` warm-up runs."""
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -423,13 +454,17 @@ def serving_work(n, k, d, p, diag=False):
             'hbm': 4 * ((d + p) * n + (2 * p + 2) * n)}
 
 
-def precision_check(tag, xt, theta, n, kind=cuda_estep.GAUSS, p=0):
+def precision_check(tag, xt, theta, n, kind=cuda_estep.GAUSS, p=0,
+                    got=None):
     """B1's error against float64 beside the f32 plain version's: lse
     relative, statistics as max |err| / summed magnitude. Fails when the
     kernel's is more than 10x the plain version's (the precision rule,
     csrc/estep.cuh), the plain version's counted as at least half an f32
-    ulp (2^-24): no f32 result is nearer than that but by chance."""
-    acc, lse = cuda_estep.estep(xt, theta, n, kind, p)
+    ulp (2^-24): no f32 result is nearer than that but by chance. `got`:
+    the kernel's (acc, lse) at theta where it ran already (one chain of
+    a chain launch)."""
+    acc, lse = got if got is not None else cuda_estep.estep(xt, theta, n,
+                                                            kind, p)
     pacc, plse = cuda_estep.estep_plain(xt, theta, n, kind, p)
     acc64, lse64 = cuda_estep.estep_plain(xt.double(), theta.double(), n,
                                           kind, p)
@@ -840,6 +875,7 @@ def run(dev, seed, n_main, n_check):
     wide = wide_serving_paths(dev, gen, card, errs, launches, ms)
     engine_paths(dev, seed, card, n_main, errs, launches, ms)
     nested_paths(dev, seed, card, errs, launches, ms)
+    chain_rows = chain_paths(dev, seed, card, n_main, errs, launches, ms)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -979,6 +1015,9 @@ def run(dev, seed, n_main, n_check):
     meta.update({name: (f'{meta[base][0]}, {what}',) + meta[base][1:]
                  for name, (base, what) in nested.items()})
     meta.update({name: row[:3] for name, row in wide.items()})
+    meta.update({name: (f'{meta[base][0]}, chain axis: {what}',)
+                       + meta[base][1:]
+                 for name, (base, what) in CHAIN_ROWS.items()})
     rows = []
     for b in meta:
         bound_ms, bound_by, bound_op = bound(WORK[b])
@@ -992,6 +1031,9 @@ def run(dev, seed, n_main, n_check):
             # none B1's, B2's, B5's or B6's, and torch has no multivariate
             # Student-t for B3's
             'library_ms': LIBRARY.get(b)})
+        if b in chain_rows:     # a chain launch: C and its C one-chain
+            rows[-1].update(chains=chain_rows[b][0],   # launches' time
+                            singles_ms=chain_rows[b][1])
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -3029,6 +3071,490 @@ def nested_paths(dev, seed, card, errs, launches, ms):
     nested_plugin_paths(dev, seed, card, errs, launches, ms)
     nested_ilr_paths(dev, seed, card, errs, launches, ms)
     nested_dense_paths(dev, seed, card)
+
+
+# -- phase 19: chains -------------------------------------------------------
+
+C_MAIN = 8                     # examples/chains_smc.py's default count
+N_CHAIN16, K_CHAIN16, C_CHAIN16 = 100_000, 16, 16   # bench.py:421-439
+N_TWOSAMPLE, S_TWOSAMPLE = 100_000, 256             # gibbs_twosample.py
+N_CHUNK_CHAINS, K_CHUNK_CHAINS = 1_000_000, 300     # ROADMAP B-wide
+N_SMC = 10_000                                      # examples/chains_smc.py
+# chain row -> (its kernel's row, what the chains run)
+CHAIN_ROWS = {
+    'B1-chain': ('B1', f'C={C_MAIN} VI and MAP chains, N=1e7 K=50 d=2'),
+    'B2-chain': ('B2', f'C={C_MAIN} Gibbs chains, N=1e7 K=50 d=2'),
+    'B1-chain-16': ('B1', f'C={C_CHAIN16} VI chains, N=1e5 K=16 d=2'),
+    'B2-chain-256': ('B2', f'S={S_TWOSAMPLE} sweeps of one theta (the '
+                     'two-sample check), N=1e5 K=50 d=2'),
+    'B1-chain-q8': ('B1-ILR', 'C=4 VI chains, N=1e6 K=50 d=8 p=1 m8=168'),
+    'B1-chain-wide': ('B1', 'C=2 VI chains, chunked layout, N=1e6 K=300 '
+                      'd=2'),
+    'B2-chain-wide': ('B2', 'C=2 Gibbs chains, chunked layout, N=1e6 '
+                      'K=300 d=2'),
+}
+
+
+def chain_work(work, c, xt, n):
+    """The work of C chains over shared points: C times the one-chain
+    work, the points read once."""
+    out = {u: c * v for u, v in work.items()}
+    out['hbm'] -= (c - 1) * 4 * xt.shape[0] * n
+    return out
+
+
+def seconds(fn, reps=3):
+    """Median wall seconds of fn() between synchronisations."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def chain_thetas(model, state, plugin=False):
+    """(C, K, m8) f32 thetas of a C-stacked state: VI's posterior-expected
+    theta (MFState) or the Gibbs plug-in theta (GibbsState)."""
+    spec = model._estep_spec()
+    if plugin:
+        return pad_theta(vmap(spec.theta_plugin)(state.params), state.log_pi,
+                         torch.float32)[0]
+    return pad_theta(vmap(spec.theta)(state.components),
+                     vmap(lambda g: g.expected_log_pi())(state.gating),
+                     torch.float32)[0]
+
+
+def chain_b1_checks(tag, xt, thetas, n, kind=cuda_estep.GAUSS, p=0,
+                    f64_lines=False, phase3=False):
+    """B1-chain at C thetas: each chain bitwise the one-chain launch at its
+    theta (each chain has the one-chain grid along x); against the plain
+    version on the first 100,003 points, statistics within 1e-5 of their
+    summed magnitudes (+ 1e-6, phases 7 and 17), or with `phase3` at
+    phase 3's rtol 1e-4 and atol 1e-3 per 1e6 points, lse within rtol
+    1e-5; with `f64_lines` each chain's float64 line. Returns max |kernel - plain| on the slice."""
+    c = thetas.shape[0]
+    acc, lse = cuda_estep.estep(xt, thetas, n, kind, p)
+    bitwise = True
+    for i in range(c):
+        a1, l1 = cuda_estep.estep(xt, thetas[i], n, kind, p)
+        bitwise = bitwise and torch.equal(acc[i], a1) and torch.equal(lse[i],
+                                                                      l1)
+    ns = min(n, 100_003)
+    xs = xt[:, :ns].contiguous()
+    acc_s, lse_s = cuda_estep.estep(xs, thetas, ns, kind, p)
+    pacc, plse = cuda_estep.estep_plain(xs, thetas, ns, kind, p)
+    err = (acc_s.double() - pacc.double()).abs()
+    mag = torch.stack([estep_magnitudes(xs, th, ns, kind, p)
+                       for th in thetas])
+    rel_s = float((err / mag.clamp(min=1e-30)).max())
+    if phase3:
+        atol = 1e-3 * ns / 1e6
+        ok_s = bool((err <= atol + 1e-4 * pacc.double().abs()).all())
+        rule = f'rtol 1e-4, atol {atol:.3g}'
+    else:
+        ok_s = bool((err <= 1e-5 * mag + 1e-6).all())
+        rule = '1e-5 of the summed magnitudes'
+    ok_l, err_l = allclose_report(lse_s, plse, 1e-5, 0.0)
+    ok = bitwise and ok_s and ok_l
+    print(f'B1-chain {tag}: {c} chains, each bitwise its one-chain launch '
+          f'{bitwise}; vs plain on {ns} points: statistics max|err| '
+          f'{float(err.max()):.6g}, of the summed magnitudes {rel_s:.3g} '
+          f'({rule}) {"ok" if ok_s else "FAIL"}, lse '
+          f'|err| {err_l:.6g} (rtol 1e-5) {"ok" if ok_l else "FAIL"}')
+    check(ok, f'B1-chain {tag} disagrees')
+    if f64_lines:
+        for i in range(c):
+            precision_check(f'{tag} chain {i}', xt, thetas[i], n, kind, p,
+                            got=(acc[i], lse[i]))
+    return float(err.max())
+
+
+def chain_b2_checks(tag, xt, thetas, seeds, n, kind=cuda_estep.GAUSS, p=0):
+    """B2-chain at C thetas and seeds: 0 labels differ from the one-chain
+    launches, whose statistics are also bitwise the chain's; on the first
+    100,003 points the
+    labels equal the plain Philox labels (at most 1e-4 differ) and the
+    statistics the one-hot sums of its own labels within 1e-5 of their
+    summed magnitudes (phase 4's bounds). Returns max |acc - one-hot
+    sums| on the slice."""
+    c, k = thetas.shape[:2]
+    labels, acc = cuda_gibbs.gibbs(xt, thetas, seeds, n, kind, p)
+    differ, bitwise = 0, True
+    for i in range(c):
+        l1, a1 = cuda_gibbs.gibbs(xt, thetas[i], seeds[i], n, kind, p)
+        differ += int((labels[i] != l1).sum())
+        bitwise = bitwise and torch.equal(acc[i], a1)
+    ns = min(n, 100_003)
+    xs = xt[:, :ns].contiguous()
+    lab_s, acc_s = cuda_gibbs.gibbs(xs, thetas, seeds, ns, kind, p)
+    plab, _ = cuda_gibbs.gibbs_plain(xs, thetas, seeds, ns, kind, p)
+    f = assemble_features(xs, thetas.shape[2], kind, p).double()
+    worst, rel = 0.0, 0.0
+    for i in range(c):
+        oh = torch.nn.functional.one_hot(lab_s[i].long(), k).double()
+        err = (acc_s[i].double() - oh.T @ f.T).abs()
+        mag = (oh.T @ f.abs().T).clamp(min=1e-30)
+        worst = max(worst, float(err.max()))
+        rel = max(rel, float((err / mag).max()))
+    mismatch = float((lab_s != plab).double().mean())
+    ok = differ == 0 and bitwise and mismatch <= 1e-4 and rel <= 1e-5
+    print(f'B2-chain {tag}: {c} chains; labels differing from the '
+          f'one-chain launches {differ} (must be 0); statistics bitwise '
+          f'the one-chain launches {bitwise}; on {ns} points: '
+          f'label mismatch vs plain Philox {mismatch:.3g} (<= 1e-4), stats '
+          f'vs one-hot sums of its labels max|err| / summed magnitude '
+          f'{rel:.3g} (<= 1e-5) {"ok" if ok else "FAIL"}')
+    check(ok, f'B2-chain {tag} disagrees')
+    return worst
+
+
+def time_chain(card, tag, name, c, kern, single, plain, ms, singles,
+               plain_reps=(1, 1)):
+    """A chain launch's time by CUDA events beside its C one-chain
+    launches' summed time (`single(i)` launches chain i alone) and its
+    plain version's (warm-ups and runs `plain_reps`)."""
+    ms[name] = (cuda_ms(kern, 10),
+                cuda_ms(plain, plain_reps[1], warm=plain_reps[0]))
+    singles[name] = (c, cuda_ms(lambda: [single(i) for i in range(c)], 5))
+    print(f'{name} time on {card} at {tag}: chain launch {ms[name][0]:.6g} '
+          f'ms, {c} one-chain launches {singles[name][1]:.6g} ms, plain '
+          f'PyTorch {ms[name][1]:.6g} ms')
+
+
+def chain_main_cell(dev, seed, card, n_main, errs, launches, ms, singles):
+    """Cell 1 of phase 19: phase 6's DP-GMM by fit_chains over C_MAIN
+    keys. Returns the data (for cells 2 and 3) and the model."""
+    kg = torch.Generator(device=dev).manual_seed(seed)
+    mu = torch.randn((3, D_MAIN), generator=kg, device=dev) * 4.0
+    lm = torch.eye(D_MAIN, device=dev).expand(3, D_MAIN, D_MAIN) * 2.0
+    x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3],
+                                n_main)
+    model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5, device=dev)
+    keys = list(range(1, C_MAIN + 1))
+    tag = f'chains N={n_main} K={K_MAIN} d={D_MAIN} C={C_MAIN}'
+    peaks, counts = {}, {}
+
+    def fit(engine):
+        torch.cuda.reset_peak_memory_stats()
+        out = fit_chains(model, engine, x, keys, maxiter=20)
+        torch.cuda.synchronize()
+        peaks[engine] = torch.cuda.max_memory_allocated()
+        counts[engine] = read_counts()
+        return out
+
+    torch.cuda.synchronize()
+    reset_counts()
+    st, vlb = fit('fit_vi_fused')
+    gs = fit('fit_gibbs_fused')
+    mst, mll = fit('fit_map_fused')
+    best, idx = best_of(st, vlb)
+    summary = diagnostics(vlb)
+    lp = model.log_predictive(best, x)
+    torch.cuda.synchronize()
+    path = read_counts()
+    launches.update({'B1-chain': path['B1'], 'B2-chain': path['B2']})
+    print(f'{tag}: launches after VI {counts["fit_vi_fused"]}, after Gibbs '
+          f'{counts["fit_gibbs_fused"]}, after MAP {counts["fit_map_fused"]}, '
+          f'after log_predictive {path}')
+    n_after = [sum(counts[e].values()) for e in
+               ('fit_vi_fused', 'fit_gibbs_fused', 'fit_map_fused')]
+    check(counts['fit_vi_fused']['B1'] == 20 and n_after == [20, 40, 60]
+          and counts['fit_gibbs_fused']['B2'] == 20 and path['B1'] == 40
+          and path['B3'] == 1 and sum(path.values()) == 61,
+          f'{tag}: B1 / B2 not launched once a sweep for all chains')
+    v = vlb.double()
+    drop = float(((v[:, :-1] - v[:, 1:]) / v[:, 1:].abs()).max())
+    check(vlb.shape == (C_MAIN, 20) and bool(torch.isfinite(v).all())
+          and drop <= 1e-4, f'{tag}: VI traces not finite or falling')
+    check(all_finite(gs[:4]) and gs.labels.shape == (C_MAIN, n_main)
+          and int(gs.labels.min()) >= 0 and int(gs.labels.max()) < K_MAIN
+          and bool(torch.isfinite(mll).all()) and all_finite(mst),
+          f'{tag}: Gibbs or MAP chains not finite')
+    check(lp.shape == (n_main,) and bool(torch.isfinite(lp).all()),
+          f'{tag}: log_predictive of the best chain not finite')
+    print(f'{tag}: final ELBOs {[round(float(e), 1) for e in vlb[:, -1]]}, '
+          f'worst relative drop {drop:.3g} (<= 1e-4); best_of chain '
+          f'{int(idx)}; diagnostics of the VI traces {summary}; Gibbs '
+          f'labels {tuple(gs.labels.shape)}; MAP final logliks '
+          f'{[round(float(e), 1) for e in mll[:, -1]]}; mean log predictive '
+          f'of the best chain {float(lp.mean()):.6g}; peak device memory '
+          + ', '.join(f'{e} {b / 2**30:.4g} GiB' for e, b in peaks.items()))
+
+    # the kernels at the chains' final thetas
+    xt = kernel_xts((x,))[0]
+    th_vi = chain_thetas(model, st)
+    th_g = chain_thetas(model, gs, plugin=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    seeds = torch.randint(0, 2 ** 62, (C_MAIN,), generator=gen, device=dev)
+    errs['B1-chain'] = chain_b1_checks(tag, xt, th_vi, n_main,
+                                       f64_lines=True, phase3=True)
+    errs['B2-chain'] = chain_b2_checks(tag, xt, th_g, seeds, n_main)
+
+    # same keys, same chains; each VI chain against its serial fit
+    _, vlb2 = fit_chains(model, 'fit_vi_fused', x, keys, maxiter=20)
+    worst = 0.0
+    for i, k in enumerate(keys):
+        _, v1 = model.fit_vi_fused(x, key=k, maxiter=20)
+        worst = max(worst, float(((vlb[i] - v1).abs() / v1.abs()).max()))
+    print(f'{tag}: fit_chains repeated with the same keys: traces equal '
+          f'{torch.equal(vlb, vlb2)}; each chain vs fit_vi_fused with its '
+          f'key: max relative trace difference {worst:.3g} (<= 1e-5)')
+    check(torch.equal(vlb, vlb2) and worst <= 1e-5,
+          f'{tag}: chains not repeatable or off their serial fits')
+
+    # rates: C chains against one fit, warm-started VI and Gibbs
+    t_vi = (seconds(lambda: fit_chains(model, 'fit_vi_fused', x, keys,
+                                       maxiter=20, init_state=st,
+                                       randomize=False)),
+            seconds(lambda: model.fit_vi_fused(
+                x, maxiter=20, init_state=best, randomize=False)))
+    t_g = (seconds(lambda: fit_chains(model, 'fit_gibbs_fused', x, keys,
+                                      maxiter=20)),
+           seconds(lambda: model.fit_gibbs_fused(x, key=1, maxiter=20)))
+    for eng, (tc, t1) in (('VI (warm-started)', t_vi), ('Gibbs', t_g)):
+        print(f'rates on {card}, {tag}: {eng} 20 sweeps: {C_MAIN} chains '
+              f'{tc:.6g} s ({20 * C_MAIN / tc:.6g} chain-sweeps/s), one fit '
+              f'{t1:.6g} s ({20 / t1:.6g} sweeps/s); aggregate speedup '
+              f'C t1 / tC {C_MAIN * t1 / tc:.4g} (median of 3)')
+
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
+    WORK['B1-chain'] = chain_work(estep_work(n_main, K_MAIN, m, D_MAIN),
+                                  C_MAIN, xt, n_main)
+    work = [gibbs_work(xt, th_g[i], n_main, m) for i in range(C_MAIN)]
+    WORK['B2-chain'] = {u: sum(w[u] for w in work) for u in work[0]}
+    WORK['B2-chain']['hbm'] -= (C_MAIN - 1) * 4 * D_MAIN * n_main
+    time_chain(card, tag, 'B1-chain', C_MAIN,
+               lambda: cuda_estep.estep(xt, th_vi, n_main),
+               lambda i: cuda_estep.estep(xt, th_vi[i], n_main),
+               lambda: cuda_estep.estep_plain(xt, th_vi, n_main), ms,
+               singles, (1, 2))
+    time_chain(card, tag, 'B2-chain', C_MAIN,
+               lambda: cuda_gibbs.gibbs(xt, th_g, seeds, n_main),
+               lambda i: cuda_gibbs.gibbs(xt, th_g[i], seeds[i], n_main),
+               lambda: cuda_gibbs.gibbs_plain(xt, th_g, seeds, n_main), ms,
+               singles, (0, 1))
+    del st, gs, mst, best, lp, th_vi, th_g
+    return x, model
+
+
+def chain_bench_cell(x, card, errs, launches, ms, singles):
+    """Cell 2 of phase 19, bench.py:421-439: the first 1e5 points, K=16,
+    16 chains of fit_vi_fused 50 against one fit."""
+    xs = x[:N_CHAIN16].contiguous()
+    model = BayesianGMM.make(size=K_CHAIN16, dim=D_MAIN, gating='dp',
+                             alpha=1.0, kappa=0.05, psi_scale=0.5,
+                             device=x.device)
+    keys = list(range(1, C_CHAIN16 + 1))
+    tag = f'chains N={N_CHAIN16} K={K_CHAIN16} C={C_CHAIN16} (bench.py:421)'
+    torch.cuda.synchronize()
+    reset_counts()
+    st, vlb = fit_chains(model, 'fit_vi_fused', xs, keys, maxiter=50)
+    torch.cuda.synchronize()
+    path = read_counts()
+    launches['B1-chain-16'] = path['B1']
+    print(f'{tag}: launches {path}')
+    check(path['B1'] == 50 and sum(path.values()) == 50,
+          f'{tag}: B1 not launched once a sweep for all chains')
+    check(bool(torch.isfinite(vlb).all()), f'{tag}: VI traces not finite')
+    t1 = seconds(lambda: model.fit_vi_fused(xs, key=1, maxiter=50))
+    t16 = seconds(lambda: fit_chains(model, 'fit_vi_fused', xs, keys,
+                                     maxiter=50))
+    print(f'rates on {card}, {tag}: fit_vi_fused 50: 1 restart {t1:.6g} s, '
+          f'{C_CHAIN16} chains {t16:.6g} s; aggregate speedup C t1 / tC '
+          f'{C_CHAIN16 * t1 / t16:.4g} (median of 3, inits included)')
+    xt = kernel_xts((xs,))[0]
+    th = chain_thetas(model, st)
+    errs['B1-chain-16'] = chain_b1_checks(tag, xt, th, N_CHAIN16)
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
+    WORK['B1-chain-16'] = chain_work(
+        estep_work(N_CHAIN16, K_CHAIN16, m, D_MAIN), C_CHAIN16, xt, N_CHAIN16)
+    time_chain(card, tag, 'B1-chain-16', C_CHAIN16,
+               lambda: cuda_estep.estep(xt, th, N_CHAIN16),
+               lambda i: cuda_estep.estep(xt, th[i], N_CHAIN16),
+               lambda: cuda_estep.estep_plain(xt, th, N_CHAIN16), ms,
+               singles, (1, 3))
+
+
+def chain_twosample_cell(x, model, seed, card, errs, launches, ms, singles):
+    """Cell 3 of phase 19, the fixed-state two-sample check of B2
+    (scripts/gibbs_twosample.py): one state from a short fused Gibbs run
+    on the first 1e5 points, S label sweeps of it as S chains of B2."""
+    xs = x[:N_TWOSAMPLE].contiguous()
+    gs = model.fit_gibbs_fused(xs, key=3, maxiter=20)
+    theta, _ = pad_theta(model._estep_spec().theta_plugin(gs.params),
+                         gs.log_pi, torch.float32)
+    xt = kernel_xts((xs,))[0]
+    seeds = (2000 + seed * S_TWOSAMPLE
+             + torch.arange(S_TWOSAMPLE, dtype=torch.int64, device=x.device))
+    tag = f'two-sample N={N_TWOSAMPLE} K={K_MAIN} S={S_TWOSAMPLE}'
+    torch.cuda.synchronize()
+    reset_counts()
+    stats, labels = precision.fixed_state_check(xt, theta, seeds,
+                                                N_TWOSAMPLE)
+    torch.cuda.synchronize()
+    path = read_counts()
+    launches['B2-chain-256'] = path['B2']
+    check(path['B2'] == 1 and sum(path.values()) == 1,
+          f'{tag}: the S sweeps were not one B2 launch')
+    for name, st in stats.items():
+        print(f'{tag} vs the {name} expectation: {st["live"]} live '
+              f'components (expected count > 5), max |z| '
+              f'{st["max_z"]:.4g} (<= {precision.MAX_Z}), chi^2/df '
+              f'{st["chi2_df"]:.4g} (<= {precision.MAX_CHI2_DF}), '
+              f'variance ratio {st["var_ratio"]:.4g} (in '
+              f'{list(precision.VAR_RATIO)}) '
+              f'{"ok" if precision.passes(st) else "FAIL"}')
+        check(precision.passes(st), f'{tag}: B2 off the {name} expectation')
+    thetas = theta.expand((S_TWOSAMPLE,) + theta.shape).contiguous()
+    lab_c, acc_c = cuda_gibbs.gibbs(xt, thetas, seeds, N_TWOSAMPLE)
+    probe = (0, 7, S_TWOSAMPLE - 1)
+    same = all(torch.equal(lab_c[i], cuda_gibbs.gibbs(
+        xt, theta, seeds[i], N_TWOSAMPLE)[0]) for i in probe)
+    errs['B2-chain-256'] = max(gibbs_acc_err(
+        xt, N_TWOSAMPLE, cuda_estep.GAUSS, 0, lab_c[i], acc_c[i])
+        for i in probe)
+    print(f'{tag}: sweeps {probe} equal their one-chain launches '
+          f'{same}; statistics vs one-hot sums of their labels max|err| '
+          f'{errs["B2-chain-256"]:.6g}')
+    check(same and torch.equal(lab_c, labels),
+          f'{tag}: a sweep differs from its one-chain launch')
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
+    WORK['B2-chain-256'] = chain_work(gibbs_work(xt, theta, N_TWOSAMPLE, m),
+                                      S_TWOSAMPLE, xt, N_TWOSAMPLE)
+    time_chain(card, tag, 'B2-chain-256', S_TWOSAMPLE,
+               lambda: cuda_gibbs.gibbs(xt, thetas, seeds, N_TWOSAMPLE),
+               lambda i: cuda_gibbs.gibbs(xt, theta, seeds[i], N_TWOSAMPLE),
+               lambda: cuda_gibbs.gibbs_plain(xt, thetas, seeds,
+                                              N_TWOSAMPLE), ms, singles)
+
+
+def chain_layout_cells(dev, seed, x, card, errs, launches, ms, singles):
+    """Cell 4 of phase 19: B1-chain over the q8 ILR map (N=1e6, m8=168,
+    C=4) and B1/B2-chain in the chunked layout (K=300, d=2, N=1e6, C=2),
+    each after a short fit_chains that launches it, checked against its
+    one-chain launches at the final thetas."""
+    kg = torch.Generator(device=dev).manual_seed(seed + 3)
+    xq, yq = regression_data(kg, N_Q8, D_Q8, 1, dev)
+    mq = BayesianILR.make(size=K_MAIN, input_dim=D_Q8, output_dim=1,
+                          alpha=2.0, kappa=0.05, device=dev)
+    tag = f'q8 N={N_Q8} K={K_MAIN} d={D_Q8} p=1 C=4'
+    torch.cuda.synchronize()
+    reset_counts()
+    st, vlb = fit_chains(mq, 'fit_vi_fused', (xq, yq), [1, 2, 3, 4],
+                         maxiter=5)
+    torch.cuda.synchronize()
+    path = read_counts()
+    launches['B1-chain-q8'] = path['B1-ILR']
+    print(f'{tag}: fit_chains VI 5 launches {path}')
+    check(path['B1-ILR'] == 5 and sum(path.values()) == 5
+          and bool(torch.isfinite(vlb).all()), f'{tag}: B1 not launched once '
+          'a sweep for all chains, or the traces not finite')
+    xt = stack_rows(kernel_xts((xq, yq)))
+    th = chain_thetas(mq, st)
+    errs['B1-chain-q8'] = chain_b1_checks(tag, xt, th, N_Q8, ILR, 1,
+                                          f64_lines=True)
+    m = cuda_estep.feature_width(ILR, D_Q8, 1)
+    WORK['B1-chain-q8'] = chain_work(estep_work(N_Q8, K_MAIN, m, D_Q8 + 1),
+                                     4, xt, N_Q8)
+    time_chain(card, tag, 'B1-chain-q8', 4,
+               lambda: cuda_estep.estep(xt, th, N_Q8, ILR, 1),
+               lambda i: cuda_estep.estep(xt, th[i], N_Q8, ILR, 1),
+               lambda: cuda_estep.estep_plain(xt, th, N_Q8, ILR, 1), ms,
+               singles, (1, 2))
+    del xq, yq, xt, st
+
+    xw = x[:N_CHUNK_CHAINS].contiguous()
+    mw = BayesianGMM.make(size=K_CHUNK_CHAINS, dim=D_MAIN, gating='dp',
+                          alpha=1.0, kappa=0.05, psi_scale=0.5, device=dev)
+    tag = f'chunked layout N={N_CHUNK_CHAINS} K={K_CHUNK_CHAINS} d=2 C=2'
+    torch.cuda.synchronize()
+    reset_counts()
+    st, vlb = fit_chains(mw, 'fit_vi_fused', xw, [1, 2], maxiter=3)
+    gs = fit_chains(mw, 'fit_gibbs_fused', xw, [1, 2], maxiter=3)
+    torch.cuda.synchronize()
+    path = read_counts()
+    launches.update({'B1-chain-wide': path['B1'],
+                     'B2-chain-wide': path['B2']})
+    print(f'{tag}: fit_chains VI 3 and Gibbs 3 launches {path}')
+    check(path['B1'] == 3 and path['B2'] == 3 and sum(path.values()) == 6
+          and bool(torch.isfinite(vlb).all()) and all_finite(gs[:4]),
+          f'{tag}: B1 / B2 not launched once a sweep for all chains')
+    xt = kernel_xts((xw,))[0]
+    th_vi = chain_thetas(mw, st)
+    th_g = chain_thetas(mw, gs, plugin=True)
+    seeds = torch.tensor([11, 2 ** 50 + 7], dtype=torch.int64, device=dev)
+    errs['B1-chain-wide'] = chain_b1_checks(tag, xt, th_vi, N_CHUNK_CHAINS)
+    errs['B2-chain-wide'] = chain_b2_checks(tag, xt, th_g, seeds,
+                                            N_CHUNK_CHAINS)
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
+    WORK['B1-chain-wide'] = chain_work(
+        estep_work(N_CHUNK_CHAINS, K_CHUNK_CHAINS, m, D_MAIN), 2, xt,
+        N_CHUNK_CHAINS)
+    work = [gibbs_work(xt, th_g[i], N_CHUNK_CHAINS, m) for i in range(2)]
+    WORK['B2-chain-wide'] = {u: work[0][u] + work[1][u] for u in work[0]}
+    WORK['B2-chain-wide']['hbm'] -= 4 * D_MAIN * N_CHUNK_CHAINS
+    time_chain(card, tag, 'B1-chain-wide', 2,
+               lambda: cuda_estep.estep(xt, th_vi, N_CHUNK_CHAINS),
+               lambda i: cuda_estep.estep(xt, th_vi[i], N_CHUNK_CHAINS),
+               lambda: cuda_estep.estep_plain(xt, th_vi, N_CHUNK_CHAINS), ms,
+               singles, (1, 2))
+    time_chain(card, tag, 'B2-chain-wide', 2,
+               lambda: cuda_gibbs.gibbs(xt, th_g, seeds, N_CHUNK_CHAINS),
+               lambda i: cuda_gibbs.gibbs(xt, th_g[i], seeds[i],
+                                          N_CHUNK_CHAINS),
+               lambda: cuda_gibbs.gibbs_plain(xt, th_g, seeds,
+                                              N_CHUNK_CHAINS), ms, singles,
+               (1, 2))
+
+
+def chain_smc_cell(dev, seed, card):
+    """Cell 5 of phase 19: smc_gibbs on examples/chains_smc.py's data and
+    model (N=1e4, K=10, 8 chains, 8 rounds of 10 sweeps): the dense
+    sweep, batched over the chains, no kernel."""
+    kg = torch.Generator(device=dev).manual_seed(seed + 5)
+    mu = torch.tensor([[-4., 0.], [4., 0.], [0., 5.]], device=dev)
+    lm = torch.eye(2, device=dev).expand(3, 2, 2) * 2.0
+    x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3], N_SMC)
+    model = BayesianGMM.make(size=10, dim=2, gating='dp', kappa=0.05,
+                             psi_scale=0.5, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    states, lls = smc_gibbs(model, x, key=seed, n_chains=C_MAIN, n_rounds=8,
+                            sweeps_per_round=10)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    path = read_counts()
+    print(f'smc_gibbs N={N_SMC} K=10 {C_MAIN} chains, 8 rounds x 10 sweeps: '
+          f'per-round mean log-likelihoods '
+          f'{[round(float(v), 2) for v in lls]}; labels '
+          f'{tuple(states.labels.shape)}; launches {path} (none: the dense '
+          f'sweep); one run on {card} {80 * C_MAIN / secs:.6g} '
+          f'chain-sweeps/s')
+    check(bool(torch.isfinite(lls).all()) and float(lls[-1]) >= float(lls[0])
+          and states.labels.shape == (C_MAIN, N_SMC)
+          and sum(path.values()) == 0,
+          'smc_gibbs not finite, worse in its last round, or launched a '
+          'kernel')
+
+
+def chain_paths(dev, seed, card, n_main, errs, launches, ms):
+    """Phase 19: multi-chain inference through B1 and B2 with a chain
+    axis. Returns {chain row: (C, the C one-chain launches' summed ms)}."""
+    singles = {}
+    x, model = chain_main_cell(dev, seed, card, n_main, errs, launches, ms,
+                               singles)
+    chain_bench_cell(x, card, errs, launches, ms, singles)
+    chain_twosample_cell(x, model, seed, card, errs, launches, ms, singles)
+    chain_layout_cells(dev, seed, x, card, errs, launches, ms, singles)
+    del x, model
+    torch.cuda.empty_cache()
+    chain_smc_cell(dev, seed, card)
+    return singles
 
 
 if __name__ == '__main__':

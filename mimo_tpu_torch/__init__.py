@@ -25,6 +25,7 @@ from mimo_tpu_torch import distributions  # noqa: E402
 from mimo_tpu_torch import conjugate  # noqa: E402
 from mimo_tpu_torch import models  # noqa: E402
 from mimo_tpu_torch import ops  # noqa: E402
+from mimo_tpu_torch import parallel  # noqa: E402
 from mimo_tpu_torch import utils  # noqa: E402
 
 __version__ = "0.1.0"

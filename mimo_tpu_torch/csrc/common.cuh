@@ -120,22 +120,25 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
   s = t;
 }
 
-// out[o] = sum_b part[b * w + o] in block order b = 0, 1, ..., a
-// compensated sum: the second pass of the bounded-grid reductions. Fixed
-// order, no atomics, so a run is bitwise repeatable on a given grid.
+// out[c w + o] = sum_b part[(c grid + b) w + o] in block order b = 0, 1,
+// ..., a compensated sum for each chain c (blockIdx.y): the second pass of
+// the bounded-grid reductions. Fixed order, no atomics, so a run is
+// bitwise repeatable on a given grid.
 __global__ void reduce_partials(const float* __restrict__ part, int grid,
                                 int w, float* __restrict__ out) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= w) return;
+  const float* pc = part + (size_t)blockIdx.y * grid * w;
   float s = 0.0f, c = 0.0f;
-  for (int b = 0; b < grid; ++b) kahan_add(s, c, part[(size_t)b * w + o]);
-  out[o] = s;
+  for (int b = 0; b < grid; ++b) kahan_add(s, c, pc[(size_t)b * w + o]);
+  out[(size_t)blockIdx.y * w + o] = s;
 }
 
 inline cudaError_t launch_reduce(const float* part, int grid, int w,
-                                 float* out, cudaStream_t stream) {
-  reduce_partials<<<(w + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      part, grid, w, out);
+                                 float* out, cudaStream_t stream,
+                                 int chains = 1) {
+  reduce_partials<<<dim3((w + kThreads - 1) / kThreads, chains), kThreads, 0,
+                    stream>>>(part, grid, w, out);
   return cudaGetLastError();
 }
 

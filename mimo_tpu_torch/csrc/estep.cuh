@@ -55,7 +55,9 @@
 // SM. A persistent grid (SMs x resident blocks, mimo_estep_grid) strides
 // over the tiles; per-block partials go to a scratch buffer and a second
 // kernel sums them in block order: no float atomics, so a run is
-// bitwise repeatable on a given card.
+// bitwise repeatable on a given card. With C chains (tc.cuh, blockIdx.z)
+// each chain has the one-chain grid along x, its own partials and its own
+// second pass, so a chain's result is bitwise that of a one-chain launch.
 //
 // Precision rule (tests/test_torch_precision.py emulates it on the CPU;
 // chip_smoke.py measures it against float64 on the card). One TF32 pass
@@ -146,7 +148,7 @@ estep_tc(const float* __restrict__ xt, long long ld, int rows, long long n,
   const int y = V == kChunked ? blockIdx.y / ly.nz : 0;
   const int z = V == kChunked ? blockIdx.y % ly.nz : 0;
 
-  stage_theta(theta, k, m8, ly, tha);
+  stage_theta(theta + (size_t)blockIdx.z * k * m8, k, m8, ly, tha);
   const long long ntiles = (n + L::T - 1) / L::T;
   if (blockIdx.x < ntiles)
     stage_z<L, kAllValid>(xt, ld, rows, blockIdx.x, valid, zt);
@@ -259,7 +261,9 @@ estep_tc(const float* __restrict__ xt, long long ld, int rows, long long n,
     __syncthreads();                       // F tiles free for the next tile
   }
 
-  float* out = part + (size_t)blockIdx.x * (k * m8 + 1);
+  // this chain's partials: part (chains, gridDim.x, k m8 + 1)
+  float* out =
+      part + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * (k * m8 + 1);
   store_slab<L>(acc, k, m8, 16 * (y * nw + w), 8 * NT * z, lane, out);
   if (w == 0 && blockIdx.y == 0) {
     for (int o = 16; o > 0; o >>= 1)
@@ -274,18 +278,19 @@ inline int estep_variant(int k, int m8, int rows) {
                       [&](int v) { return estep_floats(v, k, m8, rows); });
 }
 
+// theta (chains, k, m8); part (chains, grid, k m8 + 1).
 template <int V, bool kDivide, int kCount>
 cudaError_t launch_estep(const float* xt, long long ld, int rows,
                          long long n, const int* nv, const float* theta,
                          int k, int m8, const FactorTable& tab, float* part,
-                         int grid, cudaStream_t s) {
+                         int grid, cudaStream_t s, int chains = 1) {
   auto kernel = estep_tc<V, kDivide, kCount>;
   const Layout ly = layout(V, k, m8);
   const size_t smem = sizeof(float) * estep_floats(V, k, m8, rows);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(grid, ly.nchunk * ly.nz), 32 * ly.nw, smem, s>>>(
+  kernel<<<dim3(grid, ly.nchunk * ly.nz, chains), 32 * ly.nw, smem, s>>>(
       xt, ld, rows, n, nv, theta, k, m8, tab, part);
   return cudaGetLastError();
 }
@@ -295,14 +300,15 @@ cudaError_t launch_estep(const float* xt, long long ld, int rows,
 template <int kMin, int kMax, bool kChunk>
 cudaError_t estep_variants(int v, const float* xt, long long ld, int d,
                            int p, int kind, long long n, const float* theta,
-                           int k, int m8, float* part, int grid,
+                           int k, int m8, float* part, int grid, int chains,
                            cudaStream_t s) {
   const FactorTable tab =
       factor_table(kind, d, p, v ? layout(v, k, m8).mpf : 0);
   return dispatch_variant<kMin, kMax, kChunk>(
       v, cudaErrorInvalidValue, [&](auto c) {
         return launch_estep<decltype(c)::value, true, kCountArg>(
-            xt, ld, d + p, n, nullptr, theta, k, m8, tab, part, grid, s);
+            xt, ld, d + p, n, nullptr, theta, k, m8, tab, part, grid, s,
+            chains);
       });
 }
 
@@ -327,6 +333,6 @@ int estep_grid_variants(int v, int k, int m8, int rows, long long n) {
 extern "C" int mimo_estep_wide(int v, const float* xt, long long ld, int d,
                                int p, int kind, long long n,
                                const float* theta, int k, int m8, float* part,
-                               int grid, void* stream);
+                               int grid, int chains, void* stream);
 extern "C" int mimo_estep_grid_wide(int v, int k, int m8, int rows,
                                     long long n);

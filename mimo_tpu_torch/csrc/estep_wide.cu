@@ -7,9 +7,9 @@
 extern "C" int mimo_estep_wide(int v, const float* xt, long long ld, int d,
                                int p, int kind, long long n,
                                const float* theta, int k, int m8, float* part,
-                               int grid, void* stream) {
+                               int grid, int chains, void* stream) {
   return estep_variants<kMaxNarrow + 1, kMaxWidth, true>(
-      v, xt, ld, d, p, kind, n, theta, k, m8, part, grid,
+      v, xt, ld, d, p, kind, n, theta, k, m8, part, grid, chains,
       static_cast<cudaStream_t>(stream));
 }
 

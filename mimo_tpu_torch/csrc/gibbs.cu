@@ -18,8 +18,9 @@ extern "C" int mimo_gumbel_fast(float* out, void* stream) {
   return cudaGetLastError();
 }
 
-// The persistent grid of B2 at (k, m8, rows) over n points: 0 for a shape
-// past shared memory's limit, minus a CUDA error code on failure.
+// The persistent grid along x of B2 at (k, m8, rows) over n points, the
+// same for every chain: 0 for a shape past shared memory's limit, minus a
+// CUDA error code on failure.
 extern "C" int mimo_gibbs_grid(int k, int m8, int rows, long long n) {
   const int v = gibbs_variant(k, m8, rows);
   if (!v) return 0;
@@ -28,24 +29,26 @@ extern "C" int mimo_gibbs_grid(int k, int m8, int rows, long long n) {
 }
 
 // xt (d + p, ld) f32: x rows then y rows (p = 0 for kKindGauss and
-// kKindDiag), points 0..n-1; theta (k, m8) f32; seed: one int64 on the
-// device; labels (n,) int32; part (grid, k*m8) scratch; out (k*m8) acc
-// row-major. Returns a cudaError_t code.
+// kKindDiag), points 0..n-1, shared by the chains; theta (chains, k, m8)
+// f32; seed (chains,) int64 on the device; labels (chains, n) int32; part
+// (chains, grid, k*m8) scratch; out (chains, k*m8) acc row-major. Returns
+// a cudaError_t code.
 extern "C" int mimo_gibbs(const float* xt, long long ld, int d, int p,
                           int kind, long long n, const float* theta, int k,
                           int m8, const long long* seed, int* labels,
-                          float* part, float* out, int grid, void* stream) {
+                          float* part, float* out, int grid, int chains,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind < kKindGauss || kind > kKindDiag ||
-      m8 < feature_width(kind, d, p))
+      m8 < feature_width(kind, d, p) || chains < 1 || chains > 65535)
     return cudaErrorInvalidValue;
   const int v = gibbs_variant(k, m8, d + p);
   const int err =
       is_wide(v) ? mimo_gibbs_wide(v, xt, ld, d, p, kind, n, theta, k, m8,
-                                   seed, labels, part, grid, stream)
+                                   seed, labels, part, grid, chains, stream)
                  : gibbs_variants<1, kMaxNarrow, false>(
                        v, xt, ld, d, p, kind, n, theta, k, m8, seed, labels,
-                       part, grid, s);
+                       part, grid, chains, s);
   if (err != cudaSuccess) return err;
-  return launch_reduce(part, grid, k * m8, out, s);
+  return launch_reduce(part, grid, k * m8, out, s, chains);
 }

@@ -47,6 +47,10 @@
 // Philox draw for draw (up to near-ties of the logits' rounding). The
 // statistics use B1's persistent grid and per-block partials with a
 // fixed-order second pass: no float atomics.
+// Chains (tc.cuh): chain c = blockIdx.z draws with its own seed[c] over
+// the shared points, so its labels equal a one-chain launch at seed[c]
+// exactly, whatever the grid; S sweeps of one fixed theta are S chains of
+// that theta (the two-sample check, ops/precision.py).
 #pragma once
 
 #include "tc.cuh"
@@ -212,14 +216,17 @@ gibbs_tc(const float* __restrict__ xt, long long ld, int rows, long long n,
   float* st = fr + ly.mpf * L::FS;                    // min(k, ch) x FS
   int* lab = reinterpret_cast<int*>(st + min(k, ch) * L::FS);  // T
   float* bv = reinterpret_cast<float*>(lab + L::T);   // T (chunked)
-  const unsigned long long s64 = static_cast<unsigned long long>(*seed);
+  // chain blockIdx.z: its theta, its seed, its labels (chains, n)
+  const unsigned long long s64 =
+      static_cast<unsigned long long>(seed[blockIdx.z]);
+  labels += (size_t)blockIdx.z * n;
   const uint2 key = make_uint2(static_cast<unsigned>(s64),
                                static_cast<unsigned>(s64 >> 32));
   // the statistics window: chunk y of K's slabs, columns 8 NT z ..
   const int y = V == kChunked ? blockIdx.y / ly.nz : 0;
   const int z = V == kChunked ? blockIdx.y % ly.nz : 0;
 
-  stage_theta(theta, k, m8, ly, tha);
+  stage_theta(theta + (size_t)blockIdx.z * k * m8, k, m8, ly, tha);
   const long long ntiles = (n + L::T - 1) / L::T;
   if (blockIdx.x < ntiles) stage_z<L, false>(xt, ld, rows, blockIdx.x, n, zt);
   wait_copies();
@@ -292,7 +299,7 @@ gibbs_tc(const float* __restrict__ xt, long long ld, int rows, long long n,
   }
 
   store_slab<L>(acc, k, m8, 16 * (y * nw + w), 8 * NT * z, lane,
-                part + (size_t)blockIdx.x * k * m8);
+                part + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * k * m8);
 }
 
 // The variant B2 runs at (k, m8) over `rows` input rows.
@@ -301,18 +308,21 @@ inline int gibbs_variant(int k, int m8, int rows) {
                       [&](int v) { return gibbs_floats(v, k, m8, rows); });
 }
 
+// theta (chains, k, m8), seed (chains,), labels (chains, n), part
+// (chains, grid, k m8).
 template <int V>
 cudaError_t launch_gibbs(const float* xt, long long ld, int rows,
                          long long n, const float* theta, int k, int m8,
                          const FactorTable& tab, const long long* seed,
-                         int* labels, float* part, int grid,
+                         int* labels, float* part, int grid, int chains,
                          cudaStream_t s) {
   const Layout ly = layout(V, k, m8);
   const size_t smem = sizeof(float) * gibbs_floats(V, k, m8, rows);
   cudaError_t err = cudaFuncSetAttribute(
       gibbs_tc<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  gibbs_tc<V><<<dim3(grid, ly.nchunk * ly.nz), 32 * ly.nw, smem, s>>>(
+  gibbs_tc<V><<<dim3(grid, ly.nchunk * ly.nz, chains), 32 * ly.nw, smem,
+                s>>>(
       xt, ld, rows, n, theta, k, m8, tab, seed, labels, part);
   return cudaGetLastError();
 }
@@ -323,13 +333,15 @@ template <int kMin, int kMax, bool kChunk>
 cudaError_t gibbs_variants(int v, const float* xt, long long ld, int d,
                            int p, int kind, long long n, const float* theta,
                            int k, int m8, const long long* seed, int* labels,
-                           float* part, int grid, cudaStream_t s) {
+                           float* part, int grid, int chains,
+                           cudaStream_t s) {
   const FactorTable tab =
       factor_table(kind, d, p, v ? layout(v, k, m8).mpf : 0);
   return dispatch_variant<kMin, kMax, kChunk>(
       v, cudaErrorInvalidValue, [&](auto c) {
         return launch_gibbs<decltype(c)::value>(
-            xt, ld, d + p, n, theta, k, m8, tab, seed, labels, part, grid, s);
+            xt, ld, d + p, n, theta, k, m8, tab, seed, labels, part, grid,
+            chains, s);
       });
 }
 
@@ -355,6 +367,7 @@ extern "C" int mimo_gibbs_wide(int v, const float* xt, long long ld, int d,
                                int p, int kind, long long n,
                                const float* theta, int k, int m8,
                                const long long* seed, int* labels,
-                               float* part, int grid, void* stream);
+                               float* part, int grid, int chains,
+                               void* stream);
 extern "C" int mimo_gibbs_grid_wide(int v, int k, int m8, int rows,
                                     long long n);

@@ -7,10 +7,11 @@ extern "C" int mimo_gibbs_wide(int v, const float* xt, long long ld, int d,
                                int p, int kind, long long n,
                                const float* theta, int k, int m8,
                                const long long* seed, int* labels,
-                               float* part, int grid, void* stream) {
+                               float* part, int grid, int chains,
+                               void* stream) {
   return gibbs_variants<kMaxNarrow + 1, kMaxWidth, true>(
       v, xt, ld, d, p, kind, n, theta, k, m8, seed, labels, part, grid,
-      static_cast<cudaStream_t>(stream));
+      chains, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mimo_gibbs_grid_wide(int v, int k, int m8, int rows,

@@ -23,6 +23,14 @@
 //            logits, so the chunked layout does (chunks x windows) times
 //            the logits' work of the plain one; it exists so that every
 //            shape up to shared memory's limit launches.
+// Both layouts take a chain axis: blockIdx.z picks one of C thetas
+// (C, K, m8) over the same points (restarts of one fit, the counterpart of
+// jax.vmap over the Pallas kernels' grid), and the block stages only its
+// chain's theta and writes its chain's partials. The x tiles are read
+// again for every chain, as the TPU's batching rule reads them. Every
+// chain has the one-chain persistent grid along x (the C x grid blocks
+// run in about C waves), so each chain's blocks do exactly the work of a
+// one-chain launch and its result is bitwise that launch's.
 #pragma once
 
 #include <algorithm>
@@ -163,8 +171,8 @@ int pick_variant(int k, int m8, Floats&& floats) {
 
 // Blocks along x of a persistent grid: SMs x resident blocks of this
 // kernel at this block size and shared memory, shared among the `windows`
-// blocks along y, at most one per tile. Returns minus the CUDA error code
-// on failure.
+// blocks along y, at most one per tile and at least one. Returns minus
+// the CUDA error code on failure.
 template <class Kernel>
 int persistent_grid(Kernel kernel, int threads, size_t smem,
                     long long ntiles, int windows) {

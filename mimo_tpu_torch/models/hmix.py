@@ -32,8 +32,8 @@ from torch.func import vmap
 from mimo_tpu_torch.conjugate.families import Family
 from mimo_tpu_torch.models.mixture import (
     BayesianMixture, _as_generator, _as_tuple, _cast, _elbo_loop,
-    _random_resp, _stack, _tree_map, anchor_resp, kernel_xts, model_device,
-    resolve_backend)
+    _random_resp, _stack, _stack_lead, _tree_map, anchor_resp, kernel_xts,
+    model_device, resolve_backend)
 from mimo_tpu_torch.models.mixture import (
     _anchor_indices as _flat_anchor_indices)
 from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
@@ -61,11 +61,6 @@ class HMixEMState(NamedTuple):
     params: Any                     # (M, K, ...) likelihood params
     inner_log_pi: torch.Tensor      # (M, K)
     outer_log_pi: torch.Tensor      # (M,)
-
-
-def _stack_m(tree, m):
-    """Replicate every leaf over a leading cluster axis of size m."""
-    return _tree_map(lambda a: a.expand((m,) + a.shape).contiguous(), tree)
 
 
 def _flatten_mk(tree):
@@ -119,8 +114,8 @@ class BayesianMixtureOfMixtures:
         device = model_device(device)
         m, k = cluster_size, mixture_size
         outer = Dirichlet.standard(m, alpha, dtype, device)
-        inner_g = _stack_m(Dirichlet.standard(k, inner_alpha, dtype, device),
-                           m)
+        inner_g = _stack_lead(
+            Dirichlet.standard(k, inner_alpha, dtype, device), m)
         if hierarchical:
             comp = HierTied.standard(k, dim, kappa=1.0, hyper_kappa=kappa,
                                      psi_scale=psi_scale, dtype=dtype,
@@ -130,7 +125,7 @@ class BayesianMixtureOfMixtures:
             comp = NIW.standard(k, dim, kappa=kappa, psi_scale=psi_scale,
                                 dtype=dtype, device=device)
             fam = gaussian_family()
-        comp_m = _stack_m(comp, m)
+        comp_m = _stack_lead(comp, m)
         if means is not None:
             means = torch.as_tensor(means, dtype=dtype, device=device)
             spread = means[:, None, :].expand(m, k, dim).contiguous()
@@ -158,15 +153,15 @@ class BayesianMixtureOfMixtures:
         device = model_device(device)
         m, k = cluster_size, mixture_size
         outer = Dirichlet.standard(m, alpha, dtype, device)
-        inner_g = _stack_m(Dirichlet.standard(k, inner_alpha, dtype, device),
-                           m)
+        inner_g = _stack_lead(
+            Dirichlet.standard(k, inner_alpha, dtype, device), m)
         q = input_dim + (1 if affine else 0)
         comp = (NIW.standard(k, input_dim, kappa=kappa, psi_scale=psi_scale,
                              dtype=dtype, device=device),
                 MNW.standard(k, output_dim, q, K_scale=K_scale,
                              psi_scale=psi_scale, dtype=dtype,
                              device=device))
-        return BayesianMixtureOfMixtures(outer, inner_g, _stack_m(comp, m),
+        return BayesianMixtureOfMixtures(outer, inner_g, _stack_lead(comp, m),
                                          ilr_family(affine=affine),
                                          kind='ilr', affine=affine)
 

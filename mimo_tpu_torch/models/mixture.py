@@ -18,6 +18,15 @@ form the N x K responsibilities; the dense engines (`fit_vi`, `fit_gibbs`,
 `fit_map`, `fit_em`, `fit_svi`) are plain PyTorch wherever the data lies,
 as they are plain JAX in the reference.
 
+Chains. With `chains=True` the fused engines and the dense `fit_gibbs`
+take C chain keys in `key` and run C restarts as one batched program (the
+counterpart of jax.vmap over the JAX engines, parallel/chains.py): the
+state's leaves carry a leading C axis, the K-sized algebra runs under
+torch.func.vmap over C (`_over_chains`; a single fit runs the same code
+unbatched), and B1 / B2 launch once a sweep for every chain. Each chain's
+start is drawn from its own generator one chain at a time, so chain c of
+the VI, MAP and EM engines equals the single-chain fit with key c.
+
 Backends. Each fused engine and `log_predictive` takes `backend`:
   'auto'   — the CUDA kernel when the data lies on a CUDA device, the plain
              PyTorch version when it lies on the CPU;
@@ -30,6 +39,7 @@ if a kernel cannot build or launch, the call raises.
 from typing import Any, NamedTuple
 
 import torch
+from torch.func import vmap
 
 from mimo_tpu_torch.conjugate.families import Family
 from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
@@ -62,27 +72,42 @@ class EMState(NamedTuple):
     log_pi: torch.Tensor     # (K,)
 
 
-def _elbo_loop(step, carry, maxiter, tol):
+def _elbo_loop(step, carry, maxiter, tol, lead=()):
     """Run `carry, vlb = step(carry, i)` for up to `maxiter` sweeps and
-    return (carry, (maxiter,) trace).
+    return (carry, (maxiter,) trace); for C chains batched in one step
+    (carry's leaves C-stacked, vlb (C,), `lead` (C,)) the trace is
+    (C, maxiter).
 
     With tol=None every sweep runs and the loop never waits for the
     device. With `tol` (the reference's stopping rule: |vlb_t - vlb_{t-1}|
     < tol after at least two sweeps) the host compares each sweep's ELBO
     and stops early; the trace is constant-extended past the stop. A NaN
-    ELBO never satisfies the rule, so divergence keeps iterating."""
-    trace = []
+    ELBO never satisfies the rule, so divergence keeps iterating. Each
+    chain stops on its own rule: a stopped chain keeps its carry and its
+    last ELBO while the others run on, and the loop ends when every chain
+    has stopped, as jax.vmap of the JAX package's while_loop runs."""
+    trace, done, some = [], None, False
     for i in range(maxiter):
-        if tol is not None and i >= 2 and bool(
-                torch.abs(trace[-1] - trace[-2]) < tol):
-            break
-        carry, vlb = step(carry, i)
+        if tol is not None and i >= 2:
+            stop = torch.abs(trace[-1] - trace[-2]) < tol
+            done = stop if done is None else done | stop
+            flags = done.reshape(-1).tolist()
+            if all(flags):
+                break
+            some = any(flags)
+        new, vlb = step(carry, i)
+        if some:
+            carry = _tree_where(done, carry, new)
+            vlb = torch.where(done, trace[-1], vlb)
+        else:
+            carry = new
         trace.append(vlb)
     if not trace:
-        return carry, torch.zeros((0,))
-    trace = torch.stack(trace)
-    if trace.shape[0] < maxiter:
-        trace = torch.cat([trace, trace[-1].expand(maxiter - trace.shape[0])])
+        return carry, torch.zeros(lead + (0,))
+    trace = torch.stack(trace, -1)
+    if trace.shape[-1] < maxiter:
+        trace = torch.cat([trace, trace[..., -1:].expand(
+            lead + (maxiter - trace.shape[-1],))], -1)
     return carry, trace
 
 
@@ -135,10 +160,78 @@ def _cast(tree, dtype):
 
 
 def _stack(trace, like):
-    """The (maxiter,) trace of a fit loop's per-sweep scalars."""
+    """The (maxiter,) trace of a fit loop's per-sweep scalars; (C,
+    maxiter) for the chains' (C,) scalars."""
     if not trace:
         return torch.zeros((0,), dtype=like.dtype, device=like.device)
-    return torch.stack(trace)
+    return torch.stack(trace, -1)
+
+
+def _tree_map2(fn, a, b):
+    """fn over the paired tensor leaves of two trees of one structure."""
+    if isinstance(a, torch.Tensor):
+        return fn(a, b)
+    items = [_tree_map2(fn, x, y) for x, y in zip(a, b)]
+    return type(a)(*items) if hasattr(a, '_fields') else tuple(items)
+
+
+def _tree_where(mask, a, b):
+    """a where the chain's mask (C,) is set, else b, leaf by leaf."""
+    return _tree_map2(lambda x, y: torch.where(
+        mask.view((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
+
+
+def stack_trees(trees):
+    """A list of C trees of one structure -> one tree with C-stacked
+    leaves."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    items = [stack_trees([t[i] for t in trees]) for i in range(len(first))]
+    return type(first)(*items) if hasattr(first, '_fields') else tuple(items)
+
+
+def _stack_lead(tree, c):
+    """Replicate every leaf over a leading axis of size c (the chains, or
+    a nested model's clusters)."""
+    return _tree_map(lambda a: a.expand((c,) + a.shape).contiguous(), tree)
+
+
+def _generators(key, device, chains):
+    """The fit's generators on `device`: one from `key`, or with `chains`
+    one a chain from the keys in `key` (an int64 tensor (C,) or a sequence
+    of int seeds or generators)."""
+    if not chains:
+        return [_as_generator(key, device)]
+    if isinstance(key, torch.Tensor):
+        key = key.reshape(-1).tolist()
+    if key is None or not len(key):
+        raise ValueError('chains=True needs a sequence of chain keys')
+    return [_as_generator(k, device) for k in key]
+
+
+def _over_chains(chains):
+    """torch.func.vmap over the chains' leading axis, or for one unbatched
+    fit the function itself: the engines' K-sized algebra is written once
+    and runs either way."""
+    if chains:
+        return vmap
+    return lambda fn, **_: fn
+
+
+def batch_generator(gens):
+    """The generator of the chains' batched draws (torch.func.vmap with
+    randomness='different' draws every chain's from one generator): seeded
+    from one draw of each chain's own generator, so the same keys give the
+    same chains. Reads the C draws to the host once."""
+    dev = gens[0].device
+    draws = torch.cat([torch.randint(0, 2 ** 62, (1,), generator=g,
+                                     dtype=torch.int64, device=dev)
+                       for g in gens]).tolist()
+    seed = 0
+    for v in draws:
+        seed = (seed * 1_000_003 + v) % (2 ** 63)
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 class BayesianMixture:
@@ -201,50 +294,78 @@ class BayesianMixture:
         Overridden by concrete models."""
         return None
 
+    def _fused_setup(self, data, key, chains, backend, spec):
+        """(data, x0, n, dtype, use_kernel, generators, spec) of a fused
+        engine: one generator from `key`, or with `chains` one a chain
+        from the keys in `key`, and then the chains' spec
+        (family_estep.chain_spec)."""
+        from mimo_tpu_torch.ops.family_estep import chain_spec
+        data = _as_tuple(data)
+        x0 = data[0]
+        return (data, x0, x0.shape[0], x0.dtype, resolve_backend(backend, x0),
+                _generators(key, x0.device, chains),
+                chain_spec(spec) if chains else spec)
+
+    def _random_start(self, data, gens, chains):
+        """The random-responsibility start of each chain, drawn and
+        reduced one chain at a time from its own generator (the (C, N, K)
+        responsibilities never exist)."""
+        x0 = data[0]
+        starts = [self._mf_update(data, _random_resp(
+            g, x0.shape[0], self.size, x0.dtype, x0.device)) for g in gens]
+        return stack_trees(starts) if chains else starts[0]
+
+    def _posterior(self, stats, counts):
+        return MFState(components=self.family.update(self.components_prior,
+                                                     stats),
+                       gating=self.gating_prior.update(counts))
+
     def fit_vi_fused(self, data, key=None, maxiter=250, tol=None,
                      block_size=131072, init_state=None, randomize=True,
-                     backend='auto'):
+                     backend='auto', chains=False):
         """Mean-field VI with the fused E-step (kernel B1 on CUDA, over
         the family's feature map): the N x K responsibilities never
         exist. The ELBO trace reports
         ELBO(state_t) exactly (lse identity). `tol` stops early once
         |dELBO| < tol. `key`: an int seed or a torch.Generator on the
         data's device. The kernel runs in float32; its statistics are cast
-        back to the data's dtype. Returns (MFState, vlb trace)."""
+        back to the data's dtype. Returns (MFState, vlb trace).
+
+        With `chains`, `key` holds C chain keys and the fit runs C chains
+        as one program (see the module docstring): a C-stacked
+        `init_state` and MFState, (C, maxiter) traces, each chain
+        stopping on its own `tol`; chain c equals the fit with key c."""
         spec = self._estep_spec()
         if spec is None:
             raise NotImplementedError('no fused E-step spec for this family')
-        data = _as_tuple(data)
-        x0 = data[0]
-        n, dtype = x0.shape[0], x0.dtype
-        use_kernel = resolve_backend(backend, x0)
+        data, x0, n, dtype, use_kernel, gens, spec = self._fused_setup(
+            data, key, chains, backend, spec)
+        over = _over_chains(chains)
         estep = self._fused_estep(spec, use_kernel, block_size)
-        gen = _as_generator(key, x0.device)
         if randomize or init_state is None:
-            state = self._mf_update(
-                data, _random_resp(gen, n, self.size, dtype, x0.device))
+            state = self._random_start(data, gens, chains)
         else:
             state = init_state
         xts = kernel_xts(data) if use_kernel else None
 
-        def step(state, _):
-            res = estep(state.components, state.gating.expected_log_pi(),
-                        data, xts, n, dtype)
-            vlb = (res.lse
-                   - torch.sum(self.family.kl(state.components,
-                                              self.components_prior))
-                   - torch.sum(state.gating.kl_divergence(self.gating_prior)))
-            new = MFState(
-                components=self.family.update(self.components_prior,
-                                              res.stats),
-                gating=self.gating_prior.update(res.counts))
-            return new, vlb
+        def kl(comp, gating):
+            return (torch.sum(self.family.kl(comp, self.components_prior)),
+                    torch.sum(gating.kl_divergence(self.gating_prior)))
 
-        return finite_report(_elbo_loop(step, state, maxiter, tol),
-                             'fit_vi_fused')
+        def step(state, _):
+            res = estep(state.components,
+                        over(lambda g: g.expected_log_pi())(state.gating),
+                        data, xts, n, dtype)
+            kl_comp, kl_gating = over(kl)(state.components, state.gating)
+            return (over(self._posterior)(res.stats, res.counts),
+                    res.lse - kl_comp - kl_gating)
+
+        return finite_report(
+            _elbo_loop(step, state, maxiter, tol,
+                       (len(gens),) if chains else ()), 'fit_vi_fused')
 
     def fit_gibbs_fused(self, data, key=None, maxiter=100, block_size=131072,
-                        backend='auto'):
+                        backend='auto', chains=False):
         """Blocked Gibbs with the fused label sweep (kernel B2 on CUDA):
         plug-in log-densities, Gumbel-max labels from Philox keyed by
         (sweep seed, point index), and one-hot statistics; the N x K
@@ -252,30 +373,46 @@ class BayesianMixture:
         generator and stay on the device. A family with a `gibbs_update`
         hook draws its posterior and params after the label sweep, from
         the statistics (the sweep then uses the previous params). Returns
-        the final GibbsState."""
+        the final GibbsState.
+
+        With `chains`, `key` holds C chain keys and the C chains run as
+        one program: each chain's per-sweep seeds come from its own
+        generator; the parameter and weight draws run under
+        torch.func.vmap with randomness='different' from one generator
+        seeded by the chains' (`batch_generator`), so the same keys give
+        the same chains but a chain does not repeat the single-chain fit
+        draw for draw. Returns the C-stacked GibbsState (labels (C, N))."""
         from mimo_tpu_torch.ops.cuda_gibbs import fused_gibbs_cuda
         from mimo_tpu_torch.ops.family_estep import fused_gibbs_blockwise
         spec = self._estep_spec()
         if spec is None or spec.theta_plugin is None:
             raise NotImplementedError('no fused Gibbs spec for this family')
-        data = _as_tuple(data)
-        x0 = data[0]
-        n, dtype, dev = x0.shape[0], x0.dtype, x0.device
-        use_kernel = resolve_backend(backend, x0)
-        gen = _as_generator(key, dev)
-        comp, gating = self.components_prior, self.gating_prior
-        params = self.family.mode_params(comp)
-        log_pi = torch.log(torch.full((self.size,), 1.0 / self.size,
+        data, x0, n, dtype, use_kernel, gens, spec = self._fused_setup(
+            data, key, chains, backend, spec)
+        dev = x0.device
+        over = _over_chains(chains)
+        fam, cp = self.family, self.components_prior
+        lead = (len(gens),) if chains else ()
+        comp, gating = cp, self.gating_prior
+        if chains:
+            comp, gating = _stack_lead(comp, lead[0]), _stack_lead(gating,
+                                                                   lead[0])
+        params = over(fam.mode_params)(comp)
+        log_pi = torch.log(torch.full(lead + (self.size,), 1.0 / self.size,
                                       dtype=dtype, device=dev))
-        labels = torch.zeros((n,), dtype=torch.int32, device=dev)
-        seeds = torch.randint(0, 2 ** 62, (maxiter,), generator=gen,
-                              dtype=torch.int64, device=dev)
+        labels = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
+        seeds = torch.stack([torch.randint(0, 2 ** 62, (maxiter,),
+                                           generator=g, dtype=torch.int64,
+                                           device=dev) for g in gens], -1)
+        seeds = seeds if chains else seeds[:, 0]
+        gen = batch_generator(gens) if chains else gens[0]
         xts = kernel_xts(data) if use_kernel else None
-        gibbs_update = self.family.gibbs_update
         for i in range(maxiter):
-            if gibbs_update is None:
-                params = self.family.sample_params(gen, comp)
-            log_pi = torch.log(torch.clamp(gating.sample(gen), min=1e-37))
+            if fam.gibbs_update is None:
+                params = over(lambda q: fam.sample_params(gen, q),
+                              randomness='different')(comp)
+            log_pi = over(lambda g: torch.log(torch.clamp(
+                g.sample(gen), min=1e-37)), randomness='different')(gating)
             if use_kernel:
                 labels, res = fused_gibbs_cuda(spec, seeds[i], params,
                                                log_pi, xts, n)
@@ -283,12 +420,12 @@ class BayesianMixture:
             else:
                 labels, res = fused_gibbs_blockwise(spec, seeds[i], params,
                                                     log_pi, data, block_size)
-            if gibbs_update is None:
-                comp = self.family.update(self.components_prior, res.stats)
+            if fam.gibbs_update is None:
+                comp = over(lambda s: fam.update(cp, s))(res.stats)
             else:
-                comp, params = gibbs_update(gen, self.components_prior,
-                                            res.stats)
-            gating = self.gating_prior.update(res.counts)
+                comp, params = over(lambda s: fam.gibbs_update(gen, cp, s),
+                                    randomness='different')(res.stats)
+            gating = over(self.gating_prior.update)(res.counts)
         return finite_report(
             GibbsState(components=comp, gating=gating, params=params,
                        log_pi=log_pi, labels=labels), 'fit_gibbs_fused')
@@ -363,65 +500,65 @@ class BayesianMixture:
         return spec
 
     def fit_em_fused(self, data, key=None, maxiter=250, block_size=131072,
-                     backend='auto'):
+                     backend='auto', chains=False):
         """fit_em through the fused E-step: each sweep is kernel B1 (on
         CUDA data) fed spec.theta_plugin(ml params), so the N x K
         responsibilities never exist in the sweeps; the anchor init still
         forms one (N, K) matrix and dense statistics once, and frees them
         before the first sweep. Returns (EMState(params, log_pi), loglik
-        trace)."""
+        trace). With `chains`, `key` holds C chain keys: the anchor inits
+        are formed and reduced one chain at a time and the sweeps run the
+        C chains as one program; C-stacked EMState, (C, maxiter) traces,
+        chain c equal to the fit with key c."""
         if self.family.ml_update is None:
             raise NotImplementedError(
                 'this family has no maximum-likelihood update; use '
                 'fit_map_fused')
-        spec = self._plugin_spec('fit_em')
-        data = _as_tuple(data)
-        x0 = data[0]
-        n, dtype = x0.shape[0], x0.dtype
-        use_kernel = resolve_backend(backend, x0)
+        data, x0, n, dtype, use_kernel, gens, spec = self._fused_setup(
+            data, key, chains, backend, self._plugin_spec('fit_em'))
+        over = _over_chains(chains)
         estep = self._fused_plugin_estep(spec, use_kernel, block_size)
         xts = kernel_xts(data) if use_kernel else None
-        resp = self._anchor_resp(x0, _as_generator(key, x0.device))
-        log_pi = self._ml_log_pi(torch.sum(resp, 0), n)
-        params = self.family.ml_update(self.family.suff_stats(data, resp))
-        del resp
+        starts = []
+        for g in gens:
+            resp = self._anchor_resp(x0, g)
+            starts.append((self.family.ml_update(
+                self.family.suff_stats(data, resp)),
+                self._ml_log_pi(torch.sum(resp, 0), n)))
+            del resp
+        params, log_pi = stack_trees(starts) if chains else starts[0]
         trace = []
         for _ in range(maxiter):
             res = estep(params, log_pi, data, xts, n, dtype)
-            params = self.family.ml_update(res.stats)
+            params = over(self.family.ml_update)(res.stats)
             log_pi = self._ml_log_pi(res.counts, n)
             trace.append(res.lse)
         return finite_report((EMState(params, log_pi), _stack(trace, x0)),
                              'fit_em_fused')
 
     def fit_map_fused(self, data, key=None, maxiter=250, block_size=131072,
-                      randomize=True, backend='auto'):
+                      randomize=True, backend='auto', chains=False):
         """fit_map through the fused E-step: each sweep is kernel B1 (on
         CUDA data) fed spec.theta_plugin(mode params) with the gating
         mode's log weights. Starts from random responsibilities
         (`randomize` is accepted and unused, as in the JAX package).
         Returns (MFState, loglik trace): the data log-likelihood at each
-        sweep's posterior mode."""
-        spec = self._plugin_spec('fit_map')
-        data = _as_tuple(data)
-        x0 = data[0]
-        n, dtype = x0.shape[0], x0.dtype
-        use_kernel = resolve_backend(backend, x0)
+        sweep's posterior mode. With `chains`, `key` holds C chain keys
+        and the C chains run as one program: C-stacked MFState,
+        (C, maxiter) traces, chain c equal to the fit with key c."""
+        data, x0, n, dtype, use_kernel, gens, spec = self._fused_setup(
+            data, key, chains, backend, self._plugin_spec('fit_map'))
+        over = _over_chains(chains)
         estep = self._fused_plugin_estep(spec, use_kernel, block_size)
         xts = kernel_xts(data) if use_kernel else None
-        gen = _as_generator(key, x0.device)
-        state = self._mf_update(
-            data, _random_resp(gen, n, self.size, dtype, x0.device))
+        state = self._random_start(data, gens, chains)
         trace = []
         for _ in range(maxiter):
-            params = self.family.mode_params(state.components)
-            log_pi = torch.log(torch.clamp(state.gating.mode(),
-                                           min=1e-37)).to(dtype)
+            params = over(self.family.mode_params)(state.components)
+            log_pi = over(lambda g: torch.log(torch.clamp(
+                g.mode(), min=1e-37)).to(dtype))(state.gating)
             res = estep(params, log_pi, data, xts, n, dtype)
-            state = MFState(
-                components=self.family.update(self.components_prior,
-                                              res.stats),
-                gating=self.gating_prior.update(res.counts))
+            state = over(self._posterior)(res.stats, res.counts)
             trace.append(res.lse)
         return finite_report((state, _stack(trace, x0)), 'fit_map_fused')
 
@@ -492,55 +629,91 @@ class BayesianMixture:
 
     # -- blocked Gibbs -------------------------------------------------------
 
-    def _gibbs_sweep(self, state: GibbsState, data, gen, point_weights=None):
-        """components | labels -> gating | labels -> labels | params.
-        Returns (GibbsState, the data log-likelihood under the sweep's
-        sampled params)."""
-        resp = one_hot(state.labels, self.size, dtype=data[0].dtype)
-        if point_weights is not None:
-            resp = resp * point_weights[:, None]
-        stats = self.family.suff_stats(data, resp)
+    def _gibbs_draw(self, gen, stats, counts):
+        """components | labels -> gating | labels: (component posterior,
+        gating posterior, sampled params, log of the sampled weights)."""
         if self.family.gibbs_update is not None:
             comp_post, params = self.family.gibbs_update(
                 gen, self.components_prior, stats)
         else:
             comp_post = self.family.update(self.components_prior, stats)
             params = self.family.sample_params(gen, comp_post)
-        gating_post = self.gating_prior.update(torch.sum(resp, 0))
+        gating_post = self.gating_prior.update(counts)
         log_pi = torch.log(torch.clamp(gating_post.sample(gen), min=1e-37))
-        log_p = self.log_complete_likelihood(params, log_pi, data)
+        return comp_post, gating_post, params, log_pi
+
+    def _gibbs_sweep(self, state: GibbsState, data, gen, point_weights=None):
+        """components | labels -> gating | labels -> labels | params.
+        Returns (GibbsState, the data log-likelihood under the sweep's
+        sampled params). For C chains (the state's leaves C-stacked,
+        labels (C, N)) the statistics of every chain come from one call
+        over the flat (N, C K) one-hot weights (a vmapped suff_stats would
+        run its products as a batched matmul), the draws run under
+        torch.func.vmap with randomness='different' from `gen`, and the
+        log-likelihoods are (C,)."""
+        chains = state.labels.dim() == 2
+        n, k = state.labels.shape[-1], self.size
+        resp = one_hot(state.labels.reshape(-1, n).T, k,
+                       dtype=data[0].dtype).reshape(n, -1)
+        if point_weights is not None:
+            resp = resp * point_weights[:, None]
+        stats, counts = self.family.suff_stats(data, resp), torch.sum(resp, 0)
+        if chains:
+            lead = (state.labels.shape[0], k)
+            stats = _tree_map(lambda a: a.reshape(lead + a.shape[1:]), stats)
+            counts = counts.reshape(lead)
+        over = _over_chains(chains)
+        comp_post, gating_post, params, log_pi = over(
+            lambda s, c: self._gibbs_draw(gen, s, c),
+            randomness='different')(stats, counts)
+        log_p = over(lambda pr, lp: self.log_complete_likelihood(
+            pr, lp, data))(params, log_pi)
         labels = sample_categorical_from_log(gen, log_p).to(torch.int32)
         new = GibbsState(components=comp_post, gating=gating_post,
                          params=params, log_pi=log_pi, labels=labels)
-        return new, torch.sum(torch.logsumexp(log_p, -1))
+        return new, torch.sum(torch.logsumexp(log_p, -1), -1)
+
+    def _gibbs_start(self, data, gen, init_labels):
+        """The dense Gibbs chain's start: the priors, their mode's params,
+        uniform weights, and labels drawn from a gating-prior sample
+        ('prior') or uniformly ('random')."""
+        x0 = data[0]
+        n, dtype, dev = x0.shape[0], x0.dtype, x0.device
+        if init_labels == 'random':
+            labels = torch.randint(0, self.size, (n,), generator=gen,
+                                   device=dev)
+        else:   # 'prior'
+            probs = torch.clamp(self.gating_prior.sample(gen), min=1e-37)
+            labels = torch.multinomial(probs, n, replacement=True,
+                                       generator=gen)
+        return GibbsState(
+            components=self.components_prior, gating=self.gating_prior,
+            params=self.family.mode_params(self.components_prior),
+            log_pi=torch.log(torch.full((self.size,), 1.0 / self.size,
+                                        dtype=dtype, device=dev)),
+            labels=labels.to(torch.int32))
 
     def fit_gibbs(self, data, key=None, maxiter=100, init_labels='prior',
-                  point_weights=None, init_state=None, track_loglik=False):
+                  point_weights=None, init_state=None, track_loglik=False,
+                  chains=False):
         """Dense blocked Gibbs sampling. Returns the final GibbsState, or
         (GibbsState, loglik trace) with track_loglik=True: the per-sweep
         data log-likelihood under the sampled params. `init_labels`:
         'prior' (labels drawn from a gating-prior sample) or 'random';
-        pass a previous GibbsState as `init_state` to continue a chain."""
+        pass a previous GibbsState as `init_state` to continue a chain.
+        With `chains`, `key` holds C chain keys: each chain starts from
+        its own generator and the sweeps run the C chains as one program
+        (the sweep smc_gibbs runs), their draws from `batch_generator`; a
+        C-stacked `init_state` and GibbsState, (C, maxiter) traces."""
         data = _as_tuple(data)
         x0 = data[0]
-        n, dtype, dev = x0.shape[0], x0.dtype, x0.device
-        gen = _as_generator(key, dev)
+        gens = _generators(key, x0.device, chains)
         if init_state is not None:
             state = init_state
         else:
-            if init_labels == 'random':
-                labels = torch.randint(0, self.size, (n,), generator=gen,
-                                       device=dev)
-            else:   # 'prior'
-                probs = torch.clamp(self.gating_prior.sample(gen), min=1e-37)
-                labels = torch.multinomial(probs, n, replacement=True,
-                                           generator=gen)
-            state = GibbsState(
-                components=self.components_prior, gating=self.gating_prior,
-                params=self.family.mode_params(self.components_prior),
-                log_pi=torch.log(torch.full((self.size,), 1.0 / self.size,
-                                            dtype=dtype, device=dev)),
-                labels=labels.to(torch.int32))
+            starts = [self._gibbs_start(data, g, init_labels) for g in gens]
+            state = stack_trees(starts) if chains else starts[0]
+        gen = batch_generator(gens) if chains else gens[0]
         trace = []
         for _ in range(maxiter):
             state, loglik = self._gibbs_sweep(state, data, gen,

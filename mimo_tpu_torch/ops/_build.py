@@ -37,9 +37,9 @@ _P, _I, _I64, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # name -> (restype, argtypes) of every C entry point
 _SIGNATURES = {
     'mimo_estep': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _I,
-                        _P]),
+                        _I, _P]),
     'mimo_gibbs': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _P,
-                        _P, _I, _P]),
+                        _P, _I, _I, _P]),
     'mimo_predict': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _I,
                           _P, _P]),
     'mimo_diag_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _P, _P, _P]),
@@ -113,8 +113,7 @@ def check_inputs(what, xt, n, theta, width, desc):
                          f'cannot hold the {width} features of the {desc}')
 
 
-def _refuse(what, theta, desc, smem_bytes, limit, name):
-    rows, m8 = theta.shape
+def _refuse(what, rows, m8, desc, smem_bytes, limit, name):
     raise NotImplementedError(
         f'{what}: coefficients of shape (K, m8) = ({rows}, {m8}) ({desc}) '
         f'stage {smem_bytes} bytes of shared memory, above the {limit} a '
@@ -136,17 +135,18 @@ def check_serving(what, xt, n, theta, width, desc, aux=None):
 
 
 def tc_grid(what, lib, grid_fn, smem_fn, xt, n, theta, desc):
-    """The persistent grid of B1 or B2 (`grid_fn`, the kernel's
-    `mimo_*_grid`; `smem_fn` its `mimo_*_smem_bytes`) at this shape. The
-    kernel picks its layout; a shape none fits (grid 0) raises
+    """The persistent grid along x of B1 or B2 (`grid_fn`, the kernel's
+    `mimo_*_grid`; `smem_fn` its `mimo_*_smem_bytes`) at this shape:
+    theta (K, m8), or (C, K, m8) for C chains, each of which gets this
+    grid. The kernel picks its layout; a shape none fits (grid 0) raises
     NotImplementedError."""
-    k, m8 = theta.shape
+    k, m8 = theta.shape[-2:]
     rows = xt.shape[0]
     with torch.cuda.device(xt.device):
         grid = grid_fn(k, m8, rows, n)
         if grid == 0:
             props = torch.cuda.get_device_properties(xt.device)
-            _refuse(what, theta, desc, smem_fn(k, m8, rows),
+            _refuse(what, k, m8, desc, smem_fn(k, m8, rows),
                     props.shared_memory_per_block_optin, props.name)
     if grid < 0:
         lib.check(-grid, what)

@@ -13,6 +13,12 @@ shape (d + p, N); `kind` names the feature map (GAUSS, DIAG, and
 ILR / ILR_LINEAR: the ILR map with and without the experts' ones column)
 and `p` the number of y rows. What bounds B1 on the H100, and what the
 kernel does about it: see the note at the top of csrc/estep.cuh.
+
+Chains: theta of shape (C, K, m8) runs C independent E-steps over the
+same points in one launch (the counterpart of jax.vmap over the Pallas
+kernel, which prepends a chain axis to its grid) and returns acc
+(C, K, m8) and lse (C,); chain c is bitwise a one-chain launch at
+theta[c].
 """
 
 import torch
@@ -99,17 +105,36 @@ def stack_rows(xts):
 
 def pad_theta(theta, log_pi, dtype):
     """Fold log_pi into the constant column and zero-pad the feature axis
-    to a multiple of 8. Returns (theta (K, m8) contiguous, m)."""
-    k, m = theta.shape
+    to a multiple of 8: theta (..., K, m), log_pi (..., K), the leading
+    axis that of the chains where there is one. Returns (theta (..., K,
+    m8) contiguous, m)."""
+    m = theta.shape[-1]
     m8 = -(-m // 8) * 8
-    theta = torch.cat([theta[:, :1] + log_pi[:, None], theta[:, 1:],
-                       theta.new_zeros((k, m8 - m))], -1)
+    theta = torch.cat([theta[..., :1] + log_pi[..., None], theta[..., 1:],
+                       theta.new_zeros(theta.shape[:-1] + (m8 - m,))], -1)
     return theta.to(dtype).contiguous(), m
+
+
+def check_theta(what, xt, n, theta, width, desc):
+    """_build.check_inputs for B1 / B2's coefficients, (K, m8) or the C
+    chains' (C, K, m8), which the kernels read as C K contiguous rows."""
+    if theta.dim() not in (2, 3):
+        raise ValueError(f'{what}: theta must be (K, m8) or (C, K, m8)')
+    if theta.dim() == 3 and not 1 <= theta.shape[0] <= 65535:
+        raise ValueError(f'{what}: {theta.shape[0]} chains, outside '
+                         '[1, 65535]')
+    _build.check_inputs(what, xt, n,
+                        theta.flatten(0, -2) if theta.is_contiguous()
+                        else theta, width, desc)
 
 
 def estep_plain(xt, theta, n, kind=GAUSS, p=0):
     """Plain PyTorch version of B1: xt (d + p, >=n), theta (K, m8) ->
-    (acc (K, m8), lse ()), in xt's dtype."""
+    (acc (K, m8), lse ()), in xt's dtype; theta (C, K, m8) -> the C
+    chains' (acc (C, K, m8), lse (C,)), one chain at a time."""
+    if theta.dim() == 3:
+        accs, lses = zip(*(estep_plain(xt, th, n, kind, p) for th in theta))
+        return torch.stack(accs), torch.stack(lses)
     k, m8 = theta.shape
     acc = torch.zeros((k, m8), dtype=theta.dtype, device=theta.device)
     lse = torch.zeros((), dtype=theta.dtype, device=theta.device)
@@ -126,39 +151,44 @@ def estep_plain(xt, theta, n, kind=GAUSS, p=0):
 
 def estep(xt, theta, n, kind=GAUSS, p=0):
     """B1 over points 0..n-1 of xt (d + p, >=n), x rows then p y rows;
-    theta (K, m8) with c + log pi in column 0. Launches the kernel for
-    CUDA tensors (float32 only; it raises on anything it does not take)
-    and runs `estep_plain` for CPU tensors. Returns (acc (K, m8), lse ())."""
+    theta (K, m8) with c + log pi in column 0, or the C chains' (C, K, m8).
+    Launches the kernel for CUDA tensors (float32 only; it raises on
+    anything it does not take) and runs `estep_plain` for CPU tensors.
+    Returns (acc (K, m8), lse ()), or (acc (C, K, m8), lse (C,))."""
     if not xt.is_cuda:
         return estep_plain(xt, theta, n, kind, p)
     lib = _build.load()
-    k, m8 = theta.shape
+    k, m8 = theta.shape[-2:]
+    chains = theta.shape[0] if theta.dim() == 3 else 1
     d = xt.shape[0] - p
     desc = f'{KIND_NAMES[kind]} map, d={d}, p={p}'
-    _build.check_inputs('cuda_estep', xt, n, theta, feature_width(kind, d, p),
-                        desc)
+    check_theta('cuda_estep', xt, n, theta, feature_width(kind, d, p), desc)
     grid = _build.tc_grid('cuda_estep', lib, lib.mimo_estep_grid,
                           lib.mimo_estep_smem_bytes, xt, n, theta, desc)
-    part = torch.empty((grid, k * m8 + 1), dtype=torch.float32,
+    part = torch.empty((chains, grid, k * m8 + 1), dtype=torch.float32,
                        device=xt.device)
-    out = torch.empty((k * m8 + 1,), dtype=torch.float32, device=xt.device)
+    out = torch.empty((chains, k * m8 + 1), dtype=torch.float32,
+                      device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_estep(xt.data_ptr(), xt.stride(0), d, p, kind, n,
                             theta.data_ptr(), k, m8, part.data_ptr(),
-                            out.data_ptr(), grid,
+                            out.data_ptr(), grid, chains,
                             torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_estep')
     launches[KIND_NAMES[kind]] += 1
-    return out[:-1].view(k, m8), out[-1]
+    acc, lse = out[:, :-1].view(chains, k, m8), out[:, -1]
+    return (acc, lse) if theta.dim() == 3 else (acc[0], lse[0])
 
 
 def fused_estep_cuda(spec, post, log_pi, xts, n):
     """Spec-driven fused E-step through B1, the counterpart of
     mimo_tpu's fused_estep_pallas. xts: the per-input (d_i, N) transposed
-    data (see models.mixture.kernel_xts); n: the number of points."""
+    data (see models.mixture.kernel_xts); n: the number of points. With a
+    chain spec (family_estep.chain_spec) over C-stacked posteriors and
+    log_pi (C, K), one launch serves every chain."""
     kind = feature_kind(spec.features_t)
     p = y_rows(kind, xts)
     theta, m = pad_theta(spec.theta(post), log_pi, xts[0].dtype)
     acc, lse = estep(stack_rows(xts), theta, n, kind, p)
-    return FusedEStep(stats=spec.unpack(acc[:, :m]), lse=lse,
-                      counts=acc[:, 0])
+    return FusedEStep(stats=spec.unpack(acc[..., :m]), lse=lse,
+                      counts=acc[..., 0])

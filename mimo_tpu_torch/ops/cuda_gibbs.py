@@ -10,13 +10,18 @@ except at near-ties that the f32 summation order decides.
 
 What bounds it on the H100, and what the kernel does about it: see the
 note at the top of csrc/gibbs.cuh.
+
+Chains: theta (C, K, m8) with seeds (C,) runs C label sweeps over the same
+points in one launch and returns labels (C, N) and acc (C, K, m8); chain c
+draws Philox keyed by (seed[c], point index) on the one-chain grid, so
+its labels and statistics are bitwise a one-chain launch at seed[c].
 """
 
 import torch
 
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import (
-    _CHUNK, GAUSS, KIND_NAMES, assemble_features, feature_kind,
+    _CHUNK, GAUSS, KIND_NAMES, assemble_features, check_theta, feature_kind,
     feature_width, pad_theta, stack_rows, y_rows)
 from mimo_tpu_torch.ops.family_estep import FusedEStep
 from mimo_tpu_torch.ops.philox import gumbel_max_labels
@@ -28,7 +33,12 @@ launches = {'gauss': 0, 'ilr': 0, 'diag': 0}
 def gibbs_plain(xt, theta, seed, n, kind=GAUSS, p=0):
     """Plain PyTorch version of B2: xt (d + p, >=n), theta (K, m8) with
     log pi in column 0, seed a 0-d int64 tensor -> (labels (n,) int32,
-    acc (K, m8))."""
+    acc (K, m8)); theta (C, K, m8) with seeds (C,) -> the C chains'
+    (labels (C, n), acc (C, K, m8)), one chain at a time."""
+    if theta.dim() == 3:
+        labs, accs = zip(*(gibbs_plain(xt, th, sd, n, kind, p)
+                           for th, sd in zip(theta, seed.reshape(-1))))
+        return torch.stack(labs), torch.stack(accs)
     k, m8 = theta.shape
     acc = torch.zeros((k, m8), dtype=theta.dtype, device=theta.device)
     labels = torch.empty((n,), dtype=torch.int32, device=theta.device)
@@ -42,37 +52,40 @@ def gibbs_plain(xt, theta, seed, n, kind=GAUSS, p=0):
 
 
 def gibbs(xt, theta, seed, n, kind=GAUSS, p=0):
-    """B2 over points 0..n-1 of xt (d + p, >=n), x rows then p y rows.
-    Launches the kernel for CUDA tensors (float32 data, an int64 seed on
-    the same device; it raises on anything else) and runs `gibbs_plain`
-    for CPU tensors. Returns (labels (n,) int32, acc (K, m8))."""
+    """B2 over points 0..n-1 of xt (d + p, >=n), x rows then p y rows:
+    theta (K, m8) with one seed, or the C chains' theta (C, K, m8) with
+    seeds (C,). Launches the kernel for CUDA tensors (float32 data, int64
+    seeds on the same device; it raises on anything else) and runs
+    `gibbs_plain` for CPU tensors. Returns (labels (n,) int32, acc
+    (K, m8)), or (labels (C, n), acc (C, K, m8))."""
     if not xt.is_cuda:
         return gibbs_plain(xt, theta, seed, n, kind, p)
     lib = _build.load()
-    k, m8 = theta.shape
+    k, m8 = theta.shape[-2:]
+    chains = theta.shape[0] if theta.dim() == 3 else 1
     d = xt.shape[0] - p
     desc = f'{KIND_NAMES[kind]} map, d={d}, p={p}'
-    _build.check_inputs('cuda_gibbs', xt, n, theta, feature_width(kind, d, p),
-                        desc)
+    check_theta('cuda_gibbs', xt, n, theta, feature_width(kind, d, p), desc)
     grid = _build.tc_grid('cuda_gibbs', lib, lib.mimo_gibbs_grid,
                           lib.mimo_gibbs_smem_bytes, xt, n, theta, desc)
-    if (seed.dtype != torch.int64 or seed.numel() != 1
+    if (seed.dtype != torch.int64 or seed.numel() != chains
             or seed.device != xt.device):
-        raise ValueError('cuda_gibbs: seed must be one int64 on the '
-                         "data's device")
+        raise ValueError(f'cuda_gibbs: seeds must be {chains} int64 on the '
+                         "data's device, one a chain")
     seed = seed.contiguous()
-    labels = torch.empty((n,), dtype=torch.int32, device=xt.device)
-    part = torch.empty((grid, k * m8), dtype=torch.float32, device=xt.device)
-    acc = torch.empty((k, m8), dtype=torch.float32, device=xt.device)
+    labels = torch.empty((chains, n), dtype=torch.int32, device=xt.device)
+    part = torch.empty((chains, grid, k * m8), dtype=torch.float32,
+                       device=xt.device)
+    acc = torch.empty((chains, k, m8), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_gibbs(xt.data_ptr(), xt.stride(0), d, p, kind, n,
                             theta.data_ptr(), k, m8, seed.data_ptr(),
                             labels.data_ptr(), part.data_ptr(),
-                            acc.data_ptr(), grid,
+                            acc.data_ptr(), grid, chains,
                             torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_gibbs')
     launches[KIND_NAMES[kind]] += 1
-    return labels, acc
+    return (labels, acc) if theta.dim() == 3 else (labels[0], acc[0])
 
 
 def gumbel_fast_error(device):
@@ -95,10 +108,13 @@ def gumbel_fast_error(device):
 def fused_gibbs_cuda(spec, seed, params, log_pi, xts, n):
     """Spec-driven fused Gibbs label sweep through B2, the counterpart of
     mimo_tpu's fused_gibbs_pallas. Returns (labels (n,) int32,
-    FusedEStep with one-hot stats and lse = 0)."""
+    FusedEStep with one-hot stats and lse = 0). With a chain spec
+    (family_estep.chain_spec) over C-stacked params, log_pi (C, K) and
+    seeds (C,), one launch serves every chain: labels (C, n)."""
     kind = feature_kind(spec.features_t)
     p = y_rows(kind, xts)
     theta, m = pad_theta(spec.theta_plugin(params), log_pi, xts[0].dtype)
     labels, acc = gibbs(stack_rows(xts), theta, seed, n, kind, p)
-    return labels, FusedEStep(stats=spec.unpack(acc[:, :m]),
-                              lse=acc.new_zeros(()), counts=acc[:, 0])
+    return labels, FusedEStep(stats=spec.unpack(acc[..., :m]),
+                              lse=acc.new_zeros(acc.shape[:-2]),
+                              counts=acc[..., 0])

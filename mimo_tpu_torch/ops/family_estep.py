@@ -22,6 +22,7 @@ over the transposed (d, N) layout.
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.func import vmap
 
 from mimo_tpu_torch.distributions import affine as _aff
 from mimo_tpu_torch.distributions import mnw as _mnw
@@ -402,6 +403,34 @@ def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
                         (gauss_width(input_dim), linear_width(output_dim, q)))
 
 
+# -- chains ---------------------------------------------------------------------
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    items = [_map_leaves(fn, t) for t in tree]
+    return type(tree)(*items) if hasattr(tree, '_fields') else tuple(items)
+
+
+def chain_spec(spec: EStepSpec) -> EStepSpec:
+    """The spec over C chains: theta and theta_plugin map C-stacked
+    posteriors or params to (C, K, m) under torch.func.vmap, and unpack
+    maps a (C, K, m) accumulator to C-stacked statistics (one unpack of
+    the flat (C K, m) rows). The features are the same: the chains share
+    the data, so the fused sweeps below and kernels B1/B2 take every
+    chain's theta over one feature map."""
+    def unpack(acc):
+        lead = acc.shape[:-1]
+        return _map_leaves(lambda a: a.reshape(lead + a.shape[1:]),
+                           spec.unpack(acc.reshape(-1, acc.shape[-1])))
+
+    return spec._replace(
+        theta=vmap(spec.theta),
+        theta_plugin=(None if spec.theta_plugin is None
+                      else vmap(spec.theta_plugin)),
+        unpack=unpack)
+
+
 # -- the fused sweeps ----------------------------------------------------------
 
 def fused_estep_dense(spec: EStepSpec, post, log_pi, data) -> FusedEStep:
@@ -419,20 +448,24 @@ def fused_estep_dense(spec: EStepSpec, post, log_pi, data) -> FusedEStep:
 def fused_estep_blockwise(spec: EStepSpec, post, log_pi, data,
                           block_size=131072) -> FusedEStep:
     """Streamed fused E-step with O(B (K + m)) live memory; any N (the
-    last block may be short)."""
+    last block may be short). With a chain spec (`chain_spec`) over
+    C-stacked posteriors and log_pi (C, K), every block serves all C
+    chains: stats C-stacked, lse and counts (C,) and (C, K)."""
     theta = spec.theta(post)
     n = data[0].shape[0]
     acc = torch.zeros(theta.shape, dtype=data[0].dtype, device=data[0].device)
-    lse = torch.zeros((), dtype=data[0].dtype, device=data[0].device)
+    lse = torch.zeros(theta.shape[:-2], dtype=data[0].dtype,
+                      device=data[0].device)
+    theta_t = theta.transpose(-1, -2)
     for s in range(0, n, block_size):
         feats = spec.features(tuple(a[s:s + block_size] for a in data))
-        logp = feats @ theta.T + log_pi[None, :]
+        logp = feats @ theta_t + log_pi[..., None, :]
         m = torch.max(logp, -1).values
-        ex = torch.exp(logp - m[:, None])
+        ex = torch.exp(logp - m[..., None])
         denom = torch.sum(ex, -1)
-        acc = acc + ex.T @ (feats / denom[:, None])
-        lse = lse + torch.sum(m + torch.log(denom))
-    return FusedEStep(stats=spec.unpack(acc), lse=lse, counts=acc[:, 0])
+        acc = acc + ex.transpose(-1, -2) @ (feats / denom[..., None])
+        lse = lse + torch.sum(m + torch.log(denom), -1)
+    return FusedEStep(stats=spec.unpack(acc), lse=lse, counts=acc[..., 0])
 
 
 def fused_gibbs_blockwise(spec: EStepSpec, seed, params, log_pi, data,
@@ -441,21 +474,27 @@ def fused_gibbs_blockwise(spec: EStepSpec, seed, params, log_pi, data,
     matmul over the feature map) -> Gumbel-max labels from Philox keyed
     by (seed, global point index) -> one-hot statistics (one matmul).
     `seed` is a 0-d int64 tensor. Returns (labels (N,) int32, FusedEStep
-    with lse = 0); the labels do not depend on block_size."""
+    with lse = 0); the labels do not depend on block_size. With a chain
+    spec over C-stacked params, log_pi (C, K) and seeds (C,), chain c
+    draws with seed[c]: labels (C, N)."""
     theta = spec.theta_plugin(params)
-    k = theta.shape[0]
+    k = theta.shape[-2]
     n = data[0].shape[0]
     acc = torch.zeros(theta.shape, dtype=data[0].dtype, device=data[0].device)
+    theta_t = theta.transpose(-1, -2)
     labels = []
     for s in range(0, n, block_size):
         feats = spec.features(tuple(a[s:s + block_size] for a in data))
-        lab = gumbel_max_labels(feats @ theta.T + log_pi[None, :], seed, s)
+        lab = gumbel_max_labels(feats @ theta_t + log_pi[..., None, :], seed,
+                                s)
         oh = torch.nn.functional.one_hot(lab.long(), k).to(feats.dtype)
-        acc = acc + oh.T @ feats
+        acc = acc + oh.transpose(-1, -2) @ feats
         labels.append(lab)
-    labels = (torch.cat(labels) if labels else
-              torch.zeros((0,), dtype=torch.int32, device=data[0].device))
+    labels = (torch.cat(labels, -1) if labels else
+              torch.zeros(theta.shape[:-2] + (0,), dtype=torch.int32,
+                          device=data[0].device))
     return labels, FusedEStep(
         stats=spec.unpack(acc),
-        lse=torch.zeros((), dtype=data[0].dtype, device=data[0].device),
-        counts=acc[:, 0])
+        lse=torch.zeros(theta.shape[:-2], dtype=data[0].dtype,
+                        device=data[0].device),
+        counts=acc[..., 0])

@@ -57,7 +57,11 @@ def uniforms(seed, start, b, k, dtype):
 def gumbel_max_labels(logp, seed, start):
     """First-occurrence argmax over K of logp + Gumbel noise
     g = -log(-log(u + 1e-20) + 1e-20), for the (B, K) block of points
-    start..start+B-1. Returns int32 labels (B,)."""
+    start..start+B-1. Returns int32 labels (B,). For C chains, logp
+    (C, B, K) and seeds (C,): chain c draws with seed[c], labels (C, B)."""
+    if logp.dim() == 3:
+        return torch.stack([gumbel_max_labels(lp, sd, start)
+                            for lp, sd in zip(logp, seed.reshape(-1))])
     b, k = logp.shape
     u = uniforms(seed, start, b, k, logp.dtype)
     g = -torch.log(-torch.log(u + 1e-20) + 1e-20)

@@ -1,0 +1,127 @@
+"""Chain / restart parallelism: many independent inference runs as one
+batched program (port of mimo_tpu/parallel/chains.py without its mesh
+sharding, which arrives with ROADMAP A21).
+
+The JAX package vmaps a whole fit over a batch of PRNG keys; every
+`pallas_call` inside then takes a chain grid axis. Here the same is
+written out:
+
+  * `fit_chains`  — C restarts of one engine, stacked on a leading chain
+                    axis. The fused engines (`fit_vi_fused`,
+                    `fit_gibbs_fused`, `fit_map_fused`, `fit_em_fused`)
+                    and the dense `fit_gibbs` run batched (their
+                    `chains=True` in models.mixture: the K-sized algebra
+                    under torch.func.vmap, kernel B1 or B2 launched once a
+                    sweep for all chains); the other dense engines (`fit_vi`,
+                    `fit_map`, `fit_em`, `fit_svi`) run chain by chain.
+  * `best_of`     — the chain with the best final ELBO.
+  * `smc_gibbs`   — Gibbs chains interleaved with systematic resampling of
+                    chain states by data log-likelihood.
+"""
+
+import torch
+
+from mimo_tpu_torch.models.mixture import (
+    BayesianMixture, _as_generator, _as_tuple, _tree_map, _tree_map2,
+    stack_trees)
+
+# engines that run C chains as one batched program (their chains=True)
+BATCHED = ('fit_vi_fused', 'fit_gibbs_fused', 'fit_map_fused',
+           'fit_em_fused', 'fit_gibbs')
+# engines that run chain by chain
+SERIAL = ('fit_vi', 'fit_map', 'fit_em', 'fit_svi')
+
+
+def _flat_only(model, what):
+    if not isinstance(model, BayesianMixture):
+        raise NotImplementedError(
+            f'{what} drives flat BayesianMixture models (GMM/ILR); chains '
+            'of nested mixtures are ROADMAP A20b')
+
+
+def fit_chains(model, fit_name, data, keys, **kw):
+    """Run `model.<fit_name>` once per key and return its results stacked
+    on a leading chain axis. `keys`: an int64 tensor (C,) or a sequence of
+    int seeds or torch.Generators. The engines in BATCHED run as one
+    program (one kernel launch a sweep for all chains on CUDA data); the
+    ones in SERIAL run chain by chain. Nested models raise
+    NotImplementedError. JAX's cache of traced programs has no
+    counterpart: nothing is traced."""
+    _flat_only(model, 'fit_chains')
+    data = _as_tuple(data)
+    if fit_name in BATCHED:
+        return getattr(model, fit_name)(data, key=keys, chains=True, **kw)
+    if fit_name not in SERIAL:
+        raise ValueError(f'unknown engine {fit_name!r}; one of '
+                         f'{list(BATCHED + SERIAL)}')
+    if isinstance(keys, torch.Tensor):
+        keys = keys.reshape(-1).tolist()
+    return stack_trees([getattr(model, fit_name)(data, key=k, **kw)
+                        for k in keys])
+
+
+def best_of(states, vlb_traces):
+    """The chain with the highest final ELBO: (its state, its index)."""
+    best = torch.argmax(vlb_traces[:, -1])
+    return _tree_map(lambda a: a[best], states), best
+
+
+def systematic_indices(u, log_w):
+    """The chains systematic resampling keeps, for one uniform u in
+    [0, 1) and log-weights (C,): chain searchsorted(cumsum(w), (u + i) /
+    C) for slot i, clipped to [0, C - 1]."""
+    c = log_w.shape[0]
+    w = torch.softmax(log_w, 0)
+    positions = (u + torch.arange(c, dtype=log_w.dtype,
+                                  device=log_w.device)) / c
+    idx = torch.searchsorted(torch.cumsum(w, 0), positions)
+    return torch.clamp(idx, 0, c - 1)
+
+
+def systematic_resample(key, log_w, tree):
+    """Systematic resampling of a chain-stacked tree by log-weights (C,),
+    the uniform drawn from `key` (an int seed or a torch.Generator).
+    Returns (the resampled tree, the indices)."""
+    gen = _as_generator(key, log_w.device)
+    u = torch.rand((), generator=gen, dtype=log_w.dtype, device=log_w.device)
+    idx = systematic_indices(u, log_w)
+    return _tree_map(lambda a: a[idx], tree), idx
+
+
+def smc_gibbs(model, data, key, n_chains=8, n_rounds=10,
+              sweeps_per_round=10, ess_threshold=0.5):
+    """Population Gibbs with systematic chain resampling.
+
+    Each round runs `sweeps_per_round` blocked-Gibbs sweeps of every chain
+    (batched: the dense sweep under torch.func.vmap), scores chains by the
+    data log-likelihood of their last sweep, and resamples chains when
+    the effective sample size drops below `ess_threshold * n_chains`.
+    Returns the final stacked GibbsStates and the per-round mean
+    log-likelihoods (n_rounds,)."""
+    _flat_only(model, 'smc_gibbs')
+    data = _as_tuple(data)
+    # standardize ONCE here: the sweeps and the scoring below call the
+    # base-class engine and _gibbs_sweep on the data as given, so
+    # going through the ILR wrappers (which transform internally) for the
+    # init only would mix two data scales in one chain
+    if hasattr(model, '_tx') and len(data) == 2:
+        data = (model._tx(data[0]), model._ty(data[1]))
+    dev = data[0].device
+    gen = _as_generator(key, dev)
+    keys = torch.randint(0, 2 ** 62, (n_chains,), generator=gen,
+                         dtype=torch.int64, device=dev)
+    # base-class engine: data is already transformed
+    states = BayesianMixture.fit_gibbs(model, data, key=keys, maxiter=1,
+                                       chains=True)
+    logliks = []
+    for _ in range(n_rounds):
+        for _ in range(sweeps_per_round):
+            states, log_w = model._gibbs_sweep(states, data, gen)
+        w = torch.softmax(log_w, 0)
+        ess = 1.0 / torch.sum(w * w)
+        resampled, _ = systematic_resample(gen, log_w, states)
+        states = _tree_map2(
+            lambda a, b: torch.where(ess < ess_threshold * n_chains, a, b),
+            resampled, states)
+        logliks.append(torch.mean(log_w))
+    return states, torch.stack(logliks)

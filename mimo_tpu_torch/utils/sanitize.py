@@ -41,7 +41,8 @@ def _bad_leaves(tree, path=''):
 def finite_report(result, engine):
     """Check a fit engine's return value (state or (state, trace)) for
     non-finite values when MIMO_TPU_CHECK_FINITE is set. Reports the first
-    bad sweep index of the trace and every non-finite state leaf."""
+    bad sweep index of the trace (of each chain, for the chains' (C,
+    maxiter) traces) and every non-finite state leaf."""
     mode = check_mode()
     if mode is None:
         return result
@@ -50,7 +51,15 @@ def finite_report(result, engine):
                     and not hasattr(result, '_fields')
                     else (result, None))
     msgs = []
-    if trace is not None:
+    if trace is not None and trace.dim() == 2:      # (chains, sweeps)
+        finite = torch.isfinite(trace)
+        bad = [(c, int(torch.argmin(row.to(torch.int8))))
+               for c, row in enumerate(finite) if not bool(row.all())]
+        if bad:
+            msgs.append('trace non-finite in ' + ', '.join(
+                f'chain {c} from sweep {s}' for c, s in bad)
+                + f' ({int((~finite).sum())}/{finite.numel()} entries)')
+    elif trace is not None:
         finite = torch.isfinite(trace.reshape(-1))
         if not bool(finite.all()):
             first = int(torch.argmin(finite.to(torch.int8)))

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's cells on one CUDA card.
 
-    python3 profile_port.py [--units U]
-                            [--engines-only | --nested-only | --nested-probes]
+    python3 profile_port.py [--units U] [--engines-only | --nested-only
+                                         | --nested-probes | --chains]
 
 For each cell it fits the model at the size `chip_smoke.py` drives,
 warms up, then measures one unit of work (a warm-started VI sweep, a
@@ -18,7 +18,8 @@ wall: how far the host holds the card back. Prints one line per cell
 and engine, with the card's name and power limit first.
 
 `--nested-probes` runs the measurements behind the nested model's design
-instead (see `nested_probes`).
+instead (see `nested_probes`); `--chains` the chains of `chip_smoke.py`
+phase 19 (see `chain_cells`).
 """
 
 import argparse
@@ -35,7 +36,8 @@ from mimo_tpu_torch.distributions.niw import GaussParams
 from mimo_tpu_torch.models import (
     BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState
-from mimo_tpu_torch.models.mixture import MFState
+from mimo_tpu_torch.models.mixture import MFState, _tree_map as tree_map
+from mimo_tpu_torch.parallel import fit_chains
 
 from chip_smoke import N_NEST, N_NEST_ILR_FIT, N_NEST_MAP, nested_blobs
 
@@ -271,6 +273,46 @@ def nested_probes(card, dev):
     torch.cuda.empty_cache()
 
 
+def chain_cells(card, dev, x, u):
+    """The chains of chip_smoke.py phase 19 (fit_chains: one launch of B1
+    or B2 a sweep for all C chains): a warm-started VI sweep of one fit
+    against a VI sweep of C chains at bench.py:421-439's cell (the first
+    1e5 points, K=16, C=16) and at the main cell (N=1e7, K=50, C=8), and a
+    Gibbs sweep of one fit against C=8 chains at the main cell. Each cell
+    also runs one chain through fit_chains: the same engine code as the
+    one fit, its K-sized algebra under torch.func.vmap at C=1, so the two
+    rows price vmap's host cost."""
+    for n, k, c in ((100_000, 16, 16), (N_GMM, K, 8)):
+        xs = x[:n]
+        m = BayesianGMM.make(size=k, dim=2, gating='dp', kappa=0.05,
+                             psi_scale=0.5, device=dev)
+        keys = list(range(1, c + 1))
+        st1, _ = m.fit_vi_fused(xs, key=1, maxiter=20)
+        stc, _ = fit_chains(m, 'fit_vi_fused', xs, keys, maxiter=20)
+        cell = f'DP-GMM N={n} K={k}'
+        report(card, cell, 'VI sweep, one fit',
+               lambda: m.fit_vi_fused(xs, maxiter=u, init_state=st1,
+                                      randomize=False), u, 'estep_tc')
+        st1c = tree_map(lambda a: a[None], st1)
+        report(card, cell, 'VI sweep of 1 chain (vmap at C=1)',
+               lambda: fit_chains(m, 'fit_vi_fused', xs, [1], maxiter=u,
+                                  init_state=st1c, randomize=False), u,
+               'estep_tc')
+        report(card, cell, f'VI sweep of {c} chains',
+               lambda: fit_chains(m, 'fit_vi_fused', xs, keys, maxiter=u,
+                                  init_state=stc, randomize=False), u,
+               'estep_tc')
+        if n == N_GMM:
+            report(card, cell, 'Gibbs sweep, one fit',
+                   lambda: m.fit_gibbs_fused(xs, key=2, maxiter=u), u,
+                   'gibbs_tc')
+            report(card, cell, f'Gibbs sweep of {c} chains',
+                   lambda: fit_chains(m, 'fit_gibbs_fused', xs, keys,
+                                      maxiter=u), u, 'gibbs_tc')
+        del m, st1, st1c, stc
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--units', type=int, default=5)
@@ -282,6 +324,8 @@ def main():
     only.add_argument('--nested-probes', action='store_true',
                       help="the measurements behind the nested model's "
                            "design (see nested_probes)")
+    only.add_argument('--chains', action='store_true',
+                      help="only the chains of chip_smoke.py phase 19")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_port: needs a CUDA device')
@@ -304,6 +348,9 @@ def main():
     mu = torch.randn((3, 2), generator=kg, device=dev) * 4.0
     lm = torch.eye(2, device=dev).expand(3, 2, 2) * 2.0
     x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3], N_GMM)
+    if args.chains:
+        chain_cells(card, dev, x, u)
+        return
     engine_cells(card, dev, x, u)
     if args.engines_only:
         return

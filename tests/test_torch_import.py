@@ -73,6 +73,20 @@ def test_import_covers_the_tied_and_hierarchical_slice():
     assert {'mimo_regf', 'mimo_estep_count'} <= set(_build._SIGNATURES)
 
 
+def test_import_covers_the_chains_slice():
+    """The chains, their diagnostics and the two-sample check are among
+    the modules the no-jax check imports, and the package exports JAX's
+    names."""
+    for mod in ('parallel', 'parallel.chains', 'parallel.diagnostics',
+                'ops.precision'):
+        assert f'mimo_tpu_torch.{mod}' in PORT_MODULES
+    import mimo_tpu_torch.parallel as par
+    for name in ('fit_chains', 'best_of', 'systematic_resample',
+                 'smc_gibbs', 'split_rhat', 'ess', 'rank_normalize',
+                 'diagnostics'):
+        assert callable(getattr(par, name))
+
+
 @pytest.mark.parametrize('entry', ['gmm', 'ilr', 'mixture_config',
                                    'ilr_config'])
 def test_entry_points_build_on_the_card_by_default(entry):

@@ -1,9 +1,10 @@
 """The CUDA kernels (B1-B3, B1/B2 over the ILR map, B1-B3 over the
 diagonal map, B4, B5 and B6 with MNW and MNG experts, B3 on HierTied
 rows, B5/B6 with tied-affine experts and a HierTied basis, the B1 probes
-S1 and S2, S3, and the nested mixtures' paths through B1/B2/B3 at M*K
-rows and B5/B6 over flattened experts) against their plain PyTorch
-versions, on the card.
+S1 and S2, S3, the nested mixtures' paths through B1/B2/B3 at M*K
+rows and B5/B6 over flattened experts, and B1/B2 with a chain axis and
+the chained fused engines) against their plain PyTorch versions, on the
+card.
 Every test here needs a CUDA device and skips without one; run them on
 the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
@@ -1169,3 +1170,99 @@ def test_nested_predict_runs_through_b5_b6(dev, p, prediction):
     # 'mode': a point whose two best experts tie to f32 rounding may pick
     # either (chip_smoke.py's compare_serving rule)
     assert int(bad.sum()) <= (1e-4 * n if prediction == 'mode' else 0)
+
+
+# -- B1 and B2 with a chain axis (theta (C, K, m8), csrc/tc.cuh) --------------
+# (map, d, p, K, n, C): the plain layout's narrow and wide widths and the
+# chunked layout, C up to the two-sample check's 256 sweeps of one theta.
+CHAIN_CASES = [
+    (cuda_estep.GAUSS, 2, 0, 50, 100_003, 8),
+    (cuda_estep.GAUSS, 2, 0, 16, 100_000, 16),
+    (cuda_estep.GAUSS, 3, 0, 7, 1_001, 3),
+    (DIAG, 2, 0, 50, 20_011, 4),
+    (ILR, 8, 1, 50, 20_011, 4),                # m8 = 168
+    (cuda_estep.GAUSS, 2, 0, 300, 20_011, 2),  # chunked layout
+    (ILR, 12, 2, 4, 1_001, 2),                 # chunked, 12 windows
+]
+
+
+def _chain_inputs(dev, kind, d, p, k, n, c, seed):
+    """C thetas (C, K, m8) over one map and the shared points."""
+    thetas = []
+    for i in range(c):
+        xt, theta = (_ilr_inputs(dev, n, k, d, p, seed + i) if kind == ILR
+                     else _inputs(dev, n, k, d, seed + i))
+        if kind == DIAG:
+            theta[:, 1 + 2 * d:] = 0.0
+            theta[:, 1 + d:1 + 2 * d] = -0.2
+        thetas.append(theta)
+    return xt, torch.stack(thetas).contiguous()
+
+
+@pytest.mark.parametrize('kind,d,p,k,n,c', CHAIN_CASES)
+def test_estep_chain_axis_equals_one_chain_launches(dev, kind, d, p, k, n, c):
+    """Chain i of a C-chain launch is bitwise the one-chain launch at
+    theta[i] (each chain has the one-chain grid along x) and within B1's
+    tolerances of the plain version."""
+    xt, thetas = _chain_inputs(dev, kind, d, p, k, n, c, seed=21)
+    acc, lse = cuda_estep.estep(xt, thetas, n, kind, p)
+    assert acc.shape == thetas.shape and lse.shape == (c,)
+    for i in range(c):
+        a1, l1 = cuda_estep.estep(xt, thetas[i], n, kind, p)
+        assert torch.equal(acc[i], a1) and torch.equal(lse[i], l1)
+    if c <= 4:
+        for i in range(c):
+            _check_estep(xt, thetas[i], n, kind, p)
+
+
+@pytest.mark.parametrize('kind,d,p,k,n,c', CHAIN_CASES)
+def test_gibbs_chain_axis_equals_one_chain_launches(dev, kind, d, p, k, n, c):
+    """Chain i of a C-chain launch draws exactly the labels of a one-chain
+    launch at (theta[i], seed[i]); its statistics are bitwise those of
+    that launch."""
+    xt, thetas = _chain_inputs(dev, kind, d, p, k, n, c, seed=31)
+    seeds = torch.arange(c, dtype=torch.int64, device=dev) * 7919 + 11
+    labels, acc = cuda_gibbs.gibbs(xt, thetas, seeds, n, kind, p)
+    assert labels.shape == (c, n) and acc.shape == thetas.shape
+    for i in range(c):
+        l1, a1 = cuda_gibbs.gibbs(xt, thetas[i], seeds[i], n, kind, p)
+        assert torch.equal(labels[i], l1) and torch.equal(acc[i], a1)
+    plabels, _ = cuda_gibbs.gibbs_plain(xt, thetas, seeds, n, kind, p)
+    assert int((labels != plabels).sum()) <= 1e-4 * n * c
+
+
+def test_chain_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    xt, thetas = _chain_inputs(dev, cuda_estep.GAUSS, 2, 0, 7, 1000, 3, 41)
+    seed = torch.tensor(1, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match='3 int64'):
+        cuda_gibbs.gibbs(xt, thetas, seed, 1000)
+    with pytest.raises(ValueError, match='contiguous'):
+        cuda_estep.estep(xt, thetas.transpose(0, 1), 1000)
+    with pytest.raises(ValueError, match='theta must be'):
+        cuda_estep.estep(xt, thetas[None], 1000)
+
+
+def test_fused_chains_launch_once_a_sweep(dev):
+    """fit_chains over the fused engines launches B1 (VI, MAP, EM) or B2
+    (Gibbs) once a sweep for every chain; the VI, MAP and EM chains track
+    the serial fits with the same keys."""
+    from mimo_tpu_torch.parallel import fit_chains
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((20011, 2), generator=g, device=dev) * 3
+    m = BayesianGMM.make(size=10, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    keys = [1, 2, 3]
+    for engine, mod in (('fit_vi_fused', cuda_estep),
+                        ('fit_map_fused', cuda_estep),
+                        ('fit_em_fused', cuda_estep),
+                        ('fit_gibbs_fused', cuda_gibbs)):
+        before = mod.launches['gauss']
+        out = fit_chains(m, engine, x, keys, maxiter=6)
+        assert mod.launches['gauss'] == before + 6, engine
+        if engine == 'fit_gibbs_fused':
+            assert out.labels.shape == (3, 20011)
+            continue
+        assert out[1].shape == (3, 6)
+        for i, k in enumerate(keys):
+            _, tr = getattr(m, engine)(x, key=k, maxiter=6)
+            torch.testing.assert_close(out[1][i], tr, rtol=1e-5, atol=0.0)

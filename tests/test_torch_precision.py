@@ -1,8 +1,9 @@
 """The precision rule of kernels B1 and B2 (csrc/estep.cuh), emulated on
-the CPU: TF32 rounding (cvt.rna.tf32.f32: round to nearest, ties away
-from zero, 10 mantissa bits kept), the exact three-part splits of theta
-and F for the logits (six passes), and the two-part splits of P and F for
-the statistics (three passes). The emulated B1 is held to float64 at
+the CPU by mimo_tpu_torch/ops/precision.py: TF32 rounding
+(cvt.rna.tf32.f32: round to nearest, ties away from zero, 10 mantissa
+bits kept), the exact three-part splits of theta and F for the logits
+(six passes), and the two-part splits of P and F for the statistics
+(three passes). The emulated B1 is held to float64 at
 theta from `mimo_tpu` fits run on the CPU at small N (DP-GMM, diagonal
 GMM, ILR with MNW experts at d=2 and d=8) and converted with the bridge,
 within the card's tolerances and within 10x the f32 plain version's
@@ -24,56 +25,10 @@ from mimo_tpu_torch.ops import cuda_estep
 from mimo_tpu_torch.ops import family_estep as tfe
 from mimo_tpu_torch.ops.cuda_estep import (
     DIAG, GAUSS, ILR, assemble_features, pad_theta)
+from mimo_tpu_torch.ops.precision import (
+    RULE, emulated_estep, split2, split3, tf32)
 
 torch.set_num_threads(1)
-
-
-def tf32(x):
-    """cvt.rna.tf32.f32 on a float32 tensor: add half of the 13 dropped
-    bits to the magnitude bits, then clear them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split2(x):
-    hi = tf32(x)
-    return hi, tf32(x - hi)
-
-
-def split3(x):
-    """x = hi + mid + lo exactly (an f32 has 24 significant bits)."""
-    hi = tf32(x)
-    mid = tf32(x - hi)
-    return hi, mid, (x - hi) - mid
-
-
-# the product terms of the logits, (theta part, F part), 0 = hi: the rule's
-# six, down to 2^-22 relative
-RULE = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
-
-
-def emulated_estep(xt, theta, n, kind=GAUSS, p=0, terms=RULE, split_p=True,
-                   split_f=True):
-    """B1 under the precision rule, or with the terms or splits given:
-    products of tf32 parts are exact in f32, their sums are f32. Returns
-    (acc (K, m8), lse (), logits (K, n))."""
-    m8 = theta.shape[1]
-    f = assemble_features(xt[:, :n], m8, kind, p)
-    th, fs = split3(theta), split3(f)
-    if not split_f:   # F as its tf32 part and the remainder's tf32 rounding
-        fs = (fs[0], tf32(f - fs[0]), torch.zeros_like(f))
-    logits = sum(th[a] @ fs[b] for a, b in terms[:-1]) + th[0] @ fs[0]
-    mx = logits.max(0, keepdim=True).values
-    ex = torch.exp(logits - mx)
-    den = ex.sum(0, keepdim=True).clamp(min=1e-37)
-    r = ex * (1.0 / den)
-    fh, fl = split2(f)
-    if split_p:
-        rh, rl = split2(r)
-        acc = rl @ fh.T + rh @ fl.T + rh @ fh.T
-    else:
-        acc = tf32(r) @ fl.T + tf32(r) @ fh.T
-    return acc, (mx + torch.log(den)).sum(), logits
 
 
 def errors(xt, theta, n, kind=GAUSS, p=0, **kw):
