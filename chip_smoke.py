@@ -26,7 +26,11 @@ Phases, one or more printed lines each:
               vs-plain check of the engines on a 100,003-point slice, the
               rates, each kernel's time beside its plain version's, and
               B1's precision line: its lse and statistics against float64
-              beside the f32 plain version's (at most 10x);
+              beside the f32 plain version's (at most 10x); B3's Gaussian
+              variant at the VI state (log_predictive(dist='gaussian'),
+              one launch) against its plain version and the one PyTorch
+              call of the same function, MixtureSameFamily over
+              MultivariateNormal, timed;
   7. ILR      B1 and B2 over the ILR feature map at N=1,000,003, K=50,
               d=8, p=1 (and d=2, p=3, K=7, N=1000): B1 bitwise repeatable,
               B2 labels equal to the plain Philox labels; B5 (p=1, d=1)
@@ -150,9 +154,30 @@ Phases, one or more printed lines each:
               the chunked layout (K=300, d=2, N=1e6, C=2, VI 3 and Gibbs
               3), and smc_gibbs on examples/chains_smc.py's data (N=1e4,
               K=10, 8 chains, 8 rounds of 10 sweeps: finite, the last
-              round's log-likelihood not below the first's). Each chain
-              row is timed beside its C one-chain launches and its plain
-              version; its bound is C times the one-chain work.
+              round's log-likelihood not below the first's); then chains of
+              phase 18's nested GMM (N=1e6, M=4, K=8, d=2) by fit_chains
+              over 8 keys: fit_vi_fused, fit_gibbs_fused, fit_map_fused and
+              fit_em_fused 20 each, B1 / B2 exactly 20 launches for all
+              chains, best_of and log_predictive (B3 once), each VI chain
+              within 1e-5 of the nested fit with its key, B1-chain and
+              B2-chain at M*K=32 rows against their one-chain launches.
+              Each chain row is timed beside its C one-chain launches and
+              its plain version; its bound is C times the one-chain work.
+ 20. stream   the out-of-core engines from files in the temp directory
+              (written by io.write_bin, read by io.MmapDataset's native
+              loader, deleted at the end): fit_svi_stream over the first
+              2e6 points of phase 6's data (bench.py:201-233: B=65536, 100
+              steps, group 16, float32 and bf16 on the wire, prefetch depth
+              1 and 3 bitwise equal); fit_vi_stream_full over them in 4
+              blocks of 5e5 (bench.py:235-258: B1 exactly 4 launches a
+              sweep, against fit_vi_fused in memory by phase 3's rule);
+              phase 6's 1e7 points in blocks of 2^20 (9 blocks and a
+              562,816-point tail) from phase 6's VI state: VI 5 against
+              the in-memory fit, MAP 5, ML-EM 5 from block 0's anchors
+              (traces finite and non-falling), the bf16 leg within 1e-4,
+              peak device memory below the in-memory fit's, rates; and B1
+              at the staged block and the tail against its plain version,
+              timed (the B1-stream row, with its launches a sweep).
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -174,11 +199,14 @@ import argparse
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -191,7 +219,9 @@ from mimo_tpu_torch.distributions.hierarchical import HierTied
 from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.ng import NG
-from mimo_tpu_torch.distributions.niw import GaussParams, NIW, mode_params
+from mimo_tpu_torch.distributions.niw import (
+    GaussParams, NIW, mode_params, predictive_studentt_params)
+from mimo_tpu_torch.io import MmapDataset, write_bin
 from mimo_tpu_torch.models import (
     GMM, BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState, _flatten_mk
@@ -853,6 +883,7 @@ def run(dev, seed, n_main, n_check):
         print(f'{name} time on {card} at N={n_main} K={K_MAIN} d={D_MAIN}: '
               f'kernel {ms[name][0]:.6g} ms, plain PyTorch {ms[name][1]:.6g}'
               f' ms')
+    gauss_predictive_row(model, st, x, xt, card, errs, launches, ms)
     precision_check(f'main N={n_main} K={K_MAIN} d={D_MAIN}', xt, th_vi,
                     n_main)
     serving_precision_cells('B3', cuda_predict.predict,
@@ -876,6 +907,7 @@ def run(dev, seed, n_main, n_check):
     engine_paths(dev, seed, card, n_main, errs, launches, ms)
     nested_paths(dev, seed, card, errs, launches, ms)
     chain_rows = chain_paths(dev, seed, card, n_main, errs, launches, ms)
+    stream_paths(dev, seed, card, n_main, errs, launches, ms)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -896,6 +928,9 @@ def run(dev, seed, n_main, n_check):
         'B3': ('B3 Student-t mixture predictive',
                'mimo_tpu_torch/csrc/predict.cu',
                'mimo_tpu/ops/pallas_predict.py:39'),
+        'B3-gauss': ('B3 moment-matched Gaussian mixture predictive (NIW)',
+                     'mimo_tpu_torch/csrc/predict.cu',
+                     'mimo_tpu/ops/pallas_predict.py:39'),
         'B1-ILR': ('B1 fused VI E-step, ILR feature map',
                    'mimo_tpu_torch/csrc/estep.cuh',
                    'mimo_tpu/ops/pallas_estep.py:164'),
@@ -993,6 +1028,11 @@ def run(dev, seed, n_main, n_check):
                       'params (fit_em_fused)',
                       'mimo_tpu_torch/csrc/estep.cuh',
                       'mimo_tpu/ops/pallas_estep.py:164'),
+        'B1-stream': (f'B1 fused VI E-step, streamed (fit_vi_stream_full): '
+                      f'one launch a {B_MAIN_STREAM}-point block of the '
+                      f'staged buffer, the ragged tail at runtime n',
+                      'mimo_tpu_torch/csrc/estep.cuh',
+                      'mimo_tpu/ops/pallas_estep.py:164'),
     }
     nested = {
         'B1-nested': ('B1', 'nested VI theta, Gauss map, M*K=32 rows'),
@@ -1027,13 +1067,15 @@ def run(dev, seed, n_main, n_check):
             'max_abs_err': errs[b], 'ms': ms[b][0], 'plain_ms': ms[b][1],
             'bound_ms': bound_ms, 'bound_by': bound_by, 'bound_op': bound_op,
             'bound_share': bound_ms / ms[b][0],
-            # one PyTorch call computes B4's, B3-diag's and S3's function;
-            # none B1's, B2's, B5's or B6's, and torch has no multivariate
-            # Student-t for B3's
+            # one PyTorch call computes B4's, B3-diag's, B3-gauss's and
+            # S3's function; none B1's, B2's, B5's or B6's, and torch has
+            # no multivariate Student-t for B3's
             'library_ms': LIBRARY.get(b)})
         if b in chain_rows:     # a chain launch: C and its C one-chain
             rows[-1].update(chains=chain_rows[b][0],   # launches' time
                             singles_ms=chain_rows[b][1])
+        if b in STREAM_ROWS:    # a streamed sweep: launches a sweep, tail
+            rows[-1].update(STREAM_ROWS[b])
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -1297,13 +1339,13 @@ def engines_vs_plain(model, st, x, y):
     check(ok_v and all(oks), 'ILR kernel path disagrees with the plain path')
 
 
-def elbo_report(tag, vlb):
+def elbo_report(tag, vlb, what='ELBO'):
     v = vlb.double()
     rel_drop = float(((v[:-1] - v[1:]) / v[1:].abs()).max())
-    print(f'{tag}: ELBO {float(v[0]):.9g} -> {float(v[-1]):.9g}, worst '
+    print(f'{tag}: {what} {float(v[0]):.9g} -> {float(v[-1]):.9g}, worst '
           f'relative drop {rel_drop:.3g} (<= 1e-4)')
     check(bool(torch.isfinite(v).all()) and rel_drop <= 1e-4,
-          f'{tag}: ELBO not finite or decreasing')
+          f'{tag}: {what} not finite or decreasing')
 
 
 def ilr_fit_path(dev, seed, card, errs, launches, ms):
@@ -3092,6 +3134,10 @@ CHAIN_ROWS = {
                       'd=2'),
     'B2-chain-wide': ('B2', 'C=2 Gibbs chains, chunked layout, N=1e6 '
                       'K=300 d=2'),
+    'B1-chain-nested': ('B1', f'C={C_MAIN} nested VI, MAP and ML-EM chains, '
+                        'N=1e6 M*K=32 d=2'),
+    'B2-chain-nested': ('B2', f'C={C_MAIN} nested Gibbs chains (joint M*K '
+                        'draw), N=1e6 M*K=32 d=2'),
 }
 
 
@@ -3542,6 +3588,107 @@ def chain_smc_cell(dev, seed, card):
           'kernel')
 
 
+def chain_nested_cell(dev, seed, card, errs, launches, ms, singles):
+    """Cell 6 of phase 19: phase 18's nested GMM (two blobs of 5e5, M=4,
+    K=8, d=2, hierarchical=False) by fit_chains over C_MAIN keys: the
+    fused engines batch the chains over M*K flat kernel rows, B1 / B2
+    launched once a sweep for all chains."""
+    kg = torch.Generator(device=dev).manual_seed(seed + 11)
+    x = nested_blobs(kg, N_NEST, dev)
+    n, mk = N_NEST, M_NEST * K_NEST
+    model = BayesianMixtureOfMixtures.make_gmm(
+        M_NEST, K_NEST, 2, hierarchical=False, kappa=0.5, psi_scale=0.5,
+        maxsubiter=5, device=dev)
+    keys = list(range(1, C_MAIN + 1))
+    tag = f'nested chains N={n} M={M_NEST} K={K_NEST} d=2 C={C_MAIN}'
+    sweeps = 20
+    (st, vlb), path, t_vi = nested_fit(
+        f'{tag} fit_vi_fused {sweeps}',
+        lambda: fit_chains(model, 'fit_vi_fused', x, keys, maxiter=sweeps),
+        {'B1': sweeps})
+    n_b1 = path['B1']
+    gs, path, t_g = nested_fit(
+        f'{tag} fit_gibbs_fused {sweeps}',
+        lambda: fit_chains(model, 'fit_gibbs_fused', x, keys,
+                           maxiter=sweeps), {'B2': sweeps})
+    launches['B2-chain-nested'] = path['B2']
+    (mst, mll), path, t_m = nested_fit(
+        f'{tag} fit_map_fused {sweeps}',
+        lambda: fit_chains(model, 'fit_map_fused', x, keys, maxiter=sweeps),
+        {'B1': sweeps})
+    n_b1 += path['B1']
+    (est, ell), path, t_e = nested_fit(
+        f'{tag} fit_em_fused {sweeps}',
+        lambda: fit_chains(model, 'fit_em_fused', x, keys, maxiter=sweeps),
+        {'B1': sweeps})
+    launches['B1-chain-nested'] = n_b1 + path['B1']
+    best, idx = best_of(st, vlb)
+    lp, _, _ = nested_fit(f'{tag} log_predictive of the best chain',
+                          lambda: model.log_predictive(best, x), {'B3': 1})
+    v = vlb.double()
+    drop = float(((v[:, :-1] - v[:, 1:]) / v[:, 1:].abs()).max())
+    check(vlb.shape == (C_MAIN, sweeps) and bool(torch.isfinite(v).all())
+          and drop <= 1e-4, f'{tag}: VI traces not finite or falling')
+    check(all_finite(gs[:3]) and gs.labels.shape == (C_MAIN, n)
+          and int(gs.labels.min()) >= 0 and int(gs.labels.max()) < M_NEST
+          and all_finite(mst) and all_finite(est)
+          and bool(torch.isfinite(mll).all())
+          and bool(torch.isfinite(ell).all()),
+          f'{tag}: Gibbs, MAP or ML-EM chains not finite')
+    check(lp.shape == (n,) and bool(torch.isfinite(lp).all()),
+          f'{tag}: log_predictive of the best chain not finite')
+    print(f'{tag}: final ELBOs {[round(float(e), 1) for e in vlb[:, -1]]}, '
+          f'worst relative drop {drop:.3g} (<= 1e-4); best_of chain '
+          f'{int(idx)}; MAP final logliks '
+          f'{[round(float(e), 1) for e in mll[:, -1]]}; ML-EM '
+          f'{[round(float(e), 1) for e in ell[:, -1]]}; mean log predictive '
+          f'of the best chain {float(lp.mean()):.6g}; one run each on '
+          f'{card}: VI {sweeps * C_MAIN / t_vi:.6g}, Gibbs '
+          f'{sweeps * C_MAIN / t_g:.6g}, MAP {sweeps * C_MAIN / t_m:.6g}, '
+          f'ML-EM {sweeps * C_MAIN / t_e:.6g} chain-sweeps/s (first calls)')
+
+    # each VI chain against the nested fit with its key
+    worst = 0.0
+    for i, k in enumerate(keys):
+        _, v1 = model.fit_vi_fused(x, key=k, maxiter=sweeps)
+        worst = max(worst, float(((vlb[i] - v1).abs() / v1.abs()).max()))
+    print(f'{tag}: each VI chain vs the nested fit_vi_fused with its key: '
+          f'max relative trace difference {worst:.3g} (<= 1e-5)')
+    check(worst <= 1e-5, f'{tag}: chains off their serial fits')
+
+    # B1 / B2 with a chain axis at the chains' final thetas, M*K rows
+    xt = kernel_xts((x,))[0]
+    spec = model._flat_spec()
+    th_vi = pad_theta(vmap(spec.theta)(st.components),
+                      vmap(model._flat_log_pi)(st), torch.float32)[0]
+    th_g = pad_theta(
+        vmap(spec.theta_plugin)(vmap(vmap(model.family.mode_params))(
+            gs.components)),
+        vmap(model._log_mix_weights)(gs).flatten(1), torch.float32)[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    seeds = torch.randint(0, 2 ** 62, (C_MAIN,), generator=gen, device=dev)
+    errs['B1-chain-nested'] = chain_b1_checks(tag, xt, th_vi, n)
+    errs['B2-chain-nested'] = chain_b2_checks(tag, xt, th_g, seeds, n)
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, 2)
+    WORK['B1-chain-nested'] = chain_work(estep_work(n, mk, m, 2), C_MAIN,
+                                         xt, n)
+    work = [gibbs_work(xt, th_g[i], n, m) for i in range(C_MAIN)]
+    WORK['B2-chain-nested'] = {u: sum(w[u] for w in work) for u in work[0]}
+    WORK['B2-chain-nested']['hbm'] -= (C_MAIN - 1) * 4 * 2 * n
+    time_chain(card, tag, 'B1-chain-nested', C_MAIN,
+               lambda: cuda_estep.estep(xt, th_vi, n),
+               lambda i: cuda_estep.estep(xt, th_vi[i], n),
+               lambda: cuda_estep.estep_plain(xt, th_vi, n), ms, singles,
+               (1, 2))
+    time_chain(card, tag, 'B2-chain-nested', C_MAIN,
+               lambda: cuda_gibbs.gibbs(xt, th_g, seeds, n),
+               lambda i: cuda_gibbs.gibbs(xt, th_g[i], seeds[i], n),
+               lambda: cuda_gibbs.gibbs_plain(xt, th_g, seeds, n), ms,
+               singles, (0, 1))
+    del x, xt, model, st, gs, mst, est, best, lp
+    torch.cuda.empty_cache()
+
+
 def chain_paths(dev, seed, card, n_main, errs, launches, ms):
     """Phase 19: multi-chain inference through B1 and B2 with a chain
     axis. Returns {chain row: (C, the C one-chain launches' summed ms)}."""
@@ -3554,7 +3701,307 @@ def chain_paths(dev, seed, card, n_main, errs, launches, ms):
     del x, model
     torch.cuda.empty_cache()
     chain_smc_cell(dev, seed, card)
+    chain_nested_cell(dev, seed, card, errs, launches, ms, singles)
     return singles
+
+
+# -- the Gaussian row of B3 (phase 6) ----------------------------------------
+
+def gauss_predictive_row(model, st, x, xt, card, errs, launches, ms):
+    """B3's moment-matched Gaussian variant at phase 6's VI state (N=1e7,
+    K=50, d=2), launched once through log_predictive(dist='gaussian'),
+    against its plain version and the one PyTorch call that computes the
+    same function: MixtureSameFamily(Categorical(log_w),
+    MultivariateNormal(mu, scale_tril=L)).log_prob in 1e6-point chunks."""
+    n = x.shape[0]
+    torch.cuda.synchronize()
+    reset_counts()
+    lg = model.log_predictive(st, x, dist='gaussian')
+    torch.cuda.synchronize()
+    launches['B3-gauss'] = read_counts()['B3']
+    check(launches['B3-gauss'] == 1 and bool(torch.isfinite(lg).all()),
+          'the Gaussian predictive bypassed B3 or is not finite')
+    log_w = model.predictive_log_weights(st)
+    thq, aux = cuda_predict.predictive_coefficients(st.components, log_w,
+                                                    False)
+    mu, lmbda, _ = predictive_studentt_params(st.components)
+    mix = torch.distributions.MixtureSameFamily(
+        torch.distributions.Categorical(logits=log_w),
+        torch.distributions.MultivariateNormal(
+            mu, scale_tril=torch.linalg.cholesky(torch.linalg.inv(lmbda))))
+
+    def library():
+        return torch.cat([mix.log_prob(x[s:s + 1_000_000])
+                          for s in range(0, n, 1_000_000)])
+    ok, errs['B3-gauss'] = allclose_report(
+        lg, cuda_predict.predict_plain(xt, thq, aux, n, False), 1e-5, 1e-4)
+    # the library call is timed once (it takes ~1e5 ms at N=1e7), and not
+    # trusted: where it strays most, the same call in float64 says which
+    # of the two is off
+    out = []
+    LIBRARY['B3-gauss'] = cuda_ms(lambda: out.append(library()), 1, warm=0)
+    lib = out[0]
+    dev_l = (lg.double() - lib.double()).abs()
+    i = int(dev_l.argmax())
+    mix64 = torch.distributions.MixtureSameFamily(
+        torch.distributions.Categorical(logits=log_w.double()),
+        torch.distributions.MultivariateNormal(
+            mu.double(), scale_tril=torch.linalg.cholesky(
+                torch.linalg.inv(lmbda.double()))))
+    at_i = float(mix64.log_prob(x[i:i + 1].double())[0])
+    print(f'B3 gaussian N={n} K={K_MAIN} d={D_MAIN} at the VI state: '
+          f'launches 1; vs plain max|err| {errs["B3-gauss"]:.6g} nats '
+          f'(rtol 1e-5, atol 1e-4) {"ok" if ok else "FAIL"}; '
+          f'MixtureSameFamily(MultivariateNormal) in f32 strays up to '
+          f'{float(dev_l[i]):.6g} nats, at point {i} {x[i].tolist()}: '
+          f'kernel {float(lg[i]):.9g}, library {float(lib[i]):.9g}'
+          f', library in float64 {at_i:.9g}; mean |deviation| '
+          f'{float(dev_l.mean()):.3g}')
+    check(ok, 'B3 gaussian disagrees')
+    ms['B3-gauss'] = (
+        cuda_ms(lambda: cuda_predict.predict(xt, thq, aux, n, False), 20),
+        cuda_ms(lambda: cuda_predict.predict_plain(xt, thq, aux, n, False),
+                3))
+    WORK['B3-gauss'] = density_work(n, K_MAIN, quad_fmas(D_MAIN), D_MAIN, 1,
+                                    products=point_products(D_MAIN))
+    print(f'B3-gauss time on {card} at N={n} K={K_MAIN} d={D_MAIN}: kernel '
+          f'{ms["B3-gauss"][0]:.6g} ms, plain PyTorch {ms["B3-gauss"][1]:.6g}'
+          f' ms, MixtureSameFamily(MultivariateNormal) '
+          f'{LIBRARY["B3-gauss"]:.6g} ms')
+
+
+# -- phase 20: out-of-core ---------------------------------------------------
+
+N_STREAM, B_SVI_STREAM, STEPS_SVI_STREAM = 2_000_000, 65536, 100  # bench.py:
+B_VI_STREAM = 500_000                                    # 201-233, 235-258
+B_MAIN_STREAM = 1 << 20        # phase 6's 1e7 points: 9 blocks and a tail
+STREAM_ROWS = {}               # kernel row -> extra keys of its JSON row
+
+
+def main_data(dev, seed, n):
+    """Phase 6's data: 3 Gaussians at N(0, 16) centres, precision 2."""
+    kg = torch.Generator(device=dev).manual_seed(seed)
+    mu = torch.randn((3, D_MAIN), generator=kg, device=dev) * 4.0
+    lm = torch.eye(D_MAIN, device=dev).expand(3, D_MAIN, D_MAIN) * 2.0
+    return BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3], n)[0]
+
+
+def states_close(tag, got, want, vg, vw):
+    """A streamed fit against the in-memory fit from the same state by
+    phase 3's rule: traces within rtol 1e-5 (B1's lse), every state leaf
+    within rtol 1e-4 of its largest magnitude (B1's statistics)."""
+    ok_v, e_v = allclose_report(vg, vw, 1e-5, 0.0)
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want)):
+        if a.is_floating_point():
+            scale = float(b.double().abs().max()) or 1.0
+            worst = max(worst, float((a.double() - b.double()).abs().max())
+                        / scale)
+    print(f'{tag} vs the in-memory fit from the same state: trace max|err| '
+          f'{e_v:.6g} (rtol 1e-5) {"ok" if ok_v else "FAIL"}; state leaves '
+          f'max|err| / largest magnitude {worst:.3g} (<= 1e-4)')
+    check(ok_v and worst <= 1e-4, f'{tag}: off the in-memory fit')
+
+
+def stream_svi_cell(model, ds, card):
+    """Cell (a), bench.py:201-233: fit_svi_stream from the file's
+    minibatches, B=65536, 100 steps, step 0.5, group 16, float32 and bf16
+    on the wire; prefetch depth 1 and 3 give bitwise equal states."""
+    tag = (f'SVI-stream N={ds.shape[0]} B={B_SVI_STREAM} '
+           f'{STEPS_SVI_STREAM} steps')
+
+    def run(seed_np, **kw):
+        batches = ds.minibatches(np.random.default_rng(seed_np),
+                                 B_SVI_STREAM, STEPS_SVI_STREAM + 1)
+        return model.fit_svi_stream(
+            lambda i: next(batches), total_size=ds.shape[0], key=6,
+            maxiter=STEPS_SVI_STREAM, step_size=0.5,
+            batch_size=B_SVI_STREAM, group=16, **kw)
+
+    for label, kw in (('f32', {}), ('bf16', dict(
+            transfer_dtype=torch.bfloat16))):
+        st, _, t_first = nested_fit(f'{tag} {label}',
+                                    lambda: run(0, **kw), {})
+        check(all_finite(st), f'{tag} {label}: state not finite')
+        dt = min(seconds(lambda: run(rep, **kw), 1) for rep in (1, 2))
+        print(f'rates on {card}, {tag} {label} on the wire: '
+              f'{STEPS_SVI_STREAM * B_SVI_STREAM / dt / 1e6:.6g} M pts/s '
+              f'ingested, {STEPS_SVI_STREAM / dt:.6g} steps/s (best of 2 '
+              f'warm runs; first run {t_first:.6g} s)')
+    a, b = run(0, prefetch=1), run(0, prefetch=3)
+    same = all(torch.equal(u, v) for u, v in zip(leaves(a), leaves(b)))
+    print(f'{tag}: prefetch depth 1 and 3 on the same batches bitwise '
+          f'equal {same}')
+    check(same, f'{tag}: the state depends on the prefetch depth')
+
+
+def stream_vi_cell(model, ds, x, card):
+    """Cell (b), bench.py:235-258: fit_vi_stream_full over the file in
+    blocks of 5e5 (4 blocks), key 7 for 2 sweeps, then 10 sweeps from that
+    state, against fit_vi_fused in memory over the same points."""
+    nb = ds.shape[0] // B_VI_STREAM
+    tag = f'VI-stream-full N={ds.shape[0]} B={B_VI_STREAM} ({nb} blocks)'
+
+    def rbk(i):
+        return ds.read_block(i * B_VI_STREAM, B_VI_STREAM)
+
+    (st0, _), _, _ = nested_fit(
+        f'{tag} key 7, 2 sweeps',
+        lambda: model.fit_vi_stream_full(rbk, nb, key=7, maxiter=2),
+        {'B1': 2 * nb})
+    (st, v), _, _ = nested_fit(
+        f'{tag} 10 sweeps', lambda: model.fit_vi_stream_full(
+            rbk, nb, init_state=st0, maxiter=10), {'B1': 10 * nb})
+    xs = x[:ds.shape[0]]
+    st_m, v_m = model.fit_vi_fused(xs, maxiter=10, init_state=st0,
+                                   randomize=False)
+    states_close(tag, st, st_m, v, v_m)
+    t_s = seconds(lambda: model.fit_vi_stream_full(rbk, nb, init_state=st0,
+                                                   maxiter=10), 2)
+    t_m = seconds(lambda: model.fit_vi_fused(xs, maxiter=10, init_state=st0,
+                                             randomize=False), 2)
+    print(f'rates on {card}, {tag}: streamed {10 / t_s:.6g} sweeps/s '
+          f'({10 * ds.shape[0] / t_s / 1e6:.6g} M pts/s), in memory '
+          f'{10 / t_m:.6g} sweeps/s (median of 2)')
+
+
+def stream_main_cell(dev, model, x, path, card, errs, launches, ms):
+    """Cell (c): phase 6's 1e7 points streamed from disk in blocks of
+    2^20 (9 full blocks and a ragged tail) from phase 6's VI state:
+    fit_vi_stream_full 5 against fit_vi_fused 5 in memory, MAP 5, ML-EM 5
+    from the anchors of block 0, the bf16 leg, peak device memory, and
+    B1 at the staged block beside its plain version."""
+    n = x.shape[0]
+    write_bin(path, x.cpu().numpy())
+    ds = MmapDataset(path)
+    nb = -(-n // B_MAIN_STREAM)
+    tail = n - (nb - 1) * B_MAIN_STREAM
+    tag = (f'stream N={n} K={K_MAIN} d={D_MAIN} B={B_MAIN_STREAM} ({nb - 1} '
+           f'blocks and a {tail}-point tail)')
+
+    def rbm(i):
+        return ds.read_block(i * B_MAIN_STREAM, B_MAIN_STREAM)
+
+    try:
+        st, _ = model.fit_vi_fused(x, key=1, maxiter=20)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (st_s, v_s), _, t_s = nested_fit(
+            f'{tag} fit_vi_stream_full 5', lambda: model.fit_vi_stream_full(
+                rbm, nb, init_state=st, maxiter=5), {'B1': 5 * nb})
+        peak_s = torch.cuda.max_memory_allocated() - base
+        launches['B1-stream'] = 5 * nb
+        torch.cuda.reset_peak_memory_stats()
+        st_m, v_m = model.fit_vi_fused(x, maxiter=5, init_state=st,
+                                       randomize=False)
+        torch.cuda.synchronize()
+        peak_m = torch.cuda.max_memory_allocated() - base
+        states_close(f'{tag} VI', st_s, st_m, v_s, v_m)
+        (mst, mll), _, _ = nested_fit(
+            f'{tag} fit_map_stream_full 5', lambda: model.fit_map_stream_full(
+                rbm, nb, init_state=st, maxiter=5), {'B1': 5 * nb})
+        elbo_report(f'{tag} MAP', mll, 'loglik')
+        (est, ell), _, _ = nested_fit(
+            f'{tag} fit_em_stream_full 5 (anchors from block 0)',
+            lambda: model.fit_em_stream_full(rbm, nb, key=3, maxiter=5),
+            {'B1': 5 * nb})
+        elbo_report(f'{tag} ML-EM', ell, 'loglik')
+        check(all_finite(mst) and all_finite(est),
+              f'{tag}: MAP or ML-EM state not finite')
+        (st_b, v_b), _, _ = nested_fit(
+            f'{tag} fit_vi_stream_full 5, bf16 on the wire',
+            lambda: model.fit_vi_stream_full(
+                rbm, nb, init_state=st, maxiter=5,
+                transfer_dtype=torch.bfloat16), {'B1': 5 * nb})
+        gap = float(((v_b.double() - v_s.double()).abs()
+                     / v_s.double().abs()).max())
+        print(f'{tag} bf16 on the wire: ELBO {float(v_b[-1]):.9g} vs f32 '
+              f'{float(v_s[-1]):.9g}, worst relative gap {gap:.3g} '
+              f'(<= 1e-4)')
+        check(all_finite(st_b) and gap <= 1e-4, f'{tag}: bf16 leg off')
+        print(f'{tag}: peak device memory above the resident data: '
+              f'streamed VI {peak_s / 2**20:.6g} MiB, in-memory VI '
+              f'{peak_m / 2**20:.6g} MiB')
+        check(peak_s < peak_m, f'{tag}: the stream takes more device memory')
+        t_s = seconds(lambda: model.fit_vi_stream_full(
+            rbm, nb, init_state=st, maxiter=5), 3)
+        t_b = seconds(lambda: model.fit_vi_stream_full(
+            rbm, nb, init_state=st, maxiter=5,
+            transfer_dtype=torch.bfloat16), 3)
+        t_m = seconds(lambda: model.fit_vi_fused(
+            x, maxiter=5, init_state=st, randomize=False), 3)
+        print(f'rates on {card}, {tag}: streamed VI {5 / t_s:.6g} sweeps/s '
+              f'({1e3 * t_s / 5:.6g} ms a sweep), bf16 on the wire '
+              f'{5 / t_b:.6g}, in memory {5 / t_m:.6g} (median of 3)')
+    finally:
+        ds.close()
+
+    # B1 at the staged layout: one (2, 2^20) float32 buffer, read at the
+    # full block and at the tail's runtime n
+    spec = model._estep_spec()
+    th, _ = pad_theta(spec.theta(st_s.components),
+                      st_s.gating.expected_log_pi(), torch.float32)
+    buf = kernel_xts((x[:B_MAIN_STREAM],))[0]
+    acc, lse = cuda_estep.estep(buf, th, B_MAIN_STREAM)
+    pacc, plse = cuda_estep.estep_plain(buf, th, B_MAIN_STREAM)
+    atol = 1e-3 * B_MAIN_STREAM / 1e6
+    ok_s, errs['B1-stream'] = allclose_report(acc, pacc, 1e-4, atol)
+    ok_l, e_l = allclose_report(lse, plse, 1e-5, 0.0)
+    t_acc, t_lse = cuda_estep.estep(buf, th, tail)
+    p_acc, p_lse = cuda_estep.estep_plain(buf, th, tail)
+    ok_t = (allclose_report(t_acc, p_acc, 1e-4, atol)[0]
+            and allclose_report(t_lse, p_lse, 1e-5, 0.0)[0])
+    print(f'B1-stream at the staged block ({B_MAIN_STREAM} points) vs plain: '
+          f'stats max|err| {errs["B1-stream"]:.6g} (rtol 1e-4, atol '
+          f'{atol:.3g}) {"ok" if ok_s else "FAIL"}, lse |err| {e_l:.6g} '
+          f'(rtol 1e-5) {"ok" if ok_l else "FAIL"}; at the tail\'s n={tail} '
+          f'{"ok" if ok_t else "FAIL"}')
+    check(ok_s and ok_l and ok_t, 'B1-stream disagrees')
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
+    ms['B1-stream'] = (cuda_ms(lambda: cuda_estep.estep(buf, th,
+                                                        B_MAIN_STREAM), 20),
+                       cuda_ms(lambda: cuda_estep.estep_plain(
+                           buf, th, B_MAIN_STREAM), 3))
+    tail_ms = cuda_ms(lambda: cuda_estep.estep(buf, th, tail), 20)
+    WORK['B1-stream'] = estep_work(B_MAIN_STREAM, K_MAIN, m, D_MAIN)
+    STREAM_ROWS['B1-stream'] = {'launches_per_sweep': nb,
+                                'block': B_MAIN_STREAM, 'tail': tail,
+                                'tail_ms': tail_ms}
+    print(f'B1-stream time on {card}: kernel {ms["B1-stream"][0]:.6g} ms at '
+          f'{B_MAIN_STREAM} points, {tail_ms:.6g} ms at the {tail}-point '
+          f'tail, plain PyTorch {ms["B1-stream"][1]:.6g} ms; {nb} launches '
+          f'a sweep')
+
+
+def stream_paths(dev, seed, card, n_main, errs, launches, ms):
+    """Phase 20: the out-of-core engines from files in the temp directory
+    (deleted at the end) through the native loader, the reader thread and
+    the pinned, double-buffered copies, B1 a block at a time."""
+    x = main_data(dev, seed, n_main)
+    model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5, device=dev)
+    tmp = tempfile.gettempdir()
+    paths = [os.path.join(tmp, f'chip_smoke_{name}_{os.getpid()}.bin')
+             for name in ('2e6', 'main')]
+    try:
+        write_bin(paths[0], x[:N_STREAM].cpu().numpy())
+        ds = MmapDataset(paths[0])
+        print(f'stream: {paths[0]} {ds.shape} through the {ds.backend} '
+              f'loader')
+        check(ds.backend == 'native', 'the native loader did not build')
+        try:
+            stream_svi_cell(model, ds, card)
+            stream_vi_cell(model, ds, x, card)
+        finally:
+            ds.close()
+        stream_main_cell(dev, model, x, paths[1], card, errs, launches, ms)
+    finally:
+        for p in paths:
+            if os.path.exists(p):
+                os.unlink(p)
+    del x, model
+    torch.cuda.empty_cache()
 
 
 if __name__ == '__main__':

@@ -21,6 +21,13 @@ mimo_tpu/models/hmix.py without its mesh arguments).
     through B5 (p = 1) or B6 (p > 1), both over the flattened M*K
     components. `backend` follows models.mixture: 'auto', 'kernel' or
     'torch'.
+  * Chains: the fused engines take `chains=True` with C chain keys in
+    `key`, as the flat ones do (models.mixture): each chain's random or
+    anchor start is drawn and reduced one chain at a time from its own
+    generator, theta is (C, M*K, m) through family_estep.chain_spec, B1 /
+    B2 launch once a sweep for all chains, and the M-vmapped algebra runs
+    under one more torch.func.vmap over C (`_over_chains`; the identity
+    for one fit). Chain c of VI, MAP and ML-EM equals the fit with key c.
 """
 
 import math
@@ -32,8 +39,8 @@ from torch.func import vmap
 from mimo_tpu_torch.conjugate.families import Family
 from mimo_tpu_torch.models.mixture import (
     BayesianMixture, _as_generator, _as_tuple, _cast, _elbo_loop,
-    _random_resp, _stack, _stack_lead, _tree_map, anchor_resp, kernel_xts,
-    model_device, resolve_backend)
+    _over_chains, _random_resp, _stack, _stack_lead, _tree_map, anchor_resp,
+    batch_generator, kernel_xts, model_device, resolve_backend, stack_trees)
 from mimo_tpu_torch.models.mixture import (
     _anchor_indices as _flat_anchor_indices)
 from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
@@ -306,6 +313,26 @@ class BayesianMixtureOfMixtures:
         mm, kk = self.cluster_size, self.mixture_size
         return res.counts.reshape(mm, kk), _unflatten_mk(res.stats, mm, kk)
 
+    def _update_flat(self, res):
+        """The posterior from a flat M*K FusedEStep (`_update_from`)."""
+        counts, stats = self._split_flat(res)
+        return self._update_from(stats, counts)
+
+    def _fused_setup(self, data, key, chains, backend):
+        """(data, x0, n, dtype, use_kernel, generators, spec, over) of a
+        fused engine over the flat M*K spec: models.mixture's setup (one
+        generator, or with `chains` one a chain and the chains' spec) and
+        the map over the chains' axis."""
+        return BayesianMixture._fused_setup(
+            self._tx_data(data), key, chains, backend,
+            self._flat_spec()) + (_over_chains(chains),)
+
+    def _random_states(self, gens, data, chains):
+        """`_random_state` of each chain, drawn and reduced one chain at a
+        time (the (C, M, N, K) responsibilities never exist)."""
+        starts = [self._random_state(g, data) for g in gens]
+        return stack_trees(starts) if chains else starts[0]
+
     def _flat_log_pi(self, state: HMixState, mode=False):
         """(M*K,) flat log weights, m-major: E[log pi_out]_m +
         E[log pi_in]_{m,k} (VI), or with `mode` the logs of the gatings'
@@ -329,7 +356,7 @@ class BayesianMixtureOfMixtures:
             st.outer_gating.kl_divergence(self.outer_gating_prior))
 
     def fit_vi_fused(self, data, key=None, maxiter=100, block_size=131072,
-                     randomize=True, tol=None, backend='auto'):
+                     randomize=True, tol=None, backend='auto', chains=False):
         """Fused nested VI for big N: the two-level E-step runs as one
         FLAT softmax over all M*K experts (kernel B1 on CUDA data, with
         log E[pi_out]_m + log E[pi_in]_{m,k} folded into theta); the
@@ -339,27 +366,26 @@ class BayesianMixtureOfMixtures:
         (`randomize` is accepted and unused, as in the JAX package).
         Returns (HMixState, trace); the trace is the nested ELBO (lse
         identity minus the KL terms). `tol` stops early on |dELBO| <
-        tol."""
-        data = self._tx_data(data)
-        x0 = data[0]
-        n, dtype = x0.shape[0], x0.dtype
-        spec = self._flat_spec()
-        use_kernel = resolve_backend(backend, x0)
+        tol. With `chains`, `key` holds C chain keys (see the module
+        docstring): a C-stacked HMixState and (C, maxiter) traces, each
+        chain stopping on its own `tol`."""
+        data, x0, n, dtype, use_kernel, gens, spec, over = self._fused_setup(
+            data, key, chains, backend)
         estep = BayesianMixture._fused_estep(spec, use_kernel, block_size)
-        state = self._random_state(_as_generator(key, x0.device), data)
+        state = self._random_states(gens, data, chains)
         xts = kernel_xts(data) if use_kernel else None
 
         def step(st, _):
-            res = estep(st.components, self._flat_log_pi(st), data, xts, n,
-                        dtype)
-            counts, stats = self._split_flat(res)
-            return self._update_from(stats, counts), res.lse - self._kl(st)
+            res = estep(st.components, over(self._flat_log_pi)(st), data,
+                        xts, n, dtype)
+            return over(self._update_flat)(res), res.lse - over(self._kl)(st)
 
-        return finite_report(_elbo_loop(step, state, maxiter, tol),
-                             'fit_vi_fused')
+        return finite_report(
+            _elbo_loop(step, state, maxiter, tol,
+                       (len(gens),) if chains else ()), 'fit_vi_fused')
 
     def fit_gibbs_fused(self, data, key=None, maxiter=100, block_size=131072,
-                        backend='auto'):
+                        backend='auto', chains=False):
         """Fused nested Gibbs for big N: the (outer, inner) labels are
         drawn JOINTLY as one flat categorical over all M*K experts per
         point given the sampled params (a valid blocked-Gibbs move on
@@ -368,31 +394,54 @@ class BayesianMixtureOfMixtures:
         generator. A family with a `gibbs_update` hook (the hierarchical
         one) draws its posterior and params after the sweep from the
         statistics, with the exact draws. Returns HMixGibbsState with the
-        OUTER labels (flat label // K)."""
+        OUTER labels (flat label // K).
+
+        With `chains`, `key` holds C chain keys: each chain's per-sweep
+        seeds come from its own generator, and the draws run under one
+        more vmap with randomness='different' from `batch_generator`, as
+        the flat chained Gibbs draws do (the same keys give the same
+        chains; a chain is not the single fit draw for draw). Returns the
+        C-stacked HMixGibbsState (labels (C, N))."""
         from mimo_tpu_torch.ops.cuda_gibbs import fused_gibbs_cuda
         from mimo_tpu_torch.ops.family_estep import fused_gibbs_blockwise
-        data = self._tx_data(data)
-        x0 = data[0]
-        n, dtype, dev = x0.shape[0], x0.dtype, x0.device
-        spec = self._flat_spec()
-        use_kernel = resolve_backend(backend, x0)
-        gen = _as_generator(key, dev)
+        data, x0, n, dtype, use_kernel, gens, spec, over = self._fused_setup(
+            data, key, chains, backend)
+        dev = x0.device
+        lead = (len(gens),) if chains else ()
         fam = self.family
-        comps, gatings = self.components_prior, self.inner_gating_prior
-        outer = self.outer_gating_prior
-        params = vmap(fam.mode_params)(comps)
-        labels = torch.zeros((n,), dtype=torch.int32, device=dev)
-        seeds = torch.randint(0, 2 ** 62, (maxiter,), generator=gen,
-                              dtype=torch.int64, device=dev)
+        cp, gp = self.components_prior, self.inner_gating_prior
+        comps, gatings, outer = cp, gp, self.outer_gating_prior
+        if chains:
+            comps, gatings, outer = (_stack_lead(t, lead[0])
+                                     for t in (comps, gatings, outer))
+        params = over(vmap(fam.mode_params))(comps)
+        labels = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
+        seeds = torch.stack([torch.randint(0, 2 ** 62, (maxiter,),
+                                           generator=g, dtype=torch.int64,
+                                           device=dev) for g in gens], -1)
+        seeds = seeds if chains else seeds[:, 0]
+        gen = batch_generator(gens) if chains else gens[0]
         xts = kernel_xts(data) if use_kernel else None
+
+        def draw_params(q):
+            return vmap(lambda c: fam.sample_params(gen, c),
+                        randomness='different')(q)
+
+        def draw_log_pi(o, g):
+            pi_i = vmap(lambda gi: gi.sample(gen),
+                        randomness='different')(g)             # (M, K)
+            return (_log_clip(o.sample(gen))[:, None]
+                    + _log_clip(pi_i)).reshape(-1)
+
+        def gibbs_update(s):
+            return vmap(lambda p, st: fam.gibbs_update(gen, p, st),
+                        randomness='different')(cp, s)
+
         for i in range(maxiter):
             if fam.gibbs_update is None:
-                params = vmap(lambda q: fam.sample_params(gen, q),
-                              randomness='different')(comps)
-            pi_i = vmap(lambda g: g.sample(gen),
-                        randomness='different')(gatings)        # (M, K)
-            log_pi = (_log_clip(outer.sample(gen))[:, None]
-                      + _log_clip(pi_i)).reshape(-1)
+                params = over(draw_params, randomness='different')(comps)
+            log_pi = over(draw_log_pi, randomness='different')(outer,
+                                                               gatings)
             if use_kernel:
                 labels, res = fused_gibbs_cuda(spec, seeds[i], params,
                                                log_pi, xts, n)
@@ -400,16 +449,16 @@ class BayesianMixtureOfMixtures:
             else:
                 labels, res = fused_gibbs_blockwise(spec, seeds[i], params,
                                                     log_pi, data, block_size)
-            counts, stats = self._split_flat(res)
+            counts, stats = over(self._split_flat)(res)
             if fam.gibbs_update is None:
-                comps = vmap(fam.update)(self.components_prior, stats)
+                comps = over(lambda s: vmap(fam.update)(cp, s))(stats)
             else:
-                comps, params = vmap(
-                    lambda p, s: fam.gibbs_update(gen, p, s),
-                    randomness='different')(self.components_prior, stats)
-            gatings = vmap(lambda p, c: p.update(c))(self.inner_gating_prior,
-                                                     counts)
-            outer = self.outer_gating_prior.update(torch.sum(counts, -1))
+                comps, params = over(gibbs_update,
+                                     randomness='different')(stats)
+            gatings = over(lambda c: vmap(lambda p, ci: p.update(ci))(
+                gp, c))(counts)
+            outer = over(lambda c: self.outer_gating_prior.update(
+                torch.sum(c, -1)))(counts)
         return finite_report(
             HMixGibbsState(outer_gating=outer, inner_gating=gatings,
                            components=comps,
@@ -507,7 +556,7 @@ class BayesianMixtureOfMixtures:
         return ilp, _log_clip(csum / n)
 
     def fit_em_fused(self, data, key=None, maxiter=100, block_size=131072,
-                     backend='auto'):
+                     backend='auto', chains=False):
         """Nested likelihood-only EM through the fused E-step: each sweep
         is one FLAT softmax over all M*K experts (kernel B1 on CUDA data),
         fed theta_plugin(ML params), so the (M, N, K) responsibilities
@@ -515,32 +564,35 @@ class BayesianMixtureOfMixtures:
         (N, M*K) matrix and dense statistics once, and frees them before
         the first sweep. Equivalent to fit_em's coordinate ascent at
         maxsubiter=1 with jointly-updated outer weights. Returns
-        (HMixEMState, loglik trace)."""
+        (HMixEMState, loglik trace). With `chains`, `key` holds C chain
+        keys: the anchor starts are formed and reduced one chain at a
+        time, then the C chains run as one program (C-stacked
+        HMixEMState, (C, maxiter) traces)."""
         self._require_ml()
-        data = self._tx_data(data)
-        x0 = data[0]
-        n, dtype = x0.shape[0], x0.dtype
+        data, x0, n, dtype, use_kernel, gens, spec, over = self._fused_setup(
+            data, key, chains, backend)
         mm, kk = self.cluster_size, self.mixture_size
-        spec = self._flat_spec()
-        use_kernel = resolve_backend(backend, x0)
         estep = BayesianMixture._fused_estep(
             spec._replace(theta=spec.theta_plugin), use_kernel, block_size)
         xts = kernel_xts(data) if use_kernel else None
         fam = self.family
-        resp = anchor_resp(x0, x0[_anchor_indices(
-            _as_generator(key, x0.device), n, (mm * kk,), x0.device)])
-        stats = _unflatten_mk(fam.suff_stats(data, resp), mm, kk)
-        counts = torch.sum(resp, 0).reshape(mm, kk)
-        del resp
-        params = vmap(fam.ml_update)(stats)
-        ilp, olp = self._ml_log_pis(counts, n)
+        starts = []
+        for g in gens:
+            resp = anchor_resp(x0, x0[_anchor_indices(g, n, (mm * kk,),
+                                                      x0.device)])
+            stats = _unflatten_mk(fam.suff_stats(data, resp), mm, kk)
+            counts = torch.sum(resp, 0).reshape(mm, kk)
+            del resp
+            starts.append((vmap(fam.ml_update)(stats),)
+                          + self._ml_log_pis(counts, n))
+        params, ilp, olp = stack_trees(starts) if chains else starts[0]
         trace = []
         for _ in range(maxiter):
-            log_pi = (olp[:, None] + ilp).reshape(-1).to(dtype)
+            log_pi = (olp[..., :, None] + ilp).flatten(-2).to(dtype)
             res = estep(params, log_pi, data, xts, n, dtype)
-            counts, stats = self._split_flat(res)
-            params = vmap(fam.ml_update)(stats)
-            ilp, olp = self._ml_log_pis(counts, n)
+            counts, stats = over(self._split_flat)(res)
+            params = over(vmap(fam.ml_update))(stats)
+            ilp, olp = over(lambda c: self._ml_log_pis(c, n))(counts)
             trace.append(res.lse)
         return finite_report((HMixEMState(params, ilp, olp),
                               _stack(trace, x0)), 'fit_em_fused')
@@ -596,7 +648,7 @@ class BayesianMixtureOfMixtures:
         return finite_report((state, _stack(trace, x0)), 'fit_map')
 
     def fit_map_fused(self, data, key=None, maxiter=100, block_size=131072,
-                      backend='auto'):
+                      backend='auto', chains=False):
         """Nested MAP-EM through the fused E-step: the two-level plug-in
         E-step at the posterior MODE runs as one flat M*K softmax (kernel
         B1 on CUDA data, fed theta_plugin(mode params)); the M-step splits
@@ -606,23 +658,20 @@ class BayesianMixtureOfMixtures:
         first sweep. Equivalent to fit_map's coordinate ascent at
         maxsubiter=1 with jointly-updated outer weights. Returns
         (HMixState, trace): the data log-likelihood at each sweep's
-        mode."""
-        data = self._tx_data(data)
-        x0 = data[0]
-        n, dtype = x0.shape[0], x0.dtype
-        spec = self._flat_spec()
-        use_kernel = resolve_backend(backend, x0)
+        mode. With `chains`, `key` holds C chain keys (C-stacked
+        HMixState, (C, maxiter) traces)."""
+        data, x0, n, dtype, use_kernel, gens, spec, over = self._fused_setup(
+            data, key, chains, backend)
         estep = BayesianMixture._fused_estep(
             spec._replace(theta=spec.theta_plugin), use_kernel, block_size)
-        state = self._random_state(_as_generator(key, x0.device), data)
+        state = self._random_states(gens, data, chains)
         xts = kernel_xts(data) if use_kernel else None
         trace = []
         for _ in range(maxiter):
-            params = vmap(self.family.mode_params)(state.components)
-            res = estep(params, self._flat_log_pi(state, mode=True).to(dtype),
-                        data, xts, n, dtype)
-            counts, stats = self._split_flat(res)
-            state = self._update_from(stats, counts)
+            params = over(vmap(self.family.mode_params))(state.components)
+            log_pi = over(lambda s: self._flat_log_pi(s, mode=True))(state)
+            res = estep(params, log_pi.to(dtype), data, xts, n, dtype)
+            state = over(self._update_flat)(res)
             trace.append(res.lse)
         return finite_report((state, _stack(trace, x0)), 'fit_map_fused')
 

@@ -1,7 +1,7 @@
 """Bayesian mixture engine over a conjugate Family (port of
-mimo_tpu/models/mixture.py without its mesh arguments and its streamed
-engines): EM/MAP, blocked Gibbs, mean-field VI and stochastic VI, dense
-and fused, and the posterior predictive.
+mimo_tpu/models/mixture.py without its mesh arguments): EM/MAP, blocked
+Gibbs, mean-field VI and stochastic VI, dense, fused and out-of-core,
+and the posterior predictive.
 
 Update-rule contract:
   MAP    : post = prior (+) stats;            params <- mode(post)
@@ -27,6 +27,15 @@ unbatched), and B1 / B2 launch once a sweep for every chain. Each chain's
 start is drawn from its own generator one chain at a time, so chain c of
 the VI, MAP and EM engines equals the single-chain fit with key c.
 
+Out-of-core. `fit_svi_stream` takes host minibatches and
+`fit_{vi,map,em}_stream_full` a dataset read a block at a time each sweep
+(e.g. io.MmapDataset over a file larger than the card's memory). A reader
+thread (io.Prefetcher) reads ahead; on the card the rows go through
+pinned, double-buffered copies on a copy stream (io.stage) and every
+block of a full-data sweep is one launch of kernel B1 on a fixed device
+buffer with the block's row count at run time. The statistics add across
+blocks, so a streamed sweep is the in-memory fused sweep.
+
 Backends. Each fused engine and `log_predictive` takes `backend`:
   'auto'   — the CUDA kernel when the data lies on a CUDA device, the plain
              PyTorch version when it lies on the CPU;
@@ -38,6 +47,7 @@ if a kernel cannot build or launch, the call raises.
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -294,7 +304,8 @@ class BayesianMixture:
         Overridden by concrete models."""
         return None
 
-    def _fused_setup(self, data, key, chains, backend, spec):
+    @staticmethod
+    def _fused_setup(data, key, chains, backend, spec):
         """(data, x0, n, dtype, use_kernel, generators, spec) of a fused
         engine: one generator from `key`, or with `chains` one a chain
         from the keys in `key`, and then the chains' spec
@@ -613,19 +624,297 @@ class BayesianMixture:
             rho = (step_size if forgetting is None
                    else step_size * (t + 1.0 + delay) ** -forgetting)
             idx = sample_batch_indices(gen, n, batch_size)
-            batch = tuple(a[idx] for a in data)
-            resp = self.expected_responsibilities(state, batch)
-            state = MFState(
-                components=self.family.svi_blend(
-                    state.components, self.components_prior,
-                    self.family.suff_stats(batch, resp), scale, rho),
-                gating=self.gating_prior.svi_blend(
-                    state.gating, torch.sum(resp, 0), scale, rho))
+            state = self._svi_step(state, tuple(a[idx] for a in data), scale,
+                                   rho)
             if track_elbo:
                 trace[t] = self.elbo(state, data,
                                      self.expected_responsibilities(state,
                                                                     data))
         return finite_report((state, trace), 'fit_svi')
+
+    def _svi_step(self, state, batch, scale, rho):
+        """One natural-gradient step on a minibatch at stochastic scale
+        B/N and step size rho."""
+        resp = self.expected_responsibilities(state, batch)
+        return MFState(
+            components=self.family.svi_blend(
+                state.components, self.components_prior,
+                self.family.suff_stats(batch, resp), scale, rho),
+            gating=self.gating_prior.svi_blend(
+                state.gating, torch.sum(resp, 0), scale, rho))
+
+    # -- out-of-core ---------------------------------------------------------
+
+    def _stream_setup(self, backend, transfer_dtype):
+        """(device, dtype, stage on the card?, kernel?) of a stream engine:
+        the data lands where the model's priors lie, in their dtype."""
+        leaf = _first_leaf(self.components_prior)
+        if transfer_dtype not in (None, torch.bfloat16, torch.float16):
+            raise ValueError('transfer_dtype: None, torch.bfloat16 or '
+                             f'torch.float16, got {transfer_dtype!r}')
+        return (leaf.device, leaf.dtype, leaf.is_cuda,
+                resolve_backend(backend, leaf))
+
+    def fit_svi_stream(self, next_batch, total_size, key=None, maxiter=500,
+                       step_size=1e-2, batch_size=128, init_state=None,
+                       forgetting=None, delay=1.0, group=16, prefetch=2,
+                       transfer_dtype=None):
+        """Out-of-core SVI: the host supplies minibatches (e.g. from an
+        io.MmapDataset over a file larger than host or device memory) and
+        natural-gradient steps run one per batch on the model's device.
+
+        `next_batch(i)` -> an array or a tuple of arrays (numpy or CPU
+        tensors) with leading dim batch_size; `total_size` is N for the
+        stochastic scale B/N. `forgetting` / `delay` give the
+        Robbins-Monro schedule (see fit_svi), computed in float32 as the
+        JAX package computes it. Without `init_state` the start is one
+        update from random responsibilities on batch 0. Returns the final
+        MFState.
+
+        `group` host batches are read and stacked per reader item (on
+        the card: one pinned stack and one host-to-device copy a group);
+        a ragged last group repeats its last batch with step size 0, as
+        the reference pads it. `prefetch` is the reader queue's depth;
+        the batch order, and so the result, does not depend on it.
+
+        `transfer_dtype` (torch.bfloat16 or torch.float16) casts batches
+        on the host, halving the bytes over the bus; the card upcasts them
+        to the state's dtype. The JAX docstring's premise that the E-step
+        rounds its operands to bf16 anyway does not hold here: the steps
+        run in the state's dtype, so the cast is error the fit would not
+        otherwise make. Off by default."""
+        from mimo_tpu_torch.io.stage import Stager, host_arrays
+        from mimo_tpu_torch.io.stream import Prefetcher
+        dev, dtype, staged, _ = self._stream_setup('auto', transfer_dtype)
+        wire = transfer_dtype or torch.float32
+        gen = _as_generator(key, dev)
+        scale = batch_size / total_size
+        group = max(1, min(group, maxiter))
+        if init_state is None:
+            batch0 = _to_device(host_arrays(next_batch(0)), None, dtype, dev)
+            state = self._mf_update(batch0, _random_resp(
+                gen, batch0[0].shape[0], self.size, dtype, dev))
+        else:
+            state = init_state
+        stager = (Stager(dev, wire, transpose=False, dtype=dtype)
+                  if staged else None)
+
+        def make_group(gi):
+            """Read and stack one group of host batches (reader thread)."""
+            g0 = gi * group
+            g = min(group, maxiter - g0)
+            bs = [host_arrays(next_batch(g0 + j)) for j in range(g)]
+            bs = bs + [bs[-1]] * (group - g)
+            if forgetting is None:
+                rhos = np.full(group, step_size, np.float32)
+            else:
+                t = np.arange(g0, g0 + group, dtype=np.float32)
+                rhos = (step_size * (t + 1.0 + delay) ** -forgetting
+                        ).astype(np.float32)
+            rhos[g:] = 0.0
+            if stager is not None:
+                return stager.fill(bs), rhos
+            stacks = tuple(np.stack([b[a] for b in bs])
+                           for a in range(len(bs[0])))
+            return _to_device(stacks, transfer_dtype, dtype, dev), rhos
+
+        with Prefetcher(make_group, -(-maxiter // group),
+                        depth=prefetch) as pf:
+            try:
+                for item, rhos in pf:
+                    if stager is not None:
+                        slot, cols, _ = stager.put(item)
+                        item = tuple(c.reshape(group, -1, c.shape[1])
+                                     for c in cols)
+                    rhos = torch.from_numpy(rhos)
+                    for j in range(group):
+                        state = self._svi_step(
+                            state, tuple(b[j] for b in item), scale, rhos[j])
+                    if stager is not None:
+                        stager.release(slot)
+            except BaseException:
+                if stager is not None:
+                    stager.close()
+                raise
+        return finite_report(state, 'fit_svi_stream')
+
+    @staticmethod
+    def _stream_pass(read_block, n_blocks, prefetch, stager, transfer_dtype,
+                     dtype, dev, need_data, use_kernel):
+        """Yield each block of one pass over the dataset as (data, xts, n),
+        read `prefetch` blocks ahead on the reader thread: `data` the
+        block's tensors in `dtype` (made from the staged buffer on the card
+        when `need_data`), `xts` the per-input (d_i, capacity) float32 row
+        views of kernel B1's layout (the staged buffer on the card, or made
+        from `data` when the kernel runs on unstaged blocks)."""
+        from mimo_tpu_torch.io.stage import host_arrays
+        from mimo_tpu_torch.io.stream import Prefetcher
+
+        def produce(i):
+            arrays = host_arrays(read_block(i))
+            if stager is not None:
+                return stager.fill([arrays])
+            return _to_device(arrays, transfer_dtype, dtype, dev)
+
+        with Prefetcher(produce, n_blocks, depth=prefetch) as pf:
+            try:
+                for item in pf:
+                    if stager is None:
+                        yield (item, kernel_xts(item) if use_kernel else None,
+                               item[0].shape[0])
+                        continue
+                    slot, xts, nb = stager.put(item)
+                    data = (tuple(x[:, :nb].T.to(dtype) for x in xts)
+                            if need_data else None)
+                    yield data, xts, nb
+                    stager.release(slot)
+            except BaseException:
+                if stager is not None:
+                    stager.close()
+                raise
+
+    def _fit_epoch_stream(self, read_block, n_blocks, kind, key, maxiter,
+                          init_state, prefetch, backend, block_size,
+                          transfer_dtype):
+        """The engine of fit_{vi,map,em}_stream_full: each sweep is one
+        pass over the dataset in host blocks, each block through the fused
+        E-step (kernel B1 on the card, the blockwise twin on the CPU) with
+        the sweep's theta formed once; the (K, m) statistics and the lse
+        add across blocks on the device in the state's dtype, with no host
+        read a block, so the streamed sweep is the in-memory fused sweep.
+        The trace stays on the device until the end."""
+        from mimo_tpu_torch.io.stage import Stager, host_arrays
+        spec = self._estep_spec()
+        if spec is None:
+            raise NotImplementedError('no fused E-step spec for this family')
+        if kind in ('map', 'em') and spec.theta_plugin is None:
+            raise NotImplementedError('no fused plug-in spec for this family')
+        if kind == 'em' and self.family.ml_update is None:
+            raise NotImplementedError(
+                'this family has no maximum-likelihood update')
+        if n_blocks < 1:
+            raise ValueError(f'n_blocks={n_blocks}: nothing to stream')
+        dev, dtype, staged, use_kernel = self._stream_setup(backend,
+                                                            transfer_dtype)
+        gen = _as_generator(key, dev)
+        estep = _BlockEStep(spec if kind == 'vi' else spec._replace(
+            theta=spec.theta_plugin), use_kernel, block_size, dtype)
+        stager = (Stager(dev, transfer_dtype or torch.float32)
+                  if staged else None)
+
+        def blocks(need_data=True, kernel=False):
+            return self._stream_pass(read_block, n_blocks, prefetch, stager,
+                                     transfer_dtype, dtype, dev, need_data,
+                                     kernel)
+
+        def init_pass(resp_of):
+            """Statistics and counts of one pass, each block weighted by
+            resp_of(block data) -> (nb, K)."""
+            stats = counts = None
+            total = 0
+            for data, _, nb in blocks():
+                resp = resp_of(data)
+                st, c = self.family.suff_stats(data, resp), torch.sum(resp, 0)
+                stats = st if stats is None else _tree_map2(torch.add,
+                                                            stats, st)
+                counts = c if counts is None else counts + c
+                total += nb
+            return stats, counts, total
+
+        if init_state is not None:
+            state = init_state
+        elif kind in ('vi', 'map'):
+            # one generator, drawn block by block: the layout differs from
+            # the in-memory random start (pass init_state for equality)
+            stats, counts, _ = init_pass(lambda b: _random_resp(
+                gen, b[0].shape[0], self.size, dtype, dev))
+            state = self._posterior(stats, counts)
+        else:   # em: anchors and their scale from block 0
+            x0 = _to_device(host_arrays(read_block(0)), None, dtype, dev)[0]
+            anchors = x0[_anchor_indices(gen, x0.shape[0], self.size, dev)]
+            scale2 = anchor_scale(x0)
+            stats, counts, total = init_pass(
+                lambda b: anchor_resp(b[0], anchors, scale2))
+            state = EMState(self.family.ml_update(stats),
+                            self._ml_log_pi(counts, total))
+
+        def sweep(theta_src, log_pi):
+            estep.begin(theta_src, log_pi)
+            for data, xts, nb in blocks(not use_kernel, use_kernel):
+                estep.add(data, xts, nb)
+            return estep.end()
+
+        trace = []
+        for _ in range(maxiter):
+            if kind == 'vi':
+                res = sweep(state.components,
+                            state.gating.expected_log_pi())
+                t = (res.lse
+                     - torch.sum(self.family.kl(state.components,
+                                                self.components_prior))
+                     - torch.sum(state.gating.kl_divergence(
+                         self.gating_prior)))
+                state = self._posterior(res.stats, res.counts)
+            elif kind == 'map':
+                res = sweep(self.family.mode_params(state.components),
+                            torch.log(torch.clamp(state.gating.mode(),
+                                                  min=1e-37)).to(dtype))
+                t = res.lse
+                state = self._posterior(res.stats, res.counts)
+            else:
+                res = sweep(state.params, state.log_pi)
+                t = res.lse
+                state = EMState(self.family.ml_update(res.stats),
+                                self._ml_log_pi(res.counts,
+                                                torch.sum(res.counts)))
+            trace.append(t)
+        return finite_report((state, _stack(trace, _first_leaf(state))),
+                             f'fit_{kind}_stream_full')
+
+    def fit_vi_stream_full(self, read_block, n_blocks, key=None, maxiter=50,
+                           init_state=None, prefetch=2, backend='auto',
+                           block_size=131072, transfer_dtype=None):
+        """Out-of-core full-data VI: fit_vi_fused's sweep with the dataset
+        read a block at a time each sweep instead of held in device
+        memory, so N is bounded by disk (the card holds one block).
+
+        `read_block(i)` -> an (N_i, d) array or a tuple of arrays (numpy
+        or CPU tensors) for i in range(n_blocks), e.g.
+        `lambda i: ds.read_block(i * B, B)` over an io.MmapDataset;
+        blocks may be ragged. On the card every block is one launch of
+        kernel B1 (float32, statistics cast back to the model's dtype);
+        on the CPU the blockwise twin runs `block_size` points at a time,
+        so from `init_state` over blocks of block_size points the result
+        equals fit_vi_fused's on the same data. Without `init_state` the
+        start is one update from random responsibilities drawn block by
+        block. `prefetch` is the reader queue's depth. `transfer_dtype`
+        (torch.bfloat16 or torch.float16) casts blocks on the host and
+        upcasts them on the device: on the card to B1's float32, on the
+        CPU to the model's dtype; B1 keeps float32 accuracy through its
+        TF32 splits, so bf16 on the wire is error B1 would not otherwise
+        make. Returns (MFState, ELBO trace)."""
+        return self._fit_epoch_stream(read_block, n_blocks, 'vi', key,
+                                      maxiter, init_state, prefetch, backend,
+                                      block_size, transfer_dtype)
+
+    def fit_map_stream_full(self, read_block, n_blocks, key=None, maxiter=50,
+                            init_state=None, prefetch=2, backend='auto',
+                            block_size=131072, transfer_dtype=None):
+        """Out-of-core full-data MAP-EM (fit_map_fused streamed; see
+        fit_vi_stream_full). Returns (MFState, loglik trace)."""
+        return self._fit_epoch_stream(read_block, n_blocks, 'map', key,
+                                      maxiter, init_state, prefetch, backend,
+                                      block_size, transfer_dtype)
+
+    def fit_em_stream_full(self, read_block, n_blocks, key=None, maxiter=50,
+                           init_state=None, prefetch=2, backend='auto',
+                           block_size=131072, transfer_dtype=None):
+        """Out-of-core full-data likelihood EM (fit_em_fused streamed; the
+        anchor start draws the K anchors, and the distance scale, from
+        block 0). Returns (EMState, loglik trace)."""
+        return self._fit_epoch_stream(read_block, n_blocks, 'em', key,
+                                      maxiter, init_state, prefetch, backend,
+                                      block_size, transfer_dtype)
 
     # -- blocked Gibbs -------------------------------------------------------
 
@@ -849,6 +1138,66 @@ def _as_tuple(data):
     return data if isinstance(data, tuple) else (data,)
 
 
+def _first_leaf(tree):
+    while not isinstance(tree, torch.Tensor):
+        tree = tree[0]
+    return tree
+
+
+def _to_device(arrays, wire, dtype, device):
+    """Host arrays -> tensors on `device` in `dtype`, through `wire` (the
+    stream engines' transfer_dtype) first when it is given."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if wire is not None:
+            t = t.to(wire)
+        out.append(t.to(device=device, dtype=dtype))
+    return tuple(out)
+
+
+class _BlockEStep:
+    """The fused E-step of the streamed sweeps, a block at a time, with
+    theta formed once a sweep (`begin`): kernel B1 on the staged float32
+    buffer with the block's row count at run time, or the blockwise twin
+    on the block's tensors (`add`). The (K, m) accumulator and the lse
+    add across blocks in the engine's dtype; `end` unpacks them."""
+
+    def __init__(self, spec, use_kernel, block_size, dtype):
+        self.spec, self.use_kernel = spec, use_kernel
+        self.block_size, self.dtype = block_size, dtype
+
+    def begin(self, theta_src, log_pi):
+        from mimo_tpu_torch.ops.cuda_estep import feature_kind, pad_theta
+        from mimo_tpu_torch.ops.family_estep import estep_zeros
+        theta = self.spec.theta(theta_src)
+        if self.use_kernel:
+            self.kind = feature_kind(self.spec.features_t)
+            theta, self.m = pad_theta(theta, log_pi, torch.float32)
+        self.theta, self.log_pi = theta, log_pi
+        self.acc, self.lse = estep_zeros(theta, log_pi)
+
+    def add(self, data, xts, n):
+        from mimo_tpu_torch.ops import cuda_estep
+        from mimo_tpu_torch.ops.family_estep import estep_accumulate
+        if self.use_kernel:
+            acc, lse = cuda_estep.estep(
+                cuda_estep.stack_rows(xts), self.theta, n, self.kind,
+                cuda_estep.y_rows(self.kind, xts))
+            self.acc = self.acc + acc.to(self.dtype)
+            self.lse = self.lse + lse.to(self.dtype)
+        else:
+            self.acc, self.lse = estep_accumulate(
+                self.spec.features, self.theta, self.log_pi, data,
+                self.block_size, self.acc, self.lse)
+
+    def end(self):
+        from mimo_tpu_torch.ops.family_estep import FusedEStep
+        acc = self.acc[..., :self.m] if self.use_kernel else self.acc
+        return FusedEStep(stats=self.spec.unpack(acc), lse=self.lse,
+                          counts=self.acc[..., 0])
+
+
 def _as_generator(key, device):
     """A torch.Generator on `device` from an int seed (None -> 0), or the
     given generator after checking its device."""
@@ -869,14 +1218,20 @@ def _random_resp(gen, n, k, dtype, device):
     return r.div_(torch.sum(r, -1, keepdim=True))
 
 
-def anchor_resp(x0, anchors):
+def anchor_scale(x0):
+    """The anchor init's squared distance scale: the mean per-dim
+    variance of x0, at least 1e-6."""
+    return torch.clamp(torch.mean(torch.var(x0, 0, correction=0)), min=1e-6)
+
+
+def anchor_resp(x0, anchors, scale2=None):
     """(N, K) soft assignment of the points x0 (N, d) by their distance
-    to the anchors (K, d), on the mean per-dim variance's scale. The
-    distances are formed a chunk of points at a time, so the (N, K, d)
-    differences never exist at once."""
+    to the anchors (K, d), on the scale `scale2` (by default
+    anchor_scale(x0)). The distances are formed a chunk of points at a
+    time, so the (N, K, d) differences never exist at once."""
     n, k = x0.shape[0], anchors.shape[0]
-    scale2 = torch.clamp(torch.mean(torch.var(x0, 0, correction=0)),
-                         min=1e-6)
+    if scale2 is None:
+        scale2 = anchor_scale(x0)
     resp = torch.empty((n, k), dtype=x0.dtype, device=x0.device)
     for s in range(0, n, _CHUNK):
         d2 = torch.sum(torch.square(x0[s:s + _CHUNK, None, :]

@@ -452,20 +452,36 @@ def fused_estep_blockwise(spec: EStepSpec, post, log_pi, data,
     C-stacked posteriors and log_pi (C, K), every block serves all C
     chains: stats C-stacked, lse and counts (C,) and (C, K)."""
     theta = spec.theta(post)
+    acc, lse = estep_accumulate(spec.features, theta, log_pi, data,
+                                block_size, *estep_zeros(theta, data[0]))
+    return FusedEStep(stats=spec.unpack(acc), lse=lse, counts=acc[..., 0])
+
+
+def estep_zeros(theta, like):
+    """The zero (acc, lse) of a fused E-step over theta (..., K, m), in
+    the dtype and on the device of `like`."""
+    return (torch.zeros(theta.shape, dtype=like.dtype, device=like.device),
+            torch.zeros(theta.shape[:-2], dtype=like.dtype,
+                        device=like.device))
+
+
+def estep_accumulate(features, theta, log_pi, data, block_size, acc, lse):
+    """Add the fused E-step of `data` over theta (K, m), or the chains'
+    (C, K, m), to (acc, lse), block_size points at a time, and return
+    the sums. The streamed engines carry (acc, lse) across their blocks,
+    so a stream over blocks of block_size points adds exactly what
+    fused_estep_blockwise adds over the data in memory."""
     n = data[0].shape[0]
-    acc = torch.zeros(theta.shape, dtype=data[0].dtype, device=data[0].device)
-    lse = torch.zeros(theta.shape[:-2], dtype=data[0].dtype,
-                      device=data[0].device)
     theta_t = theta.transpose(-1, -2)
     for s in range(0, n, block_size):
-        feats = spec.features(tuple(a[s:s + block_size] for a in data))
+        feats = features(tuple(a[s:s + block_size] for a in data))
         logp = feats @ theta_t + log_pi[..., None, :]
         m = torch.max(logp, -1).values
         ex = torch.exp(logp - m[..., None])
         denom = torch.sum(ex, -1)
         acc = acc + ex.transpose(-1, -2) @ (feats / denom[..., None])
         lse = lse + torch.sum(m + torch.log(denom), -1)
-    return FusedEStep(stats=spec.unpack(acc), lse=lse, counts=acc[..., 0])
+    return acc, lse
 
 
 def fused_gibbs_blockwise(spec: EStepSpec, seed, params, log_pi, data,

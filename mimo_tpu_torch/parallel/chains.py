@@ -14,6 +14,9 @@ written out:
                     under torch.func.vmap, kernel B1 or B2 launched once a
                     sweep for all chains); the other dense engines (`fit_vi`,
                     `fit_map`, `fit_em`, `fit_svi`) run chain by chain.
+                    The nested mixtures (models.hmix) batch their four
+                    fused engines the same way, over M*K flat kernel
+                    rows, and run every dense engine chain by chain.
   * `best_of`     — the chain with the best final ELBO.
   * `smc_gibbs`   — Gibbs chains interleaved with systematic resampling of
                     chain states by data log-likelihood.
@@ -21,6 +24,7 @@ written out:
 
 import torch
 
+from mimo_tpu_torch.models.hmix import BayesianMixtureOfMixtures
 from mimo_tpu_torch.models.mixture import (
     BayesianMixture, _as_generator, _as_tuple, _tree_map, _tree_map2,
     stack_trees)
@@ -30,13 +34,8 @@ BATCHED = ('fit_vi_fused', 'fit_gibbs_fused', 'fit_map_fused',
            'fit_em_fused', 'fit_gibbs')
 # engines that run chain by chain
 SERIAL = ('fit_vi', 'fit_map', 'fit_em', 'fit_svi')
-
-
-def _flat_only(model, what):
-    if not isinstance(model, BayesianMixture):
-        raise NotImplementedError(
-            f'{what} drives flat BayesianMixture models (GMM/ILR); chains '
-            'of nested mixtures are ROADMAP A20b')
+# a nested mixture's batched engines; its dense ones run chain by chain
+NESTED_BATCHED = BATCHED[:4]
 
 
 def fit_chains(model, fit_name, data, keys, **kw):
@@ -44,14 +43,16 @@ def fit_chains(model, fit_name, data, keys, **kw):
     on a leading chain axis. `keys`: an int64 tensor (C,) or a sequence of
     int seeds or torch.Generators. The engines in BATCHED run as one
     program (one kernel launch a sweep for all chains on CUDA data); the
-    ones in SERIAL run chain by chain. Nested models raise
-    NotImplementedError. JAX's cache of traced programs has no
-    counterpart: nothing is traced."""
-    _flat_only(model, 'fit_chains')
+    ones in SERIAL run chain by chain. A nested mixture
+    (BayesianMixtureOfMixtures) batches NESTED_BATCHED, its four fused
+    engines, and runs its dense `fit_gibbs` chain by chain too. JAX's
+    cache of traced programs has no counterpart: nothing is traced."""
     data = _as_tuple(data)
-    if fit_name in BATCHED:
+    batched = (NESTED_BATCHED
+               if isinstance(model, BayesianMixtureOfMixtures) else BATCHED)
+    if fit_name in batched:
         return getattr(model, fit_name)(data, key=keys, chains=True, **kw)
-    if fit_name not in SERIAL:
+    if fit_name not in BATCHED + SERIAL:
         raise ValueError(f'unknown engine {fit_name!r}; one of '
                          f'{list(BATCHED + SERIAL)}')
     if isinstance(keys, torch.Tensor):
@@ -98,7 +99,10 @@ def smc_gibbs(model, data, key, n_chains=8, n_rounds=10,
     the effective sample size drops below `ess_threshold * n_chains`.
     Returns the final stacked GibbsStates and the per-round mean
     log-likelihoods (n_rounds,)."""
-    _flat_only(model, 'smc_gibbs')
+    if not isinstance(model, BayesianMixture):
+        raise NotImplementedError(
+            'smc_gibbs drives flat BayesianMixture models (GMM/ILR); '
+            'nested mixtures have a different Gibbs state')
     data = _as_tuple(data)
     # standardize ONCE here: the sweeps and the scoring below call the
     # base-class engine and _gibbs_sweep on the data as given, so

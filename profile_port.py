@@ -2,7 +2,8 @@
 """Where the time goes in the port's cells on one CUDA card.
 
     python3 profile_port.py [--units U] [--engines-only | --nested-only
-                                         | --nested-probes | --chains]
+                                         | --nested-probes | --chains
+                                         | --stream]
 
 For each cell it fits the model at the size `chip_smoke.py` drives,
 warms up, then measures one unit of work (a warm-started VI sweep, a
@@ -19,12 +20,16 @@ and engine, with the card's name and power limit first.
 
 `--nested-probes` runs the measurements behind the nested model's design
 instead (see `nested_probes`); `--chains` the chains of `chip_smoke.py`
-phase 19 (see `chain_cells`).
+phase 19 (see `chain_cells`); `--stream` the streamed sweeps of its phase
+20 (see `stream_cells`).
 """
 
 import argparse
+import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -33,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
 from mimo_tpu_torch.distributions.niw import GaussParams
+from mimo_tpu_torch.io import MmapDataset, stage, stream, write_bin
 from mimo_tpu_torch.models import (
     BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState
@@ -313,6 +319,179 @@ def chain_cells(card, dev, x, u):
         torch.cuda.empty_cache()
 
 
+def trace_events(fn):
+    """The device events of one run of fn() from the profiler's chrome
+    trace: {'kernel': [(start, end, name)], 'h2d': [(start, end)]} in
+    microseconds (a profiling window that records no kernel is retried)."""
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix='.json')
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)['traceEvents']
+        finally:
+            os.unlink(path)
+        out = {'kernel': [], 'h2d': []}
+        for e in events:
+            if e.get('ph') != 'X':
+                continue
+            span = (float(e['ts']), float(e['ts']) + float(e.get('dur', 0)))
+            if e.get('cat') == 'kernel':
+                out['kernel'].append(span + (e.get('name', ''),))
+            elif e.get('cat') == 'gpu_memcpy' and 'HtoD' in e.get('name', ''):
+                out['h2d'].append(span)
+        if out['kernel']:
+            return out
+    raise SystemExit('profile_port: the profiler saw no device time')
+
+
+def covered(spans, by):
+    """Total length of `spans` that lies inside the union of `by`."""
+    union = []
+    for a, b in sorted(by):
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    return sum(max(0.0, min(b, v) - max(a, u))
+               for a, b in spans for u, v in union)
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def stream_cells(card, dev, x, u):
+    """The streamed sweeps of chip_smoke.py phase 20: cell (b), the first
+    2e6 points of the GMM data in 4 blocks of 5e5, and cell (c), all 1e7
+    in blocks of 2^20, fit_vi_stream_full warm-started from an in-memory
+    VI fit. Per sweep: the wall time (median of 3 runs of U sweeps)
+    beside the in-memory sweep's; under the profiler B1's device time and
+    launches, the host-to-device bytes and copy time, and the share of
+    the copy time that overlaps a kernel (on the compute stream); on the
+    host clock the reader's time a block in read_block (file to numpy),
+    in waiting for a free pinned buffer and in filling it (the numpy copy
+    and the cast), and the main thread's time a sweep waiting for the
+    reader."""
+    reads, fills, waits, gets, stagers = [], [], [], [], []
+    fill, acquire, init = (stage.Stager.fill, stage.Stager._acquire,
+                           stage.Stager.__init__)
+    get = stream.Prefetcher.get
+
+    def timed_get(self):
+        t0 = time.perf_counter()
+        try:
+            return get(self)
+        finally:
+            gets.append(time.perf_counter() - t0)
+
+    def timed_fill(self, chunks):
+        t0 = time.perf_counter()
+        out = fill(self, chunks)
+        fills.append(time.perf_counter() - t0 - self._waited)
+        return out
+
+    def timed_acquire(self):
+        t0 = time.perf_counter()
+        out = acquire(self)
+        self._waited = time.perf_counter() - t0
+        waits.append(self._waited)
+        return out
+
+    def kept_init(self, *a, **kw):
+        init(self, *a, **kw)
+        stagers.append(self)
+
+    stage.Stager.fill, stage.Stager._acquire = timed_fill, timed_acquire
+    stage.Stager.__init__ = kept_init
+    stream.Prefetcher.get = timed_get
+    m = BayesianGMM.make(size=K, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    path = os.path.join(tempfile.gettempdir(),
+                        f'profile_port_{os.getpid()}.bin')
+    try:
+        for n, b in ((2_000_000, 500_000), (N_GMM, 1 << 20)):
+            xs = x[:n]
+            write_bin(path, xs.cpu().numpy())
+            ds = MmapDataset(path)
+            nb = -(-n // b)
+
+            def rb(i):
+                t0 = time.perf_counter()
+                out = ds.read_block(i * b, b)
+                reads.append(time.perf_counter() - t0)
+                return out
+
+            st, _ = m.fit_vi_fused(xs, key=1, maxiter=20)
+
+            def streamed():
+                return m.fit_vi_stream_full(rb, nb, init_state=st,
+                                            maxiter=u)
+
+            streamed()                                    # warm
+            wall = wall_ms(streamed, u)
+            mem = wall_ms(lambda: m.fit_vi_fused(
+                xs, maxiter=u, init_state=st, randomize=False), u)
+            for t in (reads, fills, waits, gets):
+                t.clear()
+            n0 = len(stagers)
+            streamed()
+            h2d_bytes = sum(s.h2d_bytes for s in stagers[n0:]) / u
+            wait_ms = 1e3 * sum(gets) / u
+            host = [1e3 * statistics.median(t) for t in (reads, waits, fills)]
+            ev = trace_events(streamed)
+            b1 = [k for k in ev['kernel'] if 'estep_tc' in k[2]]
+            kern_ms = sum(k[1] - k[0] for k in ev['kernel']) / 1e3 / u
+            b1_ms = sum(k[1] - k[0] for k in b1) / 1e3 / u
+            copy_ms = sum(e[1] - e[0] for e in ev['h2d']) / 1e3 / u
+            hidden = covered(ev['h2d'], [k[:2] for k in ev['kernel']])
+            share = hidden / 1e3 / u / copy_ms if copy_ms else 0.0
+            spans = [k[:2] for k in ev['kernel']] + ev['h2d']
+            busy_ms = covered([(min(a for a, _ in spans),
+                                max(b for _, b in spans))], spans) / 1e3 / u
+            print(f'stream N={n} B={b} ({nb} blocks), per sweep ({card}): '
+                  f'wall {wall:.6g} ms (in memory {mem:.6g} ms); B1 '
+                  f'{b1_ms:.6g} ms device in {len(b1) / u:.4g} launches; all '
+                  f'kernels {kern_ms:.6g} ms; host-to-device '
+                  f'{h2d_bytes / 1e6:.6g} MB in {copy_ms:.6g} ms '
+                  f'({h2d_bytes / copy_ms / 1e6 if copy_ms else 0:.6g} '
+                  f'GB/s), share of the copy under a kernel {share:.3f}; '
+                  f'device busy (kernels or copies) {busy_ms:.6g} ms, idle '
+                  f'share {max(0.0, 1 - busy_ms / wall):.3f}; reader a block '
+                  f'(median): read_block {host[0]:.6g} ms, waiting for a '
+                  f'pinned buffer {host[1]:.6g} ms, pinned fill '
+                  f'{host[2]:.6g} ms; main thread waiting for the reader '
+                  f'{wait_ms:.6g} ms a sweep', flush=True)
+            # the same host work alone on the main thread, for contrast
+            arr = ds.read_block(0, b)
+            pinned = torch.empty(arr.shape, pin_memory=True)
+            alone = [1e3 * statistics.median(
+                timed(fn) for _ in range(5)) for fn in (
+                    lambda: ds.read_block(0, b),
+                    lambda: pinned.copy_(torch.from_numpy(arr)))]
+            print(f'stream N={n} B={b}: alone on the main thread, read_block '
+                  f'{alone[0]:.6g} ms, numpy -> pinned copy {alone[1]:.6g} '
+                  f'ms ({arr.nbytes / 1e6:.6g} MB; torch threads '
+                  f'{torch.get_num_threads()})', flush=True)
+            ds.close()
+            del st, xs
+            torch.cuda.empty_cache()
+    finally:
+        stage.Stager.fill, stage.Stager._acquire = fill, acquire
+        stage.Stager.__init__ = init
+        stream.Prefetcher.get = get
+        if os.path.exists(path):
+            os.unlink(path)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--units', type=int, default=5)
@@ -326,6 +505,9 @@ def main():
                            "design (see nested_probes)")
     only.add_argument('--chains', action='store_true',
                       help="only the chains of chip_smoke.py phase 19")
+    only.add_argument('--stream', action='store_true',
+                      help="only the streamed sweeps of chip_smoke.py "
+                           "phase 20")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_port: needs a CUDA device')
@@ -350,6 +532,9 @@ def main():
     x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3], N_GMM)
     if args.chains:
         chain_cells(card, dev, x, u)
+        return
+    if args.stream:
+        stream_cells(card, dev, x, u)
         return
     engine_cells(card, dev, x, u)
     if args.engines_only:

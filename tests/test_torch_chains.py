@@ -9,8 +9,11 @@ kernels B1/B2 run their plain versions:
     single-chain fits with the same keys (rtol 1e-10), `tol` included;
   * fused and dense Gibbs chains (finite, distinct, JAX's shapes), the
     dense engines through fit_chains, best_of and systematic resampling
-    against JAX, smc_gibbs, the nested models' refusal, finite_report's
-    chain, and the fixed-state two-sample check on B2's plain twin."""
+    against JAX, smc_gibbs, finite_report's chain, and the fixed-state
+    two-sample check on B2's plain twin;
+  * chains of nested mixtures: the fused engines' chains against the
+    port's nested fits with the same keys (rtol 1e-10), mimo_tpu's
+    fit_chains structure, and smc_gibbs' refusal of nested models."""
 
 import warnings
 
@@ -441,13 +444,114 @@ def test_smc_gibbs_ilr_transform_consistency(ilr_xy):
     assert float(states.components[0].mu.abs().max()) < 4.0
 
 
+NESTED_KEYS = (4, 9, 13)
+
+
+def nested_model(kind, hierarchical=False):
+    """A small float64 nested model on the CPU and its data."""
+    if kind == 'ilr':
+        rng = np.random.default_rng(5)
+        x = torch.from_numpy(rng.uniform(-6, 6, (600, 1)))
+        y = torch.sin(x) + 0.1 * torch.from_numpy(
+            rng.standard_normal((600, 1)))
+        hm = BayesianMixtureOfMixtures.make_ilr(2, 3, 1, 1, kappa=0.05,
+                                                dtype=torch.float64,
+                                                device='cpu')
+        hm.init_transform(x, y)
+        return hm, (x, y)
+    rng = np.random.default_rng(6)
+    c = np.array([[-5., -4.], [5., 4.]])
+    x = torch.from_numpy(c[np.arange(900) % 2]
+                         + 0.7 * rng.standard_normal((900, 2)))
+    hm = BayesianMixtureOfMixtures.make_gmm(
+        3, 4, 2, hierarchical=hierarchical, kappa=0.5, psi_scale=0.5,
+        maxsubiter=3, dtype=torch.float64, device='cpu')
+    return hm, (x,)
+
+
+@pytest.mark.parametrize('engine,kind,hier', [
+    ('fit_vi_fused', 'gmm', False), ('fit_vi_fused', 'gmm', True),
+    ('fit_vi_fused', 'ilr', False), ('fit_map_fused', 'gmm', False),
+    ('fit_map_fused', 'gmm', True), ('fit_em_fused', 'gmm', False),
+    ('fit_em_fused', 'ilr', False)])
+def test_nested_chains_equal_serial_fits(engine, kind, hier):
+    """Chain c of a nested fused engine through fit_chains is the nested
+    fit with key c (each chain's start drawn from its own generator), and
+    the same keys repeat the chains."""
+    hm, data = nested_model(kind, hier)
+    st, tr = fit_chains(hm, engine, data, list(NESTED_KEYS), maxiter=6)
+    assert tr.shape == (len(NESTED_KEYS), 6)
+    for i, k in enumerate(NESTED_KEYS):
+        s1, t1 = getattr(hm, engine)(data, key=k, maxiter=6)
+        torch.testing.assert_close(tr[i], t1, rtol=1e-10, atol=0.0)
+        for a, b in zip(jax.tree.leaves(state_to_numpy(
+                tmix._tree_map(lambda v: v[i], st))),
+                jax.tree.leaves(state_to_numpy(s1))):
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+    _, tr2 = fit_chains(hm, engine, data, list(NESTED_KEYS), maxiter=6)
+    assert torch.equal(tr, tr2)
+
+
+def test_nested_vi_chains_tol_stop_each_chain_on_its_own():
+    hm, data = nested_model('gmm')
+    st, tr = fit_chains(hm, 'fit_vi_fused', data, list(NESTED_KEYS),
+                        maxiter=40, tol=1e-3)
+    for i, k in enumerate(NESTED_KEYS):
+        _, t1 = hm.fit_vi_fused(data, key=k, maxiter=40, tol=1e-3)
+        torch.testing.assert_close(tr[i], t1, rtol=1e-10, atol=0.0)
+
+
+@pytest.mark.parametrize('hier', [False, True])
+def test_nested_gibbs_chains_finite_distinct_and_repeatable(hier):
+    hm, data = nested_model('gmm', hier)
+    gs = fit_chains(hm, 'fit_gibbs_fused', data, [1, 2, 3], maxiter=8)
+    assert gs.labels.shape == (3, 900)
+    assert int(gs.labels.max()) < hm.cluster_size
+    for leaf in jax.tree.leaves(state_to_numpy(gs)):
+        assert np.isfinite(leaf).all()
+    mus = (gs.components.mus if hier else gs.components.mu)
+    assert not torch.equal(mus[0], mus[1])
+    gs2 = fit_chains(hm, 'fit_gibbs_fused', data, [1, 2, 3], maxiter=8)
+    assert torch.equal(gs.labels, gs2.labels)
+    torch.testing.assert_close(mus, gs2.components.mus if hier
+                               else gs2.components.mu, rtol=0, atol=0)
+
+
+def _jax_nested(hier):
+    from mimo_tpu.models.hmix import BayesianMixtureOfMixtures as JaxHMix
+    return JaxHMix.make_gmm(3, 4, 2, hierarchical=hier, kappa=0.5,
+                            psi_scale=0.5, maxsubiter=3, dtype=jnp.float64)
+
+
+@pytest.mark.parametrize('engine', ['fit_vi_fused', 'fit_gibbs_fused',
+                                    'fit_map_fused', 'fit_em_fused',
+                                    'fit_vi', 'fit_gibbs', 'fit_map',
+                                    'fit_em', 'fit_svi'])
+def test_nested_chains_have_jax_structure(engine):
+    """fit_chains over a nested model returns what mimo_tpu's vmapped
+    fit_chains returns: the same tree with a leading C axis on every leaf,
+    and (C, maxiter) traces."""
+    hm, data = nested_model('gmm')
+    jm = _jax_nested(False)
+    kw = dict(maxiter=3)
+    if engine == 'fit_svi':
+        kw.update(batch_size=64)
+    out = fit_chains(hm, engine, data, [1, 2, 3], **kw)
+    jout = jchains.fit_chains(jm, engine, jnp.asarray(data[0].numpy()),
+                              jax.random.split(jax.random.PRNGKey(0), 3),
+                              **kw)
+    shapes = [a.shape for a in jax.tree.leaves(state_to_numpy(out))]
+    jshapes = [np.shape(a) for a in jax.tree.leaves(jout)]
+    assert shapes == jshapes
+
+
 def test_nested_models_are_refused():
+    """smc_gibbs refuses nested models, as mimo_tpu's does; fit_chains
+    takes them (the tests above)."""
     hm = BayesianMixtureOfMixtures.make_gmm(2, 3, 2, hierarchical=False,
                                             dtype=torch.float64,
                                             device='cpu')
     x = torch.randn(200, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match='A20b'):
-        fit_chains(hm, 'fit_vi_fused', x, [0, 1], maxiter=2)
     with pytest.raises(NotImplementedError, match='nested mixtures'):
         smc_gibbs(hm, x, key=0, n_chains=2, n_rounds=1)
 

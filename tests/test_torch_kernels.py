@@ -2,9 +2,10 @@
 diagonal map, B4, B5 and B6 with MNW and MNG experts, B3 on HierTied
 rows, B5/B6 with tied-affine experts and a HierTied basis, the B1 probes
 S1 and S2, S3, the nested mixtures' paths through B1/B2/B3 at M*K
-rows and B5/B6 over flattened experts, and B1/B2 with a chain axis and
-the chained fused engines) against their plain PyTorch versions, on the
-card.
+rows and B5/B6 over flattened experts, B1/B2 with a chain axis and
+the chained fused engines, flat and nested, and B1 a block at a time in
+the out-of-core engines through the staged buffers) against their plain
+PyTorch versions, on the card.
 Every test here needs a CUDA device and skips without one; run them on
 the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
@@ -1266,3 +1267,139 @@ def test_fused_chains_launch_once_a_sweep(dev):
         for i, k in enumerate(keys):
             _, tr = getattr(m, engine)(x, key=k, maxiter=6)
             torch.testing.assert_close(out[1][i], tr, rtol=1e-5, atol=0.0)
+
+
+def test_nested_chains_launch_once_a_sweep_and_equal_one_chain(dev):
+    """fit_chains over a nested model's fused engines launches B1 or B2
+    once a sweep for all chains at M*K rows; the chains' B1 / B2 launches
+    at their final thetas are their one-chain launches, and each VI chain
+    tracks the nested fit with its key."""
+    from torch.func import vmap
+    from mimo_tpu_torch.models.mixture import kernel_xts
+    from mimo_tpu_torch.ops.cuda_estep import pad_theta
+    from mimo_tpu_torch.parallel import fit_chains
+    g = torch.Generator(device=dev).manual_seed(9)
+    c = torch.tensor([[-5., -4.], [5., 4.]], device=dev)
+    x = c[torch.arange(30011, device=dev) % 2] + 0.7 * torch.randn(
+        (30011, 2), generator=g, device=dev)
+    m = BayesianMixtureOfMixtures.make_gmm(3, 4, 2, hierarchical=False,
+                                           kappa=0.5, psi_scale=0.5,
+                                           device=dev)
+    keys = [1, 2, 3]
+    for engine, mod in (('fit_vi_fused', cuda_estep),
+                        ('fit_map_fused', cuda_estep),
+                        ('fit_em_fused', cuda_estep),
+                        ('fit_gibbs_fused', cuda_gibbs)):
+        before = mod.launches['gauss']
+        out = fit_chains(m, engine, x, keys, maxiter=5)
+        assert mod.launches['gauss'] == before + 5, engine
+        if engine == 'fit_gibbs_fused':
+            gs = out
+            assert gs.labels.shape == (3, 30011)
+            continue
+        assert out[1].shape == (3, 5)
+        if engine == 'fit_vi_fused':
+            st = out[0]
+            for i, k in enumerate(keys):
+                _, tr = m.fit_vi_fused(x, key=k, maxiter=5)
+                torch.testing.assert_close(out[1][i], tr, rtol=1e-5,
+                                           atol=0.0)
+    xt = kernel_xts((x,))[0]
+    spec = m._flat_spec()
+    th = pad_theta(vmap(spec.theta)(st.components),
+                   vmap(m._flat_log_pi)(st), torch.float32)[0]
+    th_g = pad_theta(vmap(spec.theta_plugin)(
+        vmap(vmap(m.family.mode_params))(gs.components)),
+        vmap(m._log_mix_weights)(gs).flatten(1), torch.float32)[0]
+    seeds = torch.tensor([11, 12, 13], dtype=torch.int64, device=dev)
+    acc, lse = cuda_estep.estep(xt, th, 30011)
+    labels, gacc = cuda_gibbs.gibbs(xt, th_g, seeds, 30011)
+    for i in range(3):
+        a1, l1 = cuda_estep.estep(xt, th[i], 30011)
+        assert torch.equal(acc[i], a1) and torch.equal(lse[i], l1)
+        lab1, g1 = cuda_gibbs.gibbs(xt, th_g[i], seeds[i], 30011)
+        assert torch.equal(labels[i], lab1) and torch.equal(gacc[i], g1)
+
+
+def _stream_data(dev, n=50011, seed=13):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, 2), generator=g, device=dev) * 3
+    x[: n // 3] += 6.0
+    return x, x.cpu().numpy()
+
+
+def test_stream_full_launches_b1_once_a_block(dev):
+    """fit_vi_stream_full / fit_map_stream_full / fit_em_stream_full on
+    the card: B1 once a block, the ragged tail included, through the
+    staged buffer; the streamed VI tracks fit_vi_fused in memory from the
+    same state, whatever the prefetch depth, and bf16 on the wire stays
+    within 1e-4."""
+    x, xh = _stream_data(dev)
+    b, nb = 16384, 4                                 # 3 blocks and a tail
+    m = BayesianGMM.make(size=10, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    st0, _ = m.fit_vi_fused(x, key=1, maxiter=3)
+
+    def rb(i):
+        return xh[i * b:(i + 1) * b]
+
+    before = cuda_estep.launches['gauss']
+    st, v = m.fit_vi_stream_full(rb, nb, init_state=st0, maxiter=4)
+    assert cuda_estep.launches['gauss'] == before + 4 * nb
+    _, v_m = m.fit_vi_fused(x, init_state=st0, randomize=False, maxiter=4)
+    torch.testing.assert_close(v, v_m, rtol=1e-5, atol=0.0)
+    _, v1 = m.fit_vi_stream_full(rb, nb, init_state=st0, maxiter=4,
+                                 prefetch=1)
+    _, v3 = m.fit_vi_stream_full(rb, nb, init_state=st0, maxiter=4,
+                                 prefetch=3)
+    assert torch.equal(v1, v) and torch.equal(v3, v)
+    _, vb = m.fit_vi_stream_full(rb, nb, init_state=st0, maxiter=4,
+                                 transfer_dtype=torch.bfloat16)
+    torch.testing.assert_close(vb, v, rtol=1e-4, atol=0.0)
+    for engine, kw in (('fit_map_stream_full', dict(init_state=st0)),
+                       ('fit_em_stream_full', dict(key=2))):
+        before = cuda_estep.launches['gauss']
+        _, tr = getattr(m, engine)(rb, nb, maxiter=3, **kw)
+        assert cuda_estep.launches['gauss'] == before + 3 * nb, engine
+        assert bool(torch.isfinite(tr).all())
+
+
+def test_stager_delivers_every_block_in_order(dev):
+    """The staged (rows, capacity) buffers hold each block transposed,
+    ragged blocks and a block larger than the first included, over more
+    blocks than buffers."""
+    from mimo_tpu_torch.io.stage import Stager
+    gen = torch.Generator().manual_seed(3)
+    sizes = [1000, 1000, 37, 2500, 1, 999]
+    blocks = [(torch.randn((s, 2), generator=gen).numpy(),
+               torch.randn((s, 1), generator=gen).numpy()) for s in sizes]
+    stager = Stager(dev)
+    for blk in blocks:
+        slot, xts, nb = stager.put(stager.fill([blk]))
+        assert nb == blk[0].shape[0] and [t.shape[0] for t in xts] == [2, 1]
+        for t, a in zip(xts, blk):
+            assert torch.equal(t[:, :nb].cpu(), torch.from_numpy(a).T)
+        stager.release(slot)
+
+
+def test_svi_stream_groups_do_not_change_the_steps(dev):
+    """fit_svi_stream on the card: one pinned stack a group; group 1 and
+    group 8 take the same steps on the same batches, bitwise."""
+    x, xh = _stream_data(dev, 20011)
+    m = BayesianGMM.make(size=10, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    st0, _ = m.fit_vi_fused(x, key=1, maxiter=3)
+
+    def nb(i):
+        idx = torch.randperm(xh.shape[0], generator=torch.Generator()
+                             .manual_seed(100 + i))[:512].numpy()
+        return xh[idx]
+
+    kw = dict(total_size=xh.shape[0], maxiter=24, step_size=0.5,
+              batch_size=512, init_state=st0, forgetting=0.7)
+    a = m.fit_svi_stream(nb, group=1, **kw)
+    b = m.fit_svi_stream(nb, group=8, **kw)
+    assert torch.equal(a.components.mu, b.components.mu)
+    assert torch.equal(a.gating.gamma, b.gating.gamma)
+    c = m.fit_svi_stream(nb, group=8, transfer_dtype=torch.bfloat16, **kw)
+    assert bool(torch.isfinite(c.components.mu).all())
