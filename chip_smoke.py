@@ -174,10 +174,39 @@ Phases, one or more printed lines each:
               phase 6's 1e7 points in blocks of 2^20 (9 blocks and a
               562,816-point tail) from phase 6's VI state: VI 5 against
               the in-memory fit, MAP 5, ML-EM 5 from block 0's anchors
-              (traces finite and non-falling), the bf16 leg within 1e-4,
+              (traces finite and non-falling; its staged start 3 times
+              within 1e-3 of the start formed without the stager), the
+              bf16 leg within 1e-4,
               peak device memory below the in-memory fit's, rates; and B1
               at the staged block and the tail against its plain version,
               timed (the B1-stream row, with its launches a sweep).
+ 21. mesh     first, alone on the card, two processes through gloo
+              (parallel.launch: a (1, 4) mesh of two positions each, VI,
+              Gibbs and MAP-EM 10 at N=1e6, against the one-process run:
+              the first sweep, the first Gibbs labels, the traces, one
+              all_reduce of K m8 + 1 floats a sweep at N=1e6 and 5e5, the
+              all_reduce's time inside a sweep and alone after a
+              barrier); then the device mesh (parallel/mesh.py) in this
+              process over four positions on this card, against the
+              unsharded engines from the same keys, on phase 6's data
+              (N=1e7, K=50, d=2):
+              fit_vi_fused 20 (B1 exactly 4 x 20 launches, 20 reductions;
+              the trace and state by phase 3's rule, as the streamed
+              sweep), one sweep from a shared state (lse and statistics
+              within 1e-5), fit_gibbs_fused 1 (shard 0's labels bitwise
+              the unsharded sweep's) and 20 (B2 80 launches; each shard's
+              statistics the one-hot sums of its labels), fit_map_fused
+              20 (B1 80), log_predictive (B3 once a shard, bitwise the
+              unsharded launch, no reduction); N=5 on eight positions
+              (three empty) through B1, B2 and B3; fit_chains VI 10 over a
+              (2, 2) mesh, 4 keys, the first 1e6 points, against the
+              unsharded fit_chains; a world-size-1 NCCL group's sweep;
+              B4, B5 and B6 over the
+              shards of N=1,000,003 random-posterior points, bitwise the
+              unsharded launch; a sweep's wall sharded and unsharded, each
+              shard's B1 and B2 and the fold; the sharded rows (one
+              shard's launch; launches as counted on each path) in the
+              kernels line.
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -225,8 +254,7 @@ from mimo_tpu_torch.io import MmapDataset, write_bin
 from mimo_tpu_torch.models import (
     GMM, BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState, _flatten_mk
-from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, MFState, _cast, kernel_xts)
+from mimo_tpu_torch.models.mixture import MFState, _cast, _Shards, kernel_xts
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
     cuda_ilr_predict, cuda_predict, cuda_probes, precision)
@@ -908,6 +936,7 @@ def run(dev, seed, n_main, n_check):
     nested_paths(dev, seed, card, errs, launches, ms)
     chain_rows = chain_paths(dev, seed, card, n_main, errs, launches, ms)
     stream_paths(dev, seed, card, n_main, errs, launches, ms)
+    mesh_paths(dev, seed, card, n_main, errs, launches, ms)
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -1034,6 +1063,15 @@ def run(dev, seed, n_main, n_check):
                       'mimo_tpu_torch/csrc/estep.cuh',
                       'mimo_tpu/ops/pallas_estep.py:164'),
     }
+    sharded = {
+        'B1-sharded': ('B1', 'one shard of a (1, 4) mesh (fit_vi_fused, '
+                       'fit_map_fused, fit_chains)'),
+        'B2-sharded': ('B2', 'one shard of a (1, 4) mesh, the shard seed'),
+        'B3-sharded': ('B3', 'one shard of a (1, 4) mesh (log_predictive)'),
+        'B4-sharded': ('B4', 'one shard of a (1, 4) mesh'),
+        'B5-sharded': ('B5', 'one shard of a (1, 4) mesh'),
+        'B6-sharded': ('B6', 'one shard of a (1, 4) mesh, MNW'),
+    }
     nested = {
         'B1-nested': ('B1', 'nested VI theta, Gauss map, M*K=32 rows'),
         'B1-nested-hier': ('B1', 'nested hierarchical VI theta, Gauss map, '
@@ -1054,6 +1092,8 @@ def run(dev, seed, n_main, n_check):
     }
     meta.update({name: (f'{meta[base][0]}, {what}',) + meta[base][1:]
                  for name, (base, what) in nested.items()})
+    meta.update({name: (f'{meta[base][0]}, {what}',) + meta[base][1:]
+                 for name, (base, what) in sharded.items()})
     meta.update({name: row[:3] for name, row in wide.items()})
     meta.update({name: (f'{meta[base][0]}, chain axis: {what}',)
                        + meta[base][1:]
@@ -1076,6 +1116,8 @@ def run(dev, seed, n_main, n_check):
                             singles_ms=chain_rows[b][1])
         if b in STREAM_ROWS:    # a streamed sweep: launches a sweep, tail
             rows[-1].update(STREAM_ROWS[b])
+        if b in MESH_ROWS:      # one shard's launch: launches per path,
+            rows[-1].update(MESH_ROWS[b])   # each shard's time, the fold
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -2588,19 +2630,16 @@ def map_given_em(model, data, em_state):
     responsibilities at the ML-EM fit's final params (one MAP M-step from
     that fit), by the plain E-step. MAP from its random start stays near
     the symmetric point, where every row of theta is alike."""
-    x0 = data[0]
     spec = plugin_spec(model)
-    estep = BayesianMixture._fused_estep(
-        spec._replace(theta=spec.theta_plugin), False, 131072)
+    spec = spec._replace(theta=spec.theta_plugin)
+    shards = _Shards(None, data, 'torch')
     if isinstance(model, BayesianMixtureOfMixtures):
         log_pi = (em_state.outer_log_pi[:, None]
                   + em_state.inner_log_pi).reshape(-1)
-        res = estep(em_state.params, log_pi, data, None, x0.shape[0],
-                    x0.dtype)
+        res = shards.estep(spec, em_state.params, log_pi)
         counts, stats = model._split_flat(res)
         return model._update_from(stats, counts)
-    res = estep(em_state.params, em_state.log_pi, data, None, x0.shape[0],
-                x0.dtype)
+    res = shards.estep(spec, em_state.params, em_state.log_pi)
     return MFState(
         components=model.family.update(model.components_prior, res.stats),
         gating=model.gating_prior.update(res.counts))
@@ -3909,6 +3948,17 @@ def stream_main_cell(dev, model, x, path, card, errs, launches, ms):
         elbo_report(f'{tag} ML-EM', ell, 'loglik')
         check(all_finite(mst) and all_finite(est),
               f'{tag}: MAP or ML-EM state not finite')
+        # the staged ML-EM start, 3 times, against the same start formed
+        # block by block without the stager: a buffer written on the copy
+        # stream before work queued on the compute stream let go of it
+        # gave a different start on most runs
+        ref = unstaged_em_start(model, rbm, nb, 3, dev)
+        worst = [relative_leaves(model.fit_em_stream_full(
+            rbm, nb, key=3, maxiter=0)[0].params, ref) for _ in range(3)]
+        print(f'{tag} ML-EM start, staged 3 times vs unstaged: worst leaf '
+              f'{[float(f"{w:.3g}") for w in worst]} of its largest '
+              f'magnitude (<= 1e-3)')
+        check(max(worst) <= 1e-3, f'{tag}: the staged ML-EM start varies')
         (st_b, v_b), _, _ = nested_fit(
             f'{tag} fit_vi_stream_full 5, bf16 on the wire',
             lambda: model.fit_vi_stream_full(
@@ -3974,6 +4024,24 @@ def stream_main_cell(dev, model, x, path, card, errs, launches, ms):
           f'a sweep')
 
 
+def unstaged_em_start(model, read_block, n_blocks, key, dev):
+    """fit_em_stream_full's start (anchors and their scale from block 0,
+    statistics of every block) with each block moved to the card by a
+    plain copy: the ML params."""
+    from mimo_tpu_torch.models import mixture as tmix
+    gen = torch.Generator(device=dev).manual_seed(key)
+    x0 = torch.from_numpy(read_block(0)).to(dev)
+    anchors = x0[tmix._anchor_indices(gen, x0.shape[0], model.size, dev)]
+    scale2 = tmix.anchor_scale(x0)
+    stats = None
+    for i in range(n_blocks):
+        b = torch.from_numpy(read_block(i)).to(dev)
+        st = model.family.suff_stats((b,), tmix.anchor_resp(b, anchors,
+                                                            scale2))
+        stats = st if stats is None else tmix._tree_map2(torch.add, stats, st)
+    return model.family.ml_update(stats)
+
+
 def stream_paths(dev, seed, card, n_main, errs, launches, ms):
     """Phase 20: the out-of-core engines from files in the temp directory
     (deleted at the end) through the native loader, the reader thread and
@@ -4001,6 +4069,513 @@ def stream_paths(dev, seed, card, n_main, errs, launches, ms):
             if os.path.exists(p):
                 os.unlink(p)
     del x, model
+    torch.cuda.empty_cache()
+
+
+
+# -- 21. mesh -----------------------------------------------------------------
+
+N_MESH_SERVE = 1_000_003       # a count that 4 does not divide
+N_MESH_SMALL = 1_000_000       # the chains and two-process legs
+MESH_ROWS = {}                 # kernel row -> extra keys of its JSON row
+
+
+def mesh_fit(tag, fit, want, sweeps, kind='sweep'):
+    """nested_fit over a mesh: exactly the `want` launches, and exactly
+    `sweeps` reductions of `kind`, none of them an all_reduce (one
+    process). Returns (result, the launch counts read, seconds)."""
+    from mimo_tpu_torch.parallel import mesh as pmesh
+    pmesh.reset_counters()
+    out, path, secs = nested_fit(tag, fit, want)
+    c = pmesh.counters[kind]
+    print(f'{tag}: {c["calls"]} reductions of {c["floats"]} floats, '
+          f'{c["all_reduce"]} all_reduce')
+    check(c['calls'] == sweeps and c['all_reduce'] == 0,
+          f'{tag}: {c["calls"]} reductions, want {sweeps}')
+    return out, path, secs
+
+
+def relative_leaves(got, want):
+    """The largest |got - want| of each floating leaf over that leaf's
+    largest magnitude, worst over the leaves."""
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want)):
+        if a.is_floating_point():
+            scale = float(b.double().abs().max()) or 1.0
+            worst = max(worst, float((a.double() - b.double()).abs().max())
+                        / scale)
+    return worst
+
+
+def mesh_leg_config(x_np):
+    """parallel.launch.run_engines' config of the two-process leg: VI,
+    Gibbs and MAP-EM at N=1e6 and, for the payload, VI at N=5e5, on two
+    positions of this card a process; then 50 lone all_reduce calls,
+    each after a barrier (the transfer without the wait)."""
+    runs = [('vi1', 'fit_vi_fused', dict(key=1, maxiter=1)),
+            ('vi', 'fit_vi_fused', dict(key=1, maxiter=10)),
+            ('gibbs1', 'fit_gibbs_fused', dict(key=2, maxiter=1)),
+            ('gibbs', 'fit_gibbs_fused', dict(key=2, maxiter=10)),
+            ('map', 'fit_map_fused', dict(key=1, maxiter=10)),
+            ('vi-half', 'fit_vi_fused', dict(key=1, maxiter=3,
+                                              n=N_MESH_SMALL // 2))]
+    return dict(x=x_np, dtype='float32', devices=['cuda:0'] * 2,
+                model=dict(size=K_MAIN, dim=D_MAIN, gating='dp', alpha=1.0,
+                           kappa=0.05, psi_scale=0.5), runs=runs, probe=50)
+
+
+def mesh_two_process_checks(tag, ranks, ref):
+    """The two ranks against the one-process run: VI's first sweep within
+    f32 fold-order tolerance (every state leaf within 1e-5 of its largest
+    magnitude, the ELBO within rtol 1e-6), the first Gibbs sweep's labels
+    equal on every shard, the VI and MAP traces by phase 3's rule (rtol
+    1e-5), and on each rank exactly one all_reduce of K m8 + 1 floats a
+    sweep at N=1e6 and at N=5e5. Returns gloo's host seconds a call, as
+    (inside a sweep, lone): inside a sweep the call also waits for this
+    rank's kernels and for the other rank (the two share the card); a
+    lone call follows a barrier with the card idle, and is the transfer
+    alone (the median of the probe's calls)."""
+    k, m8 = K_MAIN, 8
+    per_sweep = []
+    for r in ranks:
+        vi1, ref1 = r['vi1']['out'], ref['vi1']['out']
+        worst = max(relative_leaves(torch.as_tensor(a), torch.as_tensor(b))
+                    for a, b in zip(leaves_np(vi1[0]), leaves_np(ref1[0])))
+        e1 = float(abs(vi1[1][0] - ref1[1][0]) / abs(ref1[1][0]))
+        mine = dict(zip(r['gibbs1']['out'].labels.positions,
+                        r['gibbs1']['out'].labels.shards))
+        same = all(np.array_equal(mine[p], lab) for p, lab in zip(
+            ref['gibbs1']['out'].labels.positions,
+            ref['gibbs1']['out'].labels.shards) if p in mine)
+        tr = {name: float(np.max(np.abs(r[name]['out'][1]
+                                        - ref[name]['out'][1])
+                                 / np.abs(ref[name]['out'][1])))
+              for name in ('vi', 'map')}
+        counts = {name: r[name]['counters']['sweep']
+                  for name in ('vi', 'gibbs', 'map', 'vi-half')}
+        sweeps = {'vi': 10, 'gibbs': 10, 'map': 10, 'vi-half': 3}
+        ok_c = all(c['calls'] == c['all_reduce'] == sweeps[name]
+                   and c['floats'] == sweeps[name] * (k * m8 + 1)
+                   for name, c in counts.items())
+        secs = sum(c['seconds'] for c in counts.values())
+        n_ar = sum(c['all_reduce'] for c in counts.values())
+        lone = statistics.median(r['probe_seconds'])
+        per_sweep.append((secs / n_ar, lone))
+        print(f'{tag} rank {r["rank"]} of {r["world"]} (positions '
+              f'{list(r["positions"])}): VI first sweep state leaves '
+              f'{worst:.3g} of their largest magnitude (<= 1e-5), ELBO '
+              f'{e1:.3g} (<= 1e-6); first Gibbs sweep labels equal {same}; '
+              f'VI 10 trace {tr["vi"]:.3g}, MAP 10 {tr["map"]:.3g} (rtol '
+              f'1e-5); all_reduce a sweep '
+              f'{ {n: c["all_reduce"] / sweeps[n] for n, c in counts.items()} }'
+              f' of {counts["vi"]["floats"] // 10} floats at N=1e6 and '
+              f'{counts["vi-half"]["floats"] // 3} at N=5e5 (K m8 + 1 = '
+              f'{k * m8 + 1}) {"ok" if ok_c else "FAIL"}; gloo all_reduce '
+              f'{1e3 * per_sweep[-1][0]:.6g} ms a call inside a sweep (host '
+              f'clock; with the wait for its own kernels and the other '
+              f'rank), {1e3 * lone:.6g} ms a lone call (median of '
+              f'{len(r["probe_seconds"])}, after a barrier, the card idle)')
+        check(worst <= 1e-5 and e1 <= 1e-6 and same and ok_c
+              and max(tr.values()) <= 1e-5,
+              f'{tag}: rank {r["rank"]} off the one-process run')
+    return tuple(statistics.mean(t) for t in zip(*per_sweep))
+
+
+def leaves_np(tree):
+    if isinstance(tree, np.ndarray):
+        return [tree]
+    return [leaf for t in tree for leaf in leaves_np(t)]
+
+
+def mesh_nccl_sweep(tag, dev, x):
+    """A world-size-1 NCCL group in this process: one sharded VI sweep
+    whose reduction is one NCCL all_reduce, equal to the sweep without a
+    group; the group is destroyed on the way out."""
+    import torch.distributed as dist
+    from mimo_tpu_torch.parallel import init_distributed, make_mesh
+    from mimo_tpu_torch.parallel import mesh as pmesh
+    from mimo_tpu_torch.parallel.launch import free_port
+    if not dist.is_nccl_available():
+        print(f'{tag}: NCCL is not available in this torch build: skipped')
+        return
+    model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5, device=dev)
+    want = model.fit_vi_fused(x, key=1, maxiter=1,
+                              mesh=make_mesh(devices=[dev] * 2))
+    init_distributed(f'localhost:{free_port()}', 1, 0, backend='nccl',
+                     timeout=120.0)
+    try:
+        mesh = make_mesh(devices=[dev] * 2)
+        pmesh.reset_counters()
+        got = model.fit_vi_fused(x, key=1, maxiter=1, mesh=mesh)
+        torch.cuda.synchronize()
+        c = dict(pmesh.counters['sweep'])
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+    print(f'{tag}: backend {"nccl"}, 1 sweep, {c["all_reduce"]} all_reduce '
+          f'of {c["bytes"]} bytes in {1e3 * c["seconds"]:.6g} ms (host); '
+          f'equal to the sweep without a group: {same}')
+    check(c['all_reduce'] == 1 and same, f'{tag}: NCCL sweep off')
+
+
+def mesh_serving(tag, dev, gen, mesh, card, errs, launches, ms):
+    """B4, B5 (p=1) and B6 (p=3, MNW) on random posteriors over the
+    N=1,000,003 points sharded on `mesh`: one launch a shard, each
+    shard's rows bitwise the unsharded launch's (else within phase 16's
+    tolerances); each sharded row timed at its first shard."""
+    from mimo_tpu_torch.parallel import shard_data
+    n = N_MESH_SERVE
+    post = random_ng_posterior(gen, K_MAIN, D_MAIN, dev)
+    log_w = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
+                                          device=dev), 0)
+    x = torch.randn((n, D_MAIN), generator=gen, device=dev) * 4.0
+    xs = shard_data(mesh, x)
+    reset_counts()
+    outs = cuda_diag_predict.diag_predictive_cuda_sharded(post, log_w,
+                                                          xs.shards)
+    torch.cuda.synchronize()
+    launches['B4-sharded'] = read_counts()['B4']
+    whole = cuda_diag_predict.diag_predictive_cuda(post, log_w, x)
+    got = torch.cat(outs)
+    same4 = torch.equal(got, whole)
+    rows, aux = cuda_diag_predict.diag_predict_coefficients(post, log_w)
+    xt0 = xs.shards[0].T.contiguous()
+    n0 = xt0.shape[1]
+    errs['B4-sharded'] = float((outs[0].double() - cuda_diag_predict
+                                .diag_predict_plain(xt0, rows, aux, n0)
+                                .double()).abs().max())
+    ms['B4-sharded'] = (
+        cuda_ms(lambda: cuda_diag_predict.diag_predict(xt0, rows, aux, n0),
+                20),
+        cuda_ms(lambda: cuda_diag_predict.diag_predict_plain(xt0, rows, aux,
+                                                             n0), 3))
+    WORK['B4-sharded'] = b4_work(n0, D_MAIN, aux)
+    LIBRARY['B4-sharded'] = cuda_ms(library_mixture(post, log_w,
+                                                    xs.shards[0]), 3)
+    print(f'{tag} B4 over {len(xs.shards)} shards of N={n}: launches '
+          f'{launches["B4-sharded"]}, bitwise the unsharded launch {same4} '
+          f'(max|diff| {float((got - whole).abs().max()):.3g}); shard 0 vs '
+          f'plain max|err| {errs["B4-sharded"]:.3g}')
+    check(launches['B4-sharded'] == len(xs.shards)
+          and (same4 or allclose_report(got, whole, 1e-5, 1e-4)[0]),
+          f'{tag}: sharded B4 off the unsharded launch')
+    for name, d, p in (('B5-sharded', 1, 1), ('B6-sharded', 2, 3)):
+        basis, experts = random_ilr_posterior(gen, K_MAIN, d, p, dev)
+        xx, yy = regression_data(gen, n, d, p, dev)
+        xsh, ysh = shard_data(mesh, xx, yy)
+        if p == 1:
+            serve = cuda_ilr_predict.ilr_predict_cuda_sharded
+            th, aux_i = cuda_ilr_predict.ilr_predict_coefficients(
+                basis, experts, log_w)
+            vc = None
+        else:
+            serve = cuda_ilr_predict.ilr_p_predict_cuda_sharded
+            th, aux_i, vc = cuda_ilr_predict.ilr_p_predict_coefficients(
+                basis, experts, log_w, True, True)
+        reset_counts()
+        outs = serve(basis, experts, log_w, list(xsh.shards),
+                     list(ysh.shards))
+        torch.cuda.synchronize()
+        launches[name] = read_counts()['B5' if p == 1 else 'B6']
+        whole = serve(basis, experts, log_w, [xx], [yy])[0]
+        cat = [torch.cat([o[i] for o in outs]) for i in range(3)]
+        same = all(torch.equal(a, b) for a, b in zip(cat, whole))
+        # else phase 16's tolerances: mean, var, NLPD
+        ok_w = all(allclose_report(a, b, rtol, atol)[0] for a, b, (rtol, atol)
+                   in zip(cat, whole, ((1e-4, 1e-4), (2e-3, 1e-5),
+                                       (1e-3, 2e-3))))
+        xt0 = torch.cat([xsh.shards[0].T, ysh.shards[0].T]).contiguous()
+        n0 = xt0.shape[1]
+        if p == 1:
+            kern = functools.partial(cuda_ilr_predict.ilr_predict, xt0, th,
+                                     aux_i, n0, True, False)
+            plain = functools.partial(cuda_ilr_predict.ilr_predict_plain,
+                                      xt0, th, aux_i, n0, True, False)
+        else:
+            kern = functools.partial(cuda_ilr_predict.ilr_p_predict, xt0, th,
+                                     aux_i, vc, n0, p, True, False)
+            plain = functools.partial(cuda_ilr_predict.ilr_p_predict_plain,
+                                      xt0, th, aux_i, vc, n0, p, True, False)
+        ok_p, errs[name], _ = compare_serving(kern(), plain(), p, False)
+        ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
+        WORK[name] = serving_work(n0, K_MAIN, d, p)
+        print(f'{tag} {name[:2]} (d={d}, p={p}, MNW) over {len(outs)} shards '
+              f'of N={n}: launches {launches[name]}, bitwise the unsharded '
+              f'launch {same}; shard 0 vs plain max|err| {errs[name]:.3g} '
+              f'{"ok" if ok_p else "FAIL"}')
+        check(launches[name] == len(outs) and ok_w and ok_p,
+              f'{tag}: sharded {name[:2]} off')
+
+
+def mesh_paths(dev, seed, card, n_main, errs, launches, ms):
+    """Phase 21: the device mesh (parallel/mesh.py) in one process over
+    four positions on this card, against the unsharded engines from the
+    same keys; empty shards; fit_chains over a (2, 2) mesh; two
+    processes through gloo; a world-size-1 NCCL sweep."""
+    from mimo_tpu_torch.ops.philox import shard_seed
+    from mimo_tpu_torch.parallel import make_mesh, shard_data
+    from mimo_tpu_torch.parallel import mesh as pmesh
+    from mimo_tpu_torch.bridge import state_to_numpy
+    from mimo_tpu_torch.parallel.launch import launch, run_engines
+    x = main_data(dev, seed, n_main)
+    # the two worker processes run first and alone, this process idle,
+    # so that their all_reduce times see no other work on the card
+    cfg = mesh_leg_config(x[:N_MESH_SMALL].cpu().numpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = launch(run_engines, 2, (cfg,), backend='gloo', timeout=400.0)
+    print(f'two processes through gloo on {card}: '
+          f'{time.perf_counter() - t0:.6g} s for the launch (spawn, CUDA '
+          f'init, the runs), alone on the card')
+    ref = state_to_numpy(run_engines(dict(cfg, devices=cfg['devices'] * 2)))
+    gloo_s = mesh_two_process_checks(
+        f'mesh (1, 4) over 2 processes x 2 positions, N={N_MESH_SMALL}',
+        ranks, ref)
+    del ranks, ref
+
+    model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5, device=dev)
+    spec = model._estep_spec()
+    mesh = make_mesh(devices=[dev] * 4)
+    xs = shard_data(mesh, x)
+    nd = len(xs.shards)
+    tag = f'mesh (1, {nd}) on {dev} N={n_main} K={K_MAIN} d={D_MAIN}'
+    st_u, v_u = model.fit_vi_fused(x, key=1, maxiter=20)
+    (st_s, v_s), path_vi, _ = mesh_fit(
+        f'{tag} fit_vi_fused 20',
+        lambda: model.fit_vi_fused(xs, key=1, maxiter=20, mesh=mesh),
+        {'B1': nd * 20}, 20)
+    launches['B1-sharded'] = path_vi['B1']
+    tr_vi = float(((v_s.double() - v_u.double()).abs()
+                   / v_u.double().abs()).max())
+    print(f'{tag} VI 20 vs unsharded from the same key: trace max rel '
+          f'{tr_vi:.3g} (rtol 1e-5); state leaves '
+          f'{relative_leaves(st_s, st_u):.3g} of their largest magnitude '
+          f'(not held: from the random start, components that share a '
+          f'cluster trade mass on f32 rounding while the ELBO stays put)')
+    check(tr_vi <= 1e-5, f'{tag}: sharded VI trace off')
+    # 5 sweeps from the unsharded fit's state, as phase 20 holds the
+    # streamed sweep: trace and every state leaf by phase 3's rule
+    st_5, v_5 = model.fit_vi_fused(xs, maxiter=5, init_state=st_u,
+                                   randomize=False, mesh=mesh)
+    st_5u, v_5u = model.fit_vi_fused(x, maxiter=5, init_state=st_u,
+                                     randomize=False)
+    states_close(f'{tag} VI 5 from the VI state', st_5, st_5u, v_5, v_5u)
+
+    # one sweep from a shared state, B1 per shard vs one launch
+    comps, log_pi = st_u.components, st_u.gating.expected_log_pi()
+    xts = [kernel_xts((s,)) for s in xs.shards]
+    one = cuda_estep.fused_estep_cuda(spec, comps, log_pi, kernel_xts((x,)),
+                                      n_main)
+    shd = cuda_estep.fused_estep_cuda_sharded(spec, comps, log_pi, xts, mesh)
+    e_lse = float(abs(shd.lse.double() - one.lse.double())
+                  / abs(one.lse.double()))
+    e_st = relative_leaves(shd.stats, one.stats)
+    print(f'{tag} one sweep from the VI state: lse rel {e_lse:.3g}, '
+          f'statistics {e_st:.3g} of their largest magnitude (each <= 1e-5)')
+    check(e_lse <= 1e-5 and e_st <= 1e-5, f'{tag}: sharded sweep off')
+
+    # Gibbs: the first sweep's shard 0 against the unsharded sweep
+    g_u = model.fit_gibbs_fused(x, key=2, maxiter=1)
+    g_1, _, _ = mesh_fit(f'{tag} fit_gibbs_fused 1', lambda:
+                         model.fit_gibbs_fused(xs, key=2, maxiter=1,
+                                               mesh=mesh), {'B2': nd}, 1)
+    n0 = xs.shards[0].shape[0]
+    same0 = torch.equal(g_1.labels.shards[0], g_u.labels[:n0])
+    print(f'{tag} Gibbs first sweep: shard 0 labels bitwise the unsharded '
+          f'sweep\'s on its {n0} points {same0}')
+    check(same0, f'{tag}: shard 0 labels differ from the unsharded sweep')
+    g_s, path_g, _ = mesh_fit(f'{tag} fit_gibbs_fused 20', lambda:
+                              model.fit_gibbs_fused(xs, key=2, maxiter=20,
+                                                    mesh=mesh),
+                              {'B2': nd * 20}, 20)
+    launches['B2-sharded'] = path_g['B2']
+    check(all_finite(g_s.components) and sum(
+        lab.shape[0] for lab in g_s.labels.shards) == n_main,
+        f'{tag}: sharded Gibbs state')
+    # each shard's statistics are the one-hot sums of its own labels
+    params = model.family.mode_params(g_s.components)
+    lp_g = torch.log(torch.clamp(g_s.gating.mean(), min=1e-37))
+    th_g, _ = pad_theta(spec.theta_plugin(params), lp_g, torch.float32)
+    seed_t = torch.tensor(20261017, dtype=torch.int64, device=dev)
+    worst_oh = 0.0
+    for j, t in enumerate(xts):
+        lab, acc = cuda_gibbs.gibbs(t[0], th_g, shard_seed(seed_t, j),
+                                    t[0].shape[1])
+        mag = float(acc.abs().max())
+        worst_oh = max(worst_oh, gibbs_acc_err(t[0], t[0].shape[1],
+                                               cuda_estep.GAUSS, 0, lab, acc)
+                       / mag)
+    errs['B2-sharded'] = worst_oh
+    print(f'{tag} B2 per shard: statistics vs the one-hot sums of its own '
+          f'labels, worst {worst_oh:.3g} of the largest entry (<= 1e-5)')
+    check(worst_oh <= 1e-5, f'{tag}: B2 shard statistics off its labels')
+    (st_m, v_m), path_map, _ = mesh_fit(
+        f'{tag} fit_map_fused 20',
+        lambda: model.fit_map_fused(xs, key=1, maxiter=20, mesh=mesh),
+        {'B1': nd * 20}, 20)
+    check(all_finite(st_m) and bool(torch.isfinite(v_m).all()),
+          f'{tag}: sharded MAP-EM not finite')
+
+    # B3: serving per shard, no reduction
+    lp_u = model.log_predictive(st_u, x)
+    pmesh.reset_counters()
+    lp_s, path_lp, _ = nested_fit(f'{tag} log_predictive', lambda:
+                                  model.log_predictive(st_u, xs, mesh=mesh),
+                                  {'B3': nd})
+    launches['B3-sharded'] = path_lp['B3']
+    same3 = torch.equal(lp_s.gather(), lp_u)
+    print(f'{tag} B3 over {nd} shards bitwise the unsharded launch {same3} '
+          f'(max|diff| {float((lp_s.gather() - lp_u).abs().max()):.3g}); '
+          f'reductions {pmesh.counters["sweep"]["calls"]}')
+    check((same3 or allclose_report(lp_s.gather(), lp_u, 1e-5, 1e-4)[0])
+          and pmesh.counters['sweep']['calls'] == 0,
+          f'{tag}: sharded B3 off the unsharded launch')
+
+    # empty shards: N=5 on eight positions
+    mesh8 = make_mesh(devices=[dev] * 8)
+    x5 = x[:5]
+    x5s = shard_data(mesh8, x5)
+    xts5 = [kernel_xts((s,)) for s in x5s.shards]
+    reset_counts()
+    e5 = cuda_estep.fused_estep_cuda_sharded(spec, comps, log_pi, xts5,
+                                             mesh8)
+    torch.cuda.synchronize()
+    l5 = read_counts()['B1']
+    w5 = cuda_estep.fused_estep_cuda(spec, comps, log_pi, kernel_xts((x5,)),
+                                     5)
+    ok5 = (l5 == 5 and relative_leaves(e5.stats, w5.stats) <= 1e-6
+           and float(abs(e5.lse - w5.lse) / abs(w5.lse)) <= 1e-6)
+    labs, g5 = cuda_gibbs.fused_gibbs_cuda_sharded(spec, seed_t, params,
+                                                   lp_g, xts5, mesh8)
+    ok5g = [t.shape[0] for t in labs] == [1] * 5 + [0] * 3
+    for j in range(5):
+        lab1, _ = cuda_gibbs.fused_gibbs_cuda(
+            spec, shard_seed(seed_t, j), params, lp_g, xts5[j], 1)
+        ok5g = ok5g and torch.equal(lab1, labs[j])
+    ok5g = ok5g and float(g5.counts.sum()) == 5.0
+    lp5 = model.log_predictive(st_u, x5s, mesh=mesh8)
+    ok5p = torch.equal(lp5.gather(), model.log_predictive(st_u, x5))
+    print(f'{tag} N=5 on 8 positions (3 empty): B1 {l5} launches, the '
+          f'unsharded statistics and lse {"ok" if ok5 else "FAIL"}; B2 each '
+          f'shard its one-point launch at its seed {"ok" if ok5g else "FAIL"}'
+          f'; B3 bitwise the unsharded launch {ok5p}')
+    check(ok5 and ok5g and ok5p, f'{tag}: empty shards off')
+
+    # fit_chains over a (2, 2) mesh
+    m22 = make_mesh(n_chain=2, devices=[dev] * 4)
+    xc = x[:N_MESH_SMALL]
+    keys = [11, 12, 13, 14]
+    (c_s, cv_s), path_c, _ = mesh_fit(
+        f'fit_chains VI 10 over a (2, 2) mesh, 4 keys, N={N_MESH_SMALL}',
+        lambda: fit_chains(model, 'fit_vi_fused', shard_data(m22, xc), keys,
+                           mesh=m22, maxiter=10), {'B1': 2 * 2 * 10}, 20)
+    c_u, cv_u = fit_chains(model, 'fit_vi_fused', xc, keys, maxiter=10)
+    tr_c = float(((cv_s.double() - cv_u.double()).abs()
+                  / cv_u.double().abs()).max())
+    print(f'fit_chains (2, 2) vs unsharded: traces max rel {tr_c:.3g} '
+          f'(rtol 1e-5, as VI above); state leaves '
+          f'{relative_leaves(c_s, c_u):.3g} of their largest magnitude '
+          f'(not held, as VI above)')
+    check(tr_c <= 1e-5 and all_finite(c_s), 'fit_chains over a mesh off')
+
+    mesh_nccl_sweep('world-size-1 NCCL group', dev, x[:N_MESH_SMALL])
+
+    # serving at N=1,000,003
+    mesh_serving('mesh (1, 4)', dev, torch.Generator(device=dev).manual_seed(
+        seed + 21), mesh, card, errs, launches, ms)
+
+    # timings: a sweep sharded and unsharded, each shard's B1 / B2, the
+    # fold
+    t_vi_u = seconds(lambda: model.fit_vi_fused(
+        x, maxiter=10, init_state=st_u, randomize=False), 3) / 10
+    t_vi_s = seconds(lambda: model.fit_vi_fused(
+        xs, maxiter=10, init_state=st_u, randomize=False, mesh=mesh), 3) / 10
+    t_g_u = seconds(lambda: model.fit_gibbs_fused(x, key=3, maxiter=10),
+                    3) / 10
+    t_g_s = seconds(lambda: model.fit_gibbs_fused(xs, key=3, maxiter=10,
+                                                  mesh=mesh), 3) / 10
+    th_v, _ = pad_theta(spec.theta(comps), log_pi, torch.float32)
+    per_b1 = [cuda_ms(lambda t=t: cuda_estep.estep(t[0], th_v,
+                                                   t[0].shape[1]), 20)
+              for t in xts]
+    per_b2 = [cuda_ms(lambda t=t, j=j: cuda_gibbs.gibbs(
+        t[0], th_g, shard_seed(seed_t, j), t[0].shape[1]), 20)
+        for j, t in enumerate(xts)]
+    one_b1 = cuda_ms(lambda: cuda_estep.estep(kernel_xts((x,))[0], th_v,
+                                              n_main), 20)
+    parts = [cuda_estep.estep_packed(t[0], th_v, t[0].shape[1]) for t in xts]
+    zero = torch.zeros_like(parts[0])
+    fold = cuda_ms(lambda: mesh.reduce(parts, zero.clone()), 50)
+    print(f'mesh timings on {card}, N={n_main} over {nd} shards of '
+          f'{n0}: VI sweep {1e3 * t_vi_s:.6g} ms sharded vs {1e3 * t_vi_u:.6g} '
+          f'unsharded, Gibbs sweep {1e3 * t_g_s:.6g} vs {1e3 * t_g_u:.6g} '
+          f'(host clock, median of 3 runs of 10); B1 per shard '
+          f'{[round(t, 6) for t in per_b1]} ms (sum {sum(per_b1):.6g}) vs '
+          f'one launch {one_b1:.6g}; B2 per shard '
+          f'{[round(t, 6) for t in per_b2]} ms (sum {sum(per_b2):.6g}); '
+          f'the fold of {nd} partials {fold:.6g} ms; gloo all_reduce '
+          f'(two processes) {1e3 * gloo_s[0]:.6g} ms a call inside a sweep, '
+          f'{1e3 * gloo_s[1]:.6g} ms a lone call')
+
+    # the sharded kernel rows: one shard's launch, held to its plain
+    # version, timed, with the bound of the shard's work
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, D_MAIN)
+    xt0 = xts[0][0]
+    acc, lse = cuda_estep.estep(xt0, th_v, n0)
+    pacc, plse = cuda_estep.estep_plain(xt0, th_v, n0)
+    ok_b1, errs['B1-sharded'] = allclose_report(acc, pacc, 1e-4,
+                                                1e-3 * n0 / 1e6)
+    check(ok_b1 and allclose_report(lse, plse, 1e-5, 0.0)[0],
+          'B1 on a shard disagrees with its plain version')
+    ms['B1-sharded'] = (per_b1[0], cuda_ms(
+        lambda: cuda_estep.estep_plain(xt0, th_v, n0), 3))
+    ms['B2-sharded'] = (per_b2[0], cuda_ms(
+        lambda: cuda_gibbs.gibbs_plain(xt0, th_g, seed_t, n0), 3))
+    thq, aux = cuda_predict.predictive_coefficients(
+        comps, model.predictive_log_weights(st_u))
+    xq = xs.shards[0].T.contiguous()
+    errs['B3-sharded'] = float((cuda_predict.predict(xq, thq, aux, n0)
+                                .double() - cuda_predict.predict_plain(
+                                    xq, thq, aux, n0).double()).abs().max())
+    ms['B3-sharded'] = (cuda_ms(lambda: cuda_predict.predict(xq, thq, aux,
+                                                             n0), 20),
+                        cuda_ms(lambda: cuda_predict.predict_plain(
+                            xq, thq, aux, n0), 3))
+    WORK['B1-sharded'] = estep_work(n0, K_MAIN, m, D_MAIN)
+    WORK['B2-sharded'] = gibbs_work(xt0, th_g, n0, m)
+    WORK['B3-sharded'] = density_work(n0, K_MAIN, quad_fmas(D_MAIN), D_MAIN,
+                                      2, products=point_products(D_MAIN))
+    # launches per path, as counted in each path's run above
+    paths = {'B1-sharded': {'fit_vi_fused': path_vi['B1'],
+                            'fit_map_fused': path_map['B1'],
+                            'fit_chains (2, 2) VI': path_c['B1']},
+             'B2-sharded': {'fit_gibbs_fused': path_g['B2']},
+             'B3-sharded': {'log_predictive': path_lp['B3']},
+             'B4-sharded': {'diag_predictive_cuda_sharded':
+                            launches['B4-sharded']},
+             'B5-sharded': {'ilr_predict_cuda_sharded':
+                            launches['B5-sharded']},
+             'B6-sharded': {'ilr_p_predict_cuda_sharded':
+                            launches['B6-sharded']}}
+    for name, per in paths.items():
+        MESH_ROWS[name] = {'shards': nd, 'launches_per_path': per,
+                           'shard_n': -(-N_MESH_SERVE // nd)}
+    for name in ('B1-sharded', 'B2-sharded', 'B3-sharded'):
+        MESH_ROWS[name]['shard_n'] = n0
+    MESH_ROWS['B1-sharded'].update(per_shard_ms=per_b1, one_launch_ms=one_b1,
+                                   fold_ms=fold, sweep_ms=1e3 * t_vi_s,
+                                   unsharded_sweep_ms=1e3 * t_vi_u,
+                                   gloo_all_reduce_ms=1e3 * gloo_s[0],
+                                   gloo_lone_all_reduce_ms=1e3 * gloo_s[1])
+    MESH_ROWS['B2-sharded'].update(per_shard_ms=per_b2,
+                                   sweep_ms=1e3 * t_g_s,
+                                   unsharded_sweep_ms=1e3 * t_g_u)
+    for name in paths:
+        print(f'{name} time on {card} at one shard: kernel '
+              f'{ms[name][0]:.6g} ms, plain PyTorch {ms[name][1]:.6g} ms')
+    del x, xs, model
     torch.cuda.empty_cache()
 
 

@@ -53,9 +53,12 @@ def state_from_numpy(tree, device=None, dtype=None):
 
 
 def state_to_numpy(tree):
-    """This package's state tree with its tensors as numpy arrays."""
+    """This package's state tree (NamedTuples, tuples, lists, dicts) with
+    its tensors as numpy arrays."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
     if hasattr(tree, '_fields'):
         return type(tree)(*(state_to_numpy(t) for t in tree))
     if isinstance(tree, (tuple, list)):

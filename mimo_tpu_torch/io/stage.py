@@ -15,7 +15,10 @@ Here the copy is explicit, so it can overlap the kernels:
     minibatches; the current stream waits on the copy's event before
     anything reads the buffer;
   * a device buffer is written again only after the event recorded
-    behind the last work that read it (`Stager.release`).
+    behind the last work that read it (`Stager.release`), and written
+    first only after the work the current stream had queued when the
+    buffer was allocated (the caching allocator may hand out memory that
+    queued work still uses).
 
 So block i + 1's copy runs under block i's kernel, and no buffer is
 overwritten while a copy or a kernel still reads it. Buffers are sized
@@ -125,6 +128,11 @@ class Stager:
         self._out[d] = torch.empty((rows, nb) if self.transpose
                                    else (nb, rows), dtype=self.dtype,
                                    device=self.device)
+        # the allocator hands the current stream memory that work still
+        # queued on it may read or write (tensors freed on the host ahead
+        # of the card); the copy stream writes the new buffers only after
+        # that work
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def put(self, item):
         """Copy a filled slot to the next device slot on the copy stream

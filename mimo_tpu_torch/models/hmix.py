@@ -1,6 +1,6 @@
 """Two-level nested mixtures: an outer mixture over M clusters, each
 cluster holding its own inner mixture of K components (port of
-mimo_tpu/models/hmix.py without its mesh arguments).
+mimo_tpu/models/hmix.py).
 
   * The M inner models are a batch axis: the per-cluster family calls
     (updates, expectations, plug-in log-likelihoods, draws) run under
@@ -28,6 +28,12 @@ mimo_tpu/models/hmix.py without its mesh arguments).
     B2 launch once a sweep for all chains, and the M-vmapped algebra runs
     under one more torch.func.vmap over C (`_over_chains`; the identity
     for one fit). Chain c of VI, MAP and ML-EM equals the fit with key c.
+  * Mesh: the fused engines, `fit_svi`, `log_predictive` and `predict`
+    take `mesh=` as the flat ones do (models.mixture): the flat M*K
+    E-step or label sweep launches once per non-empty shard and makes one
+    reduction a sweep; the two-level random and anchor starts draw over
+    the global N; SVI reduces once per inner sub-iteration; serving runs
+    once per shard with no collective.
 """
 
 import math
@@ -38,9 +44,10 @@ from torch.func import vmap
 
 from mimo_tpu_torch.conjugate.families import Family
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, _as_generator, _as_tuple, _cast, _elbo_loop,
-    _over_chains, _random_resp, _stack, _stack_lead, _tree_map, anchor_resp,
-    batch_generator, kernel_xts, model_device, resolve_backend, stack_trees)
+    BayesianMixture, _as_generator, _elbo_loop, _mesh_parts, _over_chains,
+    _random_resp, _resp_seed, _Shards, _stack, _stack_lead, _tree_map,
+    as_data, batch_generator, from_kernel, model_device, resolve_backend,
+    serve_sharded, stack_trees, transform_points)
 from mimo_tpu_torch.models.mixture import (
     _anchor_indices as _flat_anchor_indices)
 from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
@@ -234,15 +241,22 @@ class BayesianMixtureOfMixtures:
 
     def _random_state(self, gen, data):
         """The posterior after one weighted update from random two-level
-        responsibilities (`_two_level_resp`)."""
-        x0 = data[0]
-        outer_resp, inner_resp = _two_level_resp(
-            gen, x0.shape[0], self.cluster_size, self.mixture_size,
-            x0.dtype, x0.device)
-        comps, gatings = self._inner_update(data, inner_resp, outer_resp)
+        responsibilities (`_two_level_resp`) over `data`, a `_Shards`:
+        two seeds drawn from `gen`, and each shard draws and reduces only
+        its own rows of the draw over the global N."""
+        seeds = (_resp_seed(gen), _resp_seed(gen))
+
+        def stats_of(part, lo, hi):
+            outer_resp, inner_resp = _two_level_resp(
+                seeds, hi - lo, self.cluster_size, self.mixture_size,
+                data.dtype, part[0].device, lo, data.n)
+            return self._cluster_stats(part, inner_resp, outer_resp) + (
+                torch.sum(outer_resp, 0),)
+
+        stats, counts, outer_counts = data.reduce_stats(stats_of)
+        comps, gatings = self._inner_posteriors(stats, counts)
         return HMixState(
-            outer_gating=self.outer_gating_prior.update(
-                torch.sum(outer_resp, 0)),
+            outer_gating=self.outer_gating_prior.update(outer_counts),
             inner_gating=gatings, components=comps)
 
     def _vi_sweep(self, state: HMixState, data, maxsubiter):
@@ -255,10 +269,10 @@ class BayesianMixtureOfMixtures:
             torch.sum(outer_resp, 0)))
 
     def _tx_data(self, data):
-        data = _as_tuple(data)
+        data = as_data(data)
         if self.kind == 'ilr' and self.input_transform is not None:
-            data = (self.input_transform.transform(data[0]),
-                    self.output_transform.transform(data[1]))
+            data = (transform_points(self.input_transform, data[0]),
+                    transform_points(self.output_transform, data[1]))
         return data
 
     def fit_vi(self, data, key=None, maxiter=100, maxsubiter=3,
@@ -268,7 +282,8 @@ class BayesianMixtureOfMixtures:
         JAX package). Returns (HMixState, trace): the marginal expected
         log-likelihood after each sweep."""
         data = self._tx_data(data)
-        state = self._random_state(_as_generator(key, data[0].device), data)
+        state = self._random_state(_as_generator(key, data[0].device),
+                                   _Shards(None, data, 'torch'))
         trace = []
         for _ in range(maxiter):
             state = self._vi_sweep(state, data, maxsubiter)
@@ -318,14 +333,15 @@ class BayesianMixtureOfMixtures:
         counts, stats = self._split_flat(res)
         return self._update_from(stats, counts)
 
-    def _fused_setup(self, data, key, chains, backend):
-        """(data, x0, n, dtype, use_kernel, generators, spec, over) of a
-        fused engine over the flat M*K spec: models.mixture's setup (one
-        generator, or with `chains` one a chain and the chains' spec) and
-        the map over the chains' axis."""
+    def _fused_setup(self, data, key, chains, backend, mesh, block_size):
+        """(data, generators, spec, over) of a fused engine over the flat
+        M*K spec: models.mixture's setup (the data's `_Shards`, over the
+        one position of its device without `mesh`; one generator, or with
+        `chains` one a chain and the chains' spec) and the map over the
+        chains' axis."""
         return BayesianMixture._fused_setup(
-            self._tx_data(data), key, chains, backend,
-            self._flat_spec()) + (_over_chains(chains),)
+            self._tx_data(data), key, chains, backend, self._flat_spec(),
+            mesh, block_size) + (_over_chains(chains),)
 
     def _random_states(self, gens, data, chains):
         """`_random_state` of each chain, drawn and reduced one chain at a
@@ -356,7 +372,8 @@ class BayesianMixtureOfMixtures:
             st.outer_gating.kl_divergence(self.outer_gating_prior))
 
     def fit_vi_fused(self, data, key=None, maxiter=100, block_size=131072,
-                     randomize=True, tol=None, backend='auto', chains=False):
+                     randomize=True, tol=None, backend='auto', chains=False,
+                     mesh=None):
         """Fused nested VI for big N: the two-level E-step runs as one
         FLAT softmax over all M*K experts (kernel B1 on CUDA data, with
         log E[pi_out]_m + log E[pi_in]_{m,k} folded into theta); the
@@ -368,16 +385,15 @@ class BayesianMixtureOfMixtures:
         identity minus the KL terms). `tol` stops early on |dELBO| <
         tol. With `chains`, `key` holds C chain keys (see the module
         docstring): a C-stacked HMixState and (C, maxiter) traces, each
-        chain stopping on its own `tol`."""
-        data, x0, n, dtype, use_kernel, gens, spec, over = self._fused_setup(
-            data, key, chains, backend)
-        estep = BayesianMixture._fused_estep(spec, use_kernel, block_size)
+        chain stopping on its own `tol`. With `mesh`, see the module
+        docstring."""
+        data, gens, spec, over = self._fused_setup(data, key, chains,
+                                                   backend, mesh, block_size)
         state = self._random_states(gens, data, chains)
-        xts = kernel_xts(data) if use_kernel else None
 
         def step(st, _):
-            res = estep(st.components, over(self._flat_log_pi)(st), data,
-                        xts, n, dtype)
+            res = data.estep(spec, st.components,
+                             over(self._flat_log_pi)(st))
             return over(self._update_flat)(res), res.lse - over(self._kl)(st)
 
         return finite_report(
@@ -385,7 +401,7 @@ class BayesianMixtureOfMixtures:
                        (len(gens),) if chains else ()), 'fit_vi_fused')
 
     def fit_gibbs_fused(self, data, key=None, maxiter=100, block_size=131072,
-                        backend='auto', chains=False):
+                        backend='auto', chains=False, mesh=None):
         """Fused nested Gibbs for big N: the (outer, inner) labels are
         drawn JOINTLY as one flat categorical over all M*K experts per
         point given the sampled params (a valid blocked-Gibbs move on
@@ -401,12 +417,12 @@ class BayesianMixtureOfMixtures:
         more vmap with randomness='different' from `batch_generator`, as
         the flat chained Gibbs draws do (the same keys give the same
         chains; a chain is not the single fit draw for draw). Returns the
-        C-stacked HMixGibbsState (labels (C, N))."""
-        from mimo_tpu_torch.ops.cuda_gibbs import fused_gibbs_cuda
-        from mimo_tpu_torch.ops.family_estep import fused_gibbs_blockwise
-        data, x0, n, dtype, use_kernel, gens, spec, over = self._fused_setup(
-            data, key, chains, backend)
-        dev = x0.device
+        C-stacked HMixGibbsState (labels (C, N)). With `mesh`, B2 runs once
+        per non-empty shard a sweep and the labels come back as a
+        parallel.mesh.Sharded."""
+        data, gens, spec, over = self._fused_setup(data, key, chains,
+                                                   backend, mesh, block_size)
+        dev = data.device
         lead = (len(gens),) if chains else ()
         fam = self.family
         cp, gp = self.components_prior, self.inner_gating_prior
@@ -415,13 +431,12 @@ class BayesianMixtureOfMixtures:
             comps, gatings, outer = (_stack_lead(t, lead[0])
                                      for t in (comps, gatings, outer))
         params = over(vmap(fam.mode_params))(comps)
-        labels = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
+        labels = data.zero_labels(lead)
         seeds = torch.stack([torch.randint(0, 2 ** 62, (maxiter,),
                                            generator=g, dtype=torch.int64,
                                            device=dev) for g in gens], -1)
         seeds = seeds if chains else seeds[:, 0]
         gen = batch_generator(gens) if chains else gens[0]
-        xts = kernel_xts(data) if use_kernel else None
 
         def draw_params(q):
             return vmap(lambda c: fam.sample_params(gen, c),
@@ -442,13 +457,7 @@ class BayesianMixtureOfMixtures:
                 params = over(draw_params, randomness='different')(comps)
             log_pi = over(draw_log_pi, randomness='different')(outer,
                                                                gatings)
-            if use_kernel:
-                labels, res = fused_gibbs_cuda(spec, seeds[i], params,
-                                               log_pi, xts, n)
-                res = _cast(res, dtype)
-            else:
-                labels, res = fused_gibbs_blockwise(spec, seeds[i], params,
-                                                    log_pi, data, block_size)
+            labels, res = data.gibbs(spec, seeds[i], params, log_pi)
             counts, stats = over(self._split_flat)(res)
             if fam.gibbs_update is None:
                 comps = over(lambda s: vmap(fam.update)(cp, s))(stats)
@@ -459,10 +468,12 @@ class BayesianMixtureOfMixtures:
                 gp, c))(counts)
             outer = over(lambda c: self.outer_gating_prior.update(
                 torch.sum(c, -1)))(counts)
+        labels = labels.map(lambda t: t // self.mixture_size)
         return finite_report(
             HMixGibbsState(outer_gating=outer, inner_gating=gatings,
                            components=comps,
-                           labels=labels // self.mixture_size),
+                           labels=(labels.shards[0] if mesh is None
+                                   else labels)),
             'fit_gibbs_fused')
 
     # -- likelihood-only EM --------------------------------------------------
@@ -556,7 +567,7 @@ class BayesianMixtureOfMixtures:
         return ilp, _log_clip(csum / n)
 
     def fit_em_fused(self, data, key=None, maxiter=100, block_size=131072,
-                     backend='auto', chains=False):
+                     backend='auto', chains=False, mesh=None):
         """Nested likelihood-only EM through the fused E-step: each sweep
         is one FLAT softmax over all M*K experts (kernel B1 on CUDA data),
         fed theta_plugin(ML params), so the (M, N, K) responsibilities
@@ -567,35 +578,35 @@ class BayesianMixtureOfMixtures:
         (HMixEMState, loglik trace). With `chains`, `key` holds C chain
         keys: the anchor starts are formed and reduced one chain at a
         time, then the C chains run as one program (C-stacked
-        HMixEMState, (C, maxiter) traces)."""
+        HMixEMState, (C, maxiter) traces). With `mesh`, the anchors and
+        their scale come from the global N."""
         self._require_ml()
-        data, x0, n, dtype, use_kernel, gens, spec, over = self._fused_setup(
-            data, key, chains, backend)
+        data, gens, spec, over = self._fused_setup(data, key, chains,
+                                                   backend, mesh, block_size)
+        spec = spec._replace(theta=spec.theta_plugin)
+        n = data.n
         mm, kk = self.cluster_size, self.mixture_size
-        estep = BayesianMixture._fused_estep(
-            spec._replace(theta=spec.theta_plugin), use_kernel, block_size)
-        xts = kernel_xts(data) if use_kernel else None
         fam = self.family
         starts = []
         for g in gens:
-            resp = anchor_resp(x0, x0[_anchor_indices(g, n, (mm * kk,),
-                                                      x0.device)])
-            stats = _unflatten_mk(fam.suff_stats(data, resp), mm, kk)
-            counts = torch.sum(resp, 0).reshape(mm, kk)
-            del resp
+            stats, counts = data.anchor_stats(
+                fam.suff_stats,
+                _anchor_indices(g, n, (mm * kk,), data.device))
+            stats = _unflatten_mk(stats, mm, kk)
+            counts = counts.reshape(mm, kk)
             starts.append((vmap(fam.ml_update)(stats),)
                           + self._ml_log_pis(counts, n))
         params, ilp, olp = stack_trees(starts) if chains else starts[0]
         trace = []
         for _ in range(maxiter):
-            log_pi = (olp[..., :, None] + ilp).flatten(-2).to(dtype)
-            res = estep(params, log_pi, data, xts, n, dtype)
+            log_pi = (olp[..., :, None] + ilp).flatten(-2).to(data.dtype)
+            res = data.estep(spec, params, log_pi)
             counts, stats = over(self._split_flat)(res)
             params = over(vmap(fam.ml_update))(stats)
             ilp, olp = over(lambda c: self._ml_log_pis(c, n))(counts)
             trace.append(res.lse)
         return finite_report((HMixEMState(params, ilp, olp),
-                              _stack(trace, x0)), 'fit_em_fused')
+                              _stack(trace, data)), 'fit_em_fused')
 
     # -- MAP EM --------------------------------------------------------------
 
@@ -648,7 +659,7 @@ class BayesianMixtureOfMixtures:
         return finite_report((state, _stack(trace, x0)), 'fit_map')
 
     def fit_map_fused(self, data, key=None, maxiter=100, block_size=131072,
-                      backend='auto', chains=False):
+                      backend='auto', chains=False, mesh=None):
         """Nested MAP-EM through the fused E-step: the two-level plug-in
         E-step at the posterior MODE runs as one flat M*K softmax (kernel
         B1 on CUDA data, fed theta_plugin(mode params)); the M-step splits
@@ -659,27 +670,25 @@ class BayesianMixtureOfMixtures:
         maxsubiter=1 with jointly-updated outer weights. Returns
         (HMixState, trace): the data log-likelihood at each sweep's
         mode. With `chains`, `key` holds C chain keys (C-stacked
-        HMixState, (C, maxiter) traces)."""
-        data, x0, n, dtype, use_kernel, gens, spec, over = self._fused_setup(
-            data, key, chains, backend)
-        estep = BayesianMixture._fused_estep(
-            spec._replace(theta=spec.theta_plugin), use_kernel, block_size)
+        HMixState, (C, maxiter) traces). `mesh` as in fit_vi_fused."""
+        data, gens, spec, over = self._fused_setup(data, key, chains,
+                                                   backend, mesh, block_size)
+        spec = spec._replace(theta=spec.theta_plugin)
         state = self._random_states(gens, data, chains)
-        xts = kernel_xts(data) if use_kernel else None
         trace = []
         for _ in range(maxiter):
             params = over(vmap(self.family.mode_params))(state.components)
             log_pi = over(lambda s: self._flat_log_pi(s, mode=True))(state)
-            res = estep(params, log_pi.to(dtype), data, xts, n, dtype)
+            res = data.estep(spec, params, log_pi.to(data.dtype))
             state = over(self._update_flat)(res)
             trace.append(res.lse)
-        return finite_report((state, _stack(trace, x0)), 'fit_map_fused')
+        return finite_report((state, _stack(trace, data)), 'fit_map_fused')
 
     # -- stochastic VI -------------------------------------------------------
 
     def fit_svi(self, data, key=None, maxiter=500, step_size=1e-2,
                 batch_size=128, maxsubiter=2, init_state=None,
-                randomize=True):
+                randomize=True, mesh=None):
         """Nested stochastic natural-gradient VI: per step, one random
         minibatch (`utils.data.sample_batch_indices`); outer and inner
         responsibilities on the batch; `maxsubiter` blends of the inner
@@ -687,14 +696,26 @@ class BayesianMixtureOfMixtures:
         stochastic scale B/N (nat <- (1 - rho) nat + rho (prior +
         stats/scale)) at the fixed step. Starts from random two-level
         responsibilities when `randomize` or without `init_state`.
-        Returns the final HMixState."""
+        Returns the final HMixState.
+
+        With `mesh` (a one-row mesh over d data shards) each step draws a
+        stratified minibatch of batch_size // d points a shard (a
+        generator a shard, seeded from one draw of the key's and the shard
+        index), and every inner sub-iteration reduces the shards' (M, K)
+        statistics once (the first also the outer counts), as mimo_tpu's
+        psum a sub-iteration; a batch_size that d does not divide
+        raises."""
+        if mesh is not None:
+            return self._fit_svi_mesh(data, key, maxiter, step_size,
+                                      batch_size, maxsubiter, init_state,
+                                      randomize, mesh)
         data = self._tx_data(data)
         x0 = data[0]
         n = x0.shape[0]
         scale = batch_size / n
         gen = _as_generator(key, x0.device)
         fam = self.family
-        state = (self._random_state(gen, data)
+        state = (self._random_state(gen, _Shards(None, data, 'torch'))
                  if randomize or init_state is None else init_state)
         for _ in range(maxiter):
             idx = sample_batch_indices(gen, n, batch_size)
@@ -715,6 +736,58 @@ class BayesianMixtureOfMixtures:
                 outer_gating=self.outer_gating_prior.svi_blend(
                     state.outer_gating, torch.sum(outer_resp, 0), scale,
                     step_size))
+        return finite_report(state, 'fit_svi')
+
+    def _fit_svi_mesh(self, data, key, maxiter, step_size, batch_size,
+                      maxsubiter, init_state, randomize, mesh):
+        """fit_svi over a mesh (see fit_svi)."""
+        n_dev = mesh.shape['data']
+        if batch_size % n_dev:
+            raise ValueError(f'batch_size={batch_size} must be a multiple '
+                             f'of the data-mesh size {n_dev}')
+        shards = _Shards(mesh, self._tx_data(data), 'torch', 131072)
+        if shards.any_empty:
+            raise ValueError(f'N={shards.n} leaves a shard of the '
+                             f'{n_dev}-shard mesh empty: SVI draws from '
+                             'every shard')
+        scale = batch_size / shards.n
+        gen = _as_generator(key, shards.device)
+        fam = self.family
+        state = (self._random_state(gen, shards)
+                 if randomize or init_state is None else init_state)
+        gens = shards.generators(gen)
+        local_b = batch_size // n_dev
+        for _ in range(maxiter):
+            batches = []
+            for part, g in zip(shards.parts, gens):
+                idx = sample_batch_indices(g, part[0].shape[0], local_b)
+                batches.append(tuple(a[idx] for a in part))
+            outer = [self.expected_responsibilities(state, b)
+                     for b in batches]
+            for sub in range(max(maxsubiter, 1)):
+                trees = []
+                for b, o in zip(batches, outer):
+                    tree = (torch.sum(o, 0),) if sub == 0 else ()
+                    if maxsubiter:
+                        tree += self._cluster_stats(b, torch.softmax(
+                            self._inner_elc(state, b), -1), o)
+                    trees.append(tree)
+                red = shards.mesh.reduce_tree(
+                    trees, _tree_map(torch.zeros_like, trees[0]), 'sweep')
+                if sub == 0:
+                    outer_counts, red = red[0], red[1:]
+                if not maxsubiter:
+                    break
+                comps, gatings = vmap(
+                    lambda pc, pg, qc, qg, st, c: (
+                        fam.svi_blend(qc, pc, st, scale, step_size),
+                        pg.svi_blend(qg, c, scale, step_size)))(
+                    self.components_prior, self.inner_gating_prior,
+                    state.components, state.inner_gating, *red)
+                state = state._replace(components=comps, inner_gating=gatings)
+            state = state._replace(
+                outer_gating=self.outer_gating_prior.svi_blend(
+                    state.outer_gating, outer_counts, scale, step_size))
         return finite_report(state, 'fit_svi')
 
     # -- Gibbs (masked instead of hard-sliced) -------------------------------
@@ -805,37 +878,50 @@ class BayesianMixtureOfMixtures:
                 aux.reshape(-1, aux.shape[-1]).contiguous())
 
     def log_predictive(self, state: HMixState, data, dist='studentt',
-                       backend='auto'):
+                       backend='auto', mesh=None):
         """Marginal posterior-predictive log density, (N,): logsumexp over
         all (M, K) of mixture weights x component predictive. `dist`:
         'studentt' or the moment-matched 'gaussian'. On the kernel path
         (see the module docstring) NIW and HierTied posteriors are served
         by B3 over the M*K rows of `_predictive_rows`, in float32, cast
         back to the data's dtype; other families (the nested ILR's joint
-        density) take the dense path, and raise under 'kernel'."""
+        density) take the dense path, and raise under 'kernel'. With
+        `mesh` every shard is served on its device (one B3 launch a CUDA
+        shard, the rows built once, no collective) and the result is a
+        parallel.mesh.Sharded of (n_j,) tensors."""
         from mimo_tpu_torch.distributions.hierarchical import HierTied
         from mimo_tpu_torch.distributions.niw import NIW
-        from mimo_tpu_torch.ops import cuda_predict
         if dist not in ('studentt', 'gaussian'):
             raise ValueError(f'unknown dist: {dist!r}')
-        data = _as_tuple(data)
-        x = data[0]
         served = isinstance(state.components, (NIW, HierTied))
         if backend == 'kernel' and not served:
             raise NotImplementedError(
                 'no serving kernel for this family; use '
                 "backend='torch'")
-        if served and resolve_backend(backend, x):
+        if mesh is not None:
+            first, parts = _mesh_parts(mesh, data)
+        else:
+            first, parts = None, [as_data(data)]
+        out = self._log_predictive_parts(state, parts, dist, backend,
+                                         served)
+        return out[0] if first is None else first._replace(shards=tuple(out))
+
+    def _log_predictive_parts(self, state, parts, dist, backend, served):
+        """log_predictive of each data tuple in `parts` (a mesh's shards,
+        or the one whole): B3's rows built once, one launch a part."""
+        from mimo_tpu_torch.ops import cuda_predict
+        if served and resolve_backend(backend, parts[0][0]):
             thq, aux = self._predictive_rows(state, dist)
-            return cuda_predict.predict(
-                x.to(torch.float32).T.contiguous(), thq.to(torch.float32),
-                aux.to(torch.float32), x.shape[0],
-                dist == 'studentt').to(x.dtype)
+            thq, aux = thq.to(torch.float32), aux.to(torch.float32)
+            return [cuda_predict.serve_shard(
+                part[0].to(torch.float32), lambda xt: cuda_predict.predict(
+                    xt, thq.to(xt.device), aux.to(xt.device), xt.shape[1],
+                    dist == 'studentt')).to(part[0].dtype) for part in parts]
         fn = (self.family.log_predictive if dist == 'studentt'
               else self.family.log_predictive_gaussian)
-        log_p = vmap(lambda post: fn(post, data))(state.components)
         log_w = self._log_mix_weights(state)                # (M, K)
-        return torch.logsumexp(log_p + log_w[:, None, :], (0, 2))
+        return [torch.logsumexp(vmap(lambda post: fn(post, part))(
+            state.components) + log_w[:, None, :], (0, 2)) for part in parts]
 
     def init_transform(self, x, y):
         """Optional input/output standardization."""
@@ -844,8 +930,25 @@ class BayesianMixtureOfMixtures:
         self.output_transform = Standardizer.fit(y)
 
     def _tx(self, x):
-        return x if self.input_transform is None \
-            else self.input_transform.transform(x)
+        return transform_points(self.input_transform, x)
+
+    def _kernel_predict(self, state, xs, ys, prediction, incremental):
+        """predict's kernel path over the parts xs (and ys, or None): B5
+        (p = 1) or B6 (p > 1) once a part over the M*K flattened experts,
+        the coefficients built once; one (mean, var, std, nlpd) a part."""
+        from mimo_tpu_torch.ops.cuda_ilr_predict import (
+            ilr_p_predict_cuda_sharded, ilr_predict_cuda_sharded)
+        basis_post, models_post = state.components
+        flat_b, flat_m = _flatten_mk((basis_post, models_post))
+        serve = (ilr_predict_cuda_sharded if models_post.M.shape[-2] == 1
+                 else ilr_p_predict_cuda_sharded)
+        outs = serve(flat_b, flat_m, self._log_mix_weights(state).reshape(-1),
+                     [self._tx(x) for x in xs],
+                     None if ys is None else [
+                         transform_points(self.output_transform, y)
+                         for y in ys], self.affine, prediction)
+        return [from_kernel(self.output_transform, x, *out, incremental)
+                for x, out in zip(xs, outs)]
 
     def predictive_weights(self, state: HMixState, x, dist='gaussian'):
         """(N, M, K) joint input-conditional weights: softmax over both
@@ -875,7 +978,8 @@ class BayesianMixtureOfMixtures:
         return torch.movedim(mus, 0, 1), torch.movedim(covs, 0, 1)
 
     def predict(self, state: HMixState, x, y=None, prediction='average',
-                dist='gaussian', incremental=False, backend='auto'):
+                dist='gaussian', incremental=False, backend='auto',
+                mesh=None):
         """Two-level posterior-predictive regression: 'mode' picks the
         argmax over all M*K experts, 'average' moment-matches the full
         two-level mixture. Returns (mean, var, std, nlpd) in original
@@ -889,7 +993,10 @@ class BayesianMixtureOfMixtures:
         flat softmax over the log mix weights + basis logpdf) and
         everything else through the dense path; 'kernel' requires the
         kernels (raising for CPU data and for dist='gaussian'); 'torch'
-        forces the dense path."""
+        forces the dense path. With `mesh`, every shard of x (and y) is
+        served on its device (one B5 or B6 launch a CUDA shard, the
+        coefficients built once, no collective); each result is a
+        parallel.mesh.Sharded (nlpd None without y)."""
         from mimo_tpu_torch.distributions import mnw as _mnw
         from mimo_tpu_torch.models.ilr import BayesianILR
         if self.kind != 'ilr':
@@ -901,37 +1008,22 @@ class BayesianMixtureOfMixtures:
             raise NotImplementedError(
                 'fused serving needs studentt predictives; use '
                 "backend='torch' (dense) for this config")
-        use_kernel = resolve_backend(backend, x) and dist == 'studentt'
+        if mesh is not None:
+            return serve_sharded(
+                mesh, x, y, backend, dist,
+                lambda xs, ys: self._kernel_predict(
+                    state, xs, ys, prediction, incremental),
+                lambda xj, yj: self.predict(state, xj, yj, prediction, dist,
+                                            incremental, backend))
+        if resolve_backend(backend, x) and dist == 'studentt':
+            return self._kernel_predict(state, [x], None if y is None
+                                        else [y], prediction,
+                                        incremental)[0]
         xx = self._tx(x)
         yy = None
         if y is not None:
-            yy = y if self.output_transform is None \
-                else self.output_transform.transform(y)
+            yy = transform_points(self.output_transform, y)
         basis_post, models_post = state.components
-        if use_kernel:
-            from mimo_tpu_torch.ops.cuda_ilr_predict import (
-                ilr_p_predict_cuda, ilr_predict_cuda)
-            flat_b, flat_m = _flatten_mk((basis_post, models_post))
-            log_w = self._log_mix_weights(state).reshape(-1)
-            if models_post.M.shape[-2] == 1:
-                mu1, var1, nlpd = ilr_predict_cuda(
-                    flat_b, flat_m, log_w, xx, yy, self.affine, prediction)
-                mu, var = mu1[:, None], var1[:, None]
-            else:
-                mu, var, nlpd = ilr_p_predict_cuda(
-                    flat_b, flat_m, log_w, xx, yy, self.affine, prediction)
-            mu, var = mu.to(x.dtype), var.to(x.dtype)
-            if nlpd is not None:
-                nlpd = nlpd.to(x.dtype)
-                if self.output_transform is not None:
-                    nlpd = nlpd + torch.sum(
-                        torch.log(self.output_transform.scale))
-            if self.output_transform is not None:
-                mu = self.output_transform.inverse_transform(mu)
-                var = var * torch.square(self.output_transform.scale)
-            if incremental:
-                mu = mu + x[:, :mu.shape[-1]]
-            return mu, var, torch.sqrt(var), nlpd
         n = x.shape[0]
         j = self.cluster_size * self.mixture_size
         w_f = self.predictive_weights(state, xx, dist).reshape(n, j)
@@ -965,11 +1057,17 @@ class BayesianMixtureOfMixtures:
         return mu, var, torch.sqrt(var), nlpd
 
 
-def _two_level_resp(gen, n, m, k, dtype, device):
+def _two_level_resp(seeds, n, m, k, dtype, device, start=0, total=None):
     """Random normalized two-level responsibilities (models.mixture's
-    `_random_resp` at both levels): outer (N, M) and inner (M, N, K)."""
-    return (_random_resp(gen, n, m, dtype, device),
-            _random_resp(gen, m * n, k, dtype, device).view(m, n, k))
+    `_random_resp` at both levels) of points start..start+n-1 of `total`
+    (by default n): outer (n, M) keyed by seeds[0], and inner (M, n, K)
+    keyed by seeds[1], cluster c's rows at the point indices
+    c total + i, so a shard's rows are those of the draw over all N."""
+    total = n if total is None else total
+    return (_random_resp(seeds[0], n, m, dtype, device, start),
+            torch.stack([_random_resp(seeds[1], n, k, dtype, device,
+                                      c * total + start)
+                         for c in range(m)]))
 
 
 def _anchor_indices(gen, n, shape, device):

@@ -31,7 +31,8 @@ from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW, LinGaussParams, augment
 from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, MFState, _as_generator, model_device, resolve_backend)
+    BayesianMixture, MFState, _as_generator, from_kernel, model_device,
+    resolve_backend, serve_sharded, transform_points)
 from mimo_tpu_torch.utils.data import Standardizer
 from mimo_tpu_torch.utils.linalg import cholesky, inv_psd
 from mimo_tpu_torch.utils.stats import normalize_log
@@ -161,12 +162,10 @@ class BayesianILR(BayesianMixture):
         self.output_transform = Standardizer.fit(y)
 
     def _tx(self, x):
-        return x if self.input_transform is None \
-            else self.input_transform.transform(x)
+        return transform_points(self.input_transform, x)
 
     def _ty(self, y):
-        return y if self.output_transform is None \
-            else self.output_transform.transform(y)
+        return transform_points(self.output_transform, y)
 
     def _estep_spec(self):
         from mimo_tpu_torch.ops.family_estep import ilr_spec
@@ -210,6 +209,23 @@ class BayesianILR(BayesianMixture):
         return super().fit_map_fused(self._std(data), **kw)
 
     # -- prediction -----------------------------------------------------------
+
+    def _kernel_predict(self, state, xs, ys, prediction, incremental):
+        """predict's kernel path over the parts xs (and ys, or None): B5
+        (p = 1) or B6 (p > 1) once a part with the coefficients built once;
+        one (mean, var, std, nlpd) a part, in original units."""
+        from mimo_tpu_torch.ops.cuda_ilr_predict import (
+            ilr_p_predict_cuda_sharded, ilr_predict_cuda_sharded)
+        basis_post, models_post = state.components
+        serve = (ilr_predict_cuda_sharded if self.output_dim == 1
+                 else ilr_p_predict_cuda_sharded)
+        outs = serve(basis_post, models_post,
+                     self.predictive_log_weights(state),
+                     [self._tx(x) for x in xs],
+                     None if ys is None else [self._ty(y) for y in ys],
+                     self.affine, prediction)
+        return [from_kernel(self.output_transform, x, *out, incremental)
+                for x, out in zip(xs, outs)]
 
     def predictive_weights(self, state: MFState, x, dist='studentt'):
         """Input-conditional expert weights:
@@ -270,7 +286,8 @@ class BayesianILR(BayesianMixture):
         return fn(models_post, augment(x, self.affine), y)
 
     def predict(self, state: MFState, x, y=None, prediction='average',
-                dist='studentt', incremental=False, backend='auto'):
+                dist='studentt', incremental=False, backend='auto',
+                mesh=None):
         """Posterior-predictive regression. Returns (mean, var_diag, std,
         nlpd) with nlpd None unless y is given, in original units (the
         standardization is inverted and the NLPD carries the Jacobian
@@ -282,42 +299,31 @@ class BayesianILR(BayesianMixture):
         moment matching and NLPD in one pass, no (N, K) intermediates) and
         everything else through the dense path; 'kernel' requires the
         kernels (raising for CPU data and for dist='gaussian', which stays
-        dense); 'torch' forces the dense path."""
+        dense); 'torch' forces the dense path.
+
+        With `mesh` (a one-row mesh) every shard of x (and y) is served
+        on its device, one B5 or B6 launch a shard on CUDA shards with the
+        coefficients built once, no collective; each of the four results
+        comes back as a parallel.mesh.Sharded (nlpd None without y)."""
         if dist not in ('studentt', 'gaussian'):
             raise ValueError(f'unknown dist: {dist!r}')
         if backend == 'kernel' and dist != 'studentt':
             raise NotImplementedError(
                 "fused serving needs studentt predictives; use "
                 "backend='torch' (dense) for this config")
+        if mesh is not None:
+            return serve_sharded(
+                mesh, x, y, backend, dist,
+                lambda xs, ys: self._kernel_predict(
+                    state, xs, ys, prediction, incremental),
+                lambda xj, yj: self.predict(state, xj, yj, prediction, dist,
+                                            incremental, backend))
         use_kernel = resolve_backend(backend, x)
-        xx = self._tx(x)
         if use_kernel and dist == 'studentt':
-            from mimo_tpu_torch.ops.cuda_ilr_predict import (
-                ilr_p_predict_cuda, ilr_predict_cuda)
-            basis_post, models_post = state.components
-            yy = self._ty(y) if y is not None else None
-            log_w = self.predictive_log_weights(state)
-            if self.output_dim == 1:
-                mu1, var1, nlpd = ilr_predict_cuda(
-                    basis_post, models_post, log_w, xx, yy, self.affine,
-                    prediction)
-                mu, var = mu1[:, None], var1[:, None]
-            else:
-                mu, var, nlpd = ilr_p_predict_cuda(
-                    basis_post, models_post, log_w, xx, yy, self.affine,
-                    prediction)
-            mu, var = mu.to(x.dtype), var.to(x.dtype)
-            if nlpd is not None:
-                nlpd = nlpd.to(x.dtype)
-                if self.output_transform is not None:
-                    nlpd = nlpd + torch.sum(
-                        torch.log(self.output_transform.scale))
-            if self.output_transform is not None:
-                mu = self.output_transform.inverse_transform(mu)
-                var = var * torch.square(self.output_transform.scale)
-            if incremental:
-                mu = mu + x[:, :mu.shape[-1]]
-            return mu, var, torch.sqrt(var), nlpd
+            return self._kernel_predict(state, [x], None if y is None
+                                        else [y], prediction,
+                                        incremental)[0]
+        xx = self._tx(x)
 
         weights = self.predictive_weights(state, xx, dist)
         mus, covars = self.predictive_moments(state, xx, dist)

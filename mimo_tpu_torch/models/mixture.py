@@ -1,7 +1,7 @@
 """Bayesian mixture engine over a conjugate Family (port of
-mimo_tpu/models/mixture.py without its mesh arguments): EM/MAP, blocked
-Gibbs, mean-field VI and stochastic VI, dense, fused and out-of-core,
-and the posterior predictive.
+mimo_tpu/models/mixture.py): EM/MAP, blocked Gibbs, mean-field VI and
+stochastic VI, dense, fused and out-of-core, and the posterior
+predictive.
 
 Update-rule contract:
   MAP    : post = prior (+) stats;            params <- mode(post)
@@ -26,6 +26,21 @@ torch.func.vmap over C (`_over_chains`; a single fit runs the same code
 unbatched), and B1 / B2 launch once a sweep for every chain. Each chain's
 start is drawn from its own generator one chain at a time, so chain c of
 the VI, MAP and EM engines equals the single-chain fit with key c.
+
+Mesh. The fused engines, `fit_svi` and `log_predictive` take `mesh=`, a
+one-row mesh from parallel.make_mesh, and data as parallel.shard_data
+gives it (or whole, which they shard): each sweep launches B1 or B2 once
+per non-empty shard on its device and makes the mesh's one reduction of
+the packed (K m8 + 1) statistics (parallel.mesh.Mesh.reduce), so a
+sharded sweep is the unsharded sweep up to the order of its sums. Without
+`mesh` a fused engine runs over the one position of the data's device:
+the unsharded fit is the one-shard case of the same code (`_Shards`).
+Each shard draws only its own rows of the random start, keyed by the
+global point index (`_random_resp`, in fixed chunks of points), so the
+sharded start is the unsharded one; the starts' statistics take one reduction each ('start'
+in the mesh counters); Gibbs labels stay on their shards
+(parallel.mesh.Sharded); serving runs once per shard with no collective;
+SVI draws a stratified minibatch a shard.
 
 Out-of-core. `fit_svi_stream` takes host minibatches and
 `fit_{vi,map,em}_stream_full` a dataset read a block at a time each sweep
@@ -59,6 +74,7 @@ from mimo_tpu_torch.utils.stats import (
 
 BACKENDS = ('auto', 'kernel', 'torch')
 _CHUNK = 1 << 20      # points per step of the anchor init's distances
+_RESP_ROWS = 1 << 16  # points a chunk of the random start's draw
 
 
 class MFState(NamedTuple):
@@ -305,25 +321,24 @@ class BayesianMixture:
         return None
 
     @staticmethod
-    def _fused_setup(data, key, chains, backend, spec):
-        """(data, x0, n, dtype, use_kernel, generators, spec) of a fused
-        engine: one generator from `key`, or with `chains` one a chain
-        from the keys in `key`, and then the chains' spec
+    def _fused_setup(data, key, chains, backend, spec, mesh, block_size):
+        """(data, generators, spec) of a fused engine: the data as its
+        `_Shards` over `mesh` (without one, over the one position of the
+        data's device: an unsharded fit is the one-shard case), one
+        generator from `key` on the first shard's device, or with `chains`
+        one a chain from the keys in `key`, and then the chains' spec
         (family_estep.chain_spec)."""
         from mimo_tpu_torch.ops.family_estep import chain_spec
-        data = _as_tuple(data)
-        x0 = data[0]
-        return (data, x0, x0.shape[0], x0.dtype, resolve_backend(backend, x0),
-                _generators(key, x0.device, chains),
+        data = _Shards(mesh, data, backend, block_size)
+        return (data, _generators(key, data.device, chains),
                 chain_spec(spec) if chains else spec)
 
     def _random_start(self, data, gens, chains):
-        """The random-responsibility start of each chain, drawn and
-        reduced one chain at a time from its own generator (the (C, N, K)
-        responsibilities never exist)."""
-        x0 = data[0]
-        starts = [self._mf_update(data, _random_resp(
-            g, x0.shape[0], self.size, x0.dtype, x0.device)) for g in gens]
+        """The random-responsibility start of each chain over the
+        `_Shards` `data`, drawn and reduced one chain at a time from its
+        own generator (the (C, N, K) responsibilities never exist)."""
+        starts = [self._posterior(*data.random_stats(
+            self.family.suff_stats, g, self.size)) for g in gens]
         return stack_trees(starts) if chains else starts[0]
 
     def _posterior(self, stats, counts):
@@ -333,7 +348,7 @@ class BayesianMixture:
 
     def fit_vi_fused(self, data, key=None, maxiter=250, tol=None,
                      block_size=131072, init_state=None, randomize=True,
-                     backend='auto', chains=False):
+                     backend='auto', chains=False, mesh=None):
         """Mean-field VI with the fused E-step (kernel B1 on CUDA, over
         the family's feature map): the N x K responsibilities never
         exist. The ELBO trace reports
@@ -345,28 +360,28 @@ class BayesianMixture:
         With `chains`, `key` holds C chain keys and the fit runs C chains
         as one program (see the module docstring): a C-stacked
         `init_state` and MFState, (C, maxiter) traces, each chain
-        stopping on its own `tol`; chain c equals the fit with key c."""
+        stopping on its own `tol`; chain c equals the fit with key c.
+
+        With `mesh` (a one-row mesh, see the module docstring) B1 runs
+        once per non-empty shard a sweep, then one reduction."""
         spec = self._estep_spec()
         if spec is None:
             raise NotImplementedError('no fused E-step spec for this family')
-        data, x0, n, dtype, use_kernel, gens, spec = self._fused_setup(
-            data, key, chains, backend, spec)
+        data, gens, spec = self._fused_setup(data, key, chains, backend,
+                                             spec, mesh, block_size)
         over = _over_chains(chains)
-        estep = self._fused_estep(spec, use_kernel, block_size)
         if randomize or init_state is None:
             state = self._random_start(data, gens, chains)
         else:
             state = init_state
-        xts = kernel_xts(data) if use_kernel else None
 
         def kl(comp, gating):
             return (torch.sum(self.family.kl(comp, self.components_prior)),
                     torch.sum(gating.kl_divergence(self.gating_prior)))
 
         def step(state, _):
-            res = estep(state.components,
-                        over(lambda g: g.expected_log_pi())(state.gating),
-                        data, xts, n, dtype)
+            res = data.estep(spec, state.components,
+                             over(lambda g: g.expected_log_pi())(state.gating))
             kl_comp, kl_gating = over(kl)(state.components, state.gating)
             return (over(self._posterior)(res.stats, res.counts),
                     res.lse - kl_comp - kl_gating)
@@ -376,7 +391,7 @@ class BayesianMixture:
                        (len(gens),) if chains else ()), 'fit_vi_fused')
 
     def fit_gibbs_fused(self, data, key=None, maxiter=100, block_size=131072,
-                        backend='auto', chains=False):
+                        backend='auto', chains=False, mesh=None):
         """Blocked Gibbs with the fused label sweep (kernel B2 on CUDA):
         plug-in log-densities, Gumbel-max labels from Philox keyed by
         (sweep seed, point index), and one-hot statistics; the N x K
@@ -392,15 +407,18 @@ class BayesianMixture:
         torch.func.vmap with randomness='different' from one generator
         seeded by the chains' (`batch_generator`), so the same keys give
         the same chains but a chain does not repeat the single-chain fit
-        draw for draw. Returns the C-stacked GibbsState (labels (C, N))."""
-        from mimo_tpu_torch.ops.cuda_gibbs import fused_gibbs_cuda
-        from mimo_tpu_torch.ops.family_estep import fused_gibbs_blockwise
+        draw for draw. Returns the C-stacked GibbsState (labels (C, N)).
+
+        With `mesh`, B2 runs once per non-empty shard a sweep with the
+        shard's seed (shard 0 draws as the unsharded sweep), then one
+        reduction of the one-hot statistics; the labels come back as a
+        parallel.mesh.Sharded, one (n_j,) or (C, n_j) tensor a shard."""
         spec = self._estep_spec()
         if spec is None or spec.theta_plugin is None:
             raise NotImplementedError('no fused Gibbs spec for this family')
-        data, x0, n, dtype, use_kernel, gens, spec = self._fused_setup(
-            data, key, chains, backend, spec)
-        dev = x0.device
+        data, gens, spec = self._fused_setup(data, key, chains, backend,
+                                             spec, mesh, block_size)
+        dev = data.device
         over = _over_chains(chains)
         fam, cp = self.family, self.components_prior
         lead = (len(gens),) if chains else ()
@@ -410,27 +428,20 @@ class BayesianMixture:
                                                                    lead[0])
         params = over(fam.mode_params)(comp)
         log_pi = torch.log(torch.full(lead + (self.size,), 1.0 / self.size,
-                                      dtype=dtype, device=dev))
-        labels = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
+                                      dtype=data.dtype, device=dev))
+        labels = data.zero_labels(lead)
         seeds = torch.stack([torch.randint(0, 2 ** 62, (maxiter,),
                                            generator=g, dtype=torch.int64,
                                            device=dev) for g in gens], -1)
         seeds = seeds if chains else seeds[:, 0]
         gen = batch_generator(gens) if chains else gens[0]
-        xts = kernel_xts(data) if use_kernel else None
         for i in range(maxiter):
             if fam.gibbs_update is None:
                 params = over(lambda q: fam.sample_params(gen, q),
                               randomness='different')(comp)
             log_pi = over(lambda g: torch.log(torch.clamp(
                 g.sample(gen), min=1e-37)), randomness='different')(gating)
-            if use_kernel:
-                labels, res = fused_gibbs_cuda(spec, seeds[i], params,
-                                               log_pi, xts, n)
-                res = _cast(res, dtype)
-            else:
-                labels, res = fused_gibbs_blockwise(spec, seeds[i], params,
-                                                    log_pi, data, block_size)
+            labels, res = data.gibbs(spec, seeds[i], params, log_pi)
             if fam.gibbs_update is None:
                 comp = over(lambda s: fam.update(cp, s))(res.stats)
             else:
@@ -439,7 +450,10 @@ class BayesianMixture:
             gating = over(self.gating_prior.update)(res.counts)
         return finite_report(
             GibbsState(components=comp, gating=gating, params=params,
-                       log_pi=log_pi, labels=labels), 'fit_gibbs_fused')
+                       log_pi=log_pi,
+                       labels=(labels.shards[0] if mesh is None
+                               else labels)),
+            'fit_gibbs_fused')
 
     def _anchor_resp(self, x0, gen):
         """The ML engines' random-anchor init (k-means-style 'random'
@@ -477,78 +491,58 @@ class BayesianMixture:
             trace.append(torch.sum(lognorm))
         return finite_report((state, _stack(trace, x0)), 'fit_em')
 
-    @staticmethod
-    def _fused_estep(spec, use_kernel, block_size):
-        """The fused engines' E-step: kernel B1 over the transposed data
-        `xts` (its statistics cast back to the data's dtype) or the plain
-        blockwise version over `data`. Returns
-        estep(theta_src, log_pi, data, xts, n, dtype) -> FusedEStep, with
-        theta = spec.theta(theta_src)."""
-        from mimo_tpu_torch.ops.cuda_estep import fused_estep_cuda
-        from mimo_tpu_torch.ops.family_estep import fused_estep_blockwise
-
-        def estep(theta_src, log_pi, data, xts, n, dtype):
-            if use_kernel:
-                return _cast(fused_estep_cuda(spec, theta_src, log_pi, xts,
-                                              n), dtype)
-            return fused_estep_blockwise(spec, theta_src, log_pi, data,
-                                         block_size)
-        return estep
-
-    def _fused_plugin_estep(self, spec, use_kernel, block_size):
-        """The plug-in (EM / MAP) fused E-step: fit_vi_fused's, with the
+    def _plugin_spec(self, alt_engine):
+        """The plug-in (EM / MAP) E-step's spec: the family's, with the
         log-density from spec.theta_plugin(params) in place of the
         posterior-expected spec.theta(post) (EM and MAP E-steps are
         plug-in softmaxes, so they run on the same kernel B1)."""
-        return self._fused_estep(spec._replace(theta=spec.theta_plugin),
-                                 use_kernel, block_size)
-
-    def _plugin_spec(self, alt_engine):
         spec = self._estep_spec()
         if spec is None or spec.theta_plugin is None:
             raise NotImplementedError(
                 f'no fused plug-in spec for this family; use {alt_engine}')
-        return spec
+        return spec._replace(theta=spec.theta_plugin)
 
     def fit_em_fused(self, data, key=None, maxiter=250, block_size=131072,
-                     backend='auto', chains=False):
+                     backend='auto', chains=False, mesh=None):
         """fit_em through the fused E-step: each sweep is kernel B1 (on
         CUDA data) fed spec.theta_plugin(ml params), so the N x K
         responsibilities never exist in the sweeps; the anchor init still
-        forms one (N, K) matrix and dense statistics once, and frees them
-        before the first sweep. Returns (EMState(params, log_pi), loglik
+        forms each shard's (n_j, K) matrix and dense statistics once, and
+        frees them before the first sweep. Returns (EMState(params, log_pi), loglik
         trace). With `chains`, `key` holds C chain keys: the anchor inits
         are formed and reduced one chain at a time and the sweeps run the
         C chains as one program; C-stacked EMState, (C, maxiter) traces,
-        chain c equal to the fit with key c."""
+        chain c equal to the fit with key c. `mesh` as in fit_vi_fused;
+        the anchors and their distance scale come from the global N."""
         if self.family.ml_update is None:
             raise NotImplementedError(
                 'this family has no maximum-likelihood update; use '
                 'fit_map_fused')
-        data, x0, n, dtype, use_kernel, gens, spec = self._fused_setup(
-            data, key, chains, backend, self._plugin_spec('fit_em'))
+        data, gens, spec = self._fused_setup(
+            data, key, chains, backend, self._plugin_spec('fit_em'), mesh,
+            block_size)
+        n = data.n
         over = _over_chains(chains)
-        estep = self._fused_plugin_estep(spec, use_kernel, block_size)
-        xts = kernel_xts(data) if use_kernel else None
         starts = []
         for g in gens:
-            resp = self._anchor_resp(x0, g)
-            starts.append((self.family.ml_update(
-                self.family.suff_stats(data, resp)),
-                self._ml_log_pi(torch.sum(resp, 0), n)))
-            del resp
+            stats, counts = data.anchor_stats(
+                self.family.suff_stats,
+                _anchor_indices(g, n, self.size, data.device))
+            starts.append((self.family.ml_update(stats),
+                           self._ml_log_pi(counts, n)))
         params, log_pi = stack_trees(starts) if chains else starts[0]
         trace = []
         for _ in range(maxiter):
-            res = estep(params, log_pi, data, xts, n, dtype)
+            res = data.estep(spec, params, log_pi)
             params = over(self.family.ml_update)(res.stats)
             log_pi = self._ml_log_pi(res.counts, n)
             trace.append(res.lse)
-        return finite_report((EMState(params, log_pi), _stack(trace, x0)),
+        return finite_report((EMState(params, log_pi), _stack(trace, data)),
                              'fit_em_fused')
 
     def fit_map_fused(self, data, key=None, maxiter=250, block_size=131072,
-                      randomize=True, backend='auto', chains=False):
+                      randomize=True, backend='auto', chains=False,
+                      mesh=None):
         """fit_map through the fused E-step: each sweep is kernel B1 (on
         CUDA data) fed spec.theta_plugin(mode params) with the gating
         mode's log weights. Starts from random responsibilities
@@ -556,22 +550,22 @@ class BayesianMixture:
         Returns (MFState, loglik trace): the data log-likelihood at each
         sweep's posterior mode. With `chains`, `key` holds C chain keys
         and the C chains run as one program: C-stacked MFState,
-        (C, maxiter) traces, chain c equal to the fit with key c."""
-        data, x0, n, dtype, use_kernel, gens, spec = self._fused_setup(
-            data, key, chains, backend, self._plugin_spec('fit_map'))
+        (C, maxiter) traces, chain c equal to the fit with key c. `mesh`
+        as in fit_vi_fused."""
+        data, gens, spec = self._fused_setup(
+            data, key, chains, backend, self._plugin_spec('fit_map'), mesh,
+            block_size)
         over = _over_chains(chains)
-        estep = self._fused_plugin_estep(spec, use_kernel, block_size)
-        xts = kernel_xts(data) if use_kernel else None
         state = self._random_start(data, gens, chains)
         trace = []
         for _ in range(maxiter):
             params = over(self.family.mode_params)(state.components)
             log_pi = over(lambda g: torch.log(torch.clamp(
-                g.mode(), min=1e-37)).to(dtype))(state.gating)
-            res = estep(params, log_pi, data, xts, n, dtype)
+                g.mode(), min=1e-37)).to(data.dtype))(state.gating)
+            res = data.estep(spec, params, log_pi)
             state = over(self._posterior)(res.stats, res.counts)
             trace.append(res.lse)
-        return finite_report((state, _stack(trace, x0)), 'fit_map_fused')
+        return finite_report((state, _stack(trace, data)), 'fit_map_fused')
 
     def fit_vi(self, data, key=None, maxiter=250, tol=None, init_state=None,
                randomize=True, point_weights=None):
@@ -600,7 +594,7 @@ class BayesianMixture:
 
     def fit_svi(self, data, key=None, maxiter=500, step_size=1e-2,
                 batch_size=128, init_state=None, randomize=True,
-                track_elbo=False, forgetting=None, delay=1.0):
+                track_elbo=False, forgetting=None, delay=1.0, mesh=None):
         """Stochastic natural-gradient VI: one random minibatch per step
         (`utils.data.sample_batch_indices`), blended in natural space.
         The step size is fixed (the reference's rule) unless `forgetting`
@@ -608,7 +602,20 @@ class BayesianMixture:
         (t + 1 + delay)^-forgetting. Starts from random responsibilities
         unless `init_state` is given (`randomize` is accepted and unused,
         as in the JAX package). Returns (MFState, vlb trace): the
-        full-data ELBO after each step with track_elbo, else zeros."""
+        full-data ELBO after each step with track_elbo, else zeros.
+
+        With `mesh` (a one-row mesh over d data shards) every step draws
+        batch_size // d points from each shard, from a generator a shard
+        seeded from one draw of the key's and the shard index (a
+        stratified minibatch: the gather never leaves the shard), takes
+        their statistics through the fused E-step (B1 once per shard on
+        CUDA shards) and makes one reduction; the natural-
+        space blend is K-sized. track_elbo and a batch_size that d does
+        not divide raise, as in the JAX package."""
+        if mesh is not None:
+            return self._fit_svi_mesh(data, key, maxiter, step_size,
+                                      batch_size, init_state, track_elbo,
+                                      forgetting, delay, mesh)
         data = _as_tuple(data)
         x0 = data[0]
         n, dtype, dev = x0.shape[0], x0.dtype, x0.device
@@ -631,6 +638,53 @@ class BayesianMixture:
                                      self.expected_responsibilities(state,
                                                                     data))
         return finite_report((state, trace), 'fit_svi')
+
+    def _fit_svi_mesh(self, data, key, maxiter, step_size, batch_size,
+                      init_state, track_elbo, forgetting, delay, mesh):
+        """fit_svi over a mesh (see fit_svi)."""
+        spec = self._estep_spec()
+        if spec is None:
+            raise NotImplementedError(
+                'fit_svi(mesh=) takes the minibatch statistics through the '
+                'fused E-step; this family has no spec')
+        n_dev = mesh.shape['data']
+        if track_elbo:
+            raise ValueError('track_elbo with mesh= is unsupported')
+        if batch_size % n_dev:
+            raise ValueError(f'batch_size={batch_size} must be a multiple '
+                             f'of the data-mesh size {n_dev}')
+        shards = _Shards(mesh, data, 'auto', 131072)
+        if shards.any_empty:
+            raise ValueError(f'N={shards.n} leaves a shard of the '
+                             f'{n_dev}-shard mesh empty: SVI draws from '
+                             'every shard')
+        gen = _as_generator(key, shards.device)
+        scale = batch_size / shards.n
+        if init_state is None:
+            state = self._posterior(*shards.random_stats(
+                self.family.suff_stats, gen, self.size))
+        else:
+            state = init_state
+        gens = shards.generators(gen)
+        local_b = batch_size // n_dev
+        for t in range(maxiter):
+            rho = (step_size if forgetting is None
+                   else step_size * (t + 1.0 + delay) ** -forgetting)
+            batches = []
+            for part, g in zip(shards.parts, gens):
+                idx = sample_batch_indices(g, part[0].shape[0], local_b)
+                batches.append(tuple(a[idx] for a in part))
+            res = shards.estep(spec, state.components,
+                               state.gating.expected_log_pi(), batches)
+            state = MFState(
+                components=self.family.svi_blend(
+                    state.components, self.components_prior, res.stats,
+                    scale, rho),
+                gating=self.gating_prior.svi_blend(state.gating, res.counts,
+                                                   scale, rho))
+        return finite_report(
+            (state, torch.zeros((maxiter,), dtype=shards.dtype,
+                                device=shards.device)), 'fit_svi')
 
     def _svi_step(self, state, batch, scale, rho):
         """One natural-gradient step on a minibatch at stochastic scale
@@ -1041,7 +1095,7 @@ class BayesianMixture:
         return torch.log(torch.clamp(state.gating.mean(), min=1e-37))
 
     def log_predictive(self, state: MFState, data, dist='studentt',
-                       backend='auto'):
+                       backend='auto', mesh=None):
         """Posterior-predictive mixture log-density of full observations:
         logsumexp_k [log E[pi_k] + log pred_k(data)] -> (N,). `dist`:
         'studentt' or the moment-matched 'gaussian'. The kernel path
@@ -1050,34 +1104,48 @@ class BayesianMixture:
         shared hyper scale) and NG posteriors through B4 (Student-t) or
         B3 over the diagonal map (Gaussian), in float32, and casts the
         result back to the data's dtype; the plain path is the dense
-        (N, K) computation."""
+        (N, K) computation. With `mesh` each shard is served on its
+        device (one kernel launch a shard on CUDA shards, no collective)
+        and the result stays sharded: a parallel.mesh.Sharded of (n_j,)
+        tensors."""
+        if dist not in ('studentt', 'gaussian'):
+            raise ValueError(f'unknown dist: {dist!r}')
+        if mesh is not None:
+            first, parts = _mesh_parts(mesh, data)
+            return first._replace(shards=tuple(self._log_predictive_parts(
+                state, parts, dist, backend)))
+        return self._log_predictive_parts(state, [_as_tuple(data)], dist,
+                                          backend)[0]
+
+    def _log_predictive_parts(self, state, parts, dist, backend):
+        """log_predictive of each data tuple in `parts` (a mesh's shards,
+        or the one whole): the kernels' coefficients are built once and
+        each part is one launch on its device."""
         from mimo_tpu_torch.distributions.hierarchical import HierTied
         from mimo_tpu_torch.distributions.ng import NG
         from mimo_tpu_torch.distributions.niw import NIW
-        from mimo_tpu_torch.ops.cuda_diag_predict import diag_predictive_cuda
-        from mimo_tpu_torch.ops.cuda_predict import gauss_predictive_cuda
-        if dist not in ('studentt', 'gaussian'):
-            raise ValueError(f'unknown dist: {dist!r}')
-        data = _as_tuple(data)
-        x = data[0]
+        from mimo_tpu_torch.ops.cuda_diag_predict import (
+            diag_predictive_cuda_sharded)
+        from mimo_tpu_torch.ops.cuda_predict import (
+            gauss_predictive_cuda_sharded)
         log_w = self.predictive_log_weights(state)
-        if resolve_backend(backend, x):
-            kernels = {NIW: gauss_predictive_cuda,
-                       HierTied: gauss_predictive_cuda,
-                       NG: diag_predictive_cuda}
+        if resolve_backend(backend, parts[0][0]):
+            kernels = {NIW: gauss_predictive_cuda_sharded,
+                       HierTied: gauss_predictive_cuda_sharded,
+                       NG: diag_predictive_cuda_sharded}
             serve = kernels.get(type(state.components))
             if serve is None:
                 raise NotImplementedError(
                     'no serving kernel for '
                     f'{type(state.components).__name__} posteriors; use '
                     "backend='torch'")
-            return serve(state.components, log_w, x.to(torch.float32),
-                         dist).to(x.dtype)
-        lp = (self.family.log_predictive(state.components, data)
-              if dist == 'studentt'
-              else self.family.log_predictive_gaussian(state.components,
-                                                       data))
-        return torch.logsumexp(lp + log_w[None, :], -1)
+            out = serve(state.components, log_w,
+                        [part[0].to(torch.float32) for part in parts], dist)
+            return [o.to(part[0].dtype) for o, part in zip(out, parts)]
+        fn = (self.family.log_predictive if dist == 'studentt'
+              else self.family.log_predictive_gaussian)
+        return [torch.logsumexp(fn(state.components, part) + log_w[None, :],
+                                -1) for part in parts]
 
     def used_labels(self, state: MFState, data, threshold=0):
         """Which components take more than `threshold` points by argmax
@@ -1210,10 +1278,33 @@ def _as_generator(key, device):
     return gen
 
 
-def _random_resp(gen, n, k, dtype, device):
+def _resp_seed(gen):
+    """One draw of `gen`, as a host int: the key of a random-responsibility
+    draw."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                             device=gen.device))
+
+
+def _random_resp(gen, n, k, dtype, device, start=0):
     """Random normalized responsibilities, uniform in [1e-3, 1) before
-    normalizing, made in place on the data's device."""
-    r = torch.rand((n, k), generator=gen, dtype=dtype, device=device)
+    normalizing, made on the data's device: rows start..start+n-1 of a
+    draw keyed by `gen`, a torch.Generator (one draw of it, `_resp_seed`)
+    or that int seed. The rows come in fixed chunks of _RESP_ROWS points,
+    chunk c drawn whole from a generator seeded by seed XOR c 0x9E3779B9,
+    so point i's row depends only on (seed, i) and the device type: a mesh
+    shard draws only its own rows (its two edge chunks whole) and they are
+    those rows of the draw over all N, whatever the sharding."""
+    seed = _resp_seed(gen) if isinstance(gen, torch.Generator) else gen
+    r = torch.empty((n, k), dtype=dtype, device=device)
+    g = torch.Generator(device=device)
+    for c in range(start // _RESP_ROWS, -(-(start + n) // _RESP_ROWS)):
+        g.manual_seed(seed ^ (c * 0x9E3779B9))
+        chunk = torch.rand((_RESP_ROWS, k), generator=g, dtype=dtype,
+                           device=device)
+        lo = max(start, c * _RESP_ROWS)
+        hi = min(start + n, (c + 1) * _RESP_ROWS)
+        r[lo - start:hi - start] = chunk[lo - c * _RESP_ROWS:
+                                         hi - c * _RESP_ROWS]
     r.mul_(1.0 - 1e-3).add_(1e-3)
     return r.div_(torch.sum(r, -1, keepdim=True))
 
@@ -1243,3 +1334,206 @@ def anchor_resp(x0, anchors, scale2=None):
 def _anchor_indices(gen, n, k, device):
     """K distinct random point indices, the ML engines' anchors."""
     return torch.randperm(n, generator=gen, device=device)[:k]
+
+
+def _mesh_parts(mesh, data):
+    """`data` (an array, a Sharded, or a tuple of either) over a one-row
+    mesh: (the first array's Sharded, one data tuple a position)."""
+    from mimo_tpu_torch.parallel.mesh import shard_data
+    mesh = mesh.one_row()
+    sharded = [shard_data(mesh, a) for a in as_data(data)]
+    return sharded[0], list(zip(*(sh.shards for sh in sharded)))
+
+
+def _resp_stats(suff_stats, part, resp):
+    return suff_stats(part, resp), torch.sum(resp, 0)
+
+
+class _Shards:
+    """A fused engine's data over a one-row mesh (parallel.mesh), or with
+    mesh None over the one position of the data's device, so that an
+    unsharded fit is the one-shard case: `parts` the data tuples of this
+    process's positions, each on its device, `bounds` their rows [lo, hi)
+    of the global N, `xts` their kernel layouts where the kernels run.
+    `estep` and `gibbs` launch once per non-empty shard and make the
+    mesh's one reduction; `random_stats` and `anchor_stats` give the
+    starts' statistics, each shard drawing or reading only its own rows,
+    in one reduction each."""
+
+    def __init__(self, mesh, data, backend='auto', block_size=131072):
+        from mimo_tpu_torch.parallel.mesh import local_mesh, shard_bounds
+        if mesh is None:
+            mesh = local_mesh(as_data(data)[0].device)
+        first, self.parts = _mesh_parts(mesh, data)
+        self.mesh = mesh.one_row()
+        self.n, self.positions = first.n, first.positions
+        d = self.mesh.shape['data']
+        self.bounds = [shard_bounds(self.n, d, p % d)
+                       for p in self.positions]
+        # an empty shard anywhere in the mesh, this process's or another's
+        self.any_empty = any(lo == hi for lo, hi in (
+            shard_bounds(self.n, d, j) for j in range(d)))
+        x0 = self.parts[0][0]
+        self.dtype, self.device = x0.dtype, x0.device
+        self.use_kernel = resolve_backend(backend, x0)
+        self.block_size = block_size
+        self.xts = ([kernel_xts(p) for p in self.parts] if self.use_kernel
+                    else None)
+
+    def estep(self, spec, theta_src, log_pi, parts=None):
+        """The fused E-step over the shards, or over `parts` (per-shard
+        minibatches), in the data's dtype: one reduction."""
+        from mimo_tpu_torch.ops.cuda_estep import fused_estep_cuda_sharded
+        from mimo_tpu_torch.ops.family_estep import fused_estep_sharded
+        if self.use_kernel:
+            xts = self.xts if parts is None else [kernel_xts(p)
+                                                  for p in parts]
+            return _cast(fused_estep_cuda_sharded(spec, theta_src, log_pi,
+                                                  xts, self.mesh),
+                         self.dtype)
+        return fused_estep_sharded(spec, theta_src, log_pi,
+                                   self.parts if parts is None else parts,
+                                   self.block_size, self.mesh)
+
+    def gibbs(self, spec, seed, params, log_pi):
+        """The fused Gibbs label sweep over the shards: (labels as a
+        Sharded, FusedEStep in the data's dtype); one reduction."""
+        from mimo_tpu_torch.ops.cuda_gibbs import fused_gibbs_cuda_sharded
+        from mimo_tpu_torch.ops.family_estep import fused_gibbs_sharded
+        from mimo_tpu_torch.parallel.mesh import Sharded
+        if self.use_kernel:
+            labels, res = fused_gibbs_cuda_sharded(spec, seed, params,
+                                                   log_pi, self.xts,
+                                                   self.mesh)
+            res = _cast(res, self.dtype)
+        else:
+            labels, res = fused_gibbs_sharded(spec, seed, params, log_pi,
+                                              self.parts, self.block_size,
+                                              self.mesh)
+        return Sharded(tuple(labels), self.positions, self.n), res
+
+    def zero_labels(self, lead):
+        """A Gibbs fit's labels before its first sweep: zeros a shard."""
+        from mimo_tpu_torch.parallel.mesh import Sharded
+        return Sharded(tuple(
+            torch.zeros(lead + (hi - lo,), dtype=torch.int32,
+                        device=part[0].device)
+            for part, (lo, hi) in zip(self.parts, self.bounds)),
+            self.positions, self.n)
+
+    def reduce_stats(self, stats_of):
+        """The sum over the non-empty shards of stats_of(part, lo, hi), a
+        tree, in one reduction of kind 'start'. A process without points
+        reduces the tree's zeros, shaped by stats_of at one zero point."""
+        trees = [stats_of(p, lo, hi) for p, (lo, hi)
+                 in zip(self.parts, self.bounds) if hi > lo]
+        like = trees[0] if trees else _tree_map(torch.zeros_like, stats_of(
+            tuple(a.new_zeros((1,) + a.shape[1:]) for a in self.parts[0]),
+            0, 1))
+        return self.mesh.reduce_tree(trees, like)
+
+    def random_stats(self, suff_stats, gen, k):
+        """(stats, counts) of the random-responsibility start: one seed
+        drawn from `gen`, and each shard draws only its own rows of the
+        responsibilities over the global N (`_random_resp` keyed by the
+        global point index) and reduces them."""
+        seed = _resp_seed(gen)
+        return self.reduce_stats(lambda part, lo, hi: _resp_stats(
+            suff_stats, part, _random_resp(seed, hi - lo, k, self.dtype,
+                                           part[0].device, lo)))
+
+    def anchor_stats(self, suff_stats, idx):
+        """(stats, counts) of the anchor start at the global point indices
+        `idx`: the anchors and the distance scale (the mean per-dim
+        variance, two-pass) each take one reduction, the statistics a
+        third."""
+        def picked(x, lo, hi):
+            i = idx.to(x.device)
+            inside = (i >= lo) & (i < hi)
+            a = x.new_zeros((idx.shape[0], x.shape[1]))
+            a[inside] = x[i[inside] - lo]
+            return a, torch.sum(x, 0)
+
+        anchors, total = self.reduce_stats(
+            lambda part, lo, hi: picked(part[0], lo, hi))
+        mean = total / self.n
+        (sq,) = self.reduce_stats(lambda part, lo, hi: (torch.sum(
+            torch.square(part[0] - mean.to(part[0].device)), 0),))
+        scale2 = torch.clamp(torch.mean(sq / self.n), min=1e-6)
+        return self.reduce_stats(lambda part, lo, hi: _resp_stats(
+            suff_stats, part, anchor_resp(part[0], anchors.to(part[0].device),
+                                          scale2.to(part[0].device))))
+
+    def generators(self, gen):
+        """One generator a shard, on its device: seeded from one int64
+        draw of `gen` XOR the shard index x 0x9E3779B9."""
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                 device=gen.device))
+        d = self.mesh.shape['data']
+        return [torch.Generator(device=part[0].device).manual_seed(
+            base ^ ((p % d) * 0x9E3779B9))
+            for p, part in zip(self.positions, self.parts)]
+
+
+def transform_points(tr, x):
+    """A Standardizer's transform of x (x itself without one), shard by
+    shard for a parallel.mesh.Sharded, with tr's tensors on each shard's
+    device."""
+    from mimo_tpu_torch.parallel.mesh import Sharded
+    if tr is None:
+        return x
+    if isinstance(x, Sharded):
+        return x.map(lambda s: (s - tr.mean.to(s.device))
+                     / tr.scale.to(s.device))
+    return tr.transform(x)
+
+
+def serve_sharded(mesh, x, y, backend, dist, kernel_parts, dense_one):
+    """A regression model's predict over a one-row mesh, x (and y)
+    sharded: Student-t predictions of CUDA shards (per `backend`) go
+    through kernel_parts(xs, ys), one kernel launch a shard with the
+    coefficients built once; the rest through dense_one(x_j, y_j) a
+    shard. No collective. Returns the four results (mean, var, std,
+    nlpd), each a parallel.mesh.Sharded (nlpd None without y)."""
+    first, parts = _mesh_parts(mesh, x if y is None else (x, y))
+    xs = [part[0] for part in parts]
+    ys = None if y is None else [part[1] for part in parts]
+    if dist == 'studentt' and resolve_backend(backend, xs[0]):
+        outs = kernel_parts(xs, ys)
+    else:
+        outs = [dense_one(xj, None if ys is None else ys[j])
+                for j, xj in enumerate(xs)]
+    return tuple(None if outs[0][i] is None
+                 else first._replace(shards=tuple(o[i] for o in outs))
+                 for i in range(4))
+
+
+def as_data(data):
+    """The data tuple of an engine's `data`: an array or a
+    parallel.mesh.Sharded alone, or a tuple of them."""
+    from mimo_tpu_torch.parallel.mesh import Sharded
+    if isinstance(data, Sharded) or not isinstance(data, tuple):
+        return (data,)
+    return data
+
+
+def from_kernel(tr, x, mu, var, nlpd, incremental):
+    """A serving kernel's float32 (mean, var, nlpd) of the points x in
+    standardized units -> a regression model's (mean, var, std, nlpd) in
+    x's dtype and original units, under the output Standardizer `tr` (or
+    None): the NLPD carries the Jacobian sum(log scale); `incremental`
+    adds the input back."""
+    if mu.dim() == 1:
+        mu, var = mu[:, None], var[:, None]
+    mu, var = mu.to(x.dtype), var.to(x.dtype)
+    if nlpd is not None:
+        nlpd = nlpd.to(x.dtype)
+        if tr is not None:
+            nlpd = nlpd + torch.sum(torch.log(tr.scale.to(x.device)))
+    if tr is not None:
+        scale = tr.scale.to(x.device)
+        mu = mu * scale + tr.mean.to(x.device)
+        var = var * torch.square(scale)
+    if incremental:
+        mu = mu + x[:, :mu.shape[-1]]
+    return mu, var, torch.sqrt(var), nlpd

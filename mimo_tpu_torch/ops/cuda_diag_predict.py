@@ -132,12 +132,22 @@ def diag_predictive_cuda(post, log_w, x, dist='studentt'):
     product of per-dim t's) through B4, 'gaussian' (its moment-matched
     approximation) through B3 over the diagonal map. x: (N, d); the
     result has x's dtype."""
+    return diag_predictive_cuda_sharded(post, log_w, [x], dist)[0]
+
+
+def diag_predictive_cuda_sharded(post, log_w, xs, dist='studentt'):
+    """diag_predictive_cuda over the shards of a mesh (xs: one (n_j, d)
+    tensor a shard, each on its device): the coefficients built once, B4
+    (or B3 over the diagonal map) once per non-empty shard on its device,
+    no collective. Returns one (n_j,) result a shard."""
     if dist not in ('studentt', 'gaussian'):
         raise ValueError(f'unknown dist: {dist!r}')
-    xt = x.T.contiguous()
     if dist == 'gaussian':
         thq, aux = cuda_predict.diag_gaussian_coefficients(post, log_w)
-        return cuda_predict.predict(xt, thq.to(x.dtype), aux.to(x.dtype),
-                                    x.shape[0], False, DIAG)
+        return [cuda_predict.serve_shard(x, lambda xt: cuda_predict.predict(
+            xt, thq.to(xt.device, xt.dtype), aux.to(xt.device, xt.dtype),
+            xt.shape[1], False, DIAG)) for x in xs]
     rows, aux = diag_predict_coefficients(post, log_w)
-    return diag_predict(xt, rows.to(x.dtype), aux.to(x.dtype), x.shape[0])
+    return [cuda_predict.serve_shard(x, lambda xt: diag_predict(
+        xt, rows.to(xt.device, xt.dtype), aux.to(xt.device, xt.dtype),
+        xt.shape[1])) for x in xs]

@@ -19,14 +19,17 @@ same points in one launch (the counterpart of jax.vmap over the Pallas
 kernel, which prepends a chain axis to its grid) and returns acc
 (C, K, m8) and lse (C,); chain c is bitwise a one-chain launch at
 theta[c].
+
+Mesh: `fused_estep_cuda_sharded` launches B1 once per non-empty shard of
+a one-row mesh and makes the mesh's one reduction of the packed outputs.
 """
 
 import torch
 
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.family_estep import (
-    FusedEStep, diag_gauss_features_t, diag_gauss_width, gauss_features_t,
-    gauss_width, ilr_features_t, ilr_width)
+    diag_gauss_features_t, diag_gauss_width, gauss_features_t,
+    gauss_width, ilr_features_t, ilr_width, reduce_estep)
 
 # feature-map codes of the C entries (csrc/common.cuh kKind*)
 GAUSS, ILR, ILR_LINEAR, DIAG = 0, 1, 2, 3
@@ -149,16 +152,16 @@ def estep_plain(xt, theta, n, kind=GAUSS, p=0):
     return acc, lse
 
 
-def estep(xt, theta, n, kind=GAUSS, p=0):
-    """B1 over points 0..n-1 of xt (d + p, >=n), x rows then p y rows;
-    theta (K, m8) with c + log pi in column 0, or the C chains' (C, K, m8).
-    Launches the kernel for CUDA tensors (float32 only; it raises on
-    anything it does not take) and runs `estep_plain` for CPU tensors.
-    Returns (acc (K, m8), lse ()), or (acc (C, K, m8), lse (C,))."""
-    if not xt.is_cuda:
-        return estep_plain(xt, theta, n, kind, p)
-    lib = _build.load()
+def estep_packed(xt, theta, n, kind=GAUSS, p=0):
+    """B1 as `estep`, returning its output buffer as it is: (K m8 + 1,)
+    = [acc row-major, lse], or the chains' (C, K m8 + 1): the partial of
+    one shard in a mesh's reduction (family_estep.pack_estep's layout).
+    CPU tensors run `estep_plain` and pack its result."""
     k, m8 = theta.shape[-2:]
+    if not xt.is_cuda:
+        acc, lse = estep_plain(xt, theta, n, kind, p)
+        return torch.cat([acc.flatten(-2), lse[..., None]], -1)
+    lib = _build.load()
     chains = theta.shape[0] if theta.dim() == 3 else 1
     d = xt.shape[0] - p
     desc = f'{KIND_NAMES[kind]} map, d={d}, p={p}'
@@ -176,19 +179,55 @@ def estep(xt, theta, n, kind=GAUSS, p=0):
                             torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_estep')
     launches[KIND_NAMES[kind]] += 1
-    acc, lse = out[:, :-1].view(chains, k, m8), out[:, -1]
-    return (acc, lse) if theta.dim() == 3 else (acc[0], lse[0])
+    return out if theta.dim() == 3 else out[0]
+
+
+def estep(xt, theta, n, kind=GAUSS, p=0):
+    """B1 over points 0..n-1 of xt (d + p, >=n), x rows then p y rows;
+    theta (K, m8) with c + log pi in column 0, or the C chains' (C, K, m8).
+    Launches the kernel for CUDA tensors (float32 only; it raises on
+    anything it does not take) and runs `estep_plain` for CPU tensors.
+    Returns (acc (K, m8), lse ()), or (acc (C, K, m8), lse (C,))."""
+    if not xt.is_cuda:
+        return estep_plain(xt, theta, n, kind, p)
+    out = estep_packed(xt, theta, n, kind, p)
+    return out[..., :-1].unflatten(-1, tuple(theta.shape[-2:])), out[..., -1]
 
 
 def fused_estep_cuda(spec, post, log_pi, xts, n):
     """Spec-driven fused E-step through B1, the counterpart of
-    mimo_tpu's fused_estep_pallas. xts: the per-input (d_i, N) transposed
-    data (see models.mixture.kernel_xts); n: the number of points. With a
+    mimo_tpu's fused_estep_pallas. xts: the per-input (d_i, >=n)
+    transposed data (see models.mixture.kernel_xts); n: the number of
+    points, at run time (a fixed buffer may hold more columns). With a
     chain spec (family_estep.chain_spec) over C-stacked posteriors and
-    log_pi (C, K), one launch serves every chain."""
+    log_pi (C, K), one launch serves every chain. The one-shard case of
+    `fused_estep_cuda_sharded`."""
+    from mimo_tpu_torch.parallel.mesh import local_mesh
+    return fused_estep_cuda_sharded(spec, post, log_pi, [xts],
+                                    local_mesh(xts[0].device), [n])
+
+
+def fused_estep_cuda_sharded(spec, post, log_pi, shards, mesh, ns=None):
+    """The fused E-step over a one-row mesh through B1, the counterpart
+    of mimo_tpu's fused_estep_pallas_sharded: `shards` the kernel layouts
+    (per-input (d_i, n_j) row blocks, models.mixture.kernel_xts) of the
+    mesh's positions, in order, each on its position's device; `ns` their
+    point counts (by default their widths). B1 runs once per non-empty
+    shard, on that shard's device and current stream with the shard's
+    point count at run time and theta replicated there; an empty shard
+    launches nothing. Then one reduction of the packed partials (the
+    buffers B1 writes, float32 on the card). With a chain spec
+    (`chain_spec`) each launch serves every chain, so chains and the mesh
+    compose. Returns the FusedEStep in the layout's dtype."""
     kind = feature_kind(spec.features_t)
-    p = y_rows(kind, xts)
-    theta, m = pad_theta(spec.theta(post), log_pi, xts[0].dtype)
-    acc, lse = estep(stack_rows(xts), theta, n, kind, p)
-    return FusedEStep(stats=spec.unpack(acc[..., :m]), lse=lse,
-                      counts=acc[..., 0])
+    dtype = shards[0][0].dtype
+    theta, m = pad_theta(spec.theta(post), log_pi, dtype)
+    ns = [xts[0].shape[1] for xts in shards] if ns is None else ns
+    parts = []
+    for xts, n in zip(shards, ns):
+        if n:
+            xt = stack_rows(xts)
+            parts.append(estep_packed(xt, theta.to(xt.device), n, kind,
+                                      y_rows(kind, xts)))
+    return reduce_estep(spec, parts, theta.shape[:-2], theta.shape[-2], m,
+                        dtype, mesh)

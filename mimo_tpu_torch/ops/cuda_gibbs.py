@@ -15,6 +15,11 @@ Chains: theta (C, K, m8) with seeds (C,) runs C label sweeps over the same
 points in one launch and returns labels (C, N) and acc (C, K, m8); chain c
 draws Philox keyed by (seed[c], point index) on the one-chain grid, so
 its labels and statistics are bitwise a one-chain launch at seed[c].
+
+Mesh: `fused_gibbs_cuda_sharded` launches B2 once per non-empty shard of
+a one-row mesh with the shard's seed (philox.shard_seed) and makes the
+mesh's one reduction of the one-hot statistics; the labels stay on their
+shards.
 """
 
 import torch
@@ -23,8 +28,8 @@ from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import (
     _CHUNK, GAUSS, KIND_NAMES, assemble_features, check_theta, feature_kind,
     feature_width, pad_theta, stack_rows, y_rows)
-from mimo_tpu_torch.ops.family_estep import FusedEStep
-from mimo_tpu_torch.ops.philox import gumbel_max_labels
+from mimo_tpu_torch.ops.family_estep import pack_estep, reduce_estep
+from mimo_tpu_torch.ops.philox import gumbel_max_labels, shard_seed
 
 # kernel launches by `gibbs`, by feature map, for run accounting
 launches = {'gauss': 0, 'ilr': 0, 'diag': 0}
@@ -107,14 +112,45 @@ def gumbel_fast_error(device):
 
 def fused_gibbs_cuda(spec, seed, params, log_pi, xts, n):
     """Spec-driven fused Gibbs label sweep through B2, the counterpart of
-    mimo_tpu's fused_gibbs_pallas. Returns (labels (n,) int32,
-    FusedEStep with one-hot stats and lse = 0). With a chain spec
-    (family_estep.chain_spec) over C-stacked params, log_pi (C, K) and
-    seeds (C,), one launch serves every chain: labels (C, n)."""
+    mimo_tpu's fused_gibbs_pallas, over points 0..n-1 of xts (n at run
+    time). Returns (labels (n,) int32, FusedEStep with one-hot stats and
+    lse = 0). With a chain spec (family_estep.chain_spec) over C-stacked
+    params, log_pi (C, K) and seeds (C,), one launch serves every chain:
+    labels (C, n). The one-shard case of `fused_gibbs_cuda_sharded`."""
+    from mimo_tpu_torch.parallel.mesh import local_mesh
+    (labels,), res = fused_gibbs_cuda_sharded(
+        spec, seed, params, log_pi, [xts], local_mesh(xts[0].device), [n])
+    return labels, res
+
+
+def fused_gibbs_cuda_sharded(spec, seed, params, log_pi, shards, mesh,
+                             ns=None):
+    """The fused Gibbs label sweep over a one-row mesh through B2, the
+    counterpart of mimo_tpu's fused_gibbs_pallas_sharded: `shards` the
+    kernel layouts of the mesh's positions, in order, `ns` their point
+    counts (by default their widths). B2 runs once per non-empty shard, on
+    its device, with the shard's seed (the sweep seed XOR shard index x
+    0x9E3779B9: shard 0 draws as the unsharded sweep) and point indices
+    local to the shard; the labels stay on their shards, and the one-hot
+    statistics, packed as B1's output is with a zero lse, take one
+    reduction. Returns (labels: one (..., n_j) int32 tensor a shard,
+    FusedEStep in the layout's dtype with lse = 0)."""
     kind = feature_kind(spec.features_t)
-    p = y_rows(kind, xts)
-    theta, m = pad_theta(spec.theta_plugin(params), log_pi, xts[0].dtype)
-    labels, acc = gibbs(stack_rows(xts), theta, seed, n, kind, p)
-    return labels, FusedEStep(stats=spec.unpack(acc[..., :m]),
-                              lse=acc.new_zeros(acc.shape[:-2]),
-                              counts=acc[..., 0])
+    dtype = shards[0][0].dtype
+    theta, m = pad_theta(spec.theta_plugin(params), log_pi, dtype)
+    m8 = theta.shape[-1]
+    ns = [xts[0].shape[1] for xts in shards] if ns is None else ns
+    labels, parts = [], []
+    for p, xts, n in zip(mesh.positions, shards, ns):
+        dev = xts[0].device
+        if not n:
+            labels.append(torch.zeros(theta.shape[:-2] + (0,),
+                                      dtype=torch.int32, device=dev))
+            continue
+        lab, acc = gibbs(stack_rows(xts), theta.to(dev),
+                         shard_seed(seed.to(dev), mesh.shard_index(p)), n,
+                         kind, y_rows(kind, xts))
+        labels.append(lab)
+        parts.append(pack_estep(acc, acc.new_zeros(acc.shape[:-2]), m8))
+    return labels, reduce_estep(spec, parts, theta.shape[:-2],
+                                theta.shape[-2], m, dtype, mesh)

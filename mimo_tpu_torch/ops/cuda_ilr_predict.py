@@ -384,12 +384,30 @@ def ilr_predict_cuda(basis_post, models_post, log_w, x, y=None, affine=True,
     B5, the counterpart of mimo_tpu's ilr_predict_pallas, in standardized
     units. x (N, d), y (N, 1) or None. Returns (mean (N,), var (N,),
     nlpd (N,) or None), in float32."""
+    return ilr_predict_cuda_sharded(basis_post, models_post, log_w, [x],
+                                    None if y is None else [y], affine,
+                                    prediction)[0]
+
+
+def ilr_predict_cuda_sharded(basis_post, models_post, log_w, xs, ys=None,
+                             affine=True, prediction='average'):
+    """ilr_predict_cuda over the shards of a mesh (xs, ys: one (n_j, d),
+    (n_j, 1) tensor a shard, each on its device; ys None without y): the
+    coefficients built once, B5 once per non-empty shard on its device,
+    no collective. Returns one (mean, var, nlpd or None) a shard."""
     th, aux = ilr_predict_coefficients(basis_post, models_post, log_w,
                                        affine)
-    out = ilr_predict(_serving_xt(x, y), th.to(torch.float32),
-                      aux.to(torch.float32), x.shape[0], y is not None,
-                      prediction == 'mode')
-    return out[0], out[1], (out[2] if y is not None else None)
+    th, aux = th.to(torch.float32), aux.to(torch.float32)
+    out = []
+    for j, x in enumerate(xs):
+        y = None if ys is None else ys[j]
+        dev = x.device
+        o = (ilr_predict(_serving_xt(x, y), th.to(dev), aux.to(dev),
+                         x.shape[0], y is not None, prediction == 'mode')
+             if x.shape[0] else
+             torch.empty((4, 0), dtype=torch.float32, device=dev))
+        out.append((o[0], o[1], o[2] if y is not None else None))
+    return out
 
 
 def ilr_p_predict_cuda(basis_post, models_post, log_w, x, y=None,
@@ -398,11 +416,30 @@ def ilr_p_predict_cuda(basis_post, models_post, log_w, x, y=None,
     experts), the
     counterpart of mimo_tpu's _ilr_p_predict_pallas. Returns
     (mean (N, p), var (N, p), nlpd (N,) or None), in float32."""
+    return ilr_p_predict_cuda_sharded(basis_post, models_post, log_w, [x],
+                                      None if y is None else [y], affine,
+                                      prediction)[0]
+
+
+def ilr_p_predict_cuda_sharded(basis_post, models_post, log_w, xs, ys=None,
+                               affine=True, prediction='average'):
+    """ilr_p_predict_cuda over the shards of a mesh (see
+    ilr_predict_cuda_sharded): B6 once per non-empty shard, no
+    collective. Returns one (mean (n_j, p), var (n_j, p), nlpd or None)
+    a shard."""
     p = models_post.row_dim
     th, aux, vc = ilr_p_predict_coefficients(basis_post, models_post, log_w,
-                                             affine, y is not None)
-    out = ilr_p_predict(_serving_xt(x, y), th.to(torch.float32),
-                        aux.to(torch.float32), vc.to(torch.float32),
-                        x.shape[0], p, y is not None, prediction == 'mode')
-    return (out[:p].T, out[p:2 * p].T,
-            out[2 * p] if y is not None else None)
+                                             affine, ys is not None)
+    th, aux, vc = (t.to(torch.float32) for t in (th, aux, vc))
+    out = []
+    for j, x in enumerate(xs):
+        y = None if ys is None else ys[j]
+        dev = x.device
+        o = (ilr_p_predict(_serving_xt(x, y), th.to(dev), aux.to(dev),
+                           vc.to(dev), x.shape[0], p, y is not None,
+                           prediction == 'mode')
+             if x.shape[0] else
+             torch.empty((2 * p + 2, 0), dtype=torch.float32, device=dev))
+        out.append((o[:p].T, o[p:2 * p].T,
+                    o[2 * p] if y is not None else None))
+    return out

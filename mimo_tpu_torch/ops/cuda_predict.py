@@ -198,10 +198,32 @@ def gauss_predictive_cuda(post, log_w, x, dist='studentt'):
     posterior through B3, the counterpart of mimo_tpu's gauss_predictive_pallas.
     `dist`: 'studentt' (the posterior predictive) or 'gaussian' (its
     moment-matched approximation). x: (N, d)."""
+    return gauss_predictive_cuda_sharded(post, log_w, [x], dist)[0]
+
+
+def gauss_predictive_cuda_sharded(post, log_w, xs, dist='studentt'):
+    """gauss_predictive_cuda over the shards of a mesh (xs: one (n_j, d)
+    tensor a shard, each on its device), the counterpart of the mesh
+    path of mimo_tpu's gauss_predictive_pallas: the coefficients are
+    built once, and B3 serves each non-empty shard's rows in one launch
+    on its device, with no collective. Returns one (n_j,) result a
+    shard."""
     if dist not in ('studentt', 'gaussian'):
         raise ValueError(f'unknown dist: {dist!r}')
     studentt = dist == 'studentt'
     thq, aux = predictive_coefficients(post, log_w, studentt)
-    xt = x.T.contiguous()
-    return predict(xt, thq.to(x.dtype), aux.to(x.dtype), x.shape[0],
-                   studentt)
+    return [serve_shard(x, lambda xt: predict(
+        xt, thq.to(xt.device, xt.dtype), aux.to(xt.device, xt.dtype),
+        xt.shape[1], studentt)) for x in xs]
+
+
+def serve_shard(x, serve):
+    """serve(x's (d, n) transposed copy) for a shard x (n, d) with points;
+    for an empty shard, launching nothing, an empty (0,) result in x's
+    dtype. The copy has row stride n even at n = 1, where
+    x.T.contiguous() would keep x.T's strides."""
+    if not x.shape[0]:
+        return x.new_empty((0,))
+    xt = x.new_empty((x.shape[1], x.shape[0]))
+    xt.copy_(x.T)
+    return serve(xt)

@@ -1,6 +1,5 @@
 """Fused mixture E-step and Gibbs label sweep over a family's feature map
-(port of mimo_tpu/ops/family_estep.py without its sharded engines, which
-arrive with ROADMAP A21).
+(port of mimo_tpu/ops/family_estep.py).
 
 The expected log-likelihood is linear in a fixed feature map of the data,
 E_q[log p(data | params_k)] = t(data) . theta_k, with t = [1, x, x (x) x]
@@ -30,7 +29,7 @@ from mimo_tpu_torch.distributions import ng as _ng
 from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.distributions.mnw import augment
 from mimo_tpu_torch.distributions.wishart import wishart_expected_logdet
-from mimo_tpu_torch.ops.philox import gumbel_max_labels
+from mimo_tpu_torch.ops.philox import gumbel_max_labels, shard_seed
 from mimo_tpu_torch.utils.linalg import cholesky, inv_psd, logdet_psd
 from mimo_tpu_torch.utils.stats import LOG2PI
 
@@ -450,11 +449,11 @@ def fused_estep_blockwise(spec: EStepSpec, post, log_pi, data,
     """Streamed fused E-step with O(B (K + m)) live memory; any N (the
     last block may be short). With a chain spec (`chain_spec`) over
     C-stacked posteriors and log_pi (C, K), every block serves all C
-    chains: stats C-stacked, lse and counts (C,) and (C, K)."""
-    theta = spec.theta(post)
-    acc, lse = estep_accumulate(spec.features, theta, log_pi, data,
-                                block_size, *estep_zeros(theta, data[0]))
-    return FusedEStep(stats=spec.unpack(acc), lse=lse, counts=acc[..., 0])
+    chains: stats C-stacked, lse and counts (C,) and (C, K). The
+    one-shard case of `fused_estep_sharded`."""
+    from mimo_tpu_torch.parallel.mesh import local_mesh
+    return fused_estep_sharded(spec, post, log_pi, [data], block_size,
+                               local_mesh(data[0].device))
 
 
 def estep_zeros(theta, like):
@@ -484,23 +483,17 @@ def estep_accumulate(features, theta, log_pi, data, block_size, acc, lse):
     return acc, lse
 
 
-def fused_gibbs_blockwise(spec: EStepSpec, seed, params, log_pi, data,
-                          block_size=131072):
-    """Fused Gibbs label sweep: per block, plug-in log-densities (one
-    matmul over the feature map) -> Gumbel-max labels from Philox keyed
-    by (seed, global point index) -> one-hot statistics (one matmul).
-    `seed` is a 0-d int64 tensor. Returns (labels (N,) int32, FusedEStep
-    with lse = 0); the labels do not depend on block_size. With a chain
-    spec over C-stacked params, log_pi (C, K) and seeds (C,), chain c
-    draws with seed[c]: labels (C, N)."""
-    theta = spec.theta_plugin(params)
+def gibbs_accumulate(features, theta, log_pi, seed, data, block_size):
+    """The fused Gibbs label sweep of `data` over the plug-in theta
+    (K, m), or the chains' (C, K, m) with seeds (C,), block_size points at
+    a time: (labels (..., N) int32, one-hot statistics acc (..., K, m))."""
     k = theta.shape[-2]
     n = data[0].shape[0]
     acc = torch.zeros(theta.shape, dtype=data[0].dtype, device=data[0].device)
     theta_t = theta.transpose(-1, -2)
     labels = []
     for s in range(0, n, block_size):
-        feats = spec.features(tuple(a[s:s + block_size] for a in data))
+        feats = features(tuple(a[s:s + block_size] for a in data))
         lab = gumbel_max_labels(feats @ theta_t + log_pi[..., None, :], seed,
                                 s)
         oh = torch.nn.functional.one_hot(lab.long(), k).to(feats.dtype)
@@ -509,8 +502,94 @@ def fused_gibbs_blockwise(spec: EStepSpec, seed, params, log_pi, data,
     labels = (torch.cat(labels, -1) if labels else
               torch.zeros(theta.shape[:-2] + (0,), dtype=torch.int32,
                           device=data[0].device))
-    return labels, FusedEStep(
-        stats=spec.unpack(acc),
-        lse=torch.zeros(theta.shape[:-2], dtype=data[0].dtype,
-                        device=data[0].device),
-        counts=acc[..., 0])
+    return labels, acc
+
+
+def fused_gibbs_blockwise(spec: EStepSpec, seed, params, log_pi, data,
+                          block_size=131072):
+    """Fused Gibbs label sweep: per block, plug-in log-densities (one
+    matmul over the feature map) -> Gumbel-max labels from Philox keyed
+    by (seed, global point index) -> one-hot statistics (one matmul).
+    `seed` is a 0-d int64 tensor. Returns (labels (N,) int32, FusedEStep
+    with lse = 0); the labels do not depend on block_size. With a chain
+    spec over C-stacked params, log_pi (C, K) and seeds (C,), chain c
+    draws with seed[c]: labels (C, N). The one-shard case of
+    `fused_gibbs_sharded`."""
+    from mimo_tpu_torch.parallel.mesh import local_mesh
+    (labels,), res = fused_gibbs_sharded(spec, seed, params, log_pi, [data],
+                                         block_size,
+                                         local_mesh(data[0].device))
+    return labels, res
+
+
+# -- over a mesh -----------------------------------------------------------------
+# Each shard's partial is one packed (..., K m8 + 1) buffer [acc zero-padded
+# to m8 columns, lse], the layout of kernel B1's output, so the mesh's one
+# reduction a sweep (parallel.mesh.Mesh.reduce) carries the same floats on
+# the plain path and the kernel path, whatever N.
+
+def pack_estep(acc, lse, m8):
+    """acc (..., K, m) and lse (...) -> the (..., K m8 + 1) buffer."""
+    acc = torch.nn.functional.pad(acc, (0, m8 - acc.shape[-1]))
+    return torch.cat([acc.flatten(-2), lse[..., None]], -1)
+
+
+def unpack_estep(buf, k, m8):
+    """The (..., K m8 + 1) buffer -> (acc (..., K, m8), lse (...))."""
+    return buf[..., :-1].unflatten(-1, (k, m8)), buf[..., -1]
+
+
+def reduce_estep(spec, parts, lead, k, m, dtype, mesh):
+    """The one reduction of a sharded sweep's packed partials -> its
+    FusedEStep (statistics unpacked from the first m columns)."""
+    m8 = -(-m // 8) * 8
+    zero = torch.zeros(lead + (k * m8 + 1,), dtype=dtype,
+                       device=mesh.devices[0])
+    acc, lse = unpack_estep(mesh.reduce(parts, zero), k, m8)
+    acc = acc[..., :m]
+    return FusedEStep(stats=spec.unpack(acc), lse=lse, counts=acc[..., 0])
+
+
+def fused_estep_sharded(spec: EStepSpec, post, log_pi, shards, block_size,
+                        mesh) -> FusedEStep:
+    """The fused E-step over a one-row mesh (the counterpart of mimo_tpu's
+    fused_estep_sharded): `shards` the data tuples of the mesh's
+    positions, in order, each on its position's device. Each shard runs
+    the blockwise E-step on its device with theta replicated there (an
+    empty shard adds zeros); then one reduction. With a chain spec, every
+    shard serves all C chains."""
+    theta = spec.theta(post)
+    k, m = theta.shape[-2:]
+    m8 = -(-m // 8) * 8
+    parts = []
+    for data in shards:
+        dev = data[0].device
+        th = theta.to(dev)
+        acc, lse = estep_accumulate(spec.features, th, log_pi.to(dev), data,
+                                    block_size, *estep_zeros(th, data[0]))
+        parts.append(pack_estep(acc, lse, m8))
+    return reduce_estep(spec, parts, theta.shape[:-2], k, m,
+                        shards[0][0].dtype, mesh)
+
+
+def fused_gibbs_sharded(spec: EStepSpec, seed, params, log_pi, shards,
+                        block_size, mesh):
+    """The fused Gibbs label sweep over a one-row mesh (the counterpart of
+    mimo_tpu's fused_gibbs_sharded): each shard draws its labels on its
+    device with its shard seed (`philox.shard_seed`: shard 0 draws as the
+    unsharded sweep does) and point indices local to the shard; the
+    one-hot statistics take one reduction. Returns (labels: one
+    (..., n_j) int32 tensor a shard, FusedEStep with lse = 0)."""
+    theta = spec.theta_plugin(params)
+    k, m = theta.shape[-2:]
+    m8 = -(-m // 8) * 8
+    labels, parts = [], []
+    for p, data in zip(mesh.positions, shards):
+        dev = data[0].device
+        lab, acc = gibbs_accumulate(
+            spec.features, theta.to(dev), log_pi.to(dev),
+            shard_seed(seed.to(dev), mesh.shard_index(p)), data, block_size)
+        labels.append(lab)
+        parts.append(pack_estep(acc, acc.new_zeros(acc.shape[:-2]), m8))
+    return labels, reduce_estep(spec, parts, theta.shape[:-2], k, m,
+                                shards[0][0].dtype, mesh)

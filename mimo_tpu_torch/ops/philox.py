@@ -13,6 +13,7 @@ import torch
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57        # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85        # key bumps (Weyl sequence)
 _MASK = 0xFFFFFFFF
+_KNUTH = 0x9E3779B9                      # the shard offset of sweep seeds
 
 
 def _mulhilo(a, m):
@@ -66,3 +67,11 @@ def gumbel_max_labels(logp, seed, start):
     u = uniforms(seed, start, b, k, logp.dtype)
     g = -torch.log(-torch.log(u + 1e-20) + 1e-20)
     return torch.argmax(logp + g, dim=-1).to(torch.int32)
+
+
+def shard_seed(seed, j):
+    """Data shard j's sweep seed on a mesh: the sweep seed XOR
+    j 0x9E3779B9, in the seeds' int64 (the form of mimo_tpu's per-device
+    seed, pallas_gibbs.py:266-267). Shard 0 keeps the sweep seed, so it
+    draws the unsharded sweep's Philox numbers on its points."""
+    return torch.bitwise_xor(seed, j * _KNUTH)

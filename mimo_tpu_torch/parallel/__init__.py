@@ -1,6 +1,9 @@
-"""Chains and their diagnostics (port of mimo_tpu/parallel without its
-mesh module, ROADMAP A21)."""
+"""Device mesh, chains and their diagnostics (port of
+mimo_tpu/parallel)."""
 
+from mimo_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh, Sharded, data_parallel_fit, init_distributed, make_mesh,
+    pad_to_multiple, replicate, shard_data)
 from mimo_tpu_torch.parallel.chains import (  # noqa: F401
     best_of, fit_chains, smc_gibbs, systematic_indices, systematic_resample)
 from mimo_tpu_torch.parallel.diagnostics import (  # noqa: F401

@@ -1,6 +1,5 @@
 """Chain / restart parallelism: many independent inference runs as one
-batched program (port of mimo_tpu/parallel/chains.py without its mesh
-sharding, which arrives with ROADMAP A21).
+batched program (port of mimo_tpu/parallel/chains.py).
 
 The JAX package vmaps a whole fit over a batch of PRNG keys; every
 `pallas_call` inside then takes a chain grid axis. Here the same is
@@ -17,6 +16,10 @@ written out:
                     The nested mixtures (models.hmix) batch their four
                     fused engines the same way, over M*K flat kernel
                     rows, and run every dense engine chain by chain.
+                    With `mesh` (a ('chain', 'data') mesh) the keys split
+                    into one contiguous group a chain row, and each group
+                    runs batched over its row's data shards: one launch
+                    per shard per sweep for all of the group's chains.
   * `best_of`     — the chain with the best final ELBO.
   * `smc_gibbs`   — Gibbs chains interleaved with systematic resampling of
                     chain states by data log-likelihood.
@@ -38,7 +41,7 @@ SERIAL = ('fit_vi', 'fit_map', 'fit_em', 'fit_svi')
 NESTED_BATCHED = BATCHED[:4]
 
 
-def fit_chains(model, fit_name, data, keys, **kw):
+def fit_chains(model, fit_name, data, keys, mesh=None, **kw):
     """Run `model.<fit_name>` once per key and return its results stacked
     on a leading chain axis. `keys`: an int64 tensor (C,) or a sequence of
     int seeds or torch.Generators. The engines in BATCHED run as one
@@ -46,7 +49,20 @@ def fit_chains(model, fit_name, data, keys, **kw):
     ones in SERIAL run chain by chain. A nested mixture
     (BayesianMixtureOfMixtures) batches NESTED_BATCHED, its four fused
     engines, and runs its dense `fit_gibbs` chain by chain too. JAX's
-    cache of traced programs has no counterpart: nothing is traced."""
+    cache of traced programs has no counterpart: nothing is traced.
+
+    With `mesh`, a ('chain', 'data') mesh (parallel.make_mesh(n_chain=c)),
+    the C keys split into c contiguous groups of C / c, group g running
+    the batched fused engine over chain row g (`mesh.row(g)`; the data
+    sharded over its 'data' positions, as shard_data places it): one
+    kernel launch per shard per sweep for all of the group's chains and
+    one reduction a sweep over the row. JAX carries the layout in the
+    sharding of its keys; PyTorch has none, so `mesh` is explicit. The
+    result stacks the groups of this process's rows on the chain axis
+    (every row, within one process); a Gibbs fit's labels stay on their
+    shards, each position's (C / c, n_j) of its row's group."""
+    if mesh is not None:
+        return _fit_chains_mesh(model, fit_name, data, keys, mesh, kw)
     data = _as_tuple(data)
     batched = (NESTED_BATCHED
                if isinstance(model, BayesianMixtureOfMixtures) else BATCHED)
@@ -59,6 +75,44 @@ def fit_chains(model, fit_name, data, keys, **kw):
         keys = keys.reshape(-1).tolist()
     return stack_trees([getattr(model, fit_name)(data, key=k, **kw)
                         for k in keys])
+
+
+def _fit_chains_mesh(model, fit_name, data, keys, mesh, kw):
+    """fit_chains over a ('chain', 'data') mesh (see fit_chains)."""
+    batched = (NESTED_BATCHED
+               if isinstance(model, BayesianMixtureOfMixtures) else BATCHED)
+    if fit_name not in batched[:4]:
+        raise NotImplementedError(
+            f'fit_chains(mesh=) runs the fused engines {list(batched[:4])}; '
+            f'{fit_name} has no mesh path')
+    if isinstance(keys, torch.Tensor):
+        keys = keys.reshape(-1).tolist()
+    keys = list(keys)
+    rows = mesh.shape['chain']
+    if len(keys) % rows:
+        raise ValueError(f'{len(keys)} chain keys do not split over the '
+                         f"mesh's {rows} chain rows")
+    per = len(keys) // rows
+    fit = getattr(model, fit_name)
+    return _cat_groups([fit(data, key=keys[g * per:(g + 1) * per],
+                            chains=True, mesh=mesh.row(g), **kw)
+                        for g in mesh.rows()])
+
+
+def _cat_groups(trees):
+    """The chain groups' results on one chain axis, on the first group's
+    devices; Sharded labels keep each group's shards."""
+    from mimo_tpu_torch.parallel.mesh import Sharded
+    first = trees[0]
+    if len(trees) == 1:
+        return first
+    if isinstance(first, Sharded):
+        return Sharded(sum((t.shards for t in trees), ()),
+                       sum((t.positions for t in trees), ()), first.n)
+    if isinstance(first, torch.Tensor):
+        return torch.cat([t.to(first.device) for t in trees])
+    items = [_cat_groups([t[i] for t in trees]) for i in range(len(first))]
+    return type(first)(*items) if hasattr(first, '_fields') else tuple(items)
 
 
 def best_of(states, vlb_traces):

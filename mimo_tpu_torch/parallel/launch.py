@@ -1,0 +1,166 @@
+"""Run the sharded engines in several processes joined by one process
+group (the counterpart of scripts/multihost_cpu.py).
+
+`launch(fn, nprocs, args)` spawns `nprocs` worker processes; each calls
+`mesh.init_distributed` on a free local port, runs `fn(*args)` and sends
+its result back as numpy (bridge.state_to_numpy). Every wait has a
+deadline; a worker that fails makes `launch` raise with its traceback,
+and a worker still alive at the end is killed.
+
+`run_engines(cfg)` is the worker the tests and chip_smoke.py drive: it
+forms the global mesh from this process's devices, shards the global data
+(each process places its own shards), runs the named engines on it and
+returns their results and the mesh counters of each run. Called in one
+process without a group, it is the reference the processes are held to.
+"""
+
+import multiprocessing
+import queue
+import socket
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from mimo_tpu_torch.parallel import mesh as _mesh
+
+
+def free_port():
+    """A free local TCP port."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(('', 0))
+        return s.getsockname()[1]
+
+
+def _worker(rank, world, port, backend, timeout, fn, args, results):
+    from mimo_tpu_torch.bridge import state_to_numpy
+    try:
+        _mesh.init_distributed(f'localhost:{port}', world, rank, backend,
+                               timeout)
+        try:
+            out = state_to_numpy(fn(*args))
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:            # reported to the parent, then exits
+        results.put((rank, False, traceback.format_exc()))
+
+
+def launch(fn, nprocs, args=(), backend='gloo', timeout=120.0):
+    """fn(*args) in `nprocs` spawned processes forming one process group
+    of `backend` on localhost; returns their results in rank order. fn
+    must be importable by name (a module-level function). Raises
+    RuntimeError with a failed worker's traceback, TimeoutError when the
+    workers have not all answered within `timeout` seconds."""
+    ctx = multiprocessing.get_context('spawn')
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_worker, daemon=True,
+                         args=(rank, nprocs, port, backend, timeout, fn,
+                               args, results))
+             for rank in range(nprocs)]
+    deadline = time.monotonic() + timeout
+    out = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(out) < nprocs:
+            left = deadline - time.monotonic()
+            try:
+                rank, ok, payload = results.get(timeout=max(left, 0.01))
+            except queue.Empty:
+                raise TimeoutError(
+                    f'{nprocs - len(out)} of {nprocs} workers did not '
+                    f'answer within {timeout} s') from None
+            if not ok:
+                raise RuntimeError(f'worker {rank} failed:\n{payload}')
+            out[rank] = payload
+    finally:
+        for p in procs:
+            if p.pid is not None:
+                p.join(timeout=max(1.0, min(10.0,
+                                            deadline - time.monotonic())))
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+        results.close()
+    return [out[r] for r in range(nprocs)]
+
+
+def run_engines(cfg):
+    """Run engines over the mesh that cfg describes, in this process's
+    part of it; the worker of `launch`, or with no process group the
+    one-process reference. cfg keys:
+
+      x          the global data, a numpy (N, d) array (every process
+                 holds it and places only its own shards);
+      dtype      'float64' or 'float32';
+      devices    this process's devices, e.g. ['cpu', 'cpu'];
+      n_chain    the mesh's chain rows (default 1);
+      model      BayesianGMM.make's keyword arguments;
+      runs       a list of (name, engine, kwargs): engine a fused engine
+                 or 'fit_svi' over the mesh, or 'fit_chains:<engine>' with
+                 the chain keys in kwargs['keys']; kwargs['n'], where
+                 given, runs it on the first n points;
+      threads    torch's intra-op threads (optional);
+      probe      optional, with a process group up: after the runs, time
+                 this many lone all_reduce calls of a (K m8 + 1) buffer
+                 of the data's dtype, each after a barrier, so that a
+                 call's time is the transfer alone, without the wait for
+                 the slower rank or for this rank's own kernels that an
+                 all_reduce inside a sweep includes.
+
+    Returns {name: {'out': the engine's result, 'counters': the mesh
+    counters of its run}} plus 'rank', 'world', 'positions' and, with
+    `probe`, 'probe_seconds' (one host-clock time a call)."""
+    from mimo_tpu_torch.models import BayesianGMM
+    from mimo_tpu_torch.parallel.chains import fit_chains
+    if cfg.get('threads'):
+        torch.set_num_threads(cfg['threads'])
+    dtype = getattr(torch, cfg['dtype'])
+    devices = [torch.device(d) for d in cfg['devices']]
+    mesh = _mesh.make_mesh(n_chain=cfg.get('n_chain', 1), devices=devices)
+    model = BayesianGMM.make(**cfg['model'], dtype=dtype,
+                             device=devices[0])
+    x = torch.from_numpy(np.asarray(cfg['x'])).to(dtype)
+    xs = _mesh.shard_data(mesh, x)
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
+    out = {'rank': rank, 'world': world, 'positions': mesh.positions}
+    for name, engine, kw in cfg['runs']:
+        kw = dict(kw)
+        data = (xs if kw.get('n') is None
+                else _mesh.shard_data(mesh, x[:kw.pop('n')]))
+        kw.pop('n', None)
+        _mesh.reset_counters()
+        if engine.startswith('fit_chains:'):
+            res = fit_chains(model, engine.split(':', 1)[1], data,
+                             kw.pop('keys'), mesh=mesh, **kw)
+        else:
+            res = getattr(model, engine)(data, mesh=mesh, **kw)
+        if devices[0].type == 'cuda':
+            torch.cuda.synchronize(devices[0])
+        out[name] = {'out': res, 'counters': {
+            k: dict(v) for k, v in _mesh.counters.items()}}
+    if cfg.get('probe') and dist.is_initialized():
+        k, m = model._estep_spec().theta(model.components_prior).shape
+        buf = torch.zeros((k * (-(-m // 8) * 8) + 1,), dtype=dtype,
+                          device=devices[0])
+        out['probe_seconds'] = [_lone_all_reduce(buf)
+                                for _ in range(cfg['probe'])]
+    return out
+
+
+def _lone_all_reduce(buf):
+    """Host seconds of one all_reduce of `buf` begun right after a
+    barrier, with the device idle."""
+    if buf.is_cuda:
+        torch.cuda.synchronize(buf.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    dist.all_reduce(buf)
+    if buf.is_cuda:
+        torch.cuda.synchronize(buf.device)
+    return time.perf_counter() - t0

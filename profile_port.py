@@ -3,7 +3,7 @@
 
     python3 profile_port.py [--units U] [--engines-only | --nested-only
                                          | --nested-probes | --chains
-                                         | --stream]
+                                         | --stream | --mesh]
 
 For each cell it fits the model at the size `chip_smoke.py` drives,
 warms up, then measures one unit of work (a warm-started VI sweep, a
@@ -21,7 +21,8 @@ and engine, with the card's name and power limit first.
 `--nested-probes` runs the measurements behind the nested model's design
 instead (see `nested_probes`); `--chains` the chains of `chip_smoke.py`
 phase 19 (see `chain_cells`); `--stream` the streamed sweeps of its phase
-20 (see `stream_cells`).
+20 (see `stream_cells`); `--mesh` the sharded sweeps and serving of its
+phase 21 (see `mesh_cells`).
 """
 
 import argparse
@@ -43,7 +44,7 @@ from mimo_tpu_torch.models import (
     BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState
 from mimo_tpu_torch.models.mixture import MFState, _tree_map as tree_map
-from mimo_tpu_torch.parallel import fit_chains
+from mimo_tpu_torch.parallel import fit_chains, make_mesh, shard_data
 
 from chip_smoke import N_NEST, N_NEST_ILR_FIT, N_NEST_MAP, nested_blobs
 
@@ -319,6 +320,31 @@ def chain_cells(card, dev, x, u):
         torch.cuda.empty_cache()
 
 
+def mesh_cells(card, dev, x, u):
+    """The sharded sweeps of chip_smoke.py phase 21 at the main cell
+    (N=1e7, K=50): a warm-started VI sweep, a Gibbs sweep and one
+    log_predictive call, unsharded and over a (1, 4) mesh of four
+    positions on this card (B1, B2 or B3 once a shard, one reduction a
+    sweep)."""
+    m = BayesianGMM.make(size=K, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    mesh = make_mesh(devices=[dev] * 4)
+    xs = shard_data(mesh, x)
+    st, _ = m.fit_vi_fused(x, key=1, maxiter=20)
+    cell = f'DP-GMM N={N_GMM}'
+    for label, data, kw in (('one launch', x, {}),
+                            ('(1, 4) mesh', xs, dict(mesh=mesh))):
+        report(card, cell, f'VI sweep, {label}',
+               lambda: m.fit_vi_fused(data, maxiter=u, init_state=st,
+                                      randomize=False, **kw), u, 'estep_tc')
+        report(card, cell, f'Gibbs sweep, {label}',
+               lambda: m.fit_gibbs_fused(data, key=2, maxiter=u, **kw), u,
+               'gibbs_tc')
+        report(card, cell, f'predict, {label}',
+               lambda: m.log_predictive(st, data, **kw), 1,
+               'predict_kernel')
+
+
 def trace_events(fn):
     """The device events of one run of fn() from the profiler's chrome
     trace: {'kernel': [(start, end, name)], 'h2d': [(start, end)]} in
@@ -508,6 +534,9 @@ def main():
     only.add_argument('--stream', action='store_true',
                       help="only the streamed sweeps of chip_smoke.py "
                            "phase 20")
+    only.add_argument('--mesh', action='store_true',
+                      help="only the sharded sweeps of chip_smoke.py "
+                           "phase 21")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_port: needs a CUDA device')
@@ -535,6 +564,9 @@ def main():
         return
     if args.stream:
         stream_cells(card, dev, x, u)
+        return
+    if args.mesh:
+        mesh_cells(card, dev, x, u)
         return
     engine_cells(card, dev, x, u)
     if args.engines_only:

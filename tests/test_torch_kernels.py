@@ -1403,3 +1403,109 @@ def test_svi_stream_groups_do_not_change_the_steps(dev):
     assert torch.equal(a.gating.gamma, b.gating.gamma)
     c = m.fit_svi_stream(nb, group=8, transfer_dtype=torch.bfloat16, **kw)
     assert bool(torch.isfinite(c.components.mu).all())
+
+
+# -- the kernels over a mesh's shards ----------------------------------------------
+
+def _gmm_shard_inputs(dev, n, k=50, d=2, seed=0):
+    """A float32 GMM's prior, uniform log weights and x (n, d) on the
+    card, with the GMM spec."""
+    from mimo_tpu_torch.ops.family_estep import gaussian_spec
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = BayesianGMM.make(size=k, dim=d, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    x = torch.randn((n, d), generator=g, device=dev) * 2
+    log_pi = torch.log(torch.full((k,), 1.0 / k, device=dev))
+    return m, gaussian_spec(), x, log_pi
+
+
+def test_one_shard_b1_b2_b3_are_the_unsharded_launch(dev):
+    """Over a one-position mesh, B1, B2 and B3 launch exactly as the
+    unsharded wrappers do: bitwise the same statistics, lse, labels and
+    densities, one launch each."""
+    from mimo_tpu_torch.models.mixture import kernel_xts
+    from mimo_tpu_torch.parallel import make_mesh
+    m, spec, x, log_pi = _gmm_shard_inputs(dev, 100003)
+    mesh = make_mesh(devices=[dev])
+    xts = kernel_xts((x,))
+    post = m.components_prior
+    a = cuda_estep.fused_estep_cuda(spec, post, log_pi, xts, x.shape[0])
+    before = dict(cuda_estep.launches)
+    b = cuda_estep.fused_estep_cuda_sharded(spec, post, log_pi, [xts], mesh)
+    assert cuda_estep.launches['gauss'] == before['gauss'] + 1
+    assert torch.equal(a.lse, b.lse) and torch.equal(a.counts, b.counts)
+    assert torch.equal(a.stats.xxT, b.stats.xxT)
+    params = m.family.mode_params(post)
+    seed = torch.tensor(4242, dtype=torch.int64, device=dev)
+    la, ra = cuda_gibbs.fused_gibbs_cuda(spec, seed, params, log_pi, xts,
+                                         x.shape[0])
+    lb, rb = cuda_gibbs.fused_gibbs_cuda_sharded(spec, seed, params, log_pi,
+                                                 [xts], mesh)
+    assert torch.equal(la, lb[0]) and torch.equal(ra.counts, rb.counts)
+    st = MFState(post, m.gating_prior)
+    lw = m.predictive_log_weights(st)
+    pa = cuda_predict.gauss_predictive_cuda(post, lw, x)
+    pb = cuda_predict.gauss_predictive_cuda_sharded(post, lw, [x])
+    assert torch.equal(pa, pb[0])
+
+
+def test_sharded_b1_b2_b3_skip_an_empty_shard(dev):
+    """Four shards, the second empty and the third one point: three
+    launches of each kernel, an empty result for the empty shard, and
+    statistics equal to the launches' sum; B2's shard 0 draws the
+    unsharded labels."""
+    from mimo_tpu_torch.models.mixture import kernel_xts
+    from mimo_tpu_torch.parallel import make_mesh
+    m, spec, x, log_pi = _gmm_shard_inputs(dev, 20011, seed=1)
+    mesh = make_mesh(devices=[dev] * 4)
+    parts = [x[:12000], x[12000:12000], x[12000:12001], x[12001:]]
+    xts = [kernel_xts((p,)) for p in parts]
+    post = m.components_prior
+    before = dict(cuda_estep.launches)
+    got = cuda_estep.fused_estep_cuda_sharded(spec, post, log_pi, xts, mesh)
+    assert cuda_estep.launches['gauss'] == before['gauss'] + 3
+    one = [cuda_estep.fused_estep_cuda(spec, post, log_pi, t, t[0].shape[1])
+           for t in (xts[0], xts[2], xts[3])]
+    assert torch.equal(got.lse, one[0].lse + one[1].lse + one[2].lse)
+    assert torch.equal(got.counts,
+                       one[0].counts + one[1].counts + one[2].counts)
+    params = m.family.mode_params(post)
+    seed = torch.tensor(99, dtype=torch.int64, device=dev)
+    before = dict(cuda_gibbs.launches)
+    labels, res = cuda_gibbs.fused_gibbs_cuda_sharded(spec, seed, params,
+                                                      log_pi, xts, mesh)
+    assert cuda_gibbs.launches['gauss'] == before['gauss'] + 3
+    assert [t.shape[0] for t in labels] == [12000, 0, 1, 8010]
+    lab0, _ = cuda_gibbs.fused_gibbs_cuda(spec, seed, params, log_pi,
+                                          xts[0], 12000)
+    assert torch.equal(labels[0], lab0)
+    assert float(res.counts.sum()) == 20011
+    lw = m.predictive_log_weights(MFState(post, m.gating_prior))
+    before = cuda_predict.launches['gauss']
+    outs = cuda_predict.gauss_predictive_cuda_sharded(post, lw, parts)
+    assert cuda_predict.launches['gauss'] == before + 3
+    assert [o.shape[0] for o in outs] == [12000, 0, 1, 8010]
+    assert torch.equal(torch.cat(outs),
+                       cuda_predict.gauss_predictive_cuda(post, lw, x))
+
+
+def test_b1_b2_b3_read_a_view_at_an_odd_column_offset(dev):
+    """A column view xt[:, 1:] (its start 4 bytes past the allocation's,
+    its stride the parent's) gives bitwise what a fresh contiguous copy
+    gives: B1 and B2 stage points with 4-byte copies, B3 reads scalars."""
+    n, k, d = 100003, 50, 2
+    xt, theta = _inputs(dev, n + 1, k, d, seed=2)
+    view, copy = xt[:, 1:], xt[:, 1:].contiguous()
+    assert view.data_ptr() % 16 == 4 and view.stride(0) == n + 1
+    acc_v, lse_v = cuda_estep.estep(view, theta, n)
+    acc_c, lse_c = cuda_estep.estep(copy, theta, n)
+    assert torch.equal(acc_v, acc_c) and torch.equal(lse_v, lse_c)
+    seed = torch.tensor(7, dtype=torch.int64, device=dev)
+    lab_v, g_v = cuda_gibbs.gibbs(view, theta, seed, n)
+    lab_c, g_c = cuda_gibbs.gibbs(copy, theta, seed, n)
+    assert torch.equal(lab_v, lab_c) and torch.equal(g_v, g_c)
+    m = BayesianGMM.make(size=k, dim=d, device=dev)
+    thq, aux = cuda_predict.predictive_coefficients(
+        m.components_prior, torch.full((k,), -3.9, device=dev))
+    assert torch.equal(cuda_predict.predict(view, thq, aux, n),
+                       cuda_predict.predict(copy, thq, aux, n))

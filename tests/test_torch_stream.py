@@ -168,10 +168,11 @@ def test_em_stream_equals_in_memory_em_from_one_state(x):
     st, tr = tm.fit_em_stream_full(blocks(x), n_blocks(N), maxiter=4,
                                    init_state=em0, block_size=B)
     # in memory: the same sweeps from em0 by hand
-    est = tm._fused_plugin_estep(tm._estep_spec(), False, B)
+    data = tmix._Shards(None, (xt,), 'torch', B)
+    spec = tm._plugin_spec('fit_em')
     params, log_pi, trace = em0.params, em0.log_pi, []
     for _ in range(4):
-        res = est(params, log_pi, (xt,), None, N, torch.float64)
+        res = data.estep(spec, params, log_pi)
         params = tm.family.ml_update(res.stats)
         log_pi = tm._ml_log_pi(res.counts, torch.sum(res.counts))
         trace.append(res.lse)
