@@ -28,12 +28,16 @@ mimo_tpu/models/hmix.py).
     B2 launch once a sweep for all chains, and the M-vmapped algebra runs
     under one more torch.func.vmap over C (`_over_chains`; the identity
     for one fit). Chain c of VI, MAP and ML-EM equals the fit with key c.
-  * Mesh: the fused engines, `fit_svi`, `log_predictive` and `predict`
-    take `mesh=` as the flat ones do (models.mixture): the flat M*K
-    E-step or label sweep launches once per non-empty shard and makes one
-    reduction a sweep; the two-level random and anchor starts draw over
-    the global N; SVI reduces once per inner sub-iteration; serving runs
-    once per shard with no collective.
+  * Mesh: the fused engines, `fit_svi`, the dense engines,
+    `log_predictive` and `predict` take `mesh=` as the flat ones do
+    (models.mixture): the flat M*K E-step or label sweep launches once
+    per non-empty shard and makes one reduction a sweep; the two-level
+    random and anchor starts draw over the global N; SVI and the dense
+    engines reduce once per inner round (the dense VI once more for its
+    log-likelihood, MAP-EM and ML-EM twice more for their last M-step and
+    log-likelihood), their responsibilities and labels staying on their
+    shards; serving runs once per shard with no collective. The dense
+    engines run unsharded as the one-position case.
 """
 
 import math
@@ -44,10 +48,11 @@ from torch.func import vmap
 
 from mimo_tpu_torch.conjugate.families import Family
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, _as_generator, _elbo_loop, _mesh_parts, _over_chains,
-    _random_resp, _resp_seed, _Shards, _stack, _stack_lead, _tree_map,
-    as_data, batch_generator, from_kernel, model_device, resolve_backend,
-    serve_sharded, stack_trees, transform_points)
+    BayesianMixture, _as_generator, _elbo_loop, _label_generators,
+    _mesh_parts, _on, _over_chains, _random_resp, _reduce_trees, _resp_seed,
+    _Shards, _stack, _stack_lead, _tree_map, as_data, batch_generator,
+    from_kernel, model_device, resolve_backend, serve_sharded, shard0_draws,
+    stack_trees, start_labels, transform_points)
 from mimo_tpu_torch.models.mixture import (
     _anchor_indices as _flat_anchor_indices)
 from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
@@ -223,14 +228,6 @@ class BayesianMixtureOfMixtures:
                                           pg.update(c)))(
             self.components_prior, self.inner_gating_prior, stats, counts)
 
-    def _inner_update(self, data, inner_resp, outer_resp):
-        """Weighted inner update for all clusters at once.
-
-        inner_resp: (M, N, K) within-cluster responsibilities;
-        outer_resp: (N, M) cluster weights scaling each point's stats."""
-        return self._inner_posteriors(
-            *self._cluster_stats(data, inner_resp, outer_resp))
-
     def _update_from(self, stats, counts):
         """Inner posteriors of every cluster from (M, K)-stacked stats and
         counts, and the outer posterior from the cluster totals."""
@@ -259,14 +256,40 @@ class BayesianMixtureOfMixtures:
             outer_gating=self.outer_gating_prior.update(outer_counts),
             inner_gating=gatings, components=comps)
 
-    def _vi_sweep(self, state: HMixState, data, maxsubiter):
-        outer_resp = self.expected_responsibilities(state, data)
-        for _ in range(maxsubiter):
-            inner_resp = torch.softmax(self._inner_elc(state, data), -1)
-            comps, gatings = self._inner_update(data, inner_resp, outer_resp)
-            state = state._replace(inner_gating=gatings, components=comps)
+    def _vi_sweep(self, state: HMixState, sh, maxsubiter):
+        """One nested VI sweep over the `_Shards` sh: each shard's outer
+        responsibilities, then `maxsubiter` inner rounds, each one
+        reduction of every cluster's statistics (the first also of the
+        outer counts)."""
+        outer = [self.expected_responsibilities(
+            _on(state, part[0].device), part) if sh.rows(j) else None
+            for j, part in enumerate(sh.parts)]
+        zero = sh.zero_part()
+        zero_outer = zero[0].new_zeros((1, self.cluster_size))
+        for sub in range(max(maxsubiter, 1)):
+            red = sh.reduce_each(
+                lambda j: self._round_tree(state, sh.parts[j], outer[j],
+                                           sub == 0, maxsubiter > 0),
+                lambda: self._round_tree(state, zero, zero_outer, sub == 0,
+                                         maxsubiter > 0), 'sweep')
+            if sub == 0:
+                outer_counts, red = red[0], red[1:]
+            if maxsubiter:
+                comps, gatings = self._inner_posteriors(*red)
+                state = state._replace(inner_gating=gatings, components=comps)
         return state._replace(outer_gating=self.outer_gating_prior.update(
-            torch.sum(outer_resp, 0)))
+            outer_counts))
+
+    def _round_tree(self, state, part, outer, first, inner):
+        """One shard's part of an inner round: (the outer counts, where
+        `first`) + (every cluster's stats and counts under the inner
+        responsibilities of `state`, where `inner`)."""
+        tree = (torch.sum(outer, 0),) if first else ()
+        if inner:
+            st = _on(state, part[0].device)
+            tree += self._cluster_stats(
+                part, torch.softmax(self._inner_elc(st, part), -1), outer)
+        return tree
 
     def _tx_data(self, data):
         data = as_data(data)
@@ -276,21 +299,32 @@ class BayesianMixtureOfMixtures:
         return data
 
     def fit_vi(self, data, key=None, maxiter=100, maxsubiter=3,
-               randomize=True):
+               randomize=True, mesh=None):
         """Nested mean-field coordinate ascent from random two-level
         responsibilities (`randomize` is accepted and unused, as in the
         JAX package). Returns (HMixState, trace): the marginal expected
-        log-likelihood after each sweep."""
-        data = self._tx_data(data)
-        state = self._random_state(_as_generator(key, data[0].device),
-                                   _Shards(None, data, 'torch'))
+        log-likelihood after each sweep. With `mesh` (a one-row mesh; the
+        dense engines over a mesh, see the module docstring) each shard's
+        (n_j, M) and (M, n_j, K) responsibilities stay on its device and
+        a sweep makes maxsubiter + 1 reductions: one an inner round, and
+        one of its log-likelihood; without one, the same over the one
+        position of the data's device."""
+        sh = _Shards(mesh, self._tx_data(data), 'torch')
+        state = self._random_state(_as_generator(key, sh.device), sh)
         trace = []
+
+        def lse_sum(st, part):
+            st = _on(st, part[0].device)
+            return (torch.sum(torch.logsumexp(
+                self.expected_cluster_loglik(st, part)
+                + st.outer_gating.expected_log_pi()[None, :], -1)),)
+
         for _ in range(maxiter):
-            state = self._vi_sweep(state, data, maxsubiter)
-            trace.append(torch.sum(torch.logsumexp(
-                self.expected_cluster_loglik(state, data)
-                + state.outer_gating.expected_log_pi()[None, :], -1)))
-        return finite_report((state, _stack(trace, data[0])), 'fit_vi')
+            state = self._vi_sweep(state, sh, maxsubiter)
+            trace.append(sh.reduce_each(
+                lambda j: lse_sum(state, sh.parts[j]),
+                lambda: lse_sum(state, sh.zero_part()), 'sweep')[0])
+        return finite_report((state, _stack(trace, sh)), 'fit_vi')
 
     # -- the flat M*K fused engines -----------------------------------------
 
@@ -500,23 +534,82 @@ class BayesianMixtureOfMixtures:
                                 + state.outer_log_pi[None, :])
         return resp
 
-    def _anchor_start(self, gen, x0):
+    def _anchor_start(self, gen, sh):
         """Anchor-seeded responsibilities at BOTH levels (k-means 'random'
         seeding; a flat random init is an exact symmetric fixed point of
-        the vmapped inner updates): inner (M, N, K) by distance to M x K
-        random data points, outer (N, M) by each cluster's best anchor."""
-        idx = _anchor_indices(gen, x0.shape[0],
-                              (self.cluster_size, self.mixture_size),
-                              x0.device)
-        anchors = x0[idx]                                   # (M, K, d)
-        scale2 = torch.clamp(torch.mean(torch.var(x0, 0, correction=0)),
-                             min=1e-6)
-        d2 = torch.sum(torch.square(x0[None, :, None, :]
-                                    - anchors[:, None, :, :]), -1)
-        inner_resp = torch.softmax(-0.5 * d2 / scale2, -1)
-        outer_resp = torch.softmax(
-            -0.5 * torch.min(d2, -1).values.T / scale2, -1)    # (N, M)
-        return inner_resp, outer_resp
+        the vmapped inner updates) over the `_Shards` sh: M x K random
+        points of the global N and the distance scale
+        (`_Shards.anchor_points`, two reductions), then each shard's inner
+        (M, n_j, K) by distance to them and outer (n_j, M) by each
+        cluster's best anchor. Returns (the inner, the outer), one a
+        position."""
+        mm, kk = self.cluster_size, self.mixture_size
+        idx = _anchor_indices(gen, sh.n, (mm, kk), sh.device)
+        anchors, scale2 = sh.anchor_points(idx.reshape(-1))
+        inner, outer = [], []
+        for part in sh.parts:
+            x0 = part[0]
+            a = anchors.to(x0.device).reshape(mm, kk, -1)
+            d2 = torch.sum(torch.square(x0[None, :, None, :]
+                                        - a[:, None, :, :]), -1)
+            s2 = scale2.to(x0.device)
+            inner.append(torch.softmax(-0.5 * d2 / s2, -1))
+            outer.append(torch.softmax(-0.5 * torch.min(d2, -1).values.T / s2,
+                                       -1))                  # (n_j, M)
+        return inner, outer
+
+    def _plugin_sweeps(self, sh, maxiter, maxsubiter, key, m_step,
+                       outer_log_pi):
+        """The nested plug-in sweeps (fit_em, fit_map) over the `_Shards`
+        sh from the two-level anchor start: per sweep `maxsubiter` inner
+        rounds (an M-step, one reduction of every cluster's statistics,
+        then each shard's inner responsibilities under its plug-in
+        params), the last M-step (its reduction also of the outer
+        counts), then each shard's outer responsibilities under the
+        plug-in params and one reduction of their log-likelihood:
+        maxsubiter + 2 reductions a sweep. m_step(stats, counts, outer
+        counts or None) -> (state or None, params, inner log weights (M,
+        K)); outer_log_pi(state, outer counts) -> (M,). Returns (the last
+        state, the trace)."""
+        fam = self.family
+        inner, outer = self._anchor_start(_as_generator(key, sh.device), sh)
+        zero = sh.zero_part()
+        zeros = (zero[0].new_zeros((self.cluster_size, 1,
+                                    self.mixture_size)),
+                 zero[0].new_zeros((1, self.cluster_size)))
+
+        def reduce(first):
+            def tree(part, inn, out):
+                return self._cluster_stats(part, inn, out) + (
+                    (torch.sum(out, 0),) if first else ())
+            return sh.reduce_each(
+                lambda j: tree(sh.parts[j], inner[j], outer[j]),
+                lambda: tree(zero, *zeros), 'sweep')
+
+        def plug_in_elc(params, ilp, part):
+            params, ilp = _on((params, ilp), part[0].device)
+            return (vmap(lambda p: fam.loglik(p, part))(params)
+                    + ilp[:, None, :])
+
+        state, trace = None, []
+        for _ in range(maxiter):
+            for _ in range(maxsubiter):
+                _, params, ilp = m_step(*reduce(False), None)
+                inner = [torch.softmax(plug_in_elc(params, ilp, part), -1)
+                         for part in sh.parts]
+            stats, counts, outer_counts = reduce(True)
+            state, params, ilp = m_step(stats, counts, outer_counts)
+            olp = outer_log_pi(state, outer_counts)
+            sums = []
+            for j, part in enumerate(sh.parts):
+                outer[j], lognorm = normalize_log(
+                    torch.logsumexp(plug_in_elc(params, ilp, part), -1).T
+                    + olp.to(part[0].device)[None, :])
+                sums.append((torch.sum(lognorm),) if sh.rows(j) else None)
+            trace.append(_reduce_trees(
+                sh.mesh, sums, lambda: (zero[0].new_zeros(()),),
+                'sweep')[0])
+        return state, _stack(trace, sh)
 
     def _require_ml(self):
         if self.family.ml_update is None:
@@ -524,41 +617,30 @@ class BayesianMixtureOfMixtures:
                 'this family has no maximum-likelihood update; build the '
                 'model with hierarchical=False or use fit_vi/fit_gibbs')
 
-    def fit_em(self, data, key=None, maxiter=100, maxsubiter=5):
+    def fit_em(self, data, key=None, maxiter=100, maxsubiter=5, mesh=None):
         """Nested likelihood-only EM: outer E-step over clusters, then per
         cluster `maxsubiter` weighted inner EM iterations (all clusters
         vmapped at once), from the two-level anchor start. Needs the
         family's ml_update (hierarchical families have none). Returns
-        (HMixEMState, loglik trace)."""
+        (HMixEMState, loglik trace). With `mesh` (see fit_vi) the anchors
+        and their scale come from the global N and a sweep makes
+        maxsubiter + 2 reductions (`_plugin_sweeps`)."""
         self._require_ml()
-        data = self._tx_data(data)
-        x0 = data[0]
-        n = x0.shape[0]
+        sh = _Shards(mesh, self._tx_data(data), 'torch')
         fam = self.family
 
-        def m_step(inner_resp, outer_resp):
+        def m_step(stats, counts, outer_counts):
             """Weighted ML for all clusters: params + inner log weights."""
-            stats, counts = self._cluster_stats(data, inner_resp, outer_resp)
             csum = torch.clamp(torch.sum(counts, -1, keepdim=True), min=1e-37)
-            return vmap(fam.ml_update)(stats), _log_clip(counts / csum)
+            params, ilp = vmap(fam.ml_update)(stats), _log_clip(counts / csum)
+            return (None if outer_counts is None else
+                    HMixEMState(params, ilp, _log_clip(outer_counts / sh.n)),
+                    params, ilp)
 
-        inner_resp, outer_resp = self._anchor_start(
-            _as_generator(key, x0.device), x0)
-        state, trace = None, []
-        for _ in range(maxiter):
-            for _ in range(maxsubiter):
-                params, ilp = m_step(inner_resp, outer_resp)
-                inner_resp = torch.softmax(
-                    vmap(lambda p: fam.loglik(p, data))(params)
-                    + ilp[:, None, :], -1)
-            params, inner_log_pi = m_step(inner_resp, outer_resp)
-            outer_log_pi = _log_clip(torch.sum(outer_resp, 0) / n)
-            state = HMixEMState(params, inner_log_pi, outer_log_pi)
-            outer_resp, lognorm = normalize_log(
-                torch.logsumexp(self._em_inner_loglik(state, data), -1).T
-                + outer_log_pi[None, :])
-            trace.append(torch.sum(lognorm))
-        return finite_report((state, _stack(trace, x0)), 'fit_em')
+        state, trace = self._plugin_sweeps(
+            sh, maxiter, maxsubiter, key, m_step,
+            lambda st, _: st.outer_log_pi)
+        return finite_report((state, trace), 'fit_em')
 
     def _ml_log_pis(self, counts, n):
         """(inner (M, K), outer (M,)) ML log weights from (M, K) counts."""
@@ -610,22 +692,21 @@ class BayesianMixtureOfMixtures:
 
     # -- MAP EM --------------------------------------------------------------
 
-    def fit_map(self, data, key=None, maxiter=100, maxsubiter=5):
+    def fit_map(self, data, key=None, maxiter=100, maxsubiter=5,
+                mesh=None):
         """Nested MAP expectation-maximization: posterior update + mode
         plug-in at BOTH levels, weight-masked inner updates, from the
         two-level anchor start. Per sweep: `maxsubiter` inner MAP
         iterations under the current outer responsibilities, the outer
         gating MAP, then outer responsibilities under the plug-in mode
-        params. Returns (HMixState, loglik trace)."""
-        data = self._tx_data(data)
-        x0 = data[0]
+        params. Returns (HMixState, loglik trace). With `mesh` (see
+        fit_vi) a sweep makes maxsubiter + 2 reductions."""
+        sh = _Shards(mesh, self._tx_data(data), 'torch')
         fam = self.family
 
-        def m_step(inner_resp, outer_resp):
-            """Weighted MAP at both levels -> (HMixState, plug-in params,
-            inner log weights (M, K))."""
-            stats, counts = self._cluster_stats(data, inner_resp, outer_resp)
-
+        def m_step(stats, counts, outer_counts):
+            """Weighted MAP at both levels -> (HMixState or None, plug-in
+            params, inner log weights (M, K))."""
             def per_cluster(prior_c, prior_g, st, c):
                 comp = fam.update(prior_c, st)
                 gating = prior_g.update(c)
@@ -635,28 +716,15 @@ class BayesianMixtureOfMixtures:
             comps, gatings, params, ilp = vmap(per_cluster)(
                 self.components_prior, self.inner_gating_prior, stats,
                 counts)
-            outer = self.outer_gating_prior.update(torch.sum(outer_resp, 0))
-            return (HMixState(outer_gating=outer, inner_gating=gatings,
-                              components=comps), params, ilp)
+            state = None if outer_counts is None else HMixState(
+                outer_gating=self.outer_gating_prior.update(outer_counts),
+                inner_gating=gatings, components=comps)
+            return state, params, ilp
 
-        def plug_in_elc(params, ilp):
-            """(M, N, K) complete loglik under plug-in mode params."""
-            return (vmap(lambda p: fam.loglik(p, data))(params)
-                    + ilp[:, None, :])
-
-        inner_resp, outer_resp = self._anchor_start(
-            _as_generator(key, x0.device), x0)
-        state, trace = None, []
-        for _ in range(maxiter):
-            for _ in range(maxsubiter):
-                _, params, ilp = m_step(inner_resp, outer_resp)
-                inner_resp = torch.softmax(plug_in_elc(params, ilp), -1)
-            state, params, ilp = m_step(inner_resp, outer_resp)
-            outer_resp, lognorm = normalize_log(
-                torch.logsumexp(plug_in_elc(params, ilp), -1).T
-                + _log_clip(state.outer_gating.mode())[None, :])
-            trace.append(torch.sum(lognorm))
-        return finite_report((state, _stack(trace, x0)), 'fit_map')
+        state, trace = self._plugin_sweeps(
+            sh, maxiter, maxsubiter, key, m_step,
+            lambda st, _: _log_clip(st.outer_gating.mode()))
+        return finite_report((state, trace), 'fit_map')
 
     def fit_map_fused(self, data, key=None, maxiter=100, block_size=131072,
                       backend='auto', chains=False, mesh=None):
@@ -804,57 +872,104 @@ class BayesianMixtureOfMixtures:
         return self._cluster_stats(
             data, one_hot(z, self.mixture_size, dtype=outer_w.dtype), outer_w)
 
-    def _gibbs_sweep(self, state: HMixGibbsState, data, gen, maxsubiter):
+    def _gibbs_sweep(self, state: HMixGibbsState, sh, gen, lgens, lead_draw,
+                     maxsubiter):
         """`maxsubiter` inner Gibbs rounds in every cluster at once
         (params | posterior, inner weights, inner labels | params,
         posterior | labels), then the outer gating | labels and the outer
         labels from each cluster's marginal loglik under the last round's
-        draws."""
-        fam = self.family
-        outer_w = one_hot(state.labels, self.cluster_size,
-                          dtype=data[0].dtype)                # (N, M)
+        draws, over the `_Shards` sh: the draws of params and weights
+        come from `gen`, each shard's labels from its label generator
+        (`lgens`; `lead_draw` keeps `gen` in step where this process does
+        not hold data shard 0), and each round makes one reduction of
+        every cluster's statistics (the first also of the outer
+        counts)."""
+        fam, mm, kk = self.family, self.cluster_size, self.mixture_size
+        labels = state.labels.shards
+        outer_w = [one_hot(lab, mm, dtype=sh.dtype) for lab in labels]
+        zero = sh.zero_part()
+        zero_w = zero[0].new_zeros((1, mm))
+        zero_z = torch.zeros((mm, 1), dtype=torch.int64, device=sh.device)
         comps, gatings = state.components, state.inner_gating
-        for _ in range(maxsubiter):
-            params = vmap(lambda q: fam.sample_params(gen, q),
-                          randomness='different')(comps)
-            probs = vmap(lambda g: g.sample(gen),
-                         randomness='different')(gatings)
-            logp = self._gibbs_inner_logp(params, probs, data)
-            z = sample_categorical_from_log(gen, logp)        # (M, N)
-            comps, gatings = self._inner_posteriors(
-                *self._gibbs_inner_stats(z, outer_w, data))
-        outer_gating = self.outer_gating_prior.update(torch.sum(outer_w, 0))
-        log_p_outer = (torch.logsumexp(logp, -1).T
-                       + _log_clip(outer_gating.sample(gen))[None, :])
-        labels = sample_categorical_from_log(gen, log_p_outer)
+        logp = [None] * len(sh.parts)
+        z = [None] * len(sh.parts)
+        outer_counts = None
+        for sub in range(max(maxsubiter, 1)):
+            first = sub == 0
+
+            def tree(zj, wj, part):
+                out = (torch.sum(wj, 0),) if first else ()
+                if maxsubiter:
+                    out += self._gibbs_inner_stats(zj, wj, part)
+                return out
+            if maxsubiter:
+                params = vmap(lambda q: fam.sample_params(gen, q),
+                              randomness='different')(comps)
+                probs = vmap(lambda g: g.sample(gen),
+                             randomness='different')(gatings)
+                for j, part in enumerate(sh.parts):
+                    if sh.rows(j):
+                        logp[j] = self._gibbs_inner_logp(
+                            *_on((params, probs), part[0].device), part)
+                        z[j] = sample_categorical_from_log(lgens[j], logp[j])
+                lead_draw(lambda n: torch.rand((mm, n, kk), generator=gen,
+                                               dtype=sh.dtype,
+                                               device=gen.device))
+            red = sh.reduce_each(
+                lambda j: tree(z[j], outer_w[j], sh.parts[j]),
+                lambda: tree(zero_z, zero_w, zero), 'sweep')
+            if first:
+                outer_counts, red = red[0], red[1:]
+            if maxsubiter:
+                comps, gatings = self._inner_posteriors(*red)
+        outer_gating = self.outer_gating_prior.update(outer_counts)
+        log_w = _log_clip(outer_gating.sample(gen))
+        new = []
+        for j, part in enumerate(sh.parts):
+            if sh.rows(j):
+                log_p_outer = (torch.logsumexp(logp[j], -1).T
+                               + log_w.to(part[0].device)[None, :])
+                new.append(sample_categorical_from_log(
+                    lgens[j], log_p_outer).to(torch.int32))
+            else:
+                new.append(labels[j])
+        lead_draw(lambda n: torch.rand((n, mm), generator=gen,
+                                       dtype=sh.dtype, device=gen.device))
         return HMixGibbsState(outer_gating=outer_gating,
                               inner_gating=gatings, components=comps,
-                              labels=labels.to(torch.int32))
+                              labels=state.labels._replace(
+                                  shards=tuple(new)))
 
     def fit_gibbs(self, data, key=None, maxiter=100, maxsubiter=2,
-                  init_labels='prior'):
+                  init_labels='prior', mesh=None):
         """Dense nested blocked Gibbs. `init_labels`: 'prior' (outer
         labels drawn from an outer-gating prior sample) or 'random'.
-        Returns the final HMixGibbsState."""
-        data = self._tx_data(data)
-        x0 = data[0]
-        n, dev = x0.shape[0], x0.device
-        gen = _as_generator(key, dev)
-        if init_labels == 'random':
-            labels = torch.randint(0, self.cluster_size, (n,), generator=gen,
-                                   device=dev)
-        else:   # 'prior'
-            probs = torch.clamp(self.outer_gating_prior.sample(gen),
-                                min=1e-37)
-            labels = torch.multinomial(probs, n, replacement=True,
-                                       generator=gen)
+        Returns the final HMixGibbsState. With `mesh` (see fit_vi) the
+        outer labels stay on their shards (a parallel.mesh.Sharded), a
+        sweep makes one reduction an inner round, and each shard draws
+        its labels from its own generator, data shard 0's the fit's
+        (models.mixture `_label_generators`), so a one-position mesh is
+        the unsharded chain draw for draw."""
+        from mimo_tpu_torch.parallel.mesh import Sharded
+        if maxsubiter < 1:
+            raise ValueError('fit_gibbs draws the outer labels from the '
+                             'last inner round: maxsubiter >= 1')
+        sh = _Shards(mesh, self._tx_data(data), 'torch')
+        gen = _as_generator(key, sh.device)
+        lead_draw = shard0_draws(sh)
+        labels = start_labels(sh, gen, init_labels, self.cluster_size,
+                              self.outer_gating_prior, lead_draw)
         state = HMixGibbsState(
             outer_gating=self.outer_gating_prior,
             inner_gating=self.inner_gating_prior,
             components=self.components_prior,
-            labels=labels.to(torch.int32))
+            labels=Sharded(tuple(labels), sh.positions, sh.n))
+        lgens = _label_generators(gen, sh)
         for _ in range(maxiter):
-            state = self._gibbs_sweep(state, data, gen, maxsubiter)
+            state = self._gibbs_sweep(state, sh, gen, lgens, lead_draw,
+                                      maxsubiter)
+        if mesh is None:
+            state = state._replace(labels=state.labels.shards[0])
         return finite_report(state, 'fit_gibbs')
 
     # -- prediction -----------------------------------------------------------

@@ -37,10 +37,15 @@ sharded sweep is the unsharded sweep up to the order of its sums. Without
 the unsharded fit is the one-shard case of the same code (`_Shards`).
 Each shard draws only its own rows of the random start, keyed by the
 global point index (`_random_resp`, in fixed chunks of points), so the
-sharded start is the unsharded one; the starts' statistics take one reduction each ('start'
-in the mesh counters); Gibbs labels stay on their shards
-(parallel.mesh.Sharded); serving runs once per shard with no collective;
-SVI draws a stratified minibatch a shard.
+sharded start is the unsharded one; the starts' statistics take one
+reduction each ('start' in the mesh counters); Gibbs labels stay on their
+shards (parallel.mesh.Sharded); serving runs once per shard with no
+collective; SVI draws a stratified minibatch a shard. The dense engines
+(`fit_vi`, `fit_map`, `fit_em`, `fit_gibbs`) take `mesh=` too, and run
+unsharded as its one-position case: each shard's (n_j, K)
+responsibilities or labels stay on its device, and a sweep makes one
+reduction of their statistics, counts and data term. The stream engines
+take `mesh=` with a reader of this process's rows (see Out-of-core).
 
 Out-of-core. `fit_svi_stream` takes host minibatches and
 `fit_{vi,map,em}_stream_full` a dataset read a block at a time each sweep
@@ -49,7 +54,11 @@ thread (io.Prefetcher) reads ahead; on the card the rows go through
 pinned, double-buffered copies on a copy stream (io.stage) and every
 block of a full-data sweep is one launch of kernel B1 on a fixed device
 buffer with the block's row count at run time. The statistics add across
-blocks, so a streamed sweep is the in-memory fused sweep.
+blocks, so a streamed sweep is the in-memory fused sweep. Over a mesh
+every process streams its own rows, each block's rows split over its
+positions, B1 runs once per non-empty shard on a column view of the
+staged buffer, and a sweep (or an SVI step) makes one reduction, however
+many blocks it reads; unsharded, a sweep is the one-position case.
 
 Backends. Each fused engine and `log_predictive` takes `backend`:
   'auto'   — the CUDA kernel when the data lies on a CUDA device, the plain
@@ -209,10 +218,14 @@ def _tree_where(mask, a, b):
 
 def stack_trees(trees):
     """A list of C trees of one structure -> one tree with C-stacked
-    leaves."""
+    leaves (a parallel.mesh.Sharded's shards stacked shard by shard)."""
+    from mimo_tpu_torch.parallel.mesh import Sharded
     first = trees[0]
     if isinstance(first, torch.Tensor):
         return torch.stack(trees)
+    if isinstance(first, Sharded):
+        return first._replace(shards=tuple(
+            torch.stack(s) for s in zip(*(t.shards for t in trees))))
     items = [stack_trees([t[i] for t in trees]) for i in range(len(first))]
     return type(first)(*items) if hasattr(first, '_fields') else tuple(items)
 
@@ -308,12 +321,6 @@ class BayesianMixture:
                                            self.components_prior))
         kl_gating = torch.sum(state.gating.kl_divergence(self.gating_prior))
         return data_term + label_term - kl_comp - kl_gating
-
-    def _vi_sweep(self, state_resp, data, point_weights=None):
-        _, resp = state_resp
-        state = self._mf_update(data, resp, point_weights)
-        resp = self.expected_responsibilities(state, data)
-        return (state, resp), self.elbo(state, data, resp)
 
     def _estep_spec(self):
         """EStepSpec for the fused engines; None when the family has none.
@@ -455,41 +462,35 @@ class BayesianMixture:
                                else labels)),
             'fit_gibbs_fused')
 
-    def _anchor_resp(self, x0, gen):
-        """The ML engines' random-anchor init (k-means-style 'random'
-        seeding): soft assignment of each point by its distance to K
-        random data points (`anchor_resp`). A flat random-resp init
-        collapses tied / shared-scale EM onto the symmetric fixed
-        point."""
-        return anchor_resp(
-            x0, x0[_anchor_indices(gen, x0.shape[0], self.size, x0.device)])
-
     def _ml_log_pi(self, counts, n):
         # clip: an empty component (count 0 after f32 underflow) must not
         # poison the fit with log(0) = -inf
         return torch.log(torch.clamp(counts, min=1e-37) / n)
 
-    def fit_em(self, data, key=None, maxiter=250):
+    def fit_em(self, data, key=None, maxiter=250, mesh=None):
         """Likelihood-only EM: plug-in E-step and the closed-form weighted
         ML M-step, no priors, from the random-anchor init. Returns
         (EMState(params, log_pi), loglik trace). Needs the family's
-        ml_update (the hierarchical families have none)."""
+        ml_update (the hierarchical families have none). With `mesh` (see
+        fit_vi) the anchors and their scale come from the global N (three
+        reductions, `_Shards.anchor_stats`) and a sweep makes one
+        reduction of its statistics, counts and log-likelihood."""
         if self.family.ml_update is None:
             raise NotImplementedError(
                 'this family has no maximum-likelihood update; use fit_map')
-        data = _as_tuple(data)
-        x0 = data[0]
-        n = x0.shape[0]
-        resp = self._anchor_resp(x0, _as_generator(key, x0.device))
-        state, trace = None, []
-        for _ in range(maxiter):
-            params = self.family.ml_update(self.family.suff_stats(data, resp))
-            log_pi = self._ml_log_pi(torch.sum(resp, 0), n)
-            resp, lognorm = normalize_log(
-                self.log_complete_likelihood(params, log_pi, data))
-            state = EMState(params, log_pi)
-            trace.append(torch.sum(lognorm))
-        return finite_report((state, _stack(trace, x0)), 'fit_em')
+        sh = _Shards(mesh, data, 'torch')
+        idx = _anchor_indices(_as_generator(key, sh.device), sh.n,
+                              self.size, sh.device)
+        stats, counts = sh.anchor_stats(self.family.suff_stats, idx)
+
+        def plugin(stats, counts):
+            params = self.family.ml_update(stats)
+            log_pi = self._ml_log_pi(counts, sh.n)
+            return params, log_pi, EMState(params, log_pi)
+
+        state, _, trace = self._plugin_sweeps(sh, stats, counts, maxiter,
+                                              plugin)
+        return finite_report((state, trace), 'fit_em')
 
     def _plugin_spec(self, alt_engine):
         """The plug-in (EM / MAP) E-step's spec: the family's, with the
@@ -568,28 +569,71 @@ class BayesianMixture:
         return finite_report((state, _stack(trace, data)), 'fit_map_fused')
 
     def fit_vi(self, data, key=None, maxiter=250, tol=None, init_state=None,
-               randomize=True, point_weights=None):
+               randomize=True, point_weights=None, mesh=None):
         """Dense mean-field coordinate ascent. Returns (MFState, vlb
         trace). `randomize=True` starts from random responsibilities;
         pass `init_state` (e.g. from Gibbs) with randomize=False to warm
         start. `tol` stops once |dELBO| < tol (the trace is constant-
         extended to maxiter). `point_weights` (N,) scales each point's
-        statistics."""
-        data = _as_tuple(data)
-        x0 = data[0]
+        statistics.
+
+        With `mesh` (a one-row mesh; the dense engines over a mesh): each
+        shard's (n_j, K) responsibilities stay on its device and a sweep
+        makes one reduction of their statistics, counts and ELBO point
+        sums; the start makes two (the random responsibilities'
+        statistics, then those of the start state's). The random start is
+        keyed by the point index, so the fit is the unsharded one up to
+        the order of its sums. Without `mesh` the same code runs over the
+        one position of the data's device."""
+        sh = _Shards(mesh, data, 'torch')
+        pws = _weight_parts(sh.mesh, point_weights, len(sh.parts))
+        fam = self.family
+
+        def weighted(part, pw, resp):
+            r = resp if pw is None else resp * pw[:, None]
+            return fam.suff_stats(part, r), torch.sum(r, 0)
+
+        def sweep_tree(part, pw, st):
+            st = _on(st, part[0].device)
+            ell = fam.ell(st.components, part)
+            resp, _ = normalize_log(ell + st.gating.expected_log_pi()[None, :])
+            counts = () if pw is None else (torch.sum(resp, 0),)
+            return weighted(part, pw, resp) + counts + (
+                torch.sum(resp * ell),
+                torch.sum(entropy_categorical(resp, dim=-1)))
+
+        def reduce_sweep(st, kind):
+            return sh.reduce_each(
+                lambda j: sweep_tree(sh.parts[j], pws[j], st),
+                lambda: sweep_tree(sh.zero_part(), _zero_weight(pws), st),
+                kind)
+
         if randomize or init_state is None:
-            resp = _random_resp(_as_generator(key, x0.device), x0.shape[0],
-                                self.size, x0.dtype, x0.device)
+            seed = _resp_seed(_as_generator(key, sh.device))
+            resp_of = (lambda j: _random_resp(
+                seed, sh.rows(j), self.size, sh.dtype,
+                sh.parts[j][0].device, sh.bounds[j][0]))
         else:
-            resp = self.expected_responsibilities(init_state, data)
-        state = self._mf_update(data, resp, point_weights)
+            resp_of = (lambda j: self.expected_responsibilities(
+                _on(init_state, sh.parts[j][0].device), sh.parts[j]))
+        state = self._posterior(*sh.reduce_each(
+            lambda j: weighted(sh.parts[j], pws[j], resp_of(j)),
+            lambda: weighted(sh.zero_part(), _zero_weight(pws),
+                             torch.zeros((1, self.size), dtype=sh.dtype,
+                                         device=sh.device)), 'start'))
 
         def step(carry, _):
-            return self._vi_sweep(carry, data, point_weights)
+            state = self._posterior(*carry[1][:2])
+            out = reduce_sweep(state, 'sweep')
+            counts = out[1] if pws[0] is None else out[2]
+            return (state, out), (
+                out[-2] + (state.gating.label_elbo_terms(counts[None, :])
+                           + out[-1])
+                - torch.sum(fam.kl(state.components, self.components_prior))
+                - torch.sum(state.gating.kl_divergence(self.gating_prior)))
 
         (state, _), vlb = _elbo_loop(
-            step, (state, self.expected_responsibilities(state, data)),
-            maxiter, tol)
+            step, (state, reduce_sweep(state, 'start')), maxiter, tol)
         return finite_report((state, vlb), 'fit_vi')
 
     def fit_svi(self, data, key=None, maxiter=500, step_size=1e-2,
@@ -712,7 +756,7 @@ class BayesianMixture:
     def fit_svi_stream(self, next_batch, total_size, key=None, maxiter=500,
                        step_size=1e-2, batch_size=128, init_state=None,
                        forgetting=None, delay=1.0, group=16, prefetch=2,
-                       transfer_dtype=None):
+                       transfer_dtype=None, mesh=None):
         """Out-of-core SVI: the host supplies minibatches (e.g. from an
         io.MmapDataset over a file larger than host or device memory) and
         natural-gradient steps run one per batch on the model's device.
@@ -736,7 +780,24 @@ class BayesianMixture:
         to the state's dtype. The JAX docstring's premise that the E-step
         rounds its operands to bf16 anyway does not hold here: the steps
         run in the state's dtype, so the cast is error the fit would not
-        otherwise make. Off by default."""
+        otherwise make. Off by default.
+
+        With `mesh` (a one-row mesh, see the module docstring) every
+        process streams its own rows: `next_batch(i)` returns this
+        process's rows of global batch i, which split contiguously over
+        its positions (parallel.mesh.shard_bounds); `batch_size` and
+        `total_size` stay global. A group is staged once in the kernels'
+        layout (on the card: one pinned fill and one copy a device), and
+        each step's minibatch statistics go through the fused E-step, B1
+        once per non-empty shard on the card, with one reduction a step;
+        the blend is K-sized. The random start over batch 0 is keyed by
+        the global point index, as fit_svi's; the ragged last group is not
+        padded."""
+        if mesh is not None:
+            return self._fit_svi_stream_mesh(
+                next_batch, total_size, key, maxiter, step_size, batch_size,
+                init_state, forgetting, delay, group, prefetch,
+                transfer_dtype, mesh)
         from mimo_tpu_torch.io.stage import Stager, host_arrays
         from mimo_tpu_torch.io.stream import Prefetcher
         dev, dtype, staged, _ = self._stream_setup('auto', transfer_dtype)
@@ -759,12 +820,7 @@ class BayesianMixture:
             g = min(group, maxiter - g0)
             bs = [host_arrays(next_batch(g0 + j)) for j in range(g)]
             bs = bs + [bs[-1]] * (group - g)
-            if forgetting is None:
-                rhos = np.full(group, step_size, np.float32)
-            else:
-                t = np.arange(g0, g0 + group, dtype=np.float32)
-                rhos = (step_size * (t + 1.0 + delay) ** -forgetting
-                        ).astype(np.float32)
+            rhos = _svi_rhos(g0, group, step_size, forgetting, delay)
             rhos[g:] = 0.0
             if stager is not None:
                 return stager.fill(bs), rhos
@@ -792,52 +848,108 @@ class BayesianMixture:
                 raise
         return finite_report(state, 'fit_svi_stream')
 
-    @staticmethod
-    def _stream_pass(read_block, n_blocks, prefetch, stager, transfer_dtype,
-                     dtype, dev, need_data, use_kernel):
-        """Yield each block of one pass over the dataset as (data, xts, n),
-        read `prefetch` blocks ahead on the reader thread: `data` the
-        block's tensors in `dtype` (made from the staged buffer on the card
-        when `need_data`), `xts` the per-input (d_i, capacity) float32 row
-        views of kernel B1's layout (the staged buffer on the card, or made
-        from `data` when the kernel runs on unstaged blocks)."""
+    def _fit_svi_stream_mesh(self, next_batch, total_size, key, maxiter,
+                             step_size, batch_size, init_state, forgetting,
+                             delay, group, prefetch, transfer_dtype, mesh):
+        """fit_svi_stream over a mesh (see fit_svi_stream)."""
         from mimo_tpu_torch.io.stage import host_arrays
         from mimo_tpu_torch.io.stream import Prefetcher
+        from mimo_tpu_torch.parallel.mesh import shard_bounds
+        spec = self._estep_spec()
+        if spec is None:
+            raise NotImplementedError(
+                'fit_svi_stream(mesh=) takes the minibatch statistics '
+                'through the fused E-step; this family has no spec')
+        dev, dtype, _, use_kernel = self._stream_setup('auto',
+                                                       transfer_dtype)
+        mesh = mesh.one_row()
+        devices = mesh.devices
+        npos, (_, rank) = len(devices), _row_share(mesh)
+        gen = _as_generator(key, dev)
+        scale = batch_size / total_size
+        group = max(1, min(group, maxiter))
+        estep = _BlockEStep(spec, use_kernel, 131072, dtype, mesh)
+        if init_state is None:
+            batch0 = host_arrays(next_batch(0))
+            nb0 = batch0[0].shape[0]
+            seed = _resp_seed(gen)
+            trees = []
+            for j, d in enumerate(devices):
+                lo, hi = shard_bounds(nb0, npos, j)
+                part = _to_device(tuple(a[lo:hi] for a in batch0), None,
+                                  dtype, d)
+                trees.append(_resp_stats(
+                    self.family.suff_stats, part, _random_resp(
+                        seed, hi - lo, self.size, dtype, d,
+                        rank * nb0 + lo)) if hi > lo else None)
+            state = self._posterior(*_reduce_trees(mesh, trees, lambda: (
+                _resp_stats(self.family.suff_stats, tuple(
+                    torch.zeros((1, a.shape[1]), dtype=dtype, device=dev)
+                    for a in batch0),
+                    torch.zeros((1, self.size), dtype=dtype, device=dev)))))
+        else:
+            state = init_state
+        stagers = _stagers(devices, transfer_dtype or torch.float32)
 
-        def produce(i):
-            arrays = host_arrays(read_block(i))
-            if stager is not None:
-                return stager.fill([arrays])
-            return _to_device(arrays, transfer_dtype, dtype, dev)
+        def make_group(gi):
+            """Read one group of this process's batches and stage them
+            (reader thread): each device's rows, step after step."""
+            g0 = gi * group
+            g = min(group, maxiter - g0)
+            bs = [host_arrays(next_batch(g0 + j)) for j in range(g)]
+            bounds = [[shard_bounds(b[0].shape[0], npos, j)
+                       for j in range(npos)] for b in bs]
+            rhos = _svi_rhos(g0, g, step_size, forgetting, delay)
+            if stagers is None:
+                return bounds, [_to_device(b, transfer_dtype, dtype,
+                                           devices[0]) for b in bs], rhos
+            return bounds, {d: _fill(st, [(b, [bd[j] for j in js])
+                                          for b, bd in zip(bs, bounds)])
+                            for d, (st, js) in stagers.items()}, rhos
 
-        with Prefetcher(produce, n_blocks, depth=prefetch) as pf:
+        with Prefetcher(make_group, -(-maxiter // group),
+                        depth=prefetch) as pf:
             try:
-                for item in pf:
-                    if stager is None:
-                        yield (item, kernel_xts(item) if use_kernel else None,
-                               item[0].shape[0])
-                        continue
-                    slot, xts, nb = stager.put(item)
-                    data = (tuple(x[:, :nb].T.to(dtype) for x in xts)
-                            if need_data else None)
-                    yield data, xts, nb
-                    stager.release(slot)
+                for bounds, item, rhos in pf:
+                    steps, slots = _group_shards(bounds, item, stagers,
+                                                 devices, dtype,
+                                                 not use_kernel)
+                    rhos = torch.from_numpy(rhos)
+                    for shards, rho in zip(steps, rhos):
+                        estep.begin(state.components,
+                                    state.gating.expected_log_pi())
+                        estep.add(shards)
+                        res = estep.end()
+                        state = MFState(
+                            components=self.family.svi_blend(
+                                state.components, self.components_prior,
+                                res.stats, scale, rho),
+                            gating=self.gating_prior.svi_blend(
+                                state.gating, res.counts, scale, rho))
+                    for st, slot in slots:
+                        st.release(slot)
             except BaseException:
-                if stager is not None:
-                    stager.close()
+                for st, _ in (stagers or {}).values():
+                    st.close()
                 raise
+        return finite_report(state, 'fit_svi_stream')
 
     def _fit_epoch_stream(self, read_block, n_blocks, kind, key, maxiter,
                           init_state, prefetch, backend, block_size,
-                          transfer_dtype):
+                          transfer_dtype, mesh):
         """The engine of fit_{vi,map,em}_stream_full: each sweep is one
         pass over the dataset in host blocks, each block through the fused
         E-step (kernel B1 on the card, the blockwise twin on the CPU) with
         the sweep's theta formed once; the (K, m) statistics and the lse
         add across blocks on the device in the state's dtype, with no host
         read a block, so the streamed sweep is the in-memory fused sweep.
-        The trace stays on the device until the end."""
-        from mimo_tpu_torch.io.stage import Stager, host_arrays
+        Without `mesh` the sweep runs over the one position of the model's
+        device; with one, each block's rows split over this process's
+        positions and each shard's sums add across the blocks on its
+        device. Either way a sweep makes the mesh's one reduction at its
+        end. The trace stays on the device until the end."""
+        from mimo_tpu_torch.io.stage import host_arrays
+        from mimo_tpu_torch.parallel.mesh import local_mesh
         spec = self._estep_spec()
         if spec is None:
             raise NotImplementedError('no fused E-step spec for this family')
@@ -848,54 +960,77 @@ class BayesianMixture:
                 'this family has no maximum-likelihood update')
         if n_blocks < 1:
             raise ValueError(f'n_blocks={n_blocks}: nothing to stream')
-        dev, dtype, staged, use_kernel = self._stream_setup(backend,
-                                                            transfer_dtype)
+        if kind == 'em' and init_state is None and mesh is not None:
+            raise NotImplementedError(
+                'em anchor init is process-local; pass init_state with '
+                'mesh= (e.g. from a probe-subset fit)')
+        dev, dtype, _, use_kernel = self._stream_setup(backend,
+                                                       transfer_dtype)
+        sharded = mesh is not None
+        mesh = mesh.one_row() if sharded else local_mesh(dev)
+        world, rank = _row_share(mesh)
         gen = _as_generator(key, dev)
         estep = _BlockEStep(spec if kind == 'vi' else spec._replace(
-            theta=spec.theta_plugin), use_kernel, block_size, dtype)
-        stager = (Stager(dev, transfer_dtype or torch.float32)
-                  if staged else None)
+            theta=spec.theta_plugin), use_kernel, block_size, dtype, mesh)
+        stagers = _stagers(mesh.devices, transfer_dtype or torch.float32)
 
-        def blocks(need_data=True, kernel=False):
-            return self._stream_pass(read_block, n_blocks, prefetch, stager,
-                                     transfer_dtype, dtype, dev, need_data,
-                                     kernel)
+        def blocks(need_data=True):
+            return _stream_pass(read_block, n_blocks, prefetch, stagers,
+                                transfer_dtype, dtype, mesh.devices,
+                                need_data)
 
         def init_pass(resp_of):
-            """Statistics and counts of one pass, each block weighted by
-            resp_of(block data) -> (nb, K)."""
-            stats = counts = None
-            total = 0
-            for data, _, nb in blocks():
-                resp = resp_of(data)
-                st, c = self.family.suff_stats(data, resp), torch.sum(resp, 0)
-                stats = st if stats is None else _tree_map2(torch.add,
-                                                            stats, st)
-                counts = c if counts is None else counts + c
-                total += nb
-            return stats, counts, total
+            """Statistics and counts of one pass, each non-empty shard of
+            each block weighted by resp_of(its data, its rows, the global
+            index of its first row), added across the blocks on its
+            device, then one reduction; and this process's row count."""
+            trees, total, off = [None] * len(mesh.devices), 0, 0
+            for blk in blocks():
+                for j, ((data, _, n), (lo, _)) in enumerate(
+                        zip(blk.shards, blk.bounds)):
+                    if n:
+                        t = _resp_stats(self.family.suff_stats, data,
+                                        resp_of(data, n,
+                                                off + rank * blk.n + lo))
+                        trees[j] = (t if trees[j] is None
+                                    else _tree_map2(torch.add, trees[j], t))
+                total += blk.n
+                off += world * blk.n
+            return _reduce_trees(mesh, trees, lambda: _resp_stats(
+                self.family.suff_stats,
+                tuple(torch.zeros((1, w), dtype=dtype, device=dev)
+                      for w in blk.widths),
+                torch.zeros((1, self.size), dtype=dtype, device=dev))), total
 
         if init_state is not None:
             state = init_state
-        elif kind in ('vi', 'map'):
+        elif kind in ('vi', 'map') and not sharded:
             # one generator, drawn block by block: the layout differs from
             # the in-memory random start (pass init_state for equality)
-            stats, counts, _ = init_pass(lambda b: _random_resp(
-                gen, b[0].shape[0], self.size, dtype, dev))
+            (stats, counts), _ = init_pass(lambda part, n, _: _random_resp(
+                gen, n, self.size, dtype, dev))
+            state = self._posterior(stats, counts)
+        elif kind in ('vi', 'map'):
+            # keyed by the global point index: the start over the mesh's
+            # positions is the start over one position
+            seed = _resp_seed(gen)
+            (stats, counts), _ = init_pass(
+                lambda part, n, start: _random_resp(
+                    seed, n, self.size, dtype, part[0].device, start))
             state = self._posterior(stats, counts)
         else:   # em: anchors and their scale from block 0
             x0 = _to_device(host_arrays(read_block(0)), None, dtype, dev)[0]
             anchors = x0[_anchor_indices(gen, x0.shape[0], self.size, dev)]
             scale2 = anchor_scale(x0)
-            stats, counts, total = init_pass(
-                lambda b: anchor_resp(b[0], anchors, scale2))
+            (stats, counts), total = init_pass(
+                lambda part, n, _: anchor_resp(part[0], anchors, scale2))
             state = EMState(self.family.ml_update(stats),
                             self._ml_log_pi(counts, total))
 
         def sweep(theta_src, log_pi):
             estep.begin(theta_src, log_pi)
-            for data, xts, nb in blocks(not use_kernel, use_kernel):
-                estep.add(data, xts, nb)
+            for blk in blocks(not use_kernel):
+                estep.add(blk.shards)
             return estep.end()
 
         trace = []
@@ -927,7 +1062,8 @@ class BayesianMixture:
 
     def fit_vi_stream_full(self, read_block, n_blocks, key=None, maxiter=50,
                            init_state=None, prefetch=2, backend='auto',
-                           block_size=131072, transfer_dtype=None):
+                           block_size=131072, transfer_dtype=None,
+                           mesh=None):
         """Out-of-core full-data VI: fit_vi_fused's sweep with the dataset
         read a block at a time each sweep instead of held in device
         memory, so N is bounded by disk (the card holds one block).
@@ -946,29 +1082,46 @@ class BayesianMixture:
         upcasts them on the device: on the card to B1's float32, on the
         CPU to the model's dtype; B1 keeps float32 accuracy through its
         TF32 splits, so bf16 on the wire is error B1 would not otherwise
-        make. Returns (MFState, ELBO trace)."""
+        make. Returns (MFState, ELBO trace).
+
+        With `mesh` (a one-row mesh, see the module docstring) every
+        process streams its own rows: `read_block(i)` returns this
+        process's rows of global block i, which split contiguously over
+        its positions (parallel.mesh.shard_bounds; a ragged block gives
+        ragged shards). On the card each device's rows are staged once a
+        block and B1 runs once per non-empty shard on a column view of
+        the staged buffer; each shard's partials add across the blocks of
+        a sweep on its device and the sweep makes one reduction of
+        K m8 + 1 floats, whatever the number of blocks. The random start
+        is keyed by the global point index (across processes every process
+        is taken to read as many rows of each block as this one), so it is
+        the start over one position."""
         return self._fit_epoch_stream(read_block, n_blocks, 'vi', key,
                                       maxiter, init_state, prefetch, backend,
-                                      block_size, transfer_dtype)
+                                      block_size, transfer_dtype, mesh)
 
     def fit_map_stream_full(self, read_block, n_blocks, key=None, maxiter=50,
                             init_state=None, prefetch=2, backend='auto',
-                            block_size=131072, transfer_dtype=None):
+                            block_size=131072, transfer_dtype=None,
+                            mesh=None):
         """Out-of-core full-data MAP-EM (fit_map_fused streamed; see
         fit_vi_stream_full). Returns (MFState, loglik trace)."""
         return self._fit_epoch_stream(read_block, n_blocks, 'map', key,
                                       maxiter, init_state, prefetch, backend,
-                                      block_size, transfer_dtype)
+                                      block_size, transfer_dtype, mesh)
 
     def fit_em_stream_full(self, read_block, n_blocks, key=None, maxiter=50,
                            init_state=None, prefetch=2, backend='auto',
-                           block_size=131072, transfer_dtype=None):
+                           block_size=131072, transfer_dtype=None,
+                           mesh=None):
         """Out-of-core full-data likelihood EM (fit_em_fused streamed; the
         anchor start draws the K anchors, and the distance scale, from
-        block 0). Returns (EMState, loglik trace)."""
+        block 0). With `mesh` the anchor start raises, as the JAX
+        package's does: pass `init_state`. Returns (EMState, loglik
+        trace)."""
         return self._fit_epoch_stream(read_block, n_blocks, 'em', key,
                                       maxiter, init_state, prefetch, backend,
-                                      block_size, transfer_dtype)
+                                      block_size, transfer_dtype, mesh)
 
     # -- blocked Gibbs -------------------------------------------------------
 
@@ -990,55 +1143,54 @@ class BayesianMixture:
         Returns (GibbsState, the data log-likelihood under the sweep's
         sampled params). For C chains (the state's leaves C-stacked,
         labels (C, N)) the statistics of every chain come from one call
-        over the flat (N, C K) one-hot weights (a vmapped suff_stats would
-        run its products as a batched matmul), the draws run under
-        torch.func.vmap with randomness='different' from `gen`, and the
-        log-likelihoods are (C,)."""
+        over the flat (N, C K) one-hot weights (`_gibbs_label_stats`), the
+        draws run under torch.func.vmap with randomness='different' from
+        `gen`, and the log-likelihoods are (C,)."""
         chains = state.labels.dim() == 2
-        n, k = state.labels.shape[-1], self.size
-        resp = one_hot(state.labels.reshape(-1, n).T, k,
-                       dtype=data[0].dtype).reshape(n, -1)
-        if point_weights is not None:
-            resp = resp * point_weights[:, None]
-        stats, counts = self.family.suff_stats(data, resp), torch.sum(resp, 0)
-        if chains:
-            lead = (state.labels.shape[0], k)
-            stats = _tree_map(lambda a: a.reshape(lead + a.shape[1:]), stats)
-            counts = counts.reshape(lead)
-        over = _over_chains(chains)
-        comp_post, gating_post, params, log_pi = over(
-            lambda s, c: self._gibbs_draw(gen, s, c),
-            randomness='different')(stats, counts)
-        log_p = over(lambda pr, lp: self.log_complete_likelihood(
-            pr, lp, data))(params, log_pi)
+        comp_post, gating_post, params, log_pi = self._gibbs_draws(
+            gen, *self._gibbs_label_stats(state.labels, data, point_weights),
+            chains)
+        log_p = self._gibbs_log_p(params, log_pi, data, chains)
         labels = sample_categorical_from_log(gen, log_p).to(torch.int32)
         new = GibbsState(components=comp_post, gating=gating_post,
                          params=params, log_pi=log_pi, labels=labels)
         return new, torch.sum(torch.logsumexp(log_p, -1), -1)
 
-    def _gibbs_start(self, data, gen, init_labels):
-        """The dense Gibbs chain's start: the priors, their mode's params,
-        uniform weights, and labels drawn from a gating-prior sample
-        ('prior') or uniformly ('random')."""
-        x0 = data[0]
-        n, dtype, dev = x0.shape[0], x0.dtype, x0.device
-        if init_labels == 'random':
-            labels = torch.randint(0, self.size, (n,), generator=gen,
-                                   device=dev)
-        else:   # 'prior'
-            probs = torch.clamp(self.gating_prior.sample(gen), min=1e-37)
-            labels = torch.multinomial(probs, n, replacement=True,
-                                       generator=gen)
-        return GibbsState(
-            components=self.components_prior, gating=self.gating_prior,
-            params=self.family.mode_params(self.components_prior),
-            log_pi=torch.log(torch.full((self.size,), 1.0 / self.size,
-                                        dtype=dtype, device=dev)),
-            labels=labels.to(torch.int32))
+    def _gibbs_label_stats(self, labels, data, point_weights=None):
+        """(stats, counts) of the one-hot labels (N,), or of the chains'
+        (C, N) from one call over the flat (N, C K) one-hot weights (a
+        vmapped suff_stats would run its products as a batched matmul),
+        reshaped to (C, K, ...)."""
+        chains = labels.dim() == 2
+        n, k = labels.shape[-1], self.size
+        resp = one_hot(labels.reshape(-1, n).T, k,
+                       dtype=data[0].dtype).reshape(n, -1)
+        if point_weights is not None:
+            resp = resp * point_weights[:, None]
+        stats, counts = self.family.suff_stats(data, resp), torch.sum(resp, 0)
+        if chains:
+            lead = (labels.shape[0], k)
+            stats = _tree_map(lambda a: a.reshape(lead + a.shape[1:]), stats)
+            counts = counts.reshape(lead)
+        return stats, counts
+
+    def _gibbs_draws(self, gen, stats, counts, chains):
+        """The sweep's (component posterior, gating posterior, params, log
+        weights) from `gen`, under vmap over the chains' axis with
+        randomness='different'."""
+        return _over_chains(chains)(
+            lambda s, c: self._gibbs_draw(gen, s, c),
+            randomness='different')(stats, counts)
+
+    def _gibbs_log_p(self, params, log_pi, data, chains):
+        """The plug-in log p(x, z=k) -> (N, K), or the chains' (C, N, K)."""
+        return _over_chains(chains)(
+            lambda pr, lp: self.log_complete_likelihood(pr, lp, data))(
+                params, log_pi)
 
     def fit_gibbs(self, data, key=None, maxiter=100, init_labels='prior',
                   point_weights=None, init_state=None, track_loglik=False,
-                  chains=False):
+                  chains=False, mesh=None):
         """Dense blocked Gibbs sampling. Returns the final GibbsState, or
         (GibbsState, loglik trace) with track_loglik=True: the per-sweep
         data log-likelihood under the sampled params. `init_labels`:
@@ -1047,46 +1199,131 @@ class BayesianMixture:
         With `chains`, `key` holds C chain keys: each chain starts from
         its own generator and the sweeps run the C chains as one program
         (the sweep smc_gibbs runs), their draws from `batch_generator`; a
-        C-stacked `init_state` and GibbsState, (C, maxiter) traces."""
-        data = _as_tuple(data)
-        x0 = data[0]
-        gens = _generators(key, x0.device, chains)
+        C-stacked `init_state` and GibbsState, (C, maxiter) traces.
+
+        With `mesh` (see fit_vi) the labels stay on their shards (a
+        parallel.mesh.Sharded of (n_j,) or (C, n_j) tensors) and a sweep
+        makes one reduction of their statistics, counts and
+        log-likelihood. The posterior, params and weights are drawn from
+        the fit's generator (the chains' batch generator), as every
+        process does alike; each shard draws its labels from its own
+        generator (`_label_generators`): data shard 0's is the fit's, so
+        a one-position mesh is the unsharded chain draw for draw. Without
+        `mesh` the same code runs over the one position of the data's
+        device."""
+        from mimo_tpu_torch.parallel.mesh import Sharded
+        sh = _Shards(mesh, data, 'torch')
+        pws = _weight_parts(sh.mesh, point_weights, len(sh.parts))
+        gens = _generators(key, sh.device, chains)
+        lead = (len(gens),) if chains else ()
+        lead_draw = shard0_draws(sh)
+
         if init_state is not None:
+            labels = _label_parts(sh.mesh, init_state.labels)
             state = init_state
         else:
-            starts = [self._gibbs_start(data, g, init_labels) for g in gens]
-            state = stack_trees(starts) if chains else starts[0]
+            per = [start_labels(sh, g, init_labels, self.size,
+                                self.gating_prior, lead_draw) for g in gens]
+            labels = [torch.stack([p[j] for p in per]) if chains
+                      else per[0][j] for j in range(len(sh.parts))]
+            cp, gp = self.components_prior, self.gating_prior
+            if chains:
+                cp, gp = _stack_lead(cp, lead[0]), _stack_lead(gp, lead[0])
+            state = GibbsState(
+                components=cp, gating=gp,
+                params=_over_chains(chains)(self.family.mode_params)(cp),
+                log_pi=torch.log(torch.full(lead + (self.size,),
+                                            1.0 / self.size, dtype=sh.dtype,
+                                            device=sh.device)),
+                labels=None)
         gen = batch_generator(gens) if chains else gens[0]
-        trace = []
+        lgens = _label_generators(gen, sh)
+
+        def tree(j, extra=()):
+            return self._gibbs_label_stats(labels[j], sh.parts[j],
+                                           pws[j]) + extra
+
+        def probe(extra=()):
+            return self._gibbs_label_stats(
+                torch.zeros(lead + (1,), dtype=torch.int32,
+                            device=sh.device),
+                sh.zero_part(), _zero_weight(pws)) + extra
+
+        stats, counts = sh.reduce_each(tree, probe, 'start')
+        trace, lls = [], [None] * len(sh.parts)
         for _ in range(maxiter):
-            state, loglik = self._gibbs_sweep(state, data, gen,
-                                              point_weights)
-            trace.append(loglik)
+            comp, gating, params, log_pi = self._gibbs_draws(
+                gen, stats, counts, chains)
+            for j, part in enumerate(sh.parts):
+                if sh.rows(j):
+                    log_p = self._gibbs_log_p(
+                        *_on((params, log_pi), part[0].device), part, chains)
+                    labels[j] = sample_categorical_from_log(
+                        lgens[j], log_p).to(torch.int32)
+                    lls[j] = torch.sum(torch.logsumexp(log_p, -1), -1)
+            lead_draw(lambda n: torch.rand(lead + (n, self.size),
+                                           generator=gen, dtype=sh.dtype,
+                                           device=gen.device))
+            stats, counts, ll = sh.reduce_each(
+                lambda j: tree(j, (lls[j],)),
+                lambda: probe((torch.zeros(lead, dtype=sh.dtype,
+                                           device=sh.device),)), 'sweep')
+            state = GibbsState(components=comp, gating=gating, params=params,
+                               log_pi=log_pi, labels=None)
+            trace.append(ll)
+        state = state._replace(labels=labels[0] if mesh is None else Sharded(
+            tuple(labels), sh.positions, sh.n))
         if track_loglik:
-            return finite_report((state, _stack(trace, x0)), 'fit_gibbs')
+            return finite_report((state, _stack(trace, counts)), 'fit_gibbs')
         return finite_report(state, 'fit_gibbs')
 
     # -- MAP EM ----------------------------------------------------------------
 
-    def fit_map(self, data, key=None, maxiter=250, randomize=True):
+    def fit_map(self, data, key=None, maxiter=250, randomize=True,
+                mesh=None):
         """Dense MAP expectation-maximization: posterior update, then the
         mode's plug-in softmax, from random responsibilities (`randomize`
         is accepted and unused, as in the JAX package). Returns (MFState,
-        loglik trace)."""
-        data = _as_tuple(data)
-        x0 = data[0]
-        resp = _random_resp(_as_generator(key, x0.device), x0.shape[0],
-                            self.size, x0.dtype, x0.device)
-        trace = []
-        for _ in range(maxiter):
-            state = self._mf_update(data, resp)
-            params = self.family.mode_params(state.components)
-            log_pi = torch.log(torch.clamp(state.gating.mode(), min=1e-37))
+        loglik trace). With `mesh` (see fit_vi) the start takes one
+        reduction and a sweep one, of its statistics, counts and
+        log-likelihood; without one, the same over one position."""
+        sh = _Shards(mesh, data, 'torch')
+        stats, counts = sh.random_stats(
+            self.family.suff_stats, _as_generator(key, sh.device), self.size)
+
+        def plugin(stats, counts):
+            state = self._posterior(stats, counts)
+            return (self.family.mode_params(state.components),
+                    torch.log(torch.clamp(state.gating.mode(), min=1e-37)),
+                    state)
+
+        _, pending, trace = self._plugin_sweeps(sh, stats, counts, maxiter,
+                                                plugin)
+        return finite_report((self._posterior(*pending), trace), 'fit_map')
+
+    def _plugin_sweeps(self, sh, stats, counts, maxiter, plugin):
+        """The dense plug-in sweeps (fit_map, fit_em) over `_Shards` from
+        the start's (stats, counts): each sweep takes (params, log_pi, the
+        sweep's state) = plugin(stats, counts), forms each shard's
+        plug-in responsibilities, and makes one reduction of their
+        statistics, counts and log-likelihood. Returns (the last sweep's
+        state, the pending (stats, counts), the trace)."""
+        fam, state, trace = self.family, None, []
+
+        def tree(part, params, log_pi):
+            params, log_pi = _on((params, log_pi), part[0].device)
             resp, lognorm = normalize_log(
-                self.log_complete_likelihood(params, log_pi, data))
-            trace.append(torch.sum(lognorm))
-        return finite_report((self._mf_update(data, resp), _stack(trace, x0)),
-                             'fit_map')
+                self.log_complete_likelihood(params, log_pi, part))
+            return _resp_stats(fam.suff_stats, part, resp) + (
+                torch.sum(lognorm),)
+
+        for _ in range(maxiter):
+            params, log_pi, state = plugin(stats, counts)
+            stats, counts, ll = sh.reduce_each(
+                lambda j: tree(sh.parts[j], params, log_pi),
+                lambda: tree(sh.zero_part(), params, log_pi), 'sweep')
+            trace.append(ll)
+        return state, (stats, counts), _stack(trace, counts)
 
     # -- prediction ----------------------------------------------------------
 
@@ -1224,46 +1461,283 @@ def _to_device(arrays, wire, dtype, device):
     return tuple(out)
 
 
-class _BlockEStep:
-    """The fused E-step of the streamed sweeps, a block at a time, with
-    theta formed once a sweep (`begin`): kernel B1 on the staged float32
-    buffer with the block's row count at run time, or the blockwise twin
-    on the block's tensors (`add`). The (K, m) accumulator and the lse
-    add across blocks in the engine's dtype; `end` unpacks them."""
+def _on(tree, device):
+    """A tree of tensors on `device` (itself where it lies there)."""
+    return _tree_map(lambda t: t.to(device), tree)
 
-    def __init__(self, spec, use_kernel, block_size, dtype):
+
+def _weight_parts(mesh, weights, count):
+    """Per-point weights (N,) as one tensor a position of the mesh (as
+    the data is split), or `count` Nones without weights."""
+    if weights is None:
+        return [None] * count
+    return [part[0] for part in _mesh_parts(mesh, weights)[1]]
+
+
+def _zero_weight(parts):
+    """One zero point's weight where the fit has weights, else None."""
+    return None if parts[0] is None else parts[0].new_zeros((1,))
+
+
+def _label_parts(mesh, labels):
+    """A Gibbs state's labels as one int32 tensor a position of the
+    one-row mesh: a parallel.mesh.Sharded's shards there, or an (N,) or
+    the chains' (C, N) tensor split on its last axis."""
+    from mimo_tpu_torch.parallel.mesh import Sharded
+    if isinstance(labels, Sharded):
+        return list(labels.on(mesh).shards)
+    return [part[0].movedim(0, -1)
+            for part in _mesh_parts(mesh, labels.movedim(-1, 0))[1]]
+
+
+def _label_generators(gen, sh):
+    """One generator a position of the `_Shards` `sh` for its Gibbs
+    labels: `gen` itself for data shard 0 (so one position draws as the
+    unsharded fit), else a generator on the shard's device seeded by
+    gen's initial seed XOR the shard index x 0x9E3779B9."""
+    d = sh.mesh.shape['data']
+    base = gen.initial_seed()
+    return [gen if p % d == 0 else torch.Generator(
+        device=part[0].device).manual_seed(base ^ ((p % d) * 0x9E3779B9))
+        for p, part in zip(sh.positions, sh.parts)]
+
+
+def start_labels(sh, gen, init_labels, size, gating_prior, lead_draw):
+    """One Gibbs chain's start labels in [0, size) over the `_Shards` sh,
+    one int32 tensor a position: 'prior' draws the weights from
+    `gating_prior` with `gen` (every process alike) and each shard's
+    labels from its label generator (`_label_generators`), 'random'
+    uniform labels the same way. `lead_draw(draw)` makes data shard 0's
+    draw of `gen` where this process does not hold that shard, so that
+    `gen` stays in step on every process."""
+    if init_labels == 'random':
+        def draw(n, g, dev):
+            return torch.randint(0, size, (n,), generator=g, device=dev)
+    else:   # 'prior'
+        probs = torch.clamp(gating_prior.sample(gen), min=1e-37)
+
+        def draw(n, g, dev):
+            if not n:
+                return torch.zeros((0,), dtype=torch.int64, device=dev)
+            return torch.multinomial(probs.to(dev), n, replacement=True,
+                                     generator=g)
+    lead_draw(lambda n: draw(n, gen, gen.device))
+    return [draw(sh.rows(j), g, part[0].device).to(torch.int32)
+            for j, (part, g) in enumerate(zip(sh.parts,
+                                              _label_generators(gen, sh)))]
+
+
+def shard0_draws(sh):
+    """`lead_draw` of the `_Shards` sh (see start_labels): draw(n) with
+    data shard 0's n where no position of this process is that shard,
+    else nothing. A process that holds shard 0 draws that shard's labels
+    from the fit's generator; one that does not makes the same draw and
+    drops it."""
+    from mimo_tpu_torch.parallel.mesh import shard_bounds
+    d = sh.mesh.shape['data']
+    lo, hi = shard_bounds(sh.n, d, 0)
+
+    def lead_draw(draw):
+        if not any(p % d == 0 for p in sh.positions):
+            draw(hi - lo)
+    return lead_draw
+
+
+def _svi_rhos(t0, n, step_size, forgetting, delay):
+    """Steps t0 .. t0 + n - 1 of the SVI step-size schedule, float32 as
+    the JAX package computes it: fixed, or Robbins-Monro with
+    `forgetting`."""
+    if forgetting is None:
+        return np.full(n, step_size, np.float32)
+    t = np.arange(t0, t0 + n, dtype=np.float32)
+    return (step_size * (t + 1.0 + delay) ** -forgetting).astype(np.float32)
+
+
+def _row_share(mesh):
+    """(the number of processes a one-row mesh's row spans, this process's
+    place among them): the row's positions come in runs of this process's
+    count, one run a process, as make_mesh lays them out."""
+    d, local = mesh.shape['data'], len(mesh.positions)
+    return d // local, (mesh.positions[0] % d) // local
+
+
+def _reduce_trees(mesh, trees, probe, kind='start'):
+    """mesh.reduce_tree of the trees of the positions that had points
+    (None where one had none); probe() gives a tree of the right shapes
+    when this process has no such position."""
+    trees = [t for t in trees if t is not None]
+    like = trees[0] if trees else _tree_map(torch.zeros_like, probe())
+    return mesh.reduce_tree(trees, like, kind)
+
+
+def _stagers(devices, wire):
+    """One io.stage.Stager (kernel layout, float32 on the card) a CUDA
+    device of `devices`, a one-row mesh's positions in this process, with
+    the positions it holds: {device: (stager, [position index])}. None on
+    the CPU, where nothing is staged."""
+    from mimo_tpu_torch.io.stage import Stager
+    if devices[0].type != 'cuda':
+        return None
+    out = {}
+    for j, d in enumerate(devices):
+        if d not in out:
+            out[d] = (Stager(d, wire), [])
+        out[d][1].append(j)
+    return out
+
+
+def _fill(stager, pieces):
+    """Fill one pinned slot of `stager` (reader thread) from `pieces`, a
+    list of (host arrays, row ranges of its positions): the ranges'
+    rows in order, adjacent ranges as one chunk. None when they hold no
+    row."""
+    chunks = []
+    for arrays, ranges in pieces:
+        merged = []
+        for lo, hi in ranges:
+            if merged and merged[-1][1] == lo:
+                merged[-1][1] = hi
+            else:
+                merged.append([lo, hi])
+        chunks += [tuple(a[lo:hi] for a in arrays) for lo, hi in merged
+                   if hi > lo]
+    return stager.fill(chunks) if chunks else None
+
+
+def _group_shards(bounds, item, stagers, devices, dtype, need_data):
+    """The shards of a read item over this process's positions: `bounds`
+    one list of position row ranges a step (a block, or a minibatch of an
+    SVI group), `item` the steps' device tensors (CPU) or each device's
+    filled slot (card). Returns (one list of (data, kernel views, rows) a
+    position a step, (stager, slot) pairs to release once the work that
+    reads them is issued). On the card each device's slot is copied once
+    and a position's kernel views are a column view of the staged float32
+    buffer (B1 reads it through its row stride, from any column), its
+    data (when `need_data`) made from that view in `dtype`; an empty
+    shard is (None, None, 0)."""
+    if stagers is None:
+        return [[(tuple(a[lo:hi].to(d) for a in step), None, hi - lo)
+                 for (lo, hi), d in zip(bd, devices)]
+                for bd, step in zip(bounds, item)], []
+    steps = [[(None, None, 0)] * len(devices) for _ in bounds]
+    slots = []
+    for d, (st, js) in stagers.items():
+        if item[d] is None:
+            continue
+        slot, xts, _ = st.put(item[d])
+        slots.append((st, slot))
+        off = 0
+        for s, bd in enumerate(bounds):
+            for j in js:
+                n = bd[j][1] - bd[j][0]
+                if n:
+                    views = tuple(x[:, off:off + n] for x in xts)
+                    steps[s][j] = (tuple(v.T.to(dtype) for v in views)
+                                   if need_data else None, views, n)
+                off += n
+    return steps, slots
+
+
+class _Block(NamedTuple):
+    """A block of one pass of a streamed engine over this process's
+    positions (`_stream_pass`)."""
+    n: int            # this process's rows of the block
+    bounds: list      # each position's rows [lo, hi) of them
+    shards: list      # each position's (data, kernel views, rows)
+    widths: tuple     # the inputs' widths
+
+
+def _stream_pass(read_block, n_blocks, prefetch, stagers, transfer_dtype,
+                 dtype, devices, need_data):
+    """Yield each block of one pass over the dataset as a `_Block`, read
+    `prefetch` blocks ahead on the reader thread, its rows split
+    contiguously over `devices` (this process's mesh positions;
+    parallel.mesh.shard_bounds) as `_group_shards` gives them: on the
+    card one pinned fill and one copy a device (`_stagers`), on the CPU
+    row views of the block in `dtype`."""
+    from mimo_tpu_torch.io.stage import host_arrays
+    from mimo_tpu_torch.io.stream import Prefetcher
+    from mimo_tpu_torch.parallel.mesh import shard_bounds
+    npos = len(devices)
+
+    def produce(i):
+        arrays = host_arrays(read_block(i))
+        nb = arrays[0].shape[0]
+        bounds = [shard_bounds(nb, npos, j) for j in range(npos)]
+        widths = tuple(a.shape[1] for a in arrays)
+        if stagers is None:
+            return nb, bounds, widths, [_to_device(arrays, transfer_dtype,
+                                                   dtype, devices[0])]
+        return nb, bounds, widths, {
+            d: _fill(st, [(arrays, [bounds[j] for j in js])])
+            for d, (st, js) in stagers.items()}
+
+    with Prefetcher(produce, n_blocks, depth=prefetch) as pf:
+        try:
+            for nb, bounds, widths, item in pf:
+                (shards,), slots = _group_shards([bounds], item, stagers,
+                                                 devices, dtype, need_data)
+                yield _Block(nb, bounds, shards, widths)
+                for st, slot in slots:
+                    st.release(slot)
+        except BaseException:
+            for st, _ in (stagers or {}).values():
+                st.close()
+            raise
+
+
+class _BlockEStep:
+    """The fused E-step of the streamed sweeps and steps over the
+    positions of a one-row mesh, with theta formed once (`begin`). Each
+    `add` takes one (data, kernel views, rows) a position (a block's or a
+    minibatch's shards): kernel B1 once per non-empty shard on its views
+    with its row count at run time (cuda_estep.estep_shards), or the
+    blockwise twin on its data; each position's partial adds across the
+    calls on its device, in the engine's dtype. `end` makes the mesh's
+    one reduction and unpacks it."""
+
+    def __init__(self, spec, use_kernel, block_size, dtype, mesh):
         self.spec, self.use_kernel = spec, use_kernel
-        self.block_size, self.dtype = block_size, dtype
+        self.block_size, self.dtype, self.mesh = block_size, dtype, mesh
 
     def begin(self, theta_src, log_pi):
         from mimo_tpu_torch.ops.cuda_estep import feature_kind, pad_theta
-        from mimo_tpu_torch.ops.family_estep import estep_zeros
         theta = self.spec.theta(theta_src)
+        self.lead, (self.k, self.m) = theta.shape[:-2], theta.shape[-2:]
         if self.use_kernel:
             self.kind = feature_kind(self.spec.features_t)
-            theta, self.m = pad_theta(theta, log_pi, torch.float32)
+            theta, _ = pad_theta(theta, log_pi, torch.float32)
         self.theta, self.log_pi = theta, log_pi
-        self.acc, self.lse = estep_zeros(theta, log_pi)
+        self.parts = [None] * len(self.mesh.devices)
 
-    def add(self, data, xts, n):
+    def add(self, shards):
         from mimo_tpu_torch.ops import cuda_estep
-        from mimo_tpu_torch.ops.family_estep import estep_accumulate
+        from mimo_tpu_torch.ops.family_estep import accumulate_shards
+        live = [j for j, s in enumerate(shards) if s[2]]
         if self.use_kernel:
-            acc, lse = cuda_estep.estep(
-                cuda_estep.stack_rows(xts), self.theta, n, self.kind,
-                cuda_estep.y_rows(self.kind, xts))
-            self.acc = self.acc + acc.to(self.dtype)
-            self.lse = self.lse + lse.to(self.dtype)
+            outs = cuda_estep.estep_shards(
+                self.theta, self.kind, [shards[j][1] for j in live],
+                [shards[j][2] for j in live])
+            for j, out in zip(live, outs):
+                out = out.to(self.dtype)
+                self.parts[j] = (out if self.parts[j] is None
+                                 else self.parts[j] + out)
         else:
-            self.acc, self.lse = estep_accumulate(
-                self.spec.features, self.theta, self.log_pi, data,
-                self.block_size, self.acc, self.lse)
+            sums = accumulate_shards(
+                self.spec.features, self.theta, self.log_pi,
+                [shards[j][0] for j in live], self.block_size,
+                [self.parts[j] for j in live])
+            for j, acc_lse in zip(live, sums):
+                self.parts[j] = acc_lse
 
     def end(self):
-        from mimo_tpu_torch.ops.family_estep import FusedEStep
-        acc = self.acc[..., :self.m] if self.use_kernel else self.acc
-        return FusedEStep(stats=self.spec.unpack(acc), lse=self.lse,
-                          counts=self.acc[..., 0])
+        from mimo_tpu_torch.ops.family_estep import pack_estep, reduce_estep
+        parts = [p for p in self.parts if p is not None]
+        if not self.use_kernel:
+            m8 = -(-self.m // 8) * 8
+            parts = [pack_estep(acc, lse, m8) for acc, lse in parts]
+        return reduce_estep(self.spec, parts, self.lead, self.k, self.m,
+                            self.dtype, self.mesh)
 
 
 def _as_generator(key, device):
@@ -1380,6 +1854,24 @@ class _Shards:
         self.xts = ([kernel_xts(p) for p in self.parts] if self.use_kernel
                     else None)
 
+    def rows(self, j):
+        """The rows of this process's position j."""
+        return self.bounds[j][1] - self.bounds[j][0]
+
+    def zero_part(self):
+        """A data tuple of one zero point, in the first part's dtype and
+        device: what a tree function is probed with when this process
+        holds no point."""
+        return tuple(a.new_zeros((1,) + a.shape[1:]) for a in self.parts[0])
+
+    def reduce_each(self, tree_of, probe, kind):
+        """The sum over the non-empty positions j of tree_of(j), a tree,
+        in one reduction of `kind`; probe() shapes the zeros a process
+        without points reduces."""
+        return _reduce_trees(self.mesh, [
+            tree_of(j) if self.rows(j) else None
+            for j in range(len(self.parts))], probe, kind)
+
     def estep(self, spec, theta_src, log_pi, parts=None):
         """The fused E-step over the shards, or over `parts` (per-shard
         minibatches), in the data's dtype: one reduction."""
@@ -1421,16 +1913,13 @@ class _Shards:
             for part, (lo, hi) in zip(self.parts, self.bounds)),
             self.positions, self.n)
 
-    def reduce_stats(self, stats_of):
+    def reduce_stats(self, stats_of, kind='start'):
         """The sum over the non-empty shards of stats_of(part, lo, hi), a
-        tree, in one reduction of kind 'start'. A process without points
+        tree, in one reduction of `kind`. A process without points
         reduces the tree's zeros, shaped by stats_of at one zero point."""
-        trees = [stats_of(p, lo, hi) for p, (lo, hi)
-                 in zip(self.parts, self.bounds) if hi > lo]
-        like = trees[0] if trees else _tree_map(torch.zeros_like, stats_of(
-            tuple(a.new_zeros((1,) + a.shape[1:]) for a in self.parts[0]),
-            0, 1))
-        return self.mesh.reduce_tree(trees, like)
+        return self.reduce_each(
+            lambda j: stats_of(self.parts[j], *self.bounds[j]),
+            lambda: stats_of(self.zero_part(), 0, 1), kind)
 
     def random_stats(self, suff_stats, gen, k):
         """(stats, counts) of the random-responsibility start: one seed
@@ -1442,11 +1931,10 @@ class _Shards:
             suff_stats, part, _random_resp(seed, hi - lo, k, self.dtype,
                                            part[0].device, lo)))
 
-    def anchor_stats(self, suff_stats, idx):
-        """(stats, counts) of the anchor start at the global point indices
-        `idx`: the anchors and the distance scale (the mean per-dim
-        variance, two-pass) each take one reduction, the statistics a
-        third."""
+    def anchor_points(self, idx):
+        """(the points at the global indices `idx`, the anchor start's
+        squared distance scale: the mean per-dim variance over the global
+        N, at least 1e-6, two-pass): one reduction each."""
         def picked(x, lo, hi):
             i = idx.to(x.device)
             inside = (i >= lo) & (i < hi)
@@ -1459,7 +1947,13 @@ class _Shards:
         mean = total / self.n
         (sq,) = self.reduce_stats(lambda part, lo, hi: (torch.sum(
             torch.square(part[0] - mean.to(part[0].device)), 0),))
-        scale2 = torch.clamp(torch.mean(sq / self.n), min=1e-6)
+        return anchors, torch.clamp(torch.mean(sq / self.n), min=1e-6)
+
+    def anchor_stats(self, suff_stats, idx):
+        """(stats, counts) of the anchor start at the global point indices
+        `idx`: the anchors and their scale (`anchor_points`, two
+        reductions), then the statistics in a third."""
+        anchors, scale2 = self.anchor_points(idx)
         return self.reduce_stats(lambda part, lo, hi: _resp_stats(
             suff_stats, part, anchor_resp(part[0], anchors.to(part[0].device),
                                           scale2.to(part[0].device))))

@@ -21,7 +21,8 @@ kernel, which prepends a chain axis to its grid) and returns acc
 theta[c].
 
 Mesh: `fused_estep_cuda_sharded` launches B1 once per non-empty shard of
-a one-row mesh and makes the mesh's one reduction of the packed outputs.
+a one-row mesh (`estep_shards`) and makes the mesh's one reduction of the
+packed outputs.
 """
 
 import torch
@@ -213,21 +214,33 @@ def fused_estep_cuda_sharded(spec, post, log_pi, shards, mesh, ns=None):
     (per-input (d_i, n_j) row blocks, models.mixture.kernel_xts) of the
     mesh's positions, in order, each on its position's device; `ns` their
     point counts (by default their widths). B1 runs once per non-empty
-    shard, on that shard's device and current stream with the shard's
-    point count at run time and theta replicated there; an empty shard
-    launches nothing. Then one reduction of the packed partials (the
-    buffers B1 writes, float32 on the card). With a chain spec
+    shard (`estep_shards`), then one reduction of the packed partials
+    (the buffers B1 writes, float32 on the card). With a chain spec
     (`chain_spec`) each launch serves every chain, so chains and the mesh
     compose. Returns the FusedEStep in the layout's dtype."""
     kind = feature_kind(spec.features_t)
     dtype = shards[0][0].dtype
     theta, m = pad_theta(spec.theta(post), log_pi, dtype)
     ns = [xts[0].shape[1] for xts in shards] if ns is None else ns
-    parts = []
-    for xts, n in zip(shards, ns):
-        if n:
-            xt = stack_rows(xts)
-            parts.append(estep_packed(xt, theta.to(xt.device), n, kind,
-                                      y_rows(kind, xts)))
+    parts = [p for p in estep_shards(theta, kind, shards, ns) if p is not None]
     return reduce_estep(spec, parts, theta.shape[:-2], theta.shape[-2], m,
                         dtype, mesh)
+
+
+def estep_shards(theta, kind, shards, ns):
+    """B1 once per non-empty shard, on that shard's device and current
+    stream, with the shard's point count at run time and the padded theta
+    (`pad_theta`) replicated there: one packed (..., K m8 + 1) partial a
+    shard, None for an empty one (it launches nothing). The launches
+    without the reduction: `fused_estep_cuda_sharded` reduces them at
+    once; the streamed engines add each shard's partials across the
+    blocks of a sweep and reduce once a sweep."""
+    parts = []
+    for xts, n in zip(shards, ns):
+        if not n:
+            parts.append(None)
+            continue
+        xt = stack_rows(xts)
+        parts.append(estep_packed(xt, theta.to(xt.device), n, kind,
+                                  y_rows(kind, xts)))
+    return parts

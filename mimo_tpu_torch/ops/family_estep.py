@@ -555,21 +555,34 @@ def fused_estep_sharded(spec: EStepSpec, post, log_pi, shards, block_size,
     """The fused E-step over a one-row mesh (the counterpart of mimo_tpu's
     fused_estep_sharded): `shards` the data tuples of the mesh's
     positions, in order, each on its position's device. Each shard runs
-    the blockwise E-step on its device with theta replicated there (an
-    empty shard adds zeros); then one reduction. With a chain spec, every
-    shard serves all C chains."""
+    the blockwise E-step on its device with theta replicated there
+    (`accumulate_shards`; an empty shard adds zeros); then one reduction. With
+    a chain spec, every shard serves all C chains."""
     theta = spec.theta(post)
     k, m = theta.shape[-2:]
     m8 = -(-m // 8) * 8
-    parts = []
-    for data in shards:
-        dev = data[0].device
-        th = theta.to(dev)
-        acc, lse = estep_accumulate(spec.features, th, log_pi.to(dev), data,
-                                    block_size, *estep_zeros(th, data[0]))
-        parts.append(pack_estep(acc, lse, m8))
+    parts = [pack_estep(acc, lse, m8) for acc, lse in accumulate_shards(
+        spec.features, theta, log_pi, shards, block_size)]
     return reduce_estep(spec, parts, theta.shape[:-2], k, m,
                         shards[0][0].dtype, mesh)
+
+
+def accumulate_shards(features, theta, log_pi, shards, block_size,
+                      carry=None):
+    """The blockwise E-step of each shard's data tuple on its device, with
+    theta (..., K, m) and log_pi replicated there, added to carry[j] (that
+    shard's running (acc, lse), zeros where None): one (acc, lse) a
+    shard, without the reduction. The streamed engines carry each shard's
+    sums across the blocks of a sweep and reduce once a sweep."""
+    carry = [None] * len(shards) if carry is None else carry
+    out = []
+    for data, prev in zip(shards, carry):
+        dev = data[0].device
+        th = theta.to(dev)
+        acc, lse = estep_zeros(th, data[0]) if prev is None else prev
+        out.append(estep_accumulate(features, th, log_pi.to(dev), data,
+                                    block_size, acc, lse))
+    return out
 
 
 def fused_gibbs_sharded(spec: EStepSpec, seed, params, log_pi, shards,

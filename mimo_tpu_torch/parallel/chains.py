@@ -18,8 +18,9 @@ written out:
                     rows, and run every dense engine chain by chain.
                     With `mesh` (a ('chain', 'data') mesh) the keys split
                     into one contiguous group a chain row, and each group
-                    runs batched over its row's data shards: one launch
-                    per shard per sweep for all of the group's chains.
+                    runs over its row's data shards: batched where the
+                    engine is (one launch per shard per sweep for all of
+                    the group's chains), chain by chain where it is not.
   * `best_of`     — the chain with the best final ELBO.
   * `smc_gibbs`   — Gibbs chains interleaved with systematic resampling of
                     chain states by data log-likelihood.
@@ -53,11 +54,13 @@ def fit_chains(model, fit_name, data, keys, mesh=None, **kw):
 
     With `mesh`, a ('chain', 'data') mesh (parallel.make_mesh(n_chain=c)),
     the C keys split into c contiguous groups of C / c, group g running
-    the batched fused engine over chain row g (`mesh.row(g)`; the data
-    sharded over its 'data' positions, as shard_data places it): one
-    kernel launch per shard per sweep for all of the group's chains and
-    one reduction a sweep over the row. JAX carries the layout in the
-    sharding of its keys; PyTorch has none, so `mesh` is explicit. The
+    over chain row g (`mesh.row(g)`; the data sharded over its 'data'
+    positions, as shard_data places it): a BATCHED engine runs the group
+    as one program (for a fused engine one kernel launch per shard per
+    sweep for all of the group's chains) with one reduction a sweep over
+    the row; a SERIAL one runs the group chain by chain over the row. JAX
+    carries the layout in the sharding of its keys; PyTorch has none, so
+    `mesh` is explicit. The
     result stacks the groups of this process's rows on the chain axis
     (every row, within one process); a Gibbs fit's labels stay on their
     shards, each position's (C / c, n_j) of its row's group."""
@@ -79,12 +82,12 @@ def fit_chains(model, fit_name, data, keys, mesh=None, **kw):
 
 def _fit_chains_mesh(model, fit_name, data, keys, mesh, kw):
     """fit_chains over a ('chain', 'data') mesh (see fit_chains)."""
-    batched = (NESTED_BATCHED
-               if isinstance(model, BayesianMixtureOfMixtures) else BATCHED)
-    if fit_name not in batched[:4]:
-        raise NotImplementedError(
-            f'fit_chains(mesh=) runs the fused engines {list(batched[:4])}; '
-            f'{fit_name} has no mesh path')
+    nested = isinstance(model, BayesianMixtureOfMixtures)
+    batched = NESTED_BATCHED if nested else BATCHED
+    serial = SERIAL + ('fit_gibbs',) if nested else SERIAL
+    if fit_name not in batched + serial:
+        raise ValueError(f'unknown engine {fit_name!r}; one of '
+                         f'{list(batched + serial)}')
     if isinstance(keys, torch.Tensor):
         keys = keys.reshape(-1).tolist()
     keys = list(keys)
@@ -94,9 +97,15 @@ def _fit_chains_mesh(model, fit_name, data, keys, mesh, kw):
                          f"mesh's {rows} chain rows")
     per = len(keys) // rows
     fit = getattr(model, fit_name)
-    return _cat_groups([fit(data, key=keys[g * per:(g + 1) * per],
-                            chains=True, mesh=mesh.row(g), **kw)
-                        for g in mesh.rows()])
+    groups = []
+    for g in mesh.rows():
+        group, row = keys[g * per:(g + 1) * per], mesh.row(g)
+        if fit_name in batched:
+            groups.append(fit(data, key=group, chains=True, mesh=row, **kw))
+        else:
+            groups.append(stack_trees([fit(data, key=k, mesh=row, **kw)
+                                       for k in group]))
+    return _cat_groups(groups)
 
 
 def _cat_groups(trees):

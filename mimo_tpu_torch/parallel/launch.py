@@ -10,13 +10,17 @@ and a worker still alive at the end is killed.
 `run_engines(cfg)` is the worker the tests and chip_smoke.py drive: it
 forms the global mesh from this process's devices, shards the global data
 (each process places its own shards), runs the named engines on it and
-returns their results and the mesh counters of each run. Called in one
-process without a group, it is the reference the processes are held to.
+returns their results and the mesh counters of each run. The stream
+engines read their process's own file shard, written and read back
+through io.write_bin and io.MmapDataset. Called in one process without a
+group, it is the reference the processes are held to.
 """
 
 import multiprocessing
+import os
 import queue
 import socket
+import tempfile
 import time
 import traceback
 
@@ -100,10 +104,14 @@ def run_engines(cfg):
       devices    this process's devices, e.g. ['cpu', 'cpu'];
       n_chain    the mesh's chain rows (default 1);
       model      BayesianGMM.make's keyword arguments;
-      runs       a list of (name, engine, kwargs): engine a fused engine
-                 or 'fit_svi' over the mesh, or 'fit_chains:<engine>' with
-                 the chain keys in kwargs['keys']; kwargs['n'], where
-                 given, runs it on the first n points;
+      runs       a list of (name, engine, kwargs): engine one of
+                 parallel.mesh.MESH_ENGINES over the mesh,
+                 'fit_chains:<engine>' with the chain keys in
+                 kwargs['keys'], or a stream engine of STREAM_ENGINES
+                 over this process's file shard (`stream_run`: kwargs
+                 'rows', a position's rows of a minibatch, for
+                 fit_svi_stream, and 'n_blocks' for the others);
+                 kwargs['n'], where given, runs it on the first n points;
       threads    torch's intra-op threads (optional);
       probe      optional, with a process group up: after the runs, time
                  this many lone all_reduce calls of a (K m8 + 1) buffer
@@ -135,7 +143,10 @@ def run_engines(cfg):
                 else _mesh.shard_data(mesh, x[:kw.pop('n')]))
         kw.pop('n', None)
         _mesh.reset_counters()
-        if engine.startswith('fit_chains:'):
+        if engine in STREAM_ENGINES:
+            res = stream_run(model, engine, mesh, np.asarray(cfg['x']),
+                             cfg['dtype'], kw)
+        elif engine.startswith('fit_chains:'):
             res = fit_chains(model, engine.split(':', 1)[1], data,
                              kw.pop('keys'), mesh=mesh, **kw)
         else:
@@ -151,6 +162,53 @@ def run_engines(cfg):
         out['probe_seconds'] = [_lone_all_reduce(buf)
                                 for _ in range(cfg['probe'])]
     return out
+
+
+# the engines run_engines drives over a file shard a process
+STREAM_ENGINES = ('fit_svi_stream', 'fit_vi_stream_full',
+                  'fit_map_stream_full', 'fit_em_stream_full')
+
+
+def stream_run(model, engine, mesh, x, dtype, kw):
+    """A stream engine over `mesh` (one row), each process streaming its
+    own file shard, as scripts/multihost_cpu.py lays it out: mesh position
+    p holds rows p s .. (p + 1) s - 1 of the global data x (s = N // D
+    for D positions), this process writes its positions' rows as float32
+    to a file of its own (io.write_bin) and reads them back through
+    io.MmapDataset, and its rows of global minibatch or block i are the
+    i-th run of each of its positions' rows, in position order. For
+    fit_svi_stream, kw['rows'] are a position's rows of a minibatch
+    (batch i takes run i mod (s // rows); batch_size is rows D); for the
+    full-data engines the s rows split into kw['n_blocks'] blocks. The
+    file is deleted on the way out."""
+    from mimo_tpu_torch.io import MmapDataset, write_bin
+    kw = dict(kw)
+    d, local = mesh.shape['data'], len(mesh.positions)
+    s = x.shape[0] // d
+    first = mesh.positions[0] % d
+    fd, path = tempfile.mkstemp(prefix='mimo_stream_shard_', suffix='.bin')
+    os.close(fd)
+    try:
+        write_bin(path, np.ascontiguousarray(
+            x[first * s:(first + local) * s], dtype=np.float32))
+        ds = MmapDataset(path)
+        try:
+            def runs(i, b):
+                return np.concatenate([ds.read_block(k * s + i * b, b)
+                                       for k in range(local)]).astype(dtype)
+
+            if engine == 'fit_svi_stream':
+                b = kw.pop('rows')
+                return model.fit_svi_stream(
+                    lambda i: runs(i % (s // b), b), total_size=x.shape[0],
+                    batch_size=b * d, mesh=mesh, **kw)
+            n_blocks = kw.pop('n_blocks')
+            return getattr(model, engine)(
+                lambda i: runs(i, s // n_blocks), n_blocks, mesh=mesh, **kw)
+        finally:
+            ds.close()
+    finally:
+        os.unlink(path)
 
 
 def _lone_all_reduce(buf):

@@ -8,15 +8,16 @@ split over 'data' into contiguous shards, one per position; chains are
 split over 'chain'.
 
 The scaling contract of the JAX package holds as it did under shard_map:
-the fused engines (models.mixture, models.hmix) launch their kernel once
-per non-empty shard, each on its shard's device, and every sweep makes
-ONE reduction of the packed (K m8 + 1) buffer of statistics and lse
-(`Mesh.reduce`): the partials are summed in shard order, and when a
-process group is up one `torch.distributed.all_reduce` of that buffer
-follows. Nothing N-sized crosses the mesh: each shard draws only its own
-rows of a random start (keyed by the global point index), a Gibbs fit's
-labels stay on their shards (`Sharded`), and serving makes no reduction
-at all. An engine called without a mesh runs the same code over the
+the fused and streamed engines (models.mixture, models.hmix) launch their
+kernel once per non-empty shard, each on its shard's device (the streamed
+ones once a shard of every block), and every sweep makes ONE reduction of
+the packed (K m8 + 1) buffer of statistics and lse (`Mesh.reduce`; the
+dense engines one of their statistics, counts and data term): the
+partials are summed in shard order, and when a process group is up one
+`torch.distributed.all_reduce` of that buffer follows. Nothing N-sized
+crosses the mesh: each shard draws only its own rows of a random start
+(keyed by the global point index), a Gibbs fit's labels stay on their
+shards (`Sharded`), and serving makes no reduction at all. An engine called without a mesh runs the same code over the
 one-position `local_mesh` of its data's device.
 
 Across processes (`init_distributed`), mesh positions are global: rank r
@@ -151,7 +152,15 @@ class Mesh:
         """`reduce` of a tree of tensors (a start's statistics and
         counts): each shard's tree packed into one flat buffer. `like` is
         a tree of the same structure giving shapes, dtype and device when
-        this process holds no non-empty shard."""
+        this process holds no non-empty shard. One tree and no collective
+        (an unsharded fit) is its own sum: it is counted and returned
+        without the packing."""
+        (g,) = self.one_row().rows()
+        if len(trees) == 1 and self.groups[g] is None:
+            c = counters[kind]
+            c['calls'] += 1
+            c['floats'] += sum(t.numel() for t in _leaves(trees[0]))
+            return _tree_map(lambda t: t.to(self.devices[0]), trees[0])
         leaves = _leaves(like)
         sizes = [t.numel() for t in leaves]
         zero = torch.zeros((sum(sizes),), dtype=leaves[0].dtype,
@@ -306,9 +315,11 @@ def replicate(mesh, tree):
     return tuple(_tree_map(lambda t: t.to(dev), tree) for dev in mesh.devices)
 
 
-# engines that take mesh= (models.mixture, models.hmix)
+# engines that take mesh= (models.mixture, models.hmix): the fused ones,
+# SVI and the dense ones (the stream engines take their own rows' reader)
 MESH_ENGINES = ('fit_vi_fused', 'fit_gibbs_fused', 'fit_map_fused',
-                'fit_em_fused', 'fit_svi')
+                'fit_em_fused', 'fit_svi', 'fit_vi', 'fit_gibbs', 'fit_map',
+                'fit_em')
 
 
 def data_parallel_fit(model, fit_name, data, mesh=None, **kw):

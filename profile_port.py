@@ -3,7 +3,8 @@
 
     python3 profile_port.py [--units U] [--engines-only | --nested-only
                                          | --nested-probes | --chains
-                                         | --stream | --mesh]
+                                         | --stream | --mesh
+                                         | --stream-mesh]
 
 For each cell it fits the model at the size `chip_smoke.py` drives,
 warms up, then measures one unit of work (a warm-started VI sweep, a
@@ -22,7 +23,8 @@ and engine, with the card's name and power limit first.
 instead (see `nested_probes`); `--chains` the chains of `chip_smoke.py`
 phase 19 (see `chain_cells`); `--stream` the streamed sweeps of its phase
 20 (see `stream_cells`); `--mesh` the sharded sweeps and serving of its
-phase 21 (see `mesh_cells`).
+phase 21 (see `mesh_cells`); `--stream-mesh` the streamed and dense
+sweeps over a mesh of its phase 22 (see `stream_mesh_cells`).
 """
 
 import argparse
@@ -345,6 +347,60 @@ def mesh_cells(card, dev, x, u):
                'predict_kernel')
 
 
+def stream_mesh_cells(card, dev, x, u):
+    """The sweeps of chip_smoke.py phase 22, unsharded and over a (1, 4)
+    mesh of four positions on this card: the streamed VI sweep over all
+    1e7 points in blocks of 2^20 from a file (B1 once a block, or once a
+    shard of each block), the streamed SVI step at B=65536 over the first
+    2e6 points, and the dense VI and Gibbs sweeps on the first 1e6 points
+    (no kernel: their device time is all other ops)."""
+    import numpy as np
+    m = BayesianGMM.make(size=K, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, device=dev)
+    mesh = make_mesh(devices=[dev] * 4)
+    path = os.path.join(tempfile.gettempdir(),
+                        f'profile_port_mesh_{os.getpid()}.bin')
+    b = 1 << 20
+    try:
+        write_bin(path, x.cpu().numpy())
+        ds = MmapDataset(path)
+        nb = -(-N_GMM // b)
+        st, _ = m.fit_vi_fused(x, key=1, maxiter=20)
+        for label, kw in (('one position', {}), ('(1, 4) mesh',
+                                                 dict(mesh=mesh))):
+            report(card, f'stream N={N_GMM} B={b} ({nb} blocks)',
+                   f'VI sweep, {label}',
+                   lambda: m.fit_vi_stream_full(
+                       lambda i: ds.read_block(i * b, b), nb, init_state=st,
+                       maxiter=u, **kw), u, 'estep_tc')
+        for label, mm in (('one position', make_mesh(devices=[dev])),
+                          ('(1, 4) mesh', mesh)):
+            def svi(mm=mm):
+                rng = np.random.default_rng(0)
+                return m.fit_svi_stream(
+                    lambda i: ds.read_block(
+                        int(rng.integers(0, 2_000_000 - 65536)), 65536),
+                    2_000_000, init_state=st, maxiter=16 * u, step_size=0.5,
+                    batch_size=65536, group=16, mesh=mm)
+            report(card, 'SVI-stream N=2000000 B=65536',
+                   f'step, {label}', svi, 16 * u, 'estep_tc')
+        ds.close()
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
+    x1 = x[:1_000_000]
+    xs1 = shard_data(mesh, x1)
+    sv, _ = m.fit_vi(x1, key=1, maxiter=5)
+    for label, data, kw in (('unsharded', x1, {}),
+                            ('(1, 4) mesh', xs1, dict(mesh=mesh))):
+        report(card, 'DP-GMM N=1000000 (dense)', f'fit_vi sweep, {label}',
+               lambda: m.fit_vi(data, maxiter=u, init_state=sv,
+                                randomize=False, **kw), u, 'estep_tc')
+        report(card, 'DP-GMM N=1000000 (dense)', f'fit_gibbs sweep, {label}',
+               lambda: m.fit_gibbs(data, key=2, maxiter=u, **kw), u,
+               'gibbs_tc')
+
+
 def trace_events(fn):
     """The device events of one run of fn() from the profiler's chrome
     trace: {'kernel': [(start, end, name)], 'h2d': [(start, end)]} in
@@ -537,6 +593,9 @@ def main():
     only.add_argument('--mesh', action='store_true',
                       help="only the sharded sweeps of chip_smoke.py "
                            "phase 21")
+    only.add_argument('--stream-mesh', action='store_true',
+                      help="only the streamed and dense sweeps over a "
+                           "mesh of chip_smoke.py phase 22")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_port: needs a CUDA device')
@@ -567,6 +626,9 @@ def main():
         return
     if args.mesh:
         mesh_cells(card, dev, x, u)
+        return
+    if args.stream_mesh:
+        stream_mesh_cells(card, dev, x, u)
         return
     engine_cells(card, dev, x, u)
     if args.engines_only:

@@ -365,8 +365,7 @@ def test_dense_gibbs_chains_statistics_are_per_chain(gmm_x):
     single-chain sweep's statistics on each."""
     _, tm, _, x = make_pair('dpgmm', gmm_x, None)
     data = (x,)
-    st = stack_trees([tm._gibbs_start(data, tmix._as_generator(k, 'cpu'),
-                                      'prior') for k in KEYS])
+    st = stack_trees([tm.fit_gibbs(x, key=k, maxiter=0) for k in KEYS])
     stats_flat = tm.family.suff_stats(data, tmix.one_hot(
         st.labels.T, tm.size, dtype=x.dtype).reshape(N, -1))
     for c in range(3):

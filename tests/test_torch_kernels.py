@@ -1509,3 +1509,46 @@ def test_b1_b2_b3_read_a_view_at_an_odd_column_offset(dev):
         m.components_prior, torch.full((k,), -3.9, device=dev))
     assert torch.equal(cuda_predict.predict(view, thq, aux, n),
                        cuda_predict.predict(copy, thq, aux, n))
+
+
+def test_streams_over_a_mesh_launch_b1_once_a_shard(dev):
+    """fit_vi_stream_full over a (1, 4) mesh on the card: B1 once per
+    non-empty shard of every staged block (a column view of the staged
+    buffer), one reduction a sweep, the unsharded stream's trace within
+    rtol 1e-5; N = 5 over 8 positions launches 5 a sweep; fit_svi_stream
+    over the mesh launches 4 a step."""
+    import numpy as np
+    from mimo_tpu_torch.parallel import make_mesh
+    from mimo_tpu_torch.parallel import mesh as pmesh
+    m, _, x, _ = _gmm_shard_inputs(dev, 3 * 40000 + 1234, seed=3)
+    xh = x.cpu().numpy()
+    b = 40000
+    nb = -(-xh.shape[0] // b)
+    st0, _ = m.fit_vi_fused(x, key=1, maxiter=2)
+    mesh = make_mesh(devices=[dev] * 4)
+    before = cuda_estep.launches['gauss']
+    pmesh.reset_counters()
+    st, tr = m.fit_vi_stream_full(lambda i: xh[i * b:(i + 1) * b], nb,
+                                  init_state=st0, maxiter=2, mesh=mesh)
+    torch.cuda.synchronize()
+    assert cuda_estep.launches['gauss'] == before + 2 * 4 * nb
+    assert pmesh.counters['sweep']['calls'] == 2
+    su, tu = m.fit_vi_stream_full(lambda i: xh[i * b:(i + 1) * b], nb,
+                                  init_state=st0, maxiter=2)
+    torch.testing.assert_close(tr, tu, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(st.components.mu, su.components.mu,
+                               rtol=1e-4, atol=1e-4)
+    mesh8 = make_mesh(devices=[dev] * 8)
+    before = cuda_estep.launches['gauss']
+    st5, _ = m.fit_vi_stream_full(lambda i: xh[:5], 1, init_state=st0,
+                                  maxiter=2, mesh=mesh8)
+    torch.cuda.synchronize()
+    assert cuda_estep.launches['gauss'] == before + 2 * 5
+    rng = np.random.default_rng(0)
+    before = cuda_estep.launches['gauss']
+    sv = m.fit_svi_stream(lambda i: xh[rng.choice(xh.shape[0], 4096)],
+                          xh.shape[0], key=2, maxiter=10, batch_size=4096,
+                          group=4, mesh=mesh)
+    torch.cuda.synchronize()
+    assert cuda_estep.launches['gauss'] == before + 10 * 4
+    assert bool(torch.isfinite(sv.components.mu).all())

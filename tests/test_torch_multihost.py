@@ -7,8 +7,11 @@ process holding all four positions, in float64, to rtol 1e-12 (only the
 order of the fold differs: 2 + 2 shards summed locally, then one
 all_reduce); each rank makes exactly one all_reduce a sweep, of
 K m8 + 1 floats whatever N. A (2, 2) chain mesh puts one chain row in
-each process. Every launch has its own wall limit; the workers destroy
-their process group on the way out."""
+each process. Each process also streams its own file shard through
+fit_svi_stream(mesh=) and fit_vi_stream_full(mesh=) (tests/
+test_multihost.py's stream legs) and runs the dense engines on its
+shards; each equals one process to rtol 1e-9. Every launch has its own
+wall limit; the workers destroy their process group on the way out."""
 
 import numpy as np
 import pytest
@@ -81,6 +84,50 @@ def test_two_processes_equal_one_process(n):
                         np.testing.assert_array_equal(mine[p], lab)
                 got, want = got[:3], want[:3]
             close(got, want)
+
+
+STREAM_RUNS = [
+    ('svi-stream', 'fit_svi_stream', dict(key=5, maxiter=24, step_size=0.3,
+                                          rows=16, group=8), 24),
+    ('vi-stream', 'fit_vi_stream_full', dict(key=8, maxiter=4, n_blocks=4),
+     4),
+    ('map-stream', 'fit_map_stream_full', dict(key=8, maxiter=3,
+                                               n_blocks=3), 3),
+    ('vi-dense', 'fit_vi', dict(key=1, maxiter=6), 6),
+    ('map-dense', 'fit_map', dict(key=1, maxiter=4), 4),
+    ('em-dense', 'fit_em', dict(key=1, maxiter=4), 4),
+    ('gibbs-dense', 'fit_gibbs', dict(key=2, maxiter=4, track_loglik=True),
+     4)]
+
+
+def test_two_processes_stream_their_own_file_shards():
+    """Each process writes its positions' rows of the data to a file of
+    its own and streams it (parallel.launch.stream_run): SVI from the
+    random start over batch 0, the streamed VI and MAP-EM from a key, and
+    the dense VI, MAP-EM, ML-EM and Gibbs over the same mesh, each equal
+    to one process holding all four positions (rtol 1e-9; the dense Gibbs
+    labels of each shard draw for draw, rank 1 keeping the fit's
+    generator in step with rank 0, which draws shard 0's labels from
+    it); one all_reduce a sweep or step on each rank."""
+    runs = [r[:3] for r in STREAM_RUNS]
+    cfg = dict(x=blobs(2048, 2), dtype='float64', devices=['cpu'] * 2,
+               model=MODEL, runs=runs, threads=1)
+    ranks = launch(run_engines, 2, (cfg,), backend='gloo', timeout=WALL)
+    ref = to_numpy(run_engines(dict(cfg, devices=['cpu'] * 4)))
+    for r in ranks:
+        for name, _, _, sweeps in STREAM_RUNS:
+            got, want = r[name]['out'], ref[name]['out']
+            sweep = r[name]['counters']['sweep']
+            assert sweep['calls'] == sweep['all_reduce'] == sweeps, name
+            if name == 'gibbs-dense':
+                state, trace = got
+                mine = dict(zip(state.labels.positions, state.labels.shards))
+                for p, lab in zip(want[0].labels.positions,
+                                  want[0].labels.shards):
+                    if p in mine:
+                        np.testing.assert_array_equal(mine[p], lab)
+                got, want = (state[:4], trace), (want[0][:4], want[1])
+            close(got, want, rtol=1e-9)
 
 
 def test_two_processes_chain_mesh():

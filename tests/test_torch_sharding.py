@@ -6,6 +6,12 @@ tests/conftest.py), where kernels B1-B6 run their plain versions:
   * the mesh, shard_data's contiguous shards (views where the device
     repeats), replicate, pad_to_multiple and data_parallel_fit's
     refusals, against mimo_tpu.parallel.mesh where it has the function;
+  * the dense fit_vi / fit_map / fit_em through data_parallel_fit against
+    mimo_tpu's data_parallel_fit from a shared start (rtol 1e-9) and the
+    port's unsharded fits from the same key (rtol 1e-10), for the GMM and
+    ILR; dense Gibbs (one position bitwise the unsharded chain, eight
+    shards' mass recovery), fit_chains of the dense engines over a (2, 4)
+    mesh, and one reduction a dense sweep;
   * the sharded fused VI / MAP-EM / ML-EM against mimo_tpu's sharded runs
     from a shared start (rtol 1e-8) and the port's unsharded runs, for
     the flat, diagonal and nested GMMs and ILR at p = 1 and 3;
@@ -148,13 +154,22 @@ def test_data_parallel_fit_raises_as_jax(gmm_x, mesh8):
     with pytest.raises(ValueError, match='not divisible'):
         jmesh.data_parallel_fit(jm, 'fit_vi', jnp.asarray(gmm_x[:N - 3]),
                                 mesh=jmesh.make_mesh(), key=1)
-    for dense in ('fit_vi', 'fit_gibbs', 'fit_map', 'fit_em'):
-        with pytest.raises(NotImplementedError, match=dense):
-            data_parallel_fit(m, dense, x, mesh=mesh8, key=1)
+    # an engine without a mesh path still raises, naming it
+    for other in ('fit_vi_stream_full', 'fit_no_such_engine'):
+        with pytest.raises(NotImplementedError, match=other):
+            data_parallel_fit(m, other, x, mesh=mesh8, key=1)
     st, tr = data_parallel_fit(m, 'fit_map_fused', x, mesh=mesh8, key=1,
                                maxiter=3)
     st0, tr0 = m.fit_map_fused(x, key=1, maxiter=3)
     np.testing.assert_allclose(tr.numpy(), tr0.numpy(), rtol=1e-12)
+    # the dense engines run over the mesh, each equal to its unsharded fit
+    for dense in ('fit_vi', 'fit_map', 'fit_em'):
+        st, tr = data_parallel_fit(m, dense, x, mesh=mesh8, key=1,
+                                   maxiter=3)
+        st0, tr0 = getattr(m, dense)(x, key=1, maxiter=3)
+        np.testing.assert_allclose(tr.numpy(), tr0.numpy(), rtol=1e-10)
+    gs = data_parallel_fit(m, 'fit_gibbs', x, mesh=mesh8, key=1, maxiter=2)
+    assert isinstance(gs.labels, Sharded) and gs.labels.gather().shape == (N,)
 
 
 # -- the fused engines against mimo_tpu's sharded runs ---------------------------
@@ -547,11 +562,13 @@ def test_sharded_serving_wrappers_equal_one_launch():
 # -- chains over a ('chain', 'data') mesh -------------------------------------------
 
 @pytest.mark.parametrize('engine', ['fit_vi_fused', 'fit_map_fused',
-                                    'fit_em_fused'])
+                                    'fit_em_fused', 'fit_vi', 'fit_map',
+                                    'fit_em'])
 def test_fit_chains_over_a_chain_data_mesh(gmm_x, engine):
     """mimo_tpu's test_chain_and_data_axes_together: 4 keys over a (2, 4)
     mesh equal the unsharded fit_chains, and best_of picks the same
-    chain."""
+    chain; the fused engines run each row's group batched, the dense
+    ones chain by chain over the row."""
     from mimo_tpu_torch.parallel import best_of
     m24 = make_mesh(n_chain=2, devices=CPU8)
     m = BayesianGMM.make(size=5, dim=2, gating='dp', alpha=1.0, kappa=0.05,
@@ -563,7 +580,7 @@ def test_fit_chains_over_a_chain_data_mesh(gmm_x, engine):
                              mesh=m24, maxiter=8)
     np.testing.assert_allclose(got_tr.numpy(), ref_tr.numpy(), rtol=1e-10)
     leaves_close(got, state_to_numpy(ref), 1e-9)
-    if engine == 'fit_vi_fused':
+    if engine in ('fit_vi_fused', 'fit_vi'):
         assert int(best_of(got, got_tr)[1]) == int(best_of(ref, ref_tr)[1])
 
 
@@ -577,8 +594,163 @@ def test_fit_chains_gibbs_labels_stay_on_their_row(gmm_x):
     assert [s.shape for s in gs.labels.shards] == [(2, 400)] * 8
     with pytest.raises(ValueError, match='chain rows'):
         fit_chains(m, 'fit_vi_fused', tt(gmm_x), [1, 2, 3], mesh=m24)
-    with pytest.raises(NotImplementedError):
-        fit_chains(m, 'fit_gibbs', tt(gmm_x), [1, 2], mesh=m24)
+    # an unknown engine still raises; the dense Gibbs runs batched over
+    # its row, its labels on the row's shards
+    with pytest.raises(ValueError, match='unknown engine'):
+        fit_chains(m, 'fit_no_such_engine', tt(gmm_x), [1, 2], mesh=m24)
+    dg = fit_chains(m, 'fit_gibbs', tt(gmm_x), [1, 2, 3, 4], mesh=m24,
+                    maxiter=2)
+    assert dg.components.mu.shape == (4, 5, 2)
+    assert [s.shape for s in dg.labels.shards] == [(2, 400)] * 8
+
+
+# -- the dense engines over a mesh ---------------------------------------
+
+DENSE = [(e, name) for name in ('dpgmm', 'diag', 'ilr1', 'ilr3', 'nested')
+         for e in ('fit_vi', 'fit_map', 'fit_em')]
+
+
+@pytest.mark.parametrize('engine,name', DENSE)
+def test_dense_engines_match_jax_and_unsharded(monkeypatch, gmm_x, ilr_xy,
+                                               mesh8, engine, name):
+    """mimo_tpu's test_vi_sharded_equals_replicated and test_ilr_sharded_vi
+    for each dense engine, flat and nested: 5 sweeps through
+    data_parallel_fit over 8 shards of 200 points from JAX's random or
+    anchor start (handed to the port): the trace and the final state
+    against mimo_tpu's data_parallel_fit (rtol 1e-9) and against the
+    port's unsharded fit from the same key (rtol 1e-10)."""
+    jm, tm, dj, dt, k = make_pair(name, gmm_x, ilr_xy)
+    shared_start(monkeypatch, name, k)
+    st_j, tr_j = jmesh.data_parallel_fit(jm, engine, dj,
+                                         mesh=jmesh.make_mesh(), key=1,
+                                         maxiter=5)
+    st_t, tr_t = data_parallel_fit(tm, engine, dt, mesh=mesh8, key=1,
+                                   maxiter=5)
+    np.testing.assert_allclose(tr_t.numpy(), np.asarray(tr_j), rtol=1e-9)
+    leaves_close(st_t, st_j, 1e-9)
+    st_u, tr_u = getattr(tm, engine)(dt, key=1, maxiter=5)
+    np.testing.assert_allclose(tr_t.numpy(), tr_u.numpy(), rtol=1e-10)
+    leaves_close(st_t, state_to_numpy(st_u), 1e-10)
+
+
+@pytest.mark.parametrize('n', [N, 5])
+def test_dense_vi_with_weights_and_a_warm_start(gmm_x, mesh8, n):
+    """Point weights split as the data, a warm start from a state, and
+    N = 5 over 8 positions (three empty): the sharded dense VI equals the
+    unsharded one (rtol 1e-10), `tol` stopping at the same sweep."""
+    m = BayesianGMM.make(size=4, dim=2, gating='dp', kappa=0.05,
+                         psi_scale=0.5, dtype=torch.float64, device='cpu')
+    x = tt(gmm_x[:n])
+    w = torch.linspace(0.5, 1.5, n, dtype=torch.float64)
+    st0, _ = m.fit_vi(x, key=2, maxiter=2)
+    for kw in (dict(key=3, point_weights=w),
+               dict(init_state=st0, randomize=False, tol=1e-6)):
+        a, ta = m.fit_vi(x, maxiter=12, mesh=mesh8, **kw)
+        b, tb = m.fit_vi(x, maxiter=12, **kw)
+        np.testing.assert_allclose(ta.numpy(), tb.numpy(), rtol=1e-10)
+        leaves_close(a, state_to_numpy(b), 1e-10)
+
+
+@pytest.mark.parametrize('name,init_labels,chains', [
+    ('dpgmm', 'prior', False), ('dpgmm', 'random', False),
+    ('dpgmm', 'prior', True), ('ilr1', 'prior', False)])
+def test_one_position_dense_gibbs_is_the_unsharded_chain(gmm_x, ilr_xy, name,
+                                                         init_labels, chains):
+    """Over a one-position mesh the dense Gibbs chain is the mesh=None
+    chain draw for draw: labels, every state leaf and the loglik trace
+    bitwise (data shard 0 draws its labels from the fit's generator)."""
+    _, tm, _, dt, _ = make_pair(name, gmm_x, ilr_xy)
+    one = make_mesh(devices=['cpu'])
+    key = [2, 5] if chains else 2
+    kw = dict(key=key, maxiter=4, init_labels=init_labels, chains=chains,
+              track_loglik=True)
+    g0, l0 = tm.fit_gibbs(dt, **kw)
+    g1, l1 = tm.fit_gibbs(dt, mesh=one, **kw)
+    assert torch.equal(l1, l0)
+    assert isinstance(g1.labels, Sharded)
+    assert torch.equal(g1.labels.gather(-1), g0.labels)
+    for a, b in zip(jax.tree.leaves(state_to_numpy(g1[:4])),
+                    jax.tree.leaves(state_to_numpy(g0[:4]))):
+        np.testing.assert_array_equal(a, b)
+    # and a chain continued from its state
+    key = [7, 8] if chains else 7
+    more0 = tm.fit_gibbs(dt, key=key, maxiter=2, init_state=g0,
+                         chains=chains)
+    more1 = tm.fit_gibbs(dt, key=key, maxiter=2, init_state=g1,
+                         chains=chains, mesh=one)
+    assert torch.equal(more1.labels.gather(-1), more0.labels)
+
+
+def test_nested_dense_gibbs_over_a_mesh(gmm_x, mesh8):
+    """The nested dense Gibbs over a one-position mesh is the unsharded
+    chain draw for draw; over 8 shards its outer labels stay on their
+    shards and every state leaf is finite; fit_chains runs it chain by
+    chain over each row of a (2, 4) mesh."""
+    tm = BayesianMixtureOfMixtures.make_gmm(dtype=torch.float64,
+                                            device='cpu', **NESTED)
+    x = tt(gmm_x)
+    g0 = tm.fit_gibbs(x, key=4, maxiter=3)
+    g1 = tm.fit_gibbs(x, key=4, maxiter=3, mesh=make_mesh(devices=['cpu']))
+    assert torch.equal(g1.labels.gather(), g0.labels)
+    for a, b in zip(jax.tree.leaves(state_to_numpy(g1[:3])),
+                    jax.tree.leaves(state_to_numpy(g0[:3]))):
+        np.testing.assert_array_equal(a, b)
+    g8 = data_parallel_fit(tm, 'fit_gibbs', x, mesh=mesh8, key=4, maxiter=3)
+    assert [s.shape for s in g8.labels.shards] == [(200,)] * 8
+    assert all(np.isfinite(t).all()
+               for t in jax.tree.leaves(state_to_numpy(g8[:3])))
+    m24 = make_mesh(n_chain=2, devices=CPU8)
+    gc = fit_chains(tm, 'fit_gibbs', x, [1, 2, 3, 4], mesh=m24, maxiter=2)
+    assert [s.shape for s in gc.labels.shards] == [(2, 400)] * 8
+    vc, tr = fit_chains(tm, 'fit_vi', shard_data(m24, x), [1, 2, 3, 4],
+                        mesh=m24, maxiter=3, maxsubiter=2)
+    vu, tu = fit_chains(tm, 'fit_vi', x, [1, 2, 3, 4], maxiter=3,
+                        maxsubiter=2)
+    np.testing.assert_allclose(tr.numpy(), tu.numpy(), rtol=1e-10)
+    leaves_close(vc, state_to_numpy(vu), 1e-9)
+
+
+def blobs4096(seed):
+    rng = np.random.default_rng(seed)
+    c = np.array([[-4., 0.], [4., 0.], [0., 5.]])
+    return tt(c[rng.choice(3, 4096, p=[.3, .4, .3])]
+              + rng.standard_normal((4096, 2)) / np.sqrt(2.0))
+
+
+def test_dense_gibbs_over_eight_shards_recovers_the_mass(mesh8):
+    """mimo_tpu's test_gibbs_sharded_runs through data_parallel_fit: 60
+    sweeps over 4096 points; the labels stay on their shards."""
+    x = blobs4096(0)
+    m = BayesianGMM.make(size=8, dim=2, gating='dp', alpha=1.0, kappa=0.05,
+                         psi_scale=0.5, dtype=torch.float64, device='cpu')
+    st, ll = data_parallel_fit(m, 'fit_gibbs', x, mesh=mesh8, key=2,
+                               maxiter=60, track_loglik=True)
+    assert [s.shape[0] for s in st.labels.shards] == [512] * 8
+    counts = np.bincount(st.labels.gather().numpy(), minlength=8)
+    assert counts.sum() == 4096
+    assert np.sort(counts)[-4:].sum() > 0.8 * 4096
+    assert ll.shape == (60,) and bool(torch.isfinite(ll).all())
+    assert bool(torch.isfinite(st.components.mu).all())
+
+
+def test_dense_gibbs_chains_over_a_chain_data_mesh():
+    """fit_chains of the dense Gibbs over a (2, 4) mesh: each row's two
+    chains run batched over its four shards, and every chain recovers the
+    mass as the unsharded fit_chains' chains do."""
+    x = blobs4096(1)
+    m24 = make_mesh(n_chain=2, devices=CPU8)
+    m = BayesianGMM.make(size=8, dim=2, gating='dp', alpha=1.0, kappa=0.05,
+                         psi_scale=0.5, dtype=torch.float64, device='cpu')
+    keys = [3, 4, 5, 6]
+    got = fit_chains(m, 'fit_gibbs', shard_data(m24, x), keys, mesh=m24,
+                     maxiter=40)
+    ref = fit_chains(m, 'fit_gibbs', x, keys, maxiter=40)
+    assert got.components.mu.shape == ref.components.mu.shape == (4, 8, 2)
+    rows = [got.labels.on(m24.row(g)).gather(-1) for g in (0, 1)]
+    assert [r.shape for r in rows] == [(2, 4096)] * 2
+    for chain in torch.cat(rows + [ref.labels]):
+        counts = np.bincount(chain.numpy(), minlength=8)
+        assert np.sort(counts)[-4:].sum() > 0.8 * 4096
 
 
 # -- empty and short shards -----------------------------------------------------------
@@ -633,3 +805,47 @@ def test_communication_contract_one_reduction_a_sweep(mesh8):
         m.log_predictive(st, x, mesh=mesh8)
         assert all(c['calls'] == 0 for c in tmesh.counters.values())
     assert all(len(v) == 1 for v in per_call.values())
+
+
+def test_dense_sweeps_make_one_reduction_each(mesh8):
+    """The dense engines over a mesh: one reduction a sweep of the same
+    size at two N; the starts' apart (VI two, MAP-EM one, ML-EM's anchors
+    three, Gibbs one), and no all_reduce in one process."""
+    m = BayesianGMM.make(size=8, dim=2, gating='dp', alpha=1.0, kappa=0.05,
+                         psi_scale=0.5, dtype=torch.float64, device='cpu')
+    rng = np.random.default_rng(0)
+    starts = {'fit_vi': 2, 'fit_map': 1, 'fit_em': 3, 'fit_gibbs': 1}
+    per_call = {}
+    for n in (4096, 8192):
+        x = shard_data(mesh8, tt(rng.normal(size=(n, 2))))
+        for engine, start in starts.items():
+            tmesh.reset_counters()
+            getattr(m, engine)(x, key=1, maxiter=3, mesh=mesh8)
+            sweep = tmesh.counters['sweep']
+            assert sweep['calls'] == 3 and sweep['all_reduce'] == 0, engine
+            assert tmesh.counters['start']['calls'] == start, engine
+            per_call.setdefault(engine, set()).add(sweep['floats'] // 3)
+    assert all(len(v) == 1 for v in per_call.values())
+
+
+@pytest.mark.parametrize('maxsubiter', [1, 3])
+def test_nested_dense_sweeps_count_their_inner_rounds(gmm_x, mesh8,
+                                                      maxsubiter):
+    """A nested dense sweep over a mesh: VI makes maxsubiter + 1
+    reductions (one an inner round, one of its log-likelihood), MAP-EM
+    and ML-EM maxsubiter + 2 (maxsubiter + 1 M-steps and the
+    log-likelihood), Gibbs maxsubiter (one an inner round, the outer
+    counts riding on the first); no all_reduce in one process."""
+    tm = BayesianMixtureOfMixtures.make_gmm(dtype=torch.float64,
+                                            device='cpu', **NESTED)
+    x = shard_data(mesh8, tt(gmm_x))
+    for engine, per in (('fit_vi', maxsubiter + 1),
+                        ('fit_map', maxsubiter + 2),
+                        ('fit_em', maxsubiter + 2),
+                        ('fit_gibbs', maxsubiter)):
+        tmesh.reset_counters()
+        getattr(tm, engine)(x, key=1, maxiter=3, maxsubiter=maxsubiter,
+                            mesh=mesh8)
+        sweep = tmesh.counters['sweep']
+        assert sweep['calls'] == 3 * per, engine
+        assert sweep['all_reduce'] == 0
