@@ -234,6 +234,19 @@ Phases, one or more printed lines each:
               sweep or step. The B1-stream-sharded (262,144 points, a
               column view of the staged block) and B1-svi-stream-sharded
               (16,384 points) rows in the kernels line.
+ 23. certify  (a) the Geweke test of the full Gibbs transition
+              (mimo_tpu_torch.scripts.geweke_gibbs) of all 8 families in
+              float32 with the label sweep on B2, n=256, K=3 (nested M=2):
+              max|z| < 6.0, no draw dropped, B2 once a transition; the
+              B2-geweke row; (b) fit_with_checkpoints on phase 6's DP-GMM,
+              fit_vi_fused 20 in chunks of 5: a run stopped at 10 and
+              resumed by a fresh call bitwise the whole run, both against
+              a straight fit by phase 3's rule, B1 20 launches a run, the
+              checkpoint's bytes and save / load times; (c) smc_study at
+              its defaults, one seed, B3 once a chain of each arm; (d)
+              precision_study at N=1e7, VI 50 and Gibbs 10: the VI
+              held-out mean log predictive of the kernels within 1e-3
+              nats/point of the plain twins'.
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -967,6 +980,9 @@ def run(dev, seed, n_main, n_check):
     t22 = time.perf_counter()
     mesh_stream_dense_paths(dev, seed, card, n_main, errs, launches, ms)
     print(f'phase 22 on {card}: {time.perf_counter() - t22:.6g} s')
+    t23 = time.perf_counter()
+    certify_paths(dev, seed, card, n_main, errs, launches, ms)
+    print(f'phase 23 on {card}: {time.perf_counter() - t23:.6g} s')
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -1072,6 +1088,10 @@ def run(dev, seed, n_main, n_check):
                     'scripts/bisect_smem.py:52'),
         'S3': ('S3 build probe o = 2x', 'mimo_tpu_torch/csrc/hello.cu',
                'scripts/pallas_hello.py:11'),
+        'B2-geweke': (f'B2 fused Gibbs label sweep, the Geweke transition '
+                      f'(n={GEWEKE_N}, K={GEWEKE_K}, Gauss map)',
+                      'mimo_tpu_torch/csrc/gibbs.cuh',
+                      'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B1-MAP': ('B1 fused E-step, Gauss map, plug-in theta at the '
                    'posterior mode (fit_map_fused)',
                    'mimo_tpu_torch/csrc/estep.cuh',
@@ -1160,6 +1180,8 @@ def run(dev, seed, n_main, n_check):
             rows[-1].update(STREAM_ROWS[b])
         if b in MESH_ROWS:      # one shard's launch: launches per path,
             rows[-1].update(MESH_ROWS[b])   # each shard's time, the fold
+        if b in CERT_ROWS:      # a launch-bound call: its device time
+            rows[-1].update(CERT_ROWS[b])
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -5011,6 +5033,268 @@ def mesh_stream_dense_paths(dev, seed, card, n_main, errs, launches, ms):
     mesh_dense_chains_cell(model, x, dev)
     del x, model
     torch.cuda.empty_cache()
+
+
+# -- 23. certify: the samplers, checkpoint / resume, the studies -------------
+
+# leg (a): the largest draw count of at least 1,500 that keeps the leg
+# under ~90 s on the card (burn 10%, thin 1; the 8 families at once)
+GEWEKE_DRAWS = 4000
+GEWEKE_DEADLINE = 300          # seconds for the 8 family processes
+CERT_ROWS = {}                 # kernel row -> extra keys of its JSON row
+GEWEKE_N, GEWEKE_K, GEWEKE_M = 256, 3, 2
+CKPT_TOTAL, CKPT_CHUNK = 20, 5
+PRECISION_VI, PRECISION_GIBBS = 50, 10
+
+
+def geweke_family(family, draws, burn, seed, results):
+    """One family of leg (a), in a process of its own on card 0: both
+    sides of the Geweke test, the counts set to 0 just before the
+    successive side (the transitions) and read just after. Puts the
+    record the leg prints and checks on the queue `results` (or the
+    traceback of what failed)."""
+    try:
+        from mimo_tpu_torch.scripts import geweke_gibbs as gw
+        torch.cuda.set_device(0)
+        dev = torch.device('cuda:0')
+        args = gw.parse_args([
+            '--backend', 'cuda', '--family', family, '--draws', str(draws),
+            '--burn', str(burn), '--thin', '1', '--n', str(GEWEKE_N), '--k',
+            str(GEWEKE_K), '--m', str(GEWEKE_M), '--seed', str(seed)])
+        cfg = gw.build_config(args, torch.float32, dev)
+        g_prior = torch.Generator(device=dev).manual_seed(2 * seed)
+        g_succ = torch.Generator(device=dev).manual_seed(2 * seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prior, names = gw.prior_side(cfg, g_prior, draws)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reset_counts()
+        succ = gw.successive_side(cfg, g_succ, draws, burn, 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        b2 = sum(cuda_gibbs.launches.values())
+        mx, _, bad_p, bad_s = gw.summarize(prior.cpu().double().numpy(),
+                                           succ.cpu().double().numpy(),
+                                           names, out=lambda s: None)
+        results.put({'family': family, 'max_abs_z': mx, 'stats': len(names),
+                     'dropped_prior': bad_p, 'dropped_succ': bad_s, 'b2': b2,
+                     'prior_s': t1 - t0, 'chain_s': t2 - t1})
+    except BaseException:
+        import traceback
+        results.put({'family': family, 'error': traceback.format_exc()})
+        raise
+
+
+def geweke_leg(dev, seed, card, errs, launches, ms):
+    """Leg (a): the Geweke test of the full Gibbs transition of all 8
+    families in float32 on the card, the label sweep on B2 (one launch a
+    transition), n=256, K=3 (nested M=2 x K=3), at the run's seed. The
+    harness is bound by the host (a few hundred small ops a transition),
+    so the families run at once, a spawned process each, ended in
+    `finally`.
+    Fails at any max|z| >= 6.0 (tests/test_diagnostics.py's gate), any
+    dropped draw, or a process that fails or outlives the deadline. Then
+    the B2-geweke row: B2 at n=256, K=3 on a prior draw of the gmm family,
+    against its plain version."""
+    import multiprocessing
+    import queue
+    from mimo_tpu_torch.scripts import geweke_gibbs as gw
+    burn = GEWEKE_DRAWS // 10
+    steps = GEWEKE_DRAWS + burn
+    t_leg = time.perf_counter()
+    ctx = multiprocessing.get_context('spawn')
+    results = ctx.Queue()
+    procs = [ctx.Process(target=geweke_family,
+                         args=(f, GEWEKE_DRAWS, burn, seed, results))
+             for f in gw.FAMILIES]
+    got = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + GEWEKE_DEADLINE
+        while len(got) < len(procs):
+            left = deadline - time.monotonic()
+            check(left > 0, f'Geweke leg: not done in {GEWEKE_DEADLINE} s')
+            try:
+                r = results.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                check(not dead, f'Geweke leg: a family process exited with '
+                      f'{dead} and no result')
+                continue
+            check('error' not in r, f'Geweke {r["family"]}: {r.get("error")}')
+            got[r['family']] = r
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    total = 0
+    for f in gw.FAMILIES:
+        r = got[f]
+        print(f'Geweke {f} on {card}: B2, float32, n={GEWEKE_N} K={GEWEKE_K}'
+              f'{f" M={GEWEKE_M}" if f == "nested" else ""}, '
+              f'{GEWEKE_DRAWS} draws, burn {burn}, thin 1: max|z| '
+              f'{r["max_abs_z"]:.4g} (< 6.0) over {r["stats"]} statistics; '
+              f'dropped prior {r["dropped_prior"]}, successive '
+              f'{r["dropped_succ"]}; B2 launches {r["b2"]} (transitions '
+              f'{steps}); prior side {r["prior_s"]:.4g} s '
+              f'({1e3 * r["prior_s"] / GEWEKE_DRAWS:.4g} ms a draw), chain '
+              f'{r["chain_s"]:.4g} s ({1e3 * r["chain_s"] / steps:.4g} ms a '
+              f'transition with its data)')
+        total += r['b2']
+    for f in gw.FAMILIES:
+        r = got[f]
+        check(r['max_abs_z'] < 6.0 and r['dropped_prior'] == 0
+              and r['dropped_succ'] == 0 and r['b2'] == steps,
+              f'Geweke {f}: max|z| {r["max_abs_z"]:.4g}, dropped '
+              f'{r["dropped_prior"]}/{r["dropped_succ"]}, B2 launches '
+              f'{r["b2"]} of {steps} transitions')
+    launches['B2-geweke'] = total
+    print(f'Geweke leg on {card}: 8 families, a process each, in '
+          f'{time.perf_counter() - t_leg:.6g} s, {total} B2 launches')
+
+    # B2 at the leg's shape on a prior draw of the gmm family
+    args = gw.parse_args(['--backend', 'cuda', '--n', str(GEWEKE_N), '--k',
+                          str(GEWEKE_K)])
+    cfg = gw.build_config(args, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params, pi = cfg['init'](gen)
+    xt = kernel_xts(cfg['generate'](gen, params, pi))[0]
+    theta, _ = pad_theta(gaussian_spec().theta_plugin(params),
+                         torch.log(torch.clamp(pi, min=1e-37)), torch.float32)
+    seed = torch.randint(0, 2 ** 62, (), generator=gen, dtype=torch.int64,
+                         device=dev)
+    labels, acc = gibbs_labels_check('B2-geweke', xt, theta, seed, GEWEKE_N)
+    errs['B2-geweke'] = gibbs_acc_err(xt, GEWEKE_N, cuda_estep.GAUSS, 0,
+                                      labels, acc)
+    ms['B2-geweke'] = (
+        cuda_ms(lambda: cuda_gibbs.gibbs(xt, theta, seed, GEWEKE_N), 20),
+        cuda_ms(lambda: cuda_gibbs.gibbs_plain(xt, theta, seed, GEWEKE_N), 3))
+    WORK['B2-geweke'] = gibbs_work(
+        xt, theta, GEWEKE_N, cuda_estep.feature_width(cuda_estep.GAUSS,
+                                                      D_MAIN))
+    # at n=256 a call is launch-bound: the profiler's device time stands
+    # beside the CUDA-event time of a call, which includes the host's issue
+    dev_ms = profiled_device_ms(
+        lambda: cuda_gibbs.gibbs(xt, theta, seed, GEWEKE_N))
+    CERT_ROWS['B2-geweke'] = {'device_ms': dev_ms}
+    print(f'B2-geweke time on {card} at n={GEWEKE_N} K={GEWEKE_K} d={D_MAIN}:'
+          f' kernel {ms["B2-geweke"][0]:.6g} ms a call by CUDA events '
+          f'(device {dev_ms:.6g} ms by the profiler), plain PyTorch '
+          f'{ms["B2-geweke"][1]:.6g} ms')
+
+
+def checkpoint_leg(dev, seed, card, n_main):
+    """Leg (b): fit_with_checkpoints(model, 'fit_vi_fused', ...) on phase
+    6's DP-GMM (N=1e7, K=50), 20 sweeps in chunks of 5 into a temporary
+    directory: whole; then to 10 and a fresh call with resume=True to 20,
+    bitwise the whole run; both against a straight fit_vi_fused 20 from
+    the same start by phase 3's rule. B1 exactly 20 launches a run."""
+    from mimo_tpu_torch.utils.checkpoint import (
+        chunk_key, fit_with_checkpoints, load_state, save_state)
+    x = main_data(dev, seed, n_main)
+    model = BayesianGMM.make(size=K_MAIN, dim=D_MAIN, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5, device=dev)
+    tag = f'checkpoint N={n_main} K={K_MAIN} fit_vi_fused {CKPT_TOTAL}'
+    with tempfile.TemporaryDirectory() as tmp:
+        def chunked(path, total, resume=False):
+            torch.cuda.synchronize()
+            reset_counts()
+            st, ran = fit_with_checkpoints(
+                model, 'fit_vi_fused', x, os.path.join(tmp, path),
+                total_iters=total, chunk_iters=CKPT_CHUNK, key=seed,
+                resume=resume)
+            torch.cuda.synchronize()
+            return st, ran, read_counts()['B1']
+
+        whole, ran_w, b1_w = chunked('whole', CKPT_TOTAL)
+        _, ran_h, b1_h = chunked('split', CKPT_TOTAL // 2)
+        again, ran_r, b1_r = chunked('split', CKPT_TOTAL, resume=True)
+        bitwise = all(torch.equal(a, b) for a, b in zip(leaves(again),
+                                                        leaves(whole)))
+        print(f'{tag} in chunks of {CKPT_CHUNK}: whole run {ran_w} sweeps, '
+              f'B1 {b1_w} launches; to {CKPT_TOTAL // 2} ({ran_h} sweeps, B1 '
+              f'{b1_h}) then resumed by a fresh call ({ran_r} sweeps, B1 '
+              f'{b1_r}); resumed state bitwise the whole run {bitwise}')
+        check(ran_w == CKPT_TOTAL and b1_w == CKPT_TOTAL
+              and ran_h + ran_r == CKPT_TOTAL and b1_h + b1_r == CKPT_TOTAL
+              and bitwise, f'{tag}: resume is not the uninterrupted run')
+        straight, v = model.fit_vi_fused(x, key=chunk_key(seed, 0),
+                                         maxiter=CKPT_TOTAL)
+        states_close(tag, whole, straight, v, v,
+                     what=f'a straight fit_vi_fused {CKPT_TOTAL}')
+        path = os.path.join(tmp, 'timed')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state(path, whole)
+        t1 = time.perf_counter()
+        back = load_state(path, whole)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                    leaves(whole))),
+              f'{tag}: a saved state does not load back bitwise')
+        print(f'{tag}: checkpoint {os.path.getsize(path)} bytes, save '
+              f'{1e3 * (t1 - t0):.4g} ms, load onto the card '
+              f'{1e3 * (t2 - t1):.4g} ms ({card})')
+    del x, model
+    torch.cuda.empty_cache()
+
+
+def smc_study_leg(dev, card):
+    """Leg (c): smc_study at its defaults (16 chains, 10 rounds of 10
+    sweeps, n=2000, K=4), one seed: both arms scored on held-out points,
+    B3 once a chain of each arm."""
+    from mimo_tpu_torch.scripts import smc_study
+    chains = 16
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    s_ind, s_smc = smc_study.run_seed(0, chains, 10, 10, 2000, dev,
+                                      torch.float32)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    b3 = read_counts()['B3']
+    arms = {'independent': smc_study.summ(s_ind),
+            'smc': smc_study.summ(s_smc)}
+    for arm, r in arms.items():
+        print(f'smc_study seed 0 on {card}, {arm}: best {r["best"]:+.4f} '
+              f'mean {r["mean"]:+.4f} worst {r["worst"]:+.4f} frac_good '
+              f'{r["frac_good"]:.3g} (held-out nats/point, {chains} chains)')
+    print(f'smc_study: B3 launches {b3} (chains x arms {2 * chains}); '
+          f'{secs:.4g} s')
+    check(b3 == 2 * chains and np.isfinite(s_ind).all()
+          and np.isfinite(s_smc).all(), 'smc_study: scores not finite or '
+          'B3 not once a chain')
+
+
+def precision_study_leg(dev, card, n_main):
+    """Leg (d): precision_study at N=1e7, K=50, VI 50 and Gibbs 10: the VI
+    held-out mean log predictive of the kernels (B1, B3) within 1e-3
+    nats/point of the plain twins'; the Gibbs numbers printed."""
+    from mimo_tpu_torch.scripts import precision_study
+    res = precision_study.run(n=n_main, vi_iters=PRECISION_VI,
+                              gibbs_iters=PRECISION_GIBBS, device=dev,
+                              out=lambda s: print(f'precision_study on '
+                                                  f'{card}: {s}'))
+    delta = abs(res['cuda']['logpred'] - res['plain']['logpred'])
+    check(delta <= 1e-3 and res['cuda']['nonfinite'] == 0
+          and res['plain']['nonfinite'] == 0,
+          f'precision_study: VI held-out delta {delta:.3g} > 1e-3 nats/point')
+    torch.cuda.empty_cache()
+
+
+def certify_paths(dev, seed, card, n_main, errs, launches, ms):
+    """Phase 23: legs (a)-(d)."""
+    geweke_leg(dev, seed, card, errs, launches, ms)
+    checkpoint_leg(dev, seed, card, n_main)
+    smc_study_leg(dev, card)
+    precision_study_leg(dev, card, n_main)
 
 
 if __name__ == '__main__':

@@ -5,7 +5,8 @@ S1 and S2, S3, the nested mixtures' paths through B1/B2/B3 at M*K
 rows and B5/B6 over flattened experts, B1/B2 with a chain axis and
 the chained fused engines, flat and nested, and B1 a block at a time in
 the out-of-core engines through the staged buffers) against their plain
-PyTorch versions, on the card.
+PyTorch versions, on the card; and the Geweke test of the full Gibbs
+transition through B2 (gmm, hier).
 Every test here needs a CUDA device and skips without one; run them on
 the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
@@ -1552,3 +1553,22 @@ def test_streams_over_a_mesh_launch_b1_once_a_shard(dev):
     torch.cuda.synchronize()
     assert cuda_estep.launches['gauss'] == before + 10 * 4
     assert bool(torch.isfinite(sv.components.mu).all())
+
+
+@pytest.mark.parametrize('family', ['gmm', 'hier'])
+def test_geweke_through_b2(dev, family):
+    """The Geweke joint-distribution test of the full Gibbs transition in
+    float32 on the card, its label sweep on B2 (one launch a
+    transition): 1,500 draws, burn 150, thin 1, n=128, K=3, the size of
+    the CPU harness tests. (At n=256 a 1,500-draw chain mixes too slowly
+    for 50 batch means of 30 draws: healthy runs reach max|z| 6.6-10.)"""
+    from mimo_tpu_torch.scripts import geweke_gibbs
+    args = geweke_gibbs.parse_args(
+        ['--backend', 'cuda', '--family', family, '--draws', '1500',
+         '--burn', '150', '--thin', '1', '--n', '128'])
+    before = sum(cuda_gibbs.launches.values())
+    mx, _, result = geweke_gibbs.run(args, out=lambda s: None)
+    assert sum(cuda_gibbs.launches.values()) - before == 1650
+    assert result['dtype'] == 'float32'
+    assert result['dropped_prior'] == 0 and result['dropped_succ'] == 0
+    assert mx < 6.0, result
