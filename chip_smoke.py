@@ -246,7 +246,21 @@ Phases, one or more printed lines each:
               its defaults, one seed, B3 once a chain of each arm; (d)
               precision_study at N=1e7, VI 50 and Gibbs 10: the VI
               held-out mean log predictive of the kernels within 1e-3
-              nats/point of the plain twins'.
+              nats/point of the plain twins'. Every family's statistics
+              include its data moments (3, or 5 for the ILR families).
+ 24. examples the example drivers (mimo_tpu_torch/examples) through their
+              main(argv) on the card: (a) all twelve at their defaults,
+              one after another, without --plot: wall seconds, returned
+              numbers (all finite; each driver's own checks), B5 launches
+              (> 0 for ilr_sine, ilr_eval, ilr_sinc_study and hilr) and
+              B1 (> 0 for stream_svi); (b) ilr_eval on sine, sinc, step,
+              step_poly, chirp and inverse at seeds 0, 1 and 2 (numpy's
+              default_rng data, as JAX draws it), B5 once a run: the 6 x 3
+              table of RMSE and mean NLPD beside the frozen thresholds of
+              tests/test_examples.py:54-63, seed 0 under both; (c) the
+              B5-eval rows: B5 against its plain twin at the sine (N=2000,
+              K=50, d=1) and step_poly (N=160, K=10, d=3) fits, timed by
+              CUDA events and the profiler's device time.
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -519,20 +533,32 @@ def library_mixture(post, log_w, x, dist='studentt'):
     return run
 
 
-def profiled_device_ms(fn, reps=20):
+def profiled_device_ms(fn, reps=20, tries=3):
     """Device time per call of fn() under torch.profiler (the summed
-    device events of `reps` calls over reps)."""
+    device events of `reps` calls over reps). On an H100 host a
+    profiling session now and then records no device event at all (for
+    a kernel of this library in one session, for `2.0 * x` in another);
+    such a session is run again, up to `tries` in all. None: none
+    recorded any."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / reps
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    return None
+
+
+def ms_text(ms):
+    """A time in ms for the printed lines; None is 'not measured'."""
+    return 'not measured' if ms is None else f'{ms:.6g} ms'
 
 
 def serving_work(n, k, d, p, diag=False):
@@ -983,6 +1009,9 @@ def run(dev, seed, n_main, n_check):
     t23 = time.perf_counter()
     certify_paths(dev, seed, card, n_main, errs, launches, ms)
     print(f'phase 23 on {card}: {time.perf_counter() - t23:.6g} s')
+    t24 = time.perf_counter()
+    examples_paths(dev, card, errs, launches, ms)
+    print(f'phase 24 on {card}: {time.perf_counter() - t24:.6g} s')
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -992,8 +1021,8 @@ def run(dev, seed, n_main, n_check):
     s3_dev = (profiled_device_ms(lambda: cuda_hello.twice(x_hello)),
               profiled_device_ms(lambda: 2.0 * x_hello))
     print(f'S3 on {card}: kernel {ms["S3"][0]:.6g} ms a call by CUDA events '
-          f'(device {s3_dev[0]:.6g} ms by the profiler), 2.0 * x '
-          f'{LIBRARY["S3"]:.6g} ms (device {s3_dev[1]:.6g} ms)')
+          f'(device {ms_text(s3_dev[0])} by the profiler), 2.0 * x '
+          f'{LIBRARY["S3"]:.6g} ms (device {ms_text(s3_dev[1])})')
 
     meta = {
         'B1': ('B1 fused VI E-step', 'mimo_tpu_torch/csrc/estep.cuh',
@@ -1092,6 +1121,13 @@ def run(dev, seed, n_main, n_check):
                       f'(n={GEWEKE_N}, K={GEWEKE_K}, Gauss map)',
                       'mimo_tpu_torch/csrc/gibbs.cuh',
                       'mimo_tpu/ops/pallas_gibbs.py:36'),
+        'B5-eval': ('B5 ILR predict, p=1, the ilr_eval sine fit (N=2000, '
+                    'K=50, d=1)', 'mimo_tpu_torch/csrc/ilr_predict.cuh',
+                    'mimo_tpu/ops/pallas_predict.py:656'),
+        'B5-eval-poly': ('B5 ILR predict, p=1, the ilr_eval step_poly fit '
+                         '(N=160, K=10, cubic features d=3)',
+                         'mimo_tpu_torch/csrc/ilr_predict.cuh',
+                         'mimo_tpu/ops/pallas_predict.py:656'),
         'B1-MAP': ('B1 fused E-step, Gauss map, plug-in theta at the '
                    'posterior mode (fit_map_fused)',
                    'mimo_tpu_torch/csrc/estep.cuh',
@@ -1182,6 +1218,8 @@ def run(dev, seed, n_main, n_check):
             rows[-1].update(MESH_ROWS[b])   # each shard's time, the fold
         if b in CERT_ROWS:      # a launch-bound call: its device time
             rows[-1].update(CERT_ROWS[b])
+        if b in EXAMPLE_ROWS:   # the same, at a fitted state's shape
+            rows[-1].update(EXAMPLE_ROWS[b])
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -4737,7 +4775,7 @@ def shard_row(name, view, th, n, card, errs, ms):
           f'{errs[name]:.6g} (rtol 1e-4) {"ok" if ok else "FAIL"}, lse |err| '
           f'{e_l:.6g} (rtol 1e-5) {"ok" if ok_l else "FAIL"}; time on {card}: '
           f'kernel {ms[name][0]:.6g} ms a call by CUDA events (the host '
-          f'issue of each call included), device {dev_ms:.6g} ms by the '
+          f'issue of each call included), device {ms_text(dev_ms)} by the '
           f'profiler, plain PyTorch {ms[name][1]:.6g} ms')
     check(ok and ok_l, f'{name} disagrees with its plain version')
     return dev_ms
@@ -5185,7 +5223,7 @@ def geweke_leg(dev, seed, card, errs, launches, ms):
     CERT_ROWS['B2-geweke'] = {'device_ms': dev_ms}
     print(f'B2-geweke time on {card} at n={GEWEKE_N} K={GEWEKE_K} d={D_MAIN}:'
           f' kernel {ms["B2-geweke"][0]:.6g} ms a call by CUDA events '
-          f'(device {dev_ms:.6g} ms by the profiler), plain PyTorch '
+          f'(device {ms_text(dev_ms)} by the profiler), plain PyTorch '
           f'{ms["B2-geweke"][1]:.6g} ms')
 
 
@@ -5295,6 +5333,175 @@ def certify_paths(dev, seed, card, n_main, errs, launches, ms):
     checkpoint_leg(dev, seed, card, n_main)
     smc_study_leg(dev, card)
     precision_study_leg(dev, card, n_main)
+
+
+# -- 24. examples: the drivers on the card ------------------------------------
+
+# the JAX repository's frozen ilr_eval accuracy thresholds, (max RMSE, max
+# mean NLPD), copied from tests/test_examples.py:54-63: the worst of a
+# 3-seed CPU sweep (seeds 0-2) plus a margin (BENCH_NOTES.md:525-539);
+# its test_ilr_eval_accuracy gates seed 0. step is seed-bimodal (RMSE .59
+# or .95), both modes under 1.15. The cmb table is not in the repository.
+ILR_EVAL_THRESHOLDS = {
+    'sine': (0.22, -0.25), 'sinc': (0.26, -0.30), 'step': (1.15, -0.05),
+    'step_poly': (3.40, 2.65), 'chirp': (0.62, 0.65),
+    'inverse': (0.26, -0.85)}
+ILR_EVAL_SEEDS = (0, 1, 2)
+# the drivers whose paths run B5 (predict) and B1 (the streamed polish)
+B5_DRIVERS = ('ilr_sine', 'ilr_eval', 'ilr_sinc_study', 'hilr')
+B1_DRIVERS = ('stream_svi',)
+# B5-eval's cells: ilr_eval's sine (N=2,000, K=50, d=1) and step_poly
+# (N=160, K=10, cubic features d=3) fits at seed 0
+B5_EVAL_ROWS = {'B5-eval': 'sine', 'B5-eval-poly': 'step_poly'}
+EXAMPLE_ROWS = {}              # kernel row -> extra keys of its JSON row
+
+
+def finite_numbers(tree):
+    """Every number of a driver's result (dicts of numbers and arrays)
+    is finite."""
+    if isinstance(tree, dict):
+        return all(finite_numbers(v) for v in tree.values())
+    return bool(np.isfinite(np.asarray(tree, np.float64)).all())
+
+
+def jsonable(tree):
+    if isinstance(tree, dict):
+        return {k: jsonable(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a.tolist() if a.ndim else a.item()
+
+
+def run_driver(name, argv):
+    """mimo_tpu_torch.examples.<name>.main(argv) on the card, the launch
+    counts set to 0 just before and read just after; its own lines pass
+    through. Fails if it raises (a driver's own checks raise). Returns
+    (its result, wall seconds, the counts)."""
+    import importlib
+    import traceback
+    mod = importlib.import_module(f'mimo_tpu_torch.examples.{name}')
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = mod.main(argv)
+    except Exception as e:   # report the driver's failure, then fail
+        traceback.print_exc()
+        fail(f'example {name} {argv}: {type(e).__name__}: {e}')
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counts()
+
+
+def drivers_leg(card):
+    """(a) every driver at its defaults (its full width), without --plot,
+    one after another: wall seconds, the returned numbers, B5 and B1
+    launches. Fails when a driver raises, returns a non-finite number, or
+    a path of B5 or B1 launches it no time."""
+    from mimo_tpu_torch.examples import DRIVERS
+    total = 0.0
+    for name in DRIVERS:
+        res, secs, counts = run_driver(name, [])
+        total += secs
+        print(f'example {name} on {card}: {secs:.4g} s at its defaults; B5 '
+              f'launches {counts["B5"]}, B1 {counts["B1"]}; returned '
+              f'{json.dumps(jsonable(res))}')
+        check(finite_numbers(res),
+              f'example {name}: a returned number is not finite')
+        check(name not in B5_DRIVERS or counts['B5'] > 0,
+              f'example {name} launched B5 no time')
+        check(name not in B1_DRIVERS or counts['B1'] > 0,
+              f'example {name} launched B1 no time')
+    print(f'examples on {card}: {len(DRIVERS)} drivers in {total:.4g} s')
+
+
+def ilr_eval_leg(card):
+    """(b) ilr_eval on each synthetic dataset at seeds 0, 1 and 2 (the
+    data JAX draws: numpy's default_rng(seed)), B5 once a run: the 6 x 3
+    table of RMSE and mean NLPD beside the frozen thresholds. Seed 0 of
+    every dataset must sit under both (the JAX gate's seed); seeds 1-2
+    are reported, a miss marked. Returns B5's launches a dataset."""
+    table, launches = {}, {}
+    for seed in ILR_EVAL_SEEDS:
+        for name in ILR_EVAL_THRESHOLDS:
+            res, secs, counts = run_driver(
+                'ilr_eval', ['--dataset', name, '--seed', str(seed)])
+            r = res[name]
+            check(counts['B5'] == 1 and finite_numbers(r),
+                  f'ilr_eval {name} seed {seed}: B5 launches '
+                  f'{counts["B5"]}, result {r}')
+            table[name, seed] = (r['rmse'], r['nlpd'], secs)
+            launches[name] = launches.get(name, 0) + counts['B5']
+    print(f'ilr_eval on {card}, B5 predict, float32 (thresholds: '
+          f'tests/test_examples.py:54-63; JAX gates seed 0):')
+    print(f'  {"dataset":10s} {"max RMSE":>8s} {"max NLPD":>8s}' + ''.join(
+        f' | seed {s}: {"RMSE":>7s} {"NLPD":>8s} {"s":>6s}'
+        for s in ILR_EVAL_SEEDS))
+    misses = []
+    for name, (max_rmse, max_nlpd) in ILR_EVAL_THRESHOLDS.items():
+        cells = ''
+        for seed in ILR_EVAL_SEEDS:
+            rmse, nlpd, secs = table[name, seed]
+            under = rmse < max_rmse and nlpd < max_nlpd
+            if not under:
+                misses.append((name, seed, rmse, nlpd))
+            cells += (f' | {"":6s}  {rmse:7.4f} {nlpd:8.4f} {secs:6.3f}'
+                      f'{"" if under else " MISS"}')
+        print(f'  {name:10s} {max_rmse:8.3f} {max_nlpd:8.3f}{cells}')
+    print(f'ilr_eval misses at seeds 1-2: '
+          f'{[m for m in misses if m[1] != 0] or "none"}')
+    gate = [m for m in misses if m[1] == 0]
+    check(not gate, f'ilr_eval seed 0 over the frozen thresholds: {gate}')
+    return launches
+
+
+def b5_eval_rows(dev, card, per_dataset, errs, launches, ms):
+    """(c) B5 against its plain twin at ilr_eval's shapes: the sine and
+    step_poly fits at seed 0 (ilr_eval.fit, the driver's recipe),
+    standardized (x, y) with y, average prediction; timed by CUDA events
+    and, launch-bound at these sizes, by the profiler's device time. A
+    row's launches are B5's on (b)'s runs of its dataset."""
+    from mimo_tpu_torch.examples import ilr_eval
+    for row, name in B5_EVAL_ROWS.items():
+        args, _ = ilr_eval.parse(['--dataset', name, '--seed', '0'])
+        model, state, _, x, y = ilr_eval.fit(name, args, dev)
+        basis, experts = state.components
+        th, aux = cuda_ilr_predict.ilr_predict_coefficients(
+            basis, experts, model.predictive_log_weights(state),
+            model.affine)
+        th, aux = th.to(torch.float32), aux.to(torch.float32)
+        xt = stack_rows(kernel_xts((model._tx(x), model._ty(y))))
+        n, d, k = x.shape[0], x.shape[1], model.size
+        out = cuda_ilr_predict.ilr_predict(xt, th, aux, n, True, False)
+        ref = cuda_ilr_predict.ilr_predict_plain(xt, th, aux, n, True, False)
+        torch.cuda.synchronize()
+        ok, errs[row], flips = compare_serving(out, ref, 1, False)
+        print(f'{row} ({name}, N={n} K={k} d={d}, fitted): max|err| '
+              f'{errs[row]:.6g} (mean rtol/atol 1e-4, var 2e-3/1e-5, nlpd '
+              f'1e-3/2e-3, lse_w 1e-5/1e-4); points off {flips} '
+              f'{"ok" if ok else "FAIL"}')
+        check(ok, f'{row} disagrees with its plain twin')
+        ms[row] = (cuda_ms(lambda: cuda_ilr_predict.ilr_predict(
+                       xt, th, aux, n, True, False), 20),
+                   cuda_ms(lambda: cuda_ilr_predict.ilr_predict_plain(
+                       xt, th, aux, n, True, False), 3))
+        dev_ms = profiled_device_ms(lambda: cuda_ilr_predict.ilr_predict(
+            xt, th, aux, n, True, False))
+        WORK[row] = serving_work(n, k, d, 1)
+        launches[row] = per_dataset[name]
+        EXAMPLE_ROWS[row] = {'device_ms': dev_ms, 'n': n, 'k': k, 'd': d}
+        print(f'{row} time on {card} at N={n} K={k} d={d}: kernel '
+              f'{ms[row][0]:.6g} ms a call by CUDA events (device '
+              f'{ms_text(dev_ms)} by the profiler), plain PyTorch '
+              f'{ms[row][1]:.6g} ms; B5 launches on ilr_eval\'s {name} '
+              f'runs {launches[row]}')
+        del model, state, x, y, xt
+
+
+def examples_paths(dev, card, errs, launches, ms):
+    """Phase 24: legs (a)-(c)."""
+    drivers_leg(card)
+    per_dataset = ilr_eval_leg(card)
+    b5_eval_rows(dev, card, per_dataset, errs, launches, ms)
+    torch.cuda.empty_cache()
 
 
 if __name__ == '__main__':

@@ -54,6 +54,12 @@ from torch.func import vmap
 
 FAMILIES = ['gmm', 'ilr', 'diag', 'tied', 'tied-diag', 'hier',
             'tied-affine', 'nested']
+# the names of the arcsinh data moments that end every family's vector:
+# the JAX script appends them to the seven flat families' vectors without
+# naming them, so its summary never scores them; here they are named and
+# scored in all eight (the vectors stay equal to JAX's)
+GMM_MOMENTS = ['mean_x0', 'var_x0', 'mean_xx']
+ILR_MOMENTS = ['mean_x0', 'var_x0', 'mean_y0', 'var_y0', 'mean_xy']
 
 
 def _arcsinh_moments(arrs):
@@ -156,7 +162,7 @@ def build_mixture_config(args, dtype, device):
             vec = torch.cat(per_k + [_arcsinh_moments([
                 torch.mean(x[:, 0]), torch.var(x[:, 0], unbiased=False),
                 torch.mean(torch.sum(x * x, -1))])])
-            return vec, names
+            return vec, names + GMM_MOMENTS
     elif fam in ('diag', 'tied-diag'):
         from mimo_tpu_torch.distributions.niw import GaussParams
         from mimo_tpu_torch.models.gmm import BayesianGMM
@@ -191,7 +197,7 @@ def build_mixture_config(args, dtype, device):
             vec = torch.cat(per_k + [_arcsinh_moments([
                 torch.mean(x[:, 0]), torch.var(x[:, 0], unbiased=False),
                 torch.mean(torch.sum(x * x, -1))])])
-            return vec, names
+            return vec, names + GMM_MOMENTS
     elif fam in ('ilr', 'tied-affine'):
         from mimo_tpu_torch.models.ilr import BayesianILR
         model = BayesianILR.make(
@@ -230,7 +236,7 @@ def build_mixture_config(args, dtype, device):
                 torch.mean(x[:, 0]), torch.var(x[:, 0], unbiased=False),
                 torch.mean(y[:, 0]), torch.var(y[:, 0], unbiased=False),
                 torch.mean(x[:, 0] * y[:, 0])])])
-            return vec, names
+            return vec, names + ILR_MOMENTS
     else:
         raise ValueError(fam)
 
@@ -336,7 +342,7 @@ def build_nested_config(args, dtype, device):
                  + [f'logdetL{j}' for j in range(mm)]
                  + [f'piO{j}' for j in range(mm)]
                  + [f'piI{j}' for j in range(mm * kk)]
-                 + ['mean_x0', 'var_x0', 'mean_xx'])
+                 + GMM_MOMENTS)
         return vec, names
 
     return {'model': model, 'init': init, 'generate': generate,

@@ -1,9 +1,18 @@
 """Data helpers: one-hot labels, NaN masking, minibatch sampling and
-standardization (port of mimo_tpu/utils/data.py)."""
+standardization (port of mimo_tpu/utils/data.py), and `to_numpy`."""
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+
+def to_numpy(a):
+    """A tensor on any device, or anything array-like, as a NumPy array
+    (the example drivers' and the plotting helpers' way to the host)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def one_hot(labels, num_classes, dtype=torch.float32):

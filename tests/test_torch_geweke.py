@@ -4,8 +4,10 @@ families with plain draws (gmm, ilr, diag); the exact-draw and nested
 families are in test_torch_geweke_exact.py. The JAX script is loaded from
 its path and not edited.
 
-Per family: `stats_of` on JAX's parameters and data equals JAX's (names
-too) at float64 rtol 1e-10; the port's prior side against JAX's, 1,000
+Per family: `stats_of` on JAX's parameters and data equals JAX's at
+float64 rtol 1e-10, its names JAX's followed by the data moments' (which
+JAX's flat families leave unnamed and so unscored), one a statistic;
+`summarize` z-scores the moments; the port's prior side against JAX's, 1,000
 iid draws each, max |z| < 5; the port's harness on the plain twin at
 float64 (1,500 draws, burn 150, thin 1, n=128) max |z| < 6.0 with no draw
 dropped and JAX's JSON keys. A transition that counts every point four
@@ -76,7 +78,15 @@ def check_stats_of(family):
     want, want_names = jcfg['stats_of'](params, pi, data)
     got, got_names = pcfg['stats_of'](to_port(params), to_port(pi),
                                       to_port(data))
-    assert got_names == want_names
+    # the port names the data moments that end the vector, which JAX's
+    # flat families leave unnamed (and so unscored); its nested family
+    # names them already
+    moments = (port.ILR_MOMENTS if family in ('ilr', 'tied-affine')
+               else port.GMM_MOMENTS)
+    assert got_names == (want_names if family == 'nested'
+                         else want_names + moments)
+    assert got_names[-len(moments):] == moments
+    assert len(got_names) == got.numel() == np.asarray(want).size
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10,
                                atol=1e-12)
@@ -105,6 +115,24 @@ def check_prior_side(family):
     assert z.max() < 5.0, (z.max(), int(z.argmax()))
 
 
+def check_summary_scores_moments(family):
+    """`summarize` over both sides of a short run reports one finite z
+    for every named statistic, the data moments included."""
+    _, pcfg = configs(family)
+    prior, names = port.prior_side(pcfg, torch.Generator().manual_seed(5),
+                                   100)
+    succ = port.successive_side(pcfg, torch.Generator().manual_seed(6),
+                                100, 0, 1)
+    _, recs, bad_p, bad_s = port.summarize(prior.numpy(), succ.numpy(),
+                                           names, out=lambda s: None)
+    scored = [r['stat'] for r in recs]
+    assert scored == names and len(names) == prior.shape[1]
+    assert set(port.ILR_MOMENTS if family in ('ilr', 'tied-affine')
+               else port.GMM_MOMENTS) <= set(scored)
+    assert all(np.isfinite(r['z']) for r in recs)
+    assert bad_p == 0 and bad_s == 0
+
+
 def run_harness(family, capsys, extra=()):
     """The port's harness through main(); returns its final JSON line."""
     port.main(['--family', family] + HARNESS + list(extra))
@@ -130,6 +158,11 @@ def test_stats_of_matches_jax(family):
 @pytest.mark.parametrize('family', FLAT)
 def test_prior_side_matches_jax(family):
     check_prior_side(family)
+
+
+@pytest.mark.parametrize('family', FLAT)
+def test_summary_scores_the_data_moments(family):
+    check_summary_scores_moments(family)
 
 
 @pytest.mark.parametrize('family', FLAT)

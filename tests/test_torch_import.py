@@ -87,6 +87,16 @@ def test_import_covers_the_chains_slice():
         assert callable(getattr(par, name))
 
 
+def test_import_covers_the_examples_slice():
+    """The example drivers, their shared plumbing and the plotting
+    helpers are among the modules the no-jax check imports."""
+    from mimo_tpu_torch.examples import DRIVERS
+    assert len(DRIVERS) == 12
+    for mod in ('utils.plot', 'examples', 'examples._common') + tuple(
+            f'examples.{d}' for d in DRIVERS):
+        assert f'mimo_tpu_torch.{mod}' in PORT_MODULES
+
+
 @pytest.mark.parametrize('entry', ['gmm', 'ilr', 'mixture_config',
                                    'ilr_config'])
 def test_entry_points_build_on_the_card_by_default(entry):
