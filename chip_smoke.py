@@ -261,6 +261,30 @@ Phases, one or more printed lines each:
               B5-eval rows: B5 against its plain twin at the sine (N=2000,
               K=50, d=1) and step_poly (N=160, K=10, d=3) fits, timed by
               CUDA events and the profiler's device time.
+ 25. diag-    B1 and B2 over the ILR map on a diagonal (NG) basis, [1; x;
+     basis    x^2; y (x) xa; xa (x) xa; y (x) y] (kinds ILR_DIAG and
+              ILR_DIAG_LINEAR), with and without the experts' ones column,
+              at N=1,000,003, K=50, d=8, p=1 (m8=112) and N=1e7, d=1, p=1:
+              B1 against its plain version (max |err| <= 1e-5 of the
+              summed magnitudes, lse rtol 1e-5) and bitwise on repeat, its
+              precision line; B2's labels against the plain Philox labels
+              and its statistics against its labels' one-hot sums; then
+              its fit path (no model class builds the map: a
+              BayesianMixture over the NG x MNW product family with that
+              spec, N=1e6, d=8): fit_gibbs_fused 10 then fit_vi_fused 10
+              from its state, B1 and B2 exactly 10 launches each, kernel vs
+              plain on 100,003 points, rates, the B1-ILR-diagbasis and
+              B2-ILR-diagbasis rows at the fitted state.
+ 26. dense    every dense engine batched over C=8 chains by fit_chains
+     chains   (fit_vi, fit_map, fit_em 10 sweeps, fit_svi 100 steps at
+              B=256) at examples/chains_smc.py's cell (N=1e4, K=10,
+              DP-GMM) and at N=1e6, K=16 (phase 6's data), the nested
+              fit_vi and fit_em at phase 18's cell (N=1e6, M=4, K=8) and
+              the dense ILR fit_vi at the sine's shape (N=1e6, K=50, d=1,
+              p=1): each chain's trace within rtol 1e-5 of its serial fit
+              with the same key (SVI's full-data ELBO over 20 steps),
+              states finite, no kernel launched; the batched and the
+              serial seconds, each the median of 3 runs.
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -294,7 +318,8 @@ import torch
 from torch.func import vmap
 
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
-from mimo_tpu_torch.conjugate.families import ilr_family
+from mimo_tpu_torch.conjugate.families import (
+    diag_gaussian_family, ilr_family, linear_family, product_family)
 from mimo_tpu_torch.distributions import ng
 from mimo_tpu_torch.distributions.affine import TiedAffine
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
@@ -308,12 +333,14 @@ from mimo_tpu_torch.io import MmapDataset, write_bin
 from mimo_tpu_torch.models import (
     GMM, BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState, _flatten_mk
-from mimo_tpu_torch.models.mixture import MFState, _cast, _Shards, kernel_xts
+from mimo_tpu_torch.models.mixture import (
+    BayesianMixture, MFState, _cast, _Shards, kernel_xts, stack_trees)
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
     cuda_ilr_predict, cuda_predict, cuda_probes, precision)
 from mimo_tpu_torch.ops.cuda_estep import (
-    DIAG, ILR, assemble_features, pad_theta, stack_rows)
+    DIAG, ILR, ILR_DIAG, ILR_DIAG_LINEAR, assemble_features, pad_theta,
+    stack_rows)
 from mimo_tpu_torch.ops.family_estep import (
     diag_gaussian_spec, gaussian_spec, ilr_spec)
 from mimo_tpu_torch.parallel import (
@@ -1012,6 +1039,12 @@ def run(dev, seed, n_main, n_check):
     t24 = time.perf_counter()
     examples_paths(dev, card, errs, launches, ms)
     print(f'phase 24 on {card}: {time.perf_counter() - t24:.6g} s')
+    t25 = time.perf_counter()
+    diag_basis_paths(dev, seed, card, errs, launches, ms)
+    print(f'phase 25 on {card}: {time.perf_counter() - t25:.6g} s')
+    t26 = time.perf_counter()
+    dense_chain_paths(dev, seed, card)
+    print(f'phase 26 on {card}: {time.perf_counter() - t26:.6g} s')
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -1041,6 +1074,14 @@ def run(dev, seed, n_main, n_check):
         'B2-ILR': ('B2 fused Gibbs label sweep, ILR feature map',
                    'mimo_tpu_torch/csrc/gibbs.cuh',
                    'mimo_tpu/ops/pallas_gibbs.py:36'),
+        'B1-ILR-diagbasis': ('B1 fused VI E-step, ILR feature map over a '
+                             'diagonal (NG) basis',
+                             'mimo_tpu_torch/csrc/estep.cuh',
+                             'mimo_tpu/ops/pallas_estep.py:164'),
+        'B2-ILR-diagbasis': ('B2 fused Gibbs label sweep, ILR feature map '
+                             'over a diagonal (NG) basis',
+                             'mimo_tpu_torch/csrc/gibbs.cuh',
+                             'mimo_tpu/ops/pallas_gibbs.py:36'),
         'B5': ('B5 ILR predict, p=1', 'mimo_tpu_torch/csrc/ilr_predict.cuh',
                'mimo_tpu/ops/pallas_predict.py:656'),
         'B6': ('B6 ILR predict, p>1', 'mimo_tpu_torch/csrc/ilr_predict.cuh',
@@ -1295,6 +1336,8 @@ def read_counts():
             'B6': cuda_ilr_predict.launches['ilr_p_predict'],
             'B1-diag': cuda_estep.launches['diag'],
             'B2-diag': cuda_gibbs.launches['diag'],
+            'B1-ILR-diagbasis': cuda_estep.launches['ilr_diag'],
+            'B2-ILR-diagbasis': cuda_gibbs.launches['ilr_diag'],
             'B3-diag': cuda_predict.launches['diag'],
             'B4': cuda_diag_predict.launches}
 
@@ -5022,7 +5065,8 @@ def mesh_dense_cell(model, x, mesh, card):
 
 def mesh_dense_chains_cell(model, x, dev):
     """Leg (d): fit_chains of the dense fit_vi 10 over a (2, 2) mesh, 4
-    keys, the first 1e6 points, against the unsharded fit_chains."""
+    keys, the first 1e6 points, against the unsharded fit_chains: each
+    row's two chains batched, one reduction a sweep a row."""
     from mimo_tpu_torch.parallel import make_mesh, shard_data
     m22 = make_mesh(n_chain=2, devices=[dev] * 4)
     xc = x[:N_MESH_SMALL]
@@ -5031,7 +5075,7 @@ def mesh_dense_chains_cell(model, x, dev):
         f'fit_chains dense VI 10 over a (2, 2) mesh, 4 keys, '
         f'N={N_MESH_SMALL}', lambda: fit_chains(
             model, 'fit_vi', shard_data(m22, xc), keys, mesh=m22,
-            maxiter=10), {}, 40)
+            maxiter=10), {}, 20)
     c_u, cv_u = fit_chains(model, 'fit_vi', xc, keys, maxiter=10)
     tr = float(((cv_s.double() - cv_u.double()).abs()
                 / cv_u.double().abs()).max())
@@ -5501,6 +5545,269 @@ def examples_paths(dev, card, errs, launches, ms):
     drivers_leg(card)
     per_dataset = ilr_eval_leg(card)
     b5_eval_rows(dev, card, per_dataset, errs, launches, ms)
+    torch.cuda.empty_cache()
+
+
+
+# -- 25. the ILR map over a diagonal basis ------------------------------------
+
+N_DB_WIDE = 10_000_000         # the d=1 cell of B1/B2 over ILR_DIAG
+DB_SWEEPS = 10                 # the fit path's Gibbs and VI sweeps
+
+
+def random_diag_basis_posterior(gen, k, d, p, affine, dev):
+    """An (NG, MNW) posterior at random_ilr_posterior's scales: the NG
+    basis over the data's range [-3, 3]^d, the MNW experts over [x; 1] (or
+    x, without the experts' ones column)."""
+    basis = random_ng_posterior(gen, k, d, dev)._replace(
+        mu=torch.rand((k, d), generator=gen, device=dev) * 6 - 3)
+    _, experts = random_ilr_posterior(gen, k, d, p, dev)
+    q = d + int(affine)
+    return basis, experts._replace(M=experts.M[..., :q],
+                                   K_=experts.K_[..., :q, :q])
+
+
+def diag_basis_model(k, d, p, affine, dev):
+    """A mixture of linear experts over a diagonal (NG) basis: the product
+    family that ilr_spec(diag_basis=True) describes, run by
+    BayesianMixture's fused engines over that spec. No model class builds
+    it, in the port or in mimo_tpu (whose ILR basis is NIW or HierTied)."""
+    model = BayesianMixture(
+        StickBreaking.standard(k, 2.0, device=dev),
+        (NG.standard(k, d, kappa=0.05, device=dev),
+         MNW.standard(k, p, d + int(affine), device=dev)),
+        product_family((diag_gaussian_family(), linear_family(affine)),
+                       ((0,), (0, 1))))
+    model._estep_spec = lambda: ilr_spec(d, p, affine=affine,
+                                         diag_basis=True)
+    return model
+
+
+def diag_basis_paths(dev, seed, card, errs, launches, ms):
+    """Phase 25: B1 and B2 over the ILR map on a diagonal basis (ILR_DIAG
+    with the experts' ones column, ILR_DIAG_LINEAR without) against their
+    plain versions at N=1,000,003, K=50, d=8, p=1 (m8=112) and N=1e7, d=1,
+    p=1, each with B1's precision line; then its fit path (N=1e6, d=8):
+    fit_gibbs_fused then fit_vi_fused from the Gibbs state, DB_SWEEPS
+    each, B1 and B2 exactly DB_SWEEPS launches each, kernel vs plain on
+    100,003 points, and each kernel's time at the fitted state."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 25)
+    errs['B1-ILR-diagbasis'] = errs['B2-ILR-diagbasis'] = 0.0
+    for n, d in ((N_CHECK, D_Q8), (N_DB_WIDE, 1)):
+        for affine in (True, False):
+            kind = ILR_DIAG if affine else ILR_DIAG_LINEAR
+            fam = product_family((diag_gaussian_family(),
+                                  linear_family(affine)), ((0,), (0, 1)))
+            spec = ilr_spec(d, 1, affine=affine, diag_basis=True)
+            post = random_diag_basis_posterior(gen, K_MAIN, d, 1, affine,
+                                               dev)
+            log_pi = torch.log_softmax(torch.randn((K_MAIN,), generator=gen,
+                                                   device=dev), 0)
+            xt = stack_rows(kernel_xts(regression_data(gen, n, d, 1, dev)))
+            theta, _ = pad_theta(spec.theta(post), log_pi, torch.float32)
+            cell = (f'N={n} K={K_MAIN} d={d} p=1 '
+                    f'{"affine" if affine else "linear"} m8={theta.shape[1]}')
+            acc, lse = cuda_estep.estep(xt, theta, n, kind, 1)
+            acc2, lse2 = cuda_estep.estep(xt, theta, n, kind, 1)
+            pacc, plse = cuda_estep.estep_plain(xt, theta, n, kind, 1)
+            mag = estep_magnitudes(xt, theta, n, kind, 1)
+            torch.cuda.synchronize()
+            err = (acc.double() - pacc.double()).abs()
+            ok_s = bool((err <= 1e-5 * mag + 1e-6).all())
+            ok_l, err_l = allclose_report(lse, plse, 1e-5, 0.0)
+            bitwise = torch.equal(acc, acc2) and torch.equal(lse, lse2)
+            print(f'B1-ILR-diagbasis {cell}: stats max|err| '
+                  f'{float(err.max()):.6g}, max |err| / summed magnitude '
+                  f'{float((err / mag.clamp(min=1e-30)).max()):.3g} '
+                  f'(<= 1e-5) {"ok" if ok_s else "FAIL"}; lse '
+                  f'{float(lse):.9g} vs {float(plse):.9g}, |err| '
+                  f'{err_l:.6g} (rtol 1e-5) {"ok" if ok_l else "FAIL"}; '
+                  f'bitwise repeat {bitwise}')
+            check(ok_s and ok_l and bitwise
+                  and bool(torch.isfinite(acc).all()),
+                  f'B1-ILR-diagbasis disagrees at {cell}')
+            errs['B1-ILR-diagbasis'] = max(errs['B1-ILR-diagbasis'],
+                                           float(err.max()))
+            precision_check(f'ILR diagonal basis {cell}', xt, theta, n, kind,
+                            1, got=(acc, lse))
+            del acc, acc2, pacc, mag, err
+            th_g, _ = pad_theta(spec.theta_plugin(fam.mode_params(post)),
+                                log_pi, torch.float32)
+            sweep_seed = torch.randint(0, 2 ** 62, (), generator=gen,
+                                       device=dev)
+            labels, gacc = gibbs_labels_check(
+                f'B2-ILR-diagbasis d={d} p=1 '
+                f'{"affine" if affine else "linear"} m8={th_g.shape[1]}',
+                xt, th_g, sweep_seed, n, kind, 1)
+            errs['B2-ILR-diagbasis'] = max(
+                errs['B2-ILR-diagbasis'],
+                gibbs_acc_err(xt, n, kind, 1, labels, gacc))
+            del xt, labels
+            torch.cuda.empty_cache()
+
+    kg = torch.Generator(device=dev).manual_seed(seed + 26)
+    x, y = regression_data(kg, N_Q8, D_Q8, 1, dev)
+    model = diag_basis_model(K_MAIN, D_Q8, 1, True, dev)
+    tag = f'ILR diagonal-basis fit N={N_Q8} K={K_MAIN} d={D_Q8} p=1'
+    torch.cuda.synchronize()
+    reset_counts()
+    gs = model.fit_gibbs_fused((x, y), key=2, maxiter=DB_SWEEPS)
+    st, vlb = model.fit_vi_fused((x, y), key=1, maxiter=DB_SWEEPS,
+                                 init_state=MFState(gs.components, gs.gating),
+                                 randomize=False)
+    torch.cuda.synchronize()
+    path = read_counts()
+    launches.update({b: path[b] for b in ('B1-ILR-diagbasis',
+                                          'B2-ILR-diagbasis')})
+    print(f'{tag}: launches {path}')
+    check(path['B1-ILR-diagbasis'] == DB_SWEEPS
+          and path['B2-ILR-diagbasis'] == DB_SWEEPS
+          and sum(path.values()) == 2 * DB_SWEEPS,
+          'the diagonal-basis fit path bypassed a kernel')
+    elbo_report(f'{tag} VI', vlb)
+    check(all_finite(st) and all_finite(gs[:4])
+          and int(gs.labels.min()) >= 0 and int(gs.labels.max()) < K_MAIN,
+          'diagonal-basis state not finite or labels out of range')
+    xs_, ys_ = x[:100_003], y[:100_003]
+    _, v_k = model.fit_vi_fused((xs_, ys_), maxiter=5, init_state=st,
+                                randomize=False, backend='kernel')
+    _, v_t = model.fit_vi_fused((xs_, ys_), maxiter=5, init_state=st,
+                                randomize=False, backend='torch')
+    ok_v, e_v = allclose_report(v_k, v_t, 1e-4, 0.0)
+    print(f'{tag} vs plain on 100,003 points: VI ELBO max|err| {e_v:.6g} '
+          f'(rtol 1e-4) {"ok" if ok_v else "FAIL"}')
+    check(ok_v, 'the diagonal-basis kernel path disagrees with the plain '
+          'path')
+    vi = rate(DB_SWEEPS, lambda: model.fit_vi_fused(
+        (x, y), maxiter=DB_SWEEPS, init_state=st, randomize=False))
+    gibbs = rate(DB_SWEEPS, lambda: model.fit_gibbs_fused(
+        (x, y), key=3, maxiter=DB_SWEEPS))
+    print(f'rates on {card}, {tag}: VI {vi} it/s; Gibbs {gibbs} sweeps/s')
+
+    spec = model._estep_spec()
+    xt = stack_rows(kernel_xts((x, y)))
+    th_vi, _ = pad_theta(spec.theta(st.components),
+                         st.gating.expected_log_pi(), torch.float32)
+    th_g, _ = pad_theta(spec.theta_plugin(gs.params), gs.log_pi,
+                        torch.float32)
+    sweep_seed = torch.zeros((), dtype=torch.int64, device=dev)
+    pairs = {
+        'B1-ILR-diagbasis': (
+            lambda: cuda_estep.estep(xt, th_vi, N_Q8, ILR_DIAG, 1),
+            lambda: cuda_estep.estep_plain(xt, th_vi, N_Q8, ILR_DIAG, 1)),
+        'B2-ILR-diagbasis': (
+            lambda: cuda_gibbs.gibbs(xt, th_g, sweep_seed, N_Q8, ILR_DIAG,
+                                     1),
+            lambda: cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, N_Q8,
+                                           ILR_DIAG, 1)),
+    }
+    m = cuda_estep.feature_width(ILR_DIAG, D_Q8, 1)
+    WORK.update({'B1-ILR-diagbasis': estep_work(N_Q8, K_MAIN, m, D_Q8 + 1),
+                 'B2-ILR-diagbasis': gibbs_work(xt, th_g, N_Q8, m, ILR_DIAG,
+                                                1)})
+    for name, (kern, plain) in pairs.items():
+        ms[name] = (cuda_ms(kern, 20), cuda_ms(plain, 3))
+        print(f'{name} time on {card} at N={N_Q8} K={K_MAIN} d={D_Q8} p=1 '
+              f'm8={th_vi.shape[1]}: kernel {ms[name][0]:.6g} ms, plain '
+              f'PyTorch {ms[name][1]:.6g} ms')
+    precision_check(f'ILR diagonal basis fit N={N_Q8} K={K_MAIN} d={D_Q8} '
+                    f'p=1 m8={th_vi.shape[1]}', xt, th_vi, N_Q8, ILR_DIAG, 1)
+    del x, y, xt, model, st, gs
+    torch.cuda.empty_cache()
+
+
+# -- 26. the dense engines over chains ----------------------------------------
+
+N_DENSE_CHAINS, K_DENSE_CHAINS = 1_000_000, 16
+DENSE_SWEEPS = 10
+DENSE_SVI = dict(maxiter=100, step_size=0.5, batch_size=256)
+
+
+def dense_chain_engine(tag, model, data, engine, kw, card, check_kw=None,
+                       keys=tuple(range(101, 101 + C_MAIN))):
+    """fit_chains of a dense engine over C keys as one program against the
+    C serial fits with the same keys: traces within rtol 1e-5 of the
+    serial fits' (`check_kw`, where given, runs the check: SVI tracks its
+    ELBO there), every state finite, no kernel launched; then the batched
+    and the serial seconds at `kw`, each the median of 3 runs. Returns
+    (batched, serial) seconds."""
+    keys = list(keys)
+    ck = kw if check_kw is None else check_kw
+    out, _, _ = nested_fit(f'{tag} fit_chains {engine} C={len(keys)}',
+                           lambda: fit_chains(model, engine, data, keys,
+                                              **ck), {})
+    st, tr = out
+    serial = stack_trees([getattr(model, engine)(data, key=k, **ck)
+                          for k in keys])
+    ok_v, e_v = allclose_report(tr, serial[1], 1e-5, 0.0)
+    rel = relative_leaves(st, serial[0])
+    t_b = seconds(lambda: fit_chains(model, engine, data, keys, **kw))
+    t_s = seconds(lambda: [getattr(model, engine)(data, key=k, **kw)
+                           for k in keys])
+    print(f'{tag} {engine} C={len(keys)} vs the serial fits with the same '
+          f'keys: traces max|err| {e_v:.6g} (rtol 1e-5) '
+          f'{"ok" if ok_v else "FAIL"}, state leaves max|err| / largest '
+          f'magnitude {rel:.3g}; finite {all_finite(st)}; seconds on '
+          f'{card} (median of 3): batched {t_b:.6g}, serial {t_s:.6g} '
+          f'({t_s / t_b:.3g}x)')
+    check(ok_v and all_finite(st) and bool(torch.isfinite(tr).all()),
+          f'{tag} {engine}: chains off their serial fits or not finite')
+    return t_b, t_s
+
+
+def dense_chain_paths(dev, seed, card):
+    """Phase 26: every dense engine batched over C=8 chains (fit_chains of
+    fit_vi, fit_map, fit_em DENSE_SWEEPS sweeps and fit_svi 100 steps at
+    B=256; the check's SVI tracks its ELBO over 20 steps) at
+    examples/chains_smc.py's cell (N=1e4, K=10, DP-GMM) and at N=1e6,
+    K=16 (phase 6's data), each chain held against its serial fit; the
+    nested dense VI and ML-EM at phase 18's nested cell (N=1e6, M=4, K=8,
+    5 sweeps), and the dense ILR VI at the sine shape (N=1e6, K=50, d=1,
+    p=1); batched and serial seconds of each."""
+    svi_check = dict(DENSE_SVI, maxiter=20, track_elbo=True)
+    engines = [('fit_vi', dict(maxiter=DENSE_SWEEPS), None),
+               ('fit_map', dict(maxiter=DENSE_SWEEPS), None),
+               ('fit_em', dict(maxiter=DENSE_SWEEPS), None),
+               ('fit_svi', DENSE_SVI, svi_check)]
+    kg = torch.Generator(device=dev).manual_seed(seed + 5)
+    mu = torch.tensor([[-4., 0.], [4., 0.], [0., 5.]], device=dev)
+    lm = torch.eye(2, device=dev).expand(3, 2, 2) * 2.0
+    x_smc, _ = BayesianGMM.generate(kg, GaussParams(mu, lm), [.3, .4, .3],
+                                    N_SMC)
+    cells = [(f'dense chains N={N_SMC} K=10', BayesianGMM.make(
+        size=10, dim=2, gating='dp', kappa=0.05, psi_scale=0.5, device=dev),
+        x_smc),
+        (f'dense chains N={N_DENSE_CHAINS} K={K_DENSE_CHAINS}',
+         BayesianGMM.make(size=K_DENSE_CHAINS, dim=D_MAIN, gating='dp',
+                          kappa=0.05, psi_scale=0.5, device=dev),
+         main_data(dev, seed, N_DENSE_CHAINS))]
+    for tag, model, x in cells:
+        for engine, kw, ck in engines:
+            dense_chain_engine(tag, model, x, engine, kw, card, ck)
+    del cells
+    torch.cuda.empty_cache()
+
+    xn = nested_blobs(torch.Generator(device=dev).manual_seed(seed + 18),
+                      1_000_000, dev)
+    nested = BayesianMixtureOfMixtures.make_gmm(
+        4, 8, 2, hierarchical=False, kappa=0.5, psi_scale=0.5, device=dev)
+    for engine in ('fit_vi', 'fit_em'):
+        dense_chain_engine('nested dense chains N=1e6 M=4 K=8', nested, xn,
+                           engine, dict(maxiter=5, maxsubiter=2), card)
+    del xn, nested
+    torch.cuda.empty_cache()
+
+    kg = torch.Generator(device=dev).manual_seed(seed + 9)
+    xs = torch.rand((N_DENSE_CHAINS, 1), generator=kg, device=dev) * 12 - 6
+    ys = torch.sin(xs) + 0.1 * torch.randn(xs.shape, generator=kg,
+                                           device=dev)
+    ilr = BayesianILR.make(size=K_MAIN, input_dim=1, output_dim=1,
+                           alpha=2.0, kappa=0.05, device=dev)
+    ilr.init_transform(xs, ys)
+    dense_chain_engine(f'dense ILR chains N={N_DENSE_CHAINS} K={K_MAIN} d=1 '
+                       f'p=1', ilr, (xs, ys), 'fit_vi',
+                       dict(maxiter=DENSE_SWEEPS), card)
+    del xs, ys, ilr
     torch.cuda.empty_cache()
 
 

@@ -17,17 +17,35 @@ constexpr int kThreads = 128;   // threads per block (power of two)
 // template parameter, like the static `features_t` of the TPU kernels).
 // The C entries take a runtime `kind`: kKindGauss, the ILR map with
 // (kKindIlrAffine) or without (kKindIlrLinear) the experts' ones column,
-// or kKindDiag; B1 and B2 assemble each of them from a FactorTable.
+// kKindDiag, or the ILR map over a diagonal basis, [1; x; x^2] in place
+// of [1; x; x (x) x], with (kKindIlrDiagAffine) or without
+// (kKindIlrDiagLinear) the ones column; B1 and B2 assemble each of them
+// from a FactorTable.
 enum FeatureMap { kGauss = 0, kDiag = 2 };
 constexpr int kKindGauss = 0, kKindIlrAffine = 1, kKindIlrLinear = 2,
-              kKindDiag = 3;
+              kKindDiag = 3, kKindIlrDiagAffine = 4, kKindIlrDiagLinear = 5;
+constexpr int kKindLast = kKindIlrDiagLinear;
+
+inline bool kind_is_ilr(int kind) {
+  return kind == kKindIlrAffine || kind == kKindIlrLinear ||
+         kind == kKindIlrDiagAffine || kind == kKindIlrDiagLinear;
+}
+// A diagonal basis block: [1; x; x^2].
+inline bool kind_diag_basis(int kind) {
+  return kind == kKindDiag || kind == kKindIlrDiagAffine ||
+         kind == kKindIlrDiagLinear;
+}
+// The experts' ones column: xa = [x; 1].
+inline bool kind_affine(int kind) {
+  return kind == kKindIlrAffine || kind == kKindIlrDiagAffine;
+}
 
 // Width of a feature map (without the zero padding to m8).
 inline int feature_width(int kind, int d, int np) {
-  if (kind == kKindGauss) return 1 + d + d * d;
-  if (kind == kKindDiag) return 1 + 2 * d;
-  const int q = d + (kind == kKindIlrAffine ? 1 : 0);
-  return 1 + d + d * d + np * q + q * q + np * np;
+  const int basis = kind_diag_basis(kind) ? 1 + 2 * d : 1 + d + d * d;
+  if (!kind_is_ilr(kind)) return basis;
+  const int q = d + (kind_affine(kind) ? 1 : 0);
+  return basis + np * q + q * q + np * np;
 }
 
 // Every row of every map is the product of two entries of a point's
@@ -38,7 +56,8 @@ inline int feature_width(int kind, int d, int np) {
 // B1/B2's chunked layout). The ILR table follows
 // mimo_tpu/ops/family_estep.py::_product_features_t over
 // (gauss_features_t, linear_features_t(affine)): [1; x; x (x) x;
-// y (x) xa; xa (x) xa; y (x) y] with xa = [x; 1] when affine.
+// y (x) xa; xa (x) xa; y (x) y] with xa = [x; 1] when affine, and over
+// a diagonal basis (diag_gauss_features_t) [1; x; x^2; ...] the same.
 constexpr int kMaxTableRows = 512;
 struct FactorTable {
   unsigned short ab[kMaxTableRows];
@@ -54,14 +73,14 @@ inline FactorTable factor_table(int kind, int d, int np, int rows) {
   put(0, 0);
   for (int a = 0; a < d; ++a) put(1 + a, 0);
   for (int a = 0; a < d; ++a) {
-    if (kind == kKindDiag) {
+    if (kind_diag_basis(kind)) {
       put(1 + a, 1 + a);
     } else {
       for (int b = 0; b < d; ++b) put(1 + a, 1 + b);
     }
   }
-  if (kind == kKindIlrAffine || kind == kKindIlrLinear) {
-    const int q = d + (kind == kKindIlrAffine ? 1 : 0);
+  if (kind_is_ilr(kind)) {
+    const int q = d + (kind_affine(kind) ? 1 : 0);
     for (int i = 0; i < np; ++i)
       for (int a = 0; a < q; ++a) put(1 + d + i, xa(a));
     for (int a = 0; a < q; ++a)

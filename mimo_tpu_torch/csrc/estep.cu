@@ -21,15 +21,16 @@ extern "C" int mimo_estep_grid(int k, int m8, int rows, long long n) {
 }
 
 // xt (d + p, ld) f32: x rows then y rows (p = 0 for kKindGauss and
-// kKindDiag), points 0..n-1, shared by the chains; theta (chains, k, m8)
-// f32; part (chains, grid, k*m8+1) scratch; out (chains, k*m8+1) =
-// [acc row-major, lse] per chain. Returns a cudaError_t code.
+// kKindDiag, the maps without y), points 0..n-1, shared by the chains;
+// theta (chains, k, m8) f32; part (chains, grid, k*m8+1) scratch; out
+// (chains, k*m8+1) = [acc row-major, lse] per chain. Returns a cudaError_t
+// code.
 extern "C" int mimo_estep(const float* xt, long long ld, int d, int p,
                           int kind, long long n, const float* theta, int k,
                           int m8, float* part, float* out, int grid,
                           int chains, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind < kKindGauss || kind > kKindDiag ||
+  if (kind < kKindGauss || kind > kKindLast ||
       m8 < feature_width(kind, d, p) || chains < 1 || chains > 65535)
     return cudaErrorInvalidValue;
   const int v = estep_variant(k, m8, d + p);

@@ -1,9 +1,8 @@
 """Chain parallelism (the counterpart of examples/chains_smc.py): VI
 restarts over a set of chain keys with best-of selection, split-R-hat and
 ESS over a batch of Gibbs chains' log-likelihood traces, and SMC-style
-population Gibbs with systematic resampling. The dense VI restarts run
-chain by chain; the Gibbs chains and the SMC population run as one
-batched program.
+population Gibbs with systematic resampling. The dense VI restarts, the
+Gibbs chains and the SMC population each run as one batched program.
 
     python -m mimo_tpu_torch.examples.chains_smc [--cpu] [--chains C]
 """
@@ -36,7 +35,8 @@ def main(argv=None):
     keys = chain_keys(args.seed, args.chains)
     states, vlbs = fit_chains(model, 'fit_vi', x, keys, maxiter=100)
     finals = to_numpy(vlbs[:, -1])
-    print(f'{args.chains} VI chains, final ELBOs: {finals.round(1)}')
+    print(f'{args.chains} vmapped VI chains, final ELBOs: '
+          f'{finals.round(1)}')
     _, idx = best_of(states, vlbs)
     print(f'best chain {int(idx)}: {finals[int(idx)]:.1f}')
 

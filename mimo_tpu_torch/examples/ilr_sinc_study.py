@@ -7,8 +7,11 @@ its held-out NLPD come from kernel B5 on the card. Reports the per-seed
 RMSE against the true sinc mean and the held-out NLPD, and checks that
 the mean RMSE stays under 0.2.
 
-JAX runs the seeds as one vmapped program; here they run one after
-another, a loop over seeds.
+The seeds' fits run as one program, as JAX's vmap runs them: the dense
+Gibbs and SVI engines batched over the seeds as chains, each chain with
+its own (ntr, 1) split and, after the first re-anchor, its own priors
+(`with_priors` of the S-stacked state). The serving runs a seed at a
+time.
 
     python -m mimo_tpu_torch.examples.ilr_sinc_study [--cpu] [--seeds S]
         [--svi_iters I] [--plot]
@@ -24,7 +27,7 @@ from mimo_tpu_torch.utils.data import to_numpy
 
 def main(argv=None):
     args, dev = setup(
-        'multi-seed sinc study (one fit a seed)', argv,
+        'multi-seed sinc study (the seeds as one program)', argv,
         seeds=(int, 8, 'number of random train splits (reference: 24)'),
         models=(int, 50, 'DP truncation level (reference: 100)'),
         alpha=(float, 50.0, 'DP concentration (reference: 100)'),
@@ -36,7 +39,7 @@ def main(argv=None):
         prediction=(str, 'average', 'mode or average'),
     )
     from mimo_tpu_torch.models.ilr import BayesianILR
-    from mimo_tpu_torch.models.mixture import MFState
+    from mimo_tpu_torch.models.mixture import MFState, _tree_map
 
     # the sinc dataset with input-dependent noise
     rng = np.random.default_rng(args.seed)
@@ -46,12 +49,14 @@ def main(argv=None):
     target = np.sinc(grid) + noise * rng.standard_normal((n, 1))
     mean_true = np.sinc(grid)
 
-    # per-seed 80/20 shuffle splits
+    # per-seed 80/20 shuffle splits, stacked on the chain axis
     n_tr = int(0.8 * n)
     perms = np.stack([rng.permutation(n) for _ in range(args.seeds)])
 
     def on_dev(a):
         return torch.as_tensor(a, dtype=args.dtype, device=dev)
+
+    xtr, ytr = on_dev(grid[perms[:, :n_tr]]), on_dev(target[perms[:, :n_tr]])
 
     m = BayesianILR.make(size=args.models, input_dim=1, output_dim=1,
                          alpha=args.alpha, kappa=0.05, dtype=args.dtype,
@@ -59,24 +64,23 @@ def main(argv=None):
     gx, gy = on_dev(grid), on_dev(target)
     m.init_transform(gx, gy)
 
-    def one_seed(key, x, y):
-        """The flagship recipe on one train split."""
-        g = m.fit_gibbs((x, y), key=key, maxiter=args.gibbs_iters)
-        state = MFState(g.components, g.gating)
-        mm = m
-        for it in range(args.super_iters):
-            state, _ = mm.fit_svi(
-                (x, y), key=key + it + 1, maxiter=args.svi_iters,
-                step_size=args.svi_step_size,
-                batch_size=args.svi_batch_size, init_state=state,
-                randomize=False)
-            mm = mm.with_priors(state)      # prior <- posterior re-anchor
-        return state
+    # the flagship recipe on every seed's split as one program
+    keys = chain_keys(args.seed, args.seeds)
+    g = m.fit_gibbs((xtr, ytr), key=keys, maxiter=args.gibbs_iters,
+                    chains=True)
+    states = MFState(g.components, g.gating)
+    mm = m
+    for it in range(args.super_iters):
+        states, _ = mm.fit_svi(
+            (xtr, ytr), key=keys + it + 1, maxiter=args.svi_iters,
+            step_size=args.svi_step_size, batch_size=args.svi_batch_size,
+            init_state=states, randomize=False, chains=True)
+        mm = mm.with_priors(states)     # prior <- posterior re-anchor
 
     mus, stds, nlpds = [], [], []
-    for s, key in enumerate(chain_keys(args.seed, args.seeds).tolist()):
-        tr, te = perms[s, :n_tr], perms[s, n_tr:]
-        st = one_seed(key, on_dev(grid[tr]), on_dev(target[tr]))
+    for s in range(args.seeds):
+        st = _tree_map(lambda a: a[s], states)
+        te = perms[s, n_tr:]
         mu, _, std, _ = m.predict(st, gx, prediction=args.prediction)
         _, _, _, nlpd = m.predict(st, on_dev(grid[te]), on_dev(target[te]),
                                   prediction=args.prediction)

@@ -21,13 +21,18 @@ mimo_tpu/models/hmix.py).
     through B5 (p = 1) or B6 (p > 1), both over the flattened M*K
     components. `backend` follows models.mixture: 'auto', 'kernel' or
     'torch'.
-  * Chains: the fused engines take `chains=True` with C chain keys in
+  * Chains: every engine takes `chains=True` with C chain keys in
     `key`, as the flat ones do (models.mixture): each chain's random or
     anchor start is drawn and reduced one chain at a time from its own
-    generator, theta is (C, M*K, m) through family_estep.chain_spec, B1 /
-    B2 launch once a sweep for all chains, and the M-vmapped algebra runs
-    under one more torch.func.vmap over C (`_over_chains`; the identity
-    for one fit). Chain c of VI, MAP and ML-EM equals the fit with key c.
+    generator, and the M-vmapped algebra runs under one more
+    torch.func.vmap over C (`_over_chains`, `_Chains.over`; the identity
+    for one fit). The fused engines take theta (C, M*K, m) through
+    family_estep.chain_spec, B1 / B2 launching once a sweep for all
+    chains; the dense ones form every chain's statistics in one call over
+    flat (N, C*M*K) weights (`_cluster_stats`), SVI's under the vmap
+    (each chain's own minibatch). Chain c of VI, MAP, ML-EM and SVI
+    equals the fit with key c; the Gibbs chains draw from one generator
+    seeded by theirs (`batch_generator`).
   * Mesh: the fused engines, `fit_svi`, the dense engines,
     `log_predictive` and `predict` take `mesh=` as the flat ones do
     (models.mixture): the flat M*K E-step or label sweep launches once
@@ -48,7 +53,7 @@ from torch.func import vmap
 
 from mimo_tpu_torch.conjugate.families import Family
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, _as_generator, _elbo_loop, _label_generators,
+    BayesianMixture, _Chains, _elbo_loop, _generators, _label_generators,
     _mesh_parts, _on, _over_chains, _random_resp, _reduce_trees, _resp_seed,
     _Shards, _stack, _stack_lead, _tree_map, as_data, batch_generator,
     from_kernel, model_device, resolve_backend, serve_sharded, shard0_draws,
@@ -94,6 +99,12 @@ def _unflatten_mk(tree, m, k):
 
 def _log_clip(p):
     return torch.log(torch.clamp(p, min=1e-37))
+
+
+def _chains(gens, chains):
+    """The `_Chains` of a dense engine over shared data: C chains, one a
+    generator in `gens`, or one fit."""
+    return _Chains(len(gens) if chains else None)
 
 
 class BayesianMixtureOfMixtures:
@@ -206,20 +217,30 @@ class BayesianMixtureOfMixtures:
 
     # -- updates ------------------------------------------------------------
 
-    def _cluster_stats(self, data, inner_w, outer_w):
+    def _cluster_stats(self, data, inner_w, outer_w, out=True):
         """(stats, counts) of every cluster, (M, K)-stacked, from inner
-        weights (M, N, K) scaled by outer weights (N, M). The statistics
-        are linear in the weights and every cluster reads the same data,
-        so one call over the flat (N, M*K) weights, m-major, gives them
-        all; vmapping the family's call instead runs its (K, N) x (N, m)
-        products as a batched matmul ~80x slower at N=1e7 on the H100."""
-        m, n, k = inner_w.shape
-        flat = torch.empty((n, m, k), dtype=inner_w.dtype,
-                           device=inner_w.device)
-        torch.mul(inner_w.permute(1, 0, 2), outer_w[:, :, None], out=flat)
-        flat = flat.view(n, m * k)
-        return (_unflatten_mk(self.family.suff_stats(data, flat), m, k),
-                torch.sum(flat, 0).reshape(m, k))
+        weights (M, N, K) scaled by outer weights (N, M); the chains'
+        (C, M, K)-stacked from their (C, M, N, K) and (C, N, M). The
+        statistics are linear in the weights and every cluster (and
+        chain) reads the same data, so one call over the flat (N, M*K)
+        weights, m-major (or (N, C*M*K), chain-major), gives them all;
+        vmapping the family's call instead runs its (K, N) x (N, m)
+        products as a batched matmul ~80x slower at N=1e7 on the H100.
+        The weights are formed in place (`out`) but under torch.func.vmap
+        (a minibatch each chain draws itself), where `out=False`."""
+        *lead, m, n, k = inner_w.shape
+        shape = tuple(lead) + (m, k)
+        a, b = inner_w.movedim(-2, 0), outer_w.movedim(-2, 0)[..., None]
+        if out:
+            flat = torch.empty((n,) + shape, dtype=inner_w.dtype,
+                               device=inner_w.device)
+            torch.mul(a, b, out=flat)
+            flat = flat.view(n, -1)
+        else:
+            flat = (a * b).reshape(n, -1)
+        return (_tree_map(lambda t: t.reshape(shape + t.shape[1:]),
+                          self.family.suff_stats(data, flat)),
+                torch.sum(flat, 0).reshape(shape))
 
     def _inner_posteriors(self, stats, counts):
         """(components, gatings): every cluster's inner posteriors from
@@ -256,39 +277,40 @@ class BayesianMixtureOfMixtures:
             outer_gating=self.outer_gating_prior.update(outer_counts),
             inner_gating=gatings, components=comps)
 
-    def _vi_sweep(self, state: HMixState, sh, maxsubiter):
+    def _vi_sweep(self, state: HMixState, sh, maxsubiter, ch):
         """One nested VI sweep over the `_Shards` sh: each shard's outer
         responsibilities, then `maxsubiter` inner rounds, each one
         reduction of every cluster's statistics (the first also of the
-        outer counts)."""
-        outer = [self.expected_responsibilities(
-            _on(state, part[0].device), part) if sh.rows(j) else None
+        outer counts). For C chains (`ch`, a `_Chains`) the state is
+        C-stacked and a round's reduction serves every chain."""
+        outer = [ch.over(lambda st: self.expected_responsibilities(st, part))(
+            _on(state, part[0].device)) if sh.rows(j) else None
             for j, part in enumerate(sh.parts)]
         zero = sh.zero_part()
-        zero_outer = zero[0].new_zeros((1, self.cluster_size))
+        zero_outer = zero[0].new_zeros(ch.lead + (1, self.cluster_size))
         for sub in range(max(maxsubiter, 1)):
             red = sh.reduce_each(
                 lambda j: self._round_tree(state, sh.parts[j], outer[j],
-                                           sub == 0, maxsubiter > 0),
+                                           sub == 0, maxsubiter > 0, ch),
                 lambda: self._round_tree(state, zero, zero_outer, sub == 0,
-                                         maxsubiter > 0), 'sweep')
+                                         maxsubiter > 0, ch), 'sweep')
             if sub == 0:
                 outer_counts, red = red[0], red[1:]
             if maxsubiter:
-                comps, gatings = self._inner_posteriors(*red)
+                comps, gatings = ch.over(self._inner_posteriors)(*red)
                 state = state._replace(inner_gating=gatings, components=comps)
-        return state._replace(outer_gating=self.outer_gating_prior.update(
-            outer_counts))
+        return state._replace(outer_gating=ch.over(
+            self.outer_gating_prior.update)(outer_counts))
 
-    def _round_tree(self, state, part, outer, first, inner):
+    def _round_tree(self, state, part, outer, first, inner, ch):
         """One shard's part of an inner round: (the outer counts, where
         `first`) + (every cluster's stats and counts under the inner
         responsibilities of `state`, where `inner`)."""
-        tree = (torch.sum(outer, 0),) if first else ()
+        tree = (torch.sum(outer, -2),) if first else ()
         if inner:
             st = _on(state, part[0].device)
-            tree += self._cluster_stats(
-                part, torch.softmax(self._inner_elc(st, part), -1), outer)
+            tree += self._cluster_stats(part, torch.softmax(
+                ch.over(lambda s: self._inner_elc(s, part))(st), -1), outer)
         return tree
 
     def _tx_data(self, data):
@@ -299,7 +321,7 @@ class BayesianMixtureOfMixtures:
         return data
 
     def fit_vi(self, data, key=None, maxiter=100, maxsubiter=3,
-               randomize=True, mesh=None):
+               randomize=True, mesh=None, chains=False):
         """Nested mean-field coordinate ascent from random two-level
         responsibilities (`randomize` is accepted and unused, as in the
         JAX package). Returns (HMixState, trace): the marginal expected
@@ -308,19 +330,23 @@ class BayesianMixtureOfMixtures:
         (n_j, M) and (M, n_j, K) responsibilities stay on its device and
         a sweep makes maxsubiter + 1 reductions: one an inner round, and
         one of its log-likelihood; without one, the same over the one
-        position of the data's device."""
+        position of the data's device. With `chains`, `key` holds C chain
+        keys (see the module docstring): C-stacked HMixState, (C,
+        maxiter) traces, chain c equal to the fit with key c."""
         sh = _Shards(mesh, self._tx_data(data), 'torch')
-        state = self._random_state(_as_generator(key, sh.device), sh)
+        gens = _generators(key, sh.device, chains)
+        ch = _chains(gens, chains)
+        state = self._random_states(gens, sh, chains)
         trace = []
 
         def lse_sum(st, part):
             st = _on(st, part[0].device)
-            return (torch.sum(torch.logsumexp(
-                self.expected_cluster_loglik(st, part)
-                + st.outer_gating.expected_log_pi()[None, :], -1)),)
+            return (torch.sum(torch.logsumexp(ch.over(
+                lambda s: self.expected_cluster_loglik(s, part)
+                + s.outer_gating.expected_log_pi()[None, :])(st), -1), -1),)
 
         for _ in range(maxiter):
-            state = self._vi_sweep(state, sh, maxsubiter)
+            state = self._vi_sweep(state, sh, maxsubiter, ch)
             trace.append(sh.reduce_each(
                 lambda j: lse_sum(state, sh.parts[j]),
                 lambda: lse_sum(state, sh.zero_part()), 'sweep')[0])
@@ -558,8 +584,8 @@ class BayesianMixtureOfMixtures:
                                        -1))                  # (n_j, M)
         return inner, outer
 
-    def _plugin_sweeps(self, sh, maxiter, maxsubiter, key, m_step,
-                       outer_log_pi):
+    def _plugin_sweeps(self, sh, maxiter, maxsubiter, gens, m_step,
+                       outer_log_pi, ch):
         """The nested plug-in sweeps (fit_em, fit_map) over the `_Shards`
         sh from the two-level anchor start: per sweep `maxsubiter` inner
         rounds (an M-step, one reduction of every cluster's statistics,
@@ -569,27 +595,32 @@ class BayesianMixtureOfMixtures:
         plug-in params and one reduction of their log-likelihood:
         maxsubiter + 2 reductions a sweep. m_step(stats, counts, outer
         counts or None) -> (state or None, params, inner log weights (M,
-        K)); outer_log_pi(state, outer counts) -> (M,). Returns (the last
-        state, the trace)."""
+        K)); outer_log_pi(state, outer counts) -> (M,). For C chains
+        (`gens` one generator a chain, whose anchor starts are drawn one
+        chain at a time; `ch` their `_Chains`) every tensor gains a
+        leading C axis and a reduction serves every chain.
+        Returns (the last state, the trace)."""
         fam = self.family
-        inner, outer = self._anchor_start(_as_generator(key, sh.device), sh)
+        starts = [self._anchor_start(g, sh) for g in gens]
+        inner, outer = ([ch.stack([s[i][j] for s in starts])
+                         for j in range(len(sh.parts))] for i in (0, 1))
         zero = sh.zero_part()
-        zeros = (zero[0].new_zeros((self.cluster_size, 1,
-                                    self.mixture_size)),
-                 zero[0].new_zeros((1, self.cluster_size)))
+        zeros = (zero[0].new_zeros(ch.lead + (self.cluster_size, 1,
+                                           self.mixture_size)),
+                 zero[0].new_zeros(ch.lead + (1, self.cluster_size)))
 
         def reduce(first):
             def tree(part, inn, out):
                 return self._cluster_stats(part, inn, out) + (
-                    (torch.sum(out, 0),) if first else ())
+                    (torch.sum(out, -2),) if first else ())
             return sh.reduce_each(
                 lambda j: tree(sh.parts[j], inner[j], outer[j]),
                 lambda: tree(zero, *zeros), 'sweep')
 
         def plug_in_elc(params, ilp, part):
             params, ilp = _on((params, ilp), part[0].device)
-            return (vmap(lambda p: fam.loglik(p, part))(params)
-                    + ilp[:, None, :])
+            return ch.over(lambda p, lp: vmap(lambda q: fam.loglik(q, part))(p)
+                        + lp[:, None, :])(params, ilp)
 
         state, trace = None, []
         for _ in range(maxiter):
@@ -603,11 +634,13 @@ class BayesianMixtureOfMixtures:
             sums = []
             for j, part in enumerate(sh.parts):
                 outer[j], lognorm = normalize_log(
-                    torch.logsumexp(plug_in_elc(params, ilp, part), -1).T
-                    + olp.to(part[0].device)[None, :])
-                sums.append((torch.sum(lognorm),) if sh.rows(j) else None)
+                    torch.logsumexp(plug_in_elc(params, ilp, part),
+                                    -1).transpose(-1, -2)
+                    + olp.to(part[0].device)[..., None, :])
+                sums.append((torch.sum(lognorm, -1),) if sh.rows(j)
+                            else None)
             trace.append(_reduce_trees(
-                sh.mesh, sums, lambda: (zero[0].new_zeros(()),),
+                sh.mesh, sums, lambda: (zero[0].new_zeros(ch.lead),),
                 'sweep')[0])
         return state, _stack(trace, sh)
 
@@ -617,29 +650,35 @@ class BayesianMixtureOfMixtures:
                 'this family has no maximum-likelihood update; build the '
                 'model with hierarchical=False or use fit_vi/fit_gibbs')
 
-    def fit_em(self, data, key=None, maxiter=100, maxsubiter=5, mesh=None):
+    def fit_em(self, data, key=None, maxiter=100, maxsubiter=5, mesh=None,
+               chains=False):
         """Nested likelihood-only EM: outer E-step over clusters, then per
         cluster `maxsubiter` weighted inner EM iterations (all clusters
         vmapped at once), from the two-level anchor start. Needs the
         family's ml_update (hierarchical families have none). Returns
         (HMixEMState, loglik trace). With `mesh` (see fit_vi) the anchors
         and their scale come from the global N and a sweep makes
-        maxsubiter + 2 reductions (`_plugin_sweeps`)."""
+        maxsubiter + 2 reductions (`_plugin_sweeps`). With `chains`,
+        `key` holds C chain keys: C-stacked HMixEMState, (C, maxiter)
+        traces, chain c equal to the fit with key c."""
         self._require_ml()
         sh = _Shards(mesh, self._tx_data(data), 'torch')
+        gens = _generators(key, sh.device, chains)
+        ch = _chains(gens, chains)
         fam = self.family
 
         def m_step(stats, counts, outer_counts):
             """Weighted ML for all clusters: params + inner log weights."""
             csum = torch.clamp(torch.sum(counts, -1, keepdim=True), min=1e-37)
-            params, ilp = vmap(fam.ml_update)(stats), _log_clip(counts / csum)
+            params = ch.over(vmap(fam.ml_update))(stats)
+            ilp = _log_clip(counts / csum)
             return (None if outer_counts is None else
                     HMixEMState(params, ilp, _log_clip(outer_counts / sh.n)),
                     params, ilp)
 
         state, trace = self._plugin_sweeps(
-            sh, maxiter, maxsubiter, key, m_step,
-            lambda st, _: st.outer_log_pi)
+            sh, maxiter, maxsubiter, gens, m_step,
+            lambda st, _: st.outer_log_pi, ch)
         return finite_report((state, trace), 'fit_em')
 
     def _ml_log_pis(self, counts, n):
@@ -693,37 +732,44 @@ class BayesianMixtureOfMixtures:
     # -- MAP EM --------------------------------------------------------------
 
     def fit_map(self, data, key=None, maxiter=100, maxsubiter=5,
-                mesh=None):
+                mesh=None, chains=False):
         """Nested MAP expectation-maximization: posterior update + mode
         plug-in at BOTH levels, weight-masked inner updates, from the
         two-level anchor start. Per sweep: `maxsubiter` inner MAP
         iterations under the current outer responsibilities, the outer
         gating MAP, then outer responsibilities under the plug-in mode
         params. Returns (HMixState, loglik trace). With `mesh` (see
-        fit_vi) a sweep makes maxsubiter + 2 reductions."""
+        fit_vi) a sweep makes maxsubiter + 2 reductions. With `chains`,
+        `key` holds C chain keys: C-stacked HMixState, (C, maxiter)
+        traces, chain c equal to the fit with key c."""
         sh = _Shards(mesh, self._tx_data(data), 'torch')
+        gens = _generators(key, sh.device, chains)
+        ch = _chains(gens, chains)
         fam = self.family
+
+        def per_cluster(prior_c, prior_g, st, c):
+            comp = fam.update(prior_c, st)
+            gating = prior_g.update(c)
+            return (comp, gating, fam.mode_params(comp),
+                    _log_clip(gating.mode()))
 
         def m_step(stats, counts, outer_counts):
             """Weighted MAP at both levels -> (HMixState or None, plug-in
             params, inner log weights (M, K))."""
-            def per_cluster(prior_c, prior_g, st, c):
-                comp = fam.update(prior_c, st)
-                gating = prior_g.update(c)
-                return (comp, gating, fam.mode_params(comp),
-                        _log_clip(gating.mode()))
-
-            comps, gatings, params, ilp = vmap(per_cluster)(
-                self.components_prior, self.inner_gating_prior, stats,
-                counts)
+            comps, gatings, params, ilp = ch.over(
+                lambda st, c: vmap(per_cluster)(
+                    self.components_prior, self.inner_gating_prior, st,
+                    c))(stats, counts)
             state = None if outer_counts is None else HMixState(
-                outer_gating=self.outer_gating_prior.update(outer_counts),
+                outer_gating=ch.over(self.outer_gating_prior.update)(
+                    outer_counts),
                 inner_gating=gatings, components=comps)
             return state, params, ilp
 
         state, trace = self._plugin_sweeps(
-            sh, maxiter, maxsubiter, key, m_step,
-            lambda st, _: _log_clip(st.outer_gating.mode()))
+            sh, maxiter, maxsubiter, gens, m_step,
+            lambda st, _: ch.over(lambda g: _log_clip(g.mode()))(
+                st.outer_gating), ch)
         return finite_report((state, trace), 'fit_map')
 
     def fit_map_fused(self, data, key=None, maxiter=100, block_size=131072,
@@ -756,7 +802,7 @@ class BayesianMixtureOfMixtures:
 
     def fit_svi(self, data, key=None, maxiter=500, step_size=1e-2,
                 batch_size=128, maxsubiter=2, init_state=None,
-                randomize=True, mesh=None):
+                randomize=True, mesh=None, chains=False):
         """Nested stochastic natural-gradient VI: per step, one random
         minibatch (`utils.data.sample_batch_indices`); outer and inner
         responsibilities on the batch; `maxsubiter` blends of the inner
@@ -772,42 +818,53 @@ class BayesianMixtureOfMixtures:
         index), and every inner sub-iteration reduces the shards' (M, K)
         statistics once (the first also the outer counts), as mimo_tpu's
         psum a sub-iteration; a batch_size that d does not divide
-        raises."""
+        raises. With `chains`, `key` holds C chain keys: each chain
+        draws its start and minibatches from its own generator, one
+        gather serves every chain, and a step runs under torch.func.vmap
+        over C (C-stacked HMixState; chain c equals the fit with key
+        c)."""
         if mesh is not None:
             return self._fit_svi_mesh(data, key, maxiter, step_size,
                                       batch_size, maxsubiter, init_state,
-                                      randomize, mesh)
-        data = self._tx_data(data)
-        x0 = data[0]
-        n = x0.shape[0]
+                                      randomize, mesh, chains)
+        sh = _Shards(None, self._tx_data(data), 'torch')
+        data, n = sh.parts[0], sh.n
         scale = batch_size / n
-        gen = _as_generator(key, x0.device)
-        fam = self.family
-        state = (self._random_state(gen, _Shards(None, data, 'torch'))
+        gens = _generators(key, sh.device, chains)
+        ch = _chains(gens, chains)
+        state = (self._random_states(gens, sh, chains)
                  if randomize or init_state is None else init_state)
-        for _ in range(maxiter):
-            idx = sample_batch_indices(gen, n, batch_size)
-            batch = tuple(a[idx] for a in data)
-            outer_resp = self.expected_responsibilities(state, batch)
+
+        def step(st, batch):
+            outer_resp = self.expected_responsibilities(st, batch)
             for _ in range(maxsubiter):
-                stats, counts = self._cluster_stats(
-                    batch, torch.softmax(self._inner_elc(state, batch), -1),
-                    outer_resp)
-                comps, gatings = vmap(
-                    lambda pc, pg, qc, qg, st, c: (
-                        fam.svi_blend(qc, pc, st, scale, step_size),
-                        pg.svi_blend(qg, c, scale, step_size)))(
-                    self.components_prior, self.inner_gating_prior,
-                    state.components, state.inner_gating, stats, counts)
-                state = state._replace(components=comps, inner_gating=gatings)
-            state = state._replace(
+                st = self._svi_inner(st, *self._cluster_stats(
+                    batch, torch.softmax(self._inner_elc(st, batch), -1),
+                    outer_resp, out=False), scale, step_size)
+            return st._replace(
                 outer_gating=self.outer_gating_prior.svi_blend(
-                    state.outer_gating, torch.sum(outer_resp, 0), scale,
+                    st.outer_gating, torch.sum(outer_resp, 0), scale,
                     step_size))
+
+        for _ in range(maxiter):
+            idx = ch.stack([sample_batch_indices(g, n, batch_size)
+                            for g in gens])
+            state = ch.over(step)(state, tuple(a[idx] for a in data))
         return finite_report(state, 'fit_svi')
 
+    def _svi_inner(self, state, stats, counts, scale, step_size):
+        """One blend of every cluster's inner components and gating."""
+        fam = self.family
+        comps, gatings = vmap(
+            lambda pc, pg, qc, qg, st, c: (
+                fam.svi_blend(qc, pc, st, scale, step_size),
+                pg.svi_blend(qg, c, scale, step_size)))(
+            self.components_prior, self.inner_gating_prior,
+            state.components, state.inner_gating, stats, counts)
+        return state._replace(components=comps, inner_gating=gatings)
+
     def _fit_svi_mesh(self, data, key, maxiter, step_size, batch_size,
-                      maxsubiter, init_state, randomize, mesh):
+                      maxsubiter, init_state, randomize, mesh, chains):
         """fit_svi over a mesh (see fit_svi)."""
         n_dev = mesh.shape['data']
         if batch_size % n_dev:
@@ -819,43 +876,44 @@ class BayesianMixtureOfMixtures:
                              f'{n_dev}-shard mesh empty: SVI draws from '
                              'every shard')
         scale = batch_size / shards.n
-        gen = _as_generator(key, shards.device)
-        fam = self.family
-        state = (self._random_state(gen, shards)
+        gens = _generators(key, shards.device, chains)
+        ch = _chains(gens, chains)
+        state = (self._random_states(gens, shards, chains)
                  if randomize or init_state is None else init_state)
-        gens = shards.generators(gen)
+        gens = [shards.generators(g) for g in gens]
         local_b = batch_size // n_dev
+
+        def tree(st, b, o, first):
+            out = (torch.sum(o, 0),) if first else ()
+            if maxsubiter:
+                out += self._cluster_stats(b, torch.softmax(
+                    self._inner_elc(st, b), -1), o, out=False)
+            return out
+
         for _ in range(maxiter):
             batches = []
-            for part, g in zip(shards.parts, gens):
-                idx = sample_batch_indices(g, part[0].shape[0], local_b)
+            for j, part in enumerate(shards.parts):
+                idx = ch.stack([sample_batch_indices(
+                    g[j], part[0].shape[0], local_b) for g in gens])
                 batches.append(tuple(a[idx] for a in part))
-            outer = [self.expected_responsibilities(state, b)
+            outer = [ch.over(self.expected_responsibilities)(state, b)
                      for b in batches]
             for sub in range(max(maxsubiter, 1)):
-                trees = []
-                for b, o in zip(batches, outer):
-                    tree = (torch.sum(o, 0),) if sub == 0 else ()
-                    if maxsubiter:
-                        tree += self._cluster_stats(b, torch.softmax(
-                            self._inner_elc(state, b), -1), o)
-                    trees.append(tree)
+                trees = [ch.over(lambda st, bb, oo: tree(
+                    st, bb, oo, sub == 0))(state, b, o)
+                    for b, o in zip(batches, outer)]
                 red = shards.mesh.reduce_tree(
                     trees, _tree_map(torch.zeros_like, trees[0]), 'sweep')
                 if sub == 0:
                     outer_counts, red = red[0], red[1:]
                 if not maxsubiter:
                     break
-                comps, gatings = vmap(
-                    lambda pc, pg, qc, qg, st, c: (
-                        fam.svi_blend(qc, pc, st, scale, step_size),
-                        pg.svi_blend(qg, c, scale, step_size)))(
-                    self.components_prior, self.inner_gating_prior,
-                    state.components, state.inner_gating, *red)
-                state = state._replace(components=comps, inner_gating=gatings)
-            state = state._replace(
-                outer_gating=self.outer_gating_prior.svi_blend(
-                    state.outer_gating, outer_counts, scale, step_size))
+                state = ch.over(lambda st, s, c: self._svi_inner(
+                    st, s, c, scale, step_size))(state, *red)
+            state = state._replace(outer_gating=ch.over(
+                lambda g, c: self.outer_gating_prior.svi_blend(
+                    g, c, scale, step_size))(state.outer_gating,
+                                             outer_counts))
         return finite_report(state, 'fit_svi')
 
     # -- Gibbs (masked instead of hard-sliced) -------------------------------
@@ -873,7 +931,7 @@ class BayesianMixtureOfMixtures:
             data, one_hot(z, self.mixture_size, dtype=outer_w.dtype), outer_w)
 
     def _gibbs_sweep(self, state: HMixGibbsState, sh, gen, lgens, lead_draw,
-                     maxsubiter):
+                     maxsubiter, ch):
         """`maxsubiter` inner Gibbs rounds in every cluster at once
         (params | posterior, inner weights, inner labels | params,
         posterior | labels), then the outer gating | labels and the outer
@@ -882,14 +940,17 @@ class BayesianMixtureOfMixtures:
         come from `gen`, each shard's labels from its label generator
         (`lgens`; `lead_draw` keeps `gen` in step where this process does
         not hold data shard 0), and each round makes one reduction of
-        every cluster's statistics (the first also of the outer
-        counts)."""
+        every cluster's statistics (the first also of the outer counts).
+        For C chains (`ch`, a `_Chains`) the draws run under one more vmap
+        with randomness='different' and a round's reduction serves every
+        chain."""
         fam, mm, kk = self.family, self.cluster_size, self.mixture_size
         labels = state.labels.shards
         outer_w = [one_hot(lab, mm, dtype=sh.dtype) for lab in labels]
         zero = sh.zero_part()
-        zero_w = zero[0].new_zeros((1, mm))
-        zero_z = torch.zeros((mm, 1), dtype=torch.int64, device=sh.device)
+        zero_w = zero[0].new_zeros(ch.lead + (1, mm))
+        zero_z = torch.zeros(ch.lead + (mm, 1), dtype=torch.int64,
+                             device=sh.device)
         comps, gatings = state.components, state.inner_gating
         logp = [None] * len(sh.parts)
         z = [None] * len(sh.parts)
@@ -898,22 +959,25 @@ class BayesianMixtureOfMixtures:
             first = sub == 0
 
             def tree(zj, wj, part):
-                out = (torch.sum(wj, 0),) if first else ()
+                out = (torch.sum(wj, -2),) if first else ()
                 if maxsubiter:
                     out += self._gibbs_inner_stats(zj, wj, part)
                 return out
             if maxsubiter:
-                params = vmap(lambda q: fam.sample_params(gen, q),
+                params = ch.over(vmap(lambda q: fam.sample_params(gen, q),
+                                   randomness='different'),
                               randomness='different')(comps)
-                probs = vmap(lambda g: g.sample(gen),
+                probs = ch.over(vmap(lambda g: g.sample(gen),
+                                  randomness='different'),
                              randomness='different')(gatings)
                 for j, part in enumerate(sh.parts):
                     if sh.rows(j):
-                        logp[j] = self._gibbs_inner_logp(
-                            *_on((params, probs), part[0].device), part)
+                        logp[j] = ch.over(lambda p, pr: self._gibbs_inner_logp(
+                            p, pr, part))(*_on((params, probs),
+                                               part[0].device))
                         z[j] = sample_categorical_from_log(lgens[j], logp[j])
-                lead_draw(lambda n: torch.rand((mm, n, kk), generator=gen,
-                                               dtype=sh.dtype,
+                lead_draw(lambda n: torch.rand(ch.lead + (mm, n, kk),
+                                               generator=gen, dtype=sh.dtype,
                                                device=gen.device))
             red = sh.reduce_each(
                 lambda j: tree(z[j], outer_w[j], sh.parts[j]),
@@ -921,19 +985,20 @@ class BayesianMixtureOfMixtures:
             if first:
                 outer_counts, red = red[0], red[1:]
             if maxsubiter:
-                comps, gatings = self._inner_posteriors(*red)
-        outer_gating = self.outer_gating_prior.update(outer_counts)
-        log_w = _log_clip(outer_gating.sample(gen))
+                comps, gatings = ch.over(self._inner_posteriors)(*red)
+        outer_gating = ch.over(self.outer_gating_prior.update)(outer_counts)
+        log_w = ch.over(lambda g: _log_clip(g.sample(gen)),
+                     randomness='different')(outer_gating)
         new = []
         for j, part in enumerate(sh.parts):
             if sh.rows(j):
-                log_p_outer = (torch.logsumexp(logp[j], -1).T
-                               + log_w.to(part[0].device)[None, :])
+                log_p_outer = (torch.logsumexp(logp[j], -1).transpose(-1, -2)
+                               + log_w.to(part[0].device)[..., None, :])
                 new.append(sample_categorical_from_log(
                     lgens[j], log_p_outer).to(torch.int32))
             else:
                 new.append(labels[j])
-        lead_draw(lambda n: torch.rand((n, mm), generator=gen,
+        lead_draw(lambda n: torch.rand(ch.lead + (n, mm), generator=gen,
                                        dtype=sh.dtype, device=gen.device))
         return HMixGibbsState(outer_gating=outer_gating,
                               inner_gating=gatings, components=comps,
@@ -941,7 +1006,7 @@ class BayesianMixtureOfMixtures:
                                   shards=tuple(new)))
 
     def fit_gibbs(self, data, key=None, maxiter=100, maxsubiter=2,
-                  init_labels='prior', mesh=None):
+                  init_labels='prior', mesh=None, chains=False):
         """Dense nested blocked Gibbs. `init_labels`: 'prior' (outer
         labels drawn from an outer-gating prior sample) or 'random'.
         Returns the final HMixGibbsState. With `mesh` (see fit_vi) the
@@ -949,25 +1014,35 @@ class BayesianMixtureOfMixtures:
         sweep makes one reduction an inner round, and each shard draws
         its labels from its own generator, data shard 0's the fit's
         (models.mixture `_label_generators`), so a one-position mesh is
-        the unsharded chain draw for draw."""
+        the unsharded chain draw for draw. With `chains`, `key` holds C
+        chain keys: each chain's start labels come from its own
+        generator, and the sweeps' draws from one generator seeded by the
+        chains' (`batch_generator`), as the flat dense Gibbs: the same
+        keys give the same chains, but a chain is not the single fit draw
+        for draw (C-stacked state, labels (C, N))."""
         from mimo_tpu_torch.parallel.mesh import Sharded
         if maxsubiter < 1:
             raise ValueError('fit_gibbs draws the outer labels from the '
                              'last inner round: maxsubiter >= 1')
         sh = _Shards(mesh, self._tx_data(data), 'torch')
-        gen = _as_generator(key, sh.device)
+        gens = _generators(key, sh.device, chains)
+        ch = _chains(gens, chains)
         lead_draw = shard0_draws(sh)
-        labels = start_labels(sh, gen, init_labels, self.cluster_size,
-                              self.outer_gating_prior, lead_draw)
-        state = HMixGibbsState(
-            outer_gating=self.outer_gating_prior,
-            inner_gating=self.inner_gating_prior,
-            components=self.components_prior,
-            labels=Sharded(tuple(labels), sh.positions, sh.n))
+        per = [start_labels(sh, g, init_labels, self.cluster_size,
+                            self.outer_gating_prior, lead_draw)
+               for g in gens]
+        priors = (self.outer_gating_prior, self.inner_gating_prior,
+                  self.components_prior)
+        if chains:
+            priors = tuple(_stack_lead(p, ch.size) for p in priors)
+        state = HMixGibbsState(*priors, labels=Sharded(
+            tuple(ch.stack([p[j] for p in per])
+                  for j in range(len(sh.parts))), sh.positions, sh.n))
+        gen = batch_generator(gens) if chains else gens[0]
         lgens = _label_generators(gen, sh)
         for _ in range(maxiter):
             state = self._gibbs_sweep(state, sh, gen, lgens, lead_draw,
-                                      maxsubiter)
+                                      maxsubiter, ch)
         if mesh is None:
             state = state._replace(labels=state.labels.shards[0])
         return finite_report(state, 'fit_gibbs')

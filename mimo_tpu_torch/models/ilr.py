@@ -174,6 +174,9 @@ class BayesianILR(BayesianMixture):
                         tied_affine=self.tied_affine)
 
     def _std(self, data):
+        """(x, y) standardized by the one shared transform; with a leading
+        chain axis, (C, N, .) each chain's own data (the dense engines'
+        `chains=True`), the transform broadcasts over it."""
         x, y = data
         return self._tx(x), self._ty(y)
 

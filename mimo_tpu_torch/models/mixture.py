@@ -18,14 +18,22 @@ form the N x K responsibilities; the dense engines (`fit_vi`, `fit_gibbs`,
 `fit_map`, `fit_em`, `fit_svi`) are plain PyTorch wherever the data lies,
 as they are plain JAX in the reference.
 
-Chains. With `chains=True` the fused engines and the dense `fit_gibbs`
-take C chain keys in `key` and run C restarts as one batched program (the
-counterpart of jax.vmap over the JAX engines, parallel/chains.py): the
-state's leaves carry a leading C axis, the K-sized algebra runs under
-torch.func.vmap over C (`_over_chains`; a single fit runs the same code
-unbatched), and B1 / B2 launch once a sweep for every chain. Each chain's
-start is drawn from its own generator one chain at a time, so chain c of
-the VI, MAP and EM engines equals the single-chain fit with key c.
+Chains. With `chains=True` every engine takes C chain keys in `key` and
+runs C restarts as one batched program (the counterpart of jax.vmap over
+the JAX engines, parallel/chains.py): the state's leaves carry a leading
+C axis and the K-sized algebra runs under torch.func.vmap over C
+(`_over_chains`, `_Chains.over`; a single fit runs the same code
+unbatched). The fused engines launch B1 / B2 once a sweep for every
+chain; the dense ones form the chains' (C, n, K) responsibilities with
+one flat ell and one flat statistics call over C K components where the
+family allows it (`_chain_points`, `_chain_stats`). Each chain's start
+(and SVI's minibatches) is drawn from its own generator, so chain c of
+the VI, MAP, EM and SVI engines equals the single-chain fit with key c;
+the Gibbs chains draw from one generator seeded by theirs. The dense
+fit_vi, fit_map, fit_svi and fit_gibbs also take each chain's own data,
+(C, N, ...) arrays, and a model whose priors carry a leading chain axis
+(`with_priors` of a C-stacked state), as jax.vmap over the data and the
+re-anchored priors gives them.
 
 Mesh. The fused engines, `fit_svi` and `log_predictive` take `mesh=`, a
 one-row mesh from parallel.make_mesh, and data as parallel.shard_data
@@ -273,6 +281,52 @@ def batch_generator(gens):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
+class _Chains(NamedTuple):
+    """The layout of a dense engine's chains (`BayesianMixture._dense_setup`):
+    `size` C, or None for one fit (every map below is then the identity,
+    so a single fit runs the same code unbatched); `data` the chain axis
+    of the data tuples, 1 where each chain has its own data (held
+    (N, C, ...), the point axis first, as the mesh splits it), None where
+    the chains share the data; `priors` 0 where the model's priors carry
+    a leading chain axis (`with_priors` of a C-stacked state), else None.
+    The priors then enter the vmapped algebra as arguments."""
+    size: Any = None
+    data: Any = None
+    priors: Any = None
+
+    def over(self, fn, in_dims=0, randomness='error'):
+        """torch.func.vmap of fn over the chains, or fn for one fit."""
+        if self.size is None:
+            return fn
+        return vmap(fn, in_dims=in_dims, randomness=randomness)
+
+    def stack(self, trees):
+        """The chains' trees, one a chain, stacked on a leading axis (the
+        one tree of a single fit)."""
+        return trees[0] if self.size is None else stack_trees(trees)
+
+    @property
+    def lead(self):
+        """The chains' leading shape: () for one fit, else (C,)."""
+        return () if self.size is None else (self.size,)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for t in tree for leaf in _leaves(t)]
+
+
+def _gather(data, idx, ch):
+    """The minibatch rows idx (B,) of a data tuple, or the chains' own
+    rows idx (C, B) in one gather a tensor: (C, B, ...) from the shared
+    (N, ...) data or from the chains' own (N, C, ...)."""
+    if ch.data is None:
+        return tuple(a[idx] for a in data)
+    col = torch.arange(ch.size, device=idx.device)[:, None]
+    return tuple(a[idx, col] for a in data)
+
+
 class BayesianMixture:
     """A Bayesian mixture of `K` conjugate-family components with a
     Dirichlet or stick-breaking (DP) gating prior. `self` holds the
@@ -314,13 +368,116 @@ class BayesianMixture:
     def elbo(self, state: MFState, data, resp):
         """Variational lower bound: data term + label terms - sum_k
         KL(comp_k) - KL(gating)."""
+        return self._elbo_under(self.components_prior, self.gating_prior,
+                                state, data, resp)
+
+    def _elbo_under(self, cp, gp, state, data, resp):
+        """`elbo` against the priors (cp, gp)."""
         data_term = torch.sum(resp * self.family.ell(state.components, data))
         label_term = (state.gating.label_elbo_terms(resp)
                       + torch.sum(entropy_categorical(resp, dim=-1)))
-        kl_comp = torch.sum(self.family.kl(state.components,
-                                           self.components_prior))
-        kl_gating = torch.sum(state.gating.kl_divergence(self.gating_prior))
+        kl_comp = torch.sum(self.family.kl(state.components, cp))
+        kl_gating = torch.sum(state.gating.kl_divergence(gp))
         return data_term + label_term - kl_comp - kl_gating
+
+    # -- the dense engines' chains -------------------------------------------
+
+    def _dense_setup(self, data, key, chains, mesh):
+        """(the data's `_Shards`, the generators, the `_Chains`) of a dense
+        engine: one generator from `key`, or with `chains` one a chain
+        from the C keys in `key`. With `chains`, data whose arrays are
+        (C, N, ...) is each chain's own (the JAX package's vmap over the
+        data), and priors with a leading chain axis are each chain's
+        own."""
+        data = as_data(data)
+        own = (chains and isinstance(data[0], torch.Tensor)
+               and data[0].dim() == 3)
+        if own:
+            data = tuple(a.movedim(0, 1) for a in data)
+        sh = _Shards(mesh, data, 'torch')
+        gens = _generators(key, sh.device, chains)
+        own_priors = self.gating_prior[0].dim() == 2
+        if own_priors and not chains:
+            raise ValueError('priors with a chain axis need chains=True')
+        for size, what in ((sh.parts[0][0].shape[1] if own else None,
+                            'data'),
+                           (self.gating_prior[0].shape[0] if own_priors
+                            else None, 'priors')):
+            if chains and size is not None and size != len(gens):
+                raise ValueError(f'{len(gens)} chain keys, {size} chains '
+                                 f'of {what}')
+        return sh, gens, self._model_chains(len(gens) if chains else None,
+                                            1 if own else None)
+
+    def _model_chains(self, size, data=None):
+        """The `_Chains` of `size` chains (None: one fit) with the data's
+        chain axis `data`, under this model's priors."""
+        return _Chains(size, data,
+                       0 if self.gating_prior[0].dim() == 2 else None)
+
+    def _chain_posterior(self, ch, stats, counts):
+        """The posterior of each chain from its statistics and counts,
+        under its priors."""
+        fam = self.family
+
+        def post(cp, gp, s, c):
+            return MFState(components=fam.update(cp, s), gating=gp.update(c))
+        return ch.over(post, (ch.priors, ch.priors, 0, 0))(
+            self.components_prior, self.gating_prior, stats, counts)
+
+    def _chain_points(self, fn, tree, part, ch):
+        """fn(tree, part) -> (N, K), the family's ell of a posterior or
+        loglik of plug-in params; the chains' (C, N, K) from their
+        C-stacked tree: one call over the flat C K components where the
+        chains share the data and every leaf of the tree has the
+        component axis (a part shared within a chain, as a tied slope or
+        a hierarchical hyper-posterior, has none), else vmapped over the
+        chains."""
+        if ch.size is None:
+            return fn(tree, part)
+        lead = (ch.size, self.size)
+        if ch.data is None and all(a.dim() >= 2 and a.shape[:2] == lead
+                                   for a in _leaves(tree)):
+            return fn(_tree_map(lambda a: a.flatten(0, 1), tree),
+                      part).unflatten(-1, lead).movedim(1, 0)
+        return ch.over(fn, (0, ch.data))(tree, part)
+
+    def _chain_stats(self, part, resp, ch, point_weights=None):
+        """(stats, counts) of the responsibilities resp (N, K), each
+        point's scaled by point_weights (N,) where given; the chains'
+        C-stacked ones from their (C, N, K): one call over the flat
+        (N, C K) weights where the chains share the data (a vmapped
+        suff_stats would run its products as a batched matmul), else
+        vmapped over the chains."""
+        if point_weights is not None:
+            resp = resp * point_weights[:, None]
+        if ch.size is None:
+            return self.family.suff_stats(part, resp), torch.sum(resp, 0)
+        counts = torch.sum(resp, -2)
+        if ch.data is None:
+            c, n, k = resp.shape
+            stats = self.family.suff_stats(
+                part, resp.movedim(0, 1).reshape(n, c * k))
+            return _tree_map(lambda a: a.unflatten(0, (c, k)), stats), counts
+        return ch.over(self.family.suff_stats, (ch.data, 0))(part,
+                                                             resp), counts
+
+    def _chain_resp(self, state, part, ch):
+        """Each chain's expected responsibilities of the points `part`."""
+        ell = self._chain_points(self.family.ell, state.components, part, ch)
+        return normalize_log(ell + ch.over(lambda g: g.expected_log_pi())(
+            state.gating)[..., None, :])[0]
+
+    def _random_stats(self, sh, gens, ch):
+        """(stats, counts) of each chain's random-responsibility start
+        over the `_Shards` sh: one seed drawn from each chain's
+        generator, each shard drawing only its own rows of the draw over
+        the global N (`_random_resp`); one reduction for every chain."""
+        seeds = [_resp_seed(g) for g in gens]
+        return sh.reduce_stats(lambda part, lo, hi: self._chain_stats(
+            part, ch.stack([_random_resp(s, hi - lo, self.size, sh.dtype,
+                                         part[0].device, lo)
+                            for s in seeds]), ch))
 
     def _estep_spec(self):
         """EStepSpec for the fused engines; None when the family has none.
@@ -344,8 +501,8 @@ class BayesianMixture:
         """The random-responsibility start of each chain over the
         `_Shards` `data`, drawn and reduced one chain at a time from its
         own generator (the (C, N, K) responsibilities never exist)."""
-        starts = [self._posterior(*data.random_stats(
-            self.family.suff_stats, g, self.size)) for g in gens]
+        starts = [self._posterior(*self._random_stats(data, [g], _Chains()))
+                  for g in gens]
         return stack_trees(starts) if chains else starts[0]
 
     def _posterior(self, stats, counts):
@@ -467,29 +624,37 @@ class BayesianMixture:
         # poison the fit with log(0) = -inf
         return torch.log(torch.clamp(counts, min=1e-37) / n)
 
-    def fit_em(self, data, key=None, maxiter=250, mesh=None):
+    def fit_em(self, data, key=None, maxiter=250, mesh=None, chains=False):
         """Likelihood-only EM: plug-in E-step and the closed-form weighted
         ML M-step, no priors, from the random-anchor init. Returns
         (EMState(params, log_pi), loglik trace). Needs the family's
         ml_update (the hierarchical families have none). With `mesh` (see
         fit_vi) the anchors and their scale come from the global N (three
         reductions, `_Shards.anchor_stats`) and a sweep makes one
-        reduction of its statistics, counts and log-likelihood."""
+        reduction of its statistics, counts and log-likelihood. With
+        `chains`, `key` holds C chain keys: each chain's anchors come
+        from its own generator, one chain at a time, and the sweeps run
+        the C chains as one program (see fit_vi); C-stacked EMState,
+        (C, maxiter) traces, chain c equal to the fit with key c."""
         if self.family.ml_update is None:
             raise NotImplementedError(
                 'this family has no maximum-likelihood update; use fit_map')
-        sh = _Shards(mesh, data, 'torch')
-        idx = _anchor_indices(_as_generator(key, sh.device), sh.n,
-                              self.size, sh.device)
-        stats, counts = sh.anchor_stats(self.family.suff_stats, idx)
+        sh, gens, ch = self._dense_setup(data, key, chains, mesh)
+        if ch.data is not None:
+            raise ValueError('fit_em draws its anchors from shared data; '
+                             'chains with their own data: fit_vi, fit_map, '
+                             'fit_svi or fit_gibbs')
+        stats, counts = ch.stack([sh.anchor_stats(
+            self.family.suff_stats,
+            _anchor_indices(g, sh.n, self.size, sh.device)) for g in gens])
 
         def plugin(stats, counts):
-            params = self.family.ml_update(stats)
+            params = ch.over(self.family.ml_update)(stats)
             log_pi = self._ml_log_pi(counts, sh.n)
             return params, log_pi, EMState(params, log_pi)
 
         state, _, trace = self._plugin_sweeps(sh, stats, counts, maxiter,
-                                              plugin)
+                                              plugin, ch)
         return finite_report((state, trace), 'fit_em')
 
     def _plugin_spec(self, alt_engine):
@@ -569,7 +734,7 @@ class BayesianMixture:
         return finite_report((state, _stack(trace, data)), 'fit_map_fused')
 
     def fit_vi(self, data, key=None, maxiter=250, tol=None, init_state=None,
-               randomize=True, point_weights=None, mesh=None):
+               randomize=True, point_weights=None, mesh=None, chains=False):
         """Dense mean-field coordinate ascent. Returns (MFState, vlb
         trace). `randomize=True` starts from random responsibilities;
         pass `init_state` (e.g. from Gibbs) with randomize=False to warm
@@ -584,23 +749,33 @@ class BayesianMixture:
         statistics, then those of the start state's). The random start is
         keyed by the point index, so the fit is the unsharded one up to
         the order of its sums. Without `mesh` the same code runs over the
-        one position of the data's device."""
-        sh = _Shards(mesh, data, 'torch')
-        pws = _weight_parts(sh.mesh, point_weights, len(sh.parts))
-        fam = self.family
+        one position of the data's device.
 
-        def weighted(part, pw, resp):
-            r = resp if pw is None else resp * pw[:, None]
-            return fam.suff_stats(part, r), torch.sum(r, 0)
+        With `chains`, `key` holds C chain keys and the C chains run as
+        one program (the counterpart of jax.vmap over the JAX engine):
+        each chain's random start from its own generator, the (C, n_j, K)
+        responsibilities of a shard from one flat ell and one flat
+        statistics call over C K components where the family allows it
+        (`_chain_points`, `_chain_stats`), the K-sized algebra under
+        torch.func.vmap over C, one reduction a sweep for every chain, and
+        each chain stopping on its own `tol`. Chain c equals the fit with
+        key c. Data (C, N, ...) is each chain's own, and priors with a
+        leading chain axis (`with_priors` of a C-stacked state) each
+        chain's own. A C-stacked `init_state`, MFState and (C, maxiter)
+        traces."""
+        sh, gens, ch = self._dense_setup(data, key, chains, mesh)
+        pws = _weight_parts(sh.mesh, point_weights, len(sh.parts))
+        fam, cp, gp = self.family, self.components_prior, self.gating_prior
 
         def sweep_tree(part, pw, st):
             st = _on(st, part[0].device)
-            ell = fam.ell(st.components, part)
-            resp, _ = normalize_log(ell + st.gating.expected_log_pi()[None, :])
-            counts = () if pw is None else (torch.sum(resp, 0),)
-            return weighted(part, pw, resp) + counts + (
-                torch.sum(resp * ell),
-                torch.sum(entropy_categorical(resp, dim=-1)))
+            ell = self._chain_points(fam.ell, st.components, part, ch)
+            resp, _ = normalize_log(ell + ch.over(
+                lambda g: g.expected_log_pi())(st.gating)[..., None, :])
+            counts = () if pw is None else (torch.sum(resp, -2),)
+            return self._chain_stats(part, resp, ch, pw) + counts + (
+                torch.sum(resp * ell, (-2, -1)),
+                torch.sum(entropy_categorical(resp, dim=-1), -1))
 
         def reduce_sweep(st, kind):
             return sh.reduce_each(
@@ -609,36 +784,46 @@ class BayesianMixture:
                 kind)
 
         if randomize or init_state is None:
-            seed = _resp_seed(_as_generator(key, sh.device))
-            resp_of = (lambda j: _random_resp(
-                seed, sh.rows(j), self.size, sh.dtype,
-                sh.parts[j][0].device, sh.bounds[j][0]))
+            seeds = [_resp_seed(g) for g in gens]
+
+            def resp_of(j):
+                return ch.stack([_random_resp(
+                    s, sh.rows(j), self.size, sh.dtype,
+                    sh.parts[j][0].device, sh.bounds[j][0]) for s in seeds])
         else:
-            resp_of = (lambda j: self.expected_responsibilities(
-                _on(init_state, sh.parts[j][0].device), sh.parts[j]))
-        state = self._posterior(*sh.reduce_each(
-            lambda j: weighted(sh.parts[j], pws[j], resp_of(j)),
-            lambda: weighted(sh.zero_part(), _zero_weight(pws),
-                             torch.zeros((1, self.size), dtype=sh.dtype,
-                                         device=sh.device)), 'start'))
+            def resp_of(j):
+                return self._chain_resp(
+                    _on(init_state, sh.parts[j][0].device), sh.parts[j], ch)
+        state = self._chain_posterior(ch, *sh.reduce_each(
+            lambda j: self._chain_stats(sh.parts[j], resp_of(j), ch, pws[j]),
+            lambda: self._chain_stats(
+                sh.zero_part(), torch.zeros(ch.lead + (1, self.size),
+                                            dtype=sh.dtype, device=sh.device),
+                ch, _zero_weight(pws)), 'start'))
+
+        def bound(cp, gp, st, counts, data_term, entropy):
+            return (data_term + (st.gating.label_elbo_terms(counts[None, :])
+                                 + entropy)
+                    - torch.sum(fam.kl(st.components, cp))
+                    - torch.sum(st.gating.kl_divergence(gp)))
 
         def step(carry, _):
-            state = self._posterior(*carry[1][:2])
+            state = self._chain_posterior(ch, *carry[1][:2])
             out = reduce_sweep(state, 'sweep')
             counts = out[1] if pws[0] is None else out[2]
-            return (state, out), (
-                out[-2] + (state.gating.label_elbo_terms(counts[None, :])
-                           + out[-1])
-                - torch.sum(fam.kl(state.components, self.components_prior))
-                - torch.sum(state.gating.kl_divergence(self.gating_prior)))
+            return (state, out), ch.over(
+                bound, (ch.priors, ch.priors, 0, 0, 0, 0))(
+                    cp, gp, state, counts, out[-2], out[-1])
 
         (state, _), vlb = _elbo_loop(
-            step, (state, reduce_sweep(state, 'start')), maxiter, tol)
+            step, (state, reduce_sweep(state, 'start')), maxiter, tol,
+            ch.lead)
         return finite_report((state, vlb), 'fit_vi')
 
     def fit_svi(self, data, key=None, maxiter=500, step_size=1e-2,
                 batch_size=128, init_state=None, randomize=True,
-                track_elbo=False, forgetting=None, delay=1.0, mesh=None):
+                track_elbo=False, forgetting=None, delay=1.0, mesh=None,
+                chains=False):
         """Stochastic natural-gradient VI: one random minibatch per step
         (`utils.data.sample_batch_indices`), blended in natural space.
         The step size is fixed (the reference's rule) unless `forgetting`
@@ -655,36 +840,53 @@ class BayesianMixture:
         their statistics through the fused E-step (B1 once per shard on
         CUDA shards) and makes one reduction; the natural-
         space blend is K-sized. track_elbo and a batch_size that d does
-        not divide raise, as in the JAX package."""
+        not divide raise, as in the JAX package.
+
+        With `chains`, `key` holds C chain keys and the C chains run as
+        one program: each chain draws its start and its minibatch indices
+        from its own generator, one gather serves every chain, and the
+        step's algebra runs under torch.func.vmap over C, so chain c
+        equals the fit with key c. Data (C, N, ...) and priors with a
+        leading chain axis are each chain's own (as fit_vi). Over a
+        mesh each chain's E-step runs on its own minibatch (B1 once a
+        chain and shard) and one reduction serves every chain."""
         if mesh is not None:
             return self._fit_svi_mesh(data, key, maxiter, step_size,
                                       batch_size, init_state, track_elbo,
-                                      forgetting, delay, mesh)
-        data = _as_tuple(data)
-        x0 = data[0]
-        n, dtype, dev = x0.shape[0], x0.dtype, x0.device
-        gen = _as_generator(key, dev)
+                                      forgetting, delay, mesh, chains)
+        sh, gens, ch = self._dense_setup(data, key, chains, None)
+        data, n, dtype, dev = sh.parts[0], sh.n, sh.dtype, sh.device
+        fam, cp, gp = self.family, self.components_prior, self.gating_prior
         scale = batch_size / n
         if init_state is None:
-            state = self._mf_update(
-                data, _random_resp(gen, n, self.size, dtype, dev))
+            state = self._chain_posterior(ch, *self._chain_stats(
+                data, ch.stack([_random_resp(g, n, self.size, dtype, dev)
+                                for g in gens]), ch))
         else:
             state = init_state
-        trace = torch.zeros((maxiter,), dtype=dtype, device=dev)
+
+        def full_elbo(cp, gp, st, x):
+            resp, _ = normalize_log(fam.ell(st.components, x)
+                                    + st.gating.expected_log_pi()[None, :])
+            return self._elbo_under(cp, gp, st, x, resp)
+
+        pin = ch.priors
+        trace = torch.zeros(ch.lead + (maxiter,), dtype=dtype, device=dev)
         for t in range(maxiter):
             rho = (step_size if forgetting is None
                    else step_size * (t + 1.0 + delay) ** -forgetting)
-            idx = sample_batch_indices(gen, n, batch_size)
-            state = self._svi_step(state, tuple(a[idx] for a in data), scale,
-                                   rho)
+            idx = ch.stack([sample_batch_indices(g, n, batch_size)
+                            for g in gens])
+            state = ch.over(self._svi_step, (pin, pin, 0, 0, None, None))(
+                cp, gp, state, _gather(data, idx, ch), scale, rho)
             if track_elbo:
-                trace[t] = self.elbo(state, data,
-                                     self.expected_responsibilities(state,
-                                                                    data))
+                trace[..., t] = ch.over(full_elbo, (pin, pin, 0, ch.data))(
+                    cp, gp, state, data)
         return finite_report((state, trace), 'fit_svi')
 
     def _fit_svi_mesh(self, data, key, maxiter, step_size, batch_size,
-                      init_state, track_elbo, forgetting, delay, mesh):
+                      init_state, track_elbo, forgetting, delay, mesh,
+                      chains):
         """fit_svi over a mesh (see fit_svi)."""
         spec = self._estep_spec()
         if spec is None:
@@ -697,49 +899,62 @@ class BayesianMixture:
         if batch_size % n_dev:
             raise ValueError(f'batch_size={batch_size} must be a multiple '
                              f'of the data-mesh size {n_dev}')
+        data = as_data(data)
+        if chains and isinstance(data[0], torch.Tensor) and data[0].dim() == 3:
+            raise ValueError('fit_svi(mesh=) takes data the chains share')
         shards = _Shards(mesh, data, 'auto', 131072)
         if shards.any_empty:
             raise ValueError(f'N={shards.n} leaves a shard of the '
                              f'{n_dev}-shard mesh empty: SVI draws from '
                              'every shard')
-        gen = _as_generator(key, shards.device)
+        gens = _generators(key, shards.device, chains)
+        ch = self._model_chains(len(gens) if chains else None)
+        if chains:
+            from mimo_tpu_torch.ops.family_estep import chain_spec
+            spec = chain_spec(spec)
         scale = batch_size / shards.n
         if init_state is None:
-            state = self._posterior(*shards.random_stats(
-                self.family.suff_stats, gen, self.size))
+            state = self._chain_posterior(
+                ch, *self._random_stats(shards, gens, ch))
         else:
             state = init_state
-        gens = shards.generators(gen)
+        gens = [shards.generators(g) for g in gens]
         local_b = batch_size // n_dev
+        pin = ch.priors
         for t in range(maxiter):
             rho = (step_size if forgetting is None
                    else step_size * (t + 1.0 + delay) ** -forgetting)
             batches = []
-            for part, g in zip(shards.parts, gens):
-                idx = sample_batch_indices(g, part[0].shape[0], local_b)
-                batches.append(tuple(a[idx] for a in part))
-            res = shards.estep(spec, state.components,
-                               state.gating.expected_log_pi(), batches)
-            state = MFState(
-                components=self.family.svi_blend(
-                    state.components, self.components_prior, res.stats,
-                    scale, rho),
-                gating=self.gating_prior.svi_blend(state.gating, res.counts,
-                                                   scale, rho))
+            for j, part in enumerate(shards.parts):
+                idx = ch.stack([sample_batch_indices(g[j], part[0].shape[0],
+                                                     local_b) for g in gens])
+                batches.append(_gather(part, idx, ch))
+            log_pi = ch.over(lambda g: g.expected_log_pi())(state.gating)
+            res = (shards.estep(spec, state.components, log_pi, batches)
+                   if ch.size is None else
+                   shards.estep_own(spec, state.components, log_pi, batches))
+            state = ch.over(self._svi_blend, (pin, pin, 0, 0, 0, None, None))(
+                self.components_prior, self.gating_prior, state, res.stats,
+                res.counts, scale, rho)
         return finite_report(
-            (state, torch.zeros((maxiter,), dtype=shards.dtype,
+            (state, torch.zeros(ch.lead + (maxiter,), dtype=shards.dtype,
                                 device=shards.device)), 'fit_svi')
 
-    def _svi_step(self, state, batch, scale, rho):
+    def _svi_step(self, cp, gp, state, batch, scale, rho):
         """One natural-gradient step on a minibatch at stochastic scale
-        B/N and step size rho."""
+        B/N and step size rho, against the priors (cp, gp)."""
         resp = self.expected_responsibilities(state, batch)
+        return self._svi_blend(cp, gp, state,
+                               self.family.suff_stats(batch, resp),
+                               torch.sum(resp, 0), scale, rho)
+
+    def _svi_blend(self, cp, gp, state, stats, counts, scale, rho):
+        """The natural-space blend of an SVI step from a minibatch's
+        statistics and counts, against the priors (cp, gp)."""
         return MFState(
-            components=self.family.svi_blend(
-                state.components, self.components_prior,
-                self.family.suff_stats(batch, resp), scale, rho),
-            gating=self.gating_prior.svi_blend(
-                state.gating, torch.sum(resp, 0), scale, rho))
+            components=self.family.svi_blend(state.components, cp, stats,
+                                             scale, rho),
+            gating=gp.svi_blend(state.gating, counts, scale, rho))
 
     # -- out-of-core ---------------------------------------------------------
 
@@ -839,7 +1054,8 @@ class BayesianMixture:
                     rhos = torch.from_numpy(rhos)
                     for j in range(group):
                         state = self._svi_step(
-                            state, tuple(b[j] for b in item), scale, rhos[j])
+                            self.components_prior, self.gating_prior, state,
+                            tuple(b[j] for b in item), scale, rhos[j])
                     if stager is not None:
                         stager.release(slot)
             except BaseException:
@@ -920,12 +1136,9 @@ class BayesianMixture:
                                     state.gating.expected_log_pi())
                         estep.add(shards)
                         res = estep.end()
-                        state = MFState(
-                            components=self.family.svi_blend(
-                                state.components, self.components_prior,
-                                res.stats, scale, rho),
-                            gating=self.gating_prior.svi_blend(
-                                state.gating, res.counts, scale, rho))
+                        state = self._svi_blend(
+                            self.components_prior, self.gating_prior, state,
+                            res.stats, res.counts, scale, rho)
                     for st, slot in slots:
                         st.release(slot)
             except BaseException:
@@ -1125,19 +1338,6 @@ class BayesianMixture:
 
     # -- blocked Gibbs -------------------------------------------------------
 
-    def _gibbs_draw(self, gen, stats, counts):
-        """components | labels -> gating | labels: (component posterior,
-        gating posterior, sampled params, log of the sampled weights)."""
-        if self.family.gibbs_update is not None:
-            comp_post, params = self.family.gibbs_update(
-                gen, self.components_prior, stats)
-        else:
-            comp_post = self.family.update(self.components_prior, stats)
-            params = self.family.sample_params(gen, comp_post)
-        gating_post = self.gating_prior.update(counts)
-        log_pi = torch.log(torch.clamp(gating_post.sample(gen), min=1e-37))
-        return comp_post, gating_post, params, log_pi
-
     def _gibbs_sweep(self, state: GibbsState, data, gen, point_weights=None):
         """components | labels -> gating | labels -> labels | params.
         Returns (GibbsState, the data log-likelihood under the sweep's
@@ -1146,47 +1346,49 @@ class BayesianMixture:
         over the flat (N, C K) one-hot weights (`_gibbs_label_stats`), the
         draws run under torch.func.vmap with randomness='different' from
         `gen`, and the log-likelihoods are (C,)."""
-        chains = state.labels.dim() == 2
+        ch = self._model_chains(state.labels.shape[0]
+                                if state.labels.dim() == 2 else None)
         comp_post, gating_post, params, log_pi = self._gibbs_draws(
-            gen, *self._gibbs_label_stats(state.labels, data, point_weights),
-            chains)
-        log_p = self._gibbs_log_p(params, log_pi, data, chains)
+            gen, *self._gibbs_label_stats(state.labels, data, point_weights,
+                                          ch), ch)
+        log_p = self._gibbs_log_p(params, log_pi, data, ch)
         labels = sample_categorical_from_log(gen, log_p).to(torch.int32)
         new = GibbsState(components=comp_post, gating=gating_post,
                          params=params, log_pi=log_pi, labels=labels)
         return new, torch.sum(torch.logsumexp(log_p, -1), -1)
 
-    def _gibbs_label_stats(self, labels, data, point_weights=None):
+    def _gibbs_label_stats(self, labels, data, point_weights, ch):
         """(stats, counts) of the one-hot labels (N,), or of the chains'
-        (C, N) from one call over the flat (N, C K) one-hot weights (a
-        vmapped suff_stats would run its products as a batched matmul),
-        reshaped to (C, K, ...)."""
-        chains = labels.dim() == 2
-        n, k = labels.shape[-1], self.size
-        resp = one_hot(labels.reshape(-1, n).T, k,
-                       dtype=data[0].dtype).reshape(n, -1)
-        if point_weights is not None:
-            resp = resp * point_weights[:, None]
-        stats, counts = self.family.suff_stats(data, resp), torch.sum(resp, 0)
-        if chains:
-            lead = (labels.shape[0], k)
-            stats = _tree_map(lambda a: a.reshape(lead + a.shape[1:]), stats)
-            counts = counts.reshape(lead)
-        return stats, counts
+        (C, N) (`_chain_stats`: one call over the flat (N, C K) one-hot
+        weights where the chains share the data), C-stacked."""
+        resp = one_hot(labels.movedim(-1, 0), self.size,
+                       dtype=data[0].dtype).movedim(0, -2)
+        return self._chain_stats(data, resp, ch, point_weights)
 
-    def _gibbs_draws(self, gen, stats, counts, chains):
-        """The sweep's (component posterior, gating posterior, params, log
-        weights) from `gen`, under vmap over the chains' axis with
-        randomness='different'."""
-        return _over_chains(chains)(
-            lambda s, c: self._gibbs_draw(gen, s, c),
-            randomness='different')(stats, counts)
+    def _gibbs_draws(self, gen, stats, counts, ch):
+        """components | labels -> gating | labels: the sweep's (component
+        posterior, gating posterior, sampled params, log of the sampled
+        weights) from `gen`, under the chains' priors, vmapped over the
+        chains with randomness='different'."""
+        fam = self.family
 
-    def _gibbs_log_p(self, params, log_pi, data, chains):
+        def draw(cp, gp, s, c):
+            if fam.gibbs_update is not None:
+                comp_post, params = fam.gibbs_update(gen, cp, s)
+            else:
+                comp_post = fam.update(cp, s)
+                params = fam.sample_params(gen, comp_post)
+            gating_post = gp.update(c)
+            return comp_post, gating_post, params, torch.log(
+                torch.clamp(gating_post.sample(gen), min=1e-37))
+        return ch.over(draw, (ch.priors, ch.priors, 0, 0),
+                       randomness='different')(
+            self.components_prior, self.gating_prior, stats, counts)
+
+    def _gibbs_log_p(self, params, log_pi, data, ch):
         """The plug-in log p(x, z=k) -> (N, K), or the chains' (C, N, K)."""
-        return _over_chains(chains)(
-            lambda pr, lp: self.log_complete_likelihood(pr, lp, data))(
-                params, log_pi)
+        return ch.over(self.log_complete_likelihood, (0, 0, ch.data))(
+            params, log_pi, data)
 
     def fit_gibbs(self, data, key=None, maxiter=100, init_labels='prior',
                   point_weights=None, init_state=None, track_loglik=False,
@@ -1199,7 +1401,9 @@ class BayesianMixture:
         With `chains`, `key` holds C chain keys: each chain starts from
         its own generator and the sweeps run the C chains as one program
         (the sweep smc_gibbs runs), their draws from `batch_generator`; a
-        C-stacked `init_state` and GibbsState, (C, maxiter) traces.
+        C-stacked `init_state` and GibbsState, (C, maxiter) traces. Data
+        (C, N, ...) and priors with a leading chain axis are each chain's
+        own (as fit_vi).
 
         With `mesh` (see fit_vi) the labels stay on their shards (a
         parallel.mesh.Sharded of (n_j,) or (C, n_j) tensors) and a sweep
@@ -1212,26 +1416,27 @@ class BayesianMixture:
         `mesh` the same code runs over the one position of the data's
         device."""
         from mimo_tpu_torch.parallel.mesh import Sharded
-        sh = _Shards(mesh, data, 'torch')
+        sh, gens, ch = self._dense_setup(data, key, chains, mesh)
         pws = _weight_parts(sh.mesh, point_weights, len(sh.parts))
-        gens = _generators(key, sh.device, chains)
-        lead = (len(gens),) if chains else ()
+        lead = ch.lead
         lead_draw = shard0_draws(sh)
 
         if init_state is not None:
             labels = _label_parts(sh.mesh, init_state.labels)
             state = init_state
         else:
-            per = [start_labels(sh, g, init_labels, self.size,
-                                self.gating_prior, lead_draw) for g in gens]
-            labels = [torch.stack([p[j] for p in per]) if chains
-                      else per[0][j] for j in range(len(sh.parts))]
             cp, gp = self.components_prior, self.gating_prior
-            if chains:
+            per = [start_labels(sh, g, init_labels, self.size,
+                                gp if ch.priors is None
+                                else _tree_map(lambda a: a[c], gp),
+                                lead_draw) for c, g in enumerate(gens)]
+            labels = [ch.stack([p[j] for p in per])
+                      for j in range(len(sh.parts))]
+            if chains and ch.priors is None:
                 cp, gp = _stack_lead(cp, lead[0]), _stack_lead(gp, lead[0])
             state = GibbsState(
                 components=cp, gating=gp,
-                params=_over_chains(chains)(self.family.mode_params)(cp),
+                params=ch.over(self.family.mode_params)(cp),
                 log_pi=torch.log(torch.full(lead + (self.size,),
                                             1.0 / self.size, dtype=sh.dtype,
                                             device=sh.device)),
@@ -1240,24 +1445,24 @@ class BayesianMixture:
         lgens = _label_generators(gen, sh)
 
         def tree(j, extra=()):
-            return self._gibbs_label_stats(labels[j], sh.parts[j],
-                                           pws[j]) + extra
+            return self._gibbs_label_stats(labels[j], sh.parts[j], pws[j],
+                                           ch) + extra
 
         def probe(extra=()):
             return self._gibbs_label_stats(
                 torch.zeros(lead + (1,), dtype=torch.int32,
                             device=sh.device),
-                sh.zero_part(), _zero_weight(pws)) + extra
+                sh.zero_part(), _zero_weight(pws), ch) + extra
 
         stats, counts = sh.reduce_each(tree, probe, 'start')
         trace, lls = [], [None] * len(sh.parts)
         for _ in range(maxiter):
             comp, gating, params, log_pi = self._gibbs_draws(
-                gen, stats, counts, chains)
+                gen, stats, counts, ch)
             for j, part in enumerate(sh.parts):
                 if sh.rows(j):
                     log_p = self._gibbs_log_p(
-                        *_on((params, log_pi), part[0].device), part, chains)
+                        *_on((params, log_pi), part[0].device), part, ch)
                     labels[j] = sample_categorical_from_log(
                         lgens[j], log_p).to(torch.int32)
                     lls[j] = torch.sum(torch.logsumexp(log_p, -1), -1)
@@ -1280,42 +1485,49 @@ class BayesianMixture:
     # -- MAP EM ----------------------------------------------------------------
 
     def fit_map(self, data, key=None, maxiter=250, randomize=True,
-                mesh=None):
+                mesh=None, chains=False):
         """Dense MAP expectation-maximization: posterior update, then the
         mode's plug-in softmax, from random responsibilities (`randomize`
         is accepted and unused, as in the JAX package). Returns (MFState,
         loglik trace). With `mesh` (see fit_vi) the start takes one
         reduction and a sweep one, of its statistics, counts and
-        log-likelihood; without one, the same over one position."""
-        sh = _Shards(mesh, data, 'torch')
-        stats, counts = sh.random_stats(
-            self.family.suff_stats, _as_generator(key, sh.device), self.size)
+        log-likelihood; without one, the same over one position. With
+        `chains`, `key` holds C chain keys and the C chains run as one
+        program (see fit_vi; data (C, N, ...) and priors with a chain
+        axis each chain's own): C-stacked MFState, (C, maxiter) traces,
+        chain c equal to the fit with key c."""
+        sh, gens, ch = self._dense_setup(data, key, chains, mesh)
+        stats, counts = self._random_stats(sh, gens, ch)
 
         def plugin(stats, counts):
-            state = self._posterior(stats, counts)
-            return (self.family.mode_params(state.components),
-                    torch.log(torch.clamp(state.gating.mode(), min=1e-37)),
+            state = self._chain_posterior(ch, stats, counts)
+            return (ch.over(self.family.mode_params)(state.components),
+                    ch.over(lambda g: torch.log(torch.clamp(
+                        g.mode(), min=1e-37)))(state.gating),
                     state)
 
         _, pending, trace = self._plugin_sweeps(sh, stats, counts, maxiter,
-                                                plugin)
-        return finite_report((self._posterior(*pending), trace), 'fit_map')
+                                                plugin, ch)
+        return finite_report((self._chain_posterior(ch, *pending), trace),
+                             'fit_map')
 
-    def _plugin_sweeps(self, sh, stats, counts, maxiter, plugin):
+    def _plugin_sweeps(self, sh, stats, counts, maxiter, plugin, ch):
         """The dense plug-in sweeps (fit_map, fit_em) over `_Shards` from
         the start's (stats, counts): each sweep takes (params, log_pi, the
         sweep's state) = plugin(stats, counts), forms each shard's
-        plug-in responsibilities, and makes one reduction of their
-        statistics, counts and log-likelihood. Returns (the last sweep's
-        state, the pending (stats, counts), the trace)."""
-        fam, state, trace = self.family, None, []
+        plug-in responsibilities (the chains' (C, n_j, K) as in fit_vi),
+        and makes one reduction of their statistics, counts and
+        log-likelihood. Returns (the last sweep's state, the pending
+        (stats, counts), the trace)."""
+        state, trace = None, []
 
         def tree(part, params, log_pi):
             params, log_pi = _on((params, log_pi), part[0].device)
             resp, lognorm = normalize_log(
-                self.log_complete_likelihood(params, log_pi, part))
-            return _resp_stats(fam.suff_stats, part, resp) + (
-                torch.sum(lognorm),)
+                self._chain_points(self.family.loglik, params, part, ch)
+                + log_pi[..., None, :])
+            return self._chain_stats(part, resp, ch) + (
+                torch.sum(lognorm, -1),)
 
         for _ in range(maxiter):
             params, log_pi, state = plugin(stats, counts)
@@ -1830,9 +2042,9 @@ class _Shards:
     process's positions, each on its device, `bounds` their rows [lo, hi)
     of the global N, `xts` their kernel layouts where the kernels run.
     `estep` and `gibbs` launch once per non-empty shard and make the
-    mesh's one reduction; `random_stats` and `anchor_stats` give the
-    starts' statistics, each shard drawing or reading only its own rows,
-    in one reduction each."""
+    mesh's one reduction; `anchor_stats` (and the engines'
+    `BayesianMixture._random_stats`) give the starts' statistics, each
+    shard drawing or reading only its own rows, in one reduction each."""
 
     def __init__(self, mesh, data, backend='auto', block_size=131072):
         from mimo_tpu_torch.parallel.mesh import local_mesh, shard_bounds
@@ -1887,6 +2099,41 @@ class _Shards:
                                    self.parts if parts is None else parts,
                                    self.block_size, self.mesh)
 
+    def estep_own(self, spec, theta_src, log_pi, parts):
+        """The fused E-step of C chains each over its own points, with a
+        chain spec (family_estep.chain_spec): `parts` one data tuple a
+        shard with a leading chain axis (C, b_j, ...) (SVI's minibatches),
+        chain c's theta over its own rows only, so one launch cannot
+        serve the chains: B1 once a chain and shard on CUDA shards, the
+        blockwise twin elsewhere; then one reduction for every chain."""
+        from mimo_tpu_torch.ops.cuda_estep import (
+            estep_packed, feature_kind, pad_theta, stack_rows, y_rows)
+        from mimo_tpu_torch.ops.family_estep import (
+            accumulate_shards, pack_estep, reduce_estep)
+        theta = spec.theta(theta_src)
+        lead, (k, m) = theta.shape[:-2], theta.shape[-2:]
+        m8 = -(-m // 8) * 8
+
+        def chain(part, c):
+            return tuple(a[c] for a in part)
+        if self.use_kernel:
+            kind = feature_kind(spec.features_t)
+            theta, _ = pad_theta(theta, log_pi, torch.float32)
+            partials = []
+            for part in parts:
+                xts = [kernel_xts(chain(part, c)) for c in range(lead[0])]
+                partials.append(torch.stack([estep_packed(
+                    stack_rows(x), theta[c].to(x[0].device), x[0].shape[1],
+                    kind, y_rows(kind, x)) for c, x in enumerate(xts)]))
+            return _cast(reduce_estep(spec, partials, lead, k, m,
+                                      torch.float32, self.mesh), self.dtype)
+        partials = [torch.stack([pack_estep(*accumulate_shards(
+            spec.features, theta[c], log_pi[c], [chain(part, c)],
+            self.block_size)[0], m8) for c in range(lead[0])])
+            for part in parts]
+        return reduce_estep(spec, partials, lead, k, m, self.dtype,
+                            self.mesh)
+
     def gibbs(self, spec, seed, params, log_pi):
         """The fused Gibbs label sweep over the shards: (labels as a
         Sharded, FusedEStep in the data's dtype); one reduction."""
@@ -1920,16 +2167,6 @@ class _Shards:
         return self.reduce_each(
             lambda j: stats_of(self.parts[j], *self.bounds[j]),
             lambda: stats_of(self.zero_part(), 0, 1), kind)
-
-    def random_stats(self, suff_stats, gen, k):
-        """(stats, counts) of the random-responsibility start: one seed
-        drawn from `gen`, and each shard draws only its own rows of the
-        responsibilities over the global N (`_random_resp` keyed by the
-        global point index) and reduces them."""
-        seed = _resp_seed(gen)
-        return self.reduce_stats(lambda part, lo, hi: _resp_stats(
-            suff_stats, part, _random_resp(seed, hi - lo, k, self.dtype,
-                                           part[0].device, lo)))
 
     def anchor_points(self, idx):
         """(the points at the global indices `idx`, the anchor start's

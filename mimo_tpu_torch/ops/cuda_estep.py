@@ -3,14 +3,16 @@ PyTorch version. Replaces mimo_tpu/ops/pallas_estep.py::_estep_kernel2.
 
 Per point: F = the spec's feature map (the Gaussian [1; x; x (x) x],
 the diagonal [1; x; x^2] or the ILR product [1; x; x (x) x; y (x) xa;
-xa (x) xa; y (x) y], for MNW and MNG experts alike),
+xa (x) xa; y (x) y], for MNW and MNG experts alike, with [1; x; x^2]
+for its basis block over a diagonal (NG) basis),
 logp = theta . F over K (theta's column 0 holds c + log pi, so counts =
 acc[:, 0]), a softmax over K with a 1e-37 denominator floor,
 acc (K, m8) += (ex / denom) F^T and lse += logsumexp.
 
 The kernels read one stacked float32 array xt = [x rows; y rows] of
 shape (d + p, N); `kind` names the feature map (GAUSS, DIAG, and
-ILR / ILR_LINEAR: the ILR map with and without the experts' ones column)
+ILR / ILR_LINEAR: the ILR map with and without the experts' ones column;
+ILR_DIAG / ILR_DIAG_LINEAR the same over the diagonal basis)
 and `p` the number of y rows. What bounds B1 on the H100, and what the
 kernel does about it: see the note at the top of csrc/estep.cuh.
 
@@ -33,11 +35,15 @@ from mimo_tpu_torch.ops.family_estep import (
     gauss_width, ilr_features_t, ilr_width, reduce_estep)
 
 # feature-map codes of the C entries (csrc/common.cuh kKind*)
-GAUSS, ILR, ILR_LINEAR, DIAG = 0, 1, 2, 3
-KIND_NAMES = {GAUSS: 'gauss', ILR: 'ilr', ILR_LINEAR: 'ilr', DIAG: 'diag'}
+GAUSS, ILR, ILR_LINEAR, DIAG, ILR_DIAG, ILR_DIAG_LINEAR = 0, 1, 2, 3, 4, 5
+KIND_NAMES = {GAUSS: 'gauss', ILR: 'ilr', ILR_LINEAR: 'ilr', DIAG: 'diag',
+              ILR_DIAG: 'ilr_diag', ILR_DIAG_LINEAR: 'ilr_diag'}
+# the ILR kinds: (the experts' ones column, the diagonal basis)
+ILR_FLAGS = {ILR: (True, False), ILR_LINEAR: (False, False),
+             ILR_DIAG: (True, True), ILR_DIAG_LINEAR: (False, True)}
 
 # kernel launches by `estep`, by feature map, for run accounting
-launches = {'gauss': 0, 'ilr': 0, 'diag': 0}
+launches = {'gauss': 0, 'ilr': 0, 'diag': 0, 'ilr_diag': 0}
 _CHUNK = 1 << 20      # points per step of the plain versions
 
 
@@ -48,14 +54,13 @@ def feature_kind(features_t):
         return GAUSS
     if features_t is diag_gauss_features_t:
         return DIAG
-    if features_t == ilr_features_t(True):
-        return ILR
-    if features_t == ilr_features_t(False):
-        return ILR_LINEAR
+    for kind, flags in ILR_FLAGS.items():
+        if features_t == ilr_features_t(*flags):
+            return kind
     raise NotImplementedError('kernels B1/B2 assemble the full-covariance '
                               'Gaussian, the diagonal Gaussian and the ILR '
-                              '(NIW basis x MNW or MNG experts) feature '
-                              'maps only')
+                              '(NIW or NG basis x MNW or MNG experts) '
+                              'feature maps only')
 
 
 def feature_width(kind, d, p=0):
@@ -64,13 +69,13 @@ def feature_width(kind, d, p=0):
         return gauss_width(d)
     if kind == DIAG:
         return diag_gauss_width(d)
-    return ilr_width(d, p, kind == ILR)
+    return ilr_width(d, p, *ILR_FLAGS[kind])
 
 
 def y_rows(kind, xts):
     """The number of y rows the kernels read after x: p for the ILR maps,
     0 for the Gaussian ones."""
-    return xts[1].shape[0] if kind in (ILR, ILR_LINEAR) else 0
+    return xts[1].shape[0] if kind in ILR_FLAGS else 0
 
 
 def pad_rows(f, m8):
@@ -86,7 +91,7 @@ def assemble_features(xt, m8, kind=GAUSS, p=0):
     if kind == DIAG:
         return pad_rows(diag_gauss_features_t((xt,)), m8)
     d = xt.shape[0] - p
-    return pad_rows(ilr_features_t(kind == ILR)((xt[:d], xt[d:])), m8)
+    return pad_rows(ilr_features_t(*ILR_FLAGS[kind])((xt[:d], xt[d:])), m8)
 
 
 def stack_rows(xts):

@@ -2,9 +2,10 @@
 its plain PyTorch version. Replaces mimo_tpu/ops/pallas_gibbs.py::_gibbs_kernel.
 
 Per point: plug-in logp = theta . F over K (F the Gaussian, diagonal or
-ILR map, as in B1), Gumbel noise from Philox4x32-10 keyed by (sweep seed,
-global point index) (ops/philox.py), the first-occurrence argmax over K
-as the label, and acc (K, m8) += one_hot(label) F^T. The plain version draws
+ILR map, the last over a full or diagonal basis, as in B1), Gumbel noise
+from Philox4x32-10 keyed by (sweep seed, global point index)
+(ops/philox.py), the first-occurrence argmax over K as the label, and
+acc (K, m8) += one_hot(label) F^T. The plain version draws
 the same Philox numbers, so kernel and plain labels agree draw for draw
 except at near-ties that the f32 summation order decides.
 
@@ -32,7 +33,7 @@ from mimo_tpu_torch.ops.family_estep import pack_estep, reduce_estep
 from mimo_tpu_torch.ops.philox import gumbel_max_labels, shard_seed
 
 # kernel launches by `gibbs`, by feature map, for run accounting
-launches = {'gauss': 0, 'ilr': 0, 'diag': 0}
+launches = {'gauss': 0, 'ilr': 0, 'diag': 0, 'ilr_diag': 0}
 
 
 def gibbs_plain(xt, theta, seed, n, kind=GAUSS, p=0):

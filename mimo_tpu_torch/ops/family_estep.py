@@ -117,11 +117,12 @@ def _product_features_t(specs, data_slices):
     return ProductFeaturesT(members, tuple(tuple(sl) for sl in data_slices))
 
 
-def ilr_features_t(affine):
+def ilr_features_t(affine, diag_basis=False):
     """The ILR product map [1; x; x (x) x; y (x) xa; xa (x) xa; y (x) y]
-    over (x (d, B), y (p, B)): the feature map of ilr_spec."""
-    return ProductFeaturesT((gauss_features_t, LinearFeaturesT(affine)),
-                            ((0,), (0, 1)))
+    over (x (d, B), y (p, B)), or with `diag_basis` [1; x; x^2; y (x) xa;
+    xa (x) xa; y (x) y]: the feature map of ilr_spec."""
+    basis = diag_gauss_features_t if diag_basis else gauss_features_t
+    return ProductFeaturesT((basis, LinearFeaturesT(affine)), ((0,), (0, 1)))
 
 
 def gaussian_spec() -> EStepSpec:
@@ -375,9 +376,10 @@ def linear_width(p, q):
     return 1 + p * q + q * q + p * p
 
 
-def ilr_width(d, p, affine=True):
+def ilr_width(d, p, affine=True, diag_basis=False):
     """Width of the ILR product map (both members share one constant)."""
-    return gauss_width(d) + linear_width(p, d + int(affine)) - 1
+    basis = diag_gauss_width(d) if diag_basis else gauss_width(d)
+    return basis + linear_width(p, d + int(affine)) - 1
 
 
 def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
@@ -385,12 +387,16 @@ def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
     """The ILR joint family's fused spec: data = (x, y), an NIW or (with
     `hier_basis`) hierarchically-tied basis x MNW experts, MNG experts
     with `diag_expert` or tied-affine experts with `tied_affine` (which
-    are affine by construction). Every combination has the ILR feature
-    map. The diagonal basis, which no model builds, is not ported."""
-    if diag_basis:
-        raise NotImplementedError('the diagonal (NG) basis spec is not '
-                                  'ported yet (ROADMAP A17)')
-    basis = hier_gaussian_spec() if hier_basis else gaussian_spec()
+    are affine by construction), or with `diag_basis` a diagonal (NG)
+    basis; `hier_basis` takes precedence over `diag_basis`, as in the JAX
+    package. Every combination has the ILR feature map, over the
+    diagonal basis map [1; x; x^2] with `diag_basis`."""
+    if hier_basis:
+        basis, bw = hier_gaussian_spec(), gauss_width(input_dim)
+    elif diag_basis:
+        basis, bw = diag_gaussian_spec(), diag_gauss_width(input_dim)
+    else:
+        basis, bw = gaussian_spec(), gauss_width(input_dim)
     if tied_affine:
         q = input_dim + 1
         expert = tied_affine_spec(input_dim, output_dim)
@@ -399,7 +405,7 @@ def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
         expert = (diag_linear_spec if diag_expert else linear_spec)(
             affine, output_dim, q)
     return product_spec((basis, expert), ((0,), (0, 1)),
-                        (gauss_width(input_dim), linear_width(output_dim, q)))
+                        (bw, linear_width(output_dim, q)))
 
 
 # -- chains ---------------------------------------------------------------------

@@ -6,21 +6,26 @@ The JAX package vmaps a whole fit over a batch of PRNG keys; every
 written out:
 
   * `fit_chains`  — C restarts of one engine, stacked on a leading chain
-                    axis. The fused engines (`fit_vi_fused`,
-                    `fit_gibbs_fused`, `fit_map_fused`, `fit_em_fused`)
-                    and the dense `fit_gibbs` run batched (their
-                    `chains=True` in models.mixture: the K-sized algebra
-                    under torch.func.vmap, kernel B1 or B2 launched once a
-                    sweep for all chains); the other dense engines (`fit_vi`,
-                    `fit_map`, `fit_em`, `fit_svi`) run chain by chain.
-                    The nested mixtures (models.hmix) batch their four
-                    fused engines the same way, over M*K flat kernel
-                    rows, and run every dense engine chain by chain.
-                    With `mesh` (a ('chain', 'data') mesh) the keys split
-                    into one contiguous group a chain row, and each group
-                    runs over its row's data shards: batched where the
-                    engine is (one launch per shard per sweep for all of
-                    the group's chains), chain by chain where it is not.
+                    axis. Every engine runs its C chains as one program
+                    (its `chains=True` in models.mixture and models.hmix:
+                    the K-sized algebra under torch.func.vmap over C). The
+                    fused engines (`fit_vi_fused`, `fit_gibbs_fused`,
+                    `fit_map_fused`, `fit_em_fused`) launch kernel B1 or
+                    B2 once a sweep for all chains; the dense ones
+                    (`fit_vi`, `fit_map`, `fit_em`, `fit_svi`,
+                    `fit_gibbs`) form the chains' (C, N, K)
+                    responsibilities with one flat call over C K
+                    components where the family allows it, and the
+                    nested mixtures (models.hmix) batch all nine engines
+                    the same way around their M-vmapped algebra. Chain c
+                    of VI, MAP, ML-EM and SVI equals the fit with key c;
+                    the Gibbs chains draw from one generator seeded by
+                    the chains' keys. With `mesh` (a ('chain', 'data')
+                    mesh) the keys split into one contiguous group a
+                    chain row, and each group runs batched over its
+                    row's data shards, one reduction a sweep (a fused
+                    engine: one kernel launch per shard per sweep for all
+                    of the group's chains).
   * `best_of`     — the chain with the best final ELBO.
   * `smc_gibbs`   — Gibbs chains interleaved with systematic resampling of
                     chain states by data log-likelihood.
@@ -28,66 +33,41 @@ written out:
 
 import torch
 
-from mimo_tpu_torch.models.hmix import BayesianMixtureOfMixtures
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, _as_generator, _as_tuple, _tree_map, _tree_map2,
-    stack_trees)
+    BayesianMixture, _as_generator, _as_tuple, _tree_map, _tree_map2)
 
-# engines that run C chains as one batched program (their chains=True)
+# every engine runs C chains as one batched program (its chains=True), for
+# flat and nested models alike
 BATCHED = ('fit_vi_fused', 'fit_gibbs_fused', 'fit_map_fused',
-           'fit_em_fused', 'fit_gibbs')
-# engines that run chain by chain
-SERIAL = ('fit_vi', 'fit_map', 'fit_em', 'fit_svi')
-# a nested mixture's batched engines; its dense ones run chain by chain
-NESTED_BATCHED = BATCHED[:4]
+           'fit_em_fused', 'fit_gibbs', 'fit_vi', 'fit_map', 'fit_em',
+           'fit_svi')
 
 
 def fit_chains(model, fit_name, data, keys, mesh=None, **kw):
-    """Run `model.<fit_name>` once per key and return its results stacked
-    on a leading chain axis. `keys`: an int64 tensor (C,) or a sequence of
-    int seeds or torch.Generators. The engines in BATCHED run as one
-    program (one kernel launch a sweep for all chains on CUDA data); the
-    ones in SERIAL run chain by chain. A nested mixture
-    (BayesianMixtureOfMixtures) batches NESTED_BATCHED, its four fused
-    engines, and runs its dense `fit_gibbs` chain by chain too. JAX's
-    cache of traced programs has no counterpart: nothing is traced.
+    """Run `model.<fit_name>` once per key, as one program, and return its
+    results stacked on a leading chain axis. `keys`: an int64 tensor (C,)
+    or a sequence of int seeds or torch.Generators. Every engine in
+    BATCHED, of a flat or a nested (BayesianMixtureOfMixtures) model,
+    runs its C chains batched (on CUDA data a fused engine launches its
+    kernel once a sweep for all chains). JAX's cache of traced programs
+    has no counterpart: nothing is traced.
 
     With `mesh`, a ('chain', 'data') mesh (parallel.make_mesh(n_chain=c)),
     the C keys split into c contiguous groups of C / c, group g running
     over chain row g (`mesh.row(g)`; the data sharded over its 'data'
-    positions, as shard_data places it): a BATCHED engine runs the group
-    as one program (for a fused engine one kernel launch per shard per
-    sweep for all of the group's chains) with one reduction a sweep over
-    the row; a SERIAL one runs the group chain by chain over the row. JAX
-    carries the layout in the sharding of its keys; PyTorch has none, so
-    `mesh` is explicit. The
-    result stacks the groups of this process's rows on the chain axis
-    (every row, within one process); a Gibbs fit's labels stay on their
-    shards, each position's (C / c, n_j) of its row's group."""
-    if mesh is not None:
-        return _fit_chains_mesh(model, fit_name, data, keys, mesh, kw)
-    data = _as_tuple(data)
-    batched = (NESTED_BATCHED
-               if isinstance(model, BayesianMixtureOfMixtures) else BATCHED)
-    if fit_name in batched:
-        return getattr(model, fit_name)(data, key=keys, chains=True, **kw)
-    if fit_name not in BATCHED + SERIAL:
+    positions, as shard_data places it) as one program with one
+    reduction a sweep over the row (for a fused engine one kernel launch
+    per shard per sweep for all of the group's chains). JAX carries the
+    layout in the sharding of its keys; PyTorch has none, so `mesh` is
+    explicit. The result stacks the groups of this process's rows on the
+    chain axis (every row, within one process); a Gibbs fit's labels stay
+    on their shards, each position's (C / c, n_j) of its row's group."""
+    if fit_name not in BATCHED:
         raise ValueError(f'unknown engine {fit_name!r}; one of '
-                         f'{list(BATCHED + SERIAL)}')
-    if isinstance(keys, torch.Tensor):
-        keys = keys.reshape(-1).tolist()
-    return stack_trees([getattr(model, fit_name)(data, key=k, **kw)
-                        for k in keys])
-
-
-def _fit_chains_mesh(model, fit_name, data, keys, mesh, kw):
-    """fit_chains over a ('chain', 'data') mesh (see fit_chains)."""
-    nested = isinstance(model, BayesianMixtureOfMixtures)
-    batched = NESTED_BATCHED if nested else BATCHED
-    serial = SERIAL + ('fit_gibbs',) if nested else SERIAL
-    if fit_name not in batched + serial:
-        raise ValueError(f'unknown engine {fit_name!r}; one of '
-                         f'{list(batched + serial)}')
+                         f'{list(BATCHED)}')
+    if mesh is None:
+        return getattr(model, fit_name)(_as_tuple(data), key=keys,
+                                        chains=True, **kw)
     if isinstance(keys, torch.Tensor):
         keys = keys.reshape(-1).tolist()
     keys = list(keys)
@@ -97,15 +77,9 @@ def _fit_chains_mesh(model, fit_name, data, keys, mesh, kw):
                          f"mesh's {rows} chain rows")
     per = len(keys) // rows
     fit = getattr(model, fit_name)
-    groups = []
-    for g in mesh.rows():
-        group, row = keys[g * per:(g + 1) * per], mesh.row(g)
-        if fit_name in batched:
-            groups.append(fit(data, key=group, chains=True, mesh=row, **kw))
-        else:
-            groups.append(stack_trees([fit(data, key=k, mesh=row, **kw)
-                                       for k in group]))
-    return _cat_groups(groups)
+    return _cat_groups([fit(data, key=keys[g * per:(g + 1) * per],
+                            chains=True, mesh=mesh.row(g), **kw)
+                        for g in mesh.rows()])
 
 
 def _cat_groups(trees):

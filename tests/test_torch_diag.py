@@ -163,7 +163,9 @@ def test_diag_specs_reproduce_the_jax_ell(which):
 def test_kernels_recognise_the_diagonal_maps():
     """The diagonal GMM runs B1/B2 over the DIAG map; MNG experts need no
     new map: their spec shares the linear map, so the ILR product map is
-    the one the kernels already assemble."""
+    the one the kernels already assemble. The diagonal (NG) basis builds
+    the ILR map over [1; x; x^2] (ILR_DIAG / ILR_DIAG_LINEAR), as wide as
+    mimo_tpu's product map, and its E-step equals mimo_tpu's (float64)."""
     assert (cuda_estep.feature_kind(tfe.diag_gaussian_spec().features_t)
             == cuda_estep.DIAG)
     for affine, kind in ((True, cuda_estep.ILR),
@@ -171,8 +173,36 @@ def test_kernels_recognise_the_diagonal_maps():
         spec = tfe.ilr_spec(2, 3, affine=affine, diag_expert=True)
         assert cuda_estep.feature_kind(spec.features_t) == kind
     assert cuda_estep.feature_width(cuda_estep.DIAG, 3) == 7
-    with pytest.raises(NotImplementedError, match='ROADMAP A17'):
-        tfe.ilr_spec(2, 1, diag_basis=True)
+    rng = np.random.default_rng(8)
+    x, y = rng.standard_normal((50, 2)), rng.standard_normal((50, 3))
+    post = (_ng_arrays(rng, 4, 2), dict(
+        M=rng.standard_normal((4, 3, 3)), K_=np.broadcast_to(
+            2 * np.eye(3), (4, 3, 3)).copy(),
+        alpha=rng.uniform(3, 30, (4, 3)), beta=rng.uniform(0.5, 4, (4, 3))))
+    for affine, kind in ((True, cuda_estep.ILR_DIAG),
+                         (False, cuda_estep.ILR_DIAG_LINEAR)):
+        kw = dict(affine=affine, diag_basis=True, diag_expert=True)
+        spec, jspec = tfe.ilr_spec(2, 3, **kw), jfe.ilr_spec(2, 3, **kw)
+        assert cuda_estep.feature_kind(spec.features_t) == kind
+        assert cuda_estep.feature_width(kind, 2, 3) == jspec.features(
+            (jnp.asarray(x), jnp.asarray(y))).shape[-1]
+        q = 2 + int(affine)
+        pj = (_post(post[0], jng.NG, jnp.float64), jmg.MNG(**{
+            f: jnp.asarray(v[..., :q, :q] if f == 'K_' else
+                           v[..., :q] if f == 'M' else v)
+            for f, v in post[1].items()}))
+        pt = (_post(post[0], NG, torch.float64), MNG(**{
+            f: torch.tensor(v[..., :q, :q] if f == 'K_' else
+                            v[..., :q] if f == 'M' else v)
+            for f, v in post[1].items()}))
+        log_pi = np.log(rng.dirichlet(np.ones(4)))
+        want = jfe.fused_estep_dense(jspec, pj, jnp.asarray(log_pi),
+                                     (jnp.asarray(x), jnp.asarray(y)))
+        got = tfe.fused_estep_dense(spec, pt, torch.tensor(log_pi),
+                                    (torch.tensor(x), torch.tensor(y)))
+        _tree(got.stats, want.stats, rtol=1e-8, atol=1e-10)
+        np.testing.assert_allclose(float(got.lse), float(want.lse),
+                                   rtol=1e-8)
 
 
 # -- kernels B1 and B2 over the diagonal map ----------------------------------

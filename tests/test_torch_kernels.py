@@ -1,12 +1,12 @@
-"""The CUDA kernels (B1-B3, B1/B2 over the ILR map, B1-B3 over the
-diagonal map, B4, B5 and B6 with MNW and MNG experts, B3 on HierTied
-rows, B5/B6 with tied-affine experts and a HierTied basis, the B1 probes
-S1 and S2, S3, the nested mixtures' paths through B1/B2/B3 at M*K
-rows and B5/B6 over flattened experts, B1/B2 with a chain axis and
-the chained fused engines, flat and nested, and B1 a block at a time in
-the out-of-core engines through the staged buffers) against their plain
-PyTorch versions, on the card; and the Geweke test of the full Gibbs
-transition through B2 (gmm, hier).
+"""The CUDA kernels (B1-B3, B1/B2 over the ILR map on a full or a
+diagonal basis, B1-B3 over the diagonal map, B4, B5 and B6 with MNW and
+MNG experts, B3 on HierTied rows, B5/B6 with tied-affine experts and a
+HierTied basis, the B1 probes S1 and S2, S3, the nested mixtures' paths
+through B1/B2/B3 at M*K rows and B5/B6 over flattened experts, B1/B2
+with a chain axis and the chained fused engines, flat and nested, and B1
+a block at a time in the out-of-core engines through the staged buffers)
+against their plain PyTorch versions, on the card; and the Geweke test
+of the full Gibbs transition through B2 (gmm, hier).
 Every test here needs a CUDA device and skips without one; run them on
 the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
@@ -121,10 +121,10 @@ def test_engines_kernel_path_tracks_plain_path(dev):
     assert bool(torch.isfinite(gs.log_pi).all())
 
 
-def _ilr_inputs(dev, n, k, d, p, seed=0):
-    """Stacked [x; y] rows and random coefficients over the ILR map."""
+def _ilr_inputs(dev, n, k, d, p, seed=0, kind=ILR):
+    """Stacked [x; y] rows and random coefficients over an ILR map."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    m = cuda_estep.feature_width(ILR, d, p)
+    m = cuda_estep.feature_width(kind, d, p)
     m8 = -(-m // 8) * 8
     xt = torch.rand((d + p, n), generator=g, device=dev) * 4 - 2
     theta = torch.randn((k, m8), generator=g, device=dev) * 0.05
@@ -152,6 +152,42 @@ def test_ilr_gibbs_kernel_matches_plain(dev, n, k, d, p):
     assert int(labels.min()) >= 0 and int(labels.max()) < k
     assert float((labels != plabels).float().mean()) <= 1e-4
     f = cuda_estep.assemble_features(xt, theta.shape[1], ILR, p).double()
+    oh = torch.nn.functional.one_hot(labels.long(), k).double()
+    bound = 1e-5 * (oh.T @ f.abs().T) + 1e-6
+    assert bool(((acc.double() - oh.T @ f.T).abs() <= bound).all())
+
+
+DIAG_BASIS = [(kind, n, k, d, p)
+              for kind in (cuda_estep.ILR_DIAG, cuda_estep.ILR_DIAG_LINEAR)
+              for n, k, d, p in ((100003, 50, 8, 1), (1000, 7, 2, 3),
+                                 (100003, 50, 1, 1))]
+
+
+@pytest.mark.parametrize('kind,n,k,d,p', DIAG_BASIS)
+def test_diag_basis_ilr_estep_kernel_matches_plain_and_repeats(dev, kind, n,
+                                                               k, d, p):
+    """B1 over the ILR map on a diagonal basis, with and without the
+    experts' ones column: its plain version's result, bitwise on repeat."""
+    xt, theta = _ilr_inputs(dev, n, k, d, p, kind=kind)
+    acc, lse = cuda_estep.estep(xt, theta, n, kind, p)
+    acc2, lse2 = cuda_estep.estep(xt, theta, n, kind, p)
+    pacc, plse = cuda_estep.estep_plain(xt, theta, n, kind, p)
+    torch.testing.assert_close(acc, pacc, rtol=1e-4, atol=1e-3 * n / 1e6)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=0.0)
+    assert torch.equal(acc, acc2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize('kind,n,k,d,p', DIAG_BASIS)
+def test_diag_basis_ilr_gibbs_kernel_matches_plain(dev, kind, n, k, d, p):
+    """B2 over the same maps: the plain Philox labels and the one-hot sums
+    of its own labels."""
+    xt, theta = _ilr_inputs(dev, n, k, d, p, seed=1, kind=kind)
+    seed = torch.tensor(987654321, dtype=torch.int64, device=dev)
+    labels, acc = cuda_gibbs.gibbs(xt, theta, seed, n, kind, p)
+    plabels, _ = cuda_gibbs.gibbs_plain(xt, theta, seed, n, kind, p)
+    assert int(labels.min()) >= 0 and int(labels.max()) < k
+    assert float((labels != plabels).float().mean()) <= 1e-4
+    f = cuda_estep.assemble_features(xt, theta.shape[1], kind, p).double()
     oh = torch.nn.functional.one_hot(labels.long(), k).double()
     bound = 1e-5 * (oh.T @ f.abs().T) + 1e-6
     assert bool(((acc.double() - oh.T @ f.T).abs() <= bound).all())

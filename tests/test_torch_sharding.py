@@ -563,23 +563,34 @@ def test_sharded_serving_wrappers_equal_one_launch():
 
 @pytest.mark.parametrize('engine', ['fit_vi_fused', 'fit_map_fused',
                                     'fit_em_fused', 'fit_vi', 'fit_map',
-                                    'fit_em'])
+                                    'fit_em', 'fit_svi'])
 def test_fit_chains_over_a_chain_data_mesh(gmm_x, engine):
     """mimo_tpu's test_chain_and_data_axes_together: 4 keys over a (2, 4)
     mesh equal the unsharded fit_chains, and best_of picks the same
-    chain; the fused engines run each row's group batched, the dense
-    ones chain by chain over the row."""
+    chain; every engine runs each row's group batched over the row, one
+    reduction a sweep. SVI draws a stratified minibatch a shard, so its
+    chains are held against the fits with their keys over their row
+    instead (rtol 1e-10)."""
     from mimo_tpu_torch.parallel import best_of
     m24 = make_mesh(n_chain=2, devices=CPU8)
     m = BayesianGMM.make(size=5, dim=2, gating='dp', alpha=1.0, kappa=0.05,
                          psi_scale=0.5, dtype=torch.float64, device='cpu')
     x = tt(gmm_x)
     keys = [9, 10, 11, 12]
-    ref, ref_tr = fit_chains(m, engine, x, keys, maxiter=8)
+    kw = (dict(maxiter=8) if engine != 'fit_svi'
+          else dict(maxiter=20, step_size=0.3, batch_size=64))
+    if engine == 'fit_svi':
+        ref, ref_tr = tmix.stack_trees([
+            m.fit_svi(shard_data(m24.row(i // 2), x), key=k,
+                      mesh=m24.row(i // 2), **kw)
+            for i, k in enumerate(keys)])
+    else:
+        ref, ref_tr = fit_chains(m, engine, x, keys, **kw)
     got, got_tr = fit_chains(m, engine, shard_data(m24, x), keys,
-                             mesh=m24, maxiter=8)
+                             mesh=m24, **kw)
     np.testing.assert_allclose(got_tr.numpy(), ref_tr.numpy(), rtol=1e-10)
-    leaves_close(got, state_to_numpy(ref), 1e-9)
+    leaves_close(got, state_to_numpy(ref),
+                 1e-10 if engine == 'fit_svi' else 1e-9)
     if engine in ('fit_vi_fused', 'fit_vi'):
         assert int(best_of(got, got_tr)[1]) == int(best_of(ref, ref_tr)[1])
 
