@@ -16,7 +16,7 @@ Phases, one or more printed lines each:
               the plain Philox draw for draw, label frequencies at 4 points
               within 5 sigma of the softmax, the fast Gumbel draw within
               2^-12 of float64 over all 2^23 uniforms; then B1 and B2
-              in the chunked layout (K=300, d=2, N=1,000,003) against
+              in the streamed layout (K=300, d=2, N=1,000,003) against
               their plain versions, timed;
   5. B3       the predictive-density kernel against its plain version,
               Student-t and Gaussian;
@@ -151,7 +151,7 @@ Phases, one or more printed lines each:
               precision rule's expectation: max |z| <= 5, chi^2/df <= 2,
               variance ratio in [0.8, 1.25]), B1-chain over the q8 ILR
               map (N=1e6, m8=168, C=4, fit_chains VI 5), B1/B2-chain in
-              the chunked layout (K=300, d=2, N=1e6, C=2, VI 3 and Gibbs
+              the streamed layout (K=300, d=2, N=1e6, C=2, VI 3 and Gibbs
               3), and smc_gibbs on examples/chains_smc.py's data (N=1e4,
               K=10, 8 chains, 8 rounds of 10 sweeps: finite, the last
               round's log-likelihood not below the first's); then chains of
@@ -285,6 +285,32 @@ Phases, one or more printed lines each:
               with the same key (SVI's full-data ELBO over 20 steps),
               states finite, no kernel launched; the batched and the
               serial seconds, each the median of 3 runs.
+ 27. fed      B1 and B2 in the streamed layout (csrc/tc.cuh) at bench.py's
+              MXU-fed shapes, on bench.py:90-98's data (3 clusters, mu ~
+              4 N(0, I), Lambda = 2 I, weights .3/.4/.3; gating 'dp',
+              alpha 1, kappa 0.05, psi_scale 0.5): (a) N=1e7, K=128, d=8
+              (bench.py:297; the plain layout at width 12), fit_vi_fused
+              50 and fit_gibbs_fused 50; (b) N=1e6, K=128, d=16, VI 20,
+              Gibbs 20, fit_map_fused 20 and fit_chains VI 5 at C=2; (c)
+              N=1e6, K=256, d=32 (bench.py:305), VI 20, Gibbs 5,
+              fit_em_fused 5 and log_predictive through B3 (padded width
+              32); each with its launch counts (exactly one a sweep), a
+              finite VI ELBO that does not fall (1e-4 relative; ML-EM's
+              loglik the same), kernel vs plain on 100,003 points, B1 at
+              the VI theta: its precision line, bitwise on repeat, lse
+              within rtol 1e-5 of its plain version and the statistics
+              within 1e-3 of each entry's summed magnitude (phase 3's
+              rule printed beside it: at d >= 16 the f32 logits of the
+              two versions part by ~1e-3 nats), B3 by its float64 lines
+              on 100,003 and all points (the same reason), B2's
+              labels against the plain Philox labels and its statistics
+              against their one-hot sums, rates, and each kernel's time
+              beside its plain version's (rows B1-fed-*, B2-fed-*,
+              B3-fed-d32); (d) the ILR map at d=16, p=1, K=50 (m8 = 584),
+              N=1,000,003: fit_gibbs_fused 5 then fit_vi_fused 5 from its
+              state, its VI kernel vs plain on 100,003 points, B1 and B2
+              checked and timed the same way (rows
+              B1-fed-ilr16, B2-fed-ilr16).
 Phases 6, 9, 11 and 12 also print the serving kernels' float64 precision
 lines (B3, B4, B5, B6, B5/B6 with MNG experts): each output row's error
 against the plain version run in float64 on the kernel's own f32 inputs,
@@ -888,7 +914,7 @@ def run(dev, seed, n_main, n_check):
     print(f'B2 frequencies: 2^20 draws at 4 points, worst |z| {worst:.3f} '
           f'over components with >= 1 expected draw (bound 5 sigma) ok')
 
-    chunked_checks(dev, gen, card, spec, n_check)
+    streamed_checks(dev, gen, card, spec, n_check)
 
     # -- 5. B3 vs plain -----------------------------------------------------
     log_w = torch.log_softmax(
@@ -1045,6 +1071,9 @@ def run(dev, seed, n_main, n_check):
     t26 = time.perf_counter()
     dense_chain_paths(dev, seed, card)
     print(f'phase 26 on {card}: {time.perf_counter() - t26:.6g} s')
+    t27 = time.perf_counter()
+    fed_paths(dev, seed, card, errs, launches, ms)
+    print(f'phase 27 on {card}: {time.perf_counter() - t27:.6g} s')
     ms['S3'] = (cuda_ms(lambda: cuda_hello.twice(x_hello), 20),
                 cuda_ms(lambda: cuda_hello.twice_plain(x_hello), 20))
     WORK['S3'] = {'hbm': 2 * 4 * x_hello.numel()}
@@ -1237,6 +1266,9 @@ def run(dev, seed, n_main, n_check):
     meta.update({name: (f'{meta[base][0]}, chain axis: {what}',)
                        + meta[base][1:]
                  for name, (base, what) in CHAIN_ROWS.items()})
+    meta.update({name: (f'{meta[name.split("-")[0]][0]}, bench.py\'s fed '
+                        f'shapes: {what}',) + meta[name.split('-')[0]][1:]
+                 for name, what in FED_ROWS.items()})
     rows = []
     for b in meta:
         bound_ms, bound_by, bound_op = bound(WORK[b])
@@ -1271,8 +1303,8 @@ def run(dev, seed, n_main, n_check):
 # -- ILR -------------------------------------------------------------------
 
 
-def chunked_checks(dev, gen, card, spec, n):
-    """B1 and B2 in the chunked layout (csrc/tc.cuh): K=300, d=2, more
+def streamed_checks(dev, gen, card, spec, n):
+    """B1 and B2 in the streamed layout (csrc/tc.cuh): K=300, d=2, more
     16-row slabs than a block has warps. B1 against its plain version as
     in phase 3, bitwise on repeat; B2's labels against the plain Philox
     labels and its statistics against the one-hot sums of its labels, as
@@ -1305,7 +1337,7 @@ def chunked_checks(dev, gen, card, spec, n):
          lambda: cuda_estep.estep_plain(xt, theta, n)),
         ('B2', lambda: cuda_gibbs.gibbs(xt, th_g, sweep_seed, n),
          lambda: cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, n)))}
-    print(f'chunked layout N={n} K={k} d={D_MAIN}: B1 stats max|err| '
+    print(f'streamed layout N={n} K={k} d={D_MAIN}: B1 stats max|err| '
           f'{err_s:.6g} (rtol 1e-4, atol {atol:.6g}) {"ok" if ok_s else "FAIL"}'
           f', lse |err| {err_l:.6g} (rtol 1e-5) {"ok" if ok_l else "FAIL"}, '
           f'bitwise repeat {bitwise}; B2 stats vs one-hot sums '
@@ -1314,7 +1346,7 @@ def chunked_checks(dev, gen, card, spec, n):
           f'ms (plain {t["B1"][1]:.6g}), B2 {t["B2"][0]:.6g} ms (plain '
           f'{t["B2"][1]:.6g})')
     check(ok_s and ok_l and bitwise and ok_g and mismatch <= 1e-4,
-          'B1 or B2 in the chunked layout disagrees')
+          'B1 or B2 in the streamed layout disagrees')
 
 
 def reset_counts():
@@ -3314,9 +3346,9 @@ CHAIN_ROWS = {
     'B2-chain-256': ('B2', f'S={S_TWOSAMPLE} sweeps of one theta (the '
                      'two-sample check), N=1e5 K=50 d=2'),
     'B1-chain-q8': ('B1-ILR', 'C=4 VI chains, N=1e6 K=50 d=8 p=1 m8=168'),
-    'B1-chain-wide': ('B1', 'C=2 VI chains, chunked layout, N=1e6 K=300 '
+    'B1-chain-wide': ('B1', 'C=2 VI chains, streamed layout, N=1e6 K=300 '
                       'd=2'),
-    'B2-chain-wide': ('B2', 'C=2 Gibbs chains, chunked layout, N=1e6 '
+    'B2-chain-wide': ('B2', 'C=2 Gibbs chains, streamed layout, N=1e6 '
                       'K=300 d=2'),
     'B1-chain-nested': ('B1', f'C={C_MAIN} nested VI, MAP and ML-EM chains, '
                         'N=1e6 M*K=32 d=2'),
@@ -3664,7 +3696,7 @@ def chain_twosample_cell(x, model, seed, card, errs, launches, ms, singles):
 
 def chain_layout_cells(dev, seed, x, card, errs, launches, ms, singles):
     """Cell 4 of phase 19: B1-chain over the q8 ILR map (N=1e6, m8=168,
-    C=4) and B1/B2-chain in the chunked layout (K=300, d=2, N=1e6, C=2),
+    C=4) and B1/B2-chain in the streamed layout (K=300, d=2, N=1e6, C=2),
     each after a short fit_chains that launches it, checked against its
     one-chain launches at the final thetas."""
     kg = torch.Generator(device=dev).manual_seed(seed + 3)
@@ -3700,7 +3732,7 @@ def chain_layout_cells(dev, seed, x, card, errs, launches, ms, singles):
     xw = x[:N_CHUNK_CHAINS].contiguous()
     mw = BayesianGMM.make(size=K_CHUNK_CHAINS, dim=D_MAIN, gating='dp',
                           alpha=1.0, kappa=0.05, psi_scale=0.5, device=dev)
-    tag = f'chunked layout N={N_CHUNK_CHAINS} K={K_CHUNK_CHAINS} d=2 C=2'
+    tag = f'streamed layout N={N_CHUNK_CHAINS} K={K_CHUNK_CHAINS} d=2 C=2'
     torch.cuda.synchronize()
     reset_counts()
     st, vlb = fit_chains(mw, 'fit_vi_fused', xw, [1, 2], maxiter=3)
@@ -5809,6 +5841,283 @@ def dense_chain_paths(dev, seed, card):
                        dict(maxiter=DENSE_SWEEPS), card)
     del xs, ys, ilr
     torch.cuda.empty_cache()
+
+
+# -- 27. fed: bench.py's MXU-fed shapes through the streamed layout ---------
+
+# (tag, N, K, d, VI, Gibbs, MAP, ML-EM, fit_chains VI sweeps at C=2,
+# log_predictive): bench.py:296-312's two cells and the d=16, K=128 shape
+# between them (mimo_tpu/ops/family_estep.py:74-79)
+FED_CELLS = (('d8', 10_000_000, 128, 8, 50, 50, 0, 0, 0, False),
+             ('d16', 1_000_000, 128, 16, 20, 20, 20, 0, 5, False),
+             ('d32', 1_000_000, 256, 32, 20, 5, 0, 5, 0, True))
+FED_RATE_SWEEPS = 5             # sweeps a timed run of the rates
+N_FED_ILR, K_FED_ILR, D_FED_ILR = 1_000_003, 50, 16
+FED_ILR_SWEEPS = 5
+FED_ROWS = {}                   # kernel row -> its cell's description
+
+
+def fed_data(gen, n, d, dev):
+    """bench.py:90-98's data at d: 3 clusters, mu ~ 4 N(0, I), Lambda =
+    2 I, weights .3 / .4 / .3."""
+    mu = torch.randn((3, d), generator=gen, device=dev) * 4.0
+    lm = torch.eye(d, device=dev).expand(3, d, d) * 2.0
+    return BayesianGMM.generate(gen, GaussParams(mu, lm), [.3, .4, .3],
+                                n)[0], mu
+
+
+def fed_b1_checks(tag, xt, theta, n, kind=cuda_estep.GAUSS, p=0):
+    """B1 at a fitted theta: bitwise on repeat, lse within rtol 1e-5 of
+    its plain version, and its precision line against float64 (at most
+    10x the f32 plain version's error: the check of its rounding). The
+    statistics against the plain version: printed by phase 3's rule
+    (rtol 1e-4 of each value) and by each entry's share of its summed
+    magnitude sum_n r_nk |F_jn|: at d >= 16 the f32 plain version's own
+    error reaches 3.6e-5 (the ILR map) to 2.2e-4 (d=32) of it where
+    components share points (its f32 logits are off by ~1e-3 nats there),
+    so the check takes 1e-3 of it. Returns max |err|."""
+    acc, lse = cuda_estep.estep(xt, theta, n, kind, p)
+    acc2, lse2 = cuda_estep.estep(xt, theta, n, kind, p)
+    precision_check(tag, xt, theta, n, kind, p, got=(acc, lse))
+    pacc, plse = cuda_estep.estep_plain(xt, theta, n, kind, p)
+    mag = estep_magnitudes(xt, theta, n, kind, p)
+    atol = 1e-3 * n / 1e6
+    rtol = 1e-3
+    diff = (acc.double() - pacc.double()).abs()
+    ok_s = bool((diff <= rtol * mag + atol).all())
+    ok_3, err = allclose_report(acc, pacc, 1e-4, atol)
+    w = int(torch.argmax(diff / (1e-4 * pacc.double().abs() + atol)))
+    ok_l, err_l = allclose_report(lse, plse, 1e-5, 0.0)
+    bitwise = torch.equal(acc, acc2) and torch.equal(lse, lse2)
+    print(f'{tag} B1 vs plain: stats max|err| {err:.6g}, max |err| / summed '
+          f'magnitude {float((diff / mag.clamp(min=1e-30)).max()):.3g} '
+          f'(<= {rtol:g}, atol {atol:.6g}) {"ok" if ok_s else "FAIL"}; by '
+          f'phase 3\'s rule (rtol 1e-4 of the values) '
+          f'{"ok" if ok_3 else "not met"}, its worst entry '
+          f'{float(pacc.flatten()[w]):.6g} off by '
+          f'{float(diff.flatten()[w]):.6g} (summed magnitude '
+          f'{float(mag.flatten()[w]):.6g}); lse {float(lse):.9g} vs '
+          f'{float(plse):.9g}, |err| {err_l:.6g} (rtol 1e-5) '
+          f'{"ok" if ok_l else "FAIL"}; bitwise repeat {bitwise}')
+    check(ok_s and ok_l and bitwise and bool(torch.isfinite(acc).all()),
+          f'{tag}: B1 disagrees')
+    return err
+
+
+def fed_rows(card, tag, rows, ms):
+    """Time each (row, kernel, plain, work, what) of a cell: the kernel by
+    CUDA events (10 launches after 2 warm-ups), its plain version (2 after
+    1)."""
+    for name, kern, plain, work, what in rows:
+        WORK[name] = work
+        FED_ROWS[name] = what
+        ms[name] = (cuda_ms(kern, 10), cuda_ms(plain, 2, warm=1))
+        print(f'{name} time on {card}, {tag}: kernel {ms[name][0]:.6g} ms, '
+              f'plain PyTorch {ms[name][1]:.6g} ms')
+
+
+def fed_gmm_cell(dev, seed, card, errs, launches, ms, cell):
+    tag, n, k, d, n_vi, n_gibbs, n_map, n_em, n_chain, predict = cell
+    kg = torch.Generator(device=dev).manual_seed(seed + 27)
+    x, mu = fed_data(kg, n, d, dev)
+    model = BayesianGMM.make(size=k, dim=d, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5, device=dev)
+    name = f'fed N={n} K={k} d={d}'
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_counts()
+    st, vlb = model.fit_vi_fused(x, key=1, maxiter=n_vi)
+    gs = model.fit_gibbs_fused(x, key=2, maxiter=n_gibbs)
+    traces = {}
+    if n_map:
+        traces['MAP-EM'] = model.fit_map_fused(x, key=3, maxiter=n_map)
+    if n_em:
+        traces['ML-EM'] = model.fit_em_fused(x, key=4, maxiter=n_em)
+    if n_chain:
+        traces['fit_chains VI'] = fit_chains(model, 'fit_vi_fused', x,
+                                             [5, 6], maxiter=n_chain)
+    lp = model.log_predictive(st, x) if predict else None
+    torch.cuda.synchronize()
+    path = read_counts()
+    want = {'B1': n_vi + n_map + n_em + n_chain, 'B2': n_gibbs,
+            'B3': int(predict)}
+    print(f'{name}: VI {n_vi}, Gibbs {n_gibbs}, MAP {n_map}, ML-EM {n_em}, '
+          f'fit_chains VI {n_chain} at C=2, log_predictive {predict}: '
+          f'{time.perf_counter() - t0:.6g} s, launches {path} (expected '
+          f'{want}, exactly one a sweep)')
+    check(all(path[b] == c for b, c in want.items())
+          and sum(path.values()) == sum(want.values()),
+          f'{name}: the path bypassed a kernel or launched more than one a '
+          'sweep')
+    launches.update({f'B1-fed-{tag}': want['B1'], f'B2-fed-{tag}': n_gibbs})
+    if predict:
+        launches[f'B3-fed-{tag}'] = 1
+    elbo_report(f'{name} VI', vlb)
+    for what, (state, trace) in traces.items():
+        check(all_finite(state), f'{name} {what}: state not finite')
+        if what == 'ML-EM':
+            elbo_report(f'{name} {what}', trace, 'loglik')
+        elif what == 'fit_chains VI':
+            for c in range(trace.shape[0]):
+                elbo_report(f'{name} {what} chain {c}', trace[c])
+        else:
+            check(bool(torch.isfinite(trace).all()),
+                  f'{name} {what}: trace not finite')
+            print(f'{name} {what}: loglik {float(trace[0]):.9g} -> '
+                  f'{float(trace[-1]):.9g}, finite')
+    check(all_finite(st) and all_finite(gs[:4])
+          and int(gs.labels.min()) >= 0 and int(gs.labels.max()) < k,
+          f'{name}: state not finite or labels out of range')
+    w_vi = st.gating.mean()
+    top = torch.argsort(w_vi, descending=True)[:3]
+    dist_mu = torch.cdist(mu, st.components.mu[top]).min(1).values
+    print(f'{name} fit: VI top-3 weights '
+          f'{[round(float(w), 4) for w in w_vi[top]]}, true means within '
+          f'{float(dist_mu.max()):.4g}')
+    if predict:
+        check(lp.shape == (n,) and bool(torch.isfinite(lp).all()),
+              f'{name}: log_predictive not finite')
+
+    xs_ = x[:100_003]
+    _, v_k = model.fit_vi_fused(xs_, maxiter=5, init_state=st,
+                                randomize=False, backend='kernel')
+    _, v_t = model.fit_vi_fused(xs_, maxiter=5, init_state=st,
+                                randomize=False, backend='torch')
+    ok_v, e_v = allclose_report(v_k, v_t, 1e-4, 0.0)
+    msg = f'VI ELBO max|err| {e_v:.6g} (rtol 1e-4) {"ok" if ok_v else "FAIL"}'
+    if predict:
+        lp_k = model.log_predictive(st, xs_, backend='kernel')
+        _, e_p = allclose_report(
+            lp_k, model.log_predictive(st, xs_, backend='torch'), 1e-5, 1e-4)
+        msg += (f'; log_predictive max|err| {e_p:.6g} nats, finite '
+                f'{bool(torch.isfinite(lp_k).all())} (B3\'s float64 lines '
+                f'below decide: at d=32 the f32 quadratic forms of both '
+                f'versions cancel terms of ~1e3)')
+        check(bool(torch.isfinite(lp_k).all()), f'{name}: log_predictive '
+              'not finite on the slice')
+    print(f'{name} vs plain on 100,003 points: {msg}')
+    check(ok_v, f'{name}: the kernel path disagrees with the plain path')
+    vi = rate(FED_RATE_SWEEPS, lambda: model.fit_vi_fused(
+        x, maxiter=FED_RATE_SWEEPS, init_state=st, randomize=False), reps=3)
+    gibbs = rate(FED_RATE_SWEEPS, lambda: model.fit_gibbs_fused(
+        x, key=3, maxiter=FED_RATE_SWEEPS), reps=3)
+    print(f'rates on {card}, {name}: VI {vi} it/s, Gibbs {gibbs} sweeps/s '
+          f'({FED_RATE_SWEEPS} warm sweeps a run)')
+
+    spec = model._estep_spec()
+    xt = kernel_xts((x,))[0]
+    th_vi, _ = pad_theta(spec.theta(st.components),
+                         st.gating.expected_log_pi(), torch.float32)
+    th_g, _ = pad_theta(spec.theta_plugin(gs.params), gs.log_pi,
+                        torch.float32)
+    errs[f'B1-fed-{tag}'] = fed_b1_checks(name, xt, th_vi, n)
+    sweep_seed = torch.randint(0, 2 ** 62, (), generator=kg, device=dev)
+    labels, gacc = gibbs_labels_check(f'{name} B2', xt, th_g, sweep_seed, n)
+    errs[f'B2-fed-{tag}'] = gibbs_acc_err(xt, n, cuda_estep.GAUSS, 0, labels,
+                                          gacc)
+    del labels, gacc
+    m = cuda_estep.feature_width(cuda_estep.GAUSS, d)
+    rows = [(f'B1-fed-{tag}', lambda: cuda_estep.estep(xt, th_vi, n),
+             lambda: cuda_estep.estep_plain(xt, th_vi, n),
+             estep_work(n, k, m, d), f'{name}, VI theta'),
+            (f'B2-fed-{tag}', lambda: cuda_gibbs.gibbs(xt, th_g, sweep_seed, n),
+             lambda: cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, n),
+             gibbs_work(xt, th_g, n, m), f'{name}, plug-in theta')]
+    if predict:
+        thq, aux = cuda_predict.predictive_coefficients(
+            st.components, model.predictive_log_weights(st))
+        out = cuda_predict.predict(xt, thq, aux, n)
+        _, e = allclose_report(out, cuda_predict.predict_plain(
+            xt, thq, aux, n), 1e-5, 1e-4)
+        errs[f'B3-fed-{tag}'] = e
+        print(f'{name} B3 Student-t vs plain: max|err| {e:.6g} nats; finite '
+              f'{bool(torch.isfinite(out).all())}')
+        check(bool(torch.isfinite(out).all()), f'{name}: B3 not finite')
+        for cell_n, cell in ((min(n, 100_003), 'the first 100,003 points'),
+                             (n, f'all {n} points')):
+            serving_precision('B3', f'{name}, {cell}', cuda_predict.predict,
+                              cuda_predict.predict_plain,
+                              (xt, thq, aux, cell_n),
+                              (('nats', 'log density'),))
+        rows.append((f'B3-fed-{tag}',
+                     lambda: cuda_predict.predict(xt, thq, aux, n),
+                     lambda: cuda_predict.predict_plain(xt, thq, aux, n),
+                     density_work(n, k, quad_fmas(d), d, 2,
+                                  products=point_products(d)),
+                     f'{name}, the VI state'))
+    fed_rows(card, name, rows, ms)
+    del x, xt, model, st, gs, traces, lp
+    torch.cuda.empty_cache()
+
+
+def fed_ilr_cell(dev, seed, card, errs, launches, ms):
+    """B1 and B2 over the ILR map at d=16, p=1 (m8 = 584) on its fit path:
+    fit_gibbs_fused, then fit_vi_fused from its state."""
+    kg = torch.Generator(device=dev).manual_seed(seed + 28)
+    n, k, d = N_FED_ILR, K_FED_ILR, D_FED_ILR
+    x, y = regression_data(kg, n, d, 1, dev)
+    model = BayesianILR.make(size=k, input_dim=d, output_dim=1, alpha=2.0,
+                             kappa=0.05, device=dev)
+    name = f'fed ILR N={n} K={k} d={d} p=1'
+    torch.cuda.synchronize()
+    reset_counts()
+    gs = model.fit_gibbs_fused((x, y), key=2, maxiter=FED_ILR_SWEEPS)
+    st, vlb = model.fit_vi_fused((x, y), key=1, maxiter=FED_ILR_SWEEPS,
+                                 init_state=MFState(gs.components, gs.gating),
+                                 randomize=False)
+    torch.cuda.synchronize()
+    path = read_counts()
+    print(f'{name}: Gibbs {FED_ILR_SWEEPS} -> VI {FED_ILR_SWEEPS}, launches '
+          f'{path}')
+    check(path['B1-ILR'] == FED_ILR_SWEEPS
+          and path['B2-ILR'] == FED_ILR_SWEEPS
+          and sum(path.values()) == 2 * FED_ILR_SWEEPS,
+          f'{name}: the fit path bypassed a kernel')
+    launches.update({'B1-fed-ilr16': FED_ILR_SWEEPS,
+                     'B2-fed-ilr16': FED_ILR_SWEEPS})
+    elbo_report(f'{name} VI', vlb)
+    check(all_finite(st) and all_finite(gs[:4]),
+          f'{name}: state not finite')
+    xs_, ys_ = x[:100_003], y[:100_003]
+    _, v_k = model.fit_vi_fused((xs_, ys_), maxiter=5, init_state=st,
+                                randomize=False, backend='kernel')
+    _, v_t = model.fit_vi_fused((xs_, ys_), maxiter=5, init_state=st,
+                                randomize=False, backend='torch')
+    ok_v, e_v = allclose_report(v_k, v_t, 1e-4, 0.0)
+    print(f'{name} vs plain on 100,003 points: VI ELBO max|err| {e_v:.6g} '
+          f'(rtol 1e-4) {"ok" if ok_v else "FAIL"}')
+    check(ok_v, f'{name}: the kernel path disagrees with the plain path')
+    spec = model._estep_spec()
+    xt = stack_rows(kernel_xts((x, y)))
+    th_vi, _ = pad_theta(spec.theta(st.components),
+                         st.gating.expected_log_pi(), torch.float32)
+    th_g, _ = pad_theta(spec.theta_plugin(gs.params), gs.log_pi,
+                        torch.float32)
+    check(th_vi.shape[1] == 584, f'{name}: m8 {th_vi.shape[1]}, not 584')
+    errs['B1-fed-ilr16'] = fed_b1_checks(name, xt, th_vi, n, ILR, 1)
+    sweep_seed = torch.randint(0, 2 ** 62, (), generator=kg, device=dev)
+    labels, gacc = gibbs_labels_check(f'{name} B2', xt, th_g, sweep_seed, n,
+                                      ILR, 1)
+    errs['B2-fed-ilr16'] = gibbs_acc_err(xt, n, ILR, 1, labels, gacc)
+    m = cuda_estep.feature_width(ILR, d, 1)
+    fed_rows(card, name, [
+        ('B1-fed-ilr16', lambda: cuda_estep.estep(xt, th_vi, n, ILR, 1),
+         lambda: cuda_estep.estep_plain(xt, th_vi, n, ILR, 1),
+         estep_work(n, k, m, d + 1), f'{name}, VI theta'),
+        ('B2-fed-ilr16',
+         lambda: cuda_gibbs.gibbs(xt, th_g, sweep_seed, n, ILR, 1),
+         lambda: cuda_gibbs.gibbs_plain(xt, th_g, sweep_seed, n, ILR, 1),
+         gibbs_work(xt, th_g, n, m, ILR, 1), f'{name}, plug-in theta')],
+        ms)
+    del x, y, xt, model, st, gs
+    torch.cuda.empty_cache()
+
+
+def fed_paths(dev, seed, card, errs, launches, ms):
+    """Phase 27 (the docstring at the top)."""
+    for cell in FED_CELLS:
+        fed_gmm_cell(dev, seed, card, errs, launches, ms, cell)
+    fed_ilr_cell(dev, seed, card, errs, launches, ms)
 
 
 if __name__ == '__main__':

@@ -26,17 +26,17 @@ constexpr int kKindGauss = 0, kKindIlrAffine = 1, kKindIlrLinear = 2,
               kKindDiag = 3, kKindIlrDiagAffine = 4, kKindIlrDiagLinear = 5;
 constexpr int kKindLast = kKindIlrDiagLinear;
 
-inline bool kind_is_ilr(int kind) {
+__host__ __device__ inline bool kind_is_ilr(int kind) {
   return kind == kKindIlrAffine || kind == kKindIlrLinear ||
          kind == kKindIlrDiagAffine || kind == kKindIlrDiagLinear;
 }
 // A diagonal basis block: [1; x; x^2].
-inline bool kind_diag_basis(int kind) {
+__host__ __device__ inline bool kind_diag_basis(int kind) {
   return kind == kKindDiag || kind == kKindIlrDiagAffine ||
          kind == kKindIlrDiagLinear;
 }
 // The experts' ones column: xa = [x; 1].
-inline bool kind_affine(int kind) {
+__host__ __device__ inline bool kind_affine(int kind) {
   return kind == kKindIlrAffine || kind == kKindIlrDiagAffine;
 }
 
@@ -52,22 +52,21 @@ inline int feature_width(int kind, int d, int np) {
 // z = [1; x (d rows); y (np rows); 0]: row j = z[a] * z[b] with
 // ab[j] = a | b << 8, one f32 multiply, so a map assembled from its table
 // equals the plain versions' maps (family_estep.py) bit for bit. Rows
-// past the map's width are 0 * 0 (up to 512 rows: the widest F tile of
-// B1/B2's chunked layout). The ILR table follows
+// past the map's width are 0 * 0. The ILR table follows
 // mimo_tpu/ops/family_estep.py::_product_features_t over
 // (gauss_features_t, linear_features_t(affine)): [1; x; x (x) x;
 // y (x) xa; xa (x) xa; y (x) y] with xa = [x; 1] when affine, and over
 // a diagonal basis (diag_gauss_features_t) [1; x; x^2; ...] the same.
-constexpr int kMaxTableRows = 512;
-struct FactorTable {
-  unsigned short ab[kMaxTableRows];
-};
-
-inline FactorTable factor_table(int kind, int d, int np, int rows) {
-  FactorTable t;
+// fill_factor_table writes the first `rows` entries, on the host (the
+// plain layout's FactorTable, a kernel parameter of up to kMaxTableRows
+// rows, its widest F tile) or on the device (the streamed layout's table
+// in device memory, any number of rows: tc.cuh st_prep).
+__host__ __device__ inline void fill_factor_table(int kind, int d, int np,
+                                                  int rows,
+                                                  unsigned short* ab) {
   int j = 0;
   auto put = [&](int a, int b) {
-    if (j < rows) t.ab[j++] = static_cast<unsigned short>(a | (b << 8));
+    if (j < rows) ab[j++] = static_cast<unsigned short>(a | (b << 8));
   };
   auto xa = [d](int a) { return a < d ? 1 + a : 0; };   // [x; 1]
   put(0, 0);
@@ -90,6 +89,16 @@ inline FactorTable factor_table(int kind, int d, int np, int rows) {
   }
   const int zero = 1 + d + np;
   while (j < rows) put(zero, zero);
+}
+
+constexpr int kMaxTableRows = 256;
+struct FactorTable {
+  unsigned short ab[kMaxTableRows];
+};
+
+inline FactorTable factor_table(int kind, int d, int np, int rows) {
+  FactorTable t;
+  fill_factor_table(kind, d, np, rows, t.ab);
   return t;
 }
 
@@ -139,25 +148,26 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
   s = t;
 }
 
-// out[c w + o] = sum_b part[(c grid + b) w + o] in block order b = 0, 1,
-// ..., a compensated sum for each chain c (blockIdx.y): the second pass of
-// the bounded-grid reductions. Fixed order, no atomics, so a run is
-// bitwise repeatable on a given grid.
+// out[c ostride + o] = sum_b part[(c grid + b) w + o] in block order b =
+// 0, 1, ..., a compensated sum for each chain c (blockIdx.y): the second
+// pass of the bounded-grid reductions. Fixed order, no atomics, so a run
+// is bitwise repeatable on a given grid.
 __global__ void reduce_partials(const float* __restrict__ part, int grid,
-                                int w, float* __restrict__ out) {
+                                int w, float* __restrict__ out,
+                                size_t ostride) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= w) return;
   const float* pc = part + (size_t)blockIdx.y * grid * w;
   float s = 0.0f, c = 0.0f;
   for (int b = 0; b < grid; ++b) kahan_add(s, c, pc[(size_t)b * w + o]);
-  out[(size_t)blockIdx.y * w + o] = s;
+  out[(size_t)blockIdx.y * ostride + o] = s;
 }
 
 inline cudaError_t launch_reduce(const float* part, int grid, int w,
                                  float* out, cudaStream_t stream,
-                                 int chains = 1) {
+                                 int chains = 1, size_t ostride = 0) {
   reduce_partials<<<dim3((w + kThreads - 1) / kThreads, chains), kThreads, 0,
-                    stream>>>(part, grid, w, out);
+                    stream>>>(part, grid, w, out, ostride ? ostride : w);
   return cudaGetLastError();
 }
 

@@ -3,34 +3,58 @@
 // accumulation, the hi/lo operand splits of the precision rule (see the
 // note at the top of estep.cuh), and the shared-memory tiles they read.
 //
-// K is cut into 16-row slabs, one warp's share of the logits. A block
-// walks its points in tiles of T: the tile's raw inputs z = [1; x; y; 0]
-// (T columns) are copied to shared memory one tile ahead (cp.async),
-// every feature row F_j = z_a z_b (common.cuh FactorTable) is assembled
-// by the whole block and stored as its tf32 part and the exact f32
-// remainder, and each warp multiplies its slab of theta against them. The
-// statistics (16 x 8 NT per warp) stay in registers across all of the
-// block's tiles, so NT is a compile-time width. Two layouts (Layout):
-//   plain    one warp per slab, NT = m8 / 8 rounded up to the next
-//            compiled width (theta columns and F rows beyond m8 are zero):
-//            each block accumulates all of (K, m8);
-//   chunked  for a K or m8 past the plain layout (more slabs than a block
-//            has warps, a wider m8 than the widest width, or more shared
-//            memory than a block can have): the block's nw warps walk K's
-//            slabs in chunks of nw for the logits, and each block keeps the
-//            statistics of one window, one chunk's rows by 8 NT columns;
-//            blockIdx.y picks the window. Every block forms all of the
-//            logits, so the chunked layout does (chunks x windows) times
-//            the logits' work of the plain one; it exists so that every
-//            shape up to shared memory's limit launches.
+// K is cut into 16-row slabs, one warp's share of the logits. Two layouts:
+//
+//   plain     one warp per slab, NT = m8 / 8 rounded up to the next
+//             compiled width (theta columns and F rows beyond m8 are
+//             zero): theta (16 nslab x 8 NT) is staged whole in shared
+//             memory; a block walks its points in tiles of T, the tile's
+//             raw inputs z = [1; x; y; 0] (T columns) copied to shared
+//             memory one tile ahead (cp.async), every feature row F_j =
+//             z_a z_b (common.cuh FactorTable) assembled by the whole
+//             block and stored as its tf32 part and the exact f32
+//             remainder, and each warp multiplies its slab of theta
+//             against them. The statistics (16 x 8 NT per warp) stay in
+//             registers across all of the block's tiles. It takes K's
+//             slabs up to a block's warps, m8 up to the widest compiled
+//             width (256) and its tiles within shared memory.
+//   streamed  every other shape, up to what device memory holds. Neither
+//             theta nor F is staged whole, and the (K, m8) statistics do
+//             not sit in one block. The points go in segments of `seg`
+//             (a fixed count for each K: its logits, 16 MB a chain, stay
+//             in L2) and each segment takes two launches:
+//             (a) st_*_logits: a block takes tiles of kStT points; for
+//                 each chunk of K (16 kStSpw nw rows, nw warps of kStSpw
+//                 slabs each) it walks theta's 8-feature steps, theta's
+//                 fragments read from device memory (1.1 MB at K=256,
+//                 d=32: L2) in A-fragment order (st_prep) and F's 8 rows
+//                 of the step formed from the z tile through the table in
+//                 device memory (st_form_step, two buffers), and writes
+//                 the tile's logits S (K x kStT) to a scratch buffer in
+//                 the mma's fragment order. The logits are formed once a
+//                 point. B1 folds each point's (max, sum exp) over the
+//                 chunks and writes (max, 1 / denominator) and its lse
+//                 partials; B2 draws the labels from S.
+//             (b) st_*_stats: output-stationary, a block owns a window of
+//                 the statistics (one chunk's rows x 8 NT columns, NT in
+//                 1, 2, 4, 8) and a split of the segment's tiles, forms
+//                 the window's F rows from z, reads P (B1: exp(S - max) /
+//                 denominator from the scratch) or the one-hot labels
+//                 (B2), and adds its window into its split's partials in
+//                 device memory. Every element of the partials belongs to
+//                 one block of a launch, and the segments come in order,
+//                 so the sums are in a fixed order without atomics.
+//             A fixed-order second pass (common.cuh launch_reduce) sums
+//             the splits. Every grid depends only on (K, m8, rows) and
+//             the card, never on n or the chains.
 // Both layouts take a chain axis: blockIdx.z picks one of C thetas
 // (C, K, m8) over the same points (restarts of one fit, the counterpart of
-// jax.vmap over the Pallas kernels' grid), and the block stages only its
+// jax.vmap over the Pallas kernels' grid), and a block reads only its
 // chain's theta and writes its chain's partials. The x tiles are read
 // again for every chain, as the TPU's batching rule reads them. Every
-// chain has the one-chain persistent grid along x (the C x grid blocks
-// run in about C waves), so each chain's blocks do exactly the work of a
-// one-chain launch and its result is bitwise that launch's.
+// chain has the one-chain grids (the C x grid blocks run in about C
+// waves), so each chain's blocks do exactly the work of a one-chain
+// launch and its result is bitwise that launch's.
 #pragma once
 
 #include <algorithm>
@@ -61,40 +85,28 @@ inline int width_bucket(int m8) {
 }
 
 // The widest of the narrow widths: each kernel compiles its narrow widths
-// in one source and its wide widths and the chunked layout in another,
+// in one source and its wide widths and the streamed layout in another,
 // which nvcc builds in parallel.
 constexpr int kMaxNarrow = 8;
 
-// A kernel's variant is a plain layout's width 1..kMaxWidth or kChunked,
-// the chunked layout, whose windows are kChunkNT 8-feature steps wide and
-// whose tiles hold kChunkT points.
-constexpr int kChunked = -1, kChunkNT = 4, kChunkT = 32;
+// A kernel's variant is a plain layout's width 1..kMaxWidth or kStreamed.
+constexpr int kStreamed = -1;
 
-__host__ __device__ constexpr int variant_nt(int v) {
-  return v == kChunked ? kChunkNT : v;
-}
-
-// How a block at (k, m8) is laid out (the note at the top of this file).
+// How a plain-layout block at width nt and K is laid out: one warp per
+// 16-row slab, theta's nt 8-feature steps, 8 nt rows of F.
 struct Layout {
-  int nslab;   // 16-row slabs of K
-  int nw;      // warps a block
+  int nslab;   // 16-row slabs of K, one a warp
   int ntf;     // theta's 8-feature steps, the logits' contraction
-  int mpf;     // F tile rows: 8 NT windows' worth, zero past the map
-  int nchunk;  // chunks of nw slabs the logits walk
-  int nz;      // windows of 8 NT columns across m8
+  int mpf;     // F tile rows, zero past the map
 };
 
-__host__ __device__ constexpr Layout layout(int v, int k, int m8) {
-  const int nt = variant_nt(v), nslab = slabs(k);
-  if (v != kChunked) return Layout{nslab, nslab, nt, 8 * nt, 1, 1};
-  const int nw = nslab < max_threads(nt) / 32 ? nslab : max_threads(nt) / 32;
-  const int ntf = (m8 + 7) / 8, nz = (ntf + nt - 1) / nt;
-  return Layout{nslab, nw, ntf, 8 * nt * nz, (nslab + nw - 1) / nw, nz};
+__host__ __device__ constexpr Layout layout(int nt, int k) {
+  return Layout{slabs(k), nt, 8 * nt};
 }
 
-// fn(std::integral_constant<int, V>) for the compiled variant v: a width
-// in [kMin, kMax], or kChunked where kChunk; `bad` for any other.
-template <int kMin, int kMax, bool kChunk, class R, class Fn>
+// fn(std::integral_constant<int, V>) for the compiled width v in
+// [kMin, kMax]; `bad` for any other.
+template <int kMin, int kMax, class R, class Fn>
 R dispatch_variant(int v, R bad, Fn&& fn) {
   switch (v) {
 #define MIMO_WIDTH(N)                                  \
@@ -107,18 +119,10 @@ R dispatch_variant(int v, R bad, Fn&& fn) {
     MIMO_WIDTH(8) MIMO_WIDTH(12) MIMO_WIDTH(16) MIMO_WIDTH(21)
     MIMO_WIDTH(24) MIMO_WIDTH(32)
 #undef MIMO_WIDTH
-    case kChunked:
-      if constexpr (kChunk)
-        return fn(std::integral_constant<int, kChunked>{});
-      else
-        return bad;
     default:
       return bad;
   }
 }
-
-// The variants a source compiles beyond the narrow widths.
-inline bool is_wide(int v) { return v == kChunked || v > kMaxNarrow; }
 
 template <int NT_, int T_>
 struct Tile {
@@ -129,11 +133,11 @@ struct Tile {
   static constexpr int J = T / 8;  // 8-point column groups
 };
 
-// Floats of shared memory both kernels stage: theta (16 nslab x 8 ntf, in
-// A-fragment order), two z tiles ((rows + 2) x T: the next tile's inputs
-// arrive while this one computes) and the F tiles, tf32 part and
-// remainder (mpf x (T + 8) each; the row stride of 8 mod 32 banks keeps
-// both products' fragment loads free of bank conflicts).
+// Floats of shared memory both kernels stage in the plain layout: theta
+// (16 nslab x 8 ntf, in A-fragment order), two z tiles ((rows + 2) x T:
+// the next tile's inputs arrive while this one computes) and the F tiles,
+// tf32 part and remainder (mpf x (T + 8) each; the row stride of 8 mod 32
+// banks keeps both products' fragment loads free of bank conflicts).
 inline size_t tile_floats(const Layout& l, int t, int rows) {
   return (size_t)16 * l.nslab * 8 * l.ntf + 2 * (size_t)(rows + 2) * t +
          2 * (size_t)l.mpf * (t + 8);
@@ -150,23 +154,17 @@ inline size_t smem_limit() {
   return (size_t)v;
 }
 
-// The variant a launch at (k, m8) runs, `floats(v)` the floats variant v
-// stages: the plain layout where K's slabs fit one block's warps, m8 a
-// compiled width and its tiles shared memory; else the chunked layout
-// where its tiles fit (and its F rows the FactorTable); else 0, a shape
-// past shared memory's limit.
+// The variant a launch at (k, m8) runs, `floats(nt)` the floats the
+// plain layout stages at width nt: the plain layout where K's slabs fit
+// one block's warps, m8 a compiled width and its tiles shared memory;
+// else the streamed layout, which takes every shape.
 template <class Floats>
 int pick_variant(int k, int m8, Floats&& floats) {
-  const size_t limit = smem_limit();
-  if (k < 1 || m8 < 1) return 0;
   const int nt = width_bucket(m8);
   if (nt && 32 * slabs(k) <= max_threads(nt) &&
-      sizeof(float) * floats(nt) <= limit)
+      sizeof(float) * floats(nt) <= smem_limit())
     return nt;
-  if (layout(kChunked, k, m8).mpf <= kMaxTableRows &&
-      sizeof(float) * floats(kChunked) <= limit)
-    return kChunked;
-  return 0;
+  return kStreamed;
 }
 
 // Blocks along x of a persistent grid: SMs x resident blocks of this
@@ -397,6 +395,299 @@ __device__ void store_slab(const float (&acc)[L::NT][4], int k, int m8,
       if (r0 < k) out[(size_t)r0 * m8 + c] = acc[jn][h];
       if (r0 + 8 < k) out[(size_t)(r0 + 8) * m8 + c] = acc[jn][2 + h];
     }
+  }
+}
+
+// -- the streamed layout (the note at the top of this file) ----------------
+
+constexpr int kStT = 64;         // points a tile
+constexpr int kStSpw = 2;        // 16-row slabs a warp
+constexpr int kStWarps = 8;      // warps a block, at most
+// logits a chain holds for a segment: 16 MB, so that pass (b) reads what
+// pass (a) wrote from L2
+constexpr long long kStSegFloats = 1LL << 22;
+
+__host__ __device__ constexpr int pow2_at_least(int v) {
+  return v <= 1 ? 1 : 2 * pow2_at_least((v + 1) / 2);
+}
+
+// The streamed layout's geometry at (k, m8): the same for every launch of
+// a shape on a card (ga and splits from the kernels' occupancy).
+struct Streamed {
+  int nslab;       // 16-row slabs of K
+  int ntf;         // 8-feature steps of theta and F
+  int nw;          // warps a block: a power of two, at most kStWarps
+  int chunk;       // slabs a chunk of K: nw kStSpw
+  int nchunk;      // chunks of K
+  int nt;          // 8-feature steps of a statistics window: 1, 2, 4 or 8
+  int mw;          // windows across m8
+  long long seg;   // points a segment, a multiple of kStT
+  int ga;          // blocks of pass (a) along x
+  int splits;      // splits of the segment's tiles in pass (b)
+};
+
+inline Streamed streamed_shape(int k, int m8) {
+  Streamed g{};
+  g.nslab = slabs(k);
+  g.ntf = (m8 + 7) / 8;
+  g.nw = std::min(kStWarps, pow2_at_least((g.nslab + kStSpw - 1) / kStSpw));
+  g.chunk = g.nw * kStSpw;
+  g.nchunk = (g.nslab + g.chunk - 1) / g.chunk;
+  g.nt = std::min(8, pow2_at_least(g.ntf));
+  g.mw = (g.ntf + g.nt - 1) / g.nt;
+  g.seg = std::max<long long>(
+      kStT, kStSegFloats / (16LL * g.nslab) / kStT * kStT);
+  return g;
+}
+
+// Rows of the streamed layout's factor table: every window's 8 NT rows.
+inline int st_table_rows(const Streamed& g) { return g.mw * 8 * g.nt; }
+
+// Shared memory floats of pass (a): the z tile ((rows + 2) x kStT), two
+// buffers of one step's F rows (tf32 part and remainder, 8 x (kStT + 8)
+// each) and B1's per-warp and running (max, sum) pairs (nw + 1) x kStT.
+inline size_t st_logits_floats(const Streamed& g, int rows) {
+  return (size_t)(rows + 2) * kStT + 4 * 8 * (kStT + 8) +
+         2 * (size_t)(g.nw + 1) * kStT;
+}
+
+// Shared memory floats of pass (b): the z tile, the window's F rows (tf32
+// part and remainder, 8 nt x (kStT + 8) each) and B2's tile of labels.
+inline size_t st_stats_floats(const Streamed& g, int rows) {
+  return (size_t)(rows + 2) * kStT + 2 * (size_t)8 * g.nt * (kStT + 8) +
+         kStT;
+}
+
+// The streamed layout's scratch in device memory, offsets in floats (each
+// 16-byte aligned): the factor table (unsigned short), theta in
+// A-fragment order (chains, nslab, ntf, 32) float4, the logits of a
+// segment (chains, seg / 8, nslab, 32) float4, B1's per-point (max,
+// scale) (chains, seg) float2 and per-block lse (sum, compensation)
+// (chains, ga) float2, and the splits' partial statistics (chains,
+// splits, k m8).
+struct StScratch {
+  size_t tab, thp, sg, md, lsep, part, total;
+};
+
+inline StScratch st_scratch(const Streamed& g, int k, int m8, int chains,
+                            bool estep) {
+  StScratch s{};
+  size_t o = 0;
+  auto take = [&](size_t floats) {
+    const size_t at = o;
+    o += (floats + 3) & ~(size_t)3;
+    return at;
+  };
+  s.tab = take((st_table_rows(g) + 1) / 2);
+  s.thp = take((size_t)chains * g.nslab * g.ntf * 128);
+  s.sg = take((size_t)chains * g.seg * g.nslab * 16);
+  s.md = take(estep ? (size_t)chains * g.seg * 2 : 0);
+  s.lsep = take(estep ? (size_t)chains * g.ga * 2 : 0);
+  s.part = take((size_t)chains * g.splits * k * m8);
+  s.total = o;
+  return s;
+}
+
+// theta (chains, k, m8) row-major -> thp (chains, nslab, ntf, 32) float4,
+// the A fragment {(g, t), (g+8, t), (g, t+4), (g+8, t+4)} of each 16 x 8
+// block, zero beyond k rows and m8 columns (blockIdx.y the chain); and,
+// in one thread, the factor table's `tab_rows` rows.
+__global__ void st_prep(const float* __restrict__ theta, int k, int m8,
+                        int nslab, int ntf, float4* __restrict__ thp,
+                        int kind, int d, int np, int tab_rows,
+                        unsigned short* __restrict__ tab) {
+  const size_t per = (size_t)nslab * ntf * 32;
+  const float* th = theta + (size_t)blockIdx.y * k * m8;
+  float4* out = thp + blockIdx.y * per;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < per;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int lane = i & 31, st = (i >> 5) % ntf, sl = (i >> 5) / ntf;
+    const int r0 = 16 * sl + (lane >> 2), c0 = 8 * st + (lane & 3);
+    auto at = [&](int r, int c) {
+      return r < k && c < m8 ? th[(size_t)r * m8 + c] : 0.0f;
+    };
+    out[i] = make_float4(at(r0, c0), at(r0 + 8, c0), at(r0, c0 + 4),
+                         at(r0 + 8, c0 + 4));
+  }
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+    fill_factor_table(kind, d, np, tab_rows, tab);
+}
+
+inline cudaError_t launch_st_prep(const float* theta, int k, int m8,
+                                  const Streamed& g, float4* thp, int kind,
+                                  int d, int np, unsigned short* tab,
+                                  int chains, cudaStream_t s) {
+  const size_t per = (size_t)g.nslab * g.ntf * 32;
+  const int blocks = (int)std::min<size_t>(1024, (per + 255) / 256);
+  st_prep<<<dim3(blocks, chains), 256, 0, s>>>(
+      theta, k, m8, g.nslab, g.ntf, thp, kind, d, np, st_table_rows(g), tab);
+  return cudaGetLastError();
+}
+
+// rows [r0, r0 + nr) of F for the tile's kStT points from the z tile zb
+// through the table, as the tf32 part (fh) and the exact remainder (fr),
+// row stride kStT + 8. A warp's 32 entries share one row (kStT >= 32), so
+// its table entry is one uniform load.
+__device__ __forceinline__ void st_form_rows(
+    const unsigned short* __restrict__ tab, int r0, int nr, const float* zb,
+    float* fh, float* fr) {
+  constexpr int T = kStT, FS = kStT + 8;
+  for (int i = threadIdx.x; i < nr * T; i += blockDim.x) {
+    const int r = i / T, c = i - r * T;
+    const unsigned ab = __ldg(tab + r0 + r);
+    const float f = zb[(ab & 0xff) * T + c] * zb[(ab >> 8) * T + c];
+    const float hi = to_tf32(f);
+    fh[r * FS + c] = hi;
+    fr[r * FS + c] = f - hi;
+  }
+}
+
+// The slab of the warp's i-th share of chunk c.
+__device__ __forceinline__ int st_slab(const Streamed& g, int c, int i) {
+  return c * g.chunk + i * g.nw + (threadIdx.x >> 5);
+}
+
+// Pass (a): S = theta F over chunk c of K for the tile whose z is zb,
+// into the warp's registers: s[i][j] is the C fragment of rows 16 sl_i +
+// {g, g+8} (sl_i = st_slab(g, c, i); all zero where sl_i >= nslab) and
+// tile columns 8 j + {2t, 2t+1}. The block walks theta's 8-feature steps;
+// F's 8 rows of step st + 1 are formed into one buffer of fbuf (2 x
+// (tf32 part, remainder) x 8 x (kStT + 8)) while the warps read step st
+// from the other, one barrier a step. Theta's fragments come from device
+// memory (thp, A-fragment order), the next step's loaded before this
+// step's products. The precision rule of slab_logits: six passes, theta
+// and F each split exactly in three.
+__device__ __forceinline__ void st_chunk_logits(
+    const float4* __restrict__ thp, const Streamed& g, int c,
+    const unsigned short* __restrict__ tab, const float* zb, float* fbuf,
+    float (&s)[kStSpw][kStT / 8][4]) {
+  constexpr int J = kStT / 8, FS = kStT + 8;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  int sl[kStSpw];
+  bool on[kStSpw];
+#pragma unroll
+  for (int i = 0; i < kStSpw; ++i) {
+    sl[i] = st_slab(g, c, i);
+    on[i] = sl[i] < g.nslab;
+#pragma unroll
+    for (int j = 0; j < J; ++j) s[i][j][0] = s[i][j][1] = s[i][j][2] =
+        s[i][j][3] = 0.f;
+  }
+  auto theta_at = [&](int i, int st) {
+    return on[i] ? thp[((size_t)sl[i] * g.ntf + st) * 32 + lane]
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float4 th[kStSpw];
+#pragma unroll
+  for (int i = 0; i < kStSpw; ++i) th[i] = theta_at(i, 0);
+  st_form_rows(tab, 0, 8, zb, fbuf, fbuf + 8 * FS);
+  __syncthreads();
+#pragma unroll 1
+  for (int st = 0; st < g.ntf; ++st) {
+    const float* fh = fbuf + (st & 1) * 16 * FS;
+    const float* fr = fh + 8 * FS;
+    if (st + 1 < g.ntf) {
+      float* nh = fbuf + ((st + 1) & 1) * 16 * FS;
+      st_form_rows(tab, 8 * (st + 1), 8, zb, nh, nh + 8 * FS);
+    }
+    float ah[kStSpw][4], am[kStSpw][4], al[kStSpw][4];
+#pragma unroll
+    for (int i = 0; i < kStSpw; ++i) {
+      split3(th[i].x, ah[i][0], am[i][0], al[i][0]);
+      split3(th[i].y, ah[i][1], am[i][1], al[i][1]);
+      split3(th[i].z, ah[i][2], am[i][2], al[i][2]);
+      split3(th[i].w, ah[i][3], am[i][3], al[i][3]);
+      if (st + 1 < g.ntf) th[i] = theta_at(i, st + 1);
+    }
+    const float* rh = fh + t * FS + gq;
+    const float* rr = fr + t * FS + gq;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float bh[2] = {rh[8 * j], rh[8 * j + 4 * FS]};
+      float bm[2], bl[2];
+      split_rest(rr[8 * j], bm[0], bl[0]);
+      split_rest(rr[8 * j + 4 * FS], bm[1], bl[1]);
+#pragma unroll
+      for (int i = 0; i < kStSpw; ++i) {
+        if (!on[i]) continue;
+        float cc[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(cc, al[i], bh);
+        mma_tf32(cc, ah[i], bl);
+        mma_tf32(cc, am[i], bm);
+        mma_tf32(cc, am[i], bh);
+        mma_tf32(cc, ah[i], bm);
+        mma_tf32(cc, ah[i], bh);
+        s[i][j][0] += cc[0];
+        s[i][j][1] += cc[1];
+        s[i][j][2] += cc[2];
+        s[i][j][3] += cc[3];
+      }
+    }
+    __syncthreads();   // step st + 1's rows ready; step st's buffer free
+  }
+}
+
+// Pass (a): rows past k to -inf, then the warp's slabs of chunk c for
+// tile tl into the segment's logits sgc (seg / 8, nslab, 32) float4, each
+// lane's C fragment as {c0, c2, c1, c3}: pass (b) loads it as the A
+// fragment of P F^T with B1's permuted contraction index (stats_step).
+__device__ __forceinline__ void st_store_logits(
+    float (&s)[kStSpw][kStT / 8][4], const Streamed& g, int c, int k,
+    long long tl, float4* __restrict__ sgc) {
+  constexpr int J = kStT / 8;
+  const int lane = threadIdx.x & 31, gq = lane >> 2;
+#pragma unroll
+  for (int i = 0; i < kStSpw; ++i) {
+    const int sl = st_slab(g, c, i), r0 = 16 * sl + gq;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (r0 >= k) s[i][j][0] = s[i][j][1] = -INFINITY;
+      if (r0 + 8 >= k) s[i][j][2] = s[i][j][3] = -INFINITY;
+      if (sl < g.nslab)
+        sgc[((size_t)(tl * J + j) * g.nslab + sl) * 32 + lane] =
+            make_float4(s[i][j][0], s[i][j][2], s[i][j][1], s[i][j][3]);
+    }
+  }
+}
+
+// The logit of component kk at tile column col from the tile's logits
+// sgt (J, nslab, 32) float4 in the layout st_store_logits writes.
+__device__ __forceinline__ float st_logit(const float* sgt, int nslab,
+                                          int kk, int col) {
+  const int j = col >> 3, cc = col & 7, sl = kk >> 4, r = kk & 15;
+  const int lane = ((r & 7) << 2) | (cc >> 1);
+  const int slot = (r >> 3) | ((cc & 1) << 1);
+  return sgt[(((size_t)j * nslab + sl) * 32 + lane) * 4 + slot];
+}
+
+// acc added into out (k, m8) row-major at rows row0.., columns col0..:
+// the warp's slab of a window into its split's partials (each element
+// belongs to one thread of the launch).
+template <class L>
+__device__ void add_slab(const float (&acc)[L::NT][4], int k, int m8,
+                         int row0, int col0, int lane, float* out) {
+  const int r0 = row0 + (lane >> 2), c0 = col0 + 2 * (lane & 3);
+#pragma unroll
+  for (int jn = 0; jn < L::NT; ++jn) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 8 * jn + c0 + h;
+      if (c >= m8) continue;
+      if (r0 < k) out[(size_t)r0 * m8 + c] += acc[jn][h];
+      if (r0 + 8 < k) out[(size_t)(r0 + 8) * m8 + c] += acc[jn][2 + h];
+    }
+  }
+}
+
+// fn(std::integral_constant<int, NT>) for a window width nt in 1, 2, 4, 8.
+template <class R, class Fn>
+R dispatch_nt(int nt, R bad, Fn&& fn) {
+  switch (nt) {
+    case 1: return fn(std::integral_constant<int, 1>{});
+    case 2: return fn(std::integral_constant<int, 2>{});
+    case 4: return fn(std::integral_constant<int, 4>{});
+    case 8: return fn(std::integral_constant<int, 8>{});
+    default: return bad;
   }
 }
 

@@ -32,14 +32,13 @@ LIB_NAME = 'libmimo_kernels.so'
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
 FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-_P, _I, _I64, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_size_t)
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> (restype, argtypes) of every C entry point
 _SIGNATURES = {
     'mimo_estep': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _I,
-                        _I, _P]),
+                        _P]),
     'mimo_gibbs': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _P, _P,
-                        _P, _I, _I, _P]),
+                        _P, _I, _P]),
     'mimo_predict': (_I, [_P, _I64, _I, _I, _I, _I64, _P, _I, _I, _P, _I,
                           _P, _P]),
     'mimo_diag_predict': (_I, [_P, _I64, _I, _I, _I64, _P, _I, _P, _P, _P]),
@@ -47,15 +46,14 @@ _SIGNATURES = {
                               _P, _P]),
     'mimo_ilr_p_predict': (_I, [_P, _I64, _I, _I, _I, _I, _I64, _P, _I, _I,
                                 _P, _P, _I, _P, _P, _P]),
-    'mimo_regf': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _I, _P, _P, _I, _P]),
+    'mimo_regf': (_I, [_P, _I64, _I, _I64, _P, _I, _I, _I, _P, _P, _P]),
     'mimo_estep_count': (_I, [_P, _I64, _I, _I64, _P, _I, _P, _I, _I, _P,
-                              _P, _I, _P]),
+                              _P, _P]),
     'mimo_hello': (_I, [_P, _I64, _P, _P]),
     'mimo_gumbel_fast': (_I, [_P, _P]),
-    'mimo_estep_smem_bytes': (_SZ, [_I, _I, _I]),
-    'mimo_gibbs_smem_bytes': (_SZ, [_I, _I, _I]),
-    'mimo_estep_grid': (_I, [_I, _I, _I, _I64]),
-    'mimo_gibbs_grid': (_I, [_I, _I, _I, _I64]),
+    'mimo_estep_scratch': (_I64, [_I, _I, _I, _I64, _I]),
+    'mimo_gibbs_scratch': (_I64, [_I, _I, _I, _I64, _I]),
+    'mimo_probe_scratch': (_I64, [_I, _I, _I, _I64]),
     'mimo_error_string': (ctypes.c_char_p, [_I]),
 }
 
@@ -113,13 +111,6 @@ def check_inputs(what, xt, n, theta, width, desc):
                          f'cannot hold the {width} features of the {desc}')
 
 
-def _refuse(what, rows, m8, desc, smem_bytes, limit, name):
-    raise NotImplementedError(
-        f'{what}: coefficients of shape (K, m8) = ({rows}, {m8}) ({desc}) '
-        f'stage {smem_bytes} bytes of shared memory, above the {limit} a '
-        f'block can use on {name}; wider shapes are not supported yet')
-
-
 def check_serving(what, xt, n, theta, width, desc, aux=None):
     """check_inputs for a serving kernel (B3-B6), which takes every K and
     d (csrc/serving.cuh streams the coefficients in K-chunks): theta's m8
@@ -134,23 +125,26 @@ def check_serving(what, xt, n, theta, width, desc, aux=None):
             raise ValueError(f'{what}: coefficients must be 16-byte aligned')
 
 
-def tc_grid(what, lib, grid_fn, smem_fn, xt, n, theta, desc):
-    """The persistent grid along x of B1 or B2 (`grid_fn`, the kernel's
-    `mimo_*_grid`; `smem_fn` its `mimo_*_smem_bytes`) at this shape:
-    theta (K, m8), or (C, K, m8) for C chains, each of which gets this
-    grid. The kernel picks its layout; a shape none fits (grid 0) raises
-    NotImplementedError."""
+def tc_scratch(what, lib, scratch_fn, xt, n, theta, desc, *args):
+    """The scratch buffer of B1, B2 or a probe at this shape: theta (K,
+    m8), or (C, K, m8) for C chains; `scratch_fn` the kernel's
+    `mimo_*_scratch` (its floats at (K, m8, rows, n, *args)). Every shape
+    has a layout (csrc/tc.cuh: plain, or streamed past the plain
+    layout's shared memory); only scratch past the card's device memory
+    raises NotImplementedError, naming the bytes."""
     k, m8 = theta.shape[-2:]
-    rows = xt.shape[0]
     with torch.cuda.device(xt.device):
-        grid = grid_fn(k, m8, rows, n)
-        if grid == 0:
-            props = torch.cuda.get_device_properties(xt.device)
-            _refuse(what, k, m8, desc, smem_fn(k, m8, rows),
-                    props.shared_memory_per_block_optin, props.name)
-    if grid < 0:
-        lib.check(-grid, what)
-    return grid
+        floats = scratch_fn(k, m8, xt.shape[0], n, *args)
+    if floats < 0:
+        lib.check(-floats, what)
+    props = torch.cuda.get_device_properties(xt.device)
+    if 4 * floats > props.total_memory:
+        raise NotImplementedError(
+            f'{what}: coefficients of shape (K, m8) = ({k}, {m8}) ({desc})'
+            f'{"" if not args else f", {args[0]} chain(s)"} need {4 * floats} '
+            f'bytes of scratch, above the {props.total_memory} bytes of '
+            f'device memory of {props.name}')
+    return torch.empty((floats,), dtype=torch.float32, device=xt.device)
 
 
 def _nvcc():

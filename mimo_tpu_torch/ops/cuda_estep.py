@@ -172,16 +172,14 @@ def estep_packed(xt, theta, n, kind=GAUSS, p=0):
     d = xt.shape[0] - p
     desc = f'{KIND_NAMES[kind]} map, d={d}, p={p}'
     check_theta('cuda_estep', xt, n, theta, feature_width(kind, d, p), desc)
-    grid = _build.tc_grid('cuda_estep', lib, lib.mimo_estep_grid,
-                          lib.mimo_estep_smem_bytes, xt, n, theta, desc)
-    part = torch.empty((chains, grid, k * m8 + 1), dtype=torch.float32,
-                       device=xt.device)
+    work = _build.tc_scratch('cuda_estep', lib, lib.mimo_estep_scratch, xt,
+                             n, theta, desc, chains)
     out = torch.empty((chains, k * m8 + 1), dtype=torch.float32,
                       device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_estep(xt.data_ptr(), xt.stride(0), d, p, kind, n,
-                            theta.data_ptr(), k, m8, part.data_ptr(),
-                            out.data_ptr(), grid, chains,
+                            theta.data_ptr(), k, m8, work.data_ptr(),
+                            out.data_ptr(), chains,
                             torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_estep')
     launches[KIND_NAMES[kind]] += 1

@@ -72,22 +72,20 @@ def gibbs(xt, theta, seed, n, kind=GAUSS, p=0):
     d = xt.shape[0] - p
     desc = f'{KIND_NAMES[kind]} map, d={d}, p={p}'
     check_theta('cuda_gibbs', xt, n, theta, feature_width(kind, d, p), desc)
-    grid = _build.tc_grid('cuda_gibbs', lib, lib.mimo_gibbs_grid,
-                          lib.mimo_gibbs_smem_bytes, xt, n, theta, desc)
     if (seed.dtype != torch.int64 or seed.numel() != chains
             or seed.device != xt.device):
         raise ValueError(f'cuda_gibbs: seeds must be {chains} int64 on the '
                          "data's device, one a chain")
     seed = seed.contiguous()
     labels = torch.empty((chains, n), dtype=torch.int32, device=xt.device)
-    part = torch.empty((chains, grid, k * m8), dtype=torch.float32,
-                       device=xt.device)
+    work = _build.tc_scratch('cuda_gibbs', lib, lib.mimo_gibbs_scratch, xt,
+                             n, theta, desc, chains)
     acc = torch.empty((chains, k, m8), dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         rc = lib.mimo_gibbs(xt.data_ptr(), xt.stride(0), d, p, kind, n,
                             theta.data_ptr(), k, m8, seed.data_ptr(),
-                            labels.data_ptr(), part.data_ptr(),
-                            acc.data_ptr(), grid, chains,
+                            labels.data_ptr(), work.data_ptr(),
+                            acc.data_ptr(), chains,
                             torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_gibbs')
     launches[KIND_NAMES[kind]] += 1

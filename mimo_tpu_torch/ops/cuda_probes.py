@@ -61,12 +61,10 @@ def _launch(xt, theta, n, desc):
     desc = f'{desc}, d={d}'
     _build.check_inputs('cuda_probes', xt, n, theta, feature_width(GAUSS, d),
                         desc)
-    grid = _build.tc_grid('cuda_probes', lib, lib.mimo_estep_grid,
-                          lib.mimo_estep_smem_bytes, xt, n, theta, desc)
-    part = torch.empty((grid, k * m8 + 1), dtype=torch.float32,
-                       device=xt.device)
+    work = _build.tc_scratch('cuda_probes', lib, lib.mimo_probe_scratch, xt,
+                             n, theta, desc)
     out = torch.empty((k * m8 + 1,), dtype=torch.float32, device=xt.device)
-    return lib, grid, part, out
+    return lib, work, out
 
 
 def regf(xt, theta, n, divide=True):
@@ -75,12 +73,12 @@ def regf(xt, theta, n, divide=True):
     `estep_probe_plain` for CPU tensors. Returns (acc (K, m8), lse ())."""
     if not xt.is_cuda:
         return estep_probe_plain(xt, theta, n, divide)
-    lib, grid, part, out = _launch(xt, theta, n, 'S1 gauss map')
+    lib, work, out = _launch(xt, theta, n, 'S1 gauss map')
     k, m8 = theta.shape
     with torch.cuda.device(xt.device):
         rc = lib.mimo_regf(xt.data_ptr(), xt.stride(0), xt.shape[0], n,
                            theta.data_ptr(), k, m8, int(divide),
-                           part.data_ptr(), out.data_ptr(), grid,
+                           work.data_ptr(), out.data_ptr(),
                            torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_probes.regf')
     launches['S1-divide' if divide else 'S1-nodivide'] += 1
@@ -106,13 +104,13 @@ def estep_count(xt, theta, n, mode, nv=None):
                            or nv.numel() != 1 or nv.device != xt.device):
         raise ValueError('cuda_probes: nv must be one int32 on the data\'s '
                          'device')
-    lib, grid, part, out = _launch(xt, theta, n, 'S2 gauss map')
+    lib, work, out = _launch(xt, theta, n, 'S2 gauss map')
     k, m8 = theta.shape
     with torch.cuda.device(xt.device):
         rc = lib.mimo_estep_count(
             xt.data_ptr(), xt.stride(0), xt.shape[0], n,
             nv.data_ptr() if nv is not None else None, COUNT_MODES[mode],
-            theta.data_ptr(), k, m8, part.data_ptr(), out.data_ptr(), grid,
+            theta.data_ptr(), k, m8, work.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     lib.check(rc, 'cuda_probes.estep_count')
     launches[f'S2-{mode}'] += 1

@@ -4,7 +4,7 @@
     python3 profile_port.py [--units U] [--engines-only | --nested-only
                                          | --nested-probes | --chains
                                          | --stream | --mesh
-                                         | --stream-mesh]
+                                         | --stream-mesh | --fed]
 
 For each cell it fits the model at the size `chip_smoke.py` drives,
 warms up, then measures one unit of work (a warm-started VI sweep, a
@@ -24,7 +24,9 @@ instead (see `nested_probes`); `--chains` the chains of `chip_smoke.py`
 phase 19 (see `chain_cells`); `--stream` the streamed sweeps of its phase
 20 (see `stream_cells`); `--mesh` the sharded sweeps and serving of its
 phase 21 (see `mesh_cells`); `--stream-mesh` the streamed and dense
-sweeps over a mesh of its phase 22 (see `stream_mesh_cells`).
+sweeps over a mesh of its phase 22 (see `stream_mesh_cells`); `--fed`
+the DP-GMM sweeps of its phase 27 through the streamed layout (see
+`fed_cells`).
 """
 
 import argparse
@@ -48,7 +50,8 @@ from mimo_tpu_torch.models.hmix import HMixState
 from mimo_tpu_torch.models.mixture import MFState, _tree_map as tree_map
 from mimo_tpu_torch.parallel import fit_chains, make_mesh, shard_data
 
-from chip_smoke import N_NEST, N_NEST_ILR_FIT, N_NEST_MAP, nested_blobs
+from chip_smoke import (
+    N_NEST, N_NEST_ILR_FIT, N_NEST_MAP, fed_data, nested_blobs)
 
 N_GMM, N_SINE, N_P3, N_Q8, K = (10_000_000, 10_000_000, 1_000_000,
                                  1_000_000, 50)
@@ -139,6 +142,30 @@ def engine_cells(card, dev, x, u):
                lambda bb=b: m.fit_svi(x, key=6, maxiter=100, step_size=0.5,
                                       batch_size=bb, init_state=st),
                100, 'estep_tc')
+
+
+def fed_cells(card, dev, u):
+    """The DP-GMM cells of chip_smoke.py phase 27 past the kernels' plain
+    layout, on bench.py:90-98's data: N=1e6 at K=256, d=32 and K=128,
+    d=16, a warm-started VI sweep and a Gibbs sweep after 20 VI sweeps.
+    B1's share is that of its two streamed passes (estep_st_*), then of
+    each apart; B2's that of gibbs_st_*, then of its label pass."""
+    for n, k, d in ((1_000_000, 256, 32), (1_000_000, 128, 16)):
+        x, _ = fed_data(torch.Generator(device=dev).manual_seed(27), n, d,
+                        dev)
+        m = BayesianGMM.make(size=k, dim=d, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5, device=dev)
+        st, _ = m.fit_vi_fused(x, key=1, maxiter=20)
+        cell = f'fed DP-GMM N={n} K={k} d={d}'
+        for kernel in ('estep_st', 'estep_st_logits', 'estep_st_stats'):
+            report(card, cell, 'VI sweep',
+                   lambda: m.fit_vi_fused(x, maxiter=u, init_state=st,
+                                          randomize=False), u, kernel)
+        for kernel in ('gibbs_st', 'gibbs_st_logits'):
+            report(card, cell, 'Gibbs sweep',
+                   lambda: m.fit_gibbs_fused(x, key=2, maxiter=u), u, kernel)
+        del x, m, st
+        torch.cuda.empty_cache()
 
 
 def nested_cells(card, dev, u):
@@ -596,6 +623,9 @@ def main():
     only.add_argument('--stream-mesh', action='store_true',
                       help="only the streamed and dense sweeps over a "
                            "mesh of chip_smoke.py phase 22")
+    only.add_argument('--fed', action='store_true',
+                      help="only the DP-GMM sweeps of chip_smoke.py phase "
+                           "27 (the streamed layout)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_port: needs a CUDA device')
@@ -611,6 +641,9 @@ def main():
         return
     if args.nested_probes:
         nested_probes(card, dev)
+        return
+    if args.fed:
+        fed_cells(card, dev, u)
         return
 
     # the GMM cells: the data of bench.py:90-98

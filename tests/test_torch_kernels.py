@@ -96,9 +96,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cuda_estep.estep(xt.double(), theta.double(), 1000)
     with pytest.raises(ValueError):
         cuda_estep.estep(xt, theta, 1001)
+    # past shared memory (d=32, K=256) the streamed layout launches; only
+    # scratch past device memory is refused (6,000 chains of K=300)
     wide_x, wide_theta = _inputs(dev, 100, 256, 32)
-    with pytest.raises(NotImplementedError, match='shared memory'):
-        cuda_estep.estep(wide_x, wide_theta, 100)
+    _check_estep(wide_x, wide_theta, 100, cuda_estep.GAUSS, 0)
+    many = _inputs(dev, 100, 300, 2)[1].expand(6000, -1, -1).contiguous()
+    with pytest.raises(NotImplementedError, match='device memory'):
+        cuda_estep.estep(wide_x[:2], many, 100)
 
 
 def test_engines_kernel_path_tracks_plain_path(dev):
@@ -702,42 +706,52 @@ def test_gibbs_kernel_tile_edges(dev, k, m8, n):
     _check_gibbs(xt, theta, n, kind, p)
 
 
-# -- B1 and B2 in the chunked layout (csrc/tc.cuh) ---------------------------
+# -- B1 and B2 in the streamed layout (csrc/tc.cuh) --------------------------
 # (map, d, p, K, n) past the plain layout: more 16-row slabs of K than a
 # block has warps (K > 256 up to m8 = 64, K > 128 above), an m8 past the
-# widest compiled width (256), or tiles past shared memory.
-CHUNKED_CASES = [
-    (cuda_estep.GAUSS, 2, 0, 300, 100_003),   # m8 = 8, 19 slabs
+# widest compiled width (256), or tiles past shared memory; among them the
+# fed shapes of bench.py:296-312 (d=16 K=128, d=32 K=256), the ILR map at
+# d=16, p=1 (m8 = 584) and the diagonal map at d=32, K=256. The chunked
+# layout these once ran in is gone; the tests keep their names.
+STREAMED_CASES = [
+    (cuda_estep.GAUSS, 2, 0, 300, 100_003),   # m8 = 8, 19 slabs, 2 chunks
     (cuda_estep.GAUSS, 2, 0, 390, 1_001),
     (cuda_estep.GAUSS, 2, 0, 3_500, 1_001),   # 219 slabs, 14 chunks
     (cuda_estep.GAUSS, 3, 0, 1_700, 777),     # m8 = 16
     (ILR, 5, 1, 150, 10_007),                 # m8 = 80, K > 128
-    (ILR, 12, 2, 4, 1_001),                   # m8 = 360: 12 windows
-    (cuda_estep.GAUSS, 16, 0, 30, 1_001),     # m8 = 280: 9 windows
+    (ILR, 12, 2, 4, 1_001),                   # m8 = 360: 6 windows of 64
+    (cuda_estep.GAUSS, 16, 0, 30, 1_001),     # m8 = 280
+    (cuda_estep.GAUSS, 16, 0, 128, 100_003),  # bench.py's d=16 cell
+    (cuda_estep.GAUSS, 32, 0, 256, 20_011),   # bench.py:305, m8 = 1064
+    (cuda_estep.GAUSS, 23, 0, 5, 2_001),      # m8 = 560 > 512 table rows
+    (ILR, 16, 1, 50, 100_003),                # m8 = 584
+    (DIAG, 32, 0, 256, 20_011),               # m8 = 72, K past 128
 ]
 
 
-def _chunked_inputs(dev, kind, d, p, k, n, seed):
+def _streamed_inputs(dev, kind, d, p, k, n, seed):
     if kind == ILR:
         return _ilr_inputs(dev, n, k, d, p, seed)
+    if kind == DIAG:
+        return _diag_inputs(dev, n, k, d, seed)
     return _inputs(dev, n, k, d, seed)
 
 
-@pytest.mark.parametrize('kind,d,p,k,n', CHUNKED_CASES)
+@pytest.mark.parametrize('kind,d,p,k,n', STREAMED_CASES)
 def test_estep_kernel_chunked_layout(dev, kind, d, p, k, n):
-    xt, theta = _chunked_inputs(dev, kind, d, p, k, n, seed=13)
+    xt, theta = _streamed_inputs(dev, kind, d, p, k, n, seed=13)
     _check_estep(xt, theta, n, kind, p)
 
 
-@pytest.mark.parametrize('kind,d,p,k,n', CHUNKED_CASES)
+@pytest.mark.parametrize('kind,d,p,k,n', STREAMED_CASES)
 def test_gibbs_kernel_chunked_layout(dev, kind, d, p, k, n):
-    xt, theta = _chunked_inputs(dev, kind, d, p, k, n, seed=14)
+    xt, theta = _streamed_inputs(dev, kind, d, p, k, n, seed=14)
     _check_gibbs(xt, theta, n, kind, p)
 
 
 @pytest.mark.parametrize('divide', [True, False])
 def test_regf_probe_chunked_layout(dev, divide):
-    """S1 at m8 = 48, a width the probes compile only in the chunked
+    """S1 at m8 = 48, a width the probes run only in B1's streamed
     layout; with the divide it equals B1 within B1's tolerances."""
     n, k, d = 10_007, 8, 6
     xt, theta = _inputs(dev, n, k, d, seed=15)
@@ -756,14 +770,20 @@ def test_gibbs_fast_draw_within_its_margin(dev):
 
 
 def test_tc_kernels_refuse_past_shared_memory(dev):
-    """Past the chunked layout's shared memory (theta of K=8000, m8=8
-    alone is 256 KB) B1 and B2 raise."""
+    """Past shared memory (theta of K=8000, m8=8 alone is 256 KB, which B1
+    and B2 once refused) the streamed layout takes the shape; only scratch
+    past device memory raises: 6,000 chains of K=300 hold 16 MB of logits
+    each, 96 GB in all."""
     xt, theta = _inputs(dev, 1000, 8000, 2)
-    with pytest.raises(NotImplementedError, match='shared memory'):
-        cuda_estep.estep(xt, theta, 1000)
-    seed = torch.tensor(1, dtype=torch.int64, device=dev)
-    with pytest.raises(NotImplementedError, match='shared memory'):
-        cuda_gibbs.gibbs(xt, theta, seed, 1000)
+    _check_estep(xt, theta, 1000, cuda_estep.GAUSS, 0)
+    _check_gibbs(xt, theta, 1000, cuda_estep.GAUSS, 0)
+    xt, theta = _inputs(dev, 1000, 300, 2)
+    thetas = theta.expand(6000, -1, -1).contiguous()
+    with pytest.raises(NotImplementedError, match='device memory'):
+        cuda_estep.estep(xt, thetas, 1000)
+    seeds = torch.zeros(6000, dtype=torch.int64, device=dev)
+    with pytest.raises(NotImplementedError, match='device memory'):
+        cuda_gibbs.gibbs(xt, thetas, seeds, 1000)
 
 
 # -- the serving kernels B3-B6 at any K and d (csrc/serving.cuh) -------------
@@ -1212,15 +1232,18 @@ def test_nested_predict_runs_through_b5_b6(dev, p, prediction):
 
 # -- B1 and B2 with a chain axis (theta (C, K, m8), csrc/tc.cuh) --------------
 # (map, d, p, K, n, C): the plain layout's narrow and wide widths and the
-# chunked layout, C up to the two-sample check's 256 sweeps of one theta.
+# streamed layout, C up to the two-sample check's 256 sweeps of one theta.
 CHAIN_CASES = [
     (cuda_estep.GAUSS, 2, 0, 50, 100_003, 8),
     (cuda_estep.GAUSS, 2, 0, 16, 100_000, 16),
     (cuda_estep.GAUSS, 3, 0, 7, 1_001, 3),
     (DIAG, 2, 0, 50, 20_011, 4),
     (ILR, 8, 1, 50, 20_011, 4),                # m8 = 168
-    (cuda_estep.GAUSS, 2, 0, 300, 20_011, 2),  # chunked layout
-    (ILR, 12, 2, 4, 1_001, 2),                 # chunked, 12 windows
+    (cuda_estep.GAUSS, 2, 0, 300, 20_011, 2),  # streamed layout
+    (ILR, 12, 2, 4, 1_001, 2),                 # streamed, 6 windows
+    (cuda_estep.GAUSS, 16, 0, 128, 20_011, 2),  # streamed, fed shapes
+    (cuda_estep.GAUSS, 32, 0, 256, 5_003, 3),
+    (ILR, 16, 1, 50, 20_011, 2),
 ]
 
 
