@@ -1,0 +1,7 @@
+"""The traced requests' algorithmic FLOPs over their wall time at the TF32 peak (%)."""
+
+from harness.readers import mfu
+
+
+def read(ctx):
+    return mfu(ctx, 'serve')
