@@ -61,6 +61,7 @@ from mimo_tpu_torch.models.mixture import (
 from mimo_tpu_torch.models.mixture import (
     _anchor_indices as _flat_anchor_indices)
 from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
+from mimo_tpu_torch.utils.logging import spanned
 from mimo_tpu_torch.utils.sanitize import finite_report
 from mimo_tpu_torch.utils.stats import (
     normalize_log, sample_categorical_from_log)
@@ -431,6 +432,7 @@ class BayesianMixtureOfMixtures:
         return kl_c + kl_gi + torch.sum(
             st.outer_gating.kl_divergence(self.outer_gating_prior))
 
+    @spanned('engines')
     def fit_vi_fused(self, data, key=None, maxiter=100, block_size=131072,
                      randomize=True, tol=None, backend='auto', chains=False,
                      mesh=None):

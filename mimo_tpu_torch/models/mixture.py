@@ -85,6 +85,7 @@ from torch.func import vmap
 
 from mimo_tpu_torch.conjugate.families import Family
 from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
+from mimo_tpu_torch.utils.logging import span, spanned
 from mimo_tpu_torch.utils.sanitize import finite_report
 from mimo_tpu_torch.utils.stats import (
     entropy_categorical, normalize_log, sample_categorical_from_log)
@@ -138,7 +139,8 @@ def _elbo_loop(step, carry, maxiter, tol, lead=()):
             if all(flags):
                 break
             some = any(flags)
-        new, vlb = step(carry, i)
+        with span('engines', 'sweep', i):
+            new, vlb = step(carry, i)
         if some:
             carry = _tree_where(done, carry, new)
             vlb = torch.where(done, trace[-1], vlb)
@@ -510,6 +512,7 @@ class BayesianMixture:
                                                      stats),
                        gating=self.gating_prior.update(counts))
 
+    @spanned('engines')
     def fit_vi_fused(self, data, key=None, maxiter=250, tol=None,
                      block_size=131072, init_state=None, randomize=True,
                      backend='auto', chains=False, mesh=None):
@@ -544,16 +547,20 @@ class BayesianMixture:
                     torch.sum(gating.kl_divergence(self.gating_prior)))
 
         def step(state, _):
-            res = data.estep(spec, state.components,
-                             over(lambda g: g.expected_log_pi())(state.gating))
-            kl_comp, kl_gating = over(kl)(state.components, state.gating)
-            return (over(self._posterior)(res.stats, res.counts),
-                    res.lse - kl_comp - kl_gating)
+            with span('algebra', 'log_pi'):
+                log_pi = over(lambda g: g.expected_log_pi())(state.gating)
+            res = data.estep(spec, state.components, log_pi)
+            with span('algebra', 'kl'):
+                kl_comp, kl_gating = over(kl)(state.components, state.gating)
+            with span('algebra', 'posterior'):
+                post = over(self._posterior)(res.stats, res.counts)
+            return post, res.lse - kl_comp - kl_gating
 
         return finite_report(
             _elbo_loop(step, state, maxiter, tol,
                        (len(gens),) if chains else ()), 'fit_vi_fused')
 
+    @spanned('engines')
     def fit_gibbs_fused(self, data, key=None, maxiter=100, block_size=131072,
                         backend='auto', chains=False, mesh=None):
         """Blocked Gibbs with the fused label sweep (kernel B2 on CUDA):
@@ -600,18 +607,23 @@ class BayesianMixture:
         seeds = seeds if chains else seeds[:, 0]
         gen = batch_generator(gens) if chains else gens[0]
         for i in range(maxiter):
-            if fam.gibbs_update is None:
-                params = over(lambda q: fam.sample_params(gen, q),
-                              randomness='different')(comp)
-            log_pi = over(lambda g: torch.log(torch.clamp(
-                g.sample(gen), min=1e-37)), randomness='different')(gating)
-            labels, res = data.gibbs(spec, seeds[i], params, log_pi)
-            if fam.gibbs_update is None:
-                comp = over(lambda s: fam.update(cp, s))(res.stats)
-            else:
-                comp, params = over(lambda s: fam.gibbs_update(gen, cp, s),
-                                    randomness='different')(res.stats)
-            gating = over(self.gating_prior.update)(res.counts)
+            with span('engines', 'sweep', i):
+                with span('algebra', 'draws'):
+                    if fam.gibbs_update is None:
+                        params = over(lambda q: fam.sample_params(gen, q),
+                                      randomness='different')(comp)
+                    log_pi = over(lambda g: torch.log(torch.clamp(
+                        g.sample(gen), min=1e-37)),
+                        randomness='different')(gating)
+                labels, res = data.gibbs(spec, seeds[i], params, log_pi)
+                with span('algebra', 'posterior'):
+                    if fam.gibbs_update is None:
+                        comp = over(lambda s: fam.update(cp, s))(res.stats)
+                    else:
+                        comp, params = over(
+                            lambda s: fam.gibbs_update(gen, cp, s),
+                            randomness='different')(res.stats)
+                    gating = over(self.gating_prior.update)(res.counts)
         return finite_report(
             GibbsState(components=comp, gating=gating, params=params,
                        log_pi=log_pi,
@@ -733,6 +745,7 @@ class BayesianMixture:
             trace.append(res.lse)
         return finite_report((state, _stack(trace, data)), 'fit_map_fused')
 
+    @spanned('engines')
     def fit_vi(self, data, key=None, maxiter=250, tol=None, init_state=None,
                randomize=True, point_weights=None, mesh=None, chains=False):
         """Dense mean-field coordinate ascent. Returns (MFState, vlb
@@ -1543,6 +1556,7 @@ class BayesianMixture:
         """log E_q[pi] — posterior-mean mixture weights."""
         return torch.log(torch.clamp(state.gating.mean(), min=1e-37))
 
+    @spanned('engines')
     def log_predictive(self, state: MFState, data, dist='studentt',
                        backend='auto', mesh=None):
         """Posterior-predictive mixture log-density of full observations:
@@ -1566,6 +1580,7 @@ class BayesianMixture:
         return self._log_predictive_parts(state, [_as_tuple(data)], dist,
                                           backend)[0]
 
+    @spanned('models', 'predictive_parts')
     def _log_predictive_parts(self, state, parts, dist, backend):
         """log_predictive of each data tuple in `parts` (a mesh's shards,
         or the one whole): the kernels' coefficients are built once and
@@ -1577,7 +1592,8 @@ class BayesianMixture:
             diag_predictive_cuda_sharded)
         from mimo_tpu_torch.ops.cuda_predict import (
             gauss_predictive_cuda_sharded)
-        log_w = self.predictive_log_weights(state)
+        with span('algebra', 'coefficients'):
+            log_w = self.predictive_log_weights(state)
         if resolve_backend(backend, parts[0][0]):
             kernels = {NIW: gauss_predictive_cuda_sharded,
                        HierTied: gauss_predictive_cuda_sharded,

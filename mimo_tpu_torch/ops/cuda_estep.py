@@ -33,6 +33,7 @@ from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.family_estep import (
     diag_gauss_features_t, diag_gauss_width, gauss_features_t,
     gauss_width, ilr_features_t, ilr_width, reduce_estep)
+from mimo_tpu_torch.utils.logging import span, spanned
 
 # feature-map codes of the C entries (csrc/common.cuh kKind*)
 GAUSS, ILR, ILR_LINEAR, DIAG, ILR_DIAG, ILR_DIAG_LINEAR = 0, 1, 2, 3, 4, 5
@@ -211,6 +212,7 @@ def fused_estep_cuda(spec, post, log_pi, xts, n):
                                     local_mesh(xts[0].device), [n])
 
 
+@spanned('wrappers', 'b1')
 def fused_estep_cuda_sharded(spec, post, log_pi, shards, mesh, ns=None):
     """The fused E-step over a one-row mesh through B1, the counterpart
     of mimo_tpu's fused_estep_pallas_sharded: `shards` the kernel layouts
@@ -223,7 +225,8 @@ def fused_estep_cuda_sharded(spec, post, log_pi, shards, mesh, ns=None):
     compose. Returns the FusedEStep in the layout's dtype."""
     kind = feature_kind(spec.features_t)
     dtype = shards[0][0].dtype
-    theta, m = pad_theta(spec.theta(post), log_pi, dtype)
+    with span('algebra', 'theta'):
+        theta, m = pad_theta(spec.theta(post), log_pi, dtype)
     ns = [xts[0].shape[1] for xts in shards] if ns is None else ns
     parts = [p for p in estep_shards(theta, kind, shards, ns) if p is not None]
     return reduce_estep(spec, parts, theta.shape[:-2], theta.shape[-2], m,

@@ -31,6 +31,7 @@ from mimo_tpu_torch.ops.cuda_estep import (
     feature_width, pad_theta, stack_rows, y_rows)
 from mimo_tpu_torch.ops.family_estep import pack_estep, reduce_estep
 from mimo_tpu_torch.ops.philox import gumbel_max_labels, shard_seed
+from mimo_tpu_torch.utils.logging import span, spanned
 
 # kernel launches by `gibbs`, by feature map, for run accounting
 launches = {'gauss': 0, 'ilr': 0, 'diag': 0, 'ilr_diag': 0}
@@ -122,6 +123,7 @@ def fused_gibbs_cuda(spec, seed, params, log_pi, xts, n):
     return labels, res
 
 
+@spanned('wrappers', 'b2')
 def fused_gibbs_cuda_sharded(spec, seed, params, log_pi, shards, mesh,
                              ns=None):
     """The fused Gibbs label sweep over a one-row mesh through B2, the
@@ -136,7 +138,8 @@ def fused_gibbs_cuda_sharded(spec, seed, params, log_pi, shards, mesh,
     FusedEStep in the layout's dtype with lse = 0)."""
     kind = feature_kind(spec.features_t)
     dtype = shards[0][0].dtype
-    theta, m = pad_theta(spec.theta_plugin(params), log_pi, dtype)
+    with span('algebra', 'theta'):
+        theta, m = pad_theta(spec.theta_plugin(params), log_pi, dtype)
     m8 = theta.shape[-1]
     ns = [xts[0].shape[1] for xts in shards] if ns is None else ns
     labels, parts = [], []

@@ -27,10 +27,14 @@ from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import (
     _CHUNK, DIAG, GAUSS, KIND_NAMES, assemble_features, feature_width)
 from mimo_tpu_torch.utils.linalg import logdet_psd
+from mimo_tpu_torch.utils.logging import span, spanned
 from mimo_tpu_torch.utils.stats import LOG2PI, gammaln_diff
 
 # kernel launches by `predict`, by feature map, for run accounting
 launches = {'gauss': 0, 'diag': 0}
+# `cached_layout` calls that laid coefficients out anew (`built`) and that
+# found their layout kept (`reused`), spans on or off
+layouts = {'built': 0, 'reused': 0}
 
 GROUP = 8    # components per group of B3's padded-width layout
 
@@ -55,6 +59,7 @@ def cached_layout(coef, deps, key, build):
     are laid out on every call."""
     tensors = (coef,) + tuple(deps)
     if any(t.is_inference() for t in tensors):
+        layouts['built'] += 1
         return build()
     stamp = (tuple(t._version for t in tensors), key)
     hit = getattr(coef, '_mimo_layout', None)
@@ -62,6 +67,9 @@ def cached_layout(coef, deps, key, build):
             or any(a is not b for a, b in zip(hit[0], deps))):
         hit = (tuple(deps), stamp, build())
         coef._mimo_layout = hit
+        layouts['built'] += 1
+    else:
+        layouts['reused'] += 1
     return hit[2]
 
 
@@ -201,6 +209,7 @@ def gauss_predictive_cuda(post, log_w, x, dist='studentt'):
     return gauss_predictive_cuda_sharded(post, log_w, [x], dist)[0]
 
 
+@spanned('wrappers', 'b3')
 def gauss_predictive_cuda_sharded(post, log_w, xs, dist='studentt'):
     """gauss_predictive_cuda over the shards of a mesh (xs: one (n_j, d)
     tensor a shard, each on its device), the counterpart of the mesh
@@ -211,7 +220,8 @@ def gauss_predictive_cuda_sharded(post, log_w, xs, dist='studentt'):
     if dist not in ('studentt', 'gaussian'):
         raise ValueError(f'unknown dist: {dist!r}')
     studentt = dist == 'studentt'
-    thq, aux = predictive_coefficients(post, log_w, studentt)
+    with span('algebra', 'coefficients'):
+        thq, aux = predictive_coefficients(post, log_w, studentt)
     return [serve_shard(x, lambda xt: predict(
         xt, thq.to(xt.device, xt.dtype), aux.to(xt.device, xt.dtype),
         xt.shape[1], studentt)) for x in xs]

@@ -35,6 +35,7 @@ import torch
 
 from mimo_tpu_torch.models.mixture import (
     BayesianMixture, _as_generator, _as_tuple, _tree_map, _tree_map2)
+from mimo_tpu_torch.utils.logging import spanned
 
 # every engine runs C chains as one batched program (its chains=True), for
 # flat and nested models alike
@@ -43,6 +44,7 @@ BATCHED = ('fit_vi_fused', 'fit_gibbs_fused', 'fit_map_fused',
            'fit_svi')
 
 
+@spanned('models')
 def fit_chains(model, fit_name, data, keys, mesh=None, **kw):
     """Run `model.<fit_name>` once per key, as one program, and return its
     results stacked on a leading chain axis. `keys`: an int64 tensor (C,)

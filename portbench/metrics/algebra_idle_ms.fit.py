@@ -1,0 +1,9 @@
+"""Device idle ms a sweep of the spans segment's fit calls while the
+innermost open span of the port is one of its K-sized algebra's
+(mimo.algebra.*)."""
+
+from harness.spans import idle_ms_per_unit
+
+
+def read(ctx):
+    return idle_ms_per_unit(ctx, 'fit', 'algebra')
