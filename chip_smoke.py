@@ -22,8 +22,10 @@ Phases, one or more printed lines each:
               Student-t and Gaussian;
   6. main     the DP-GMM main path at N=1e7, K=50, d=2 through the
               public entry points (fit_vi_fused, fit_gibbs_fused,
-              log_predictive), with the kernels' launch counts, a kernel-
-              vs-plain check of the engines on a 100,003-point slice, the
+              log_predictive), with the kernels' launch counts and the
+              K-sized algebra's counts of the VI and the Gibbs fit
+              (Choleskys, solves, prior constants built and read; printed,
+              not checked), a kernel-vs-plain check of the engines on a 100,003-point slice, the
               rates, each kernel's time beside its plain version's, and
               B1's precision line: its lse and statistics against float64
               beside the f32 plain version's (at most 10x); B3's Gaussian
@@ -346,7 +348,7 @@ from torch.func import vmap
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
 from mimo_tpu_torch.conjugate.families import (
     diag_gaussian_family, ilr_family, linear_family, product_family)
-from mimo_tpu_torch.distributions import ng
+from mimo_tpu_torch.distributions import ng, niw
 from mimo_tpu_torch.distributions.affine import TiedAffine
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
 from mimo_tpu_torch.distributions.hierarchical import HierTied
@@ -371,6 +373,7 @@ from mimo_tpu_torch.ops.family_estep import (
     diag_gaussian_spec, gaussian_spec, ilr_spec)
 from mimo_tpu_torch.parallel import (
     best_of, diagnostics, fit_chains, smc_gibbs)
+from mimo_tpu_torch.utils import linalg
 
 N_MAIN, K_MAIN, D_MAIN = 10_000_000, 50, 2
 N_CHECK = 1_000_003            # a ragged tail for the 128-point tiles
@@ -945,12 +948,16 @@ def run(dev, seed, n_main, n_check):
     torch.cuda.synchronize()
     reset_counts()
     st, vlb = model.fit_vi_fused(x, key=1, maxiter=20)
+    algebra = {'VI 20': algebra_counts()}
+    reset_algebra_counts()
     gs = model.fit_gibbs_fused(x, key=2, maxiter=20)
+    algebra['Gibbs 20'] = algebra_counts()
     lp = model.log_predictive(st, x)
     torch.cuda.synchronize()
     path = read_counts()
     launches.update(B1=path['B1'], B2=path['B2'], B3=path['B3'])
-    print(f'main N={n_main} K={K_MAIN} d={D_MAIN}: launches {path}')
+    print(f'main N={n_main} K={K_MAIN} d={D_MAIN}: launches {path}; '
+          f'K-sized algebra (factorizations, prior constants) {algebra}')
     check(path['B1'] == 20 and path['B2'] == 20 and path['B3'] >= 1,
           'the main path bypassed a kernel')
 
@@ -1350,12 +1357,26 @@ def streamed_checks(dev, gen, card, spec, n):
 
 
 def reset_counts():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0, and the K-sized
+    algebra's counts."""
     for mod in (cuda_estep, cuda_gibbs, cuda_predict, cuda_ilr_predict,
                 cuda_probes):
         for key in mod.launches:
             mod.launches[key] = 0
     cuda_diag_predict.launches = 0
+    reset_algebra_counts()
+
+
+def reset_algebra_counts():
+    """Set the factorization and prior-constant counts to 0."""
+    linalg.counts.update(cholesky=0, solve=0)
+    niw.prior_consts.update(built=0, reused=0)
+
+
+def algebra_counts():
+    """The K-sized algebra's counts since the last reset: batched
+    Choleskys and Cholesky solves, prior constants built and read."""
+    return {**linalg.counts, **niw.prior_consts}
 
 
 def read_counts():

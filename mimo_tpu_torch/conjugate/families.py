@@ -49,6 +49,14 @@ class Family(NamedTuple):
     # likelihood-only EM engines; None = EM unsupported (the hierarchical
     # families)
     ml_update: Any = None
+    # The fixed prior's per-fit constants, prior -> consts, where the
+    # family factors each matrix once a sweep (NIW only); None = it does
+    # not. Given them, `update(prior, stats, consts, with_aux=True)` also
+    # returns the posterior's aux (its inverse scale and log-determinant),
+    # `kl(q, prior, consts, aux)` reads both in place of factoring, and
+    # `psi_aux(post)` builds the aux of a posterior no update made.
+    prior_consts: Any = None
+    psi_aux: Any = None
 
 
 def gaussian_family() -> Family:
@@ -68,6 +76,8 @@ def gaussian_family() -> Family:
             _niw.log_predictive_gaussian(post, data[0]),
         svi_blend=_niw.svi_blend,
         ml_update=_niw.ml_params,
+        prior_consts=_niw.prior_constants,
+        psi_aux=_niw.psi_aux,
     )
 
 
@@ -362,11 +372,13 @@ def tied_family(base: Family) -> Family:
     the exact tied draw (`tied_gibbs.tied_gibbs_update`), one Wishart or
     Gamma draw of the shared scale. The ML update pools the residual
     scatter (`_tied_ml`). The base family's posterior must be NIW, NG,
-    MNW or MNG."""
+    MNW or MNG. Pooling replaces the update's inverse scale, so the tied
+    family keeps no prior constants."""
     def pool(post):
         return _POOLERS[type(post)](post)
 
     return base._replace(
+        prior_consts=None, psi_aux=None,
         update=lambda prior, stats: pool(base.update(prior, stats)),
         svi_blend=lambda post, prior, stats, scale, step: pool(
             base.svi_blend(post, prior, stats, scale, step)),

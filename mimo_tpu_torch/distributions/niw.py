@@ -15,12 +15,17 @@ from typing import NamedTuple
 import torch
 
 from mimo_tpu_torch.utils.linalg import (
-    cholesky, inv_psd, symmetrize, quad_form,
+    chol_logdet, cholesky, inv_psd, inv_psd_chol, symmetrize, quad_form,
 )
 from mimo_tpu_torch.utils.stats import LOG2PI, mvn_logpdf, mvt_logpdf
 from mimo_tpu_torch.distributions.wishart import (
-    wishart_sample, wishart_expected_logdet, wishart_log_partition,
+    expected_logdet_at, log_partition_at, wishart_expected_logdet,
+    wishart_sample,
 )
+
+# How often a fit built a fixed prior's constants (`prior_constants`) and
+# how often an update or a KL read them back in place of forming them.
+prior_consts = {'built': 0, 'reused': 0}
 
 
 class NIW(NamedTuple):
@@ -65,6 +70,22 @@ class GaussParams(NamedTuple):
     lmbda: torch.Tensor  # (K, d, d) precision
 
 
+class PriorConsts(NamedTuple):
+    """The terms of a fixed NIW prior that every sweep of a fit reads,
+    built once a fit (`prior_constants`)."""
+    psi_inv: torch.Tensor   # (K, d, d)  psi^{-1}
+    nat: GaussStats         # nat_from_std(prior)
+    log_z: torch.Tensor     # (K,)       log_partition(prior)
+
+
+class PsiAux(NamedTuple):
+    """A posterior's psi^{-1} and log|psi|, formed by the update that made
+    it (`posterior_update(..., with_aux=True)`) or from psi (`psi_aux`):
+    what the next KL reads instead of factoring psi."""
+    psi_inv: torch.Tensor   # (K, d, d)
+    logdet: torch.Tensor    # (K,)  log|psi|
+
+
 def _outer(a, b):
     return a[..., :, None] * b[..., None, :]
 
@@ -83,10 +104,14 @@ def suff_stats(x, resp):
 # -- natural <-> standard parameters -------------------------------------------
 
 def nat_from_std(p: NIW) -> GaussStats:
-    d = p.dim
+    return _nat(p, inv_psd(p.psi))
+
+
+def _nat(p: NIW, psi_inv) -> GaussStats:
+    """nat_from_std given p's psi^{-1}."""
     kmm = p.kappa[..., None, None] * _outer(p.mu, p.mu)
     return GaussStats(x=p.kappa[..., None] * p.mu, n1=p.kappa,
-                      xxT=inv_psd(p.psi) + kmm, n2=p.nu - d)
+                      xxT=psi_inv + kmm, n2=p.nu - p.dim)
 
 
 def std_from_nat(nat: GaussStats) -> NIW:
@@ -96,14 +121,43 @@ def std_from_nat(nat: GaussStats) -> NIW:
     return NIW(mu=mu, kappa=nat.n1, psi=inv_psd(nat.xxT - kmm), nu=nat.n2 + d)
 
 
+# -- a fixed prior's constants and a posterior's inverse scale ----------------
+
+def prior_constants(p: NIW) -> PriorConsts:
+    """The fixed prior's psi^{-1}, natural parameters and log-partition,
+    which `posterior_update` and `kl_divergence` otherwise form again at
+    every call: a fit builds them once and hands them to every sweep."""
+    prior_consts['built'] += 1
+    psi_inv = inv_psd(p.psi)
+    return PriorConsts(psi_inv, _nat(p, psi_inv), log_partition(p))
+
+
+def _reused(consts: PriorConsts) -> PriorConsts:
+    prior_consts['reused'] += 1
+    return consts
+
+
+def psi_aux(p: NIW) -> PsiAux:
+    """p's psi^{-1} and log|psi| from psi (one Cholesky and one solve), for
+    a posterior that no update of this fit made."""
+    psi_inv, chol = inv_psd_chol(p.psi)
+    return PsiAux(psi_inv, chol_logdet(chol))
+
+
 # -- conjugate update --------------------------------------------------------
 
-def posterior_update(prior: NIW, stats: GaussStats) -> NIW:
+def posterior_update(prior: NIW, stats: GaussStats, consts=None,
+                     with_aux=False):
     """Closed-form conjugate update nat(post) = nat(prior) + stats, in the
     centered form
       psi'^{-1} = psi^{-1} + (S2 - n xbar xbar^T)
                 + (kappa n / kappa') (xbar - m)(xbar - m)^T,
-    which avoids the kappa m m^T - kappa' m' m'^T cancellation in f32."""
+    which avoids the kappa m m^T - kappa' m' m'^T cancellation in f32.
+
+    With the prior's `consts` (`prior_constants`) the prior's psi^{-1} is
+    read, not formed: the same numbers. With `with_aux` returns
+    (posterior, PsiAux): the new psi'^{-1} and log|psi'| = -log|psi'^{-1}|
+    from the factor that inverted it, for the next sweep's KL."""
     kappa_n = prior.kappa + stats.n1
     mu_n = (prior.kappa[..., None] * prior.mu + stats.x) / kappa_n[..., None]
     nu_n = prior.nu + stats.n2
@@ -111,9 +165,15 @@ def posterior_update(prior: NIW, stats: GaussStats) -> NIW:
     scatter = stats.xxT - stats.n1[..., None, None] * _outer(xbar, xbar)
     dm = xbar - prior.mu
     coef = prior.kappa * stats.n1 / kappa_n
-    psi_inv_n = (inv_psd(prior.psi) + scatter
+    psi_inv_p = (inv_psd(prior.psi) if consts is None
+                 else _reused(consts).psi_inv)
+    psi_inv_n = (psi_inv_p + scatter
                  + coef[..., None, None] * _outer(dm, dm))
-    return NIW(mu=mu_n, kappa=kappa_n, psi=inv_psd(psi_inv_n), nu=nu_n)
+    psi_n, chol = inv_psd_chol(psi_inv_n)
+    post = NIW(mu=mu_n, kappa=kappa_n, psi=psi_n, nu=nu_n)
+    if not with_aux:
+        return post
+    return post, PsiAux(psi_inv_n, -chol_logdet(chol))
 
 
 def svi_blend(post: NIW, prior: NIW, stats: GaussStats, scale, step) -> NIW:
@@ -127,14 +187,20 @@ def svi_blend(post: NIW, prior: NIW, stats: GaussStats, scale, step) -> NIW:
 
 # -- expectations (the VI E-step) and ELBO terms ------------------------------
 
-def expected_stats(p: NIW):
+def _logdet(p: NIW, logdet):
+    """log|psi| of p: `logdet` where known, else from its Cholesky."""
+    return chol_logdet(cholesky(p.psi)) if logdet is None else logdet
+
+
+def expected_stats(p: NIW, logdet=None):
     """E_q of the NW statistics
-    [Lambda mu, -1/2 mu^T Lambda mu, -1/2 Lambda, 1/2 logdet Lambda]."""
+    [Lambda mu, -1/2 mu^T Lambda mu, -1/2 Lambda, 1/2 logdet Lambda];
+    `logdet`: log|psi| where known (no factorization then)."""
     d = p.dim
     e_lm = torch.einsum('k,kde,ke->kd', p.nu, p.psi, p.mu)
     e_mlm = -0.5 * (d / p.kappa + torch.einsum('kd,kd->k', p.mu, e_lm))
     e_l = -0.5 * p.nu[..., None, None] * p.psi
-    e_logdet = 0.5 * wishart_expected_logdet(cholesky(p.psi), p.nu)
+    e_logdet = 0.5 * expected_logdet_at(_logdet(p, logdet), p.nu, d)
     return e_lm, e_mlm, e_l, e_logdet
 
 
@@ -146,21 +212,30 @@ def expected_log_likelihood(p: NIW, x):
     return 0.5 * (e_logdet - d * LOG2PI) - 0.5 * (p.nu * quad + d / p.kappa)
 
 
-def log_partition(p: NIW):
-    """log Z of the NW: -d/2 log kappa + logZ_Wishart(psi, nu)."""
+def log_partition(p: NIW, logdet=None):
+    """log Z of the NW: -d/2 log kappa + logZ_Wishart(psi, nu); `logdet`:
+    log|psi| where known."""
     return (-0.5 * p.dim * torch.log(p.kappa)
-            + wishart_log_partition(cholesky(p.psi), p.nu))
+            + log_partition_at(_logdet(p, logdet), p.nu, p.dim))
 
 
-def kl_divergence(q: NIW, p: NIW):
-    """KL(q || p) per component (K,)."""
-    e_lm, e_mlm, e_l, e_logdet = expected_stats(q)
-    nq, np_ = nat_from_std(q), nat_from_std(p)
+def kl_divergence(q: NIW, p: NIW, consts=None, aux=None):
+    """KL(q || p) per component (K,). With p's `consts` (`prior_constants`)
+    it reads p's natural parameters and log-partition, and with q's `aux`
+    (`PsiAux`) q's psi^{-1} and log|psi|: given both, it factors nothing
+    and solves nothing."""
+    logdet = None if aux is None else aux.logdet
+    e_lm, e_mlm, e_l, e_logdet = expected_stats(q, logdet)
+    nq = nat_from_std(q) if aux is None else _nat(q, aux.psi_inv)
+    if consts is None:
+        np_, log_zp = nat_from_std(p), log_partition(p)
+    else:
+        np_, log_zp = _reused(consts).nat, consts.log_z
     inner = (torch.einsum('kd,kd->k', nq.x - np_.x, e_lm)
              + (nq.n1 - np_.n1) * e_mlm
              + torch.einsum('kde,kde->k', nq.xxT - np_.xxT, e_l)
              + (nq.n2 - np_.n2) * e_logdet)
-    return log_partition(p) - log_partition(q) + inner
+    return log_zp - log_partition(q, logdet) + inner
 
 
 def log_marginal_likelihood(prior: NIW, posterior: NIW, n):

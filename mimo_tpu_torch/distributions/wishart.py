@@ -36,12 +36,20 @@ def wishart_sample(gen, psi, nu):
 
 def wishart_expected_logdet(psi_chol, nu):
     """E[logdet Lambda] = mvdigamma(nu/2, d) + d log 2 + logdet psi."""
-    d = psi_chol.shape[-1]
-    return mvdigamma(0.5 * nu, d) + d * math.log(2.0) + chol_logdet(psi_chol)
+    return expected_logdet_at(chol_logdet(psi_chol), nu, psi_chol.shape[-1])
+
+
+def expected_logdet_at(logdet_psi, nu, d):
+    """`wishart_expected_logdet` given logdet psi (...,) itself."""
+    return mvdigamma(0.5 * nu, d) + d * math.log(2.0) + logdet_psi
 
 
 def wishart_log_partition(psi_chol, nu):
     """log Z of W(psi, nu): nu*d/2 log2 + log Gamma_d(nu/2) + nu/2 logdet psi."""
-    d = psi_chol.shape[-1]
+    return log_partition_at(chol_logdet(psi_chol), nu, psi_chol.shape[-1])
+
+
+def log_partition_at(logdet_psi, nu, d):
+    """`wishart_log_partition` given logdet psi (...,) itself."""
     return (0.5 * nu * d * math.log(2.0) + mvgammaln(0.5 * nu, d)
-            + 0.5 * nu * chol_logdet(psi_chol))
+            + 0.5 * nu * logdet_psi)

@@ -530,7 +530,13 @@ class BayesianMixture:
         stopping on its own `tol`; chain c equals the fit with key c.
 
         With `mesh` (a one-row mesh, see the module docstring) B1 runs
-        once per non-empty shard a sweep, then one reduction."""
+        once per non-empty shard a sweep, then one reduction.
+
+        A family with prior constants (`Family.prior_consts`, NIW) builds
+        them once a call, and each sweep's update hands its posterior's
+        inverse scale (the aux) to the next sweep's KL beside the state:
+        the KL then factors nothing (the call's first sweep builds the aux
+        of its start)."""
         spec = self._estep_spec()
         if spec is None:
             raise NotImplementedError('no fused E-step spec for this family')
@@ -541,24 +547,40 @@ class BayesianMixture:
             state = self._random_start(data, gens, chains)
         else:
             state = init_state
+        fam, cp = self.family, self.components_prior
+        consts = None if fam.prior_consts is None else fam.prior_consts(cp)
 
-        def kl(comp, gating):
-            return (torch.sum(self.family.kl(comp, self.components_prior)),
+        def kl(comp, gating, aux):
+            kl_comp = (fam.kl(comp, cp) if consts is None
+                       else fam.kl(comp, cp, consts, aux))
+            return (torch.sum(kl_comp),
                     torch.sum(gating.kl_divergence(self.gating_prior)))
 
-        def step(state, _):
+        def posterior(stats, counts):
+            if consts is None:
+                return self._posterior(stats, counts), ()
+            comp, aux = fam.update(cp, stats, consts, with_aux=True)
+            return MFState(comp, self.gating_prior.update(counts)), aux
+
+        def step(carry, _):
+            state, aux = carry
             with span('algebra', 'log_pi'):
                 log_pi = over(lambda g: g.expected_log_pi())(state.gating)
             res = data.estep(spec, state.components, log_pi)
             with span('algebra', 'kl'):
-                kl_comp, kl_gating = over(kl)(state.components, state.gating)
+                if aux is None:
+                    aux = over(fam.psi_aux)(state.components)
+                kl_comp, kl_gating = over(kl)(state.components, state.gating,
+                                              aux)
             with span('algebra', 'posterior'):
-                post = over(self._posterior)(res.stats, res.counts)
-            return post, res.lse - kl_comp - kl_gating
+                post, aux = over(posterior)(res.stats, res.counts)
+            return (post, aux), res.lse - kl_comp - kl_gating
 
-        return finite_report(
-            _elbo_loop(step, state, maxiter, tol,
-                       (len(gens),) if chains else ()), 'fit_vi_fused')
+        # the plain path carries no aux; None: the first sweep builds it
+        aux = () if consts is None else None
+        (state, _), trace = _elbo_loop(step, (state, aux), maxiter, tol,
+                                       (len(gens),) if chains else ())
+        return finite_report((state, trace), 'fit_vi_fused')
 
     @spanned('engines')
     def fit_gibbs_fused(self, data, key=None, maxiter=100, block_size=131072,
@@ -592,6 +614,13 @@ class BayesianMixture:
         dev = data.device
         over = _over_chains(chains)
         fam, cp = self.family, self.components_prior
+        consts = None if fam.prior_consts is None else fam.prior_consts(cp)
+
+        def update(stats):
+            if consts is None:
+                return fam.update(cp, stats)
+            return fam.update(cp, stats, consts)
+
         lead = (len(gens),) if chains else ()
         comp, gating = cp, self.gating_prior
         if chains:
@@ -618,7 +647,7 @@ class BayesianMixture:
                 labels, res = data.gibbs(spec, seeds[i], params, log_pi)
                 with span('algebra', 'posterior'):
                     if fam.gibbs_update is None:
-                        comp = over(lambda s: fam.update(cp, s))(res.stats)
+                        comp = over(update)(res.stats)
                     else:
                         comp, params = over(
                             lambda s: fam.gibbs_update(gen, cp, s),

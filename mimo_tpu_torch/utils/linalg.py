@@ -9,6 +9,11 @@ import math
 
 import torch
 
+# Batched Cholesky factorizations and Cholesky solves run since the last
+# reset, a count a call whatever its batch (the tests and chip_smoke.py
+# read how often a sweep factors).
+counts = {'cholesky': 0, 'solve': 0}
+
 
 def symmetrize(a):
     """0.5 * (A + A^T) over the trailing two axes."""
@@ -27,8 +32,15 @@ def cholesky(a, jitter=0.0):
     mid-way on a host sync."""
     if jitter:
         a = a + jitter * _eye(a)
+    counts['cholesky'] += 1
     chol, _ = torch.linalg.cholesky_ex(symmetrize(a))
     return chol
+
+
+def cholesky_solve(b, chol):
+    """Solve A x = b given chol(A) (batched over leading axes)."""
+    counts['solve'] += 1
+    return torch.cholesky_solve(b, chol)
 
 
 def chol_logdet(chol):
@@ -44,12 +56,19 @@ def logdet_psd(a):
 
 def inv_psd(a):
     """Inverse of a PSD matrix (batched), by Cholesky solve."""
-    return torch.cholesky_solve(_eye(a).expand(a.shape), cholesky(a))
+    return inv_psd_chol(a)[0]
+
+
+def inv_psd_chol(a):
+    """(A^{-1}, chol(A)) of a PSD matrix (batched): `inv_psd` and the
+    factor it solved with."""
+    chol = cholesky(a)
+    return cholesky_solve(_eye(a).expand(a.shape), chol), chol
 
 
 def solve_psd(a, b):
     """Solve A x = b for PSD A (batched over leading axes)."""
-    return torch.cholesky_solve(b, cholesky(a))
+    return cholesky_solve(b, cholesky(a))
 
 
 def mvdigamma(a, d):
