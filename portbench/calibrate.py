@@ -9,9 +9,9 @@ In one process, runs the cell once a seed as run.py would (a short
 window at the cell's own load) and prints each run's compared numbers:
 the port's (the lower readings) and, for each control seed, the
 control's (the reference in TF32 put in the port's place: the upper
-readings). With --fault, the port runs with that fault planted
-(harness/faults.py), for the upper reading of a number that the control
-does not move.
+readings). With --fault, the port runs with that fault planted (one
+of the FAULTS of the cell's model adapter, on the kernels' path), for
+the upper reading of a number that the control does not move.
 
 One JSON line a run, also appended to FILE. The benchmark's own runs do
 not run this.
@@ -33,8 +33,7 @@ from harness import env  # noqa: E402
 
 env.set_cache_dirs()
 
-from harness import main  # noqa: E402
-from harness.faults import FAULTS  # noqa: E402
+from harness import cells, main  # noqa: E402
 
 
 def seeds(text):
@@ -46,13 +45,17 @@ def run(argv=None):
     ap.add_argument('--workload', required=True)
     ap.add_argument('--seeds', type=seeds, required=True)
     ap.add_argument('--control-seeds', type=seeds, default=[])
-    ap.add_argument('--fault', choices=sorted(FAULTS))
+    ap.add_argument('--fault', help="one of the cell's adapter's FAULTS")
     ap.add_argument('--seconds', type=float, default=1.0)
     ap.add_argument('--out')
     args = ap.parse_args(argv)
+    cell = cells.find_cell(args.workload)
+    faults = cells.adapter(cell.config['model'], cell.bench).FAULTS
+    if args.fault and args.fault not in faults:
+        ap.error(f'--fault: one of {sorted(faults)}')
     device = main.device_for(1)
     if args.fault:
-        FAULTS[args.fault]()      # planted for the rest of the process
+        faults[args.fault]()      # planted for the rest of the process
     runs = [(s, False) for s in args.seeds] + [(s, True)
                                                for s in args.control_seeds]
     for seed, control in runs:

@@ -1,8 +1,9 @@
 """Everything of a cell found by name: BENCHMARK.json's entry, then
-configs/<config>.json, traffic/<traffic>.json, limits/<workload>.json,
-metrics/<metric>.py and work/<kernel>.py under the benchmark's folder.
-Adding a configuration, a traffic mix, a metric or a kernel's work count
-is adding a file and an entry; no file here changes."""
+configs/<config>.json, adapters/<model>.py (the configuration's `model`),
+traffic/<traffic>.json, limits/<workload>.json, metrics/<metric>.py and
+work/<kernel>.py under the benchmark's folder. Adding a model, a
+configuration, a traffic mix, a metric or a kernel's work count is
+adding a file and an entry; no file here changes."""
 
 import importlib.util
 import json
@@ -47,6 +48,7 @@ def find_cell(workload, spec=None, bench=BENCH):
     config = load_json(bench / 'configs' / f"{w['config']}.json")
     traffic = load_json(bench / 'traffic' / f"{w['traffic']}.json")
     limits = load_json(bench / 'limits' / f'{workload}.json')
+    adapter_path(config['model'], bench)
     return Cell(workload, int(w['chips']), config, traffic, limits,
                 [m for m in spec['end_to_end'] if reports(m, workload)],
                 [m for m in spec['per_layer'] if reports(m, workload)],
@@ -60,6 +62,26 @@ def load_module(path, name):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def adapter_path(model, bench=BENCH):
+    """adapters/<model>.py, which has to exist; it is not loaded here."""
+    folder = Path(bench) / 'adapters'
+    path = folder / f'{model}.py'
+    if not path.is_file():
+        have = sorted(p.stem for p in folder.glob('*.py'))
+        raise LookupError(f'no adapter for model {model!r}: no {path}; '
+                          f'the adapters are {have}')
+    return path
+
+
+def adapter(model, bench=BENCH):
+    """adapters/<model>.py loaded: the model's calls, data, starts,
+    work-count shape, check and faults (the interface: the adapter's
+    docstring and the README's "To add a model"). It imports the port;
+    a run loads it once, in main.set_up."""
+    return load_module(adapter_path(model, bench),
+                       f'portbench_adapter_{model}')
 
 
 def metric_reader(name, bench=BENCH):

@@ -11,7 +11,6 @@ import time
 import torch
 
 from harness import cells, checks, env, gen, trace, traffic
-from harness.port import Port
 
 TRACE_SECONDS = 1.0        # the traced segment's least length
 TRACE_CALLS = 2            # and its least number of calls
@@ -76,6 +75,16 @@ def traced_segment(drv, sync, first, log):
     return seg, None
 
 
+def set_up(cell, seed, device):
+    """The cell's traffic driver: the cell's model adapter loaded (the
+    first import of the port), the fit data from the seed, the model
+    built over it, the traffic's set-up."""
+    adapter = cells.adapter(cell.config['model'], cell.bench)
+    data = adapter.data(cell.config, seed, device)
+    model = adapter.make(cell.config, data, device)
+    return traffic.driver(cell, adapter, model, data, seed, device)
+
+
 def run_cell(workload, seed, seconds, trace_on, device, t_start,
              spec=None, bench=env.BENCH, log=None, control=False):
     """Run one cell on `device`. Returns (result dict, check rows). With
@@ -87,9 +96,7 @@ def run_cell(workload, seed, seconds, trace_on, device, t_start,
     if device.type == 'cuda':
         sync()                       # the context exists before the reset
         torch.cuda.reset_peak_memory_stats(device)
-    port = Port(cell.config, device)
-    x, _ = gen.dataset(cell.config, seed, device)
-    drv = traffic.driver(cell, port, x, seed)
+    drv = set_up(cell, seed, device)
     drv.warm()
     sync()
     setup_s = time.perf_counter() - t_start
@@ -114,12 +121,10 @@ def run_cell(workload, seed, seconds, trace_on, device, t_start,
         record['busy_s'] = summary.busy_s
         record['window_s'] = summary.window_s
     failed = checks.finite_outputs(drv)
-    del port.model
+    del drv.model
     if device.type == 'cuda':
         torch.cuda.empty_cache()
-    cgen = gen.generator(seed, device, 'control')
-    found = checks.numbers(cell, drv, x, mode='tf32' if control else 'f64',
-                           gen=cgen)
+    found = drv.numbers(control, gen.generator(seed, device, 'control'))
     ok, rows = checks.judge(found, cell.limits)
     result = {'correct': bool(ok and failed == 0), 'attempted': window.calls,
               'failed': failed, 'metrics': metrics, 'device': record}

@@ -198,7 +198,7 @@ def segment(ctx):
         _log('the port has no layer spans')
         return None
     drv = ctx._drv
-    found = run_segment(drv, traffic.synchronizer(drv.port.device),
+    found = run_segment(drv, traffic.synchronizer(drv.device),
                         ctx.segment.first + ctx.segment.calls, hooks)
     if found is not None:
         report(found, ctx.trace)

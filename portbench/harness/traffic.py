@@ -1,19 +1,21 @@
 """The one generator of traffic: it reads a mix's parameters
-(traffic/<name>.json) and drives the port with them. Two kinds:
+(traffic/<name>.json) and drives the port, through the cell's model
+adapter (adapters/<model>.py), with them. Two kinds:
 
   fit    whole calls of a fit engine back to back: `engine`, `chains`,
          `maxiter`; `start` "anchor" starts every call from the chains'
-         set-up posteriors (gen.anchor_start, randomize=False), null from
-         the engine's own start; `keys` "fixed" gives every call the same
-         chain keys, "fresh" new ones a call (from the seed). A call's
-         work is N x chains x maxiter points.
+         set-up posteriors (the adapter's start, randomize=False), null
+         from the engine's own start; `keys` "fixed" gives every call
+         the same chain keys, "fresh" new ones a call (from the seed). A
+         call's work is N x chains x maxiter points.
   serve  one caller in a closed loop: requests back to back, each timed
-         from its call to its synchronised result; a request is
-         log_predictive (`dist`) of n points, a slice of a pool of
-         2^pool_log2 points drawn from the configuration's blobs; the
-         sizes are `sizes` values of log2 n stratified over `log2_n`.
-         Every seed asks for the same sizes in its own order. The
-         posterior is a `posterior` fit made in set-up.
+         from its call to its synchronised result; a request is the
+         adapter's serving call (with the mix's parameters, such as
+         `dist`) over n points, a slice of a pool of 2^pool_log2 points
+         the adapter draws like the fit data; the sizes are `sizes`
+         values of log2 n stratified over `log2_n`. Every seed asks for
+         the same sizes in its own order. The posterior is a `posterior`
+         fit made in set-up from the adapter's start.
 
 `kernel` names the work count (work/<kernel>.py) of the calls' per-point
 pass, `sample` how many outputs the check keeps ("all", or that many
@@ -59,13 +61,15 @@ class Sampler:
 class Fit:
     span = 'portbench.fit_call'
 
-    def __init__(self, cell, port, x, seed):
+    def __init__(self, cell, adapter, model, data, seed, device):
         t = cell.traffic
-        self.port, self.x, self.seed = port, x, seed
+        self.adapter, self.model, self.data = adapter, model, data
+        self.config, self.seed, self.device = cell.config, seed, device
         self.engine, self.chains = t['engine'], int(t['chains'])
         self.maxiter, self.keys_mode = int(t['maxiter']), t['keys']
-        self.start = (gen.anchor_start(cell.config, x, self.chains, seed)
+        self.start = (adapter.start(cell.config, data, self.chains, seed)
                       if t.get('start') == 'anchor' else None)
+        self.n = self.adapter.shape(model, data)['n']
         self.sampler = Sampler(t['sample'], gen.host_rng(seed, 'sample'))
 
     def keys(self, i):
@@ -77,44 +81,57 @@ class Fit:
         self.call(-1)
 
     def call(self, i):
-        return self.port.fit(self.engine, self.x, self.keys(i), self.maxiter,
-                             self.start)
+        return self.adapter.fit(self.model, self.engine, self.data,
+                                self.keys(i), self.maxiter, self.start)
 
     def points(self, _i):
-        return self.x.shape[0] * self.chains * self.maxiter
+        return self.n * self.chains * self.maxiter
 
     def units(self, _i):
         """Sweeps a call runs (each over every chain)."""
         return self.maxiter
 
     def shape(self):
-        n, d = self.x.shape
-        return dict(n=n, d=d, k=self.port.model.size, chains=self.chains)
+        return dict(self.adapter.shape(self.model, self.data),
+                    chains=self.chains)
 
     def record(self, i, out):
         self.sampler.offer(0, dict(call=i, out=out))
+
+    def numbers(self, control, g):
+        """The compared numbers of the kept calls; with `control`, of the
+        control's outputs in their place."""
+        outs = [k['out'] for k in self.sampler.kept()]
+        if control:
+            outs = self.adapter.control_fit(self.config, self.engine,
+                                            self.data, self.start, outs,
+                                            self.maxiter, g)
+        return self.adapter.numbers_fit(self.config, self.engine, self.data,
+                                        self.start, outs)
 
 
 class Serve:
     span = 'portbench.serve_request'
 
-    def __init__(self, cell, port, x, seed):
+    def __init__(self, cell, adapter, model, data, seed, device):
         t = cell.traffic
-        self.port, self.seed, self.dist, self.traffic = (port, seed,
-                                                         t['dist'], t)
-        data, d = cell.config['data'], cell.config['make']['dim']
-        means = gen.blob_means(data, d, seed, x.device)
-        self.pool = gen.blob_points(data, means, 2 ** int(t['pool_log2']),
-                                    gen.generator(seed, x.device, 'pool'))
+        self.adapter, self.model, self.data = adapter, model, data
+        self.config, self.seed, self.device = cell.config, seed, device
+        self.traffic = t
+        self.pool = adapter.pool(cell.config, seed, 2 ** int(t['pool_log2']),
+                                 device)
         post = t['posterior']
-        self.start = gen.anchor_start(cell.config, x, 1, seed)
-        fit = port.fit(post['engine'], x, [gen.sub_seed(seed, 'posterior')
-                                           % 2 ** 62], int(post['maxiter']),
-                       self.start)
-        self.fit_out, self.fit_maxiter = fit, int(post['maxiter'])
+        self.start = adapter.start(cell.config, data, 1, seed)
+        self.fit_engine = post['engine']
+        self.fit_maxiter = int(post['maxiter'])
+        fit = adapter.fit(model, self.fit_engine, data,
+                          [gen.sub_seed(seed, 'posterior') % 2 ** 62],
+                          self.fit_maxiter, self.start)
+        self.fit_out = fit
         self.posterior = {k: v[0] for k, v in fit.items() if k != 'trace'}
-        self.state = port.state(fit, 0)
-        self.plan = gen.request_plan(t, self.pool.shape[0], seed)
+        self.state = adapter.state(model, fit, 0)
+        self.plan = gen.request_plan(t, adapter.shape(model, self.pool)['n'],
+                                     seed)
         self.requests = []
         self.sampler = Sampler(t['sample'], gen.host_rng(seed, 'sample'),
                                keep_largest=True)
@@ -122,7 +139,8 @@ class Serve:
     def warm(self):
         """Every request size once, largest first."""
         for n in sorted(gen.request_sizes(self.traffic), reverse=True):
-            self.port.serve(self.state, self.pool[:n], self.dist)
+            self.adapter.serve(self.model, self.state, self.pool, 0, n,
+                               self.traffic)
 
     def request(self, i):
         """(offset, n) of request i."""
@@ -132,7 +150,8 @@ class Serve:
 
     def call(self, i):
         off, n = self.request(i)
-        return self.port.serve(self.state, self.pool[off:off + n], self.dist)
+        return self.adapter.serve(self.model, self.state, self.pool, off, n,
+                                  self.traffic)
 
     def points(self, i):
         return self.request(i)[1]
@@ -141,22 +160,44 @@ class Serve:
         return 1
 
     def shape(self):
-        return dict(d=self.pool.shape[1], k=self.port.model.size)
+        """The pool's shape; the work count takes each request's n."""
+        return self.adapter.shape(self.model, self.pool)
 
     def record(self, i, out):
         off, n = self.request(i)
         self.sampler.offer(n, dict(call=i, offset=off, n=n, out=out))
 
+    def numbers(self, control, g):
+        """The compared numbers of the kept requests, and of the set-up
+        fit that made the posterior (prefixed `fit_`); with `control`, of
+        the control's outputs in their place."""
+        outs, fit = self.sampler.kept(), [self.fit_out]
+        if control:
+            outs = self.adapter.control_serve(self.config, self.pool,
+                                              self.posterior, outs, g)
+            fit = self.adapter.control_fit(self.config, self.fit_engine,
+                                           self.data, self.start, fit,
+                                           self.fit_maxiter, g)
+        found = self.adapter.numbers_serve(self.config, self.pool,
+                                           self.posterior, outs)
+        for name, value in self.adapter.numbers_fit(
+                self.config, self.fit_engine, self.data, self.start,
+                fit).items():
+            found['fit_' + name] = value
+        return found
+
 
 KINDS = {'fit': Fit, 'serve': Serve}
 
 
-def driver(cell, port, x, seed):
+def driver(cell, adapter, model, data, seed, device):
+    """The traffic's driver of `model` (the adapter's make) over the fit
+    data, its set-up done (starts, the serving pool and posterior)."""
     kind = cell.traffic['kind']
     if kind not in KINDS:
         raise ValueError(f'unknown traffic kind {kind!r}; one of '
                          f'{sorted(KINDS)}')
-    return KINDS[kind](cell, port, x, seed)
+    return KINDS[kind](cell, adapter, model, data, seed, device)
 
 
 class Window:

@@ -6,8 +6,8 @@ imports nothing of the port."""
 import pytest
 import torch
 
-import pb_support  # noqa: F401  (paths)
-from harness import gen
+import pb_support
+from harness import cells
 from reference import dpgmm
 from reference.precision import matmul, tf32_round
 from mimo_tpu_torch.distributions.gating import StickBreaking
@@ -17,6 +17,7 @@ from mimo_tpu_torch.models.mixture import MFState
 from mimo_tpu_torch.parallel import fit_chains
 
 MAKE = dict(gating='dp', alpha=1.0, kappa=0.05, psi_scale=0.5)
+GMM = cells.adapter('BayesianGMM', pb_support.BENCH)
 
 
 def config(n, k, d):
@@ -27,9 +28,8 @@ def config(n, k, d):
 
 def setup(n, k, d, chains, seed=5):
     cfg = config(n, k, d)
-    x, _ = gen.dataset(cfg, seed, torch.device('cpu'))
-    x = x.double()
-    start = gen.anchor_start(cfg, x.float(), chains, seed, sub=2048)
+    x = GMM.data(cfg, seed, torch.device('cpu')).double()
+    start = GMM.start(cfg, x.float(), chains, seed, sub=2048)
     model = BayesianGMM.make(size=k, dim=d, dtype=torch.float64,
                              device='cpu', **MAKE)
     prior = dpgmm.make_prior(cfg['make'], d, torch.float64, x.device)

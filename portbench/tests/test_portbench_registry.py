@@ -63,6 +63,12 @@ def test_cell_files_load_by_name(workload):
         assert callable(cells.metric_reader(m['name']))
     work = cells.work_count(cell.traffic['kernel'])
     assert callable(work.count) and work.KERNELS
+    adapter = cells.adapter(cell.config['model'])
+    for name in ('make', 'data', 'start', 'fit', 'state', 'pool', 'serve',
+                 'shape', 'numbers_fit', 'control_fit', 'numbers_serve',
+                 'control_serve'):
+        assert callable(getattr(adapter, name)), name
+    assert all(callable(f) for f in adapter.FAULTS.values())
 
 
 def test_new_files_are_found_without_edits(tmp_path):

@@ -10,8 +10,7 @@ import pytest
 import torch
 
 import pb_support
-from harness import cells, gen, main, spans, trace, traffic
-from harness.port import Port
+from harness import cells, main, spans, trace, traffic
 
 SPAN_METRICS = ('algebra_idle_ms.fit', 'engines_idle_ms.fit',
                 'wrappers_idle_ms.fit', 'algebra_ops.fit',
@@ -119,8 +118,7 @@ def context(bench, workload, seed=2 ** 33 + 5):
     with a stand-in for the harness's trace."""
     cell = cells.find_cell(workload, pb_support.spec(), bench)
     dev = torch.device('cpu')
-    x, _ = gen.dataset(cell.config, seed, dev)
-    drv = traffic.driver(cell, Port(cell.config, dev), x, seed)
+    drv = main.set_up(cell, seed, dev)
     drv.warm()
     sync = traffic.synchronizer(dev)
     window = traffic.run(drv, 0.01, sync)
