@@ -348,7 +348,7 @@ from torch.func import vmap
 import mimo_tpu_torch  # noqa: F401  (sets the float32 precision policy)
 from mimo_tpu_torch.conjugate.families import (
     diag_gaussian_family, ilr_family, linear_family, product_family)
-from mimo_tpu_torch.distributions import ng, niw
+from mimo_tpu_torch.distributions import hierarchical, ng, niw
 from mimo_tpu_torch.distributions.affine import TiedAffine
 from mimo_tpu_torch.distributions.gating import Dirichlet, StickBreaking
 from mimo_tpu_torch.distributions.hierarchical import HierTied
@@ -1368,15 +1368,17 @@ def reset_counts():
 
 
 def reset_algebra_counts():
-    """Set the factorization and prior-constant counts to 0."""
+    """Set the factorization, prior-constant and inner-round counts to 0."""
     linalg.counts.update(cholesky=0, solve=0)
     niw.prior_consts.update(built=0, reused=0)
+    hierarchical.counts.update(rounds=0, updates=0)
 
 
 def algebra_counts():
     """The K-sized algebra's counts since the last reset: batched
-    Choleskys and Cholesky solves, prior constants built and read."""
-    return {**linalg.counts, **niw.prior_consts}
+    Choleskys and Cholesky solves, prior constants built and read, the
+    hierarchical updates and their inner rounds."""
+    return {**linalg.counts, **niw.prior_consts, **hierarchical.counts}
 
 
 def read_counts():
@@ -2344,11 +2346,17 @@ def tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms):
         torch.cuda.synchronize()
         reset_counts()
         st, vlb = model.fit_vi_fused(x, key=1, maxiter=20)
+        rounds = dict(hierarchical.counts)
         gs = model.fit_gibbs_fused(x, key=2, maxiter=20)
         lp = model.log_predictive(st, x)
         torch.cuda.synchronize()
         path = read_counts()
         print(f'{tag}: launches {path}')
+        if label == 'hier':
+            # the random start's update and one a sweep, 25 rounds each
+            print(f'{tag}: VI 20 inner rounds {rounds}')
+            check(rounds == {'rounds': 25 * 21, 'updates': 21},
+                  'the hier GMM VI fit ran other than 25 rounds an update')
         check(path[counts[0]] == 20 and path[counts[1]] == 20
               and path[counts[2]] == 1,
               f'the {label} GMM path bypassed a kernel')

@@ -10,6 +10,11 @@ The K means share one Normal-Wishart hyper-prior and one precision. The
 hyper-posterior update reproduces the reference's K-averaged forms; each
 update restarts the inner coordinate ascent from the hyper-prior, as the
 JAX package does.
+
+The inner rounds of an update (`posterior_update`, `svi_blend`) are the
+span `mimo.algebra.hyper`, their number its argument, while the layer
+spans are on (utils/logging.py); `counts` adds up the updates and their
+rounds.
 """
 
 from typing import NamedTuple
@@ -23,7 +28,13 @@ from mimo_tpu_torch.distributions.wishart import (
     wishart_expected_logdet, wishart_sample)
 from mimo_tpu_torch.utils.linalg import (
     chol_logdet, cholesky, inv_psd, quad_form)
+from mimo_tpu_torch.utils.logging import span
 from mimo_tpu_torch.utils.stats import LOG2PI, mvn_logpdf, mvt_logpdf
+
+# Inner-round updates run since the last reset and their rounds, a count a
+# Python call whatever the batch or vmap (the tests and chip_smoke.py read
+# how many rounds a sweep runs).
+counts = {'rounds': 0, 'updates': 0}
 
 
 class HierTied(NamedTuple):
@@ -62,6 +73,13 @@ def _outer(a, b):
     return a[..., :, None] * b[..., None, :]
 
 
+def _inner_rounds(nb_iter):
+    """Count one update of `nb_iter` rounds; its span."""
+    counts['updates'] += 1
+    counts['rounds'] += nb_iter
+    return span('algebra', 'hyper', nb_iter)
+
+
 def _hyper_mstep(prior: HierTied, mus, stats: GaussStats) -> NIW:
     """The reference's K-averaged NW hyper-posterior update, over K."""
     k = mus.shape[0]
@@ -91,9 +109,10 @@ def posterior_update(prior: HierTied, stats: GaussStats,
     kap = prior.kappas0
     kappas_n = kap + stats.n1
     hyper, mus = prior.hyper, prior.mus
-    for _ in range(nb_iter):
-        mus = (kap[:, None] * hyper.mu + stats.x) / kappas_n[:, None]
-        hyper = _hyper_mstep(prior, mus, stats)
+    with _inner_rounds(nb_iter):
+        for _ in range(nb_iter):
+            mus = (kap[:, None] * hyper.mu + stats.x) / kappas_n[:, None]
+            hyper = _hyper_mstep(prior, mus, stats)
     return HierTied(hyper=hyper, mus=mus, kappas=kappas_n, kappas0=kap)
 
 
@@ -193,17 +212,18 @@ def svi_blend(post: HierTied, prior: HierTied, stats: GaussStats,
     sx, sn = stats.x / scale, stats.n1 / scale
     scaled = GaussStats(x=sx, n1=sn, xxT=stats.xxT / scale, n2=sn)
     hyper, mus, kappas = post.hyper, post.mus, post.kappas
-    for _ in range(nb_iter):
-        tau = hyper.mu[0]
-        nat1 = ((1.0 - step) * (kappas[:, None] * mus)
-                + step * (kap[:, None] * tau[None, :] + sx))
-        kappas = (1.0 - step) * kappas + step * (kap + sn)
-        mus = nat1 / kappas[:, None]
-        target = _hyper_mstep(prior, mus, scaled)
-        hyper = _niw.std_from_nat(GaussStats(*(
-            (1.0 - step) * a + step * b
-            for a, b in zip(_niw.nat_from_std(hyper),
-                            _niw.nat_from_std(target)))))
+    with _inner_rounds(nb_iter):
+        for _ in range(nb_iter):
+            tau = hyper.mu[0]
+            nat1 = ((1.0 - step) * (kappas[:, None] * mus)
+                    + step * (kap[:, None] * tau[None, :] + sx))
+            kappas = (1.0 - step) * kappas + step * (kap + sn)
+            mus = nat1 / kappas[:, None]
+            target = _hyper_mstep(prior, mus, scaled)
+            hyper = _niw.std_from_nat(GaussStats(*(
+                (1.0 - step) * a + step * b
+                for a, b in zip(_niw.nat_from_std(hyper),
+                                _niw.nat_from_std(target)))))
     return HierTied(hyper=hyper, mus=mus, kappas=kappas, kappas0=kap)
 
 

@@ -14,7 +14,10 @@ B1-B3). Off by default, a span is one shared null context and costs a
 flag check; inside `spans()` (and `profile`) it is a
 torch.profiler.record_function range, which a profiler session records
 as a `user_annotation` event on the same timeline as the card's events.
-A span never opens inside torch.func.vmap's mapped function.
+Only `mimo.algebra.hyper` (distributions/hierarchical.py) opens inside
+torch.func.vmap's mapped function, where chains batch the update: the
+range takes no tensor, so vmap runs it once a call, as it runs the
+function's Python.
 """
 
 import json
