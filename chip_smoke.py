@@ -75,8 +75,9 @@ Phases, one or more printed lines each:
               on the data of bench.py:90-98 (N=1e7, K=50, d=2):
               fit_vi_fused 20, fit_gibbs_fused 20, log_predictive (B3 on
               HierTied rows for the hierarchical GMM), launch counts,
-              ELBO, kernel vs plain on a 100,003-point slice, rates and
-              kernel times;
+              the hierarchical update's inner rounds and Choleskys, ELBO,
+              kernel vs plain on a 100,003-point slice, rates and kernel
+              times;
  15. hilr     the tied-activation ILR (HierTied basis x tied-affine
               experts): the sine flagship (N=1e7, d=1, p=1: Gibbs 60 over
               the first 10,000 points -> VI 20 over all -> predict through
@@ -356,7 +357,7 @@ from mimo_tpu_torch.distributions.mng import MNG
 from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.ng import NG
 from mimo_tpu_torch.distributions.niw import (
-    GaussParams, NIW, mode_params, predictive_studentt_params)
+    GaussParams, GaussStats, NIW, mode_params, predictive_studentt_params)
 from mimo_tpu_torch.io import MmapDataset, write_bin
 from mimo_tpu_torch.models import (
     GMM, BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
@@ -2074,6 +2075,21 @@ def tied_from(experts):
                       psi=experts.psi[0], nu=experts.nu[0])
 
 
+def hier_update_choleskys(model, x, labels):
+    """The batched Choleskys of one hierarchical update (the model's
+    family update, its maxsubiter rounds) on the statistics of `labels`."""
+    k, d = model.size, x.shape[1]
+    z = labels.long()
+    n1 = torch.bincount(z, minlength=k).to(x.dtype)
+    sx = torch.zeros((k, d), dtype=x.dtype, device=x.device).index_add_(
+        0, z, x)
+    xxT = torch.zeros((k, d, d), dtype=x.dtype, device=x.device).index_add_(
+        0, z, x[:, :, None] * x[:, None, :])
+    linalg.counts.update(cholesky=0, solve=0)
+    model.family.update(model.components_prior, GaussStats(sx, n1, xxT, n1))
+    return linalg.counts['cholesky']
+
+
 def branch_checks(dev, gen, errs):
     """B3 on HierTied rows and B5/B6 on every new basis x expert
     combination against their plain versions."""
@@ -2353,10 +2369,15 @@ def tied_gmm_paths(dev, seed, card, n_main, errs, launches, ms):
         path = read_counts()
         print(f'{tag}: launches {path}')
         if label == 'hier':
-            # the random start's update and one a sweep, 25 rounds each
-            print(f'{tag}: VI 20 inner rounds {rounds}')
+            # the random start's update and one a sweep, 25 rounds each;
+            # an update factors twice, whatever its rounds
+            chols = hier_update_choleskys(model, x, gs.labels)
+            print(f'{tag}: VI 20 inner rounds {rounds}; Choleskys an '
+                  f'update {chols}')
             check(rounds == {'rounds': 25 * 21, 'updates': 21},
                   'the hier GMM VI fit ran other than 25 rounds an update')
+            check(chols == 2,
+                  'the hier update factored other than twice an update')
         check(path[counts[0]] == 20 and path[counts[1]] == 20
               and path[counts[2]] == 1,
               f'the {label} GMM path bypassed a kernel')

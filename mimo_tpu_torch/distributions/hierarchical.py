@@ -105,13 +105,32 @@ def posterior_update(prior: HierTied, stats: GaussStats,
                      nb_iter: int = 25) -> HierTied:
     """Inner mean-field coordinate ascent: `nb_iter` rounds of the q(mu_k)
     e-step (kappa_k rho + x_k) / (kappa_k + n_k) with the current hyper
-    mean, then the hyper m-step; the final mus are the last e-step's."""
+    mean rho, then the hyper m-step; the final mus are the last e-step's.
+
+    A round reads only the previous round's rho, and the m-step's rho is
+    affine in it: with S = sum_k (kappa_k + kappa0),
+
+      rho' = a rho + b,  a = sum_k kappa_k^2 / (kappa_k + n_k) / S,
+      b = (sum_k kappa_k x_k / (kappa_k + n_k) + K kappa0 m0) / S.
+
+    So each round but the last is one fused op on rho, and the last runs
+    the e-step and the whole m-step, whose kappa, psi and nu no earlier
+    round reads: two Choleskys an update, whatever `nb_iter`."""
     kap = prior.kappas0
     kappas_n = kap + stats.n1
     hyper, mus = prior.hyper, prior.mus
     with _inner_rounds(nb_iter):
-        for _ in range(nb_iter):
-            mus = (kap[:, None] * hyper.mu + stats.x) / kappas_n[:, None]
+        if nb_iter:
+            m0, kappa0 = hyper.mu, hyper.kappa[0]
+            w = kap / kappas_n
+            s = torch.sum(kap + kappa0)
+            a = torch.sum(kap * w) / s
+            b = (torch.einsum('k,kd->d', w, stats.x)[None]
+                 + kap.shape[0] * kappa0 * m0) / s
+            rho = m0
+            for _ in range(nb_iter - 1):
+                rho = torch.addcmul(b, a, rho)
+            mus = (kap[:, None] * rho + stats.x) / kappas_n[:, None]
             hyper = _hyper_mstep(prior, mus, stats)
     return HierTied(hyper=hyper, mus=mus, kappas=kappas_n, kappas0=kap)
 
