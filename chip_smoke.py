@@ -363,18 +363,19 @@ from mimo_tpu_torch.models import (
     GMM, BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState, _flatten_mk
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, MFState, _cast, _Shards, kernel_xts, stack_trees)
+    BayesianMixture, MFState, _Shards, stack_trees)
 from mimo_tpu_torch.ops import (
     _build, cuda_diag_predict, cuda_estep, cuda_gibbs, cuda_hello,
     cuda_ilr_predict, cuda_predict, cuda_probes, precision)
 from mimo_tpu_torch.ops.cuda_estep import (
-    DIAG, ILR, ILR_DIAG, ILR_DIAG_LINEAR, assemble_features, pad_theta,
-    stack_rows)
+    DIAG, ILR, ILR_DIAG, ILR_DIAG_LINEAR, assemble_features, kernel_xts,
+    pad_theta, stack_rows)
 from mimo_tpu_torch.ops.family_estep import (
     diag_gaussian_spec, gaussian_spec, ilr_spec)
 from mimo_tpu_torch.parallel import (
     best_of, diagnostics, fit_chains, smc_gibbs)
 from mimo_tpu_torch.utils import linalg
+from mimo_tpu_torch.utils.tree import cast_floats, tree_map2
 
 N_MAIN, K_MAIN, D_MAIN = 10_000_000, 50, 2
 N_CHECK = 1_000_003            # a ragged tail for the 128-point tiles
@@ -3114,8 +3115,8 @@ def nested_gmm_paths(dev, seed, card, errs, launches, ms):
             lp_k, model.log_predictive(st, xs, backend='torch'), 1e-5, 1e-4)
         # B3's HierTied rows, one cluster at a time, against the dense
         # density in float64
-        lp64 = model.log_predictive(_cast(st, torch.float64), xs.double(),
-                                    backend='torch')
+        lp64 = model.log_predictive(cast_floats(st, torch.float64),
+                                    xs.double(), backend='torch')
         ok_64, e_64 = allclose_report(lp_k, lp64, 1e-5, 1e-4)
         # the joint M*K draw: 3 sweeps from the same generator, whose
         # Philox labels the plain twin draws alike
@@ -4265,7 +4266,7 @@ def unstaged_em_start(model, read_block, n_blocks, key, dev):
         b = torch.from_numpy(read_block(i)).to(dev)
         st = model.family.suff_stats((b,), tmix.anchor_resp(b, anchors,
                                                             scale2))
-        stats = st if stats is None else tmix._tree_map2(torch.add, stats, st)
+        stats = st if stats is None else tree_map2(torch.add, stats, st)
     return model.family.ml_update(stats)
 
 

@@ -17,11 +17,11 @@ one after the other (parent, change, change, parent). On
   * fit_vi_stream_full over all 1e7 points written to a file in the temp
     directory (deleted at the end) in blocks of 2^20, 5 sweeps from an
     in-memory VI state: ms a sweep, the median of 5 runs;
-  * with --host-cost (a checkout with the streams' mesh path): the host's
+  * with --host-cost (a checkout with `ops.cuda_estep.BlockEStep`): the host's
     time to issue one B1 launch on a 262,144-point column view of a
     staged 2^20-point block (1000 launches, then the same with the
     device's time), and one streamed sweep's E-step over 10 such blocks
-    (models.mixture._BlockEStep: begin, add a block, end) over one and
+    (ops.cuda_estep.BlockEStep: begin, add a block, end) over one and
     over four positions of a mesh on the card.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line.
@@ -55,8 +55,8 @@ def median_seconds(torch, fn, reps):
 def host_cost(torch, model, x, dev):
     """(us to issue a B1 launch, us a launch with the device, {positions:
     (ms to issue a 10-block E-step, ms with the device)})."""
-    from mimo_tpu_torch.models.mixture import _BlockEStep, kernel_xts
     from mimo_tpu_torch.ops import cuda_estep
+    from mimo_tpu_torch.ops.cuda_estep import BlockEStep, kernel_xts
     from mimo_tpu_torch.parallel import make_mesh
     buf = kernel_xts((x[:BLOCK],))
     spec = model._estep_spec()
@@ -78,7 +78,7 @@ def host_cost(torch, model, x, dev):
     launch = (1e6 * (t1 - t0) / 1000, 1e6 * (t2 - t0) / 1000)
     sweeps = {}
     for npos in (1, 4):
-        estep = _BlockEStep(spec, True, 131072, torch.float32,
+        estep = BlockEStep(spec, True, 131072, torch.float32,
                             make_mesh(devices=[dev] * npos))
         w = BLOCK // npos
         shards = [(None, tuple(t[:, j * w:(j + 1) * w] for t in buf), w)

@@ -39,7 +39,8 @@ def main(argv=None):
         prediction=(str, 'average', 'mode or average'),
     )
     from mimo_tpu_torch.models.ilr import BayesianILR
-    from mimo_tpu_torch.models.mixture import MFState, _tree_map
+    from mimo_tpu_torch.models.mixture import MFState
+    from mimo_tpu_torch.utils.tree import tree_map
 
     # the sinc dataset with input-dependent noise
     rng = np.random.default_rng(args.seed)
@@ -79,7 +80,7 @@ def main(argv=None):
 
     mus, stds, nlpds = [], [], []
     for s in range(args.seeds):
-        st = _tree_map(lambda a: a[s], states)
+        st = tree_map(lambda a: a[s], states)
         te = perms[s, n_tr:]
         mu, _, std, _ = m.predict(st, gx, prediction=args.prediction)
         _, _, _, nlpd = m.predict(st, on_dev(grid[te]), on_dev(target[te]),

@@ -11,7 +11,7 @@ Here the copy is explicit, so it can overlap the kernels:
     host-to-device copy into one of two device landing buffers and then,
     still on the copy stream, the transpose into one of two float32
     (rows, capacity) buffers in the kernels' layout
-    (models.mixture.kernel_xts), or the cast to the engine's dtype for
+    (ops.cuda_estep.kernel_xts), or the cast to the engine's dtype for
     minibatches; the current stream waits on the copy's event before
     anything reads the buffer;
   * a device buffer is written again only after the event recorded

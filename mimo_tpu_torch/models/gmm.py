@@ -14,6 +14,8 @@ from mimo_tpu_torch.distributions.niw import NIW, GaussParams
 from mimo_tpu_torch.models.mixture import (
     BayesianMixture, EMState, _as_generator, _random_resp, _stack,
     model_device)
+from mimo_tpu_torch.ops.family_estep import (
+    diag_gaussian_spec, gaussian_spec, hier_gaussian_spec)
 from mimo_tpu_torch.utils.linalg import cholesky, inv_psd, symmetrize
 from mimo_tpu_torch.utils.stats import mvn_logpdf, normalize_log
 
@@ -77,8 +79,6 @@ class BayesianGMM(BayesianMixture):
     def _estep_spec(self):
         """The component family's spec; a tied GMM keeps its base spec,
         over the pooled posterior."""
-        from mimo_tpu_torch.ops.family_estep import (
-            diag_gaussian_spec, gaussian_spec, hier_gaussian_spec)
         if isinstance(self.components_prior, NG):
             return diag_gaussian_spec()
         if isinstance(self.components_prior, HierTied):

@@ -51,20 +51,37 @@ from typing import Any, NamedTuple
 import torch
 from torch.func import vmap
 
-from mimo_tpu_torch.conjugate.families import Family
+from mimo_tpu_torch.conjugate.families import (
+    Family, gaussian_family, hier_gaussian_family, ilr_family)
+from mimo_tpu_torch.distributions import mnw as _mnw
+from mimo_tpu_torch.distributions import niw as _niw
+from mimo_tpu_torch.distributions.gating import Dirichlet
+from mimo_tpu_torch.distributions.hierarchical import HierTied
+from mimo_tpu_torch.distributions.mnw import MNW
+from mimo_tpu_torch.distributions.niw import NIW
+from mimo_tpu_torch.models.ilr import BayesianILR
 from mimo_tpu_torch.models.mixture import (
     BayesianMixture, _Chains, _elbo_loop, _generators, _label_generators,
-    _mesh_parts, _on, _over_chains, _random_resp, _reduce_trees, _resp_seed,
-    _Shards, _stack, _stack_lead, _tree_map, as_data, batch_generator,
-    from_kernel, model_device, resolve_backend, serve_sharded, shard0_draws,
-    stack_trees, start_labels, transform_points)
+    _mesh_parts, _over_chains, _random_resp, _reduce_trees, _resp_seed,
+    _Shards, _stack, _stack_lead, as_data, batch_generator, from_kernel,
+    model_device, resolve_backend, serve_sharded, shard0_draws, stack_trees,
+    start_labels, transform_points)
 from mimo_tpu_torch.models.mixture import (
     _anchor_indices as _flat_anchor_indices)
-from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
+from mimo_tpu_torch.ops import cuda_predict
+from mimo_tpu_torch.ops.cuda_ilr_predict import (
+    ilr_p_predict_cuda_sharded, ilr_predict_cuda_sharded)
+from mimo_tpu_torch.ops.cuda_predict import predictive_coefficients
+from mimo_tpu_torch.ops.family_estep import (
+    EStepSpec, gaussian_spec, hier_gaussian_spec, ilr_spec)
+from mimo_tpu_torch.parallel.mesh import Sharded
+from mimo_tpu_torch.utils.data import (
+    Standardizer, one_hot, sample_batch_indices)
 from mimo_tpu_torch.utils.logging import spanned
 from mimo_tpu_torch.utils.sanitize import finite_report
 from mimo_tpu_torch.utils.stats import (
     normalize_log, sample_categorical_from_log)
+from mimo_tpu_torch.utils.tree import on_device, tree_map
 
 
 class HMixState(NamedTuple):
@@ -90,12 +107,12 @@ class HMixEMState(NamedTuple):
 
 def _flatten_mk(tree):
     """(M, K, ...) leaves -> (M*K, ...), m-major (row m*K + k)."""
-    return _tree_map(lambda a: a.reshape((-1,) + a.shape[2:]), tree)
+    return tree_map(lambda a: a.reshape((-1,) + a.shape[2:]), tree)
 
 
 def _unflatten_mk(tree, m, k):
     """(M*K, ...) leaves, m-major -> (M, K, ...)."""
-    return _tree_map(lambda a: a.reshape((m, k) + a.shape[1:]), tree)
+    return tree_map(lambda a: a.reshape((m, k) + a.shape[1:]), tree)
 
 
 def _log_clip(p):
@@ -136,11 +153,6 @@ class BayesianMixtureOfMixtures:
         are replicated across the M clusters; optional `means` (M, dim)
         gives each cluster's prior its own center. `maxsubiter` is the
         inner rounds of the hierarchical update."""
-        from mimo_tpu_torch.conjugate.families import (
-            gaussian_family, hier_gaussian_family)
-        from mimo_tpu_torch.distributions.gating import Dirichlet
-        from mimo_tpu_torch.distributions.hierarchical import HierTied
-        from mimo_tpu_torch.distributions.niw import NIW
 
         device = model_device(device)
         m, k = cluster_size, mixture_size
@@ -176,10 +188,6 @@ class BayesianMixtureOfMixtures:
                  device=None):
         """Mixture of mixtures of linear experts (NIW basis x MNW
         experts), on `device` as make_gmm."""
-        from mimo_tpu_torch.conjugate.families import ilr_family
-        from mimo_tpu_torch.distributions.gating import Dirichlet
-        from mimo_tpu_torch.distributions.mnw import MNW
-        from mimo_tpu_torch.distributions.niw import NIW
 
         device = model_device(device)
         m, k = cluster_size, mixture_size
@@ -239,8 +247,8 @@ class BayesianMixtureOfMixtures:
             flat = flat.view(n, -1)
         else:
             flat = (a * b).reshape(n, -1)
-        return (_tree_map(lambda t: t.reshape(shape + t.shape[1:]),
-                          self.family.suff_stats(data, flat)),
+        return (tree_map(lambda t: t.reshape(shape + t.shape[1:]),
+                         self.family.suff_stats(data, flat)),
                 torch.sum(flat, 0).reshape(shape))
 
     def _inner_posteriors(self, stats, counts):
@@ -285,7 +293,7 @@ class BayesianMixtureOfMixtures:
         outer counts). For C chains (`ch`, a `_Chains`) the state is
         C-stacked and a round's reduction serves every chain."""
         outer = [ch.over(lambda st: self.expected_responsibilities(st, part))(
-            _on(state, part[0].device)) if sh.rows(j) else None
+            on_device(state, part[0].device)) if sh.rows(j) else None
             for j, part in enumerate(sh.parts)]
         zero = sh.zero_part()
         zero_outer = zero[0].new_zeros(ch.lead + (1, self.cluster_size))
@@ -309,7 +317,7 @@ class BayesianMixtureOfMixtures:
         responsibilities of `state`, where `inner`)."""
         tree = (torch.sum(outer, -2),) if first else ()
         if inner:
-            st = _on(state, part[0].device)
+            st = on_device(state, part[0].device)
             tree += self._cluster_stats(part, torch.softmax(
                 ch.over(lambda s: self._inner_elc(s, part))(st), -1), outer)
         return tree
@@ -341,7 +349,7 @@ class BayesianMixtureOfMixtures:
         trace = []
 
         def lse_sum(st, part):
-            st = _on(st, part[0].device)
+            st = on_device(st, part[0].device)
             return (torch.sum(torch.logsumexp(ch.over(
                 lambda s: self.expected_cluster_loglik(s, part)
                 + s.outer_gating.expected_log_pi()[None, :])(st), -1), -1),)
@@ -363,9 +371,6 @@ class BayesianMixtureOfMixtures:
         params flattened m-major. The features, unpack and transposed map
         are the family's own, so the kernels run it as the flat model's
         map with K = M*K rows."""
-        from mimo_tpu_torch.distributions.hierarchical import HierTied
-        from mimo_tpu_torch.ops.family_estep import (
-            EStepSpec, gaussian_spec, hier_gaussian_spec, ilr_spec)
         mk = self.cluster_size * self.mixture_size
         cp = self.components_prior
         if self.kind == 'ilr':
@@ -620,7 +625,7 @@ class BayesianMixtureOfMixtures:
                 lambda: tree(zero, *zeros), 'sweep')
 
         def plug_in_elc(params, ilp, part):
-            params, ilp = _on((params, ilp), part[0].device)
+            params, ilp = on_device((params, ilp), part[0].device)
             return ch.over(lambda p, lp: vmap(lambda q: fam.loglik(q, part))(p)
                         + lp[:, None, :])(params, ilp)
 
@@ -905,7 +910,7 @@ class BayesianMixtureOfMixtures:
                     st, bb, oo, sub == 0))(state, b, o)
                     for b, o in zip(batches, outer)]
                 red = shards.mesh.reduce_tree(
-                    trees, _tree_map(torch.zeros_like, trees[0]), 'sweep')
+                    trees, tree_map(torch.zeros_like, trees[0]), 'sweep')
                 if sub == 0:
                     outer_counts, red = red[0], red[1:]
                 if not maxsubiter:
@@ -975,8 +980,8 @@ class BayesianMixtureOfMixtures:
                 for j, part in enumerate(sh.parts):
                     if sh.rows(j):
                         logp[j] = ch.over(lambda p, pr: self._gibbs_inner_logp(
-                            p, pr, part))(*_on((params, probs),
-                                               part[0].device))
+                            p, pr, part))(*on_device((params, probs),
+                                                     part[0].device))
                         z[j] = sample_categorical_from_log(lgens[j], logp[j])
                 lead_draw(lambda n: torch.rand(ch.lead + (mm, n, kk),
                                                generator=gen, dtype=sh.dtype,
@@ -1022,7 +1027,6 @@ class BayesianMixtureOfMixtures:
         chains' (`batch_generator`), as the flat dense Gibbs: the same
         keys give the same chains, but a chain is not the single fit draw
         for draw (C-stacked state, labels (C, N))."""
-        from mimo_tpu_torch.parallel.mesh import Sharded
         if maxsubiter < 1:
             raise ValueError('fit_gibbs draws the outer labels from the '
                              'last inner round: maxsubiter >= 1')
@@ -1062,7 +1066,6 @@ class BayesianMixtureOfMixtures:
         predictive density of an NIW or HierTied posterior, m-major. Each
         cluster's rows are built from its own posterior (a HierTied
         cluster's shared hyper scale is its own), then flattened."""
-        from mimo_tpu_torch.ops.cuda_predict import predictive_coefficients
         thq, aux = vmap(lambda post, lw: predictive_coefficients(
             post, lw, dist == 'studentt'))(state.components,
                                            self._log_mix_weights(state))
@@ -1081,8 +1084,6 @@ class BayesianMixtureOfMixtures:
         `mesh` every shard is served on its device (one B3 launch a CUDA
         shard, the rows built once, no collective) and the result is a
         parallel.mesh.Sharded of (n_j,) tensors."""
-        from mimo_tpu_torch.distributions.hierarchical import HierTied
-        from mimo_tpu_torch.distributions.niw import NIW
         if dist not in ('studentt', 'gaussian'):
             raise ValueError(f'unknown dist: {dist!r}')
         served = isinstance(state.components, (NIW, HierTied))
@@ -1101,7 +1102,6 @@ class BayesianMixtureOfMixtures:
     def _log_predictive_parts(self, state, parts, dist, backend, served):
         """log_predictive of each data tuple in `parts` (a mesh's shards,
         or the one whole): B3's rows built once, one launch a part."""
-        from mimo_tpu_torch.ops import cuda_predict
         if served and resolve_backend(backend, parts[0][0]):
             thq, aux = self._predictive_rows(state, dist)
             thq, aux = thq.to(torch.float32), aux.to(torch.float32)
@@ -1117,7 +1117,6 @@ class BayesianMixtureOfMixtures:
 
     def init_transform(self, x, y):
         """Optional input/output standardization."""
-        from mimo_tpu_torch.utils.data import Standardizer
         self.input_transform = Standardizer.fit(x)
         self.output_transform = Standardizer.fit(y)
 
@@ -1128,8 +1127,6 @@ class BayesianMixtureOfMixtures:
         """predict's kernel path over the parts xs (and ys, or None): B5
         (p = 1) or B6 (p > 1) once a part over the M*K flattened experts,
         the coefficients built once; one (mean, var, std, nlpd) a part."""
-        from mimo_tpu_torch.ops.cuda_ilr_predict import (
-            ilr_p_predict_cuda_sharded, ilr_predict_cuda_sharded)
         basis_post, models_post = state.components
         flat_b, flat_m = _flatten_mk((basis_post, models_post))
         serve = (ilr_predict_cuda_sharded if models_post.M.shape[-2] == 1
@@ -1146,7 +1143,6 @@ class BayesianMixtureOfMixtures:
         """(N, M, K) joint input-conditional weights: softmax over both
         levels of log E[pi_out] + log E[pi_in] + basis-predictive
         logpdf."""
-        from mimo_tpu_torch.distributions import niw as _niw
         fn = (_niw.log_predictive_gaussian if dist == 'gaussian'
               else _niw.log_predictive_studentt)
         log_basis = vmap(lambda p: fn(p, x))(state.components[0])
@@ -1162,7 +1158,6 @@ class BayesianMixtureOfMixtures:
     def predictive_moments(self, state: HMixState, x, dist='gaussian'):
         """Per-(cluster, expert) predictive mean (N, M, K, p) and
         covariance (N, M, K, p, p)."""
-        from mimo_tpu_torch.distributions import mnw as _mnw
         fn = (_mnw.predictive_moments_gaussian if dist == 'gaussian'
               else _mnw.predictive_moments_studentt)
         xa = _mnw.augment(x, self.affine)
@@ -1189,8 +1184,6 @@ class BayesianMixtureOfMixtures:
         served on its device (one B5 or B6 launch a CUDA shard, the
         coefficients built once, no collective); each result is a
         parallel.mesh.Sharded (nlpd None without y)."""
-        from mimo_tpu_torch.distributions import mnw as _mnw
-        from mimo_tpu_torch.models.ilr import BayesianILR
         if self.kind != 'ilr':
             raise ValueError('predict() is for make_ilr models; use '
                              'log_predictive for density models')

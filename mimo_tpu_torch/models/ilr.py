@@ -33,6 +33,9 @@ from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models.mixture import (
     BayesianMixture, MFState, _as_generator, from_kernel, model_device,
     resolve_backend, serve_sharded, transform_points)
+from mimo_tpu_torch.ops.cuda_ilr_predict import (
+    ilr_p_predict_cuda_sharded, ilr_predict_cuda_sharded)
+from mimo_tpu_torch.ops.family_estep import ilr_spec
 from mimo_tpu_torch.utils.data import Standardizer
 from mimo_tpu_torch.utils.linalg import cholesky, inv_psd
 from mimo_tpu_torch.utils.stats import normalize_log
@@ -168,7 +171,6 @@ class BayesianILR(BayesianMixture):
         return transform_points(self.output_transform, y)
 
     def _estep_spec(self):
-        from mimo_tpu_torch.ops.family_estep import ilr_spec
         return ilr_spec(self.input_dim, self.output_dim, affine=self.affine,
                         diag_expert=self.diag, hier_basis=self.hier_basis,
                         tied_affine=self.tied_affine)
@@ -217,8 +219,6 @@ class BayesianILR(BayesianMixture):
         """predict's kernel path over the parts xs (and ys, or None): B5
         (p = 1) or B6 (p > 1) once a part with the coefficients built once;
         one (mean, var, std, nlpd) a part, in original units."""
-        from mimo_tpu_torch.ops.cuda_ilr_predict import (
-            ilr_p_predict_cuda_sharded, ilr_predict_cuda_sharded)
         basis_post, models_post = state.components
         serve = (ilr_predict_cuda_sharded if self.output_dim == 1
                  else ilr_p_predict_cuda_sharded)

@@ -84,11 +84,28 @@ import torch
 from torch.func import vmap
 
 from mimo_tpu_torch.conjugate.families import Family
+from mimo_tpu_torch.distributions.hierarchical import HierTied
+from mimo_tpu_torch.distributions.mng import MNG
+from mimo_tpu_torch.distributions.mnw import MNW
+from mimo_tpu_torch.distributions.ng import NG
+from mimo_tpu_torch.distributions.niw import NIW
+from mimo_tpu_torch.io.stage import Stager, host_arrays
+from mimo_tpu_torch.io.stream import Prefetcher
+from mimo_tpu_torch.ops import cuda_estep, cuda_gibbs, family_estep
+from mimo_tpu_torch.ops.cuda_diag_predict import diag_predictive_cuda_sharded
+from mimo_tpu_torch.ops.cuda_estep import BlockEStep, kernel_xts
+from mimo_tpu_torch.ops.cuda_predict import gauss_predictive_cuda_sharded
+from mimo_tpu_torch.ops.family_estep import chain_spec
+from mimo_tpu_torch.parallel.mesh import (
+    Sharded, local_mesh, shard_bounds, shard_data)
 from mimo_tpu_torch.utils.data import one_hot, sample_batch_indices
 from mimo_tpu_torch.utils.logging import span, spanned
 from mimo_tpu_torch.utils.sanitize import finite_report
 from mimo_tpu_torch.utils.stats import (
     entropy_categorical, normalize_log, sample_categorical_from_log)
+from mimo_tpu_torch.utils.tree import (
+    cast_floats, first_leaf, on_device, tree_leaves, tree_map, tree_map2,
+    tree_where)
 
 BACKENDS = ('auto', 'kernel', 'torch')
 _CHUNK = 1 << 20      # points per step of the anchor init's distances
@@ -142,7 +159,7 @@ def _elbo_loop(step, carry, maxiter, tol, lead=()):
         with span('engines', 'sweep', i):
             new, vlb = step(carry, i)
         if some:
-            carry = _tree_where(done, carry, new)
+            carry = tree_where(done, carry, new)
             vlb = torch.where(done, trace[-1], vlb)
         else:
             carry = new
@@ -179,31 +196,6 @@ def model_device(device):
     return torch.device('cuda', torch.cuda.current_device())
 
 
-def kernel_xts(data):
-    """The kernels' layout, made once outside the sweep loop: the data
-    arrays transposed and stacked into one contiguous float32
-    (sum d_i, N) buffer ([x; y] for ILR), returned as its per-input
-    (d_i, N) row blocks. The kernels read the buffer whole and
-    bound-check the point index against N, so no padding is needed."""
-    buf = torch.cat([a.to(torch.float32).T for a in data]).contiguous()
-    return tuple(torch.split(buf, [a.shape[1] for a in data]))
-
-
-def _tree_map(fn, tree):
-    """fn over the tensor leaves of a tree of NamedTuples and tuples (the
-    statistics of a product family are a plain tuple)."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    items = [_tree_map(fn, t) for t in tree]
-    return type(tree)(*items) if hasattr(tree, '_fields') else tuple(items)
-
-
-def _cast(tree, dtype):
-    """Cast the floating leaves of a tree to `dtype`."""
-    return _tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
-                     tree)
-
-
 def _stack(trace, like):
     """The (maxiter,) trace of a fit loop's per-sweep scalars; (C,
     maxiter) for the chains' (C,) scalars."""
@@ -212,24 +204,9 @@ def _stack(trace, like):
     return torch.stack(trace, -1)
 
 
-def _tree_map2(fn, a, b):
-    """fn over the paired tensor leaves of two trees of one structure."""
-    if isinstance(a, torch.Tensor):
-        return fn(a, b)
-    items = [_tree_map2(fn, x, y) for x, y in zip(a, b)]
-    return type(a)(*items) if hasattr(a, '_fields') else tuple(items)
-
-
-def _tree_where(mask, a, b):
-    """a where the chain's mask (C,) is set, else b, leaf by leaf."""
-    return _tree_map2(lambda x, y: torch.where(
-        mask.view((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
-
-
 def stack_trees(trees):
     """A list of C trees of one structure -> one tree with C-stacked
     leaves (a parallel.mesh.Sharded's shards stacked shard by shard)."""
-    from mimo_tpu_torch.parallel.mesh import Sharded
     first = trees[0]
     if isinstance(first, torch.Tensor):
         return torch.stack(trees)
@@ -243,7 +220,7 @@ def stack_trees(trees):
 def _stack_lead(tree, c):
     """Replicate every leaf over a leading axis of size c (the chains, or
     a nested model's clusters)."""
-    return _tree_map(lambda a: a.expand((c,) + a.shape).contiguous(), tree)
+    return tree_map(lambda a: a.expand((c,) + a.shape).contiguous(), tree)
 
 
 def _generators(key, device, chains):
@@ -311,12 +288,6 @@ class _Chains(NamedTuple):
     def lead(self):
         """The chains' leading shape: () for one fit, else (C,)."""
         return () if self.size is None else (self.size,)
-
-
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [leaf for t in tree for leaf in _leaves(t)]
 
 
 def _gather(data, idx, ch):
@@ -439,8 +410,8 @@ class BayesianMixture:
             return fn(tree, part)
         lead = (ch.size, self.size)
         if ch.data is None and all(a.dim() >= 2 and a.shape[:2] == lead
-                                   for a in _leaves(tree)):
-            return fn(_tree_map(lambda a: a.flatten(0, 1), tree),
+                                   for a in tree_leaves(tree)):
+            return fn(tree_map(lambda a: a.flatten(0, 1), tree),
                       part).unflatten(-1, lead).movedim(1, 0)
         return ch.over(fn, (0, ch.data))(tree, part)
 
@@ -460,7 +431,7 @@ class BayesianMixture:
             c, n, k = resp.shape
             stats = self.family.suff_stats(
                 part, resp.movedim(0, 1).reshape(n, c * k))
-            return _tree_map(lambda a: a.unflatten(0, (c, k)), stats), counts
+            return tree_map(lambda a: a.unflatten(0, (c, k)), stats), counts
         return ch.over(self.family.suff_stats, (ch.data, 0))(part,
                                                              resp), counts
 
@@ -494,7 +465,6 @@ class BayesianMixture:
         generator from `key` on the first shard's device, or with `chains`
         one a chain from the keys in `key`, and then the chains' spec
         (family_estep.chain_spec)."""
-        from mimo_tpu_torch.ops.family_estep import chain_spec
         data = _Shards(mesh, data, backend, block_size)
         return (data, _generators(key, data.device, chains),
                 chain_spec(spec) if chains else spec)
@@ -810,7 +780,7 @@ class BayesianMixture:
         fam, cp, gp = self.family, self.components_prior, self.gating_prior
 
         def sweep_tree(part, pw, st):
-            st = _on(st, part[0].device)
+            st = on_device(st, part[0].device)
             ell = self._chain_points(fam.ell, st.components, part, ch)
             resp, _ = normalize_log(ell + ch.over(
                 lambda g: g.expected_log_pi())(st.gating)[..., None, :])
@@ -834,8 +804,9 @@ class BayesianMixture:
                     sh.parts[j][0].device, sh.bounds[j][0]) for s in seeds])
         else:
             def resp_of(j):
+                part = sh.parts[j]
                 return self._chain_resp(
-                    _on(init_state, sh.parts[j][0].device), sh.parts[j], ch)
+                    on_device(init_state, part[0].device), part, ch)
         state = self._chain_posterior(ch, *sh.reduce_each(
             lambda j: self._chain_stats(sh.parts[j], resp_of(j), ch, pws[j]),
             lambda: self._chain_stats(
@@ -952,7 +923,6 @@ class BayesianMixture:
         gens = _generators(key, shards.device, chains)
         ch = self._model_chains(len(gens) if chains else None)
         if chains:
-            from mimo_tpu_torch.ops.family_estep import chain_spec
             spec = chain_spec(spec)
         scale = batch_size / shards.n
         if init_state is None:
@@ -1003,7 +973,7 @@ class BayesianMixture:
     def _stream_setup(self, backend, transfer_dtype):
         """(device, dtype, stage on the card?, kernel?) of a stream engine:
         the data lands where the model's priors lie, in their dtype."""
-        leaf = _first_leaf(self.components_prior)
+        leaf = first_leaf(self.components_prior)
         if transfer_dtype not in (None, torch.bfloat16, torch.float16):
             raise ValueError('transfer_dtype: None, torch.bfloat16 or '
                              f'torch.float16, got {transfer_dtype!r}')
@@ -1055,8 +1025,6 @@ class BayesianMixture:
                 next_batch, total_size, key, maxiter, step_size, batch_size,
                 init_state, forgetting, delay, group, prefetch,
                 transfer_dtype, mesh)
-        from mimo_tpu_torch.io.stage import Stager, host_arrays
-        from mimo_tpu_torch.io.stream import Prefetcher
         dev, dtype, staged, _ = self._stream_setup('auto', transfer_dtype)
         wire = transfer_dtype or torch.float32
         gen = _as_generator(key, dev)
@@ -1110,9 +1078,6 @@ class BayesianMixture:
                              step_size, batch_size, init_state, forgetting,
                              delay, group, prefetch, transfer_dtype, mesh):
         """fit_svi_stream over a mesh (see fit_svi_stream)."""
-        from mimo_tpu_torch.io.stage import host_arrays
-        from mimo_tpu_torch.io.stream import Prefetcher
-        from mimo_tpu_torch.parallel.mesh import shard_bounds
         spec = self._estep_spec()
         if spec is None:
             raise NotImplementedError(
@@ -1126,7 +1091,7 @@ class BayesianMixture:
         gen = _as_generator(key, dev)
         scale = batch_size / total_size
         group = max(1, min(group, maxiter))
-        estep = _BlockEStep(spec, use_kernel, 131072, dtype, mesh)
+        estep = BlockEStep(spec, use_kernel, 131072, dtype, mesh)
         if init_state is None:
             batch0 = host_arrays(next_batch(0))
             nb0 = batch0[0].shape[0]
@@ -1203,8 +1168,6 @@ class BayesianMixture:
         positions and each shard's sums add across the blocks on its
         device. Either way a sweep makes the mesh's one reduction at its
         end. The trace stays on the device until the end."""
-        from mimo_tpu_torch.io.stage import host_arrays
-        from mimo_tpu_torch.parallel.mesh import local_mesh
         spec = self._estep_spec()
         if spec is None:
             raise NotImplementedError('no fused E-step spec for this family')
@@ -1225,7 +1188,7 @@ class BayesianMixture:
         mesh = mesh.one_row() if sharded else local_mesh(dev)
         world, rank = _row_share(mesh)
         gen = _as_generator(key, dev)
-        estep = _BlockEStep(spec if kind == 'vi' else spec._replace(
+        estep = BlockEStep(spec if kind == 'vi' else spec._replace(
             theta=spec.theta_plugin), use_kernel, block_size, dtype, mesh)
         stagers = _stagers(mesh.devices, transfer_dtype or torch.float32)
 
@@ -1248,7 +1211,7 @@ class BayesianMixture:
                                         resp_of(data, n,
                                                 off + rank * blk.n + lo))
                         trees[j] = (t if trees[j] is None
-                                    else _tree_map2(torch.add, trees[j], t))
+                                    else tree_map2(torch.add, trees[j], t))
                 total += blk.n
                 off += world * blk.n
             return _reduce_trees(mesh, trees, lambda: _resp_stats(
@@ -1312,7 +1275,7 @@ class BayesianMixture:
                                 self._ml_log_pi(res.counts,
                                                 torch.sum(res.counts)))
             trace.append(t)
-        return finite_report((state, _stack(trace, _first_leaf(state))),
+        return finite_report((state, _stack(trace, first_leaf(state))),
                              f'fit_{kind}_stream_full')
 
     def fit_vi_stream_full(self, read_block, n_blocks, key=None, maxiter=50,
@@ -1457,7 +1420,6 @@ class BayesianMixture:
         a one-position mesh is the unsharded chain draw for draw. Without
         `mesh` the same code runs over the one position of the data's
         device."""
-        from mimo_tpu_torch.parallel.mesh import Sharded
         sh, gens, ch = self._dense_setup(data, key, chains, mesh)
         pws = _weight_parts(sh.mesh, point_weights, len(sh.parts))
         lead = ch.lead
@@ -1470,7 +1432,7 @@ class BayesianMixture:
             cp, gp = self.components_prior, self.gating_prior
             per = [start_labels(sh, g, init_labels, self.size,
                                 gp if ch.priors is None
-                                else _tree_map(lambda a: a[c], gp),
+                                else tree_map(lambda a: a[c], gp),
                                 lead_draw) for c, g in enumerate(gens)]
             labels = [ch.stack([p[j] for p in per])
                       for j in range(len(sh.parts))]
@@ -1503,8 +1465,8 @@ class BayesianMixture:
                 gen, stats, counts, ch)
             for j, part in enumerate(sh.parts):
                 if sh.rows(j):
-                    log_p = self._gibbs_log_p(
-                        *_on((params, log_pi), part[0].device), part, ch)
+                    log_p = self._gibbs_log_p(*on_device(
+                        (params, log_pi), part[0].device), part, ch)
                     labels[j] = sample_categorical_from_log(
                         lgens[j], log_p).to(torch.int32)
                     lls[j] = torch.sum(torch.logsumexp(log_p, -1), -1)
@@ -1564,7 +1526,7 @@ class BayesianMixture:
         state, trace = None, []
 
         def tree(part, params, log_pi):
-            params, log_pi = _on((params, log_pi), part[0].device)
+            params, log_pi = on_device((params, log_pi), part[0].device)
             resp, lognorm = normalize_log(
                 self._chain_points(self.family.loglik, params, part, ch)
                 + log_pi[..., None, :])
@@ -1614,13 +1576,6 @@ class BayesianMixture:
         """log_predictive of each data tuple in `parts` (a mesh's shards,
         or the one whole): the kernels' coefficients are built once and
         each part is one launch on its device."""
-        from mimo_tpu_torch.distributions.hierarchical import HierTied
-        from mimo_tpu_torch.distributions.ng import NG
-        from mimo_tpu_torch.distributions.niw import NIW
-        from mimo_tpu_torch.ops.cuda_diag_predict import (
-            diag_predictive_cuda_sharded)
-        from mimo_tpu_torch.ops.cuda_predict import (
-            gauss_predictive_cuda_sharded)
         with span('algebra', 'coefficients'):
             log_w = self.predictive_log_weights(state)
         if resolve_backend(backend, parts[0][0]):
@@ -1654,22 +1609,17 @@ class BayesianMixture:
         selection: gating K - 1 plus per component d + d(d+1)/2 (full
         Gaussian), 2d (diagonal), pq + p(p+1)/2 (linear), pq + p (diagonal
         linear). Undefined (raises) for tied and hierarchical families."""
-        from mimo_tpu_torch.distributions import mng as _mng
-        from mimo_tpu_torch.distributions import mnw as _mnw
-        from mimo_tpu_torch.distributions import ng as _ng
-        from mimo_tpu_torch.distributions import niw as _niw
-
         def comp_params(prior):
-            if isinstance(prior, _niw.NIW):
+            if isinstance(prior, NIW):
                 k, d = prior.mu.shape
                 return k * (d + d * (d + 1) // 2)
-            if isinstance(prior, _ng.NG):
+            if isinstance(prior, NG):
                 k, d = prior.mu.shape
                 return k * 2 * d
-            if isinstance(prior, _mnw.MNW):
+            if isinstance(prior, MNW):
                 k, p, q = prior.M.shape
                 return k * (p * q + p * (p + 1) // 2)
-            if isinstance(prior, _mng.MNG):
+            if isinstance(prior, MNG):
                 k, p, q = prior.M.shape
                 return k * (p * q + p)
             if isinstance(prior, tuple):          # product family (ILR)
@@ -1700,12 +1650,6 @@ def _as_tuple(data):
     return data if isinstance(data, tuple) else (data,)
 
 
-def _first_leaf(tree):
-    while not isinstance(tree, torch.Tensor):
-        tree = tree[0]
-    return tree
-
-
 def _to_device(arrays, wire, dtype, device):
     """Host arrays -> tensors on `device` in `dtype`, through `wire` (the
     stream engines' transfer_dtype) first when it is given."""
@@ -1716,11 +1660,6 @@ def _to_device(arrays, wire, dtype, device):
             t = t.to(wire)
         out.append(t.to(device=device, dtype=dtype))
     return tuple(out)
-
-
-def _on(tree, device):
-    """A tree of tensors on `device` (itself where it lies there)."""
-    return _tree_map(lambda t: t.to(device), tree)
 
 
 def _weight_parts(mesh, weights, count):
@@ -1740,7 +1679,6 @@ def _label_parts(mesh, labels):
     """A Gibbs state's labels as one int32 tensor a position of the
     one-row mesh: a parallel.mesh.Sharded's shards there, or an (N,) or
     the chains' (C, N) tensor split on its last axis."""
-    from mimo_tpu_torch.parallel.mesh import Sharded
     if isinstance(labels, Sharded):
         return list(labels.on(mesh).shards)
     return [part[0].movedim(0, -1)
@@ -1790,7 +1728,6 @@ def shard0_draws(sh):
     else nothing. A process that holds shard 0 draws that shard's labels
     from the fit's generator; one that does not makes the same draw and
     drops it."""
-    from mimo_tpu_torch.parallel.mesh import shard_bounds
     d = sh.mesh.shape['data']
     lo, hi = shard_bounds(sh.n, d, 0)
 
@@ -1823,7 +1760,7 @@ def _reduce_trees(mesh, trees, probe, kind='start'):
     (None where one had none); probe() gives a tree of the right shapes
     when this process has no such position."""
     trees = [t for t in trees if t is not None]
-    like = trees[0] if trees else _tree_map(torch.zeros_like, probe())
+    like = trees[0] if trees else tree_map(torch.zeros_like, probe())
     return mesh.reduce_tree(trees, like, kind)
 
 
@@ -1832,7 +1769,6 @@ def _stagers(devices, wire):
     device of `devices`, a one-row mesh's positions in this process, with
     the positions it holds: {device: (stager, [position index])}. None on
     the CPU, where nothing is staged."""
-    from mimo_tpu_torch.io.stage import Stager
     if devices[0].type != 'cuda':
         return None
     out = {}
@@ -1912,9 +1848,6 @@ def _stream_pass(read_block, n_blocks, prefetch, stagers, transfer_dtype,
     parallel.mesh.shard_bounds) as `_group_shards` gives them: on the
     card one pinned fill and one copy a device (`_stagers`), on the CPU
     row views of the block in `dtype`."""
-    from mimo_tpu_torch.io.stage import host_arrays
-    from mimo_tpu_torch.io.stream import Prefetcher
-    from mimo_tpu_torch.parallel.mesh import shard_bounds
     npos = len(devices)
 
     def produce(i):
@@ -1941,60 +1874,6 @@ def _stream_pass(read_block, n_blocks, prefetch, stagers, transfer_dtype,
             for st, _ in (stagers or {}).values():
                 st.close()
             raise
-
-
-class _BlockEStep:
-    """The fused E-step of the streamed sweeps and steps over the
-    positions of a one-row mesh, with theta formed once (`begin`). Each
-    `add` takes one (data, kernel views, rows) a position (a block's or a
-    minibatch's shards): kernel B1 once per non-empty shard on its views
-    with its row count at run time (cuda_estep.estep_shards), or the
-    blockwise twin on its data; each position's partial adds across the
-    calls on its device, in the engine's dtype. `end` makes the mesh's
-    one reduction and unpacks it."""
-
-    def __init__(self, spec, use_kernel, block_size, dtype, mesh):
-        self.spec, self.use_kernel = spec, use_kernel
-        self.block_size, self.dtype, self.mesh = block_size, dtype, mesh
-
-    def begin(self, theta_src, log_pi):
-        from mimo_tpu_torch.ops.cuda_estep import feature_kind, pad_theta
-        theta = self.spec.theta(theta_src)
-        self.lead, (self.k, self.m) = theta.shape[:-2], theta.shape[-2:]
-        if self.use_kernel:
-            self.kind = feature_kind(self.spec.features_t)
-            theta, _ = pad_theta(theta, log_pi, torch.float32)
-        self.theta, self.log_pi = theta, log_pi
-        self.parts = [None] * len(self.mesh.devices)
-
-    def add(self, shards):
-        from mimo_tpu_torch.ops import cuda_estep
-        from mimo_tpu_torch.ops.family_estep import accumulate_shards
-        live = [j for j, s in enumerate(shards) if s[2]]
-        if self.use_kernel:
-            outs = cuda_estep.estep_shards(
-                self.theta, self.kind, [shards[j][1] for j in live],
-                [shards[j][2] for j in live])
-            for j, out in zip(live, outs):
-                out = out.to(self.dtype)
-                self.parts[j] = (out if self.parts[j] is None
-                                 else self.parts[j] + out)
-        else:
-            sums = accumulate_shards(
-                self.spec.features, self.theta, self.log_pi,
-                [shards[j][0] for j in live], self.block_size,
-                [self.parts[j] for j in live])
-            for j, acc_lse in zip(live, sums):
-                self.parts[j] = acc_lse
-
-    def end(self):
-        from mimo_tpu_torch.ops.family_estep import pack_estep, reduce_estep
-        parts = [p for p in self.parts if p is not None]
-        if not self.use_kernel:
-            m8 = -(-self.m // 8) * 8
-            parts = [pack_estep(acc, lse, m8) for acc, lse in parts]
-        return reduce_estep(self.spec, parts, self.lead, self.k, self.m,
-                            self.dtype, self.mesh)
 
 
 def _as_generator(key, device):
@@ -2070,7 +1949,6 @@ def _anchor_indices(gen, n, k, device):
 def _mesh_parts(mesh, data):
     """`data` (an array, a Sharded, or a tuple of either) over a one-row
     mesh: (the first array's Sharded, one data tuple a position)."""
-    from mimo_tpu_torch.parallel.mesh import shard_data
     mesh = mesh.one_row()
     sharded = [shard_data(mesh, a) for a in as_data(data)]
     return sharded[0], list(zip(*(sh.shards for sh in sharded)))
@@ -2092,7 +1970,6 @@ class _Shards:
     shard drawing or reading only its own rows, in one reduction each."""
 
     def __init__(self, mesh, data, backend='auto', block_size=131072):
-        from mimo_tpu_torch.parallel.mesh import local_mesh, shard_bounds
         if mesh is None:
             mesh = local_mesh(as_data(data)[0].device)
         first, self.parts = _mesh_parts(mesh, data)
@@ -2132,17 +2009,14 @@ class _Shards:
     def estep(self, spec, theta_src, log_pi, parts=None):
         """The fused E-step over the shards, or over `parts` (per-shard
         minibatches), in the data's dtype: one reduction."""
-        from mimo_tpu_torch.ops.cuda_estep import fused_estep_cuda_sharded
-        from mimo_tpu_torch.ops.family_estep import fused_estep_sharded
         if self.use_kernel:
             xts = self.xts if parts is None else [kernel_xts(p)
                                                   for p in parts]
-            return _cast(fused_estep_cuda_sharded(spec, theta_src, log_pi,
-                                                  xts, self.mesh),
-                         self.dtype)
-        return fused_estep_sharded(spec, theta_src, log_pi,
-                                   self.parts if parts is None else parts,
-                                   self.block_size, self.mesh)
+            return cast_floats(cuda_estep.fused_estep_cuda_sharded(
+                spec, theta_src, log_pi, xts, self.mesh), self.dtype)
+        return family_estep.fused_estep_sharded(
+            spec, theta_src, log_pi, self.parts if parts is None else parts,
+            self.block_size, self.mesh)
 
     def estep_own(self, spec, theta_src, log_pi, parts):
         """The fused E-step of C chains each over its own points, with a
@@ -2150,55 +2024,29 @@ class _Shards:
         shard with a leading chain axis (C, b_j, ...) (SVI's minibatches),
         chain c's theta over its own rows only, so one launch cannot
         serve the chains: B1 once a chain and shard on CUDA shards, the
-        blockwise twin elsewhere; then one reduction for every chain."""
-        from mimo_tpu_torch.ops.cuda_estep import (
-            estep_packed, feature_kind, pad_theta, stack_rows, y_rows)
-        from mimo_tpu_torch.ops.family_estep import (
-            accumulate_shards, pack_estep, reduce_estep)
-        theta = spec.theta(theta_src)
-        lead, (k, m) = theta.shape[:-2], theta.shape[-2:]
-        m8 = -(-m // 8) * 8
-
-        def chain(part, c):
-            return tuple(a[c] for a in part)
-        if self.use_kernel:
-            kind = feature_kind(spec.features_t)
-            theta, _ = pad_theta(theta, log_pi, torch.float32)
-            partials = []
-            for part in parts:
-                xts = [kernel_xts(chain(part, c)) for c in range(lead[0])]
-                partials.append(torch.stack([estep_packed(
-                    stack_rows(x), theta[c].to(x[0].device), x[0].shape[1],
-                    kind, y_rows(kind, x)) for c, x in enumerate(xts)]))
-            return _cast(reduce_estep(spec, partials, lead, k, m,
-                                      torch.float32, self.mesh), self.dtype)
-        partials = [torch.stack([pack_estep(*accumulate_shards(
-            spec.features, theta[c], log_pi[c], [chain(part, c)],
-            self.block_size)[0], m8) for c in range(lead[0])])
-            for part in parts]
-        return reduce_estep(spec, partials, lead, k, m, self.dtype,
-                            self.mesh)
+        blockwise twin elsewhere (cuda_estep.BlockEStep); then one
+        reduction for every chain."""
+        estep = BlockEStep(spec, self.use_kernel, self.block_size,
+                           self.dtype, self.mesh, own=True)
+        estep.begin(theta_src, log_pi)
+        estep.add([(part, None, part[0].shape[1]) for part in parts])
+        return estep.end()
 
     def gibbs(self, spec, seed, params, log_pi):
         """The fused Gibbs label sweep over the shards: (labels as a
         Sharded, FusedEStep in the data's dtype); one reduction."""
-        from mimo_tpu_torch.ops.cuda_gibbs import fused_gibbs_cuda_sharded
-        from mimo_tpu_torch.ops.family_estep import fused_gibbs_sharded
-        from mimo_tpu_torch.parallel.mesh import Sharded
         if self.use_kernel:
-            labels, res = fused_gibbs_cuda_sharded(spec, seed, params,
-                                                   log_pi, self.xts,
-                                                   self.mesh)
-            res = _cast(res, self.dtype)
+            labels, res = cuda_gibbs.fused_gibbs_cuda_sharded(
+                spec, seed, params, log_pi, self.xts, self.mesh)
+            res = cast_floats(res, self.dtype)
         else:
-            labels, res = fused_gibbs_sharded(spec, seed, params, log_pi,
-                                              self.parts, self.block_size,
-                                              self.mesh)
+            labels, res = family_estep.fused_gibbs_sharded(
+                spec, seed, params, log_pi, self.parts, self.block_size,
+                self.mesh)
         return Sharded(tuple(labels), self.positions, self.n), res
 
     def zero_labels(self, lead):
         """A Gibbs fit's labels before its first sweep: zeros a shard."""
-        from mimo_tpu_torch.parallel.mesh import Sharded
         return Sharded(tuple(
             torch.zeros(lead + (hi - lo,), dtype=torch.int32,
                         device=part[0].device)
@@ -2255,7 +2103,6 @@ def transform_points(tr, x):
     """A Standardizer's transform of x (x itself without one), shard by
     shard for a parallel.mesh.Sharded, with tr's tensors on each shard's
     device."""
-    from mimo_tpu_torch.parallel.mesh import Sharded
     if tr is None:
         return x
     if isinstance(x, Sharded):
@@ -2287,7 +2134,6 @@ def serve_sharded(mesh, x, y, backend, dist, kernel_parts, dense_one):
 def as_data(data):
     """The data tuple of an engine's `data`: an array or a
     parallel.mesh.Sharded alone, or a tuple of them."""
-    from mimo_tpu_torch.parallel.mesh import Sharded
     if isinstance(data, Sharded) or not isinstance(data, tuple):
         return (data,)
     return data

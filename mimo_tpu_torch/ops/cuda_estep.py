@@ -24,16 +24,21 @@ theta[c].
 
 Mesh: `fused_estep_cuda_sharded` launches B1 once per non-empty shard of
 a one-row mesh (`estep_shards`) and makes the mesh's one reduction of the
-packed outputs.
+packed outputs. `BlockEStep` adds each shard's partials across the calls
+of a sweep (the streamed blocks, or the SVI chains' own minibatches),
+through B1 or its blockwise twin, and reduces once a sweep.
 """
 
 import torch
 
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.family_estep import (
-    diag_gauss_features_t, diag_gauss_width, gauss_features_t,
-    gauss_width, ilr_features_t, ilr_width, reduce_estep)
+    accumulate_shards, diag_gauss_features_t, diag_gauss_width,
+    gauss_features_t, gauss_width, ilr_features_t, ilr_width, pack_estep,
+    padded_width, reduce_estep)
+from mimo_tpu_torch.parallel.mesh import local_mesh
 from mimo_tpu_torch.utils.logging import span, spanned
+from mimo_tpu_torch.utils.tree import tree_map
 
 # feature-map codes of the C entries (csrc/common.cuh kKind*)
 GAUSS, ILR, ILR_LINEAR, DIAG, ILR_DIAG, ILR_DIAG_LINEAR = 0, 1, 2, 3, 4, 5
@@ -79,6 +84,16 @@ def y_rows(kind, xts):
     return xts[1].shape[0] if kind in ILR_FLAGS else 0
 
 
+def kernel_xts(data):
+    """The kernels' layout, made once outside the sweep loop: the data
+    arrays transposed and stacked into one contiguous float32
+    (sum d_i, N) buffer ([x; y] for ILR), returned as its per-input
+    (d_i, N) row blocks. The kernels read the buffer whole and
+    bound-check the point index against N, so no padding is needed."""
+    buf = torch.cat([a.to(torch.float32).T for a in data]).contiguous()
+    return tuple(torch.split(buf, [a.shape[1] for a in data]))
+
+
 def pad_rows(f, m8):
     """Zero-pad a (m, B) feature block to m8 rows."""
     return torch.cat([f, f.new_zeros((m8 - f.shape[0], f.shape[1]))])
@@ -98,7 +113,7 @@ def assemble_features(xt, m8, kind=GAUSS, p=0):
 def stack_rows(xts):
     """One (sum d_i, N) array from the per-input (d_i, N) arrays: the
     kernels' layout. No copy when the inputs are consecutive row blocks
-    of one buffer, as models.mixture.kernel_xts makes them."""
+    of one buffer, as `kernel_xts` makes them."""
     if len(xts) == 1:
         return xts[0]
     base, off = xts[0], 0
@@ -119,7 +134,7 @@ def pad_theta(theta, log_pi, dtype):
     axis that of the chains where there is one. Returns (theta (..., K,
     m8) contiguous, m)."""
     m = theta.shape[-1]
-    m8 = -(-m // 8) * 8
+    m8 = padded_width(m)
     theta = torch.cat([theta[..., :1] + log_pi[..., None], theta[..., 1:],
                        theta.new_zeros(theta.shape[:-1] + (m8 - m,))], -1)
     return theta.to(dtype).contiguous(), m
@@ -202,12 +217,11 @@ def estep(xt, theta, n, kind=GAUSS, p=0):
 def fused_estep_cuda(spec, post, log_pi, xts, n):
     """Spec-driven fused E-step through B1, the counterpart of
     mimo_tpu's fused_estep_pallas. xts: the per-input (d_i, >=n)
-    transposed data (see models.mixture.kernel_xts); n: the number of
+    transposed data (see `kernel_xts`); n: the number of
     points, at run time (a fixed buffer may hold more columns). With a
     chain spec (family_estep.chain_spec) over C-stacked posteriors and
     log_pi (C, K), one launch serves every chain. The one-shard case of
     `fused_estep_cuda_sharded`."""
-    from mimo_tpu_torch.parallel.mesh import local_mesh
     return fused_estep_cuda_sharded(spec, post, log_pi, [xts],
                                     local_mesh(xts[0].device), [n])
 
@@ -216,7 +230,7 @@ def fused_estep_cuda(spec, post, log_pi, xts, n):
 def fused_estep_cuda_sharded(spec, post, log_pi, shards, mesh, ns=None):
     """The fused E-step over a one-row mesh through B1, the counterpart
     of mimo_tpu's fused_estep_pallas_sharded: `shards` the kernel layouts
-    (per-input (d_i, n_j) row blocks, models.mixture.kernel_xts) of the
+    (per-input (d_i, n_j) row blocks, `kernel_xts`) of the
     mesh's positions, in order, each on its position's device; `ns` their
     point counts (by default their widths). B1 runs once per non-empty
     shard (`estep_shards`), then one reduction of the packed partials
@@ -250,3 +264,78 @@ def estep_shards(theta, kind, shards, ns):
         parts.append(estep_packed(xt, theta.to(xt.device), n, kind,
                                   y_rows(kind, xts)))
     return parts
+
+
+class BlockEStep:
+    """The one accumulator of a sweep's per-shard E-step partials over the
+    positions of a one-row mesh, with theta formed once (`begin`): B1's
+    launch protocol (theta padded to m8 with log pi in column 0, the
+    feature-map code, the kernels' layout, one packed K m8 + 1 partial a
+    shard) or the blockwise twin, as `use_kernel` (the engine's resolved
+    backend) says. Each `add` takes one (data, kernel views, rows) a
+    position (a block's or a minibatch's shards): B1 once per non-empty
+    shard on its views with its row count at run time (`estep_shards`),
+    or the blockwise twin on its data (family_estep.accumulate_shards);
+    each position's partial adds across the calls on its device, in the
+    engine's dtype. With `own`, each shard's data carry a leading chain
+    axis (C, b_j, ...) and chain c's theta runs over chain c's rows only
+    (SVI's minibatches of C chains), one launch a chain and shard on its
+    kernel layout made here. `end` makes the mesh's one reduction and
+    unpacks it."""
+
+    def __init__(self, spec, use_kernel, block_size, dtype, mesh, own=False):
+        self.spec, self.use_kernel, self.own = spec, use_kernel, own
+        self.block_size, self.dtype, self.mesh = block_size, dtype, mesh
+
+    def begin(self, theta_src, log_pi):
+        theta = self.spec.theta(theta_src)
+        self.lead, (self.k, self.m) = theta.shape[:-2], theta.shape[-2:]
+        if self.use_kernel:
+            self.kind = feature_kind(self.spec.features_t)
+            theta, _ = pad_theta(theta, log_pi, torch.float32)
+        self.theta, self.log_pi = theta, log_pi
+        self.parts = [None] * len(self.mesh.devices)
+
+    def add(self, shards):
+        live = [j for j, s in enumerate(shards) if s[2]]
+        carry = [self.parts[j] for j in live]
+        if not self.own:
+            sums = self._sums(self.theta, self.log_pi,
+                              [shards[j] for j in live], carry)
+        else:
+            per = [self._sums(self.theta[c], self.log_pi[c],
+                              [self._chain(shards[j], c) for j in live],
+                              [None if p is None else tree_map(
+                                  lambda a: a[c], p) for p in carry])
+                   for c in range(self.lead[0])]
+            sums = [torch.stack(ps) if self.use_kernel
+                    else tuple(map(torch.stack, zip(*ps)))
+                    for ps in zip(*per)]
+        for j, s in zip(live, sums):
+            self.parts[j] = s
+
+    def end(self):
+        parts = [p for p in self.parts if p is not None]
+        if not self.use_kernel:
+            m8 = padded_width(self.m)
+            parts = [pack_estep(acc, lse, m8) for acc, lse in parts]
+        return reduce_estep(self.spec, parts, self.lead, self.k, self.m,
+                            self.dtype, self.mesh)
+
+    def _sums(self, theta, log_pi, shards, carry):
+        """Each non-empty shard's partial over theta added to its carry
+        (zeros where None)."""
+        if self.use_kernel:
+            outs = estep_shards(theta, self.kind, [s[1] for s in shards],
+                                [s[2] for s in shards])
+            return [o.to(self.dtype) if c is None else c + o.to(self.dtype)
+                    for o, c in zip(outs, carry)]
+        return accumulate_shards(self.spec.features, theta, log_pi,
+                                 [s[0] for s in shards], self.block_size,
+                                 carry)
+
+    def _chain(self, shard, c):
+        """Chain c's rows of an `own` shard, as `add` takes a shard."""
+        data, _, n = shard
+        data = tuple(a[c] for a in data)
+        return data, kernel_xts(data) if self.use_kernel else None, n

@@ -31,6 +31,7 @@ from mimo_tpu_torch.ops.cuda_estep import (
     feature_width, pad_theta, stack_rows, y_rows)
 from mimo_tpu_torch.ops.family_estep import pack_estep, reduce_estep
 from mimo_tpu_torch.ops.philox import gumbel_max_labels, shard_seed
+from mimo_tpu_torch.parallel.mesh import local_mesh
 from mimo_tpu_torch.utils.logging import span, spanned
 
 # kernel launches by `gibbs`, by feature map, for run accounting
@@ -117,7 +118,6 @@ def fused_gibbs_cuda(spec, seed, params, log_pi, xts, n):
     lse = 0). With a chain spec (family_estep.chain_spec) over C-stacked
     params, log_pi (C, K) and seeds (C,), one launch serves every chain:
     labels (C, n). The one-shard case of `fused_gibbs_cuda_sharded`."""
-    from mimo_tpu_torch.parallel.mesh import local_mesh
     (labels,), res = fused_gibbs_cuda_sharded(
         spec, seed, params, log_pi, [xts], local_mesh(xts[0].device), [n])
     return labels, res

@@ -31,7 +31,7 @@ from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import _CHUNK, assemble_features, pad_rows
 from mimo_tpu_torch.ops.cuda_predict import predictive_coefficients
 from mimo_tpu_torch.ops.family_estep import (
-    _rows_outer, gauss_features_t, gauss_width)
+    _rows_outer, gauss_features_t, gauss_width, padded_width)
 from mimo_tpu_torch.utils.linalg import inv_psd, logdet_psd
 from mimo_tpu_torch.utils.stats import gammaln_diff
 
@@ -144,7 +144,7 @@ def ilr_predict_coefficients(basis_post, models_post, log_w, affine=True):
         y_aux = (gammaln_diff(0.5 * ydf, 0.5) + 0.5 * torch.log(psi)
                  - 0.5 * math.log(math.pi))
         y_h = 0.5 * (ydf + 1.0)
-    m8 = -(-gauss_width(d) // 8) * 8
+    m8 = padded_width(gauss_width(d))
     th = _pad_cols(torch.cat([th_b, _c_rows(models_post, affine, d), th_m]),
                    m8)
     aux = torch.cat([b_aux, torch.stack([vcoef, psi, y_aux, y_h], -1),
@@ -189,7 +189,7 @@ def ilr_p_predict_coefficients(basis_post, models_post, log_w, affine=True,
         y_aux = (gammaln_diff(0.5 * ydf, 0.5 * p) + 0.5 * logdet_psd(psi)
                  - 0.5 * p * math.log(math.pi))
         y_h = 0.5 * (ydf + p)
-    m8 = -(-(joint_width(d, p) if has_y else gauss_width(d)) // 8) * 8
+    m8 = padded_width(joint_width(d, p) if has_y else gauss_width(d))
     rows = [th_b, _c_rows(models_post, affine, d), th_m]
     if has_y and diag:
         # p K scaled per-output quads, j-major: r (y_j - mu_kj)^2 with

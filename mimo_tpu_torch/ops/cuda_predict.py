@@ -26,6 +26,7 @@ from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.cuda_estep import (
     _CHUNK, DIAG, GAUSS, KIND_NAMES, assemble_features, feature_width)
+from mimo_tpu_torch.ops.family_estep import padded_width
 from mimo_tpu_torch.utils.linalg import logdet_psd
 from mimo_tpu_torch.utils.logging import span, spanned
 from mimo_tpu_torch.utils.stats import LOG2PI, gammaln_diff
@@ -170,7 +171,7 @@ def predictive_coefficients(post, log_w, studentt=True):
     k, d = mu.shape
     lmu = torch.einsum('kde,ke->kd', lmbda, mu)
     m = 1 + d + d * d
-    m8 = -(-m // 8) * 8
+    m8 = padded_width(m)
     thq = torch.cat([torch.einsum('kd,kd->k', mu, lmu)[:, None], -2.0 * lmu,
                      lmbda.reshape(k, d * d), lmu.new_zeros((k, m8 - m))], -1)
     if studentt:
@@ -193,7 +194,7 @@ def diag_gaussian_coefficients(post, log_w):
     mu, lam, _ = predictive_studentt_params(post)
     k, d = mu.shape
     m = 1 + 2 * d
-    m8 = -(-m // 8) * 8
+    m8 = padded_width(m)
     thq = torch.cat([torch.sum(lam * mu * mu, -1)[:, None], -2.0 * lam * mu,
                      lam, lam.new_zeros((k, m8 - m))], -1)
     a = 0.5 * torch.sum(torch.log(lam), -1) - 0.5 * d * LOG2PI + log_w

@@ -30,8 +30,10 @@ from mimo_tpu_torch.distributions import niw as _niw
 from mimo_tpu_torch.distributions.mnw import augment
 from mimo_tpu_torch.distributions.wishart import wishart_expected_logdet
 from mimo_tpu_torch.ops.philox import gumbel_max_labels, shard_seed
+from mimo_tpu_torch.parallel.mesh import local_mesh
 from mimo_tpu_torch.utils.linalg import cholesky, inv_psd, logdet_psd
 from mimo_tpu_torch.utils.stats import LOG2PI
+from mimo_tpu_torch.utils.tree import tree_map
 
 
 class EStepSpec(NamedTuple):
@@ -410,13 +412,6 @@ def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
 
 # -- chains ---------------------------------------------------------------------
 
-def _map_leaves(fn, tree):
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    items = [_map_leaves(fn, t) for t in tree]
-    return type(tree)(*items) if hasattr(tree, '_fields') else tuple(items)
-
-
 def chain_spec(spec: EStepSpec) -> EStepSpec:
     """The spec over C chains: theta and theta_plugin map C-stacked
     posteriors or params to (C, K, m) under torch.func.vmap, and unpack
@@ -426,8 +421,8 @@ def chain_spec(spec: EStepSpec) -> EStepSpec:
     chain's theta over one feature map."""
     def unpack(acc):
         lead = acc.shape[:-1]
-        return _map_leaves(lambda a: a.reshape(lead + a.shape[1:]),
-                           spec.unpack(acc.reshape(-1, acc.shape[-1])))
+        return tree_map(lambda a: a.reshape(lead + a.shape[1:]),
+                        spec.unpack(acc.reshape(-1, acc.shape[-1])))
 
     return spec._replace(
         theta=vmap(spec.theta),
@@ -457,7 +452,6 @@ def fused_estep_blockwise(spec: EStepSpec, post, log_pi, data,
     C-stacked posteriors and log_pi (C, K), every block serves all C
     chains: stats C-stacked, lse and counts (C,) and (C, K). The
     one-shard case of `fused_estep_sharded`."""
-    from mimo_tpu_torch.parallel.mesh import local_mesh
     return fused_estep_sharded(spec, post, log_pi, [data], block_size,
                                local_mesh(data[0].device))
 
@@ -521,7 +515,6 @@ def fused_gibbs_blockwise(spec: EStepSpec, seed, params, log_pi, data,
     spec over C-stacked params, log_pi (C, K) and seeds (C,), chain c
     draws with seed[c]: labels (C, N). The one-shard case of
     `fused_gibbs_sharded`."""
-    from mimo_tpu_torch.parallel.mesh import local_mesh
     (labels,), res = fused_gibbs_sharded(spec, seed, params, log_pi, [data],
                                          block_size,
                                          local_mesh(data[0].device))
@@ -533,6 +526,12 @@ def fused_gibbs_blockwise(spec: EStepSpec, seed, params, log_pi, data,
 # to m8 columns, lse], the layout of kernel B1's output, so the mesh's one
 # reduction a sweep (parallel.mesh.Mesh.reduce) carries the same floats on
 # the plain path and the kernel path, whatever N.
+
+def padded_width(m):
+    """m8: the feature width m padded up to a multiple of 8, the width of
+    the kernels' theta rows and of a packed partial's accumulator."""
+    return -(-m // 8) * 8
+
 
 def pack_estep(acc, lse, m8):
     """acc (..., K, m) and lse (...) -> the (..., K m8 + 1) buffer."""
@@ -548,7 +547,7 @@ def unpack_estep(buf, k, m8):
 def reduce_estep(spec, parts, lead, k, m, dtype, mesh):
     """The one reduction of a sharded sweep's packed partials -> its
     FusedEStep (statistics unpacked from the first m columns)."""
-    m8 = -(-m // 8) * 8
+    m8 = padded_width(m)
     zero = torch.zeros(lead + (k * m8 + 1,), dtype=dtype,
                        device=mesh.devices[0])
     acc, lse = unpack_estep(mesh.reduce(parts, zero), k, m8)
@@ -566,7 +565,7 @@ def fused_estep_sharded(spec: EStepSpec, post, log_pi, shards, block_size,
     a chain spec, every shard serves all C chains."""
     theta = spec.theta(post)
     k, m = theta.shape[-2:]
-    m8 = -(-m // 8) * 8
+    m8 = padded_width(m)
     parts = [pack_estep(acc, lse, m8) for acc, lse in accumulate_shards(
         spec.features, theta, log_pi, shards, block_size)]
     return reduce_estep(spec, parts, theta.shape[:-2], k, m,
@@ -601,7 +600,7 @@ def fused_gibbs_sharded(spec: EStepSpec, seed, params, log_pi, shards,
     (..., n_j) int32 tensor a shard, FusedEStep with lse = 0)."""
     theta = spec.theta_plugin(params)
     k, m = theta.shape[-2:]
-    m8 = -(-m // 8) * 8
+    m8 = padded_width(m)
     labels, parts = [], []
     for p, data in zip(mesh.positions, shards):
         dev = data[0].device

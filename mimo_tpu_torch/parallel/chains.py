@@ -34,8 +34,10 @@ written out:
 import torch
 
 from mimo_tpu_torch.models.mixture import (
-    BayesianMixture, _as_generator, _as_tuple, _tree_map, _tree_map2)
+    BayesianMixture, _as_generator, _as_tuple)
+from mimo_tpu_torch.parallel.mesh import Sharded
 from mimo_tpu_torch.utils.logging import spanned
+from mimo_tpu_torch.utils.tree import tree_map, tree_map2
 
 # every engine runs C chains as one batched program (its chains=True), for
 # flat and nested models alike
@@ -87,7 +89,6 @@ def fit_chains(model, fit_name, data, keys, mesh=None, **kw):
 def _cat_groups(trees):
     """The chain groups' results on one chain axis, on the first group's
     devices; Sharded labels keep each group's shards."""
-    from mimo_tpu_torch.parallel.mesh import Sharded
     first = trees[0]
     if len(trees) == 1:
         return first
@@ -103,7 +104,7 @@ def _cat_groups(trees):
 def best_of(states, vlb_traces):
     """The chain with the highest final ELBO: (its state, its index)."""
     best = torch.argmax(vlb_traces[:, -1])
-    return _tree_map(lambda a: a[best], states), best
+    return tree_map(lambda a: a[best], states), best
 
 
 def systematic_indices(u, log_w):
@@ -125,7 +126,7 @@ def systematic_resample(key, log_w, tree):
     gen = _as_generator(key, log_w.device)
     u = torch.rand((), generator=gen, dtype=log_w.dtype, device=log_w.device)
     idx = systematic_indices(u, log_w)
-    return _tree_map(lambda a: a[idx], tree), idx
+    return tree_map(lambda a: a[idx], tree), idx
 
 
 def smc_gibbs(model, data, key, n_chains=8, n_rounds=10,
@@ -163,7 +164,7 @@ def smc_gibbs(model, data, key, n_chains=8, n_rounds=10,
         w = torch.softmax(log_w, 0)
         ess = 1.0 / torch.sum(w * w)
         resampled, _ = systematic_resample(gen, log_w, states)
-        states = _tree_map2(
+        states = tree_map2(
             lambda a, b: torch.where(ess < ess_threshold * n_chains, a, b),
             resampled, states)
         logliks.append(torch.mean(log_w))

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mimo_tpu_torch.ops.family_estep import padded_width
 from mimo_tpu_torch.parallel import mesh as _mesh
 
 
@@ -157,7 +158,7 @@ def run_engines(cfg):
             k: dict(v) for k, v in _mesh.counters.items()}}
     if cfg.get('probe') and dist.is_initialized():
         k, m = model._estep_spec().theta(model.components_prior).shape
-        buf = torch.zeros((k * (-(-m // 8) * 8) + 1,), dtype=dtype,
+        buf = torch.zeros((k * padded_width(m) + 1,), dtype=dtype,
                           device=devices[0])
         out['probe_seconds'] = [_lone_all_reduce(buf)
                                 for _ in range(cfg['probe'])]

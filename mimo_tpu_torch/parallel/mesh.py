@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from mimo_tpu_torch.models.mixture import _tree_map
+from mimo_tpu_torch.utils.tree import on_device, tree_leaves, tree_map
 
 # `Mesh.reduce` calls by kind ('sweep': one a sweep or SVI step; 'start':
 # the random or anchor starts), and among them the dist.all_reduce calls,
@@ -159,17 +159,17 @@ class Mesh:
         if len(trees) == 1 and self.groups[g] is None:
             c = counters[kind]
             c['calls'] += 1
-            c['floats'] += sum(t.numel() for t in _leaves(trees[0]))
-            return _tree_map(lambda t: t.to(self.devices[0]), trees[0])
-        leaves = _leaves(like)
+            c['floats'] += sum(t.numel() for t in tree_leaves(trees[0]))
+            return on_device(trees[0], self.devices[0])
+        leaves = tree_leaves(like)
         sizes = [t.numel() for t in leaves]
         zero = torch.zeros((sum(sizes),), dtype=leaves[0].dtype,
                            device=self.devices[0])
         parts = [torch.cat([t.reshape(-1).to(zero.dtype)
-                            for t in _leaves(tree)]) for tree in trees]
+                            for t in tree_leaves(tree)]) for tree in trees]
         flat = torch.split(self.reduce(parts, zero, kind), sizes)
         it = iter(t.view(s.shape) for t, s in zip(flat, leaves))
-        return _tree_map(lambda _: next(it), like)
+        return tree_map(lambda _: next(it), like)
 
 
 def _row_groups(n_chain, n_data, local, world):
@@ -302,17 +302,11 @@ def shard_data(mesh, *arrays):
     return out if len(out) > 1 else out[0]
 
 
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [leaf for t in tree for leaf in _leaves(t)]
-
-
 def replicate(mesh, tree):
     """A tree of tensors on every position of this process: one copy a
     device (the tree itself where it already lies there), in position
     order."""
-    return tuple(_tree_map(lambda t: t.to(dev), tree) for dev in mesh.devices)
+    return tuple(on_device(tree, dev) for dev in mesh.devices)
 
 
 # engines that take mesh= (models.mixture, models.hmix): the fused ones,

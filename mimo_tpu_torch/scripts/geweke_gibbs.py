@@ -96,15 +96,16 @@ def _label_sweep(spec, backend, n):
     the data lies on the CPU, as every kernel wrapper does), the
     blockwise twin in one block for 'plain'."""
     if backend == 'cuda':
-        from mimo_tpu_torch.models.mixture import _cast, kernel_xts
+        from mimo_tpu_torch.ops.cuda_estep import kernel_xts
         from mimo_tpu_torch.ops.cuda_gibbs import fused_gibbs_cuda
+        from mimo_tpu_torch.utils.tree import cast_floats
 
         def sweep(seed, params, log_pi, data):
             # B2 runs in float32; its statistics come back in the data's
             # dtype, as the engines cast them
-            return _cast(fused_gibbs_cuda(spec, seed, params, log_pi,
-                                          kernel_xts(data), n)[1],
-                         data[0].dtype)
+            return cast_floats(fused_gibbs_cuda(spec, seed, params, log_pi,
+                                                kernel_xts(data), n)[1],
+                               data[0].dtype)
     else:
         from mimo_tpu_torch.ops.family_estep import fused_gibbs_blockwise
 

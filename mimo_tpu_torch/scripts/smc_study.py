@@ -30,8 +30,9 @@ import torch
 
 from mimo_tpu_torch.distributions.niw import GaussParams
 from mimo_tpu_torch.models.gmm import BayesianGMM
-from mimo_tpu_torch.models.mixture import MFState, _tree_map, model_device
+from mimo_tpu_torch.models.mixture import MFState, model_device
 from mimo_tpu_torch.parallel.chains import fit_chains, smc_gibbs
+from mimo_tpu_torch.utils.tree import tree_map
 
 
 def make_data(gen, n, dtype=torch.float64):
@@ -53,8 +54,8 @@ def score_chains(model, states, x_test):
     (predict-after-resample), one log_predictive a chain."""
     c = states.labels.shape[0]
     out = [torch.mean(model.log_predictive(
-        MFState(components=_tree_map(lambda a: a[i], states.components),
-                gating=_tree_map(lambda a: a[i], states.gating)), x_test))
+        MFState(components=tree_map(lambda a: a[i], states.components),
+                gating=tree_map(lambda a: a[i], states.gating)), x_test))
         for i in range(c)]
     return torch.stack(out).double().cpu().numpy()
 

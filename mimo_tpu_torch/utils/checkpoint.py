@@ -19,15 +19,7 @@ import os
 
 import torch
 
-
-def _leaves(tree):
-    """The tensor leaves of a state tree, in field order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, (tuple, list)):
-        return [leaf for t in tree for leaf in _leaves(t)]
-    raise TypeError(f'checkpoint: a state leaf must be a tensor, not '
-                    f'{type(tree).__name__}')
+from mimo_tpu_torch.utils.tree import tree_leaves
 
 
 def _unflatten(like, leaves):
@@ -46,7 +38,7 @@ def _replace_into(path, write):
 
 
 def _save(path, state, iters):
-    record = {'leaves': [t.detach().cpu() for t in _leaves(state)],
+    record = {'leaves': [t.detach().cpu() for t in tree_leaves(state)],
               'iters': iters}
     _replace_into(path, lambda p: torch.save(record, p))
 
@@ -70,7 +62,7 @@ def load_state(path, like):
 
 
 def _restore(saved, like, path):
-    want = _leaves(like)
+    want = tree_leaves(like)
     if len(saved) != len(want) or any(
             s.shape != w.shape for s, w in zip(saved, want)):
         raise ValueError(

@@ -47,8 +47,9 @@ from mimo_tpu_torch.io import MmapDataset, stage, stream, write_bin
 from mimo_tpu_torch.models import (
     BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models.hmix import HMixState
-from mimo_tpu_torch.models.mixture import MFState, _tree_map as tree_map
+from mimo_tpu_torch.models.mixture import MFState
 from mimo_tpu_torch.parallel import fit_chains, make_mesh, shard_data
+from mimo_tpu_torch.utils.tree import tree_map
 
 from chip_smoke import (
     N_NEST, N_NEST_ILR_FIT, N_NEST_MAP, fed_data, nested_blobs)

@@ -33,13 +33,15 @@ from mimo_tpu_torch.bridge import state_from_numpy, state_to_numpy
 from mimo_tpu_torch.models import (
     BayesianGMM, BayesianILR, BayesianMixtureOfMixtures)
 from mimo_tpu_torch.models import mixture as tmix
-from mimo_tpu_torch.models.mixture import MFState, kernel_xts, stack_trees
+from mimo_tpu_torch.models.mixture import MFState, stack_trees
 from mimo_tpu_torch.ops import cuda_estep, cuda_gibbs
 from mimo_tpu_torch.ops import family_estep as tfe
 from mimo_tpu_torch.ops import precision
-from mimo_tpu_torch.ops.cuda_estep import DIAG, GAUSS, ILR, pad_theta
+from mimo_tpu_torch.ops.cuda_estep import (
+    DIAG, GAUSS, ILR, kernel_xts, pad_theta)
 from mimo_tpu_torch.parallel import (
     best_of, fit_chains, smc_gibbs, systematic_indices, systematic_resample)
+from mimo_tpu_torch.utils.tree import tree_map
 
 torch.set_num_threads(1)
 
@@ -104,7 +106,7 @@ def leaves_close(got, want, rtol):
 
 
 def chain(tree, c):
-    return tmix._tree_map(lambda a: a[c], tree)
+    return tree_map(lambda a: a[c], tree)
 
 
 # -- the kernels' plain versions and the fused sweeps over chains -------------
@@ -178,7 +180,7 @@ def test_fused_estep_blockwise_chains_equal_separate_calls(gmm_x, ilr_xy,
         one = tfe.fused_estep_blockwise(spec, chain(st.components, c),
                                         log_pi[c], data, block_size=333)
         torch.testing.assert_close(res.lse[c], one.lse, rtol=1e-12, atol=0.0)
-        for a, b in zip(tmix._tree_map(lambda t: t, chain(res.stats, c)),
+        for a, b in zip(tree_map(lambda t: t, chain(res.stats, c)),
                         one.stats):
             torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
@@ -274,9 +276,9 @@ def test_fit_chains_equal_serial_fits_and_repeat(gmm_x, ilr_xy, name,
     for c, key in enumerate(KEYS):
         st_1, tr_1 = getattr(tm, engine)(dt, key=key, maxiter=8)
         torch.testing.assert_close(tr[c], tr_1, rtol=1e-10, atol=0.0)
-        for a, b in zip(tmix._tree_map(lambda t: t.reshape(-1),
+        for a, b in zip(tree_map(lambda t: t.reshape(-1),
                                        chain(st, c)).__iter__(),
-                        tmix._tree_map(lambda t: t.reshape(-1), st_1)):
+                        tree_map(lambda t: t.reshape(-1), st_1)):
             for x, y in zip(jax.tree.leaves(state_to_numpy(a)),
                             jax.tree.leaves(state_to_numpy(b))):
                 np.testing.assert_allclose(x, y, rtol=1e-10,
@@ -484,7 +486,7 @@ def test_nested_chains_equal_serial_fits(engine, kind, hier):
         s1, t1 = getattr(hm, engine)(data, key=k, maxiter=6)
         torch.testing.assert_close(tr[i], t1, rtol=1e-10, atol=0.0)
         for a, b in zip(jax.tree.leaves(state_to_numpy(
-                tmix._tree_map(lambda v: v[i], st))),
+                tree_map(lambda v: v[i], st))),
                 jax.tree.leaves(state_to_numpy(s1))):
             np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
     _, tr2 = fit_chains(hm, engine, data, list(NESTED_KEYS), maxiter=6)

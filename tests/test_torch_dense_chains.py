@@ -41,6 +41,7 @@ from mimo_tpu_torch.models.mixture import MFState
 from mimo_tpu_torch.ops import cuda_estep, cuda_gibbs
 from mimo_tpu_torch.ops import family_estep as tfe
 from mimo_tpu_torch.parallel import fit_chains
+from mimo_tpu_torch.utils.tree import tree_map
 
 torch.set_num_threads(1)
 KEYS = (3, 7, 11)
@@ -66,7 +67,7 @@ def equal(a, b):
 
 
 def chain(tree, c):
-    return tmix._tree_map(lambda a: a[c], tree)
+    return tree_map(lambda a: a[c], tree)
 
 
 def to_jax(tree):
@@ -210,7 +211,7 @@ def test_diag_basis_b2_plain_labels_and_stats_against_pallas(affine):
     seed = torch.tensor(123456789, dtype=torch.int64)
     lp = torch.tensor(log_pi)
     labels, res = cuda_gibbs.fused_gibbs_cuda(spec, seed, params_t, lp,
-                                              tmix.kernel_xts(data), n)
+                                              cuda_estep.kernel_xts(data), n)
     ref_labels, _ = tfe.fused_gibbs_blockwise(spec, seed, params_t, lp, data,
                                               256)
     np.testing.assert_array_equal(labels.numpy(), ref_labels.numpy())

@@ -25,9 +25,11 @@ from mimo_tpu_torch.config import GatingConfig, ILRConfig, MixtureConfig
 from mimo_tpu_torch.distributions.mnw import MNW
 from mimo_tpu_torch.distributions.niw import NIW
 from mimo_tpu_torch.models import BayesianGMM, BayesianILR, GibbsState
-from mimo_tpu_torch.models.mixture import MFState, _cast, kernel_xts
+from mimo_tpu_torch.models.mixture import MFState
 from mimo_tpu_torch.ops import cuda_estep, cuda_gibbs
 from mimo_tpu_torch.ops import family_estep as tfe
+from mimo_tpu_torch.ops.cuda_estep import kernel_xts
+from mimo_tpu_torch.utils.tree import cast_floats
 
 torch.set_num_threads(1)
 
@@ -167,7 +169,7 @@ def test_kernel_results_cast_back_keeping_the_product_structure():
     (this cast once assumed NamedTuples all the way down)."""
     _, _, _, dt, pt, lpt = _problem('f64', n=50, d=2, p=2)
     res = tfe.fused_estep_dense(tfe.ilr_spec(2, 2), pt, lpt, dt)
-    cast = _cast(res, torch.float32)
+    cast = cast_floats(res, torch.float32)
     assert type(cast.stats) is tuple and len(cast.stats) == 2
     assert type(cast.stats[1]).__name__ == 'LinGaussStats'
     assert all(t.dtype == torch.float32 for t in

@@ -2,6 +2,8 @@
 mimo_tpu, the backend rule refuses the kernel for CPU data, and the
 bridge converts JAX states leaf by leaf."""
 
+import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +48,78 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the layers below the models, each importing only from those before it:
+# utils -> distributions / conjugate, parallel.mesh, io -> ops -> models
+LOWER = ('utils', 'distributions', 'conjugate', 'ops', 'io',
+         'parallel/mesh.py')
+# what the lower layers never import: the models and what drives them
+UPPER = ('mimo_tpu_torch.models', 'mimo_tpu_torch.parallel.chains',
+         'mimo_tpu_torch.config')
+
+
+def _imported(tree):
+    """Every module an AST imports, function-local imports included: for
+    `from a import b` both a and a.b (b may be a submodule)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+            yield from (f'{node.module}.{a.name}' for a in node.names)
+
+
+@pytest.mark.parametrize('layer', LOWER)
+def test_lower_layers_import_no_models(layer):
+    """No module under utils/, distributions/, conjugate/, ops/ or io/,
+    nor parallel/mesh.py, imports the models, the chains or the
+    configs, at module level or inside a function."""
+    root = PKG / layer
+    files = [root] if root.suffix == '.py' else sorted(root.rglob('*.py'))
+    assert files
+    bad = [f'{path.relative_to(PKG)}: {name}' for path in files
+           for name in _imported(ast.parse(path.read_text()))
+           if any(name == up or name.startswith(up + '.') for up in UPPER)]
+    assert not bad, bad
+
+
+def test_models_leave_the_launch_protocol_to_ops():
+    """B1/B2's launch protocol (the padded theta, the feature-map code,
+    the packed partials and their reduction, the m8 arithmetic) lives in
+    ops/ only; models/ goes through ops' wrappers and accumulator."""
+    protocol = {'pad_theta', 'feature_kind', 'estep_packed', 'stack_rows',
+                'y_rows', 'pack_estep', 'accumulate_shards', 'reduce_estep'}
+    bad = []
+    for path in sorted((PKG / 'models').glob('*.py')):
+        text = path.read_text()
+        names = {n.id for n in ast.walk(ast.parse(text))
+                 if isinstance(n, ast.Name)} | {
+            n.attr for n in ast.walk(ast.parse(text))
+            if isinstance(n, ast.Attribute)} | {
+            a.name for n in ast.walk(ast.parse(text))
+            if isinstance(n, ast.ImportFrom) for a in n.names}
+        bad += [f'{path.name}: {n}' for n in sorted(names & protocol)]
+        if re.search(r'//\s*8\)\s*\*\s*8', text):
+            bad.append(f'{path.name}: m8 arithmetic')
+    assert not bad, bad
+
+
+def test_tree_walks_are_defined_once():
+    """The tree map, its paired form and the leaf walk are defined in
+    utils/tree.py and nowhere else in the package."""
+    walks = {'tree_map', 'tree_map2', 'tree_where', 'tree_leaves',
+             '_tree_map', '_tree_map2', '_tree_where', '_leaves',
+             '_map_leaves', 'cast_floats', '_cast', 'on_device', '_on',
+             'first_leaf', '_first_leaf'}
+    where = {}
+    for path in PKG.rglob('*.py'):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.FunctionDef) and node.name in walks:
+                where.setdefault(node.name, []).append(
+                    str(path.relative_to(PKG)))
+    assert where == {name: ['utils/tree.py'] for name in where}, where
+    assert {'tree_map', 'tree_map2', 'tree_leaves'} <= set(where)
 
 
 def test_import_covers_the_ilr_slice():

@@ -1335,7 +1335,7 @@ def test_nested_chains_launch_once_a_sweep_and_equal_one_chain(dev):
     at their final thetas are their one-chain launches, and each VI chain
     tracks the nested fit with its key."""
     from torch.func import vmap
-    from mimo_tpu_torch.models.mixture import kernel_xts
+    from mimo_tpu_torch.ops.cuda_estep import kernel_xts
     from mimo_tpu_torch.ops.cuda_estep import pad_theta
     from mimo_tpu_torch.parallel import fit_chains
     g = torch.Generator(device=dev).manual_seed(9)
@@ -1483,7 +1483,7 @@ def test_one_shard_b1_b2_b3_are_the_unsharded_launch(dev):
     """Over a one-position mesh, B1, B2 and B3 launch exactly as the
     unsharded wrappers do: bitwise the same statistics, lse, labels and
     densities, one launch each."""
-    from mimo_tpu_torch.models.mixture import kernel_xts
+    from mimo_tpu_torch.ops.cuda_estep import kernel_xts
     from mimo_tpu_torch.parallel import make_mesh
     m, spec, x, log_pi = _gmm_shard_inputs(dev, 100003)
     mesh = make_mesh(devices=[dev])
@@ -1514,7 +1514,7 @@ def test_sharded_b1_b2_b3_skip_an_empty_shard(dev):
     launches of each kernel, an empty result for the empty shard, and
     statistics equal to the launches' sum; B2's shard 0 draws the
     unsharded labels."""
-    from mimo_tpu_torch.models.mixture import kernel_xts
+    from mimo_tpu_torch.ops.cuda_estep import kernel_xts
     from mimo_tpu_torch.parallel import make_mesh
     m, spec, x, log_pi = _gmm_shard_inputs(dev, 20011, seed=1)
     mesh = make_mesh(devices=[dev] * 4)

@@ -22,8 +22,8 @@ from mimo_tpu_torch.conjugate.families import (
     linear_family, tied_family,
 )
 from mimo_tpu_torch.models import BayesianGMM
-from mimo_tpu_torch.models.mixture import _tree_where
 from mimo_tpu_torch.utils import linalg as tl
+from mimo_tpu_torch.utils.tree import tree_where
 
 torch.set_num_threads(1)
 DIMS = [1, 2, 3, 8, 32]
@@ -287,7 +287,7 @@ def _vi_start(model, x, chains, converged_first):
     done, _ = model.fit_vi_fused(x, key=keys, chains=True, maxiter=60,
                                  backend='torch')
     first = torch.arange(chains) == 0
-    return _tree_where(first, done, start)
+    return tree_where(first, done, start)
 
 
 @pytest.mark.parametrize('engine,chains,tol', CASES + [
